@@ -1,0 +1,78 @@
+"""Batched plane fold with device dispatch (kernel B1, ``csrc/clip_fold.cu``).
+
+``clip_planes_batch`` is the public function: for CPU tensors it runs the
+plain fold ``clip_planes_batch_reference``; for CUDA tensors it launches the
+hand-written kernel or raises. Replaces the JAX package's
+``clip_planes_batch`` / ``clip_planes_batch_pallas``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from surtr_tpu_torch import _build
+from surtr_tpu_torch.ops.clip import DEFAULT_TOL, clip_poly_planes
+from surtr_tpu_torch.types import ConvexPoly
+
+MAX_SMEM = 232448  # bytes of shared memory a Hopper block can use
+
+launches = 0  # kernel launches since the last reset (main-path proof)
+
+
+def clip_planes_batch_reference(poly: ConvexPoly, planes: torch.Tensor,
+                                plane_mask: torch.Tensor | None = None,
+                                tol: float = DEFAULT_TOL) -> ConvexPoly:
+    """Plain PyTorch fold: poly batch (N, F, S), planes (N, K, 4)."""
+    return clip_poly_planes(poly, planes, plane_mask, tol)
+
+
+def _kernel(poly, planes, plane_mask, tol):
+    global launches
+    N, F, S = poly.face_verts.shape[:3]
+    K = planes.shape[1]
+    dev = poly.face_verts.device
+    if F > 1024:
+        raise ValueError(f"clip fold kernel takes F <= 1024, got {F}")
+    fn = _build.bind("surtr_clip_fold", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                     + [ctypes.c_float, ctypes.c_void_p])
+    smem = _build.bind("surtr_clip_fold_smem", [ctypes.c_int] * 2, ctypes.c_size_t)(F, S)
+    if smem > MAX_SMEM:
+        raise ValueError(f"clip fold kernel: F={F}, S={S} needs {smem} B of shared memory")
+    fv = poly.face_verts.contiguous()
+    nv = poly.n_verts.to(torch.int32).contiguous()
+    pl = poly.planes.contiguous()
+    cuts = planes.contiguous()
+    cm = plane_mask.to(torch.uint8).contiguous()
+    for t, dt in ((fv, torch.float32), (pl, torch.float32), (cuts, torch.float32)):
+        if t.dtype != dt or t.device != dev:
+            raise TypeError("clip fold kernel takes float32 tensors on one device")
+    if planes.shape != (N, K, 4) or plane_mask.shape != (N, K) or pl.shape != (N, F, 4):
+        raise ValueError("clip fold kernel: inconsistent shapes")
+    ofv = torch.empty_like(fv)
+    onv = torch.empty_like(nv)
+    opl = torch.empty_like(pl)
+    if N == 0:
+        return ConvexPoly(ofv, onv, opl)
+    rc = fn(fv.data_ptr(), nv.data_ptr(), pl.data_ptr(), cuts.data_ptr(), cm.data_ptr(),
+            ofv.data_ptr(), onv.data_ptr(), opl.data_ptr(), N, F, S, K, float(tol),
+            _build.stream_ptr(dev))
+    _build.check(rc, "surtr_clip_fold")
+    launches += 1
+    return ConvexPoly(ofv, onv, opl)
+
+
+def clip_planes_batch(poly: ConvexPoly, planes: torch.Tensor,
+                      plane_mask: torch.Tensor | None = None,
+                      tol: float = DEFAULT_TOL) -> ConvexPoly:
+    """Batched K-plane fold; the kernel for CUDA tensors, the plain fold for
+    CPU tensors."""
+    N, K = planes.shape[0], planes.shape[1]
+    if plane_mask is None:
+        plane_mask = torch.ones((N, K), dtype=torch.bool, device=planes.device)
+    if poly.face_verts.is_cuda:
+        return _kernel(poly, planes, plane_mask, tol)
+    if poly.face_verts.device.type != "cpu":
+        raise ValueError(f"clip_planes_batch: unsupported device {poly.device}")
+    return clip_planes_batch_reference(poly, planes, plane_mask, tol)

@@ -1,0 +1,33 @@
+"""k-DOP slab fitting (counterpart of ``surtr_tpu/ops/kdop.py``;
+reference Kdop::KdopContainer): per direction the min/max support over the
+masked vertex set, emitted as a pair of outward slab planes pushed out by
+``gap``."""
+
+from __future__ import annotations
+
+import torch
+
+from surtr_tpu_torch.ops.linalg import supports
+
+BIG = 3.4e38
+
+
+def kdop_planes(verts, vert_mask, dirs, dir_mask=None, gap=0.0):
+    """verts (..., N, 3); vert_mask (..., N); dirs (K, 3) or (..., K, 3);
+    dir_mask (..., K). Returns ((..., 2K, 4) [max planes; min planes],
+    (..., 2K) mask)."""
+    dirs = dirs.expand(verts.shape[:-2] + dirs.shape[-2:])
+    t = supports(verts, dirs)                                  # (..., N, K)
+    m = vert_mask[..., :, None]
+    tmax = torch.amax(torch.where(m, t, -BIG), dim=-2)
+    tmin = torch.amin(torch.where(m, t, BIG), dim=-2)
+    gap = torch.as_tensor(gap, dtype=t.dtype, device=t.device)
+    pmax = torch.cat([dirs, (-(tmax + gap))[..., None]], dim=-1)
+    pmin = torch.cat([-dirs, (tmin - gap)[..., None]], dim=-1)
+    planes = torch.cat([pmax, pmin], dim=-2)
+    if dir_mask is None:
+        pm = torch.ones(planes.shape[:-1], dtype=torch.bool, device=t.device)
+    else:
+        pm = torch.cat([dir_mask, dir_mask], dim=-1).expand(planes.shape[:-1])
+    any_vert = torch.any(vert_mask, dim=-1)[..., None]
+    return planes, pm & any_vert

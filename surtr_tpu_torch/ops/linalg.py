@@ -1,0 +1,56 @@
+"""Small contraction and compaction helpers (counterpart of
+``surtr_tpu/ops/linalg.py``).
+
+Compaction packs flagged entries front-aligned with a scatter into a
+trash-slot buffer: the values are copied, so they stay bitwise equal to the
+JAX package's one-hot contraction.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a0·b0 + a1·b1) + a2·b2 over the last axis, in that order.
+
+    Written out rather than ``torch.sum(a * b, -1)``: the reduction order of
+    a library sum is unspecified, while the CUDA kernels round exactly this
+    sequence (built without FMA contraction), so first-of-ties picks and
+    tolerance tests see the same bits on both sides."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def supports(verts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) · (..., K, 3) → (..., N, K) as a broadcast multiply-add
+    (full f32, no matmul precision question)."""
+    return dot3(verts[..., :, None, :], dirs[..., None, :, :])
+
+
+def compact(vals: torch.Tensor, flags: torch.Tensor, S_out: int):
+    """Stream compaction along axis -2.
+
+    vals (..., E, D); flags (..., E) bool. Returns ((..., S_out, D) packed
+    front-aligned with zeros after, (...,) counts min(#flags, S_out))."""
+    pos = torch.cumsum(flags.to(torch.int32), dim=-1)          # 1-based
+    take = flags & (pos <= S_out)
+    idx = torch.where(take, pos - 1, torch.full_like(pos, S_out)).long()
+    D = vals.shape[-1]
+    out = torch.zeros(
+        vals.shape[:-2] + (S_out + 1, D), dtype=vals.dtype, device=vals.device
+    )
+    out.scatter_(-2, idx[..., None].expand(idx.shape + (D,)), vals)
+    n = torch.clamp(pos[..., -1], max=S_out) if pos.shape[-1] else pos.sum(-1)
+    return out[..., :S_out, :], n.to(torch.int32)
+
+
+def pack_rows(vals: torch.Tensor, counts: torch.Tensor, S_out: int):
+    """Pack the first ``counts[r]`` entries of each row, front-aligned.
+
+    vals (T, S, D); counts (T,). Returns ((S_out, D), total) with total
+    clamped to S_out."""
+    T, S, D = vals.shape
+    counts = torch.clamp(counts, max=S)
+    ok = torch.arange(S, device=vals.device)[None, :] < counts[:, None]
+    out, n = compact(vals.reshape(T * S, D), ok.reshape(T * S), S_out)
+    return out, n

@@ -1,0 +1,122 @@
+"""Core containers (counterpart of ``surtr_tpu/types.py``).
+
+``ConvexPoly`` is the padded, fixed-topology polytope: a face soup of
+(..., F, S, 3) vertex loops, (..., F) valid counts and (..., F, 4) outward
+planes. Conventions: plane (n, d) with signed distance n·x + d, the kept
+side is negative, face loops wind CCW seen from outside.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class ConvexPoly:
+    """face_verts (..., F, S, 3) f32; n_verts (..., F) i32 (0 = invalid
+    face); planes (..., F, 4) f32. All ``n_verts == 0`` is the empty
+    polytope."""
+
+    face_verts: torch.Tensor
+    n_verts: torch.Tensor
+    planes: torch.Tensor
+
+    @property
+    def F(self) -> int:
+        return self.face_verts.shape[-3]
+
+    @property
+    def S(self) -> int:
+        return self.face_verts.shape[-2]
+
+    @property
+    def batch_shape(self):
+        return tuple(self.face_verts.shape[:-3])
+
+    @property
+    def device(self):
+        return self.face_verts.device
+
+    def face_mask(self) -> torch.Tensor:
+        """(..., F) bool — faces with >= 3 vertices."""
+        return self.n_verts >= 3
+
+    def slot_mask(self) -> torch.Tensor:
+        """(..., F, S) bool — valid vertex slots."""
+        slots = torch.arange(self.S, dtype=torch.int32, device=self.device)
+        return slots < self.n_verts[..., None]
+
+    def is_empty(self) -> torch.Tensor:
+        """(...,) bool — no valid face."""
+        return ~torch.any(self.face_mask(), dim=-1)
+
+    def map(self, fn) -> "ConvexPoly":
+        """Apply ``fn`` to every field (the pytree map of the JAX package)."""
+        return ConvexPoly(fn(self.face_verts), fn(self.n_verts), fn(self.planes))
+
+
+def empty_poly(F: int, S: int, batch_shape=(), dtype=torch.float32,
+               device=None) -> ConvexPoly:
+    batch_shape = tuple(batch_shape)
+    return ConvexPoly(
+        face_verts=torch.zeros(batch_shape + (F, S, 3), dtype=dtype, device=device),
+        n_verts=torch.zeros(batch_shape + (F,), dtype=torch.int32, device=device),
+        planes=torch.zeros(batch_shape + (F, 4), dtype=dtype, device=device),
+    )
+
+
+def unit_cube(F: int = 32, S: int = 16, dtype=torch.float32, device=None) -> ConvexPoly:
+    """Axis-aligned unit cube centered at the origin ([-0.5, 0.5]^3); faces
+    +x, -x, +y, -y, +z, -z in slots 0-5, loops CCW from outside."""
+    h = 0.5
+    quads = np.array(
+        [
+            [[h, -h, -h], [h, h, -h], [h, h, h], [h, -h, h]],
+            [[-h, -h, -h], [-h, -h, h], [-h, h, h], [-h, h, -h]],
+            [[-h, h, -h], [-h, h, h], [h, h, h], [h, h, -h]],
+            [[-h, -h, -h], [h, -h, -h], [h, -h, h], [-h, -h, h]],
+            [[-h, -h, h], [h, -h, h], [h, h, h], [-h, h, h]],
+            [[-h, -h, -h], [-h, h, -h], [h, h, -h], [h, -h, -h]],
+        ],
+        dtype=np.float64,
+    )
+    normals = np.array(
+        [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+        dtype=np.float64,
+    )
+    fv = np.zeros((F, S, 3))
+    pl = np.zeros((F, 4))
+    nv = np.zeros((F,), np.int32)
+    fv[:6, :4] = quads
+    pl[:6, :3] = normals
+    pl[:6, 3] = -h
+    nv[:6] = 4
+    return ConvexPoly(
+        face_verts=torch.as_tensor(fv, dtype=dtype, device=device),
+        n_verts=torch.as_tensor(nv, device=device),
+        planes=torch.as_tensor(pl, dtype=dtype, device=device),
+    )
+
+
+def scale_poly(p: ConvexPoly, s) -> ConvexPoly:
+    """Anisotropic scale about the origin (reference: Poly::Scale)."""
+    s = torch.as_tensor(s, dtype=p.face_verts.dtype, device=p.device).expand(3)
+    fv = p.face_verts * s
+    n = p.planes[..., :3] / s
+    norm = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    d = p.planes[..., 3:4] / safe
+    n = n / safe
+    return ConvexPoly(fv, p.n_verts, torch.cat([n, d], dim=-1))
+
+
+def translate_poly(p: ConvexPoly, t) -> ConvexPoly:
+    """Translate (reference: Poly::Translate)."""
+    t = torch.as_tensor(t, dtype=p.face_verts.dtype, device=p.device)
+    fv = p.face_verts + t
+    n = p.planes[..., :3]
+    d = p.planes[..., 3:4] - torch.sum(n * t, dim=-1, keepdim=True)
+    return ConvexPoly(fv, p.n_verts, torch.cat([n, d], dim=-1))
