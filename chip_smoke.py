@@ -6,21 +6,33 @@
 Phases (any failure exits non-zero):
   1. a CUDA device is present; print the card, torch and CUDA versions;
   2. build the hand-written kernels from ``surtr_tpu_torch/csrc``;
-  3. per kernel (B1 clip fold, B2 ICH, B3 island labels, B4 refit planes):
-     the kernel against its plain PyTorch version on the card, on the
-     inputs the main path gives it plus degenerate cases, with times;
-  4. the main path: ``prepare_fracture`` of the cube at the 1k-seed bench
-     configuration on ``cuda:0``, with launch counts proving every kernel
-     ran;
+  3. per decomposition kernel (B1 clip fold, B2 ICH, B3 island labels, B4
+     refit planes): the kernel against its plain PyTorch version on the
+     card, on the inputs the main path gives it plus degenerate cases, with
+     times;
+  4. the decomposition main path: ``prepare_fracture`` of the cube at the
+     1k-seed bench configuration on ``cuda:0``, with launch counts proving
+     every kernel ran;
   5. the same event through the plain path on the CPU, compared;
-  6. median ms per event on the card.
+  6. median ms per event on the card;
+  7. per physics kernel (B5 pack, B7 narrowphase, B8 contact prep, B9
+     solver iteration): the kernel against its plain version on the inputs
+     of the last of the 64 steps of the 10k lattice (pair and ground hits
+     asserted present) plus degenerate cases, with times;
+  8. the physics main path: ``workload.run_physics(64)`` on ``cuda:0``,
+     launches 1/1/1/4 on every step that is not skipped as all-asleep;
+  9. the same lattice stepped through the plain path on the CPU, compared
+     after 30 steps;
+ 10. ms per physics step, a per-stage split and the device idle share.
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import sys
 import time
@@ -42,6 +54,10 @@ from surtr_tpu_torch import _build, workload
 from surtr_tpu_torch.fracture import pipeline
 from surtr_tpu_torch.io.models import get_model
 from surtr_tpu_torch.ops import clip_cuda, hull_cuda, labels_cuda, refit_cuda, voronoi
+from surtr_tpu_torch.physics import narrowphase_cuda, pack_cuda, prep_cuda, solver_cuda
+from surtr_tpu_torch.physics import step as phys_step
+from surtr_tpu_torch.physics.rigid import quat_normalize
+from surtr_tpu_torch.physics.scene import build_scene
 from surtr_tpu_torch.types import ConvexPoly, unit_cube
 from surtr_tpu_torch.workload import run_prepare
 
@@ -284,6 +300,542 @@ def time_kernel(name, calls):
     return ms, plain_ms
 
 
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for a kernel's work.
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores (data sheet)
+
+
+def nbytes(obj) -> int:
+    """Bytes of every tensor in ``obj`` (tuples, lists, dicts, dataclasses)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (list, tuple)):
+        return sum(nbytes(o) for o in obj)
+    if isinstance(obj, dict):
+        return sum(nbytes(o) for o in obj.values())
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return sum(nbytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    return 0
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(ms, "bytes" or "operations"): each input byte read once and each
+    output byte written once at the memory rate, against the float
+    operations at the FP32 rate; the larger of the two."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = n_ops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def decomposition_ops(name, a, kw) -> float:
+    """Float operations the decomposition kernels do on these inputs (the
+    dominant terms, counted from the code)."""
+    if name == "clip_fold":
+        poly, planes, mask = a[:3]
+        verts = poly.n_verts.clamp_min(0).sum(-1).to(torch.float64)
+        return float((mask.sum(-1).to(torch.float64) * verts).sum()) * 6
+    if name == "ich":
+        pts = a[0]
+        limit = kw.get("limit", a[2] if len(a) > 2 else 20)
+        return limit * pts.shape[0] * (2 * max(limit, 4) + 4) * 6.0
+    if name == "labels":
+        N, T = a[0].shape[:2]
+        return N * T * T * 81.0
+    N, Pv = a[0].shape[:2]        # refit: 4 extreme-point passes + 4 slab passes
+    return N * Pv * 8 * 8.0
+
+
+def decomposition_bound(name, calls):
+    fn = {"clip_fold": clip_cuda.clip_planes_batch, "ich": hull_cuda.ich,
+          "labels": labels_cuda.tri_soup_components_batch,
+          "refit": refit_cuda.refit_planes_batch}[name]
+    b = ops = 0.0
+    for a, kw in calls:
+        b += nbytes(a) + nbytes(kw) + nbytes(fn(*a, **kw))
+        ops += decomposition_ops(name, a, kw)
+    return bound(b, ops)
+
+
+# ---------------------------------------------------------------------------
+# Physics kernels (B5, B7, B8, B9) on the 10k lattice.
+# ---------------------------------------------------------------------------
+
+PHYS_KERNELS = {
+    # name: (module, source, TPU kernel, launches per step, step attribute)
+    "pack": (pack_cuda, "surtr_tpu_torch/csrc/pack.cu",
+             "surtr_tpu/physics/pack_pallas.py:31", 1, "transform_pack"),
+    "narrowphase": (narrowphase_cuda, "surtr_tpu_torch/csrc/narrowphase.cu",
+                    "surtr_tpu/physics/narrowphase_pallas.py:103", 1, "narrowphase"),
+    "prep": (prep_cuda, "surtr_tpu_torch/csrc/prep.cu",
+             "surtr_tpu/physics/prep_pallas.py:42", 1, "prep_contacts"),
+    "solver": (solver_cuda, "surtr_tpu_torch/csrc/solver.cu",
+               "surtr_tpu/physics/solver_pallas.py:53", 4, "solve"),
+}
+STAGES = ["pack", "broadphase", "narrowphase", "glue", "prep", "solver", "finish"]
+
+
+class StepRecorder:
+    """Wraps the step's kernel entry points and keeps, per kernel, the
+    arguments and result of its latest call. The wrapped functions still
+    run, so launch counts are unchanged."""
+
+    def __enter__(self):
+        self.last = {}
+        self.saved = []
+        for name, (*_, attr) in PHYS_KERNELS.items():
+            fn = getattr(phys_step, attr)
+            self.saved.append((attr, fn))
+
+            def rec(*a, _fn=fn, _name=name, **kw):
+                out = _fn(*a, **kw)
+                self.last[_name] = (a, kw, out)
+                return out
+
+            setattr(phys_step, attr, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self.saved:
+            setattr(phys_step, attr, fn)
+
+
+def hit_counts(prep_call):
+    """(pair hit slots, ground hit slots) of a recorded prep call."""
+    a, kw, _ = prep_call
+    K, M, G = kw["K"], kw["M"], kw["G"]
+    C = K * M + G
+    hit = a[1][:, C:] > 0.5
+    return int(hit[:, : K * M].sum()), int(hit[:, K * M :].sum())
+
+
+def all_asleep(scene, cfg) -> bool:
+    b = scene.bodies
+    asleep = (scene.sleep_frames >= cfg.sleep_frames) | ~b.active
+    return bool(torch.all(asleep) & torch.any(b.active))
+
+
+def _rowscale(t):
+    """Per row: the largest finite |value| below 1e30, at least 1."""
+    a = t.abs().flatten(1)
+    return torch.where(a < 1e30, a, 0.0).amax(1).clamp_min(1.0)
+
+
+def _rows_close(name, what, got, want, scale):
+    """Per row of (N, ...) tensors, |got - want| within 1e-5 x scale; equal
+    entries (BIG against BIG) count as 0."""
+    err = torch.where(got == want, 0.0, (got - want).abs()).flatten(1).amax(1)
+    return _check_close(name, what, err, scale)
+
+
+def _exact(name, what, got, want):
+    if not torch.equal(got, want):
+        bad = torch.nonzero((got != want).flatten(1).any(1)).flatten().tolist()
+        fail(f"{name}: {what} differ from the plain version in rows {bad[:10]} "
+             f"({len(bad)} in all)")
+
+
+def compare_pack(a, kw):
+    """Mask columns exactly; per piece, every float of the packed row and
+    the AABB row within 1e-5 x the piece's scale (its largest world
+    coordinate, at least 1)."""
+    got = pack_cuda.transform_pack(*a, **kw)
+    want = pack_cuda.transform_pack_reference(*a, **kw)
+    Vh, F, Ne = a[0].shape[1], a[2].shape[1], a[4].shape[1]
+    offs, _ = pack_cuda.pack_layout(Vh, F, Ne)
+    for name in ("wm", "pm", "em"):
+        if name in offs:
+            o, n = offs[name]
+            _exact("pack", f"mask column {name}", got[0][:, o : o + n], want[0][:, o : o + n])
+    scale = _rowscale(want[0][:, : 3 * Vh])
+    e1 = _rows_close("pack", "packed rows", got[0], want[0], scale)
+    e2 = _rows_close("pack", "AABB rows", got[1], want[1], scale)
+    return max(e1, e2)
+
+
+def compare_narrowphase(a, kw):
+    """Hit flags and feature ids exactly; per pair, normals, depths, values
+    and points within 1e-5 x the larger of the two pieces' scales."""
+    packed, pidx, pok, Vh, F, Ne, M, slop = a
+    got = narrowphase_cuda.narrowphase(*a)
+    want = narrowphase_cuda.narrowphase_reference(*a)
+    Np, K, R = want.shape
+    exact = [4] + [6 + 6 * m for m in range(M)] + [10 + 6 * m for m in range(M)]
+    _exact("narrowphase", "hit flags or feature ids", got[..., exact].reshape(Np * K, -1),
+           want[..., exact].reshape(Np * K, -1))
+    ps = _rowscale(packed[:, : 3 * Vh])
+    scale = torch.maximum(ps[:, None], ps[pidx.long().clamp(0, Np - 1)]).reshape(-1)
+    return _rows_close("narrowphase", "normals, depths or points", got.reshape(Np * K, R),
+                       want.reshape(Np * K, R), scale)
+
+
+def compare_prep(a, kw):
+    """hit/static exactly; every other table per row within 1e-5 x the
+    row's scale."""
+    got = prep_cuda.prep_contacts(*a, **kw)
+    want = prep_cuda.prep_contacts_reference(*a, **kw)
+    names = ["rA", "rB", "n", "m_eff|target", "hit|static", "scale", "inv_I", "vn0"]
+    err = 0.0
+    for nm, g, w in zip(names, got, want):
+        if nm == "hit|static":
+            _exact("prep", nm, g, w)
+        else:
+            err = max(err, _rows_close("prep", nm, g, w, _rowscale(w)))
+    return err
+
+
+def compare_solver(a, kw):
+    """After all outer iterations: the wake flag exactly; v and w within
+    1e-5 x (1 + |v|) per component."""
+    got = solver_cuda.solve(*a, **kw)
+    want = solver_cuda.solve_reference(*a, **kw)
+    _exact("solver", "wake flags", got[:, 6] > 0.5, want[:, 6] > 0.5)
+    d = (got[:, :6] - want[:, :6]).abs()
+    bad = torch.nonzero(~(d <= 1e-5 * (1.0 + want[:, :6].abs())).any(1)).flatten().tolist()
+    if bad:
+        fail(f"solver: v or w differ from the plain version in bodies {bad[:10]} "
+             f"({len(bad)} in all, max {float(d.max()):.3e})")
+    return float(d.max())
+
+
+PHYS_COMPARE = {"pack": compare_pack, "narrowphase": compare_narrowphase,
+                "prep": compare_prep, "solver": compare_solver}
+PHYS_PLAIN = {
+    "pack": lambda a, kw: pack_cuda.transform_pack_reference(*a, **kw),
+    "narrowphase": lambda a, kw: narrowphase_cuda.narrowphase_reference(*a, **kw),
+    "prep": lambda a, kw: prep_cuda.prep_contacts_reference(*a, **kw),
+    "solver": lambda a, kw: solver_cuda.solve_reference(*a, **kw),
+}
+PHYS_KERNEL_FN = {
+    "pack": lambda a, kw: pack_cuda.transform_pack(*a, **kw),
+    "narrowphase": lambda a, kw: narrowphase_cuda.narrowphase(*a, **kw),
+    "prep": lambda a, kw: prep_cuda.prep_contacts(*a, **kw),
+    "solver": lambda a, kw: solver_cuda.solve(*a, **kw),
+}
+
+
+def physics_ops(name, a, kw) -> float:
+    """Float operations of one step's calls of a physics kernel, counted
+    from the code (every pair and slot is computed, hit or not)."""
+    if name == "pack":
+        Np, Vh = a[0].shape[:2]
+        F, Ne = a[2].shape[1], a[4].shape[1]
+        return Np * (45 + Vh * (24 + 13 * 7) + F * 21 + Ne * 15)
+    if name == "narrowphase":
+        packed, pidx, pok, Vh, F, Ne, M, slop = a
+        per_pair = (13 * 7 + 2 * F * Vh * 8 + Ne * Ne * (28 + Vh * 14) + Vh * 14
+                    + M * (2 * Vh + 12) + 30)
+        return pidx.numel() * per_pair
+    K, M, G = kw["K"], kw["M"], kw["G"]
+    C = K * M + G
+    if name == "prep":
+        return a[0].shape[0] * C * 95.0
+    S = max(1, kw["substeps"])
+    outer = (kw["iters"] + S - 1) // S
+    return outer * a[0].shape[0] * (S * C * 75.0 + C * 3)
+
+
+def physics_bound(name, a, kw, out):
+    return bound(nbytes(a) + nbytes(kw) + nbytes(out), physics_ops(name, a, kw))
+
+
+def with_sleepers(prep_call, solver_call):
+    """Copies of captured prep/solver inputs with every 7th partner marked
+    asleep and every 5th body carrying the wake seed; the solver's tables are
+    rebuilt from the changed prep inputs by the plain prep."""
+    a, kw, _ = prep_call
+    pt3, dh, pn3, btf, own = a
+    K = kw["K"]
+    btf = btf.clone()
+    every7 = torch.arange(btf.shape[0] * K, device=btf.device).reshape(-1, K) % 7 == 0
+    btf[:, 19 * K : 20 * K][every7] = 1.0
+    tables = prep_cuda.prep_contacts_reference(pt3, dh, pn3, btf, own, **kw)
+    sa, skw, _ = solver_call
+    vw0 = sa[0].clone()
+    vw0[::5, 6] = 1.0
+    return ((pt3, dh, pn3, btf, own), kw), ((vw0, sa[1], tuple(tables[:-1])), skw)
+
+
+def degenerate_physics_scene(device):
+    """20 boxes: a strongly rotated overlapping cluster, an edge-edge crossing
+    pair (no corner of either inside the other: the support-point fallback),
+    a grounded box, a far box and one dead piece; one physics step's kernel
+    inputs."""
+    g = torch.Generator().manual_seed(11)
+    cluster = (torch.rand((14, 3), generator=g) * 1.2 - 0.6) + torch.tensor([0.0, -0.8, 0.0])
+    r2 = 2 ** 0.5
+    extra = torch.tensor([[10.0, 0.0, 0.0], [10.0, r2 - 0.01, 0.0], [5.0, -1.5005, 0.0],
+                          [-20.0, 3.0, 0.0], [0.0, -0.8, 0.0], [30.0, 0.0, 0.0]])
+    offs = torch.cat([cluster, extra]).numpy()
+    pieces = workload.cube_pieces(offs, device)
+    pieces.valid[-1] = False                                   # dead piece
+    cfg = workload.PHYSICS_CFG
+    scene = build_scene(pieces, cfg, max_bodies=len(offs))
+    b = scene.bodies
+    q = quat_normalize(b.q + 0.35 * torch.randn(b.q.shape, generator=g).to(device))
+    c, s8 = math.cos(math.pi / 8), math.sin(math.pi / 8)
+    q[14] = torch.tensor([c, 0.0, 0.0, s8], device=device)     # 45 degrees about z
+    q[15] = torch.tensor([c, s8, 0.0, 0.0], device=device)     # 45 degrees about x
+    q[16] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=device)
+    v = 0.5 * torch.randn(b.v.shape, generator=g).to(device)
+    scene = dataclasses.replace(scene, bodies=dataclasses.replace(b, q=q, v=v))
+    with StepRecorder() as rec:
+        phys_step.physics_step(scene, cfg)
+    torch.cuda.synchronize()
+    calls = rec.last
+    # Rows with no candidate at all.
+    a, kw, _ = calls["narrowphase"]
+    pok = a[2].clone()
+    pok[::3] = False
+    nar = [(a, kw), ((a[0], a[1], pok) + tuple(a[3:]), kw)]
+    return calls, nar
+
+
+def physics_capture(steps: int):
+    """Run the main path once with recording wrappers; the inputs of the
+    last step that ran, that step's index and the final scene."""
+    seen = {}
+    with StepRecorder() as rec:
+        def on_step(i, scene):
+            if rec.last and rec.last.get("pack") is not seen.get("pack"):
+                seen.update(rec.last)
+                seen["step"] = i
+        final = workload.run_physics(steps, "cuda", on_step=on_step)
+        torch.cuda.synchronize()
+    return seen, final
+
+
+def physics_kernel_phase(card):
+    """Phase 7."""
+    cfg = workload.PHYSICS_CFG
+    calls, final = physics_capture(workload.PHYSICS_STEPS)
+    pair_hits, ground_hits = hit_counts(calls["prep"])
+    asleep = int((final.sleep_frames >= cfg.sleep_frames).sum())
+    print(f"physics capture: step {calls['step'] + 1} of {workload.PHYSICS_STEPS}, "
+          f"pair hit slots {pair_hits}, ground hit slots {ground_hits}, "
+          f"bodies asleep {asleep}", flush=True)
+    if pair_hits <= 0 or ground_hits <= 0:
+        fail("the captured step has no pair or no ground contact: the comparison proves nothing")
+    main = {k: (v[0], v[1]) for k, v in calls.items() if k != "step"}
+    sleepy_prep, sleepy_solver = with_sleepers(calls["prep"], calls["solver"])
+    dcalls, dnar = degenerate_physics_scene("cuda")
+    dsleepy_prep, dsleepy_solver = with_sleepers(dcalls["prep"], dcalls["solver"])
+    out, Vh = dcalls["narrowphase"][2], dcalls["narrowphase"][0][3]
+    fb = (out[..., 10] > 2 * Vh) & (out[..., 6] > 0.5)
+    print(f"degenerate scene: {int(fb.sum())} fallback contacts (fid > 2Vh)", flush=True)
+    if int(fb.sum()) == 0:
+        fail("the degenerate scene reached no support-point fallback")
+    cases = {
+        "pack": [main["pack"], (dcalls["pack"][0], dcalls["pack"][1])],
+        "narrowphase": [main["narrowphase"]] + dnar,
+        "prep": [main["prep"], sleepy_prep, (dcalls["prep"][0], dcalls["prep"][1]),
+                 dsleepy_prep],
+        "solver": [main["solver"], sleepy_solver, (dcalls["solver"][0], dcalls["solver"][1]),
+                   dsleepy_solver],
+    }
+    results = {}
+    for name in PHYS_KERNELS:
+        err = 0.0
+        for a, kw in cases[name]:
+            err = max(err, PHYS_COMPARE[name](a, kw))
+        torch.cuda.synchronize()
+        a, kw = main[name]
+        ms = event_ms(lambda: PHYS_KERNEL_FN[name](a, kw))
+        plain_ms = event_ms(lambda: PHYS_PLAIN[name](a, kw), warmup=1)
+        b_ms, b_by = physics_bound(name, a, kw, calls[name][2])
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by}
+        print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})  ({card})", flush=True)
+    return results
+
+
+def physics_main_path(card):
+    """Phase 8: the main path, launch counts per step. Returns the counts
+    and the scene one step before the end (contact rich)."""
+    cfg = workload.PHYSICS_CFG
+    mods = [m for m, *_ in PHYS_KERNELS.values()]
+    want = tuple(v[3] for v in PHYS_KERNELS.values())
+    per_step, keep = [], {}
+    prev_asleep = [False]
+    with StepRecorder() as rec:
+        def on_step(i, scene):
+            per_step.append((tuple(m.launches for m in mods), prev_asleep[0]))
+            prev_asleep[0] = all_asleep(scene, cfg)
+            if i == workload.PHYSICS_STEPS - 2:
+                keep["before_last"] = scene
+        for m in mods:
+            m.launches = 0
+        final = workload.run_physics(workload.PHYSICS_STEPS, "cuda", on_step=on_step)
+        torch.cuda.synchronize()
+        counts = {name: v[0].launches for name, v in PHYS_KERNELS.items()}
+        last_prep = rec.last.get("prep")
+    prev = (0,) * len(mods)
+    skipped = 0
+    for i, (c, was_asleep) in enumerate(per_step):
+        delta = tuple(x - y for x, y in zip(c, prev))
+        prev = c
+        if delta == (0,) * len(mods) and was_asleep:
+            skipped += 1
+        elif delta != want:
+            fail(f"physics step {i}: launches {delta}, expected {want}")
+    print(f"physics main path (cuda): launches {json.dumps(counts)}, "
+          f"{skipped} all-asleep steps skipped", flush=True)
+    if any(v == 0 for v in counts.values()):
+        fail("a physics kernel was never launched on the main path")
+    b = final.bodies
+    for f in ("x", "q", "v", "w"):
+        if not bool(torch.isfinite(getattr(b, f)).all()):
+            fail(f"physics state {f} is not finite after {workload.PHYSICS_STEPS} steps")
+    if last_prep is None or per_step[-1][0] == per_step[-2][0]:
+        fail(f"step {workload.PHYSICS_STEPS} did not run (all asleep): no contact to check")
+    pair_hits, ground_hits = hit_counts(last_prep)
+    print(f"step {workload.PHYSICS_STEPS}: pair hit slots {pair_hits}, ground hit slots "
+          f"{ground_hits}, bodies asleep {int((final.sleep_frames >= cfg.sleep_frames).sum())}",
+          flush=True)
+    if pair_hits <= 0 or ground_hits <= 0:
+        fail(f"step {workload.PHYSICS_STEPS} has no pair or no ground contact")
+    return counts, keep["before_last"]
+
+
+def _stage_diffs(g, c):
+    """Largest difference per stage between two recorded steps."""
+    def d(x, y):
+        x = x.cpu()
+        same = x == y
+        return float(torch.where(same, 0.0, (x - y).abs()).max()) if x.numel() else 0.0
+    return {
+        "pack": d(g["pack"][2][0], c["pack"][2][0]),
+        "broadphase": int((g["narrowphase"][0][1].cpu() != c["narrowphase"][0][1]).sum()),
+        "narrowphase": d(g["narrowphase"][2], c["narrowphase"][2]),
+        "prep": max(d(x, y) for x, y in zip(g["prep"][2], c["prep"][2])),
+        "solver": d(g["solver"][2], c["solver"][2]),
+    }
+
+
+def _to_device(obj, device):
+    """A copy of a scene (nested dataclasses of tensors) on ``device``."""
+    return dataclasses.replace(obj, **{
+        f.name: (_to_device(v, device) if dataclasses.is_dataclass(v) else v.to(device))
+        for f in dataclasses.fields(obj) for v in [getattr(obj, f.name)]})
+
+
+def physics_cpu_compare(steps: int = 30):
+    """Phase 9: the lattice on the card and through the plain path on the
+    CPU, in lockstep from one scene built on the CPU (the pile is chaotic: a
+    one-ulp change of the start moves x by ~1e-2 within 30 steps, so both
+    runs start from the same bits); x within 2e-4 and v within 2e-3 after
+    ``steps``, the hit contact slots within 1%. On failure, the first step
+    and stage where the runs part."""
+    cfg = workload.PHYSICS_CFG
+    sc = workload.physics_lattice(device="cpu")
+    sg = _to_device(sc, "cuda")
+    t0 = time.perf_counter()
+    history = []
+    with StepRecorder() as rec:
+        for i in range(steps):
+            rec.last = {}
+            sg = phys_step.physics_step(sg, cfg)
+            rg = dict(rec.last)
+            rec.last = {}
+            sc = phys_step.physics_step(sc, cfg)
+            rcpu = dict(rec.last)
+            dx = float((sg.bodies.x.cpu() - sc.bodies.x).abs().max())
+            dv = float((sg.bodies.v.cpu() - sc.bodies.v).abs().max())
+            stages = _stage_diffs(rg, rcpu) if rg and rcpu else {}
+            hits = (sum(hit_counts(rg["prep"])) if rg else 0,
+                    sum(hit_counts(rcpu["prep"])) if rcpu else 0)
+            history.append((dx, dv, stages, hits))
+    cpu_s = time.perf_counter() - t0
+    dx, dv, _, (hg, hc) = history[-1]
+    print(f"physics cuda vs cpu plain after {steps} steps: max |dx| {dx:.3e}, max |dv| {dv:.3e}, "
+          f"hit slots {hg} vs {hc} ({cpu_s:.1f} s in lockstep)", flush=True)
+    first = next(((i, st) for i, (dxi, dvi, st, _) in enumerate(history)
+                  if dxi or dvi or any(st.values())), None)
+    if first is not None:
+        print(f"cuda and cpu runs first differ at step {first[0]}: per stage "
+              f"{json.dumps(first[1])}", flush=True)
+    if not (dx <= 2e-4 and dv <= 2e-3 and abs(hg - hc) <= 0.01 * max(hc, 1)):
+        fail(f"cuda and cpu runs differ beyond x 2e-4, v 2e-3 or 1% of hit slots")
+    return dx, dv
+
+
+def physics_timing(state, card, runs: int = 3, reps: int = 10):
+    """Phase 10: ms per step over the 64-step run (host clock, synchronize
+    at the end, / 64; median of ``runs`` runs from the fresh lattice), the
+    stage split of one contact-rich step by CUDA events (median of
+    ``reps``), and the device idle share under torch.profiler."""
+    cfg = workload.PHYSICS_CFG
+    n = workload.PHYSICS_STEPS
+    lattice = workload.physics_lattice(device="cuda")
+    per_run = []
+    for _ in range(runs + 1):
+        s = lattice
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            s = phys_step.physics_step(s, cfg)
+        torch.cuda.synchronize()
+        per_run.append((time.perf_counter() - t0) * 1e3 / n)
+    step_ms = statistics.median(per_run[1:])
+
+    split = {k: [] for k in STAGES}
+    for r in range(reps + 2):
+        marks = []
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+
+        phys_step.physics_step(state, cfg, mark=mark)
+        torch.cuda.synchronize()
+        prev = e0
+        for name, e in marks:
+            if r >= 2:
+                split[name].append(prev.elapsed_time(e))
+            prev = e
+    stages = {k: statistics.median(v) for k, v in split.items() if v}
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 8
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            phys_step.physics_step(state, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    busy_us = 0.0
+    entries = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        busy_us += us
+        entries += e.count
+    busy = busy_us / steps / 1e3
+    idle = (1.0 - busy / wall) if busy > 0 else None
+    print(f"physics 10k lattice: {step_ms:.3f} ms/step (median of {runs} runs of {n} steps, "
+          f"host clock; {card})", flush=True)
+    print("physics stage split, one contact-rich step (CUDA events, ms): "
+          + json.dumps({k: round(v, 4) for k, v in stages.items()}), flush=True)
+    if idle is None:
+        print("physics idle share: the profiler reported no device time", flush=True)
+    else:
+        print(f"physics idle share {idle:.3f}: device busy {busy:.3f} ms of {wall:.3f} ms per "
+              f"step under the profiler, {entries / steps:.0f} device entries per step", flush=True)
+    return {"step_ms": step_ms, "per_run_ms": per_run[1:], "stages_ms": stages,
+            "idle_share": idle, "busy_ms": busy, "profiled_wall_ms": wall}
+
+
 def main():
     # 1. Device.
     if not torch.cuda.is_available():
@@ -320,12 +872,15 @@ def main():
             err = max(err, compare[name](a, kw))
         torch.cuda.synchronize()
         ms, plain_ms = time_kernel(name, calls[name])
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
-              f"({len(calls[name])} main-path calls; {card})", flush=True)
+        b_ms, b_by = decomposition_bound(name, calls[name])
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by}
+        print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by}) ({len(calls[name])} main-path calls; {card})",
+              flush=True)
 
     # 4. Main path on the card, counting launches.
-    for mod, *_ in KERNELS.values():
+    for mod, *_ in list(KERNELS.values()) + list(PHYS_KERNELS.values()):
         mod.launches = 0
     pieces, ctx, met = run_prepare("cuda")
     torch.cuda.synchronize()
@@ -359,20 +914,40 @@ def main():
     ms_event = host_ms(lambda: run_prepare("cuda"))
     print(f"prepare_fracture cube 1k: median {ms_event:.3f} ms/event ({card})", flush=True)
 
+    # 7. Physics kernels against their plain versions on the main path's
+    # inputs (the last of the 64 steps) and degenerate cases.
+    phys = physics_kernel_phase(card)
+
+    # 8. Physics main path on the card, counting launches.
+    for mod, *_ in list(KERNELS.values()) + list(PHYS_KERNELS.values()):
+        mod.launches = 0
+    phys_counts, before_last = physics_main_path(card)
+
+    # 9. The same lattice through the plain path on the CPU.
+    physics_cpu_compare(30)
+
+    # 10. Timing.
+    timing = physics_timing(before_last, card)
+
     kernels = [
         {
             "name": name,
             "route": "cuda",
             "source": src,
             "replaces": rep,
-            "launches": counts[name],
-            "max_abs_err": results[name]["max_abs_err"],
-            "ms": results[name]["ms"],
-            "plain_ms": results[name]["plain_ms"],
+            "launches": cnt[name],
+            "max_abs_err": res[name]["max_abs_err"],
+            "ms": res[name]["ms"],
+            "plain_ms": res[name]["plain_ms"],
+            "bound_ms": res[name]["bound_ms"],
+            "bound_by": res[name]["bound_by"],
+            "library_ms": None,
         }
-        for name, (_, src, rep, _) in KERNELS.items()
+        for table, cnt, res in ((KERNELS, counts, results), (PHYS_KERNELS, phys_counts, phys))
+        for name, (_, src, rep, *_) in table.items()
     ]
-    print(json.dumps({"kernels": kernels, "event_ms": ms_event}), flush=True)
+    print(json.dumps({"kernels": kernels, "event_ms": ms_event, "physics": timing,
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use (never at import), into ``build/surtr_tpu_torch/`` at the
 repository root, named by a hash of the sources and flags, so a source
@@ -28,7 +29,7 @@ NVCC_FLAGS = [
     # PyTorch versions (one rounding per multiply and per add).
     "-fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -68,17 +69,32 @@ def library() -> ctypes.CDLL:
         so = os.path.join(BUILD_DIR, f"libsurtr_kernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(so):
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [s for s in srcs if s.endswith(".cu")]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            cmds, objs = [], []
+            for src in (s for s in srcs if s.endswith(".cu")):
+                obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{os.getpid()}.o")
+                cmds.append([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src])
+                objs.append(obj)
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds]
+            logs = [p.communicate()[0] for p in procs]
+            rcs = [p.returncode for p in procs]
+            if not any(rcs):
+                link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                        "-o", tmp, *objs]
+                proc = subprocess.run(link, capture_output=True, text=True)
+                cmds.append(link)
+                logs.append(proc.stdout + proc.stderr)
+                rcs.append(proc.returncode)
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
+            build_log = "".join(" ".join(c) + "\n" + log for c, log in zip(cmds, logs))
             with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as fh:
-                fh.write(" ".join(cmd) + "\n" + build_log)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{build_log}"
-                )
+                fh.write(build_log)
+            if any(rcs):
+                raise RuntimeError(f"nvcc failed ({rcs}):\n{build_log}")
             os.replace(tmp, so)
         else:
             build_seconds = 0.0

@@ -2,7 +2,8 @@
 
 Turns the JAX package's containers, seen as numpy arrays (any object with
 the same field names whose leaves convert with ``numpy.asarray``), into the
-port's containers and back. ``FractureConfig`` converts through
+port's containers and back: pieces, fracture contexts and physics scenes.
+``FractureConfig`` and ``PhysicsConfig`` convert through
 ``dataclasses.asdict``. The tests use it to feed the same intermediate state
 to both sides; nothing here imports JAX.
 """
@@ -14,9 +15,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from surtr_tpu_torch.config import FractureConfig
+from surtr_tpu_torch.config import FractureConfig, PhysicsConfig
 from surtr_tpu_torch.fracture.types import FractureContext, PieceSet
-from surtr_tpu_torch.types import ConvexPoly
+from surtr_tpu_torch.physics.scene import PhysicsScene
+from surtr_tpu_torch.types import ConvexPoly, RigidState
 
 
 def to_torch(a, device=None) -> torch.Tensor:
@@ -89,3 +91,37 @@ def config_from(cfg) -> FractureConfig:
 
 def config_to_dict(cfg: FractureConfig) -> dict:
     return dataclasses.asdict(cfg)
+
+
+def physics_config_from(cfg) -> PhysicsConfig:
+    """The port's PhysicsConfig from any dataclass with the same fields."""
+    return PhysicsConfig(**dataclasses.asdict(cfg))
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def rigid_from(rs, device=None) -> RigidState:
+    return RigidState(**{f.name: to_torch(_field(rs, f.name), device)
+                         for f in dataclasses.fields(RigidState)})
+
+
+def scene_from(sc, device=None) -> PhysicsScene:
+    """A physics scene carried into the port: the JAX package's
+    ``PhysicsScene``, or the dict of numpy arrays ``scene_to_numpy`` gives."""
+    fields = {}
+    for f in dataclasses.fields(PhysicsScene):
+        v = _field(sc, f.name)
+        fields[f.name] = rigid_from(v, device) if f.name == "bodies" else to_torch(v, device)
+    return PhysicsScene(**fields)
+
+
+def scene_to_numpy(sc: PhysicsScene) -> dict:
+    """The port's scene as numpy arrays, field by field (``bodies`` a dict)."""
+    out = {}
+    for f in dataclasses.fields(sc):
+        v = getattr(sc, f.name)
+        out[f.name] = ({g.name: to_numpy(getattr(v, g.name)) for g in dataclasses.fields(v)}
+                       if f.name == "bodies" else to_numpy(v))
+    return out

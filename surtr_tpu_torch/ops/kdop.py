@@ -5,11 +5,28 @@ masked vertex set, emitted as a pair of outward slab planes pushed out by
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from surtr_tpu_torch.ops.linalg import supports
 
 BIG = 3.4e38
+
+_DOP26 = np.asarray(
+    [
+        (1, 0, 0), (0, 1, 0), (0, 0, 1),
+        (1, 1, 0), (1, -1, 0), (1, 0, 1), (1, 0, -1), (0, 1, 1), (0, 1, -1),
+        (1, 1, 1), (1, 1, -1), (1, -1, 1), (1, -1, -1),
+    ],
+    np.float64,
+)
+_DOP26 /= np.linalg.norm(_DOP26, axis=1, keepdims=True)
+
+
+def dop26_directions(dtype=torch.float32, device=None) -> torch.Tensor:
+    """The 13 unit axes of a 26-DOP (coordinate axes, face diagonals, corner
+    diagonals), normalized in float64 and rounded once to ``dtype``."""
+    return torch.as_tensor(_DOP26, dtype=dtype, device=device)
 
 
 def kdop_planes(verts, vert_mask, dirs, dir_mask=None, gap=0.0):

@@ -27,6 +27,26 @@ def supports(verts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return dot3(verts[..., :, None, :], dirs[..., None, :, :])
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Square root rounded to nearest in ``x``'s float32, on every device.
+
+    PyTorch's vectorized float32 ``sqrt`` on the CPU is not correctly
+    rounded (one ulp off for about 0.7% of inputs), while the kernels' and
+    the GPU's are; the float64 root rounded once to float32 is exact (53 ≥
+    2·24 + 2 bits), so the plain versions agree on the CPU and the card."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def matvec3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) @ (..., 3) → (..., 3), each row in ``dot3`` order."""
+    return dot3(m, v[..., None, :])
+
+
+def rot_points(R: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Rotate point sets: R (..., 3, 3), pts (..., N, 3) → (..., N, 3)."""
+    return dot3(R[..., None, :, :], pts[..., :, None, :])
+
+
 def compact(vals: torch.Tensor, flags: torch.Tensor, S_out: int):
     """Stream compaction along axis -2.
 

@@ -1,0 +1,132 @@
+"""World transform + narrowphase packing with device dispatch (kernel B5,
+``csrc/pack.cu``; replaces ``surtr_tpu/physics/pack_pallas.py``
+``transform_pack_pallas``).
+
+Per piece: world hull corners, world face planes and edge directions, the
+26-DOP support intervals, packed into one row of the narrowphase table in
+``pack_layout`` order, plus the margin AABB row [lo3 | hi3 | center3]
+(center = BIG for dead pieces). The table is piece-major (Np, D): the
+narrowphase reads a partner's whole row contiguously. ``transform_pack``
+runs the plain version for CPU tensors and the kernel, or raises, for CUDA
+tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from surtr_tpu_torch import _build
+from surtr_tpu_torch.ops.kdop import dop26_directions
+
+BIG = 3.4e38
+
+launches = 0  # kernel launches since the last reset (main-path proof)
+
+
+def pack_layout(Vh: int, F: int, Ne: int):
+    """(offsets {name: (start, count)}, D) of the packed row: fields back to
+    back, in the JAX package's order."""
+    offs = {}
+    o = 0
+    fields = [
+        ("wvx", Vh), ("wvy", Vh), ("wvz", Vh), ("wm", Vh),
+        ("pnx", F), ("pny", F), ("pnz", F), ("pd", F), ("pm", F),
+        ("lod", 13), ("hid", 13),
+        ("ex", Ne), ("ey", Ne), ("ez", Ne), ("em", Ne),
+    ]
+    for name, n in fields:
+        if n:
+            offs[name] = (o, n)
+            o += n
+    return offs, o
+
+
+def _rot(q: torch.Tensor):
+    """The nine rotation entries of ``rigid.quat_to_mat`` as (Np, 1)
+    columns, each term as the kernel rounds it."""
+    qw, qx, qy, qz = (q[:, i : i + 1] for i in range(4))
+    xx, yy, zz = qx * qx, qy * qy, qz * qz
+    xy, xz, yz = qx * qy, qx * qz, qy * qz
+    wx, wy, wz = qw * qx, qw * qy, qw * qz
+    return (
+        (1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy)),
+        (2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx)),
+        (2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy)),
+    )
+
+
+def _apply(R, a, b, c):
+    return tuple((r[0] * a + r[1] * b) + r[2] * c for r in R)
+
+
+def transform_pack_reference(piece_verts, piece_vmask, piece_planes, piece_pmask,
+                             piece_edges, piece_emask, q_own, x_own, pvalid, margin: float):
+    """Plain version. Inputs piece-major; ``q_own``/``x_own`` are the owner
+    body's pose per piece. Returns (packed (Np, D), aabb (Np, 9))."""
+    f32 = piece_verts.dtype
+    R = _rot(q_own)
+    x0, y0, z0 = (x_own[:, i : i + 1] for i in range(3))
+    vm = piece_vmask
+    wvx, wvy, wvz = _apply(R, *piece_verts.unbind(-1))
+    wvx, wvy, wvz = wvx + x0, wvy + y0, wvz + z0
+    wnx, wny, wnz = _apply(R, *piece_planes[..., :3].unbind(-1))
+    wd = piece_planes[..., 3] - ((wnx * x0 + wny * y0) + wnz * z0)
+    dop = dop26_directions(f32, piece_verts.device)
+    t = (wvx[..., None] * dop[:, 0] + wvy[..., None] * dop[:, 1]) + wvz[..., None] * dop[:, 2]
+    lod = torch.amin(torch.where(vm[..., None], t, BIG), dim=1)
+    hid = torch.amax(torch.where(vm[..., None], t, -BIG), dim=1)
+    rows = [wvx, wvy, wvz, vm.to(f32), wnx, wny, wnz, wd, piece_pmask.to(f32), lod, hid]
+    if piece_edges.shape[1]:
+        rows += [*_apply(R, *piece_edges.unbind(-1)), piece_emask.to(f32)]
+    packed = torch.cat(rows, dim=1)
+
+    lo = [torch.amin(torch.where(vm, c, BIG), dim=1) - margin for c in (wvx, wvy, wvz)]
+    hi = [torch.amax(torch.where(vm, c, -BIG), dim=1) + margin for c in (wvx, wvy, wvz)]
+    ctr = [torch.where(pvalid, (a + b) * 0.5, BIG) for a, b in zip(lo, hi)]
+    return packed, torch.stack(lo + hi + ctr, dim=1)
+
+
+def _kernel(piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges, piece_emask,
+            q_own, x_own, pvalid, margin):
+    global launches
+    Np, Vh = piece_verts.shape[:2]
+    F, Ne = piece_planes.shape[1], piece_edges.shape[1]
+    dev = piece_verts.device
+    _, D = pack_layout(Vh, F, Ne)
+    f = [t.contiguous() for t in (piece_verts, piece_planes, piece_edges, q_own, x_own)]
+    for t in f:
+        if t.dtype != torch.float32 or t.device != dev:
+            raise TypeError("pack kernel takes float32 tensors on one device")
+    if (f[0].shape != (Np, Vh, 3) or f[1].shape != (Np, F, 4) or f[2].shape != (Np, Ne, 3)
+            or f[3].shape != (Np, 4) or f[4].shape != (Np, 3)):
+        raise ValueError("pack kernel: inconsistent shapes")
+    m = [t.to(torch.uint8).contiguous() for t in (piece_vmask, piece_pmask, piece_emask, pvalid)]
+    dop = dop26_directions(torch.float32, dev)
+    packed = torch.empty((Np, D), dtype=torch.float32, device=dev)
+    aabb = torch.empty((Np, 9), dtype=torch.float32, device=dev)
+    if Np == 0:
+        return packed, aabb
+    fn = _build.bind("surtr_pack", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                     + [ctypes.c_float] + [ctypes.c_void_p] * 3)
+    rc = fn(f[0].data_ptr(), m[0].data_ptr(), f[1].data_ptr(), m[1].data_ptr(),
+            f[2].data_ptr(), m[2].data_ptr(), f[3].data_ptr(), f[4].data_ptr(),
+            m[3].data_ptr(), dop.data_ptr(), Np, Vh, F, Ne, float(margin),
+            packed.data_ptr(), aabb.data_ptr(), _build.stream_ptr(dev))
+    _build.check(rc, "surtr_pack")
+    launches += 1
+    return packed, aabb
+
+
+def transform_pack(piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges,
+                   piece_emask, q_own, x_own, pvalid, margin: float):
+    """(packed (Np, D), aabb (Np, 9)): the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    args = (piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges, piece_emask,
+            q_own, x_own, pvalid, margin)
+    if piece_verts.is_cuda:
+        return _kernel(*args)
+    if piece_verts.device.type != "cpu":
+        raise ValueError(f"transform_pack: unsupported device {piece_verts.device}")
+    return transform_pack_reference(*args)

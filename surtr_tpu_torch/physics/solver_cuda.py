@@ -1,0 +1,166 @@
+"""Contact-solver iteration with device dispatch (kernel B9,
+``csrc/solver.cu``; replaces ``surtr_tpu/physics/solver_pallas.py``
+``_solver_iter_kernel`` via ``solve_packed``).
+
+One outer Jacobi iteration, single-piece bodies (row i is body i): partner
+velocities are read once from the previous iteration's state (chaotic
+relaxation: own state updates every substep, partners once per outer
+iteration); each of S substeps applies projected normal impulses toward the
+prep target and Coulomb friction (μ) on every hit slot, sums them in slot
+order and updates the row's v and w with the mass-splitting scales; finally
+the island-wake flag spreads one hop over live hit contacts.
+
+State ``vw`` (Np, 8) = [v(3) | w(3) | wake | 0]. The tables are B8's
+outputs (``prep_cuda``). ``solve`` runs ceil(iters / substeps) iterations;
+on CUDA tensors each is one kernel launch reading one state buffer and
+writing another, so no block sees a partner's update of the same iteration.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from surtr_tpu_torch import _build
+from surtr_tpu_torch.ops.linalg import sqrt_rn
+from surtr_tpu_torch.physics.prep_cuda import _expand
+
+launches = 0  # kernel launches since the last reset (main-path proof)
+
+
+def tangent_basis(nx, ny, nz):
+    """Deterministic tangent basis (û, v̂) of unit normals given
+    componentwise: û = normalize(e × n) with e the axis of n's smallest
+    component (first of ties), v̂ = n × û. The warm-start frame of the JAX
+    package's accumulated solver mode."""
+    ax, ay, az = torch.abs(nx), torch.abs(ny), torch.abs(nz)
+    ex = ((ax <= ay) & (ax <= az)).to(nx.dtype)
+    ey = ((ay < ax) & (ay <= az)).to(nx.dtype)
+    ez = 1.0 - ex - ey
+    ux = ey * nz - ez * ny
+    uy = ez * nx - ex * nz
+    uz = ex * ny - ey * nx
+    ul = sqrt_rn((ux * ux + uy * uy) + uz * uz)
+    inv = 1.0 / torch.clamp(ul, min=1e-12)
+    ux, uy, uz = ux * inv, uy * inv, uz * inv
+    vx = ny * uz - nz * uy
+    vy = nz * ux - nx * uz
+    vz = nx * uy - ny * ux
+    return (ux, uy, uz), (vx, vy, vz)
+
+
+def _slot_sum(x: torch.Tensor) -> torch.Tensor:
+    """(Np, C) → (Np, 1), summed slot by slot from 0 (the kernel's order)."""
+    s = torch.zeros_like(x[:, :1])
+    for c in range(x.shape[1]):
+        s = s + x[:, c : c + 1]
+    return s
+
+
+def solver_iteration_reference(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: int, M: int,
+                               G: int, substeps: int, mu: float):
+    """Plain version of one outer iteration: (Np, 8) state → (Np, 8)."""
+    C = K * M + G
+    split3 = lambda t: (t[:, :C], t[:, C : 2 * C], t[:, 2 * C :])  # noqa: E731
+    rAx, rAy, rAz = split3(rA)
+    rBx, rBy, rBz = split3(rB)
+    nx, ny, nz = split3(nrm)
+    meff, targ = mt[:, :C], mt[:, C:]
+    hit, stat = hs[:, :C], hs[:, C:]
+    pv = vw[pb.long()]                                   # (Np, K, 8)
+    pvx, pvy, pvz, pwx, pwy, pwz, pwake = (_expand(pv[:, :, i], M, G) for i in range(7))
+    live = 1.0 - stat
+    vBx = live * (pvx + (pwy * rBz - pwz * rBy))
+    vBy = live * (pvy + (pwz * rBx - pwx * rBz))
+    vBz = live * (pvz + (pwx * rBy - pwy * rBx))
+    m_s, s_s = scale[:, 0:1], scale[:, 1:2]
+    II = [iAI[:, i : i + 1] for i in range(9)]
+    v = [vw[:, i : i + 1] for i in range(3)]
+    w = [vw[:, 3 + i : 4 + i] for i in range(3)]
+    for _ in range(max(1, substeps)):
+        vrx = (v[0] + (w[1] * rAz - w[2] * rAy)) - vBx
+        vry = (v[1] + (w[2] * rAx - w[0] * rAz)) - vBy
+        vrz = (v[2] + (w[0] * rAy - w[1] * rAx)) - vBz
+        vn = (vrx * nx + vry * ny) + vrz * nz
+        vtx = vrx - vn * nx
+        vty = vry - vn * ny
+        vtz = vrz - vn * nz
+        vt_len = sqrt_rn((vtx * vtx + vty * vty) + vtz * vtz)
+        inv_vt = 1.0 / torch.clamp(vt_len, min=1e-9)
+        lam_n = torch.clamp(-(vn - targ) * meff, min=0.0)
+        lam_t = torch.minimum(vt_len * meff, mu * lam_n)
+        ix = hit * (lam_n * nx - lam_t * vtx * inv_vt)
+        iy = hit * (lam_n * ny - lam_t * vty * inv_vt)
+        iz = hit * (lam_n * nz - lam_t * vtz * inv_vt)
+        sx, sy, sz = _slot_sum(ix), _slot_sum(iy), _slot_sum(iz)
+        tqx = _slot_sum(rAy * iz - rAz * iy)
+        tqy = _slot_sum(rAz * ix - rAx * iz)
+        tqz = _slot_sum(rAx * iy - rAy * ix)
+        dwx = s_s * ((II[0] * tqx + II[1] * tqy) + II[2] * tqz)
+        dwy = s_s * ((II[3] * tqx + II[4] * tqy) + II[5] * tqz)
+        dwz = s_s * ((II[6] * tqx + II[7] * tqy) + II[8] * tqz)
+        v = [v[0] + m_s * sx, v[1] + m_s * sy, v[2] + m_s * sz]
+        w = [w[0] + dwx, w[1] + dwy, w[2] + dwz]
+    wake = torch.maximum(vw[:, 6:7], torch.amax(hit * live * pwake, dim=1, keepdim=True))
+    return torch.cat(v + w + [wake, torch.zeros_like(wake)], dim=1)
+
+
+def _kernel(vw, pb, tables, K, M, G, substeps, mu):
+    global launches
+    Np = vw.shape[0]
+    C = K * M + G
+    dev = vw.device
+    widths = (3 * C, 3 * C, 3 * C, 2 * C, 2 * C, 2, 9)
+    tabs = [t.contiguous() for t in tables]
+    for t, wd in zip(tabs, widths):
+        if t.dtype != torch.float32 or t.device != dev or t.shape != (Np, wd):
+            raise ValueError("solver kernel: tables must be B8's float32 outputs on one device")
+    v_in = vw.contiguous()
+    if v_in.dtype != torch.float32 or v_in.shape != (Np, 8):
+        raise ValueError("solver kernel: state must be (Np, 8) float32")
+    pbi = pb.to(torch.int32).contiguous()
+    if pbi.shape != (Np, K) or pbi.device != dev:
+        raise ValueError("solver kernel: partner index must be (Np, K) on the state's device")
+    out = torch.empty_like(v_in)
+    if Np == 0:
+        return out
+    fn = _build.bind("surtr_solver_iter", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(v_in.data_ptr(), pbi.data_ptr(), *[t.data_ptr() for t in tabs], out.data_ptr(),
+            Np, K, M, G, max(1, substeps), float(mu), _build.stream_ptr(dev))
+    _build.check(rc, "surtr_solver_iter")
+    launches += 1
+    return out
+
+
+def solver_iteration(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: int, M: int, G: int,
+                     substeps: int, mu: float):
+    """One outer iteration: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if vw.is_cuda:
+        return _kernel(vw, pb, (rA, rB, nrm, mt, hs, scale, iAI), K, M, G, substeps, mu)
+    if vw.device.type != "cpu":
+        raise ValueError(f"solver_iteration: unsupported device {vw.device}")
+    return solver_iteration_reference(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, K=K, M=M, G=G,
+                                      substeps=substeps, mu=mu)
+
+
+def _iterate(iteration, vw0, pb, tables, K, M, G, iters, substeps, mu):
+    S = max(1, substeps)
+    vw = vw0
+    for _ in range((iters + S - 1) // S):
+        vw = iteration(vw, pb, *tables, K=K, M=M, G=G, substeps=S, mu=mu)
+    return vw
+
+
+def solve_reference(vw0, pb, tables, *, K: int, M: int, G: int, iters: int, substeps: int,
+                    mu: float):
+    """Plain version of ``solve`` (every iteration plain, on any device)."""
+    return _iterate(solver_iteration_reference, vw0, pb, tables, K, M, G, iters, substeps, mu)
+
+
+def solve(vw0, pb, tables, *, K: int, M: int, G: int, iters: int, substeps: int, mu: float):
+    """ceil(iters / substeps) outer iterations from state ``vw0``; ``tables``
+    = (rA, rB, n, mt, hs, scale, iAI) from B8. Returns the final (Np, 8)."""
+    return _iterate(solver_iteration, vw0, pb, tables, K, M, G, iters, substeps, mu)

@@ -58,6 +58,28 @@ class ConvexPoly:
         return ConvexPoly(fn(self.face_verts), fn(self.n_verts), fn(self.planes))
 
 
+@dataclasses.dataclass
+class RigidState:
+    """Batched rigid-body state.
+
+    x (..., N, 3) position; q (..., N, 4) unit quaternion (w, x, y, z);
+    v (..., N, 3) linear velocity; w (..., N, 3) angular velocity (world);
+    inv_mass (..., N); inv_inertia_body (..., N, 3, 3) (body frame);
+    active (..., N) bool."""
+
+    x: torch.Tensor
+    q: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    inv_mass: torch.Tensor
+    inv_inertia_body: torch.Tensor
+    active: torch.Tensor
+
+    @property
+    def N(self) -> int:
+        return self.x.shape[-2]
+
+
 def empty_poly(F: int, S: int, batch_shape=(), dtype=torch.float32,
                device=None) -> ConvexPoly:
     batch_shape = tuple(batch_shape)

@@ -1,20 +1,27 @@
-"""The port's main-path workload: the 1k-seed decomposition of the cube at
-``bench.py``'s ``bench_decomposition_1k`` configuration (bench.py:70-92).
+"""The port's main-path workloads, one owner for the configurations, seeds
+and inputs that ``chip_smoke.py``, the tools and the tests drive:
 
-One owner for the configuration, the seeds and the inputs that
-``chip_smoke.py`` and ``tools/profile_torch_prepare.py`` both drive.
+* the 1k-seed decomposition of the cube at ``bench.py``'s
+  ``bench_decomposition_1k`` configuration (bench.py:70-92);
+* the 10k-fragment physics lattice of ``bench_physics_10k``
+  (bench.py:191-253), with one field changed: ``broadphase="exact"``.
 """
 
 from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
 
-from surtr_tpu_torch.config import FractureConfig
+from surtr_tpu_torch.config import FractureConfig, PhysicsConfig
 from surtr_tpu_torch.fracture import pipeline
 from surtr_tpu_torch.fracture.pattern import radial_seeds, uniform_seeds
+from surtr_tpu_torch.fracture.types import PieceSet
 from surtr_tpu_torch.io.models import get_model, sphere_point_cloud
+from surtr_tpu_torch.physics.scene import build_scene
+from surtr_tpu_torch.physics.step import physics_step
+from surtr_tpu_torch.types import ConvexPoly, unit_cube
 
 SEED = 46354
 BENCH_CFG = FractureConfig(
@@ -53,9 +60,65 @@ def bench_seeds(cfg: FractureConfig = BENCH_CFG, seed: int = SEED):
     )
 
 
-def run_prepare(device, cfg: FractureConfig = BENCH_CFG):
+def run_prepare(device="cuda", cfg: FractureConfig = BENCH_CFG):
     """One ``prepare_fracture`` event of the cube on ``device``."""
     return pipeline.prepare_fracture(*cube_inputs(device), cfg, *bench_seeds(cfg))
+
+
+# bench.py's physics configuration, broadphase "exact" in place of "auto"
+# (the exact block sweep instead of the Pallas sweep-and-prune B6, which the
+# port does not have yet; same contract: no missed pair, K nearest, mutual).
+PHYSICS_CFG = PhysicsConfig(single_piece_bodies=True, max_hull_verts=8, broadphase="exact")
+PHYSICS_STEPS = 64  # bench.py's REP
+
+
+def lattice_offsets(n: int) -> np.ndarray:
+    """bench.py's lattice: n unit-cube slots on a side³ grid at spacing 1.02,
+    offset (-side/2, -1.45, -side/2); float64 as numpy computes it."""
+    side = int(round(n ** (1 / 3)))
+    while side * side * side < n:
+        side += 1
+    idx = np.arange(side ** 3)[:n]
+    xs = np.stack([idx % side, (idx // side) % side, idx // (side * side)], axis=1)
+    return xs.astype(np.float32) * 1.02 + np.array([-side / 2, -1.45 + 0.0, -side / 2])
+
+
+def cube_pieces(offsets, device=None) -> PieceSet:
+    """One unit cube (F = 8, S = 8) per offset, each its own group."""
+    n = len(offsets)
+    cube = unit_cube(F=8, S=8, device=device)
+    off = torch.as_tensor(np.asarray(offsets), dtype=torch.float32, device=device)
+    fv = cube.face_verts[None] + off[:, None, None, :]
+    n_pl = cube.planes[None, :, :3].expand(n, -1, -1)
+    d = cube.planes[None, :, 3:4] - torch.sum(n_pl * off[:, None, :], -1, keepdim=True)
+    conv = ConvexPoly(fv, cube.n_verts[None].expand(n, -1).contiguous(),
+                      torch.cat([n_pl, d], -1))
+    return PieceSet(
+        convex=conv,
+        mesh=torch.zeros((n, 1, 3, 3), device=device),
+        mesh_valid=torch.zeros((n, 1), dtype=torch.bool, device=device),
+        valid=torch.ones((n,), dtype=torch.bool, device=device),
+        group=torch.arange(n, dtype=torch.int32, device=device),
+        tag=torch.full((n,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def physics_lattice(n: int = 10_000, device="cuda", cfg: PhysicsConfig = PHYSICS_CFG):
+    """The bench's fully shattered lattice as a scene on ``device``: every
+    cube its own body, all at rest."""
+    return build_scene(cube_pieces(lattice_offsets(n), device), cfg, max_bodies=n)
+
+
+def run_physics(steps: int = PHYSICS_STEPS, device="cuda", n: int = 10_000,
+                cfg: PhysicsConfig = PHYSICS_CFG, on_step=None):
+    """Build the lattice and step it ``steps`` times; ``on_step(i, scene)``
+    sees the scene after each step. Returns the last scene."""
+    scene = physics_lattice(n, device, cfg)
+    for i in range(steps):
+        scene = physics_step(scene, cfg)
+        if on_step is not None:
+            on_step(i, scene)
+    return scene
 
 
 def card() -> str:

@@ -1,0 +1,169 @@
+"""Kernel B7's plain version (``narrowphase_cuda.narrowphase_reference``, the
+CPU side of ``csrc/narrowphase.cu``) against the JAX package's
+``narrowphase_raw_pallas`` in interpret mode, on the same packed table,
+partner indices and candidate flags; and the port's exact broadphase
+against the JAX package's ``_broadphase`` with its mutual mask.
+
+Two scenes: strongly rotated overlapping boxes, whose SAT minima are unique,
+and an axis-aligned lattice of cubes pressed 0.002 into each other, where
+DOP and face axes tie exactly and the first-of-ties order decides the
+normal. Tolerances: hit flags and feature ids exactly; normals, depths,
+manifold values and points within 1e-5 absolute on these unit-scale scenes
+(they agree bit for bit with the JAX run below; the bound leaves room for
+another XLA version's rounding); the broadphase exactly (indices and flags,
+filler slots included).
+
+The JAX side runs compiled in a child process with
+``--xla_cpu_max_isa=AVX`` (ROADMAP C5): on an AVX2/AVX-512 host XLA:CPU
+contracts the kernel's products into FMAs, and on rotated boxes that moves
+first-of-ties picks between corners whose depths agree to the last bits (a
+contacting edge's two ends, a resting face's corners). Without FMA both
+sides round every product, and the outputs agree bit for bit. Run as a
+script (``python tests/test_torch_narrowphase.py OUT.npz``) it writes the
+JAX side of both scenes.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surtr_tpu.config import PhysicsConfig as JPhysicsConfig
+from surtr_tpu.physics.narrowphase_pallas import narrowphase_raw_pallas
+from surtr_tpu.physics.pack_pallas import transform_pack_pallas
+from surtr_tpu.physics.rigid import quat_normalize as j_quat_normalize
+from surtr_tpu.physics.scene import build_scene as j_build_scene
+from surtr_tpu.physics.step import _broadphase as j_broadphase
+from surtr_tpu_torch.physics import narrowphase_cuda
+from surtr_tpu_torch.physics.broadphase import broadphase_exact, mutual
+
+from test_torch_pack import j_cube_pieces
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENES = ("rotated", "lattice")
+CFG = JPhysicsConfig(single_piece_bodies=True, max_hull_verts=8)
+K, M, G = CFG.max_neighbors, CFG.manifold_points, CFG.max_ground_contacts
+
+
+def _scene(kind):
+    rng = np.random.default_rng(31)
+    if kind == "rotated":
+        offs = np.concatenate([rng.uniform(-0.7, 0.7, (10, 3)) + [0.0, -0.8, 0.0],
+                               [[5.0, -1.45, 0.0], [9.0, 0.0, 0.0]]]).astype(np.float32)
+    else:
+        xs = np.stack(np.meshgrid(*[np.arange(3)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        offs = (xs * 0.998 + np.array([-1.5, -1.45, -1.5])).astype(np.float32)
+    n = len(offs)
+    sc = j_build_scene(j_cube_pieces(offs), CFG, max_bodies=n)
+    q = np.asarray(sc.bodies.q)
+    if kind == "rotated":
+        q = np.asarray(j_quat_normalize(jnp.asarray(q + 0.6 * rng.standard_normal(q.shape), jnp.float32)))
+    return sc, q
+
+
+def _jax_side(kind):
+    """Pack (JAX interpret), the JAX broadphase + mutual mask and the JAX
+    narrowphase, as numpy arrays."""
+    sc, q = _scene(kind)
+    Vh, F, Ne = sc.piece_verts.shape[1], sc.piece_planes.shape[1], sc.piece_edges.shape[1]
+    pvalid = sc.piece_valid & (sc.piece_owner >= 0)
+    pT, ab = transform_pack_pallas(
+        sc.piece_verts, sc.piece_vmask, sc.piece_planes, sc.piece_pmask, sc.piece_edges,
+        sc.piece_emask, jnp.asarray(q), sc.bodies.x, pvalid, Vh=Vh, F=F, Ne=Ne,
+        margin=CFG.contact_slop * 4.0, interpret=True)
+    abT = ab.T
+    jp, jok = j_broadphase(abT[:, 6:9], abT[:, 0:3], abT[:, 3:6], sc.piece_owner, pvalid, K,
+                           CFG.broadphase_block)
+    me = jnp.arange(jp.shape[0])[:, None, None]
+    jok = jok & jnp.any(jp[jp] == me, axis=-1)
+    out, Np_pad = narrowphase_raw_pallas(None, jp, jok, Vh=Vh, F=F, Ne=Ne, K=K, M=M,
+                                         slop=CFG.contact_slop, interpret=True, packedT=pT)
+    Np = jp.shape[0]
+    R = 5 + 6 * M
+    want = np.asarray(out).reshape(-1, K, Np_pad)[:R, :, :Np].transpose(2, 1, 0)
+    return dict(packed=np.asarray(pT).T, aabb=np.asarray(abT), owner=np.asarray(sc.piece_owner),
+                pvalid=np.asarray(pvalid), jp=np.asarray(jp), jok=np.asarray(jok), want=want,
+                dims=np.array([Vh, F, Ne]))
+
+
+def _port_side(ref):
+    t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
+    ab = ref["aabb"]
+    tp, tok = broadphase_exact(t(ab[:, 6:9]), t(ab[:, 0:3]), t(ab[:, 3:6]), t(ref["owner"]),
+                               t(ref["pvalid"]), K, CFG.broadphase_block)
+    tok = mutual(tp, tok)
+    Vh, F, Ne = (int(v) for v in ref["dims"])
+    before = narrowphase_cuda.launches
+    got = narrowphase_cuda.narrowphase(t(ref["packed"]), t(ref["jp"]), t(ref["jok"]), Vh, F, Ne,
+                                       M, CFG.contact_slop)
+    assert narrowphase_cuda.launches == before      # CPU tensors: no launch
+    return dict(ref, tp=tp.numpy(), tok=tok.numpy(), got=got.numpy(), Vh=Vh)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("narrowphase") / "ref.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX",
+               PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), str(out)], env=env,
+                          cwd=REPO, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    data = np.load(out)
+    return {kind: {k.split("/", 1)[1]: data[k] for k in data.files if k.startswith(kind + "/")}
+            for kind in SCENES}
+
+
+@pytest.fixture(scope="module", params=SCENES)
+def run(request, jax_refs):
+    return _port_side(jax_refs[request.param])
+
+
+def test_broadphase_matches(run):
+    np.testing.assert_array_equal(run["tp"], run["jp"])
+    np.testing.assert_array_equal(run["tok"], run["jok"])
+
+
+def test_flags_and_feature_ids_exact(run):
+    got, want = run["got"], run["want"]
+    assert got[..., 4].sum() > 0, "no pair hit: the comparison proves nothing"
+    exact = [4] + [6 + 6 * m for m in range(M)] + [10 + 6 * m for m in range(M)]
+    np.testing.assert_array_equal(got[..., exact], want[..., exact])
+
+
+def test_normals_depths_points_close(run):
+    got, want = run["got"], run["want"]
+    big = np.abs(want) > 1e30
+    np.testing.assert_array_equal(got[big], want[big])
+    np.testing.assert_allclose(np.where(big, 0, got), np.where(big, 0, want), atol=1e-5, rtol=0)
+
+
+def test_rotated_scene_reaches_the_fallback(jax_refs):
+    """Edge-on contacts between rotated boxes contain no corner of either
+    hull; their single point comes from the support fallback (fid > 2Vh)."""
+    r = _port_side(jax_refs["rotated"])
+    fb = (r["got"][..., 10] > 2 * r["Vh"]) & (r["got"][..., 6] > 0.5)
+    assert fb.any()
+    np.testing.assert_array_equal(fb, (r["want"][..., 10] > 2 * r["Vh"]) & (r["want"][..., 6] > 0.5))
+
+
+def test_broadphase_fewer_pieces_than_k():
+    """Np < K: every list is padded past the pool with index 0, pok false."""
+    rng = np.random.default_rng(32)
+    c = rng.uniform(-1, 1, (5, 3)).astype(np.float32)
+    lo, hi = c - 0.8, c + 0.8
+    owner = np.arange(5, dtype=np.int32)
+    valid = np.array([1, 1, 1, 0, 1], bool)
+    jp, jok = j_broadphase(jnp.asarray(c), jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(owner),
+                           jnp.asarray(valid), K, 64)
+    tp, tok = broadphase_exact(*(torch.as_tensor(a) for a in (c, lo, hi, owner, valid)), K, 64)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+
+
+if __name__ == "__main__":
+    np.savez(sys.argv[1], **{f"{kind}/{k}": v for kind in SCENES
+                             for k, v in _jax_side(kind).items()})

@@ -1,0 +1,133 @@
+"""Kernels B8 and B9's plain versions (``prep_cuda.prep_contacts_reference``
+and ``solver_cuda.solve`` on CPU tensors, the CPU sides of ``csrc/prep.cu``
+and ``csrc/solver.cu``) against the JAX package's ``prep_contacts_pallas``
+and ``solve_packed`` in interpret mode, on the same random contact tables:
+hit and missed slots, static and sleeping partners, zero and positive
+inverse masses, and a wake seed.
+
+Tolerances: hit and static flags and the wake flag exactly (0/1 values);
+every prep table within 1e-5 × max(1, |value|) per entry (XLA may contract
+products into FMAs where the port rounds each one; m_eff = 1/k is large
+where k is small); v and w after 1 and 4 outer iterations within 1e-5 ×
+(1 + |v|), since the JAX kernel's per-row sums over the C slots are taken
+in an order XLA chooses, the port's in slot order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surtr_tpu.config import PhysicsConfig as JPhysicsConfig
+from surtr_tpu.physics.prep_pallas import prep_contacts_pallas
+from surtr_tpu.physics.solver_pallas import solve_packed
+from surtr_tpu.physics.solver_pallas import tangent_basis as j_tangent_basis
+from surtr_tpu_torch.physics import prep_cuda, solver_cuda
+
+CFG = JPhysicsConfig()
+K, M, G = CFG.max_neighbors, CFG.manifold_points, CFG.max_ground_contacts
+C = K * M + G
+NP = 48
+PREP_KW = dict(K=K, M=M, G=G, dt=CFG.dt, slop=CFG.contact_slop, baumgarte=CFG.baumgarte,
+               restitution=CFG.restitution, bounce_thr=CFG.bounce_threshold)
+
+
+def _spd(rng, n):
+    a = rng.standard_normal((n, 3, 3)).astype(np.float32)
+    return (0.3 * a @ a.transpose(0, 2, 1) + 0.2 * np.eye(3, dtype=np.float32)).reshape(n, 9)
+
+
+def _inputs():
+    rng = np.random.default_rng(41)
+    x = rng.uniform(-2, 2, (NP, 3)).astype(np.float32)
+    inv_m = rng.uniform(0.05, 0.3, NP).astype(np.float32)
+    inv_m[::11] = 0.0                                    # static bodies
+    v0 = rng.standard_normal((NP, 3)).astype(np.float32)
+    w0 = rng.standard_normal((NP, 3)).astype(np.float32)
+    II = _spd(rng, NP)
+    pt3 = (np.repeat(x, C, axis=0).reshape(NP, C, 3)
+           + rng.uniform(-0.6, 0.6, (NP, C, 3))).transpose(0, 2, 1).reshape(NP, 3 * C)
+    depth = rng.uniform(-0.01, 0.05, (NP, C))
+    hit = (rng.random((NP, C)) < 0.5).astype(np.float32)
+    dh = np.concatenate([np.maximum(depth, 0), hit], 1)
+    n = rng.standard_normal((NP, K, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    pn3 = n.transpose(0, 2, 1).reshape(NP, 3 * K)
+    partner = rng.integers(0, NP, (NP, K))
+    asleep = (rng.random(NP) < 0.25).astype(np.float32)
+    btab = np.concatenate([x, inv_m[:, None], II, v0, w0, asleep[:, None]], 1)    # (NP, 20)
+    btf = btab[partner].transpose(0, 2, 1).reshape(NP, 20 * K)
+    own = np.concatenate([x, v0, w0, inv_m[:, None], II], 1)
+    wake = (rng.random(NP) < 0.2).astype(np.float32)
+    f = lambda a: np.ascontiguousarray(a, dtype=np.float32)  # noqa: E731
+    return dict(pt3=f(pt3), dh=f(dh), pn3=f(pn3), btf=f(btf), own=f(own)), partner, v0, w0, wake
+
+
+@pytest.fixture(scope="module")
+def prep():
+    ins, partner, v0, w0, wake = _inputs()
+    jout = prep_contacts_pallas(*[jnp.asarray(v) for v in ins.values()], **PREP_KW, interpret=True)
+    before = prep_cuda.launches
+    got = prep_cuda.prep_contacts(*[torch.as_tensor(v) for v in ins.values()], **PREP_KW)
+    assert prep_cuda.launches == before       # CPU tensors: the plain version, no launch
+    return ins, partner, v0, w0, wake, [np.asarray(a) for a in jout], got
+
+
+def _jax_tables(jout):
+    """The JAX kernel's padded tables in the port's tight layout."""
+    rA, rB, n, mt, hs, scale, iAI, vn0 = jout
+    return [rA[:NP, : 3 * C], rB[:NP, : 3 * C], n[:NP, : 3 * C], mt[:NP, : 2 * C],
+            hs[:NP, : 2 * C], scale[:NP, :2], iAI[:NP, :9], vn0[:NP]]
+
+
+def test_prep_flags_exact(prep):
+    *_, jout, got = prep
+    np.testing.assert_array_equal(got[4].numpy(), _jax_tables(jout)[4])
+    hs = got[4].numpy()
+    assert hs[:, :C].any() and hs[:, C : C + K * M].any()   # hits, and sleeping partners
+
+
+@pytest.mark.parametrize("i,name", [(0, "rA"), (1, "rB"), (2, "n"), (3, "m_eff|target"),
+                                    (5, "scale"), (6, "inv_I"), (7, "vn0")])
+def test_prep_tables_match(prep, i, name):
+    *_, jout, got = prep
+    want = _jax_tables(jout)[i]
+    g = got[i].numpy()
+    assert g.shape == want.shape, name
+    np.testing.assert_array_less(np.abs(g - want), 1e-5 * np.maximum(1.0, np.abs(want)) + 1e-30)
+
+
+@pytest.mark.parametrize("iters", [2, 8])     # 1 and 4 outer iterations of 2 substeps
+def test_solver_matches(prep, iters):
+    ins, partner, v0, w0, wake, jout, _ = prep
+    tabs = _jax_tables(jout)[:7]
+    Np_pad = jout[0].shape[0]
+    vw0 = np.zeros((Np_pad, 8), np.float32)
+    vw0[:NP, 0:3], vw0[:NP, 3:6], vw0[:NP, 6] = v0, w0, wake
+    jv, jw, jwake, _ = solve_packed(
+        jnp.asarray(vw0), jnp.asarray(partner), *[jnp.asarray(a) for a in jout[:7]], K=K, M=M,
+        G=G, iters=iters, substeps=CFG.solver_substeps, mu=CFG.dynamic_friction, Np=NP,
+        interpret=True)
+    before = solver_cuda.launches
+    got = solver_cuda.solve(torch.as_tensor(vw0[:NP]), torch.as_tensor(partner),
+                            [torch.as_tensor(np.ascontiguousarray(a)) for a in tabs], K=K, M=M, G=G,
+                            iters=iters, substeps=CFG.solver_substeps, mu=CFG.dynamic_friction)
+    assert solver_cuda.launches == before
+    got = got.numpy()
+    want = np.concatenate([np.asarray(jv), np.asarray(jw)], 1)
+    np.testing.assert_array_less(np.abs(got[:, :6] - want), 1e-5 * (1.0 + np.abs(want)))
+    np.testing.assert_array_equal(got[:, 6] > 0.5, np.asarray(jwake))
+    assert np.abs(got[:, :6] - np.concatenate([v0, w0], 1)).max() > 1e-3   # impulses applied
+    assert (got[:, 6] > 0.5).sum() > (wake > 0.5).sum()                    # the wake spread
+
+
+def test_tangent_basis_matches():
+    rng = np.random.default_rng(42)
+    n = rng.standard_normal((3, 500)).astype(np.float32)
+    n[:, :5] = [[0, 0, 1, 1, 0], [0, 1, 0, 1, 1], [1, 0, 0, 0, 1]]      # axis ties
+    n /= np.linalg.norm(n, axis=0)
+    got = solver_cuda.tangent_basis(*(torch.as_tensor(c) for c in n))
+    want = j_tangent_basis(*(jnp.asarray(c) for c in n))
+    for g3, w3 in zip(got, want):
+        for g, w in zip(g3, w3):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)
