@@ -15,15 +15,28 @@ Phases (any failure exits non-zero):
      every kernel ran;
   5. the same event through the plain path on the CPU, compared;
   6. median ms per event on the card;
-  7. per physics kernel (B5 pack, B7 narrowphase, B8 contact prep, B9
-     solver iteration): the kernel against its plain version on the inputs
+  7. per physics kernel (B5 pack, B6 sweep-and-prune, B7 narrowphase, B8
+     contact prep, B9 solver iteration, B12 Morton window, B9's
+     accumulated mode): the kernel against its plain version on the inputs
      of the last of the 64 steps of the 10k lattice (pair and ground hits
-     asserted present) plus degenerate cases, with times;
-  8. the physics main path: ``workload.run_physics(64)`` on ``cuda:0``,
-     launches 1/1/1/4 on every step that is not skipped as all-asleep;
+     asserted present; the accumulated mode's of the 32nd step of a
+     warm-start run) plus degenerate cases, with times; B6, B12 and the
+     accumulated mode bitwise;
+  8. the physics main path: ``workload.run_physics(64)`` at bench.py:207's
+     configuration ("auto" broadphase on 10,000 pieces) on ``cuda:0``,
+     launches pack 1, B6 1, narrowphase 1, prep 1, solver 4 on every step
+     that is not skipped as all-asleep;
   9. the same lattice stepped through the plain path on the CPU, compared
      after 30 steps;
- 10. ms per physics step, a per-stage split and the device idle share.
+  (a)-(e) the other paths of ``physics_step``, each from a scene built on
+     the CPU and copied, with launch counts per step: (a) the exact block
+     sweep, 16 steps; (b) broadphase "sorted" (B12), 16 steps; (c) one
+     step of a 66,000-cube lattice under "auto" (RecallDegradedWarning,
+     B12); (d) warm start (B9's accumulated mode), 32 steps, compared with
+     the CPU plain run after 16; (e) the lattice bound in pairs (5,000
+     two-cube compound bodies), 32 steps, compared likewise;
+ 10. ms per physics step, a per-stage split and the device idle share;
+     ms per step of (b), (d) and (e) and the stage splits of (d) and (e).
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
@@ -36,6 +49,7 @@ import math
 import statistics
 import sys
 import time
+import warnings
 
 try:
     import torch
@@ -50,11 +64,14 @@ except ImportError:
           file=sys.stderr)
     sys.exit(2)
 
+import numpy as np
+
 from surtr_tpu_torch import _build, workload
 from surtr_tpu_torch.fracture import pipeline
 from surtr_tpu_torch.io.models import get_model
 from surtr_tpu_torch.ops import clip_cuda, hull_cuda, labels_cuda, refit_cuda, voronoi
-from surtr_tpu_torch.physics import narrowphase_cuda, pack_cuda, prep_cuda, solver_cuda
+from surtr_tpu_torch.physics import (broadphase_cuda, narrowphase_cuda, pack_cuda, prep_cuda,
+                                     solver_cuda)
 from surtr_tpu_torch.physics import step as phys_step
 from surtr_tpu_torch.physics.rigid import quat_normalize
 from surtr_tpu_torch.physics.scene import build_scene
@@ -360,21 +377,67 @@ def decomposition_bound(name, calls):
 
 
 # ---------------------------------------------------------------------------
-# Physics kernels (B5, B7, B8, B9) on the 10k lattice.
+# Physics kernels (B5-B9, B12) on the 10k lattice.
 # ---------------------------------------------------------------------------
 
 PHYS_KERNELS = {
-    # name: (module, source, TPU kernel, launches per step, step attribute)
-    "pack": (pack_cuda, "surtr_tpu_torch/csrc/pack.cu",
-             "surtr_tpu/physics/pack_pallas.py:31", 1, "transform_pack"),
-    "narrowphase": (narrowphase_cuda, "surtr_tpu_torch/csrc/narrowphase.cu",
-                    "surtr_tpu/physics/narrowphase_pallas.py:103", 1, "narrowphase"),
-    "prep": (prep_cuda, "surtr_tpu_torch/csrc/prep.cu",
-             "surtr_tpu/physics/prep_pallas.py:42", 1, "prep_contacts"),
-    "solver": (solver_cuda, "surtr_tpu_torch/csrc/solver.cu",
-               "surtr_tpu/physics/solver_pallas.py:53", 4, "solve"),
+    # name: (module, launch counter, source, TPU kernel, step attribute)
+    "pack": (pack_cuda, "launches", "surtr_tpu_torch/csrc/pack.cu",
+             "surtr_tpu/physics/pack_pallas.py:31", "transform_pack"),
+    "broadphase_exact": (broadphase_cuda, "exact_launches",
+                         "surtr_tpu_torch/csrc/broadphase_exact.cu",
+                         "surtr_tpu/physics/broadphase_pallas.py:221", "broadphase_exact"),
+    "narrowphase": (narrowphase_cuda, "launches", "surtr_tpu_torch/csrc/narrowphase.cu",
+                    "surtr_tpu/physics/narrowphase_pallas.py:103", "narrowphase"),
+    "prep": (prep_cuda, "launches", "surtr_tpu_torch/csrc/prep.cu",
+             "surtr_tpu/physics/prep_pallas.py:42", "prep_contacts"),
+    "solver": (solver_cuda, "launches", "surtr_tpu_torch/csrc/solver.cu",
+               "surtr_tpu/physics/solver_pallas.py:53", "solve"),
+    "broadphase_sorted": (broadphase_cuda, "sorted_launches",
+                          "surtr_tpu_torch/csrc/broadphase_sorted.cu",
+                          "surtr_tpu/physics/broadphase_pallas.py:55", "broadphase_sorted"),
+    "solver_warm": (solver_cuda, "warm_launches", "surtr_tpu_torch/csrc/solver.cu",
+                    "surtr_tpu/physics/solver_pallas.py:53", "solve_warm"),
 }
 STAGES = ["pack", "broadphase", "narrowphase", "glue", "prep", "solver", "finish"]
+
+
+def launch_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr, *_) in PHYS_KERNELS.items()}
+
+
+def reset_counts():
+    for mod, attr, *_ in PHYS_KERNELS.values():
+        setattr(mod, attr, 0)
+
+
+def launches_a_step(**changes) -> dict:
+    """Launches a step that is not skipped as all-asleep makes: the main
+    path's (bench.py:207, "auto" on 10k pieces), with ``changes``."""
+    want = dict(pack=1, broadphase_exact=1, narrowphase=1, prep=1, solver=4,
+                broadphase_sorted=0, solver_warm=0)
+    want.update(changes)
+    return want
+
+
+EXACT_CFG = dataclasses.replace(workload.PHYSICS_CFG, broadphase="exact")
+SORTED_CFG = dataclasses.replace(workload.PHYSICS_CFG, broadphase="sorted")
+# The paths beside the main one, each driven from a scene built on the CPU
+# and copied to the card: (scene factory, config, steps, steps compared with the
+# CPU plain run in lockstep, launches a step).
+VARIANTS = {
+    "a_exact": (lambda: workload.physics_lattice(device="cpu", cfg=EXACT_CFG), EXACT_CFG, 16, 0,
+                launches_a_step(broadphase_exact=0)),
+    "b_sorted": (lambda: workload.physics_lattice(device="cpu", cfg=SORTED_CFG), SORTED_CFG, 16,
+                 0, launches_a_step(broadphase_exact=0, broadphase_sorted=1)),
+    "c_auto_66k": (lambda: workload.physics_lattice(workload.LARGE_LATTICE_N, "cpu"),
+                   workload.PHYSICS_CFG, 1, 0,
+                   launches_a_step(broadphase_exact=0, broadphase_sorted=1)),
+    "d_warm": (lambda: workload.physics_lattice(device="cpu", cfg=workload.WARM_CFG),
+               workload.WARM_CFG, 32, 16, launches_a_step(solver=0, solver_warm=4)),
+    "e_pairs": (lambda: workload.paired_lattice(device="cpu"), workload.PAIRED_CFG, 32, 16,
+                launches_a_step(prep=0, solver=0)),
+}
 
 
 class StepRecorder:
@@ -402,6 +465,32 @@ class StepRecorder:
             setattr(phys_step, attr, fn)
 
 
+class LaunchCheck:
+    """Called after each step: the launches the step made must equal
+    ``want``, except a step that launched nothing from an all-asleep scene
+    (skipped). The counts are set to 0 when it is made."""
+
+    def __init__(self, name, cfg, want):
+        self.name, self.cfg, self.want = name, cfg, want
+        self.skipped = 0
+        self.was_asleep = False
+        self.ran_last = False
+        reset_counts()
+        self.prev = launch_counts()
+
+    def __call__(self, i, scene):
+        now = launch_counts()
+        delta = {k: now[k] - self.prev[k] for k in now}
+        self.prev = now
+        self.ran_last = any(delta.values())
+        if self.was_asleep and not self.ran_last:
+            self.skipped += 1
+        elif delta != self.want:
+            fail(f"{self.name}: step {i} launched {json.dumps(delta)}, expected "
+                 f"{json.dumps(self.want)}")
+        self.was_asleep = all_asleep(scene, self.cfg)
+
+
 def hit_counts(prep_call):
     """(pair hit slots, ground hit slots) of a recorded prep call."""
     a, kw, _ = prep_call
@@ -425,14 +514,16 @@ def _rowscale(t):
 
 def _rows_close(name, what, got, want, scale):
     """Per row of (N, ...) tensors, |got - want| within 1e-5 x scale; equal
-    entries (BIG against BIG) count as 0."""
-    err = torch.where(got == want, 0.0, (got - want).abs()).flatten(1).amax(1)
+    entries (BIG against BIG, NaN against NaN) count as 0."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    err = torch.where(same, 0.0, (got - want).abs()).flatten(1).amax(1)
     return _check_close(name, what, err, scale)
 
 
 def _exact(name, what, got, want):
+    got, want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
     if not torch.equal(got, want):
-        bad = torch.nonzero((got != want).flatten(1).any(1)).flatten().tolist()
+        bad = torch.nonzero((got != want).any(1)).flatten().tolist()
         fail(f"{name}: {what} differ from the plain version in rows {bad[:10]} "
              f"({len(bad)} in all)")
 
@@ -500,20 +591,100 @@ def compare_solver(a, kw):
     return float(d.max())
 
 
-PHYS_COMPARE = {"pack": compare_pack, "narrowphase": compare_narrowphase,
-                "prep": compare_prep, "solver": compare_solver}
+def _flat(out):
+    """The tensors of a nested result, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)]
+
+
+def _bitwise(name, names, got, want):
+    """Every output equal to the plain version's; the largest difference
+    (0)."""
+    err = 0.0
+    for what, g, w in zip(names, _flat(got), _flat(want)):
+        _exact(name, what, g, w)
+        if g.numel():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
+
+
+def compare_broadphase_exact(a, kw):
+    """pidx, pok, key_ji and θ equal to the plain version's (integer keys)."""
+    return _bitwise("broadphase_exact", ("pidx", "pok", "key_ji", "theta"),
+                    broadphase_cuda.broadphase_exact(*a, **kw),
+                    broadphase_cuda.broadphase_exact_reference(*a, **kw))
+
+
+def compare_broadphase_sorted(a, kw):
+    """pidx and the mutual pok equal to the plain version's, filler slots
+    included."""
+    return _bitwise("broadphase_sorted", ("pidx", "pok"),
+                    broadphase_cuda.broadphase_sorted(*a, **kw),
+                    broadphase_cuda.broadphase_sorted_reference(*a, **kw))
+
+
+def compare_solver_warm(a, kw):
+    """The state and the accumulated impulses bitwise equal to the plain
+    version's after all outer iterations (same formulas, same order)."""
+    return _bitwise("solver_warm", ("state", "accumulated impulses"),
+                    solver_cuda.solve_warm(*a, **kw), solver_cuda.solve_warm_reference(*a, **kw))
+
+
+PHYS_COMPARE = {"pack": compare_pack, "broadphase_exact": compare_broadphase_exact,
+                "narrowphase": compare_narrowphase, "prep": compare_prep,
+                "solver": compare_solver, "broadphase_sorted": compare_broadphase_sorted,
+                "solver_warm": compare_solver_warm}
 PHYS_PLAIN = {
-    "pack": lambda a, kw: pack_cuda.transform_pack_reference(*a, **kw),
-    "narrowphase": lambda a, kw: narrowphase_cuda.narrowphase_reference(*a, **kw),
-    "prep": lambda a, kw: prep_cuda.prep_contacts_reference(*a, **kw),
-    "solver": lambda a, kw: solver_cuda.solve_reference(*a, **kw),
+    "pack": pack_cuda.transform_pack_reference,
+    "broadphase_exact": broadphase_cuda.broadphase_exact_reference,
+    "narrowphase": narrowphase_cuda.narrowphase_reference,
+    "prep": prep_cuda.prep_contacts_reference,
+    "solver": solver_cuda.solve_reference,
+    "broadphase_sorted": broadphase_cuda.broadphase_sorted_reference,
+    "solver_warm": solver_cuda.solve_warm_reference,
 }
 PHYS_KERNEL_FN = {
-    "pack": lambda a, kw: pack_cuda.transform_pack(*a, **kw),
-    "narrowphase": lambda a, kw: narrowphase_cuda.narrowphase(*a, **kw),
-    "prep": lambda a, kw: prep_cuda.prep_contacts(*a, **kw),
-    "solver": lambda a, kw: solver_cuda.solve(*a, **kw),
+    "pack": pack_cuda.transform_pack,
+    "broadphase_exact": broadphase_cuda.broadphase_exact,
+    "narrowphase": narrowphase_cuda.narrowphase,
+    "prep": prep_cuda.prep_contacts,
+    "solver": solver_cuda.solve,
+    "broadphase_sorted": broadphase_cuda.broadphase_sorted,
+    "solver_warm": solver_cuda.solve_warm,
 }
+
+
+def overlap_pairs(a, block: int = 1024) -> int:
+    """Ordered pairs (i, j) that produce a key of the broadphase function on
+    these inputs: margin AABBs overlap, both valid, other owners, j != i."""
+    centers, lo, hi, owner, valid = a[:5]
+    Np = centers.shape[0]
+    ids = torch.arange(Np, device=centers.device)
+    n = 0
+    for r0 in range(0, Np, block):
+        r1 = min(r0 + block, Np)
+        over = torch.all((lo[None] <= hi[r0:r1, None]) & (lo[r0:r1, None] <= hi[None]), dim=-1)
+        n += int((over & valid[r0:r1, None] & valid[None] & (owner[r0:r1, None] != owner[None])
+                  & (ids[r0:r1, None] != ids[None])).sum())
+    return n
+
+
+def sweep_tests(a) -> int:
+    """Candidate tests B6's sweep makes on these inputs (a design statistic,
+    not its bound): 128 x 128 for every chunk of a block's range whose AABB
+    union meets the block's."""
+    centers, lo, hi, owner, valid = a[:5]
+    packR, cab, rng = broadphase_cuda.exact_glue(centers, lo, hi, owner, valid)
+    NB, NCH, CH = rng.shape[0], cab.shape[0], broadphase_cuda.CHUNK
+    blk = packR.reshape(NB, CH, 16)
+    v = (blk[..., 10] > 0.5)[..., None]
+    blo = torch.where(v, blk[..., 3:6], 3.4e38).amin(1)
+    bhi = torch.where(v, blk[..., 6:9], -3.4e38).amax(1)
+    ch = torch.arange(NCH, device=cab.device)[None]
+    in_range = (ch >= rng[:, :1]) & (ch < rng[:, 1:])
+    meets = ((cab[None, :, 0:3] <= bhi[:, None]) & (blo[:, None] <= cab[None, :, 3:6])).all(-1)
+    return int((in_range & meets).sum()) * CH * CH
 
 
 def physics_ops(name, a, kw) -> float:
@@ -523,6 +694,11 @@ def physics_ops(name, a, kw) -> float:
         Np, Vh = a[0].shape[:2]
         F, Ne = a[2].shape[1], a[4].shape[1]
         return Np * (45 + Vh * (24 + 13 * 7) + F * 21 + Ne * 15)
+    if name == "broadphase_exact":      # per key: 6 compares, 4 flags, d², key, insert
+        return overlap_pairs(a) * 20.0
+    if name == "broadphase_sorted":     # per candidate: the test, d², the top-K insert
+        Np, window = a[0].shape[0], a[6]
+        return Np * 2 * window * 25.0
     if name == "narrowphase":
         packed, pidx, pok, Vh, F, Ne, M, slop = a
         per_pair = (13 * 7 + 2 * F * Vh * 8 + Ne * Ne * (28 + Vh * 14) + Vh * 14
@@ -534,7 +710,8 @@ def physics_ops(name, a, kw) -> float:
         return a[0].shape[0] * C * 95.0
     S = max(1, kw["substeps"])
     outer = (kw["iters"] + S - 1) // S
-    return outer * a[0].shape[0] * (S * C * 75.0 + C * 3)
+    per_slot = 120.0 if name == "solver_warm" else 75.0
+    return outer * a[0].shape[0] * (S * C * per_slot + C * 3)
 
 
 def physics_bound(name, a, kw, out):
@@ -544,7 +721,9 @@ def physics_bound(name, a, kw, out):
 def with_sleepers(prep_call, solver_call):
     """Copies of captured prep/solver inputs with every 7th partner marked
     asleep and every 5th body carrying the wake seed; the solver's tables are
-    rebuilt from the changed prep inputs by the plain prep."""
+    rebuilt from the changed prep inputs by the plain prep. The solver call
+    is (state, partners, tables) or, in the accumulated mode, (state,
+    impulses, partners, tables)."""
     a, kw, _ = prep_call
     pt3, dh, pn3, btf, own = a
     K = kw["K"]
@@ -555,7 +734,8 @@ def with_sleepers(prep_call, solver_call):
     sa, skw, _ = solver_call
     vw0 = sa[0].clone()
     vw0[::5, 6] = 1.0
-    return ((pt3, dh, pn3, btf, own), kw), ((vw0, sa[1], tuple(tables[:-1])), skw)
+    rest = sa[1:-1]
+    return ((pt3, dh, pn3, btf, own), kw), ((vw0, *rest, tuple(tables[:-1])), skw)
 
 
 def degenerate_physics_scene(device):
@@ -585,24 +765,66 @@ def degenerate_physics_scene(device):
         phys_step.physics_step(scene, cfg)
     torch.cuda.synchronize()
     calls = rec.last
-    # Rows with no candidate at all.
+    # Rows with no candidate at all; and every slot that is not a pair
+    # naming the dead last piece, as B6's empty-slot sentinel does (its
+    # edge axes have no finite penetration: depth NaN, normal 0).
     a, kw, _ = calls["narrowphase"]
     pok = a[2].clone()
     pok[::3] = False
-    nar = [(a, kw), ((a[0], a[1], pok) + tuple(a[3:]), kw)]
+    sentinel = torch.where(a[2], a[1], (1 << broadphase_cuda.id_bits(a[1].shape[0])) - 1)
+    nar = [(a, kw), ((a[0], a[1], pok) + tuple(a[3:]), kw),
+           ((a[0], sentinel) + tuple(a[2:]), kw)]
     return calls, nar
 
 
-def physics_capture(steps: int):
-    """Run the main path once with recording wrappers; the inputs of the
-    last step that ran, that step's index and the final scene."""
+def broadphase_cases(device):
+    """Broadphase inputs (centers, lo, hi, owner, valid) beside the main
+    path's, by name: a pool that is not a multiple of 128 with invalid
+    rows, a single block, owners shared in pairs, pieces with fewer than K
+    overlaps, a dense cluster inside one chunk, 65,536 pieces (ID_BITS 16)
+    and the exact distance ties of a lattice."""
+    rng = np.random.default_rng(17)
+
+    def boxes(c, half, owner=None, valid=None):
+        n = len(c)
+        own = np.arange(n) if owner is None else owner
+        val = np.ones(n, bool) if valid is None else valid
+        f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
+        return (f(c), f(c - half), f(c + half),
+                torch.as_tensor(np.asarray(own, np.int32), device=device),
+                torch.as_tensor(val, device=device))
+
+    u = rng.uniform
+    cluster = np.concatenate([u(-0.05, 0.05, (100, 3)) + [-40.0, 0.0, 0.0],
+                              u(-30, 30, (900, 3))])
+    side = 6
+    g = np.arange(side) * 1.02
+    lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    n = broadphase_cuda.MAX_EXACT_NP
+    return {
+        "700 random, 5% invalid": boxes(u(-5, 5, (700, 3)), u(0.2, 0.6, (700, 3)),
+                                        valid=u(size=700) > 0.05),
+        "single block": boxes(u(-2, 2, (100, 3)), u(0.2, 0.6, (100, 3))),
+        "owners shared in pairs": boxes(u(-3, 3, (300, 3)), u(0.2, 0.6, (300, 3)),
+                                        owner=np.arange(300) // 2, valid=u(size=300) > 0.2),
+        "fewer than K overlaps": boxes(u(-8, 8, (300, 3)), np.full((300, 3), 0.5)),
+        "dense cluster in one chunk": boxes(cluster, np.full((1000, 3), 0.5)),
+        "65,536 random": boxes(u(0, 40, (n, 3)), u(0.2, 0.8, (n, 3)),
+                               owner=np.arange(n) // 3, valid=u(size=n) > 0.05),
+        "lattice ties": boxes(lattice, np.full(lattice.shape, 0.6)),
+    }
+
+
+def physics_capture(steps: int, cfg=workload.PHYSICS_CFG):
+    """Run the lattice once with recording wrappers; the inputs of the last
+    step that ran, that step's index and the final scene."""
     seen = {}
     with StepRecorder() as rec:
         def on_step(i, scene):
             if rec.last and rec.last.get("pack") is not seen.get("pack"):
                 seen.update(rec.last)
                 seen["step"] = i
-        final = workload.run_physics(steps, "cuda", on_step=on_step)
+        final = workload.run_physics(steps, "cuda", cfg=cfg, on_step=on_step)
         torch.cuda.synchronize()
     return seen, final
 
@@ -618,8 +840,15 @@ def physics_kernel_phase(card):
           f"bodies asleep {asleep}", flush=True)
     if pair_hits <= 0 or ground_hits <= 0:
         fail("the captured step has no pair or no ground contact: the comparison proves nothing")
+    wcalls, _ = physics_capture(32, workload.WARM_CFG)
+    if not float(wcalls["solver_warm"][0][1].abs().max()) > 0:
+        fail("the captured warm-start step carries no warm impulse")
     main = {k: (v[0], v[1]) for k, v in calls.items() if k != "step"}
+    bp_args = main["broadphase_exact"][0]
+    main["broadphase_sorted"] = (tuple(bp_args) + (cfg.broadphase_window,), {})
+    main["solver_warm"] = (wcalls["solver_warm"][0], wcalls["solver_warm"][1])
     sleepy_prep, sleepy_solver = with_sleepers(calls["prep"], calls["solver"])
+    _, sleepy_warm = with_sleepers(wcalls["prep"], wcalls["solver_warm"])
     dcalls, dnar = degenerate_physics_scene("cuda")
     dsleepy_prep, dsleepy_solver = with_sleepers(dcalls["prep"], dcalls["solver"])
     out, Vh = dcalls["narrowphase"][2], dcalls["narrowphase"][0][3]
@@ -627,14 +856,24 @@ def physics_kernel_phase(card):
     print(f"degenerate scene: {int(fb.sum())} fallback contacts (fid > 2Vh)", flush=True)
     if int(fb.sum()) == 0:
         fail("the degenerate scene reached no support-point fallback")
+    K = cfg.max_neighbors
+    bcases = broadphase_cases("cuda")
     cases = {
         "pack": [main["pack"], (dcalls["pack"][0], dcalls["pack"][1])],
+        "broadphase_exact": [main["broadphase_exact"]] + [(b + (K,), {}) for b in bcases.values()],
         "narrowphase": [main["narrowphase"]] + dnar,
         "prep": [main["prep"], sleepy_prep, (dcalls["prep"][0], dcalls["prep"][1]),
                  dsleepy_prep],
         "solver": [main["solver"], sleepy_solver, (dcalls["solver"][0], dcalls["solver"][1]),
                    dsleepy_solver],
+        "broadphase_sorted": [main["broadphase_sorted"]]
+        + [(b + (K, cfg.broadphase_window), {}) for b in bcases.values()],
+        "solver_warm": [main["solver_warm"], sleepy_warm],
     }
+    live = {name: int(broadphase_cuda.broadphase_exact(*b, K)[1].sum())
+            for name, b in bcases.items()}
+    print("broadphase cases (pieces, live B6 slots): " + json.dumps(
+        {name: [b[0].shape[0], live[name]] for name, b in bcases.items()}), flush=True)
     results = {}
     for name in PHYS_KERNELS:
         err = 0.0
@@ -642,54 +881,51 @@ def physics_kernel_phase(card):
             err = max(err, PHYS_COMPARE[name](a, kw))
         torch.cuda.synchronize()
         a, kw = main[name]
-        ms = event_ms(lambda: PHYS_KERNEL_FN[name](a, kw))
-        plain_ms = event_ms(lambda: PHYS_PLAIN[name](a, kw), warmup=1)
-        b_ms, b_by = physics_bound(name, a, kw, calls[name][2])
+        ms = event_ms(lambda: PHYS_KERNEL_FN[name](*a, **kw))
+        plain_ms = event_ms(lambda: PHYS_PLAIN[name](*a, **kw), warmup=1)
+        out = PHYS_KERNEL_FN[name](*a, **kw)
+        b_ms, b_by = physics_bound(name, a, kw, out)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by}
-        print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})  ({card})", flush=True)
+        extra = ""
+        if name == "broadphase_exact":
+            glue_ms = event_ms(lambda: broadphase_cuda.exact_glue(*a[:5]))
+            results[name]["glue_ms"] = glue_ms
+            tests, pairs = sweep_tests(a), overlap_pairs(a)
+            results[name].update(sweep_tests=tests, overlap_pairs=pairs)
+            extra = (f" (glue {glue_ms:.4f} ms of it; {tests} candidate tests for {pairs} "
+                     "overlapping pairs)")
+        print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms{extra}  plain {plain_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})  ({len(cases[name])} cases; {card})", flush=True)
     return results
 
 
 def physics_main_path(card):
-    """Phase 8: the main path, launch counts per step. Returns the counts
-    and the scene one step before the end (contact rich)."""
+    """Phase 8: the main path through the user's entry point, launch counts
+    per step. Returns the counts and the scene one step before the end
+    (contact rich)."""
     cfg = workload.PHYSICS_CFG
-    mods = [m for m, *_ in PHYS_KERNELS.values()]
-    want = tuple(v[3] for v in PHYS_KERNELS.values())
-    per_step, keep = [], {}
-    prev_asleep = [False]
+    keep = {}
     with StepRecorder() as rec:
+        check = LaunchCheck("physics main path", cfg, launches_a_step())
+
         def on_step(i, scene):
-            per_step.append((tuple(m.launches for m in mods), prev_asleep[0]))
-            prev_asleep[0] = all_asleep(scene, cfg)
+            check(i, scene)
             if i == workload.PHYSICS_STEPS - 2:
                 keep["before_last"] = scene
-        for m in mods:
-            m.launches = 0
         final = workload.run_physics(workload.PHYSICS_STEPS, "cuda", on_step=on_step)
         torch.cuda.synchronize()
-        counts = {name: v[0].launches for name, v in PHYS_KERNELS.items()}
+        counts = launch_counts()
         last_prep = rec.last.get("prep")
-    prev = (0,) * len(mods)
-    skipped = 0
-    for i, (c, was_asleep) in enumerate(per_step):
-        delta = tuple(x - y for x, y in zip(c, prev))
-        prev = c
-        if delta == (0,) * len(mods) and was_asleep:
-            skipped += 1
-        elif delta != want:
-            fail(f"physics step {i}: launches {delta}, expected {want}")
     print(f"physics main path (cuda): launches {json.dumps(counts)}, "
-          f"{skipped} all-asleep steps skipped", flush=True)
-    if any(v == 0 for v in counts.values()):
-        fail("a physics kernel was never launched on the main path")
+          f"{check.skipped} all-asleep steps skipped", flush=True)
+    if any(counts[k] == 0 for k, v in launches_a_step().items() if v):
+        fail("a physics kernel of the main path was never launched")
     b = final.bodies
     for f in ("x", "q", "v", "w"):
         if not bool(torch.isfinite(getattr(b, f)).all()):
             fail(f"physics state {f} is not finite after {workload.PHYSICS_STEPS} steps")
-    if last_prep is None or per_step[-1][0] == per_step[-2][0]:
+    if last_prep is None or not check.ran_last:
         fail(f"step {workload.PHYSICS_STEPS} did not run (all asleep): no contact to check")
     pair_hits, ground_hits = hit_counts(last_prep)
     print(f"step {workload.PHYSICS_STEPS}: pair hit slots {pair_hits}, ground hit slots "
@@ -704,7 +940,7 @@ def _stage_diffs(g, c):
     """Largest difference per stage between two recorded steps."""
     def d(x, y):
         x = x.cpu()
-        same = x == y
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y))
         return float(torch.where(same, 0.0, (x - y).abs()).max()) if x.numel() else 0.0
     return {
         "pack": d(g["pack"][2][0], c["pack"][2][0]),
@@ -758,29 +994,87 @@ def physics_cpu_compare(steps: int = 30):
         print(f"cuda and cpu runs first differ at step {first[0]}: per stage "
               f"{json.dumps(first[1])}", flush=True)
     if not (dx <= 2e-4 and dv <= 2e-3 and abs(hg - hc) <= 0.01 * max(hc, 1)):
-        fail(f"cuda and cpu runs differ beyond x 2e-4, v 2e-3 or 1% of hit slots")
+        fail("cuda and cpu runs differ beyond x 2e-4, v 2e-3 or 1% of hit slots")
     return dx, dv
 
 
-def physics_timing(state, card, runs: int = 3, reps: int = 10):
-    """Phase 10: ms per step over the 64-step run (host clock, synchronize
-    at the end, / 64; median of ``runs`` runs from the fresh lattice), the
-    stage split of one contact-rich step by CUDA events (median of
-    ``reps``), and the device idle share under torch.profiler."""
-    cfg = workload.PHYSICS_CFG
-    n = workload.PHYSICS_STEPS
-    lattice = workload.physics_lattice(device="cuda")
+def physics_variants(card):
+    """Phases (a)-(e): each path beside the main one from a scene built on
+    the CPU and copied to the card, launch counts per step; (c) must warn;
+    for (d) and (e) the CPU scene is then stepped through the plain path
+    and compared with the card's state after as many steps (x 2e-4, v
+    2e-3; warm start also its pairs and feature ids exactly and its
+    impulses within 2e-3). Returns per path its launches, its start scene
+    on the CPU and its final scene on the card."""
+    out = {}
+    for name, (build, cfg, steps, cmp_steps, want) in VARIANTS.items():
+        t0 = time.perf_counter()
+        start = build()
+        built_s = time.perf_counter() - t0
+        sg = _to_device(start, "cuda")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            check = LaunchCheck(f"physics path {name}", cfg, want)
+            for i in range(steps):
+                sg = phys_step.physics_step(sg, cfg)
+                check(i, sg)
+                if i + 1 == cmp_steps:
+                    cg = sg
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        degraded = [w for w in caught if issubclass(w.category, phys_step.RecallDegradedWarning)]
+        if bool(degraded) != (name == "c_auto_66k"):
+            fail(f"physics path {name}: RecallDegradedWarning raised {len(degraded)} times")
+        b = sg.bodies
+        if not all(bool(torch.isfinite(getattr(b, f)).all()) for f in ("x", "q", "v", "w")):
+            fail(f"physics path {name}: the state is not finite after {steps} steps")
+        line = (f"physics path {name}: Np {start.Np}, B {start.B}, {steps} steps (scene built in "
+                f"{built_s:.1f} s), launches {json.dumps(counts)}, {check.skipped} skipped")
+        if degraded:
+            line += f", warned: {str(degraded[0].message)[:60]}..."
+        if cmp_steps:
+            sc = start
+            for _ in range(cmp_steps):
+                sc = phys_step.physics_step(sc, cfg)
+            dx = float((cg.bodies.x.cpu() - sc.bodies.x).abs().max())
+            dv = float((cg.bodies.v.cpu() - sc.bodies.v).abs().max())
+            line += f"; vs cpu plain after {cmp_steps} steps: max |dx| {dx:.3e}, max |dv| {dv:.3e}"
+            ok = dx <= 2e-4 and dv <= 2e-3
+            if cfg.warm_start:
+                dl = float((cg.warm_lam.cpu() - sc.warm_lam).abs().max())
+                same = (torch.equal(cg.warm_pair.cpu(), sc.warm_pair)
+                        and torch.equal(cg.warm_fid.cpu(), sc.warm_fid))
+                line += f", warm pairs and ids equal {same}, max |dλ| {dl:.3e}"
+                ok = ok and same and dl <= 2e-3
+                if not float(sc.warm_lam.abs().max()) > 0:
+                    fail(f"physics path {name}: no warm impulse was carried")
+            if not ok:
+                print(line, flush=True)
+                fail(f"physics path {name}: card and cpu runs differ beyond the stated bounds")
+        print(line, flush=True)
+        out[name] = (counts, start, sg)
+    return out
+
+
+def steps_ms(start, cfg, steps: int, runs: int = 3) -> tuple[float, list]:
+    """ms per step over ``steps`` steps from a copy of ``start`` on the card
+    (host clock, synchronize at the end); median of ``runs`` runs after one
+    warm-up run."""
     per_run = []
     for _ in range(runs + 1):
-        s = lattice
+        s = _to_device(start, "cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(n):
+        for _ in range(steps):
             s = phys_step.physics_step(s, cfg)
         torch.cuda.synchronize()
-        per_run.append((time.perf_counter() - t0) * 1e3 / n)
-    step_ms = statistics.median(per_run[1:])
+        per_run.append((time.perf_counter() - t0) * 1e3 / steps)
+    return statistics.median(per_run[1:]), per_run[1:]
 
+
+def stage_split(state, cfg, reps: int = 10) -> dict:
+    """Median ms per stage of one step from ``state`` (CUDA events at the
+    step's stage marks)."""
     split = {k: [] for k in STAGES}
     for r in range(reps + 2):
         marks = []
@@ -799,7 +1093,29 @@ def physics_timing(state, card, runs: int = 3, reps: int = 10):
             if r >= 2:
                 split[name].append(prev.elapsed_time(e))
             prev = e
-    stages = {k: statistics.median(v) for k, v in split.items() if v}
+    return {k: statistics.median(v) for k, v in split.items() if v}
+
+
+def physics_timing(state, variants, card, runs: int = 3):
+    """Phase 10: ms per step over the 64-step main path run (host clock,
+    synchronize at the end, / 64; median of ``runs`` runs from the fresh
+    lattice), the stage split of one contact-rich step by CUDA events, the
+    device idle share under torch.profiler; ms per step of paths (b), (d)
+    and (e), and the splits of a contact-rich step of (d) and (e)."""
+    cfg = workload.PHYSICS_CFG
+    n = workload.PHYSICS_STEPS
+    lattice = workload.physics_lattice(device="cuda")
+    per_run = []
+    for _ in range(runs + 1):
+        s = lattice
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            s = phys_step.physics_step(s, cfg)
+        torch.cuda.synchronize()
+        per_run.append((time.perf_counter() - t0) * 1e3 / n)
+    step_ms = statistics.median(per_run[1:])
+    stages = stage_split(state, cfg)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -823,8 +1139,8 @@ def physics_timing(state, card, runs: int = 3, reps: int = 10):
         entries += e.count
     busy = busy_us / steps / 1e3
     idle = (1.0 - busy / wall) if busy > 0 else None
-    print(f"physics 10k lattice: {step_ms:.3f} ms/step (median of {runs} runs of {n} steps, "
-          f"host clock; {card})", flush=True)
+    print(f"physics 10k lattice (bench.py:207, \"auto\"): {step_ms:.3f} ms/step (median of {runs} "
+          f"runs of {n} steps, host clock; {card})", flush=True)
     print("physics stage split, one contact-rich step (CUDA events, ms): "
           + json.dumps({k: round(v, 4) for k, v in stages.items()}), flush=True)
     if idle is None:
@@ -832,8 +1148,22 @@ def physics_timing(state, card, runs: int = 3, reps: int = 10):
     else:
         print(f"physics idle share {idle:.3f}: device busy {busy:.3f} ms of {wall:.3f} ms per "
               f"step under the profiler, {entries / steps:.0f} device entries per step", flush=True)
-    return {"step_ms": step_ms, "per_run_ms": per_run[1:], "stages_ms": stages,
-            "idle_share": idle, "busy_ms": busy, "profiled_wall_ms": wall}
+    out = {"step_ms": step_ms, "per_run_ms": per_run[1:], "stages_ms": stages,
+           "idle_share": idle, "busy_ms": busy, "profiled_wall_ms": wall}
+    for name in ("b_sorted", "d_warm", "e_pairs"):
+        _, vcfg, vsteps, _, _ = VARIANTS[name]
+        ms, runs_ms = steps_ms(variants[name][1], vcfg, vsteps, runs)
+        out[f"{name}_step_ms"] = ms
+        print(f"physics path {name}: {ms:.3f} ms/step (median of {runs} runs of {vsteps} steps "
+              f"from the start scene, host clock; runs {[round(x, 3) for x in runs_ms]}; {card})",
+              flush=True)
+    for name, what in (("d_warm", "prep holds B8, the warm matching and the pre-apply"),
+                       ("e_pairs", "the solver is plain PyTorch")):
+        split = stage_split(variants[name][2], VARIANTS[name][1])
+        out[f"{name}_stages_ms"] = split
+        print(f"physics path {name} stage split, one contact-rich step (CUDA events, ms; {what}): "
+              + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    return out
 
 
 def main():
@@ -844,6 +1174,7 @@ def main():
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    t_start = time.perf_counter()
 
     # 2. Build.
     t0 = time.perf_counter()
@@ -880,8 +1211,9 @@ def main():
               flush=True)
 
     # 4. Main path on the card, counting launches.
-    for mod, *_ in list(KERNELS.values()) + list(PHYS_KERNELS.values()):
+    for mod, *_ in KERNELS.values():
         mod.launches = 0
+    reset_counts()
     pieces, ctx, met = run_prepare("cuda")
     torch.cuda.synchronize()
     counts = {name: KERNELS[name][0].launches for name in KERNELS}
@@ -890,6 +1222,8 @@ def main():
     for name, (_, _, _, want) in KERNELS.items():
         if counts[name] != want:
             fail(f"{name} launched {counts[name]} times on the main path, expected {want}")
+    if any(launch_counts().values()):
+        fail(f"the decomposition launched physics kernels: {json.dumps(launch_counts())}")
     if int(gpu["piece_cnt"]) != 1024:
         fail(f"piece_cnt {gpu['piece_cnt']} != 1024")
     if abs(gpu["total_volume"] - 27.005) >= 0.05:
@@ -915,37 +1249,34 @@ def main():
     print(f"prepare_fracture cube 1k: median {ms_event:.3f} ms/event ({card})", flush=True)
 
     # 7. Physics kernels against their plain versions on the main path's
-    # inputs (the last of the 64 steps) and degenerate cases.
+    # inputs (the last of the 64 steps; the warm solver's of a warm-start
+    # run) and degenerate cases.
     phys = physics_kernel_phase(card)
 
     # 8. Physics main path on the card, counting launches.
-    for mod, *_ in list(KERNELS.values()) + list(PHYS_KERNELS.values()):
-        mod.launches = 0
     phys_counts, before_last = physics_main_path(card)
 
     # 9. The same lattice through the plain path on the CPU.
     physics_cpu_compare(30)
 
-    # 10. Timing.
-    timing = physics_timing(before_last, card)
+    # (a)-(e). The other paths of physics_step.
+    variants = physics_variants(card)
 
+    # 10. Timing.
+    timing = physics_timing(before_last, variants, card)
+
+    path_counts = {"broadphase_sorted": ("b_sorted", variants["b_sorted"][0]),
+                   "solver_warm": ("d_warm", variants["d_warm"][0])}
     kernels = [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": src,
-            "replaces": rep,
-            "launches": cnt[name],
-            "max_abs_err": res[name]["max_abs_err"],
-            "ms": res[name]["ms"],
-            "plain_ms": res[name]["plain_ms"],
-            "bound_ms": res[name]["bound_ms"],
-            "bound_by": res[name]["bound_by"],
-            "library_ms": None,
-        }
-        for table, cnt, res in ((KERNELS, counts, results), (PHYS_KERNELS, phys_counts, phys))
-        for name, (_, src, rep, *_) in table.items()
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": "decomposition",
+         "launches": counts[name], **results[name], "library_ms": None}
+        for name, (_, src, rep, _) in KERNELS.items()
     ]
+    for name, (_, _, src, rep, _) in PHYS_KERNELS.items():
+        path, cnt = path_counts.get(name, ("physics main", phys_counts))
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "path": path, "launches": cnt[name], **phys[name], "library_ms": None})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels, "event_ms": ms_event, "physics": timing,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,10 +66,16 @@ __global__ void narrow_kernel(const float* __restrict__ packed, const int* __res
     jm[v] = J[3 * VH + v] > 0.5f;
   }
 
-  // Running least penetration over the axis families, first of ties.
+  // Running least penetration over the axis families, first of ties. A
+  // masked axis counts BIG, or NaN when its penetration is not finite (an
+  // edge axis against a piece with no live corner); a NaN axis leaves the
+  // pair's depth NaN and its normal 0 (the JAX kernel's pen·mask +
+  // (1 - mask)·BIG, min and one-hot pick).
   float depth = 0.f, nx = 0.f, ny = 0.f, nz = 0.f;
-  bool first = true;
-  auto axis = [&](float pen, float dx, float dy, float dz) {
+  bool first = true, undefined = false;
+  auto axis = [&](bool live, float pen, float dx, float dy, float dz) {
+    if (!live) pen = isfinite(pen) ? BIG : NAN;
+    if (isnan(pen)) { undefined = true; return; }
     if (first || pen < depth) { depth = pen; nx = dx; ny = dy; nz = dz; first = false; }
   };
 
@@ -79,7 +85,7 @@ __global__ void narrow_kernel(const float* __restrict__ packed, const int* __res
     const float ilo = I[LOD + a], ihi = I[HID + a], jlo = J[LOD + a], jhi = J[HID + a];
     const float ov = fminf(ihi, jhi) - fmaxf(ilo, jlo);
     const float s = (ihi + ilo) < (jhi + jlo) ? -1.0f : 1.0f;
-    axis(ov, s * dop[a * 3 + 0], s * dop[a * 3 + 1], s * dop[a * 3 + 2]);
+    axis(true, ov, s * dop[a * 3 + 0], s * dop[a * 3 + 1], s * dop[a * 3 + 2]);
   }
 
   // (2) i's corners against j's planes; containment of i's corners in j.
@@ -96,7 +102,7 @@ __global__ void narrow_kernel(const float* __restrict__ packed, const int* __res
       if (im[v]) mn = fminf(mn, dist);
       if (live) ins_j[v] = fmaxf(ins_j[v], dist);
     }
-    axis(live ? -mn : BIG, px, py, pz);
+    axis(live, -mn, px, py, pz);
   }
   // (3) j's corners against i's planes.
   for (int f = 0; f < F; ++f) {
@@ -109,7 +115,7 @@ __global__ void narrow_kernel(const float* __restrict__ packed, const int* __res
       if (jm[v]) mn = fminf(mn, dist);
       if (live) ins_i[v] = fmaxf(ins_i[v], dist);
     }
-    axis(live ? -mn : BIG, -px, -py, -pz);
+    axis(live, -mn, -px, -py, -pz);
   }
   // (4) edge x edge cross axes, i's edge major.
   for (int a = 0; a < NE; ++a) {
@@ -134,9 +140,10 @@ __global__ void narrow_kernel(const float* __restrict__ packed, const int* __res
       }
       const float ov = fminf(ihi, jhi) - fmaxf(ilo, jlo);
       const float s = (ihi + ilo) < (jhi + jlo) ? -1.0f : 1.0f;
-      axis(live ? ov : BIG, cx * s, cy * s, cz * s);
+      axis(live, ov, cx * s, cy * s, cz * s);
     }
   }
+  if (undefined) { depth = NAN; nx = 0.f; ny = 0.f; nz = 0.f; }
   const bool hit = (pok[p] != 0) && (depth > -slop) && (depth < HALF_BIG);
 
   // Containment manifold.

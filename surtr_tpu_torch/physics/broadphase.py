@@ -1,9 +1,11 @@
-"""Exact broadphase (counterpart of ``surtr_tpu/physics/step.py``
-``_broadphase``, the XLA blocked full-recall sweep, and the ``pidx[pidx]``
-mutual mask). Plain PyTorch on both devices.
+"""The broadphases that are plain PyTorch on both devices (counterparts of
+``surtr_tpu/physics/step.py``): ``block_sweep``, the XLA blocked
+full-recall sweep ``_broadphase``; ``morton`` and ``morton_window_sweep``,
+the XLA Morton-window sweep ``_broadphase_sorted`` (the plain version of
+kernel B12, ``broadphase_cuda``); and the ``pidx[pidx]`` mutual mask.
 
-Contract, as the JAX package's ``jax.lax.top_k`` over the score row
-``where(ok, -d², -BIG)`` gives it: each piece lists the K nearest pieces
+The exact sweep's contract, as the JAX package's ``jax.lax.top_k`` over the
+score row ``where(ok, -d², -BIG)`` gives it: each piece lists the K nearest pieces
 whose margin AABBs overlap its own (other owner, both valid, not itself),
 nearest first with ties to the lower index; when fewer than K overlap, the
 remaining slots hold the lowest-index non-overlapping pieces (pok false).
@@ -20,8 +22,10 @@ import torch
 
 from surtr_tpu_torch.ops.linalg import dot3
 
+BIG = 3.4e38
 
-def broadphase_exact(centers, lo, hi, owner, valid, K: int, block: int):
+
+def block_sweep(centers, lo, hi, owner, valid, K: int, block: int):
     """centers/lo/hi (Np, 3), owner (Np,), valid (Np,) → (pidx (Np, K) i32,
     pok (Np, K) bool)."""
     Np = centers.shape[0]
@@ -71,3 +75,64 @@ def mutual(pidx: torch.Tensor, pok: torch.Tensor) -> torch.Tensor:
     Np = pidx.shape[0]
     me = torch.arange(Np, device=pidx.device)[:, None, None]
     return pok & torch.any(pidx.long()[pidx.long()] == me, dim=-1)
+
+
+def morton(centers: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """30-bit Morton code of the centers quantized to 1024 steps on one
+    uniform scale (the largest valid extent); invalid rows get 0x7FFFFFFF
+    so that they sort last. The JAX package's ``step._morton``."""
+    vm = valid[:, None]
+    lo = torch.amin(torch.where(vm, centers, BIG), dim=0)
+    hi = torch.amax(torch.where(vm, centers, -BIG), dim=0)
+    ext = torch.clamp(torch.amax(hi - lo), min=1e-6)
+    q = torch.where(vm, (centers - lo) / ext * 1023.0, 0.0)
+    q = torch.clamp(q.to(torch.int32), 0, 1023)
+
+    def spread(x):  # 10 bits → every third bit
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        return (x | (x << 2)) & 0x09249249
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    return torch.where(valid, code, 0x7FFFFFFF).to(torch.int32)
+
+
+def window_deltas(window: int) -> list[int]:
+    """The candidate order of the Morton-window sweep: +1..+W, then -1..-W."""
+    return list(range(1, window + 1)) + [-d for d in range(1, window + 1)]
+
+
+def morton_window_sweep(centers, lo, hi, owner, valid, K: int, window: int):
+    """Morton-window broadphase (the JAX package's ``step._broadphase_sorted``):
+    pieces sorted by Morton code (stable); sorted lane r tests lanes r ± d,
+    d = 1..W, inside [0, Np) with the exact AABB test (both valid, other
+    owner) and keeps the K best by -d², ties and filler to the earliest
+    delta. Returns (pidx, pok) in original piece order, not yet mutual;
+    a filler slot names the piece at the clamped rank r + d."""
+    Np = centers.shape[0]
+    dev = centers.device
+    deltas = window_deltas(window)
+    if K > len(deltas):
+        raise ValueError(f"morton_window_sweep: K={K} > 2·window={len(deltas)}")
+    order = torch.sort(morton(centers, valid), stable=True).indices
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(Np, device=dev)
+    f = centers.dtype
+    pack = torch.cat([centers, lo, hi, owner[:, None].to(f), valid[:, None].to(f)], 1)[order]
+    r = torch.arange(Np, device=dev)
+    rank = r[:, None] + torch.tensor(deltas, device=dev)[None, :]      # (Np, 2W)
+    in_rng = (rank >= 0) & (rank < Np)
+    cand = pack[torch.clamp(rank, 0, Np - 1)]                         # (Np, 2W, 11)
+    c_s, lo_s, hi_s = pack[:, None, 0:3], pack[:, None, 3:6], pack[:, None, 6:9]
+    over = torch.all((lo_s <= cand[..., 6:9]) & (cand[..., 3:6] <= hi_s), dim=-1)
+    ok = (over & in_rng & (cand[..., 10] > 0.5) & (pack[:, None, 10] > 0.5)
+          & (cand[..., 9] != pack[:, None, 9]))
+    diff = c_s - cand[..., 0:3]
+    d2 = dot3(diff, diff)
+    score = torch.where(ok, -d2, -BIG)
+    s = torch.sort(score, dim=1, descending=True, stable=True)
+    top, kidx = s.values[:, :K], s.indices[:, :K]
+    part_rank = torch.clamp(torch.gather(rank, 1, kidx), 0, Np - 1)
+    pidx = order[part_rank].to(torch.int32)
+    return pidx[inv], (top > -BIG / 2)[inv]

@@ -1,0 +1,247 @@
+"""The two broadphase kernels with device dispatch.
+
+* ``broadphase_exact`` (kernel B6, ``csrc/broadphase_exact.cu``; replaces
+  ``surtr_tpu/physics/broadphase_pallas.py`` ``_bp_exact_kernel`` via
+  ``broadphase_exact_pallas``): full-recall sweep-and-prune. For each
+  valid piece i, the K smallest unique keys ``(q(d²) << ID_BITS) | j``
+  over every valid j of another owner whose margin AABB overlaps i's
+  (d² of centers normalized to the valid extent, q its truncation to
+  31 - ID_BITS bits), and θᵢ, the K-th key (IMAX when fewer than K).
+  Returns ``pidx = key & ID_MASK`` (empty slots: ID_MASK, beyond Np),
+  ``pok = key != IMAX`` (not yet mutual) and ``(key_ji, θ)`` for
+  ``apply_theta_mutual``.
+* ``broadphase_sorted`` (kernel B12, ``csrc/broadphase_sorted.cu``;
+  replaces ``_bp_kernel`` via ``broadphase_sorted_pallas``): the
+  Morton-window sweep of ``broadphase.morton_window_sweep`` with the mutual
+  mask applied.
+
+The plain versions (``*_reference``) run for CPU tensors; for CUDA tensors
+the wrappers launch the kernel or raise. B6's glue (sweep axis, stable sort,
+chunk unions and chunk ranges) and B12's (Morton codes, stable sort) stay
+in PyTorch and make no host sync.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from surtr_tpu_torch import _build
+from surtr_tpu_torch.physics.broadphase import morton, morton_window_sweep, mutual
+
+BIG = 3.4e38
+IMAX = 0x7FFFFFFF
+# Largest pool the exact sweep takes, as in the JAX package: beyond it the
+# keys' id field (ID_BITS) would leave the quantized d² fewer than 14 bits,
+# and "auto" degrades to the Morton window with a RecallDegradedWarning.
+MAX_EXACT_NP = 65536
+MAX_K = 16          # the kernels keep their K best in registers
+CHUNK = 128         # B6: rows per candidate chunk and pieces per block (CH in the kernel)
+
+exact_launches = 0   # kernel launches since the last reset (main-path proof)
+sorted_launches = 0
+
+
+def id_bits(Np: int) -> int:
+    """Bits of the piece-id field of B6's keys: ids 0..Np-1 stay unique."""
+    return max(14, (max(Np, 2) - 1).bit_length())
+
+
+def _quant(Np: int):
+    """(ID_BITS, QMAX, QS): d² ≤ 3 on normalized centers maps to
+    [0, QMAX]; QS is QMAX / 3 rounded once to float32."""
+    bits = id_bits(Np)
+    qmax = float((1 << (31 - bits)) - 1)
+    qs = float(torch.tensor(qmax / 3.0, dtype=torch.float32))
+    return bits, qmax, qs
+
+
+def _normalized(centers, valid):
+    """Centers mapped by (c - wlo) / ext, the valid extent's low corner and
+    largest side; and the per-axis valid extents."""
+    vm = valid[:, None]
+    wlo = torch.amin(torch.where(vm, centers, BIG), dim=0)
+    whi = torch.amax(torch.where(vm, centers, -BIG), dim=0)
+    ext = torch.clamp(torch.amax(whi - wlo), min=1e-6)
+    return (centers - wlo) / ext, whi - wlo
+
+
+def _outputs(best, bits: int):
+    """(pidx, pok, (key_ji, θ)) from the ascending K best keys per piece."""
+    Np = best.shape[0]
+    mask = (1 << bits) - 1
+    me = torch.arange(Np, dtype=torch.int32, device=best.device)[:, None]
+    key_ji = (best & ~mask) | me
+    return best & mask, best != IMAX, (key_ji, best[:, -1].contiguous())
+
+
+def broadphase_exact_reference(centers, lo, hi, owner, valid, K: int, block: int = 512):
+    """Plain version of B6: the same keys computed directly, a block of rows
+    against every piece, then the K smallest (keys are unique, so no tie
+    order arises). Returns what ``broadphase_exact`` returns."""
+    Np = centers.shape[0]
+    dev = centers.device
+    bits, qmax, qs = _quant(Np)
+    cn, _ = _normalized(centers, valid)
+    ids = torch.arange(Np, dtype=torch.int32, device=dev)
+    best = []
+    for r0 in range(0, Np, block):
+        r1 = min(r0 + block, Np)
+        over = torch.all((lo[None] <= hi[r0:r1, None]) & (lo[r0:r1, None] <= hi[None]), dim=-1)
+        ok = (over & valid[r0:r1, None] & valid[None] & (owner[r0:r1, None] != owner[None])
+              & (ids[r0:r1, None] != ids[None]))
+        da = cn[None, :, :] - cn[r0:r1, None, :]      # candidate minus own, as the kernel
+        d2 = (da[..., 0] * da[..., 0] + da[..., 1] * da[..., 1]) + da[..., 2] * da[..., 2]
+        q = torch.clamp(d2 * qs, max=qmax).to(torch.int32)
+        keys = torch.where(ok, (q << bits) | ids[None], IMAX)
+        kk = min(K, Np)
+        top = torch.topk(keys, kk, dim=1, largest=False, sorted=True).values
+        if kk < K:
+            top = torch.cat([top, torch.full((r1 - r0, K - kk), IMAX, dtype=torch.int32,
+                                             device=dev)], 1)
+        best.append(top)
+    best = torch.cat(best) if best else torch.full((0, K), IMAX, dtype=torch.int32, device=dev)
+    return _outputs(best, bits)
+
+
+def exact_glue(centers, lo, hi, owner, valid):
+    """B6's inputs, built on the device without a host sync: the sweep axis
+    (largest valid extent, first of ties; x when nothing is valid), the
+    stable sort along it with invalid rows last, the (Np_pad, 16) sorted
+    piece table [normalized center 3 | lo 3 | hi 3 | owner | valid | id |
+    0 × 4], per-chunk AABB unions of valid rows (NCH, 6) and each CHUNK-piece
+    block's contiguous chunk range [lo, hi) (NCH, 2) from the prefix-max /
+    suffix-min envelopes of the chunks' sweep-axis intervals (every chunk
+    holding an overlap of the block lies inside it)."""
+    Np = centers.shape[0]
+    dev = centers.device
+    f = centers.dtype
+    cn, extent = _normalized(centers, valid)
+    axis = torch.where(torch.any(valid), torch.argmax(extent), 0).reshape(1)
+    cx = centers.index_select(1, axis)[:, 0]
+    order = torch.sort(torch.where(valid, cx, BIG), stable=True).indices
+    pack = torch.cat([cn, lo, hi, owner[:, None].to(f), valid[:, None].to(f),
+                      torch.arange(Np, dtype=f, device=dev)[:, None],
+                      torch.zeros((Np, 4), dtype=f, device=dev)], 1)[order]
+    NCH = max(-(-Np // CHUNK), 1)       # chunks, and blocks: one chunk is one block
+    Np_pad = NCH * CHUNK
+    packR = torch.cat([pack, torch.zeros((Np_pad - Np, 16), dtype=f, device=dev)])
+    v_s = torch.cat([valid[order], torch.zeros(Np_pad - Np, dtype=torch.bool, device=dev)])
+    vm = v_s[:, None]
+    cab = torch.cat([torch.amin(torch.where(vm, packR[:, 3:6], BIG).reshape(NCH, CHUNK, 3), 1),
+                     torch.amax(torch.where(vm, packR[:, 6:9], -BIG).reshape(NCH, CHUNK, 3), 1)],
+                    1).contiguous()
+    lox = packR.index_select(1, axis + 3)[:, 0]
+    hix = packR.index_select(1, axis + 6)[:, 0]
+    v_ch = v_s.reshape(NCH, CHUNK)
+    c_hix = torch.amax(torch.where(v_ch, hix.reshape(NCH, CHUNK), -BIG), 1)
+    c_lox = torch.amin(torch.where(v_ch, lox.reshape(NCH, CHUNK), BIG), 1)
+    prefmax_hi = torch.cummax(c_hix, 0).values.contiguous()
+    sufmin_lo = (-torch.cummax(-c_lox.flip(0), 0).values).flip(0).contiguous()
+    # A block is a chunk, so its sweep-axis interval is the chunk's own.
+    lo_ch = torch.searchsorted(prefmax_hi, c_lox)
+    hi_ch = torch.searchsorted(sufmin_lo, c_hix, right=True)
+    rng = torch.stack([torch.clamp(lo_ch, max=NCH), torch.clamp(hi_ch, max=NCH)], 1)
+    return packR.contiguous(), cab, rng.to(torch.int32).contiguous()
+
+
+def _check_inputs(name, centers, lo, hi, owner, valid, K):
+    Np = centers.shape[0]
+    for t in (centers, lo, hi):
+        if t.dtype != torch.float32 or t.shape != (Np, 3):
+            raise ValueError(f"{name}: centers, lo, hi must be (Np, 3) float32")
+    if owner.shape != (Np,) or valid.shape != (Np,) or valid.dtype != torch.bool:
+        raise ValueError(f"{name}: owner (Np,) and valid (Np,) bool")
+    if any(t.device != centers.device for t in (lo, hi, owner, valid)):
+        raise TypeError(f"{name} takes tensors on one device")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"{name}: the kernel keeps K ≤ {MAX_K} best, got K={K}")
+
+
+def _exact_kernel(centers, lo, hi, owner, valid, K):
+    global exact_launches
+    Np = centers.shape[0]
+    dev = centers.device
+    _check_inputs("broadphase_exact kernel", centers, lo, hi, owner, valid, K)
+    bits, qmax, qs = _quant(Np)
+    pidx = torch.empty((Np, K), dtype=torch.int32, device=dev)
+    pok = torch.empty((Np, K), dtype=torch.bool, device=dev)
+    key_ji = torch.empty((Np, K), dtype=torch.int32, device=dev)
+    theta = torch.empty((Np,), dtype=torch.int32, device=dev)
+    if Np == 0:
+        return pidx, pok, (key_ji, theta)
+    packR, cab, rng = exact_glue(centers, lo, hi, owner, valid)
+    fn = _build.bind("surtr_broadphase_exact", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                     + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5)
+    rc = fn(packR.data_ptr(), cab.data_ptr(), rng.data_ptr(), Np, rng.shape[0], K, bits,
+            qs, qmax, pidx.data_ptr(), pok.data_ptr(), key_ji.data_ptr(), theta.data_ptr(),
+            _build.stream_ptr(dev))
+    _build.check(rc, "surtr_broadphase_exact")
+    exact_launches += 1
+    return pidx, pok, (key_ji, theta)
+
+
+def broadphase_exact(centers, lo, hi, owner, valid, K: int):
+    """Full-recall broadphase: (pidx (Np, K) i32, pok (Np, K) bool, (key_ji
+    (Np, K) i32, θ (Np,) i32)); the kernel for CUDA tensors, the plain
+    version for CPU tensors. Np ≤ MAX_EXACT_NP."""
+    Np = centers.shape[0]
+    if Np > MAX_EXACT_NP:
+        raise ValueError(f"broadphase_exact takes Np <= {MAX_EXACT_NP}, got {Np}")
+    if centers.is_cuda:
+        return _exact_kernel(centers, lo, hi, owner, valid, K)
+    if centers.device.type != "cpu":
+        raise ValueError(f"broadphase_exact: unsupported device {centers.device}")
+    return broadphase_exact_reference(centers, lo, hi, owner, valid, K)
+
+
+def apply_theta_mutual(pidx, pok, mut):
+    """Mutual mask of B6's result: j selected i ⇔ key(d², i) ≤ θ_j."""
+    key_ji, theta = mut
+    Np = theta.shape[0]
+    return pok & (key_ji <= theta[torch.clamp(pidx.long(), 0, Np - 1)])
+
+
+def broadphase_sorted_reference(centers, lo, hi, owner, valid, K: int, window: int):
+    """Plain version of B12: the Morton-window sweep, then the mutual mask
+    ``any(pidx[pidx] == i)``. (pidx, pok) in original order."""
+    pidx, pok = morton_window_sweep(centers, lo, hi, owner, valid, K, window)
+    return pidx, mutual(pidx, pok)
+
+
+def _sorted_kernel(centers, lo, hi, owner, valid, K, window):
+    global sorted_launches
+    Np = centers.shape[0]
+    dev = centers.device
+    _check_inputs("broadphase_sorted kernel", centers, lo, hi, owner, valid, K)
+    if K > 2 * window:
+        raise ValueError(f"broadphase_sorted: K={K} > 2·window={2 * window}")
+    if window > 128:
+        raise ValueError(f"broadphase_sorted kernel takes window <= 128, got {window}")
+    pidx = torch.empty((Np, K), dtype=torch.int32, device=dev)
+    pok = torch.empty((Np, K), dtype=torch.bool, device=dev)
+    if Np == 0:
+        return pidx, pok
+    order = torch.sort(morton(centers, valid), stable=True).indices
+    f = centers.dtype
+    pack = torch.cat([centers, lo, hi, owner[:, None].to(f), valid[:, None].to(f)],
+                     1)[order].contiguous()
+    order32 = order.to(torch.int32)
+    fn = _build.bind("surtr_broadphase_sorted", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p] * 3)
+    rc = fn(pack.data_ptr(), order32.data_ptr(), Np, K, window, pidx.data_ptr(),
+            pok.data_ptr(), _build.stream_ptr(dev))
+    _build.check(rc, "surtr_broadphase_sorted")
+    sorted_launches += 1
+    return pidx, pok
+
+
+def broadphase_sorted(centers, lo, hi, owner, valid, K: int, window: int):
+    """Morton-window broadphase, mutual: (pidx (Np, K) i32, pok (Np, K)
+    bool); the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if centers.is_cuda:
+        return _sorted_kernel(centers, lo, hi, owner, valid, K, window)
+    if centers.device.type != "cpu":
+        raise ValueError(f"broadphase_sorted: unsupported device {centers.device}")
+    return broadphase_sorted_reference(centers, lo, hi, owner, valid, K, window)

@@ -104,11 +104,18 @@ def narrowphase_reference(packed, pidx, pok, Vh: int, F: int, Ne: int, M: int, s
         msks.append(emk)
         dirs.append(torch.stack([t * se for t in c], -1))
 
-    pen_all = torch.where(torch.cat(msks, -1), torch.cat(pens, -1), BIG)
-    a = torch.argmin(pen_all, dim=-1, keepdim=True)              # first of ties
-    depth = torch.gather(pen_all, -1, a)[..., 0]
+    # A masked axis counts BIG, but NaN where its penetration is not finite
+    # (an edge axis against a piece with no live corner: -inf): the JAX
+    # kernel masks by pen·mask + (1 - mask)·BIG. Any NaN axis makes the pair
+    # depth NaN and its normal 0, as the kernel's min and one-hot pick do.
+    pens, msk = torch.cat(pens, -1), torch.cat(msks, -1)
+    pen_all = torch.where(msk, pens, torch.where(torch.isfinite(pens), BIG, float("nan")))
+    undefined = torch.isnan(pen_all).any(-1)
+    a = torch.argmin(torch.nan_to_num(pen_all, nan=BIG), dim=-1, keepdim=True)   # first of ties
+    depth = torch.where(undefined, float("nan"), torch.gather(pen_all, -1, a)[..., 0])
     dir_all = torch.cat(dirs, -2)
     n = torch.gather(dir_all, -2, a[..., None].expand(Np, K, 1, 3))[..., 0, :]
+    n = torch.where(undefined[..., None], 0.0, n)
     hit = pok & (depth > -slop) & (depth < BIG / 2)
 
     # Containment manifold, deepest first.

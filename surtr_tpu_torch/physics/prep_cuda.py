@@ -33,13 +33,9 @@ import ctypes
 import torch
 
 from surtr_tpu_torch import _build
+from surtr_tpu_torch.physics.slots import expand_slots, slot_sum, tangent_basis
 
 launches = 0  # kernel launches since the last reset (main-path proof)
-
-
-def _expand(block: torch.Tensor, M: int, G: int) -> torch.Tensor:
-    """(Np, K) per-pair values → (Np, C): tiled over M, zero ground slots."""
-    return torch.cat([block.repeat(1, M), block.new_zeros((block.shape[0], G))], dim=1)
 
 
 def prep_contacts_reference(pt3, dh, pn3, btf, own, *, K: int, M: int, G: int, dt: float,
@@ -51,11 +47,11 @@ def prep_contacts_reference(pt3, dh, pn3, btf, own, *, K: int, M: int, G: int, d
     ptx, pty, ptz = pt3[:, :C], pt3[:, C : 2 * C], pt3[:, 2 * C :]
     dep, hit = dh[:, :C], dh[:, C:]
     ground = (torch.arange(C, device=pt3.device) >= K * M).to(pt3.dtype).expand(Np, C)
-    nx = _expand(pn3[:, :K], M, G)
-    ny = _expand(pn3[:, K : 2 * K], M, G) + ground
-    nz = _expand(pn3[:, 2 * K :], M, G)
+    nx = expand_slots(pn3[:, :K], M, G)
+    ny = expand_slots(pn3[:, K : 2 * K], M, G) + ground
+    nz = expand_slots(pn3[:, 2 * K :], M, G)
 
-    bf = [_expand(btf[:, i * K : (i + 1) * K], M, G) for i in range(20)]
+    bf = [expand_slots(btf[:, i * K : (i + 1) * K], M, G) for i in range(20)]
     xBx, xBy, xBz, iBm = bf[0], bf[1], bf[2], bf[3]
     iB = bf[4:13]
     vB0x, vB0y, vB0z, wB0x, wB0y, wB0z = bf[13:19]
@@ -145,3 +141,32 @@ def prep_contacts(pt3, dh, pn3, btf, own, *, K: int, M: int, G: int, dt: float, 
     return prep_contacts_reference(pt3, dh, pn3, btf, own, K=K, M=M, G=G, dt=dt, slop=slop,
                                    baumgarte=baumgarte, restitution=restitution,
                                    bounce_thr=bounce_thr)
+
+
+def warm_preapply(v0, w0, lam0, tables, *, C: int):
+    """The matched warm impulse λn·n̂ + λu·û + λv·v̂ applied to the start
+    velocities before the accumulated-mode iterations, with the solver's
+    own mass-splitting scales and tangent basis (the JAX package's
+    ``prep_and_solve`` warm branch). lam0 (Np, C, 3); ``tables`` are B8's
+    outputs. Returns (v0, w0, lam0 masked to hit slots). Plain PyTorch on
+    both devices, summed in slot order."""
+    rA, _, nrm, _, hs, scale, iAI = tables[:7]
+    hit = hs[:, :C]
+    lam0 = lam0 * (hit > 0.5).to(lam0.dtype)[..., None]
+    nx, ny, nz = nrm[:, :C], nrm[:, C : 2 * C], nrm[:, 2 * C :]
+    (ux, uy, uz), (vx, vy, vz) = tangent_basis(nx, ny, nz)
+    ln, lu, lv = lam0[..., 0], lam0[..., 1], lam0[..., 2]
+    ix = (ln * nx + lu * ux) + lv * vx
+    iy = (ln * ny + lu * uy) + lv * vy
+    iz = (ln * nz + lu * uz) + lv * vz
+    rAx, rAy, rAz = rA[:, :C], rA[:, C : 2 * C], rA[:, 2 * C :]
+    m_s, s_s = scale[:, 0:1], scale[:, 1:2]
+    II = [iAI[:, i : i + 1] for i in range(9)]
+    v0 = v0 + m_s * torch.cat([slot_sum(ix), slot_sum(iy), slot_sum(iz)], dim=1)
+    tqx = slot_sum(rAy * iz - rAz * iy)
+    tqy = slot_sum(rAz * ix - rAx * iz)
+    tqz = slot_sum(rAx * iy - rAy * ix)
+    w0 = w0 + s_s * torch.cat([(II[0] * tqx + II[1] * tqy) + II[2] * tqz,
+                               (II[3] * tqx + II[4] * tqy) + II[5] * tqz,
+                               (II[6] * tqx + II[7] * tqy) + II[8] * tqz], dim=1)
+    return v0, w0, lam0

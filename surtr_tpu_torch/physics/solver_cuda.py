@@ -14,6 +14,8 @@ State ``vw`` (Np, 8) = [v(3) | w(3) | wake | 0]. The tables are B8's
 outputs (``prep_cuda``). ``solve`` runs ceil(iters / substeps) iterations;
 on CUDA tensors each is one kernel launch reading one state buffer and
 writing another, so no block sees a partner's update of the same iteration.
+``solve_warm`` is the accumulated-impulse mode of warm start: the per-slot
+totals (Np, 3C) = [λn | λu | λv] ride along, ping-ponged like the state.
 """
 
 from __future__ import annotations
@@ -24,38 +26,10 @@ import torch
 
 from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.linalg import sqrt_rn
-from surtr_tpu_torch.physics.prep_cuda import _expand
+from surtr_tpu_torch.physics.slots import expand_slots, slot_sum, tangent_basis
 
-launches = 0  # kernel launches since the last reset (main-path proof)
-
-
-def tangent_basis(nx, ny, nz):
-    """Deterministic tangent basis (û, v̂) of unit normals given
-    componentwise: û = normalize(e × n) with e the axis of n's smallest
-    component (first of ties), v̂ = n × û. The warm-start frame of the JAX
-    package's accumulated solver mode."""
-    ax, ay, az = torch.abs(nx), torch.abs(ny), torch.abs(nz)
-    ex = ((ax <= ay) & (ax <= az)).to(nx.dtype)
-    ey = ((ay < ax) & (ay <= az)).to(nx.dtype)
-    ez = 1.0 - ex - ey
-    ux = ey * nz - ez * ny
-    uy = ez * nx - ex * nz
-    uz = ex * ny - ey * nx
-    ul = sqrt_rn((ux * ux + uy * uy) + uz * uz)
-    inv = 1.0 / torch.clamp(ul, min=1e-12)
-    ux, uy, uz = ux * inv, uy * inv, uz * inv
-    vx = ny * uz - nz * uy
-    vy = nz * ux - nx * uz
-    vz = nx * uy - ny * ux
-    return (ux, uy, uz), (vx, vy, vz)
-
-
-def _slot_sum(x: torch.Tensor) -> torch.Tensor:
-    """(Np, C) → (Np, 1), summed slot by slot from 0 (the kernel's order)."""
-    s = torch.zeros_like(x[:, :1])
-    for c in range(x.shape[1]):
-        s = s + x[:, c : c + 1]
-    return s
+launches = 0       # kernel launches since the last reset (main-path proof)
+warm_launches = 0  # launches of the accumulated (warm-start) mode
 
 
 def solver_iteration_reference(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: int, M: int,
@@ -69,7 +43,7 @@ def solver_iteration_reference(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: in
     meff, targ = mt[:, :C], mt[:, C:]
     hit, stat = hs[:, :C], hs[:, C:]
     pv = vw[pb.long()]                                   # (Np, K, 8)
-    pvx, pvy, pvz, pwx, pwy, pwz, pwake = (_expand(pv[:, :, i], M, G) for i in range(7))
+    pvx, pvy, pvz, pwx, pwy, pwz, pwake = (expand_slots(pv[:, :, i], M, G) for i in range(7))
     live = 1.0 - stat
     vBx = live * (pvx + (pwy * rBz - pwz * rBy))
     vBy = live * (pvy + (pwz * rBx - pwx * rBz))
@@ -93,10 +67,10 @@ def solver_iteration_reference(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: in
         ix = hit * (lam_n * nx - lam_t * vtx * inv_vt)
         iy = hit * (lam_n * ny - lam_t * vty * inv_vt)
         iz = hit * (lam_n * nz - lam_t * vtz * inv_vt)
-        sx, sy, sz = _slot_sum(ix), _slot_sum(iy), _slot_sum(iz)
-        tqx = _slot_sum(rAy * iz - rAz * iy)
-        tqy = _slot_sum(rAz * ix - rAx * iz)
-        tqz = _slot_sum(rAx * iy - rAy * ix)
+        sx, sy, sz = slot_sum(ix), slot_sum(iy), slot_sum(iz)
+        tqx = slot_sum(rAy * iz - rAz * iy)
+        tqy = slot_sum(rAz * ix - rAx * iz)
+        tqz = slot_sum(rAx * iy - rAy * ix)
         dwx = s_s * ((II[0] * tqx + II[1] * tqy) + II[2] * tqz)
         dwy = s_s * ((II[3] * tqx + II[4] * tqy) + II[5] * tqz)
         dwz = s_s * ((II[6] * tqx + II[7] * tqy) + II[8] * tqz)
@@ -106,8 +80,67 @@ def solver_iteration_reference(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: in
     return torch.cat(v + w + [wake, torch.zeros_like(wake)], dim=1)
 
 
-def _kernel(vw, pb, tables, K, M, G, substeps, mu):
-    global launches
+def solver_iteration_warm_reference(vw, lam, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: int,
+                                    M: int, G: int, substeps: int, mu: float):
+    """Plain version of one outer iteration in the accumulated-impulse mode
+    (warm start): ``lam`` (Np, 3C) = [λn | λu | λv] totals per slot; the
+    normal clamp acts on λn, friction on (λu, λv) in the tangent basis,
+    rescaled into the cone μ·λn. Returns ((Np, 8) state, (Np, 3C) lam)."""
+    C = K * M + G
+    split3 = lambda t: (t[:, :C], t[:, C : 2 * C], t[:, 2 * C :])  # noqa: E731
+    rAx, rAy, rAz = split3(rA)
+    rBx, rBy, rBz = split3(rB)
+    nx, ny, nz = split3(nrm)
+    meff, targ = mt[:, :C], mt[:, C:]
+    hit, stat = hs[:, :C], hs[:, C:]
+    acc_n, acc_u, acc_v = split3(lam)
+    (ux, uy, uz), (wx, wy, wz) = tangent_basis(nx, ny, nz)
+    pv = vw[pb.long()]                                   # (Np, K, 8)
+    pvx, pvy, pvz, pwx, pwy, pwz, pwake = (expand_slots(pv[:, :, i], M, G) for i in range(7))
+    live = 1.0 - stat
+    vBx = live * (pvx + (pwy * rBz - pwz * rBy))
+    vBy = live * (pvy + (pwz * rBx - pwx * rBz))
+    vBz = live * (pvz + (pwx * rBy - pwy * rBx))
+    m_s, s_s = scale[:, 0:1], scale[:, 1:2]
+    II = [iAI[:, i : i + 1] for i in range(9)]
+    v = [vw[:, i : i + 1] for i in range(3)]
+    w = [vw[:, 3 + i : 4 + i] for i in range(3)]
+    for _ in range(max(1, substeps)):
+        vrx = (v[0] + (w[1] * rAz - w[2] * rAy)) - vBx
+        vry = (v[1] + (w[2] * rAx - w[0] * rAz)) - vBy
+        vrz = (v[2] + (w[0] * rAy - w[1] * rAx)) - vBz
+        vn = (vrx * nx + vry * ny) + vrz * nz
+        dlam = -(vn - targ) * meff
+        lam_new = torch.clamp(acc_n + dlam, min=0.0) * hit
+        lam_n = lam_new - acc_n
+        vtu = (vrx * ux + vry * uy) + vrz * uz
+        vtv = (vrx * wx + vry * wy) + vrz * wz
+        lu = (acc_u - vtu * meff) * hit
+        lv = (acc_v - vtv * meff) * hit
+        tl = sqrt_rn(lu * lu + lv * lv)
+        cone = mu * lam_new
+        scl = torch.where(tl > cone, cone / torch.clamp(tl, min=1e-12), 1.0)
+        lu, lv = lu * scl, lv * scl
+        imp_u, imp_v = lu - acc_u, lv - acc_v
+        acc_n, acc_u, acc_v = lam_new, lu, lv
+        ix = hit * ((lam_n * nx + imp_u * ux) + imp_v * wx)
+        iy = hit * ((lam_n * ny + imp_u * uy) + imp_v * wy)
+        iz = hit * ((lam_n * nz + imp_u * uz) + imp_v * wz)
+        sx, sy, sz = slot_sum(ix), slot_sum(iy), slot_sum(iz)
+        tqx = slot_sum(rAy * iz - rAz * iy)
+        tqy = slot_sum(rAz * ix - rAx * iz)
+        tqz = slot_sum(rAx * iy - rAy * ix)
+        dwx = s_s * ((II[0] * tqx + II[1] * tqy) + II[2] * tqz)
+        dwy = s_s * ((II[3] * tqx + II[4] * tqy) + II[5] * tqz)
+        dwz = s_s * ((II[6] * tqx + II[7] * tqy) + II[8] * tqz)
+        v = [v[0] + m_s * sx, v[1] + m_s * sy, v[2] + m_s * sz]
+        w = [w[0] + dwx, w[1] + dwy, w[2] + dwz]
+    wake = torch.maximum(vw[:, 6:7], torch.amax(hit * live * pwake, dim=1, keepdim=True))
+    return (torch.cat(v + w + [wake, torch.zeros_like(wake)], dim=1),
+            torch.cat([acc_n, acc_u, acc_v], dim=1))
+
+
+def _check_tables(vw, pb, tables, K, M, G):
     Np = vw.shape[0]
     C = K * M + G
     dev = vw.device
@@ -122,6 +155,48 @@ def _kernel(vw, pb, tables, K, M, G, substeps, mu):
     pbi = pb.to(torch.int32).contiguous()
     if pbi.shape != (Np, K) or pbi.device != dev:
         raise ValueError("solver kernel: partner index must be (Np, K) on the state's device")
+    return v_in, pbi, tabs
+
+
+def _warm_kernel(vw, lam, pb, tables, K, M, G, substeps, mu):
+    global warm_launches
+    Np = vw.shape[0]
+    C = K * M + G
+    v_in, pbi, tabs = _check_tables(vw, pb, tables, K, M, G)
+    l_in = lam.contiguous()
+    if l_in.dtype != torch.float32 or l_in.shape != (Np, 3 * C) or l_in.device != vw.device:
+        raise ValueError("solver kernel: accumulators must be (Np, 3C) float32")
+    out, l_out = torch.empty_like(v_in), torch.empty_like(l_in)
+    if Np == 0:
+        return out, l_out
+    fn = _build.bind("surtr_solver_iter_warm", [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(v_in.data_ptr(), pbi.data_ptr(), *[t.data_ptr() for t in tabs], l_in.data_ptr(),
+            out.data_ptr(), l_out.data_ptr(), Np, K, M, G, max(1, substeps), float(mu),
+            _build.stream_ptr(vw.device))
+    _build.check(rc, "surtr_solver_iter_warm")
+    warm_launches += 1
+    return out, l_out
+
+
+def solver_iteration_warm(vw, lam, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: int, M: int,
+                          G: int, substeps: int, mu: float):
+    """One outer iteration in the accumulated mode: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if vw.is_cuda:
+        return _warm_kernel(vw, lam, pb, (rA, rB, nrm, mt, hs, scale, iAI), K, M, G, substeps,
+                            mu)
+    if vw.device.type != "cpu":
+        raise ValueError(f"solver_iteration_warm: unsupported device {vw.device}")
+    return solver_iteration_warm_reference(vw, lam, pb, rA, rB, nrm, mt, hs, scale, iAI, K=K,
+                                           M=M, G=G, substeps=substeps, mu=mu)
+
+
+def _kernel(vw, pb, tables, K, M, G, substeps, mu):
+    global launches
+    Np = vw.shape[0]
+    dev = vw.device
+    v_in, pbi, tabs = _check_tables(vw, pb, tables, K, M, G)
     out = torch.empty_like(v_in)
     if Np == 0:
         return out
@@ -164,3 +239,26 @@ def solve(vw0, pb, tables, *, K: int, M: int, G: int, iters: int, substeps: int,
     """ceil(iters / substeps) outer iterations from state ``vw0``; ``tables``
     = (rA, rB, n, mt, hs, scale, iAI) from B8. Returns the final (Np, 8)."""
     return _iterate(solver_iteration, vw0, pb, tables, K, M, G, iters, substeps, mu)
+
+
+def _iterate_warm(iteration, vw0, lam0, pb, tables, K, M, G, iters, substeps, mu):
+    S = max(1, substeps)
+    vw, lam = vw0, lam0
+    for _ in range((iters + S - 1) // S):
+        vw, lam = iteration(vw, lam, pb, *tables, K=K, M=M, G=G, substeps=S, mu=mu)
+    return vw, lam
+
+
+def solve_warm_reference(vw0, lam0, pb, tables, *, K: int, M: int, G: int, iters: int,
+                         substeps: int, mu: float):
+    """Plain version of ``solve_warm`` (every iteration plain, on any device)."""
+    return _iterate_warm(solver_iteration_warm_reference, vw0, lam0, pb, tables, K, M, G, iters,
+                         substeps, mu)
+
+
+def solve_warm(vw0, lam0, pb, tables, *, K: int, M: int, G: int, iters: int, substeps: int,
+               mu: float):
+    """``solve`` in the accumulated mode from accumulators ``lam0`` (Np, 3C)
+    = [λn | λu | λv]. Returns ((Np, 8) state, (Np, 3C) accumulators)."""
+    return _iterate_warm(solver_iteration_warm, vw0, lam0, pb, tables, K, M, G, iters, substeps,
+                         mu)

@@ -1,78 +1,110 @@
-"""The rigid-body step, single-piece fast path (counterpart of
-``surtr_tpu/physics/step.py``: the fused path of ``_physics_step_body``
-with ``_fused_prep_solve``, ``_finish_step`` and ``_integrate``).
+"""The rigid-body step (counterpart of ``surtr_tpu/physics/step.py``
+``physics_step`` as the JAX package runs it on its kernels: the fused path
+of ``_physics_step_body`` with ``_fused_prep_solve`` for single-piece
+bodies, ``_assemble_and_solve`` for compound bodies, ``_finish_step`` and
+``_integrate``).
 
 One call is one fixed ``cfg.dt`` step:
   1. world transforms, 26-DOP intervals and AABBs in one pass (kernel B5);
-  2. exact broadphase (``broadphase.py``) made mutual;
+  2. broadphase, mutual pairs only, dispatched as the JAX package does on
+     its kernels: "auto" takes the exact block sweep (``broadphase.py``)
+     up to ``broadphase_block`` pieces, the sweep-and-prune B6 up to
+     ``MAX_EXACT_NP`` and beyond that the Morton window B12 with a
+     ``RecallDegradedWarning``; "exact", "exact_pallas" and "sorted" pick
+     one of the three;
   3. pair narrowphase: SAT normal, depth and an M-point manifold (B7);
      ground contacts: the G deepest corners below ``ground_y``;
-  4. contact prep (B8), then ceil(iters / substeps) Jacobi solver
-     iterations (B9), the island-wake flag riding along;
+  4. single-piece bodies (row i is body i): contact prep (B8), the matched
+     warm impulses under ``warm_start``, then ceil(iters / substeps)
+     Jacobi iterations (B9, accumulated mode under ``warm_start``), the
+     island-wake flag riding along. Compound bodies: slot assembly and the
+     Jacobi solver in plain PyTorch with per-body segment sums, as the JAX
+     package runs them in XLA on every device;
   5. sleep bookkeeping and symplectic Euler with quaternion
      renormalization.
 
-Every body owns one piece (row i is body i). On CUDA tensors the four
-kernels run; on CPU tensors their plain versions. What the JAX package does
-off this path raises ``NotImplementedError`` naming the ROADMAP item.
+On CUDA tensors the kernels run; on CPU tensors their plain versions. What
+the JAX package does off these paths raises ``NotImplementedError`` naming
+the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
 from surtr_tpu_torch.config import PhysicsConfig
-from surtr_tpu_torch.ops.linalg import dot3
-from surtr_tpu_torch.physics.broadphase import broadphase_exact, mutual
+from surtr_tpu_torch.ops.hull import _cross
+from surtr_tpu_torch.ops.linalg import dot3, matvec3, sqrt_rn
+from surtr_tpu_torch.physics.broadphase import block_sweep, mutual
+from surtr_tpu_torch.physics.broadphase_cuda import (MAX_EXACT_NP, apply_theta_mutual,
+                                                     broadphase_exact, broadphase_sorted)
 from surtr_tpu_torch.physics.narrowphase_cuda import narrowphase
 from surtr_tpu_torch.physics.pack_cuda import transform_pack
-from surtr_tpu_torch.physics.prep_cuda import prep_contacts
+from surtr_tpu_torch.physics.prep_cuda import prep_contacts, warm_preapply
 from surtr_tpu_torch.physics.rigid import quat_integrate, world_inv_inertia
 from surtr_tpu_torch.physics.scene import PhysicsScene
-from surtr_tpu_torch.physics.solver_cuda import solve
+from surtr_tpu_torch.physics.slots import slot_sum
+from surtr_tpu_torch.physics.solver_cuda import solve, solve_warm
 
 BIG = 3.4e38
 
 
-def _check_slice(scene: PhysicsScene, cfg: PhysicsConfig, profile_stage: int) -> None:
-    """Raise for every configuration the port does not run yet."""
+class RecallDegradedWarning(UserWarning):
+    """broadphase="auto" beyond ``MAX_EXACT_NP`` pieces falls back to the
+    Morton-window sweep, which can miss overlapping pairs: the fallback is
+    made loud."""
+
+
+def _check_slice(cfg: PhysicsConfig, profile_stage: int) -> None:
+    """Raise for every configuration the port does not run."""
     if profile_stage != 99:
         raise NotImplementedError(
             "physics_step: profile_stage truncation is not ported (ROADMAP A14, profiling)")
-    if not (cfg.pallas_narrowphase and cfg.fused_prep):
-        raise NotImplementedError(
-            "physics_step: the XLA narrowphase and unfused prep (_assemble_and_solve) are not "
-            "ported (ROADMAP A9)")
-    if not (cfg.single_piece_bodies and scene.Np == scene.B):
-        raise NotImplementedError(
-            "physics_step: compound bodies (_assemble_and_solve, segment sums) are not ported "
-            "(ROADMAP A9)")
-    if cfg.warm_start:
-        raise NotImplementedError(
-            "physics_step: warm start and the solver's accumulated mode are not ported "
-            "(ROADMAP A9)")
+    for flag in ("pallas_narrowphase", "fused_prep", "pallas_broadphase"):
+        if not getattr(cfg, flag):
+            raise NotImplementedError(
+                f"physics_step: {flag}=False picks the JAX package's XLA formulation of a "
+                "function a ported kernel computes; not ported (ROADMAP A9)")
+
+
+def _broadphase_mode(cfg: PhysicsConfig, Np: int) -> str:
     mode = cfg.broadphase
     if mode == "auto":
-        mode = "exact" if scene.Np <= cfg.broadphase_block else "exact_pallas"
-    if mode != "exact":
-        missing = {
-            "exact_pallas": "the Pallas sweep-and-prune, kernel B6 (ROADMAP B6)",
-            "sorted": "the Morton-window sweep, kernel B12 (ROADMAP B12)",
-            "grid": "the uniform-grid sweep, which the port leaves out (ROADMAP A, Leave out)",
-        }.get(mode, "an unknown broadphase")
+        if Np <= cfg.broadphase_block:
+            return "exact"
+        if Np <= MAX_EXACT_NP:
+            return "exact_pallas"
+        warnings.warn(
+            f"broadphase='auto' with Np={Np} > MAX_EXACT_NP={MAX_EXACT_NP}: falling back to "
+            "the Morton-window sweep, which can MISS overlapping pairs on dense piles. Set "
+            "broadphase='sorted' to acknowledge, or 'exact' for full recall at higher cost.",
+            RecallDegradedWarning, stacklevel=3)
+        mode = "sorted"
+    if mode == "grid":
         raise NotImplementedError(
-            f"physics_step: broadphase={cfg.broadphase!r} at Np={scene.Np} needs {missing}, "
-            "not ported; broadphase='exact' runs the exact block sweep")
+            "physics_step: broadphase='grid' needs the uniform-grid sweep, which the port "
+            "leaves out (ROADMAP A, Leave out)")
+    if mode not in ("exact", "exact_pallas", "sorted"):
+        raise NotImplementedError(f"physics_step: unknown broadphase {cfg.broadphase!r}")
+    if mode == "sorted" and cfg.max_neighbors > 2 * cfg.broadphase_window:
+        raise NotImplementedError(
+            f"physics_step: broadphase='sorted' with K={cfg.max_neighbors} > 2·window="
+            f"{2 * cfg.broadphase_window} takes the JAX package's XLA window sweep; not "
+            "ported (ROADMAP A9)")
+    return mode
 
 
 def physics_step(scene: PhysicsScene, cfg: PhysicsConfig, profile_stage: int = 99,
                  mark=None) -> PhysicsScene:
     """One fixed step. ``mark``, when given, is called with each stage's name
     as the stage's work has been issued (pack, broadphase, narrowphase,
-    glue, prep, solver, finish), for stage timing."""
-    _check_slice(scene, cfg, profile_stage)
+    glue, prep, solver, finish; compound bodies have no prep stage), for
+    stage timing."""
+    _check_slice(cfg, profile_stage)
+    mode = _broadphase_mode(cfg, scene.Np)
     if cfg.sleep_velocity > 0 and cfg.skip_all_asleep:
         # Nothing inside the step can wake a scene whose every active body
         # sleeps (a wake needs a moving contact): the step is the identity.
@@ -80,7 +112,19 @@ def physics_step(scene: PhysicsScene, cfg: PhysicsConfig, profile_stage: int = 9
         asleep = (scene.sleep_frames >= cfg.sleep_frames) | ~b.active
         if bool(torch.all(asleep) & torch.any(b.active)):
             return scene
-    return _step_body(scene, cfg, mark or (lambda name: None))
+    return _step_body(scene, cfg, mode, mark or (lambda name: None))
+
+
+def _broadphase(mode, cfg: PhysicsConfig, centers, lo, hi, owner, valid):
+    """(pidx (Np, K) i32, pok (Np, K) bool), mutual pairs only."""
+    K = cfg.max_neighbors
+    if mode == "exact":
+        pidx, pok = block_sweep(centers, lo, hi, owner, valid, K, cfg.broadphase_block)
+        return pidx, mutual(pidx, pok)
+    if mode == "exact_pallas":
+        pidx, pok, mut = broadphase_exact(centers, lo, hi, owner, valid, K)
+        return pidx, apply_theta_mutual(pidx, pok, mut)
+    return broadphase_sorted(centers, lo, hi, owner, valid, K, cfg.broadphase_window)
 
 
 def _ground_contacts(cfg: PhysicsConfig, wverts, wmask, pvalid):
@@ -105,14 +149,25 @@ def _wake_seed(v0, w0, active, cfg: PhysicsConfig):
     return ((speed2 > cfg.wake_speed ** 2) & active).to(v0.dtype)
 
 
-def _step_body(scene: PhysicsScene, cfg: PhysicsConfig, mark) -> PhysicsScene:
+def _start_velocities(scene: PhysicsScene, cfg: PhysicsConfig):
+    """(asleep_in, v0, w0): the bodies asleep at the start, and the start
+    velocities with gravity on awake dynamic bodies."""
+    bodies = scene.bodies
+    if cfg.sleep_velocity > 0:
+        asleep_in = (scene.sleep_frames >= cfg.sleep_frames) & bodies.active
+    else:
+        asleep_in = torch.zeros_like(bodies.active)
+    gravity = torch.tensor([0.0, cfg.gravity, 0.0], dtype=bodies.v.dtype, device=bodies.v.device)
+    grav_on = (bodies.inv_mass > 0) & ~asleep_in
+    return asleep_in, bodies.v + cfg.dt * gravity * grav_on[:, None], bodies.w
+
+
+def _step_body(scene: PhysicsScene, cfg: PhysicsConfig, mode: str, mark) -> PhysicsScene:
     bodies = scene.bodies
     Np = scene.Np
-    K, G = cfg.max_neighbors, cfg.max_ground_contacts
     M = max(1, cfg.manifold_points)
     Ne = max(cfg.max_edge_dirs, 0)
     Vh, Fp = scene.piece_verts.shape[1], scene.piece_planes.shape[1]
-    f32 = scene.piece_verts.dtype
     owner = torch.clamp(scene.piece_owner, 0, scene.B - 1).long()
     pvalid = scene.piece_valid & (scene.piece_owner >= 0)
 
@@ -124,40 +179,63 @@ def _step_body(scene: PhysicsScene, cfg: PhysicsConfig, mark) -> PhysicsScene:
     )
     mark("pack")
 
-    # 2. Exact broadphase, mutual pairs only.
-    pidx, pok = broadphase_exact(aabb[:, 6:9], aabb[:, 0:3], aabb[:, 3:6], scene.piece_owner,
-                                 pvalid, K, cfg.broadphase_block)
-    pok = mutual(pidx, pok)
+    # 2. Broadphase, mutual pairs only.
+    pidx, pok = _broadphase(mode, cfg, aabb[:, 6:9], aabb[:, 0:3], aabb[:, 3:6],
+                            scene.piece_owner, pvalid)
     mark("broadphase")
 
-    # 3. Pair narrowphase (B7).
+    # 3. Pair narrowphase (B7) and the ground contacts.
     raw = narrowphase(packed, pidx, pok, Vh, Fp, Ne, M, cfg.contact_slop)   # (Np, K, 5+6M)
     mark("narrowphase")
-
-    # Ground contacts and the prep tables (slot = m·K + k, then G ground).
     wverts = packed[:, : 3 * Vh].reshape(Np, 3, Vh).transpose(1, 2)
-    g_pts, gd, g_hit = _ground_contacts(cfg, wverts, scene.piece_vmask, pvalid)
+    ground = _ground_contacts(cfg, wverts, scene.piece_vmask, pvalid)
 
-    def slots(r):  # manifold row r of every point → (Np, M·K)
-        return raw[:, :, r::6].permute(0, 2, 1).reshape(Np, M * K)
+    if cfg.single_piece_bodies and Np == scene.B:
+        return _fused_prep_solve(scene, cfg, raw, pidx, ground, mark)
+    return _assemble_and_solve(scene, cfg, raw, pidx, owner, ground, mark)
 
-    val, mh, px, py, pz = (slots(r) for r in range(5, 10))
+
+def _slot_rows(raw, r: int, M: int):
+    """Row r of every manifold point of the (Np, K, 5+6M) records →
+    (Np, M·K), slot = m·K + k."""
+    Np, K = raw.shape[:2]
+    return raw[:, :, r::6][:, :, :M].permute(0, 2, 1).reshape(Np, M * K)
+
+
+def _warm_match(scene: PhysicsScene, pidx, fid, K: int, M: int, G: int):
+    """The previous step's accumulated impulses carried to this step's slots
+    by (partner, feature id): one dense (Np, M, K, M', K') compare. Returns
+    (Np, C, 3), zero on ground slots and unmatched slots."""
+    Np = pidx.shape[0]
+    wp = scene.warm_pair                                   # (Np, K')
+    wf = scene.warm_fid.reshape(Np, M, K)                  # (Np, M', K')
+    wl = scene.warm_lam.reshape(Np, M, K, 3)
+    fidc = fid.reshape(Np, M, K)
+    pm = (pidx[:, :, None] == wp[:, None, :]) & (wp >= 0)[:, None, :]          # (Np, K, K')
+    fm = (fidc[:, :, :, None, None] == wf[:, None, None, :, :]) & (fidc > 0)[..., None, None]
+    sel = fm & pm[:, None, :, None, :]
+    lam = torch.sum(torch.where(sel[..., None], wl[:, None, None], 0.0), dim=(3, 4))
+    return torch.cat([lam.reshape(Np, M * K, 3), lam.new_zeros((Np, G, 3))], dim=1)
+
+
+def _fused_prep_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, ground, mark):
+    """Single-piece bodies: prep (B8) and the solver iterations (B9)."""
+    bodies = scene.bodies
+    Np, K = pidx.shape
+    M, G = max(1, cfg.manifold_points), cfg.max_ground_contacts
+    C = K * M + G
+    f32 = raw.dtype
+    g_pts, gd, g_hit = ground
+
+    # Prep tables (slot = m·K + k, then G ground).
+    val, mh, px, py, pz = (_slot_rows(raw, r, M) for r in range(5, 10))
     pn3 = raw[:, :, 0:3].permute(0, 2, 1).reshape(Np, 3 * K)
     pt3 = torch.cat([px, g_pts[..., 0], py, g_pts[..., 1], pz, g_pts[..., 2]], dim=1)
     dh = torch.cat([torch.clamp(val, min=0.0), torch.clamp(gd, min=0.0), mh, g_hit.to(f32)],
                    dim=1)
-
-    dt = cfg.dt
     inv_m = bodies.inv_mass
     inv_I = world_inv_inertia(bodies.q, bodies.inv_inertia_body).reshape(Np, 9)
-    if cfg.sleep_velocity > 0:
-        asleep_in = (scene.sleep_frames >= cfg.sleep_frames) & bodies.active
-    else:
-        asleep_in = torch.zeros_like(bodies.active)
-    gravity = torch.tensor([0.0, cfg.gravity, 0.0], dtype=f32, device=bodies.x.device)
-    grav_on = (inv_m > 0) & ~asleep_in
-    v0 = bodies.v + dt * gravity * grav_on[:, None]
-    w0 = bodies.w
+    asleep_in, v0, w0 = _start_velocities(scene, cfg)
     btab = torch.cat([bodies.x, inv_m[:, None], inv_I, v0, w0, asleep_in.to(f32)[:, None]],
                      dim=1)                                                     # (Np, 20)
     pb = torch.clamp(pidx.long(), 0, Np - 1)
@@ -168,37 +246,197 @@ def _step_body(scene: PhysicsScene, cfg: PhysicsConfig, mark) -> PhysicsScene:
 
     # 4. Contact prep (B8) and the solver iterations (B9).
     *tables, vn0 = prep_contacts(
-        pt3, dh, pn3, btf, own, K=K, M=M, G=G, dt=dt, slop=cfg.contact_slop,
+        pt3, dh, pn3, btf, own, K=K, M=M, G=G, dt=cfg.dt, slop=cfg.contact_slop,
         baumgarte=cfg.baumgarte, restitution=cfg.restitution, bounce_thr=cfg.bounce_threshold,
     )
-    mark("prep")
-    vw0 = torch.cat([v0, w0, wake0[:, None], torch.zeros_like(wake0[:, None])], dim=1)
-    vw = solve(vw0, pb, tables, K=K, M=M, G=G, iters=cfg.solver_iters,
-               substeps=cfg.solver_substeps, mu=cfg.dynamic_friction)
+    kw = dict(K=K, M=M, G=G, iters=cfg.solver_iters, substeps=cfg.solver_substeps,
+              mu=cfg.dynamic_friction)
+    warm = None
+    if cfg.warm_start:
+        fid = _slot_rows(raw, 10, M).to(torch.int32)
+        v0, w0, lam0 = warm_preapply(v0, w0, _warm_match(scene, pidx, fid, K, M, G), tables,
+                                     C=C)
+        mark("prep")
+        vw0 = torch.cat([v0, w0, wake0[:, None], torch.zeros_like(wake0[:, None])], dim=1)
+        vw, lam = solve_warm(vw0, lam0.permute(0, 2, 1).reshape(Np, 3 * C), pb, tables, **kw)
+        MK = M * K
+        lam_pairs = torch.stack([lam[:, :MK], lam[:, C : C + MK], lam[:, 2 * C : 2 * C + MK]], -1)
+        warm = (pidx, fid, lam_pairs.reshape(Np, MK * 3))
+    else:
+        mark("prep")
+        vw0 = torch.cat([v0, w0, wake0[:, None], torch.zeros_like(wake0[:, None])], dim=1)
+        vw = solve(vw0, pb, tables, **kw)
     mark("solver")
 
-    C = K * M + G
     hs = tables[4]
-    out = _finish_step(scene, vw[:, 0:3], vw[:, 3:6], cfg, vn0, hs[:, :C] > 0.5,
-                       hs[:, C:] > 0.5, vw[:, 6] > 0.5)
+    out = _finish_step(scene, vw[:, 0:3], vw[:, 3:6], cfg, vn0, hs[:, :C] > 0.5, hs[:, C:] > 0.5,
+                       wake_prop=vw[:, 6] > 0.5, warm=warm)
     mark("finish")
     return out
 
 
-def _finish_step(scene, v1, w1, cfg: PhysicsConfig, vn0, hit, is_static, wake_prop):
-    """Sleep bookkeeping (single-piece bodies) + stage-5 integration."""
+def _segment_sums(vals: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
+    """Per-body sums of piece rows (pieces sorted by owner): a float32
+    cumsum down the rows, then the difference at the segment ends, as the
+    JAX package computes them (no scatter); (Np, D) → (B, D). PyTorch's
+    float32 cumsum accumulates in float64 on the CPU and in float32 on the
+    card, so CPU and card runs part by a few ulps
+    (``tools/segment_sums_precision.py`` measures it)."""
+    csum = torch.cat([torch.zeros_like(vals[:1]), torch.cumsum(vals, dim=0)])
+    seg = seg_start.long()
+    return csum[seg[1:]] - csum[seg[:-1]]
+
+
+def _segment_any(flags: torch.Tensor, myb: torch.Tensor, B: int) -> torch.Tensor:
+    """(B,) bool: any piece flag per owner body (segment max)."""
+    out = torch.zeros((B,), dtype=torch.int32, device=flags.device)
+    return out.scatter_reduce(0, myb, flags.to(torch.int32), "amax") > 0
+
+
+def _assemble_and_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, owner, ground, mark):
+    """Compound bodies: (Np, C) slot assembly, sleeping partners made
+    static, and the Jacobi solver over body velocities with mass splitting
+    and per-body segment sums (the JAX package's ``_assemble_and_solve``
+    solver path, plain PyTorch on both devices)."""
+    bodies = scene.bodies
+    Np, K = pidx.shape
+    B = scene.B
+    M, G = max(1, cfg.manifold_points), cfg.max_ground_contacts
+    C = K * M + G
+    dt = cfg.dt
+    f32 = raw.dtype
+    dev = raw.device
+    g_pts, gd, g_hit = ground
+    MK = M * K
+
+    # Contact slots: pairs (slot m·K + k), then G ground slots.
+    pc_p = torch.stack([_slot_rows(raw, r, M) for r in (7, 8, 9)], dim=-1)      # (Np, MK, 3)
+    up = torch.zeros((Np, G, 3), dtype=f32, device=dev)
+    up[..., 1] = 1.0
+    nrm = torch.cat([raw[:, :, 0:3].repeat(1, M, 1), up], dim=1)                # (Np, C, 3)
+    pts = torch.cat([pc_p, g_pts], dim=1)
+    dep = torch.cat([torch.clamp(_slot_rows(raw, 5, M), min=0.0), torch.clamp(gd, min=0.0)], 1)
+    hit = torch.cat([_slot_rows(raw, 6, M) > 0.5, g_hit], dim=1)
+    partner = torch.cat([pidx.long().repeat(1, M),
+                         torch.full((Np, G), -1, dtype=torch.long, device=dev)], dim=1)
+    is_static = partner < 0
+    partner_body = torch.where(is_static, 0, owner[torch.clamp(partner, 0, Np - 1)])
+
+    # Sleeping bodies act as static toward their partners.
+    asleep_in, v0, w0 = _start_velocities(scene, cfg)
+    if cfg.sleep_velocity > 0:
+        is_static = is_static | (asleep_in[partner_body] & ~is_static)
+
+    inv_m = bodies.inv_mass
+    inv_I = world_inv_inertia(bodies.q, bodies.inv_inertia_body)               # (B, 3, 3)
+    myb = owner
+    pair_body = owner[torch.clamp(pidx.long(), 0, Np - 1)]                      # (Np, K)
+    btab = torch.cat([bodies.x, inv_m[:, None], inv_I.reshape(B, 9), v0, w0], dim=1)
+    bt_pair = btab[pair_body]                                                   # (Np, K, 19)
+
+    def tile_slots(a):  # (Np, K, L) → (Np, C, L); ground slots zero
+        return torch.cat([a.repeat(1, M, 1), a.new_zeros((Np, G, a.shape[2]))], dim=1)
+
+    stat3 = is_static[..., None]
+    xB = tile_slots(bt_pair[..., 0:3])
+    iB_m = torch.where(is_static, 0.0, tile_slots(bt_pair[..., 3:4])[..., 0])
+    iB_I = torch.where(stat3[..., None], 0.0, tile_slots(bt_pair[..., 4:13]).reshape(Np, C, 3, 3))
+    rA = pts - bodies.x[myb][:, None]
+    rB = pts - xB
+    iA_m = inv_m[myb][:, None]                                                  # (Np, 1)
+    iA_I = inv_I[myb][:, None].expand(Np, C, 3, 3)
+
+    def k_term(im, iI, r):
+        rxn = _cross(r, nrm)
+        return im + dot3(rxn, matvec3(iI, rxn))
+
+    kn = k_term(iA_m, iA_I, rA) + k_term(iB_m, iB_I, rB)
+    m_eff = torch.where(hit & (kn > 1e-12), 1.0 / torch.clamp(kn, min=1e-12), 0.0)
+
+    def partner_vel(v, w):
+        vwB = torch.cat([v, w], dim=1)[pair_body]                               # (Np, K, 6)
+        vB = tile_slots(vwB[..., 0:3])
+        wB = tile_slots(vwB[..., 3:6])
+        return torch.where(stat3, 0.0, vB + _cross(wB, rB))
+
+    def own_vel(v, w):
+        return v[myb][:, None] + _cross(w[myb][:, None].expand(rA.shape), rA)
+
+    vB0 = torch.where(stat3, 0.0, tile_slots(bt_pair[..., 13:16])
+                      + _cross(tile_slots(bt_pair[..., 16:19]), rB))
+    vn0 = dot3(own_vel(v0, w0) - vB0, nrm)
+    bounce = -cfg.restitution * torch.clamp(vn0 + cfg.bounce_threshold, max=0.0)
+    bias = (cfg.baumgarte / dt) * torch.clamp(dep - cfg.contact_slop, min=0.0)
+    sleeper = is_static & (torch.arange(C, device=dev) < MK)
+    target = torch.maximum(bounce, torch.where(sleeper, 0.0, bias))
+
+    # Mass splitting: per-body hit counts.
+    seg = scene.seg_start
+    cnt_body = _segment_sums(torch.sum(hit, dim=1, keepdim=True).to(f32), seg)[:, 0]
+    sA = (1.0 / torch.clamp(cnt_body, min=1.0))[myb][:, None]                  # (Np, 1)
+    mark("glue")
+
+    mu = cfg.dynamic_friction
+    S = max(1, cfg.solver_substeps)
+    v, w = v0, w0
+    for _ in range((cfg.solver_iters + S - 1) // S):
+        # Chaotic-relaxation Jacobi: partner velocities once per outer
+        # iteration, own body every substep.
+        vB_full = partner_vel(v, w)
+        for _ in range(S):
+            vr = own_vel(v, w) - vB_full
+            vn = dot3(vr, nrm)
+            lam_n = torch.clamp(-(vn - target) * m_eff, min=0.0)
+            vt = vr - vn[..., None] * nrm
+            vt_len = sqrt_rn(dot3(vt, vt))
+            t_dir = vt / torch.clamp(vt_len, min=1e-9)[..., None]
+            lam_t = torch.minimum(vt_len * m_eff, mu * lam_n)
+            imp = torch.where(hit[..., None], lam_n[..., None] * nrm - lam_t[..., None] * t_dir,
+                              0.0)
+            piece_dv = slot_sum(imp)[:, 0] * iA_m * sA
+            piece_dw = slot_sum(matvec3(iA_I, _cross(rA, imp)) * sA[..., None])[:, 0]
+            v = v + _segment_sums(piece_dv, seg)
+            w = w + _segment_sums(piece_dw, seg)
+    mark("solver")
+
+    out = _finish_step(scene, v, w, cfg, vn0, hit, is_static, myb=myb, pidx=pidx)
+    mark("finish")
+    return out
+
+
+def _finish_step(scene, v1, w1, cfg: PhysicsConfig, vn0, hit, is_static, wake_prop=None,
+                 myb=None, pidx=None, warm=None):
+    """Sleep bookkeeping + stage-5 integration. Single-piece bodies bring the
+    solver's island-wake flag (``wake_prop``); compound bodies (``myb``, the
+    owner of each piece row) spread wake sources ``wake_hops`` hops over the
+    pair-contact graph here, then reduce per body."""
     bodies = scene.bodies
     sleep_frames = scene.sleep_frames
     push_frames = scene.push_frames
     if cfg.sleep_velocity > 0:
-        # Wake on a fast contact approach, or (island wake) when the solver
-        # spread a wake flag to this body.
         moving = hit & ~is_static
-        disturbed = torch.any(moving & (torch.abs(vn0) > cfg.wake_speed), dim=1)
-        if cfg.wake_hops > 0:
-            disturbed = disturbed | wake_prop
+        dist_piece = torch.any(moving & (torch.abs(vn0) > cfg.wake_speed), dim=1)
+        push_piece = torch.any(moving & (torch.abs(vn0) >= cfg.sleep_velocity), dim=1)
+        if myb is None:
+            if cfg.wake_hops > 0:
+                dist_piece = dist_piece | wake_prop
+            disturbed, push = dist_piece, push_piece
+        else:
+            B, Np = scene.B, pidx.shape[0]
+            if cfg.wake_hops > 0:
+                K, M = pidx.shape[1], max(1, cfg.manifold_points)
+                # The JAX package's (Np, K, M) view of the slot-major pair
+                # slots, kept as it is.
+                pair_hit = torch.any(hit[:, : K * M].reshape(Np, K, M), dim=2)
+                pb = torch.clamp(pidx.long(), 0, Np - 1)
+                fast_b = (dot3(v1, v1) + dot3(w1, w1) > cfg.wake_speed ** 2) & bodies.active
+                src = dist_piece | fast_b[myb]
+                for _ in range(cfg.wake_hops):
+                    src = src | torch.any(pair_hit & src[pb], dim=1)
+                dist_piece = src
+            disturbed = _segment_any(dist_piece, myb, B)
+            push = _segment_any(push_piece, myb, B)
         # Sustained-push wake: a sleeper pushed for wake_push_frames steps.
-        push = torch.any(moving & (torch.abs(vn0) >= cfg.sleep_velocity), dim=1)
         was_asleep = sleep_frames >= cfg.sleep_frames
         push_frames = torch.where(was_asleep & push, push_frames + 1, 0).to(torch.int32)
         disturbed = disturbed | (push_frames >= cfg.wake_push_frames)
@@ -212,15 +450,20 @@ def _finish_step(scene, v1, w1, cfg: PhysicsConfig, vn0, hit, is_static, wake_pr
         v1 = torch.where(asleep[:, None], 0.0, v1)
         w1 = torch.where(asleep[:, None], 0.0, w1)
         sleep_frames = cnt
-    return _integrate(scene, v1, w1, cfg.dt, sleep_frames, push_frames)
+    return _integrate(scene, v1, w1, cfg.dt, sleep_frames, push_frames, warm)
 
 
-def _integrate(scene, v1, w1, dt, sleep_frames, push_frames):
-    """Stage 5: symplectic Euler + quaternion renormalization."""
+def _integrate(scene, v1, w1, dt, sleep_frames, push_frames, warm=None):
+    """Stage 5: symplectic Euler + quaternion renormalization; ``warm`` =
+    (pairs, feature ids, accumulated impulses) kept for the next step's
+    warm start."""
     b = scene.bodies
     act = b.active[:, None]
     v1 = torch.where(act, v1, 0.0)
     w1 = torch.where(act, w1, 0.0)
     bodies = dataclasses.replace(b, x=b.x + dt * v1, q=quat_integrate(b.q, w1, dt), v=v1, w=w1)
+    extra = {}
+    if warm is not None:
+        extra = dict(warm_pair=warm[0].to(torch.int32), warm_fid=warm[1], warm_lam=warm[2])
     return dataclasses.replace(scene, bodies=bodies, sleep_frames=sleep_frames,
-                               push_frames=push_frames)
+                               push_frames=push_frames, **extra)

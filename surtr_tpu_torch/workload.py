@@ -4,11 +4,15 @@ and inputs that ``chip_smoke.py``, the tools and the tests drive:
 * the 1k-seed decomposition of the cube at ``bench.py``'s
   ``bench_decomposition_1k`` configuration (bench.py:70-92);
 * the 10k-fragment physics lattice of ``bench_physics_10k``
-  (bench.py:191-253), with one field changed: ``broadphase="exact"``.
+  (bench.py:191-253) at its configuration (bench.py:207), and the
+  variants ``chip_smoke.py`` drives beside it: the lattice bound in pairs
+  (compound bodies) and a 66,000-cube lattice (beyond the exact sweep's
+  pool limit).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import subprocess
 
 import numpy as np
@@ -65,11 +69,15 @@ def run_prepare(device="cuda", cfg: FractureConfig = BENCH_CFG):
     return pipeline.prepare_fracture(*cube_inputs(device), cfg, *bench_seeds(cfg))
 
 
-# bench.py's physics configuration, broadphase "exact" in place of "auto"
-# (the exact block sweep instead of the Pallas sweep-and-prune B6, which the
-# port does not have yet; same contract: no missed pair, K nearest, mutual).
-PHYSICS_CFG = PhysicsConfig(single_piece_bodies=True, max_hull_verts=8, broadphase="exact")
+PHYSICS_CFG = PhysicsConfig(single_piece_bodies=True, max_hull_verts=8)   # bench.py:207
 PHYSICS_STEPS = 64  # bench.py's REP
+# The lattice with warm start: the solver's accumulated mode, 4 iterations
+# of one substep each.
+WARM_CFG = dataclasses.replace(PHYSICS_CFG, warm_start=True, solver_iters=4, solver_substeps=1)
+# Compound bodies at the default configuration, the bench's hull size.
+PAIRED_CFG = PhysicsConfig(max_hull_verts=8)
+# A lattice beyond the exact sweep's pool limit (MAX_EXACT_NP = 65,536).
+LARGE_LATTICE_N = 66_000
 
 
 def lattice_offsets(n: int) -> np.ndarray:
@@ -83,8 +91,9 @@ def lattice_offsets(n: int) -> np.ndarray:
     return xs.astype(np.float32) * 1.02 + np.array([-side / 2, -1.45 + 0.0, -side / 2])
 
 
-def cube_pieces(offsets, device=None) -> PieceSet:
-    """One unit cube (F = 8, S = 8) per offset, each its own group."""
+def cube_pieces(offsets, device=None, group=None) -> PieceSet:
+    """One unit cube (F = 8, S = 8) per offset, each its own group unless
+    ``group`` (one body index per cube) binds them."""
     n = len(offsets)
     cube = unit_cube(F=8, S=8, device=device)
     off = torch.as_tensor(np.asarray(offsets), dtype=torch.float32, device=device)
@@ -98,7 +107,8 @@ def cube_pieces(offsets, device=None) -> PieceSet:
         mesh=torch.zeros((n, 1, 3, 3), device=device),
         mesh_valid=torch.zeros((n, 1), dtype=torch.bool, device=device),
         valid=torch.ones((n,), dtype=torch.bool, device=device),
-        group=torch.arange(n, dtype=torch.int32, device=device),
+        group=(torch.arange(n, dtype=torch.int32, device=device) if group is None
+               else torch.as_tensor(np.asarray(group), dtype=torch.int32, device=device)),
         tag=torch.full((n,), -1, dtype=torch.int32, device=device),
     )
 
@@ -107,6 +117,14 @@ def physics_lattice(n: int = 10_000, device="cuda", cfg: PhysicsConfig = PHYSICS
     """The bench's fully shattered lattice as a scene on ``device``: every
     cube its own body, all at rest."""
     return build_scene(cube_pieces(lattice_offsets(n), device), cfg, max_bodies=n)
+
+
+def paired_lattice(n: int = 10_000, device="cuda", cfg: PhysicsConfig = PAIRED_CFG):
+    """The lattice with cubes 2i and 2i + 1 bound into one body (n / 2
+    two-cube compound bodies), at rest."""
+    group = np.arange(n) // 2
+    return build_scene(cube_pieces(lattice_offsets(n), device, group), cfg,
+                       max_bodies=int(group[-1]) + 1)
 
 
 def run_physics(steps: int = PHYSICS_STEPS, device="cuda", n: int = 10_000,

@@ -1,0 +1,228 @@
+"""Kernels B6 and B12's plain versions (``broadphase_cuda.broadphase_exact``
+and ``broadphase_sorted`` on CPU tensors, the CPU sides of
+``csrc/broadphase_exact.cu`` and ``csrc/broadphase_sorted.cu``) against the
+JAX package's ``broadphase_exact_pallas`` and ``broadphase_sorted_pallas``
+in interpret mode, B6's glue (its chunk ranges) against the ranges the JAX
+wrapper hands its kernel, the Morton codes, and the broadphase dispatch of
+``physics_step``.
+
+Tolerances: none. B6's keys are integers (quantized d² and the piece id)
+and are compared slot for slot with pidx, pok, key_ji and θ; B12's live
+slots (partner and flag) exactly, as tests/test_broadphase_pallas.py
+compares the Pallas kernel with its XLA original (filler slots name
+different pieces in the two: the XLA clamp rule here, the lane roll
+there).
+"""
+
+import dataclasses
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surtr_tpu.physics import broadphase_pallas as jbp
+from surtr_tpu.physics.step import _broadphase as j_block_sweep
+from surtr_tpu.physics.step import _morton as j_morton
+from surtr_tpu_torch import workload
+from surtr_tpu_torch.physics import broadphase_cuda as bp
+from surtr_tpu_torch.physics import step as tstep
+from surtr_tpu_torch.physics.broadphase import morton
+from surtr_tpu_torch.physics.scene import build_scene
+
+
+def _random_boxes(n=700, seed=5, invalid=0.05, owner=None):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    half = rng.uniform(0.2, 0.6, (n, 3)).astype(np.float32)
+    valid = rng.uniform(size=n) > invalid
+    own = np.arange(n, dtype=np.int32) if owner is None else owner
+    return c, c - half, c + half, own.astype(np.int32), valid
+
+
+def _lattice(side=9, half=0.52):
+    g = np.arange(side, dtype=np.float32) * 1.02
+    c = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    n = len(c)
+    h = np.full((n, 3), half, np.float32)
+    return c, c - h, c + h, np.arange(n, dtype=np.int32), np.ones(n, bool)
+
+
+EXACT_CASES = {
+    "random700": _random_boxes(),
+    "lattice9": _lattice(),
+    "shared_owners": _random_boxes(300, seed=7, invalid=0.2, owner=np.arange(300) // 2),
+    "fewer_than_k": _random_boxes(40, seed=9, invalid=0.1),
+}
+
+
+def _jax_exact(args, K):
+    """The JAX wrapper's outputs and the chunk ranges it gives its kernel."""
+    seen = {}
+    real = jbp.pl.pallas_call
+
+    def recording(kernel, **kw):
+        call = real(kernel, **kw)
+
+        def run(*ops):
+            seen["rng"] = np.asarray(ops[0])
+            return call(*ops)
+        return run
+
+    jbp.pl.pallas_call = recording
+    try:
+        pidx, pok, (key_ji, theta) = jbp.broadphase_exact_pallas(
+            *(jnp.asarray(a) for a in args), K, interpret=True)
+    finally:
+        jbp.pl.pallas_call = real
+    return [np.asarray(a) for a in (pidx, pok, key_ji, theta)], seen["rng"]
+
+
+@pytest.fixture(scope="module", params=list(EXACT_CASES))
+def exact_case(request):
+    args = EXACT_CASES[request.param]
+    K = 8
+    want, rng = _jax_exact(args, K)
+    before = bp.exact_launches
+    pidx, pok, (key_ji, theta) = bp.broadphase_exact(*(torch.as_tensor(a) for a in args), K)
+    assert bp.exact_launches == before            # CPU tensors: the plain version
+    got = [t.numpy() for t in (pidx, pok, key_ji, theta)]
+    return args, K, got, want, rng
+
+
+def test_exact_matches_pallas_slot_for_slot(exact_case):
+    _, _, got, want, _ = exact_case
+    for name, g, w in zip(("pidx", "pok", "key_ji", "theta"), got, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert got[1].any()
+
+
+def test_exact_empty_slots_keep_the_sentinel(exact_case):
+    args, K, got, _, _ = exact_case
+    bits = bp.id_bits(len(args[0]))
+    pidx, pok = got[0], got[1]
+    assert (pidx[~pok] == (1 << bits) - 1).all()
+    assert (~pok).any()                           # invalid rows at least
+
+
+def test_exact_chunk_ranges_match_and_cover(exact_case):
+    args, K, _, _, jrng = exact_case
+    t = [torch.as_tensor(a) for a in args]
+    packR, cab, rng = bp.exact_glue(*t)
+    np.testing.assert_array_equal(rng.numpy(), jrng)
+    # Every overlapping pair's chunk lies in its block's range.
+    c, lo, hi, owner, valid = args
+    n = len(c)
+    order = packR[:n, 11].long().numpy()
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n)
+    over = np.all((lo[:, None] <= hi[None]) & (lo[None] <= hi[:, None]), -1)
+    over &= valid[:, None] & valid[None] & (owner[:, None] != owner[None])
+    np.fill_diagonal(over, False)
+    i, j = np.nonzero(over)
+    blk, chj = rank[i] // 128, rank[j] // bp.CHUNK
+    r = rng.numpy()
+    assert ((r[blk, 0] <= chj) & (chj < r[blk, 1])).all()
+
+
+def _pairs(pidx, pok):
+    return {(i, int(pidx[i, k])) for i, k in zip(*np.nonzero(pok))}
+
+
+@pytest.mark.parametrize("case", ["random700", "shared_owners"])
+def test_exact_theta_mutual_equals_block_sweep_mutual(case):
+    args = EXACT_CASES[case]
+    K = 8
+    pidx, pok, mut = bp.broadphase_exact(*(torch.as_tensor(a) for a in args), K)
+    got = _pairs(pidx.numpy(), bp.apply_theta_mutual(pidx, pok, mut).numpy())
+    jp, jok = j_block_sweep(*(jnp.asarray(a) for a in args), K, 256)
+    me = jnp.arange(jp.shape[0])[:, None, None]
+    jok = jok & jnp.any(jp[jp] == me, axis=-1)
+    assert got == _pairs(np.asarray(jp), np.asarray(jok))
+    assert all((j, i) in got for i, j in got)
+
+
+def test_morton_codes_equal():
+    c, _, _, _, valid = _random_boxes(500, seed=13, invalid=0.1)
+    c[:20] = c[20:40]                              # equal centers, equal codes
+    got = morton(torch.as_tensor(c), torch.as_tensor(valid)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(j_morton(jnp.asarray(c), jnp.asarray(valid))))
+
+
+def _sorted_case(kind):
+    # The three cases of tests/test_broadphase_pallas.py, half extent 0.6.
+    if kind == "random":
+        rng = np.random.default_rng(3)
+        n = 257
+        c = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+        owner, valid = np.arange(n), np.ones(n, bool)
+    elif kind == "lattice_ties":
+        g = np.arange(6, dtype=np.float32) * 1.02
+        c = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+        n = len(c)
+        owner, valid = np.arange(n), np.ones(n, bool)
+    else:
+        rng = np.random.default_rng(11)
+        n = 140
+        c = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+        owner = np.arange(n) // 2
+        valid = rng.uniform(size=n) > 0.2
+    h = np.full_like(c, 0.6)
+    return c, c - h, c + h, owner.astype(np.int32), valid
+
+
+@pytest.mark.parametrize("kind", ["random", "lattice_ties", "invalid_shared_owner"])
+def test_sorted_matches_pallas_live_slots(kind):
+    args = _sorted_case(kind)
+    K, W = 4, 8
+    jp, jok = jbp.broadphase_sorted_pallas(*(jnp.asarray(a) for a in args), K, W, interpret=True)
+    jp, jok = np.asarray(jp), np.asarray(jok)
+    before = bp.sorted_launches
+    tp, tok = bp.broadphase_sorted(*(torch.as_tensor(a) for a in args), K, W)
+    assert bp.sorted_launches == before
+    tp, tok = tp.numpy(), tok.numpy()
+    np.testing.assert_array_equal(tok, jok)
+    np.testing.assert_array_equal(np.where(tok, tp, -1), np.where(jok, jp, -1))
+    assert tok.any()
+
+
+def test_sorted_k_beyond_two_windows_raises():
+    args = [torch.as_tensor(a) for a in _sorted_case("random")]
+    with pytest.raises(ValueError, match="2·window"):
+        bp.broadphase_sorted(*args, 5, 2)
+
+
+def _lattice_scene(cfg, n=27):
+    return build_scene(workload.cube_pieces(workload.lattice_offsets(n)), cfg, max_bodies=n)
+
+
+def _route(monkeypatch, cfg, n=27):
+    """Which broadphase ``physics_step`` called: "exact", "exact_pallas"
+    or "sorted"."""
+    called = []
+    for attr, name in (("block_sweep", "exact"), ("broadphase_exact", "exact_pallas"),
+                       ("broadphase_sorted", "sorted")):
+        fn = getattr(tstep, attr)
+
+        def rec(*a, _fn=fn, _name=name, **kw):
+            called.append(_name)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tstep, attr, rec)
+    tstep.physics_step(_lattice_scene(cfg, n), cfg)
+    return called
+
+
+@pytest.mark.parametrize("block,max_np,route,warns", [
+    (64, 64, "exact", False),            # Np ≤ broadphase_block
+    (16, 64, "exact_pallas", False),     # block < Np ≤ MAX_EXACT_NP
+    (16, 20, "sorted", True),            # Np > MAX_EXACT_NP
+])
+def test_auto_dispatch(monkeypatch, block, max_np, route, warns):
+    monkeypatch.setattr(tstep, "MAX_EXACT_NP", max_np)
+    cfg = dataclasses.replace(workload.PHYSICS_CFG, broadphase_block=block)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        assert _route(monkeypatch, cfg) == [route]
+    got = [x for x in w if issubclass(x.category, tstep.RecallDegradedWarning)]
+    assert bool(got) == warns

@@ -36,7 +36,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import surtr_tpu_torch.ops.labels_cuda, surtr_tpu_torch.ops.refit_cuda\n"
         "import surtr_tpu_torch.physics.step, surtr_tpu_torch.physics.pack_cuda\n"
         "import surtr_tpu_torch.physics.narrowphase_cuda, surtr_tpu_torch.physics.prep_cuda\n"
-        "import surtr_tpu_torch.physics.solver_cuda, surtr_tpu_torch.workload\n"
+        "import surtr_tpu_torch.physics.solver_cuda, surtr_tpu_torch.physics.slots\n"
+        "import surtr_tpu_torch.workload\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

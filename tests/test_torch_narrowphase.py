@@ -4,10 +4,14 @@ CPU side of ``csrc/narrowphase.cu``) against the JAX package's
 partner indices and candidate flags; and the port's exact broadphase
 against the JAX package's ``_broadphase`` with its mutual mask.
 
-Two scenes: strongly rotated overlapping boxes, whose SAT minima are unique,
-and an axis-aligned lattice of cubes pressed 0.002 into each other, where
-DOP and face axes tie exactly and the first-of-ties order decides the
-normal. Tolerances: hit flags and feature ids exactly; normals, depths,
+Three scenes: strongly rotated overlapping boxes, whose SAT minima are
+unique; an axis-aligned lattice of cubes pressed 0.002 into each other,
+where DOP and face axes tie exactly and the first-of-ties order decides the
+normal; and the rotated boxes with a dead last piece that every empty slot
+names, as the sweep-and-prune B6 leaves its empty slots (the id sentinel,
+clamped to the last piece): against a piece with no live corner an edge
+axis has no finite penetration, and the pair's depth is NaN and its normal
+0. Tolerances: hit flags and feature ids exactly; normals, depths,
 manifold values and points within 1e-5 absolute on these unit-scale scenes
 (they agree bit for bit with the JAX run below; the bound leaves room for
 another XLA version's rounding); the broadphase exactly (indices and flags,
@@ -23,6 +27,7 @@ script (``python tests/test_torch_narrowphase.py OUT.npz``) it writes the
 JAX side of both scenes.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -39,28 +44,31 @@ from surtr_tpu.physics.rigid import quat_normalize as j_quat_normalize
 from surtr_tpu.physics.scene import build_scene as j_build_scene
 from surtr_tpu.physics.step import _broadphase as j_broadphase
 from surtr_tpu_torch.physics import narrowphase_cuda
-from surtr_tpu_torch.physics.broadphase import broadphase_exact, mutual
+from surtr_tpu_torch.physics.broadphase import block_sweep, mutual
 
 from test_torch_pack import j_cube_pieces
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCENES = ("rotated", "lattice")
+SCENES = ("rotated", "lattice", "dead_partner")
 CFG = JPhysicsConfig(single_piece_bodies=True, max_hull_verts=8)
 K, M, G = CFG.max_neighbors, CFG.manifold_points, CFG.max_ground_contacts
 
 
 def _scene(kind):
     rng = np.random.default_rng(31)
-    if kind == "rotated":
+    if kind != "lattice":
         offs = np.concatenate([rng.uniform(-0.7, 0.7, (10, 3)) + [0.0, -0.8, 0.0],
                                [[5.0, -1.45, 0.0], [9.0, 0.0, 0.0]]]).astype(np.float32)
     else:
         xs = np.stack(np.meshgrid(*[np.arange(3)] * 3, indexing="ij"), -1).reshape(-1, 3)
         offs = (xs * 0.998 + np.array([-1.5, -1.45, -1.5])).astype(np.float32)
     n = len(offs)
-    sc = j_build_scene(j_cube_pieces(offs), CFG, max_bodies=n)
+    pieces = j_cube_pieces(offs)
+    if kind == "dead_partner":
+        pieces = dataclasses.replace(pieces, valid=pieces.valid.at[-1].set(False))
+    sc = j_build_scene(pieces, CFG, max_bodies=n)
     q = np.asarray(sc.bodies.q)
-    if kind == "rotated":
+    if kind != "lattice":
         q = np.asarray(j_quat_normalize(jnp.asarray(q + 0.6 * rng.standard_normal(q.shape), jnp.float32)))
     return sc, q
 
@@ -80,25 +88,29 @@ def _jax_side(kind):
                            CFG.broadphase_block)
     me = jnp.arange(jp.shape[0])[:, None, None]
     jok = jok & jnp.any(jp[jp] == me, axis=-1)
-    out, Np_pad = narrowphase_raw_pallas(None, jp, jok, Vh=Vh, F=F, Ne=Ne, K=K, M=M,
+    # The narrowphase's candidates: the broadphase's, or B6's empty-slot
+    # sentinel in every slot that is not a mutual pair.
+    np_pidx = jnp.where(jok, jp, (1 << 14) - 1) if kind == "dead_partner" else jp
+    out, Np_pad = narrowphase_raw_pallas(None, np_pidx, jok, Vh=Vh, F=F, Ne=Ne, K=K, M=M,
                                          slop=CFG.contact_slop, interpret=True, packedT=pT)
     Np = jp.shape[0]
     R = 5 + 6 * M
     want = np.asarray(out).reshape(-1, K, Np_pad)[:R, :, :Np].transpose(2, 1, 0)
     return dict(packed=np.asarray(pT).T, aabb=np.asarray(abT), owner=np.asarray(sc.piece_owner),
-                pvalid=np.asarray(pvalid), jp=np.asarray(jp), jok=np.asarray(jok), want=want,
+                pvalid=np.asarray(pvalid), jp=np.asarray(jp), jok=np.asarray(jok),
+                np_pidx=np.asarray(np_pidx), want=want,
                 dims=np.array([Vh, F, Ne]))
 
 
 def _port_side(ref):
     t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
     ab = ref["aabb"]
-    tp, tok = broadphase_exact(t(ab[:, 6:9]), t(ab[:, 0:3]), t(ab[:, 3:6]), t(ref["owner"]),
-                               t(ref["pvalid"]), K, CFG.broadphase_block)
+    tp, tok = block_sweep(t(ab[:, 6:9]), t(ab[:, 0:3]), t(ab[:, 3:6]), t(ref["owner"]),
+                          t(ref["pvalid"]), K, CFG.broadphase_block)
     tok = mutual(tp, tok)
     Vh, F, Ne = (int(v) for v in ref["dims"])
     before = narrowphase_cuda.launches
-    got = narrowphase_cuda.narrowphase(t(ref["packed"]), t(ref["jp"]), t(ref["jok"]), Vh, F, Ne,
+    got = narrowphase_cuda.narrowphase(t(ref["packed"]), t(ref["np_pidx"]), t(ref["jok"]), Vh, F, Ne,
                                        M, CFG.contact_slop)
     assert narrowphase_cuda.launches == before      # CPU tensors: no launch
     return dict(ref, tp=tp.numpy(), tok=tok.numpy(), got=got.numpy(), Vh=Vh)
@@ -141,6 +153,21 @@ def test_normals_depths_points_close(run):
     np.testing.assert_allclose(np.where(big, 0, got), np.where(big, 0, want), atol=1e-5, rtol=0)
 
 
+def test_dead_partner_has_no_depth(jax_refs):
+    """Slots naming the dead piece: depth NaN and normal 0 on both sides,
+    never a hit, and every manifold point finite."""
+    r = _port_side(jax_refs["dead_partner"])
+    got, want = r["got"], r["want"]
+    dead = r["np_pidx"] == len(r["pvalid"]) - 1
+    dead |= r["np_pidx"] >= len(r["pvalid"])
+    assert dead.any() and not r["pvalid"][-1]
+    assert np.isnan(got[..., 3][dead]).all() and np.isnan(want[..., 3][dead]).all()
+    np.testing.assert_array_equal(got[..., 0:3][dead], 0.0)
+    assert not got[..., 4][dead].any()
+    pts = [7 + 6 * m + c for m in range(M) for c in range(3)]
+    assert np.isfinite(got[..., pts]).all()
+
+
 def test_rotated_scene_reaches_the_fallback(jax_refs):
     """Edge-on contacts between rotated boxes contain no corner of either
     hull; their single point comes from the support fallback (fid > 2Vh)."""
@@ -159,7 +186,7 @@ def test_broadphase_fewer_pieces_than_k():
     valid = np.array([1, 1, 1, 0, 1], bool)
     jp, jok = j_broadphase(jnp.asarray(c), jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(owner),
                            jnp.asarray(valid), K, 64)
-    tp, tok = broadphase_exact(*(torch.as_tensor(a) for a in (c, lo, hi, owner, valid)), K, 64)
+    tp, tok = block_sweep(*(torch.as_tensor(a) for a in (c, lo, hi, owner, valid)), K, 64)
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
 

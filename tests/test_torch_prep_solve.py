@@ -3,14 +3,19 @@ and ``solver_cuda.solve`` on CPU tensors, the CPU sides of ``csrc/prep.cu``
 and ``csrc/solver.cu``) against the JAX package's ``prep_contacts_pallas``
 and ``solve_packed`` in interpret mode, on the same random contact tables:
 hit and missed slots, static and sleeping partners, zero and positive
-inverse masses, and a wake seed.
+inverse masses, and a wake seed. The accumulated (warm-start) mode of B9,
+``solver_cuda.solve_warm``, against ``solve_packed(..., lam0=...)``, and
+``prep_cuda.warm_preapply`` followed by it against ``prep_and_solve`` with
+matched warm impulses.
 
 Tolerances: hit and static flags and the wake flag exactly (0/1 values);
 every prep table within 1e-5 × max(1, |value|) per entry (XLA may contract
 products into FMAs where the port rounds each one; m_eff = 1/k is large
 where k is small); v and w after 1 and 4 outer iterations within 1e-5 ×
-(1 + |v|), since the JAX kernel's per-row sums over the C slots are taken
-in an order XLA chooses, the port's in slot order.
+(1 + |v|), and the accumulated impulses within 1e-5 × (1 + the slot's
+largest |λ|) (the cone clamp ties the friction pair to λn), since the
+JAX kernel's per-row sums over the C slots are taken in an order XLA
+chooses, the port's in slot order.
 """
 
 import jax.numpy as jnp
@@ -19,7 +24,7 @@ import pytest
 import torch
 
 from surtr_tpu.config import PhysicsConfig as JPhysicsConfig
-from surtr_tpu.physics.prep_pallas import prep_contacts_pallas
+from surtr_tpu.physics.prep_pallas import prep_and_solve, prep_contacts_pallas
 from surtr_tpu.physics.solver_pallas import solve_packed
 from surtr_tpu.physics.solver_pallas import tangent_basis as j_tangent_basis
 from surtr_tpu_torch.physics import prep_cuda, solver_cuda
@@ -119,6 +124,79 @@ def test_solver_matches(prep, iters):
     np.testing.assert_array_equal(got[:, 6] > 0.5, np.asarray(jwake))
     assert np.abs(got[:, :6] - np.concatenate([v0, w0], 1)).max() > 1e-3   # impulses applied
     assert (got[:, 6] > 0.5).sum() > (wake > 0.5).sum()                    # the wake spread
+
+
+def _warm_lam(hit_slots):
+    """Random accumulated impulses (NP, C, 3) = [λn ≥ 0, λu, λv], some on
+    missed slots (the pre-apply masks them)."""
+    rng = np.random.default_rng(43)
+    lam = rng.standard_normal((NP, C, 3)).astype(np.float32) * 0.3
+    lam[..., 0] = np.abs(lam[..., 0])
+    return lam * ((hit_slots > 0.5) | (rng.random((NP, C)) < 0.2))[..., None]
+
+
+def _lam_tol(jlam):
+    """1e-5 × (1 + the slot's largest |λ|): the friction pair is rescaled
+    into the cone μ·λn, so its rounding follows the slot's scale."""
+    return np.broadcast_to(1e-5 * (1.0 + np.abs(jlam).max(-1, keepdims=True)), jlam.shape)
+
+
+def _lam_slots(lam):
+    """(Np, 3C) [λn | λu | λv] → (Np, C, 3)."""
+    return lam.reshape(NP, 3, C).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("iters", [2, 8])     # 1 and 4 outer iterations of 2 substeps
+def test_solver_accumulated_mode_matches(prep, iters):
+    ins, partner, v0, w0, wake, jout, _ = prep
+    tabs = _jax_tables(jout)[:7]
+    Np_pad = jout[0].shape[0]
+    lam0 = _warm_lam(tabs[4][:, :C])
+    vw0 = np.zeros((Np_pad, 8), np.float32)
+    vw0[:NP, 0:3], vw0[:NP, 3:6], vw0[:NP, 6] = v0, w0, wake
+    jv, jw, jwake, jlam = solve_packed(
+        jnp.asarray(vw0), jnp.asarray(partner), *[jnp.asarray(a) for a in jout[:7]], K=K, M=M,
+        G=G, iters=iters, substeps=CFG.solver_substeps, mu=CFG.dynamic_friction, Np=NP,
+        interpret=True, lam0=jnp.asarray(lam0))
+    before = solver_cuda.warm_launches
+    got, lam = solver_cuda.solve_warm(
+        torch.as_tensor(vw0[:NP]), torch.as_tensor(lam0.transpose(0, 2, 1).reshape(NP, 3 * C)),
+        torch.as_tensor(partner), [torch.as_tensor(np.ascontiguousarray(a)) for a in tabs], K=K,
+        M=M, G=G, iters=iters, substeps=CFG.solver_substeps, mu=CFG.dynamic_friction)
+    assert solver_cuda.warm_launches == before
+    got = got.numpy()
+    want = np.concatenate([np.asarray(jv), np.asarray(jw)], 1)
+    np.testing.assert_array_less(np.abs(got[:, :6] - want), 1e-5 * (1.0 + np.abs(want)))
+    np.testing.assert_array_equal(got[:, 6] > 0.5, np.asarray(jwake))
+    jlam = np.asarray(jlam)
+    np.testing.assert_array_less(np.abs(_lam_slots(lam.numpy()) - jlam), _lam_tol(jlam))
+    assert np.abs(_lam_slots(lam.numpy()) - lam0).max() > 1e-3              # impulses moved
+    assert (jlam[..., 0] >= 0).all()
+
+
+@pytest.mark.parametrize("iters,substeps", [(4, 1), (8, 2)])
+def test_warm_preapply_and_solve_match_prep_and_solve(prep, iters, substeps):
+    ins, partner, v0, w0, wake, jout, got_tabs = prep
+    lam0 = _warm_lam(_jax_tables(jout)[4][:, :C])
+    kw = dict(PREP_KW, iters=iters, substeps=substeps, mu=CFG.dynamic_friction)
+    jv, jw, jwake, jlam, *_ = prep_and_solve(
+        *[jnp.asarray(v) for v in ins.values()], jnp.asarray(partner), jnp.asarray(v0),
+        jnp.asarray(w0), jnp.asarray(wake), jnp.asarray(lam0), interpret=True, **kw)
+    tables = got_tabs[:7]
+    tv0, tw0, tlam0 = prep_cuda.warm_preapply(torch.as_tensor(v0), torch.as_tensor(w0),
+                                              torch.as_tensor(lam0), tables, C=C)
+    assert torch.equal(tlam0[..., 0] != 0, torch.as_tensor(lam0[..., 0] != 0)
+                       & (tables[4][:, :C] > 0.5))                          # masked to hits
+    vw0 = torch.cat([tv0, tw0, torch.as_tensor(wake)[:, None], torch.zeros((NP, 1))], 1)
+    got, lam = solver_cuda.solve_warm(vw0, tlam0.permute(0, 2, 1).reshape(NP, 3 * C),
+                                      torch.as_tensor(partner), tables, K=K, M=M, G=G,
+                                      iters=iters, substeps=substeps, mu=CFG.dynamic_friction)
+    got = got.numpy()
+    want = np.concatenate([np.asarray(jv), np.asarray(jw)], 1)
+    np.testing.assert_array_less(np.abs(got[:, :6] - want), 1e-5 * (1.0 + np.abs(want)))
+    np.testing.assert_array_equal(got[:, 6] > 0.5, np.asarray(jwake))
+    jlam = np.asarray(jlam)
+    np.testing.assert_array_less(np.abs(_lam_slots(lam.numpy()) - jlam), _lam_tol(jlam))
 
 
 def test_tangent_basis_matches():
