@@ -36,7 +36,18 @@ Phases (any failure exits non-zero):
      the CPU plain run after 16; (e) the lattice bound in pairs (5,000
      two-cube compound bodies), 32 steps, compared likewise;
  10. ms per physics step, a per-stage split and the device idle share;
-     ms per step of (b), (d) and (e) and the stage splits of (d) and (e).
+     ms per step of (b), (d) and (e) and the stage splits of (d) and (e);
+ 11. the sphere's 1k decomposition (the culled pair-pool mesh clip) on
+     ``cuda:0``, launches B10 1 and B1-B4 as in phase 4, compared with the
+     CPU plain run;
+ 12. the cube32 impact (``workload.run_impact``, bench.py:295-333) from one
+     cube prepared on the card, under mesh_pair_pool "auto" (B1, B3, B4,
+     no B10) and True (B10 once), each compared with the CPU plain run from
+     the same prepared pieces;
+ 13. kernel B10 (pooled soup clip) against its plain version on the calls
+     of 11 and 12 and on degenerate cases, with times and its bound;
+ 14. ms per event of the sphere decomposition and of the impact on both
+     routes, each impact route's stage split and device idle share.
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
@@ -69,7 +80,8 @@ import numpy as np
 from surtr_tpu_torch import _build, workload
 from surtr_tpu_torch.fracture import pipeline
 from surtr_tpu_torch.io.models import get_model
-from surtr_tpu_torch.ops import clip_cuda, hull_cuda, labels_cuda, refit_cuda, voronoi
+from surtr_tpu_torch.ops import (clip_cuda, hull_cuda, labels_cuda, refit_cuda, soup_clip_cuda,
+                                 voronoi)
 from surtr_tpu_torch.physics import (broadphase_cuda, narrowphase_cuda, pack_cuda, prep_cuda,
                                      solver_cuda)
 from surtr_tpu_torch.physics import step as phys_step
@@ -951,13 +963,6 @@ def _stage_diffs(g, c):
     }
 
 
-def _to_device(obj, device):
-    """A copy of a scene (nested dataclasses of tensors) on ``device``."""
-    return dataclasses.replace(obj, **{
-        f.name: (_to_device(v, device) if dataclasses.is_dataclass(v) else v.to(device))
-        for f in dataclasses.fields(obj) for v in [getattr(obj, f.name)]})
-
-
 def physics_cpu_compare(steps: int = 30):
     """Phase 9: the lattice on the card and through the plain path on the
     CPU, in lockstep from one scene built on the CPU (the pile is chaotic: a
@@ -967,7 +972,7 @@ def physics_cpu_compare(steps: int = 30):
     and stage where the runs part."""
     cfg = workload.PHYSICS_CFG
     sc = workload.physics_lattice(device="cpu")
-    sg = _to_device(sc, "cuda")
+    sg = workload.to_device(sc, "cuda")
     t0 = time.perf_counter()
     history = []
     with StepRecorder() as rec:
@@ -1011,7 +1016,7 @@ def physics_variants(card):
         t0 = time.perf_counter()
         start = build()
         built_s = time.perf_counter() - t0
-        sg = _to_device(start, "cuda")
+        sg = workload.to_device(start, "cuda")
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             check = LaunchCheck(f"physics path {name}", cfg, want)
@@ -1062,7 +1067,7 @@ def steps_ms(start, cfg, steps: int, runs: int = 3) -> tuple[float, list]:
     warm-up run."""
     per_run = []
     for _ in range(runs + 1):
-        s = _to_device(start, "cuda")
+        s = workload.to_device(start, "cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -1116,29 +1121,7 @@ def physics_timing(state, variants, card, runs: int = 3):
         per_run.append((time.perf_counter() - t0) * 1e3 / n)
     step_ms = statistics.median(per_run[1:])
     stages = stage_split(state, cfg)
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    steps = 8
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            phys_step.physics_step(state, cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
-    busy_us = 0.0
-    entries = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        busy_us += us
-        entries += e.count
-    busy = busy_us / steps / 1e3
-    idle = (1.0 - busy / wall) if busy > 0 else None
+    busy, wall, idle, entries = profile_busy(lambda: phys_step.physics_step(state, cfg), 8)
     print(f"physics 10k lattice (bench.py:207, \"auto\"): {step_ms:.3f} ms/step (median of {runs} "
           f"runs of {n} steps, host clock; {card})", flush=True)
     print("physics stage split, one contact-rich step (CUDA events, ms): "
@@ -1147,7 +1130,7 @@ def physics_timing(state, variants, card, runs: int = 3):
         print("physics idle share: the profiler reported no device time", flush=True)
     else:
         print(f"physics idle share {idle:.3f}: device busy {busy:.3f} ms of {wall:.3f} ms per "
-              f"step under the profiler, {entries / steps:.0f} device entries per step", flush=True)
+              f"step under the profiler, {entries:.0f} device entries per step", flush=True)
     out = {"step_ms": step_ms, "per_run_ms": per_run[1:], "stages_ms": stages,
            "idle_share": idle, "busy_ms": busy, "profiled_wall_ms": wall}
     for name in ("b_sorted", "d_warm", "e_pairs"):
@@ -1163,6 +1146,403 @@ def physics_timing(state, variants, card, runs: int = 3):
         out[f"{name}_stages_ms"] = split
         print(f"physics path {name} stage split, one contact-rich step (CUDA events, ms; {what}): "
               + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sphere decomposition, the cube32 impact and kernel B10.
+# ---------------------------------------------------------------------------
+
+SOUP_SRC = "surtr_tpu_torch/csrc/soup_clip.cu"
+SOUP_REPLACES = "surtr_tpu/ops/soup_clip_pallas.py:43"
+# bench_cube32's event under both mesh-clip routes: "auto" (the vmapped
+# plain clip at this pool size, the benchmark's own) and the pooled job
+# clip, which on the card culls, packs and runs B10.
+IMPACT_ROUTES = {"auto": workload.CUBE32_CFG,
+                 "pooled": dataclasses.replace(workload.CUBE32_CFG, mesh_pair_pool=True)}
+IMPACT_COUNTS = ("new_pieces", "active_pieces", "merged_out", "num_groups", "mesh_tris_dropped")
+IMPACT_OVERFLOWS = ("active_overflow", "job_overflow", "piece_overflow", "split_face_overflow")
+IMPACT_STAGES = ("convex_out_of_sphere", "clip_planes_batch", "clip_trisoup",
+                 "_pooled_job_mesh_clip", "_split_mesh_islands", "_finish_pieces",
+                 "_pack_candidates", "split_groups_by_contact")
+
+
+def all_counts() -> dict:
+    """Launches of every kernel since the counts were last set to 0."""
+    counts = {name: mod.launches for name, (mod, *_) in KERNELS.items()}
+    counts["soup_clip"] = soup_clip_cuda.launches
+    counts.update(launch_counts())
+    return counts
+
+
+def reset_all():
+    for mod, *_ in KERNELS.values():
+        mod.launches = 0
+    soup_clip_cuda.launches = 0
+    reset_counts()
+
+
+def check_launches(what, counts, want):
+    """Every count as ``want`` gives it (an int, or "> 0"); kernels it does
+    not name must not have launched."""
+    for name, n in counts.items():
+        w = want.get(name, 0)
+        if (n <= 0) if w == "> 0" else (n != w):
+            fail(f"{what}: {name} launched {n} times, expected {w} ({json.dumps(counts)})")
+
+
+def capture(attr, fn):
+    """Run ``fn`` with a recording wrapper on ``pipeline.<attr>``; the
+    (args, kwargs) of each call. The wrapped function still runs, so launch
+    counts are unchanged."""
+    calls = []
+    orig = getattr(pipeline, attr)
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+
+    setattr(pipeline, attr, rec)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        setattr(pipeline, attr, orig)
+    return calls, out
+
+
+def _soup_random(seed, P=300, C=16, K=12):
+    """A pool in the layout of tests/test_soup_clip_pallas.py: triangles in
+    [-1, 1]^3, 10% dead lanes, cell ids sorted (lanes grouped by cell),
+    unit-normal planes at |d| <= 0.6 with 15% masked."""
+    rng = np.random.default_rng(seed)
+    tris = rng.uniform(-1, 1, (P, 3, 3)).astype(np.float32)
+    valid = rng.uniform(size=P) > 0.1
+    cell = np.sort(rng.integers(0, C, P)).astype(np.int32)
+    n = rng.normal(size=(C, K, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    d = rng.uniform(-0.6, 0.6, (C, K, 1)).astype(np.float32)
+    pmask = rng.uniform(size=(C, K)) > 0.15
+    return [tris, valid, cell, np.concatenate([n, d], axis=-1), pmask]
+
+
+def soup_cases(device):
+    """B10's degenerate cases by name: an in-plane triangle; a cell that
+    straddles the 2,048-lane block boundary with an in-plane triangle on
+    each side and material beyond the plane on one side only (lanes 2001
+    and 2090: the block-local context keeps the first and drops the
+    second); dead lanes and one live lane with the sentinel cell id C; 77
+    lanes; one plane; no valid lane."""
+    flat = np.array([[0.2, 0.0, 0.0], [0.0, 0.3, 0.0], [-0.2, -0.1, 0.0]], np.float32)
+    cases = {"random": _soup_random(0)}
+    t, v, c, p, m = cases["in-plane triangle"] = _soup_random(3)
+    p[c[0], 0], m[c[0], 0], t[0], v[0] = [0, 0, 1, 0], True, flat, True
+    t, v, c, p, m = cases["block straddle"] = _soup_random(5, P=2100, C=2, K=6)
+    c[:2000], c[2000:] = 0, 1
+    rng = np.random.default_rng(11)
+    t[2000:2048] = rng.uniform(-1, 1, (48, 3, 3))
+    t[2000:2048, :, 2] = -np.abs(t[2000:2048, :, 2]) - 0.01
+    t[2048:] = rng.uniform(-1, 1, (52, 3, 3))
+    t[2001] = t[2090] = flat
+    v[2000:] = True
+    p[1], m[1] = 0.0, False
+    p[1, 0], m[1, 0] = [0, 0, 1, 0], True
+    t, v, c, p, m = cases["sentinel ids"] = _soup_random(8)
+    c[-40:], v[-40:-1], v[-1] = p.shape[0], False, True
+    cases["77 lanes"] = _soup_random(9, P=77)
+    cases["K = 1"] = _soup_random(10, K=1)
+    t, v, c, p, m = cases["no valid lane"] = _soup_random(12)
+    v[:] = False
+    return {name: (tuple(torch.as_tensor(x, device=device) for x in case), {})
+            for name, case in cases.items()}
+
+
+def compare_soup(a, kw):
+    """n_vert and the drop count exactly; the live polygon slots within
+    1e-5 (absolute). Returns their largest difference."""
+    got = soup_clip_cuda.soup_clip_pooled(*a, **kw)
+    want = soup_clip_cuda.soup_clip_pooled_reference(*a, **kw)
+    if not torch.equal(got[1], want[1]):
+        bad = torch.nonzero(got[1] != want[1]).flatten().tolist()
+        fail(f"soup_clip: n_vert differs from the plain fold in lanes {bad[:10]} "
+             f"({len(bad)} in all)")
+    if int(got[2]) != int(want[2]):
+        fail(f"soup_clip: {int(got[2])} multirun drops, the plain fold {int(want[2])}")
+    live = (torch.arange(got[0].shape[1], device=got[0].device) < want[1][:, None])[..., None]
+    err = torch.where(live, (got[0] - want[0]).abs(), 0.0).flatten(1).amax(1)
+    return _check_close("soup_clip", "live polygon slots", err, torch.ones_like(err))
+
+
+def soup_ops(a) -> float:
+    """Float operations the pooled fold needs on these inputs: per valid
+    lane with a cell, per live plane of its cell, the context test of its
+    three corners (18) and the fold of its S = 8 slots (36 each)."""
+    tri, valid, cell, planes, pmask = a[:5]
+    C = planes.shape[0]
+    inside = (cell >= 0) & (cell < C)
+    live = pmask[cell.long().clamp(0, C - 1)].sum(1) * (valid & inside)
+    return float(live.sum()) * (18 + 8 * 36)
+
+
+def soup_kernel_phase(calls, card):
+    """B10 against its plain version on the card: the calls captured from
+    the sphere decomposition and the pooled impact, then the degenerate
+    cases; kernel and plain ms summed over the sphere event's calls, and
+    its bound."""
+    cases = soup_cases("cuda")
+    err = 0.0
+    for a, kw in [c for path in calls.values() for c in path] + list(cases.values()):
+        err = max(err, compare_soup(a, kw))
+    torch.cuda.synchronize()
+    nv = soup_clip_cuda.soup_clip_pooled(*cases["block straddle"][0])[1]
+    if not (int(nv[2001]) == 3 and int(nv[2090]) == 0):
+        fail("soup_clip: the in-plane context is not per 2,048-lane block")
+    out = {"max_abs_err": err}
+    for path, pc in calls.items():
+        ms = sum(event_ms(lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled(*a, **kw))
+                 for a, kw in pc)
+        # The two kernels alone, as the profiler sees them on the device
+        # (``ms`` is the wrapper's whole call: casts, allocations, memset).
+        device_ms = sum(profiled_kernel_ms(
+            lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled(*a, **kw), "soup_") for a, kw in pc)
+        plain_ms = sum(event_ms(lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled_reference(
+            *a, **kw), warmup=1) for a, kw in pc)
+        b_ms, b_by = bound(sum(nbytes(a) + nbytes(soup_clip_cuda.soup_clip_pooled(*a, **kw))
+                               for a, kw in pc), sum(soup_ops(a) for a, _ in pc))
+        out[path] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "shapes": [[tuple(a[0].shape), tuple(a[3].shape)] for a, _ in pc]}
+        print(f"soup_clip ({path}): kernel {ms:.4f} ms (its two kernels {device_ms:.4f} ms on the "
+              f"device)  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  lanes x planes "
+              f"{out[path]['shapes']}  ({card})", flush=True)
+    print(f"soup_clip: max_abs_err {err:.3e} over {sum(map(len, calls.values()))} main-path "
+          f"calls and {len(cases)} degenerate cases ({', '.join(cases)})", flush=True)
+    return out
+
+
+def sphere_phase():
+    """The sphere's 1k decomposition on the card (launches counted: B10
+    once, B1-B4 as the cube's), its output checked, and the same event
+    through the plain path on the CPU: piece count exactly, total volume
+    within rtol 1e-5. Returns (launches, metrics, B10 calls)."""
+    reset_all()
+    calls, (pieces, _, met) = capture("soup_clip_pooled",
+                                      lambda: run_prepare("cuda", model="sphere"))
+    counts = all_counts()
+    gpu = {k: float(v) for k, v in met.items()}
+    print("sphere decomposition (cuda):", json.dumps(gpu), "launches:", json.dumps(counts),
+          flush=True)
+    check_launches("sphere decomposition", counts,
+                   {**{name: want for name, (*_, want) in KERNELS.items()}, "soup_clip": 1})
+    v, f = get_model("sphere")
+    mesh_vol = float(np.einsum("ij,ij->i", v[f[:, 0]], np.cross(v[f[:, 1]], v[f[:, 2]])).sum() / 6)
+    fv = pieces.convex.face_verts
+    P = workload.BENCH_CFG.max_pieces
+    if fv.shape[0] != P or not bool(torch.isfinite(fv).all()) or int(gpu["piece_cnt"]) <= 0:
+        fail(f"sphere pieces are not finite, not {P} slots or none")
+    # At most the ACH's overshoot of the mesh (tests/test_fracture.py:69-79).
+    # No lower bound: pieces whose triangles overflow Tp lose volume in the
+    # JAX package too.
+    if not 0.0 < gpu["total_volume"] <= mesh_vol * 1.6:
+        fail(f"sphere total_volume {gpu['total_volume']} against the mesh's {mesh_vol}")
+    t0 = time.perf_counter()
+    _, _, met_cpu = run_prepare("cpu", model="sphere")
+    cpu = {k: float(v) for k, v in met_cpu.items()}
+    print(f"sphere decomposition (cpu, plain): {json.dumps(cpu)} in "
+          f"{time.perf_counter() - t0:.2f} s; mesh volume {mesh_vol:.6f}", flush=True)
+    if int(cpu["piece_cnt"]) != int(gpu["piece_cnt"]):
+        fail(f"sphere piece_cnt: cuda {gpu['piece_cnt']} != cpu {cpu['piece_cnt']}")
+    if abs(cpu["total_volume"] - gpu["total_volume"]) > 1e-5 * abs(cpu["total_volume"]):
+        fail(f"sphere total_volume: cuda {gpu['total_volume']} vs cpu {cpu['total_volume']}")
+    return counts, gpu, calls
+
+
+def _impact_compare(route, out, met, cout, cmet, strict):
+    """The card's event against the CPU plain run's: every overflow 0 on
+    both sides; if ``strict``, the counts, ``valid`` and the dense groups
+    exactly; the total volume within rtol 1e-5 and within rtol 1e-3 of the
+    cube's 27 (tests/test_fracture.py:88)."""
+    g = {k: float(v) for k, v in met.items()}
+    c = {k: float(v) for k, v in cmet.items()}
+    for k in IMPACT_OVERFLOWS:
+        if g[k] or c[k]:
+            fail(f"impact ({route}): {k} is {g[k]} on the card, {c[k]} on the cpu")
+    if strict:
+        for k in IMPACT_COUNTS:
+            if g[k] != c[k]:
+                fail(f"impact ({route}): {k} cuda {g[k]} != cpu {c[k]}")
+        if not (torch.equal(out.valid.cpu(), cout.valid) and torch.equal(out.group.cpu(),
+                                                                          cout.group)):
+            fail(f"impact ({route}): valid or group differ from the cpu plain run")
+    if abs(g["total_volume"] - c["total_volume"]) > 1e-5 * abs(c["total_volume"]):
+        fail(f"impact ({route}): total_volume cuda {g['total_volume']} vs cpu {c['total_volume']}")
+    if abs(g["total_volume"] - 27.0) > 1e-3 * 27.0:
+        fail(f"impact ({route}): total_volume {g['total_volume']} not within rtol 1e-3 of 27")
+    if not g["new_pieces"] > 0:
+        fail(f"impact ({route}): no new piece")
+
+
+def impact_phase():
+    """The cube32 impact on the card under both routes from one cube
+    prepared on the card, launches counted around each event ("auto": B1,
+    B3, B4 and no B10; "pooled": also B10 once), each compared with the CPU
+    plain run from the same prepared pieces. The pooled route's card branch
+    (cull, pack, B10 with its block-local context) is also held against the
+    CPU branch (no pack, per-job context) on its own inputs, on the card:
+    where no job differs ("context splits" 0) the comparison is exact,
+    else counts and groups may differ by those jobs and only the volumes
+    are compared. Returns (prepared pieces, per route launches and metrics,
+    B10 calls)."""
+    prepared, _ = workload.run_impact("cuda")
+    res, soup_calls = {}, []
+    for route, cfg in IMPACT_ROUTES.items():
+        reset_all()
+        pooled, (soup, (_, (out, met))) = capture(
+            "_pooled_job_mesh_clip",
+            lambda cfg=cfg: capture("soup_clip_pooled",
+                                    lambda: workload.run_impact("cuda", cfg, prepared)))
+        counts = all_counts()
+        soup_calls += soup
+        want = {"clip_fold": "> 0", "labels": "> 0", "refit": "> 0",
+                "soup_clip": 1 if route == "pooled" else 0}
+        check_launches(f"impact ({route})", counts, want)
+        splits = 0
+        for a, kw in pooled:
+            card_b = pipeline._pooled_job_mesh_clip(*a, **kw)
+            cpu_b = pipeline._pooled_job_mesh_clip(*a, on_card=False, **kw)
+            live = cpu_b[1][..., None, None] | card_b[1][..., None, None]
+            diff = ((card_b[1] != cpu_b[1]).any(1)
+                    | (torch.where(live, card_b[0] - cpu_b[0], 0.0) != 0).flatten(1).any(1))
+            splits += int(diff.sum()) + int(card_b[2] != cpu_b[2])
+        t0 = time.perf_counter()
+        _, (cout, cmet) = workload.run_impact("cpu", cfg, prepared)
+        cpu_s = time.perf_counter() - t0
+        g = {k: float(v) for k, v in met.items()}
+        print(f"impact ({route}, cuda): {json.dumps(g)} launches: {json.dumps(counts)}; "
+              f"cpu plain run in {cpu_s:.2f} s: {json.dumps({k: float(v) for k, v in cmet.items()})}"
+              + (f"; pooled clip {tuple(pooled[0][0][1].shape)} jobs x tris, context splits "
+                 f"{splits}" if pooled else ""), flush=True)
+        _impact_compare(route, out, met, cout, cmet, strict=splits == 0)
+        res[route] = {"launches": counts, "metrics": g, "context_splits": splits}
+    return prepared, res, soup_calls
+
+
+def profile_busy(fn, runs: int):
+    """(device busy ms, wall ms, idle share, device entries) per run of
+    ``fn`` under torch.profiler; the idle share is None when the profiler
+    reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / runs
+    busy_us = 0.0
+    entries = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        busy_us += us
+        entries += e.count
+    busy = busy_us / runs / 1e3
+    return busy, wall, ((1.0 - busy / wall) if busy > 0 else None), entries / runs
+
+
+def profiled_kernel_ms(fn, prefix: str, runs: int = 20) -> float:
+    """Device ms per run of ``fn`` spent in kernels whose names contain
+    ``prefix``, under torch.profiler, after one warm-up run; fails when
+    the profiler shows no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+          for e in prof.key_averages() if e.device_type == DeviceType.CUDA and prefix in e.key]
+    if not us:
+        fail(f"the profiler shows no device kernel named *{prefix}*")
+    return sum(us) / runs / 1e3
+
+
+def impact_stage_split(cfg, prepared, reps: int = 10) -> dict:
+    """Median CUDA-event ms per stage of one impact event: a stage is the
+    span of a pipeline function ``do_fracture`` calls (outermost calls
+    only, repeated calls summed), "glue" the rest of the event."""
+    pieces, ctx = prepared
+    spans, depth, saved = [], [0], {}
+    for name in IMPACT_STAGES:
+        fn = saved[name] = getattr(pipeline, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            if depth[0]:
+                return _fn(*a, **kw)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            depth[0] += 1
+            try:
+                return _fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                e.record()
+                spans.append((_name, s, e))
+
+        setattr(pipeline, name, wrapped)
+    per = {}
+    try:
+        for r in range(reps + 2):
+            spans.clear()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            pipeline.do_fracture(pieces, ctx, workload.IMPACT, 0, cfg, partial=True)
+            t1.record()
+            torch.cuda.synchronize()
+            if r < 2:
+                continue
+            acc = {}
+            for name, s, e in spans:
+                acc[name] = acc.get(name, 0.0) + s.elapsed_time(e)
+            acc["glue"] = t0.elapsed_time(t1) - sum(acc.values())
+            acc["event"] = t0.elapsed_time(t1)
+            for k, v in acc.items():
+                per.setdefault(k, []).append(v)
+    finally:
+        for name, fn in saved.items():
+            setattr(pipeline, name, fn)
+    return {k: statistics.median(v) for k, v in per.items()}
+
+
+def fracture_timing(prepared, card, reps: int = 10):
+    """ms per event on the card (host clock, synchronize at the end, median
+    of ``reps``): the sphere decomposition and the cube32 impact under both
+    routes; each impact route's stage split and device idle share."""
+    out = {"sphere_prepare_ms": host_ms(lambda: run_prepare("cuda", model="sphere"), reps=reps)}
+    print(f"prepare_fracture sphere 1k: median {out['sphere_prepare_ms']:.3f} ms/event ({card})",
+          flush=True)
+    for route, cfg in IMPACT_ROUTES.items():
+        ms = host_ms(lambda cfg=cfg: workload.run_impact("cuda", cfg, prepared), reps=reps)
+        split = impact_stage_split(cfg, prepared)
+        busy, wall, idle, entries = profile_busy(
+            lambda cfg=cfg: workload.run_impact("cuda", cfg, prepared), 5)
+        out[route] = {"event_ms": ms, "stages_ms": split, "busy_ms": busy,
+                      "profiled_wall_ms": wall, "idle_share": idle, "device_entries": entries}
+        print(f"do_fracture cube32 ({route}): median {ms:.3f} ms/event of {reps} ({card})",
+              flush=True)
+        print(f"impact ({route}) stage split, one event (CUDA events, ms): "
+              + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+        print(f"impact ({route}) idle share "
+              + (f"{idle:.3f}: device busy {busy:.3f} ms of {wall:.3f} ms per event under the "
+                 f"profiler, {entries:.0f} device entries per event" if idle is not None
+                 else "not measured: the profiler reported no device time"), flush=True)
     return out
 
 
@@ -1211,19 +1591,13 @@ def main():
               flush=True)
 
     # 4. Main path on the card, counting launches.
-    for mod, *_ in KERNELS.values():
-        mod.launches = 0
-    reset_counts()
+    reset_all()
     pieces, ctx, met = run_prepare("cuda")
     torch.cuda.synchronize()
-    counts = {name: KERNELS[name][0].launches for name in KERNELS}
+    counts = all_counts()
     gpu = {k: float(v) for k, v in met.items()}
     print("main path (cuda):", json.dumps(gpu), "launches:", json.dumps(counts), flush=True)
-    for name, (_, _, _, want) in KERNELS.items():
-        if counts[name] != want:
-            fail(f"{name} launched {counts[name]} times on the main path, expected {want}")
-    if any(launch_counts().values()):
-        fail(f"the decomposition launched physics kernels: {json.dumps(launch_counts())}")
+    check_launches("main path", counts, {name: want for name, (*_, want) in KERNELS.items()})
     if int(gpu["piece_cnt"]) != 1024:
         fail(f"piece_cnt {gpu['piece_cnt']} != 1024")
     if abs(gpu["total_volume"] - 27.005) >= 0.05:
@@ -1265,6 +1639,19 @@ def main():
     # 10. Timing.
     timing = physics_timing(before_last, variants, card)
 
+    # 11. The sphere decomposition: the culled pair-pool mesh clip (B10).
+    sphere_counts, sphere_met, sphere_calls = sphere_phase()
+
+    # 12. The cube32 impact under both mesh-clip routes.
+    prepared, impact, pooled_calls = impact_phase()
+
+    # 13. B10 against its plain version on both paths' inputs.
+    soup = soup_kernel_phase({"sphere decomposition": sphere_calls,
+                              "cube32 impact, pooled": pooled_calls}, card)
+
+    # 14. Timing of the sphere decomposition and the impact.
+    fracture = fracture_timing(prepared, card)
+
     path_counts = {"broadphase_sorted": ("b_sorted", variants["b_sorted"][0]),
                    "solver_warm": ("d_warm", variants["d_warm"][0])}
     kernels = [
@@ -1276,9 +1663,21 @@ def main():
         path, cnt = path_counts.get(name, ("physics main", phys_counts))
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "path": path, "launches": cnt[name], **phys[name], "library_ms": None})
+    soup_main = soup["sphere decomposition"]
+    kernels.append({
+        "name": "soup_clip", "route": "cuda", "source": SOUP_SRC, "replaces": SOUP_REPLACES,
+        "path": "sphere decomposition", "launches": sphere_counts["soup_clip"],
+        "max_abs_err": soup["max_abs_err"],
+        **{k: soup_main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "shapes")},
+        "library_ms": None,
+        "pooled_impact": {"launches": impact["pooled"]["launches"]["soup_clip"],
+                          **soup["cube32 impact, pooled"]},
+    })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels, "event_ms": ms_event, "physics": timing,
-                      "card": card}), flush=True)
+                      "sphere": {"metrics": sphere_met, "launches": sphere_counts},
+                      "impact": impact, "fracture_timing": fracture, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

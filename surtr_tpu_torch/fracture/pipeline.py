@@ -1,17 +1,26 @@
-"""The initial decomposition ``prepare_fracture`` (counterpart of
-``surtr_tpu/fracture/pipeline.py``; reference PrepareFracture).
+"""The fracture pipeline (counterpart of ``surtr_tpu/fracture/pipeline.py``;
+reference PrepareFracture and DoFracture).
 
-ICH → k-DOP → ACH, then C Voronoi cells of the ACH folded in two passes,
-the source mesh clipped per cell, mesh islands split, the cells refit
-(tetra hull + k-DOP slabs) and capped, and the candidates packed into a
-PieceSet. Four hand-written kernels carry it on the GPU: the clip fold
-(ACH, pattern cells, both Voronoi passes, refit fold), the ICH, the island
-labels and the refit planes; everything around them is plain PyTorch on
-the input tensors' device.
+``prepare_fracture``: ICH → k-DOP → ACH, then C Voronoi cells of the ACH
+folded in two passes, the source mesh clipped per cell (every source
+triangle against every cell, or, when a per-cell cull pool is smaller than
+the source, the culled pair pool of (cell, triangle) lanes), mesh islands
+split, the cells refit (tetra hull + k-DOP slabs) and capped, and the
+candidates packed into a PieceSet. ``do_fracture``: the impact pattern
+scaled to the model and placed at the impact, the A active pieces folded
+by its C cells, the live jobs compacted and their meshes clipped, islands
+split, the pieces refit and capped, out-of-sphere pieces merged back, and
+every compound split into contact-connected components
+(``split_groups_by_contact``).
 
-Branches outside this slice raise ``NotImplementedError`` naming the
-ROADMAP item: exact caps (A10), the culled pair-pool mesh clip with its
-soup-clip kernel (A10/B10), the prepare-time parity grid (A5) and
+Five hand-written kernels carry it on the GPU: the clip fold B1 (ACH,
+pattern cells, the Voronoi and impact folds, the refit fold), the ICH B2,
+the island labels B3, the refit planes B4 and the pooled soup clip B10;
+everything around them is plain PyTorch on the input tensors' device.
+
+Branches outside the port raise ``NotImplementedError`` naming the ROADMAP
+item: exact caps (A10), the per-cell ``mesh_pair_pool=False`` fallback of
+the culled mesh clip (A10), the prepare-time parity grid (A5) and
 ``refitting_point_limit > 4``.
 """
 
@@ -23,15 +32,18 @@ from surtr_tpu_torch.config import FractureConfig
 from surtr_tpu_torch.fracture.pattern import pattern_cells, radial_seeds, uniform_seeds
 from surtr_tpu_torch.fracture.types import FractureContext, PieceSet
 from surtr_tpu_torch.ops.caps import match_cut_faces
-from surtr_tpu_torch.ops.clip import contains_point
+from surtr_tpu_torch.ops.clip import contains_point, plane_basis
 from surtr_tpu_torch.ops.clip_cuda import clip_planes_batch
 from surtr_tpu_torch.ops.hull_cuda import ich
 from surtr_tpu_torch.ops.kdop import kdop_planes
+from surtr_tpu_torch.ops.labels import adjacency_components
 from surtr_tpu_torch.ops.labels_cuda import tri_soup_components_batch
-from surtr_tpu_torch.ops.linalg import compact
-from surtr_tpu_torch.ops.mesh_clip import clip_trisoup, point_in_mesh, winding_inside
+from surtr_tpu_torch.ops.linalg import compact, dot3, pack_rows, sqrt_rn
+from surtr_tpu_torch.ops.mesh_clip import (clip_polys_by_rows, clip_trisoup, fan_triangles,
+                                           point_in_mesh, winding_inside)
 from surtr_tpu_torch.ops.moments import moments
 from surtr_tpu_torch.ops.refit_cuda import refit_planes_batch
+from surtr_tpu_torch.ops.soup_clip_cuda import soup_clip_pooled
 from surtr_tpu_torch.ops.voronoi import bisector_planes, nearest_first
 from surtr_tpu_torch.types import ConvexPoly, scale_poly, translate_poly, unit_cube
 
@@ -42,6 +54,22 @@ def _stable_front(flags: torch.Tensor, k: int) -> torch.Tensor:
     """Indices that put flagged entries first, each group in index order,
     truncated to k (the JAX package's top_k over -arange scores)."""
     return torch.sort((~flags).to(torch.int8), dim=-1, stable=True).indices[..., :k]
+
+
+def convex_out_of_sphere(poly: ConvexPoly, cloud: torch.Tensor, center: torch.Tensor,
+                         radius) -> torch.Tensor:
+    """ConvexOutOfSphere: a piece is outside the impact sphere iff none of
+    its vertices lies within ``radius`` of ``center`` and none of the
+    sphere-cloud points (Pc, 3) lies inside the convex (n·p + d <= 0 on
+    every live face, in ``dot3`` order). poly batch (...) → (...) bool."""
+    fv = poly.face_verts
+    d2 = torch.sum((fv - center) ** 2, dim=-1)
+    vert_inside = torch.any((poly.slot_mask() & (d2 < radius * radius)).flatten(-2), dim=-1)
+    s = dot3(poly.planes[..., None, :3], cloud) + poly.planes[..., 3:]   # (..., F, Pc)
+    ok = (s <= 0) | ~poly.face_mask()[..., None]
+    empty = poly.is_empty()
+    cloud_inside = torch.any(torch.all(ok, dim=-2), dim=-1) & ~empty
+    return ~vert_inside & ~cloud_inside & ~empty
 
 
 def cut_face_tris(poly: ConvexPoly, face_sel: torch.Tensor):
@@ -162,9 +190,10 @@ def _active_planes(conv, cell_planes, cell_pmask, KA: int, mas):
 
 
 def _voxel_labels(conv, solid_t, solid_m, mas, VR: int, chunk: int = 64):
-    """Occupancy of a VR³ grid over each candidate hull (inside the source
-    solid and the candidate convex), closed by 3·VR rounds of 6-neighbour
-    min-label propagation. Returns (pts (N, G, 3), occ (N, G), lab (N, G))."""
+    """Occupancy of a VR³ grid over each candidate hull (inside the
+    candidate's source solid (N, T, 3, 3) and its convex), closed by 3·VR
+    rounds of 6-neighbour min-label propagation. Returns (pts (N, G, 3),
+    occ (N, G), lab (N, G))."""
     N = conv.n_verts.shape[0]
     dev, dt = conv.face_verts.device, conv.face_verts.dtype
     G = VR ** 3
@@ -180,8 +209,8 @@ def _voxel_labels(conv, solid_t, solid_m, mas, VR: int, chunk: int = 64):
     gz = g[:, None, None, :, 2].expand(N, VR, VR, VR)
     pts = torch.stack([gx, gy, gz], dim=-1).reshape(N, G, 3)
     in_solid = torch.cat(
-        [winding_inside(p.reshape(-1, 3), solid_t, solid_m).reshape(-1, G)
-         for p in pts.split(chunk)]
+        [winding_inside(p, t, m)
+         for p, t, m in zip(pts.split(chunk), solid_t.split(chunk), solid_m.split(chunk))]
     )
     in_conv = contains_point(
         conv.map(lambda a: a[:, None]), pts, tol=1e-4 * mas
@@ -215,7 +244,9 @@ def _voxel_label_at(pts, occ, lab, c):
 
 
 def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg: FractureConfig):
-    """CheckMeshIsland over a candidate batch sharing one source solid.
+    """CheckMeshIsland over a candidate batch; solid_t (N, T, 3, 3) /
+    solid_m (N, T) are each candidate's source solid (prepare passes the
+    one source mesh broadcast, do_fracture each job's source piece).
 
     Surface components (vertex-coincidence labels, kernel B3) beyond the
     first are merged back into island 0 when a probe on the segment between
@@ -253,7 +284,7 @@ def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg: Fracture
 
     def merge_test(c0, ck):
         probes = torch.stack([c0 + (ck - c0) * t for t in (0.25, 0.5, 0.75)], dim=1)
-        in_solid = winding_inside(probes.reshape(-1, 3), solid_t, solid_m).reshape(N0, 3)
+        in_solid = winding_inside(probes, solid_t, solid_m)
         in_conv = contains_point(conv.map(lambda a: a[:, None]), probes, tol=tol_c)
         return torch.any(in_solid & in_conv, dim=1)
 
@@ -294,13 +325,14 @@ def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg: Fracture
 
 def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, mas,
                    cfg: FractureConfig):
-    """Occupancy test, refit (kernel B4 planes + kernel B1 fold) and caps
-    from the refit convex's cut faces (``exact_caps=False``).
+    """Occupancy test against each candidate's source solid (N, Ts, 3, 3),
+    refit (kernel B4 planes + kernel B1 fold) and caps from the refit
+    convex's cut faces (``exact_caps=False``).
     Returns (conv2, mtris2, mmask2, cand_valid, cap_dropped)."""
     N = mmask.shape[0]
     has_tris = torch.any(mmask, dim=-1)
     _, cent = moments(conv)
-    inside = point_in_mesh(cent, solid_t, solid_m)
+    inside = point_in_mesh(cent[:, None, :], solid_t, solid_m)[:, 0]
     cand_valid = ~conv.is_empty() & (has_tris | inside)
 
     cut_sel = match_cut_faces(conv, cut_planes, cut_mask, mas)
@@ -353,6 +385,88 @@ def _pack_candidates(conv, mtris, mmask, valid, group, tag, vol, P: int) -> Piec
         group=torch.where(sel_valid, group[take], -1).to(torch.int32),
         tag=torch.where(sel_valid, tag[take], -1).to(torch.int32),
     )
+
+
+def _pack_pool_fans(fans, fcnt, lane_valid, lane_seg, pstart, Tp: int):
+    """Fans of a pool whose lanes are grouped by segment (cell or job) in
+    contiguous runs starting at ``pstart`` (G+1,), packed into (G, Tp)
+    triangle tables. A lane emits only into its segment's remaining budget
+    of Tp (the per-segment clamp before the global pack), so no segment can
+    starve another. Returns (mtris (G, Tp, 3, 3), mmask (G, Tp), dropped
+    fans)."""
+    G = pstart.shape[0] - 1
+    NL, Sf = fans.shape[0], fans.shape[1]
+    dev = fans.device
+    ps = pstart.long()
+    z = torch.zeros((1,), dtype=torch.int64, device=dev)
+    cumf = torch.cat([z, torch.cumsum(fcnt, 0)])
+    off = cumf[:-1] - cumf[ps][torch.clamp(lane_seg.long(), 0, G - 1)]
+    allowed = torch.minimum(torch.clamp(Tp - off, min=0), fcnt.long())
+    fan_drop = (fcnt * lane_valid).sum() - (allowed * lane_valid).sum()
+    packed, _ = pack_rows(fans.reshape(NL, Sf, 9), allowed, G * Tp)
+    fanbase = torch.cat([z, torch.cumsum(allowed, 0)])[ps]
+    segfan = fanbase[1:] - fanbase[:-1]                        # (G,) <= Tp
+    slot_t = torch.arange(Tp, device=dev)
+    idx = torch.clamp(fanbase[:-1, None] + slot_t, 0, G * Tp - 1)
+    mmask = slot_t < segfan[:, None]
+    mtris = torch.where(mmask[..., None, None], packed[idx].reshape(G, Tp, 3, 3), 0.0)
+    return mtris, mmask, fan_drop
+
+
+def _culled_pair_pool_clip(tri_corners, tmask, cell_planes, cell_pmask, cull_cap: int, mas,
+                           Tp: int, cfg: FractureConfig):
+    """The mesh clip when a per-cell pool of ``cull_cap`` triangles is
+    smaller than the source: triangles whose bounding sphere a cell plane
+    separates are culled per cell (exact), the survivors of every cell are
+    packed into one pool of (cell, triangle) lanes, and every lane is
+    folded by its own cell's planes: kernel B10 for CUDA tensors,
+    ``clip_polys_by_rows`` (per-cell context) for CPU tensors. Returns
+    (mtris (C, Tp, 3, 3), mmask (C, Tp), dropped triangles)."""
+    if cfg.mesh_pair_pool not in (True, "auto"):
+        raise NotImplementedError(
+            "mesh_pair_pool=False on the culled mesh clip (the per-cell uniform-pool "
+            "fallback) is not ported (ROADMAP A10)"
+        )
+    C = cell_planes.shape[0]
+    Tsrc = tri_corners.shape[0]
+    dev = tri_corners.device
+    cent_t = ((tri_corners[:, 0] + tri_corners[:, 1]) + tri_corners[:, 2]) / 3.0
+    rel = tri_corners - cent_t[:, None]
+    rad_t = torch.amax(sqrt_rn(dot3(rel, rel)), dim=1)
+    tol_c = 1e-4 * mas
+    pl = cell_planes[:, :, None, :]
+    d = (
+        pl[..., 0] * cent_t[:, 0] + pl[..., 1] * cent_t[:, 1]
+        + pl[..., 2] * cent_t[:, 2] + pl[..., 3]
+    )                                                          # (C, Kp, T)
+    sep = torch.any((d > rad_t + tol_c) & cell_pmask[:, :, None], dim=1)
+    keep = tmask & ~sep                                        # (C, T)
+    cidx = _stable_front(keep, cull_cap)                       # kept first, index order
+    csel = torch.gather(keep, 1, cidx)
+    cull_over = torch.clamp(keep.sum(1) - cull_cap, min=0)
+
+    # Pool of the live (cell, triangle) pairs, grouped by cell.
+    kept_cnt = csel.sum(1)
+    pair_cap = int(min(C * cull_cap, max(4 * Tsrc, 1 << 15)))
+    cell_ids = torch.arange(C, device=dev)[:, None].expand(C, cull_cap)
+    pairs, pair_total = pack_rows(torch.stack([cell_ids, cidx], dim=-1), kept_cnt, pair_cap)
+    pair_over = torch.clamp(kept_cnt.sum() - pair_total, min=0)
+    pair_cell = torch.clamp(pairs[:, 0], 0, C - 1)
+    pair_tri = torch.clamp(pairs[:, 1], 0, Tsrc - 1)
+    pair_valid = torch.arange(pair_cap, device=dev) < pair_total
+    z = torch.zeros((1,), dtype=torch.int64, device=dev)
+    pstart = torch.clamp(torch.cat([z, torch.cumsum(kept_cnt, 0)]), max=pair_cap)
+    ptris = tri_corners[pair_tri]
+    if ptris.is_cuda:
+        poly, nvp, mrun_drops = soup_clip_pooled(ptris, pair_valid, pair_cell, cell_planes,
+                                                 cell_pmask)
+    else:
+        poly, nvp, mrun_drops = clip_polys_by_rows(
+            ptris, pair_valid, cell_planes[pair_cell], cell_pmask[pair_cell],
+            seg_starts=pstart, seg_id=pair_cell)
+    fans, fcnt = fan_triangles(poly, nvp)
+    mtris, mmask, fan_drop = _pack_pool_fans(fans, fcnt, pair_valid, pair_cell, pstart, Tp)
+    return mtris, mmask, cull_over.sum() + pair_over + fan_drop + mrun_drops
 
 
 def density_sort(seeds: torch.Tensor) -> torch.Tensor:
@@ -459,14 +573,15 @@ def prepare_fracture(
     Tsrc = tri_corners.shape[0]
     cull_cap = min(Tsrc, max(4 * Tp, -(-6 * Tsrc // max(C, 1))))
     if cull_cap < Tsrc:
-        raise NotImplementedError(
-            "culled pair-pool mesh clip (cull_cap < source triangles, soup-clip "
-            "kernel B10) is not ported yet (ROADMAP A10, B10)"
-        )
-    mtris, mmask, mdrop = clip_trisoup(tri_corners, tmask, cell_planes_a, cell_pmask_a, max_out=Tp)
-    # The overflow count is added to every cell's drop count before the sum,
-    # as the JAX package does on this branch.
-    mdrop = (mdrop + act_over).sum()
+        mtris, mmask, mdrop = _culled_pair_pool_clip(
+            tri_corners, tmask, cell_planes_a, cell_pmask_a, cull_cap, mas, Tp, cfg)
+        mdrop = mdrop + act_over
+    else:
+        mtris, mmask, mdrop = clip_trisoup(tri_corners, tmask, cell_planes_a, cell_pmask_a,
+                                           max_out=Tp)
+        # The overflow count is added to every cell's drop count before the
+        # sum, as the JAX package does on this branch.
+        mdrop = (mdrop + act_over).sum()
 
     if cfg.island_grid_res > 0 and C >= 64 and Tsrc >= 512:
         raise NotImplementedError(
@@ -476,9 +591,14 @@ def prepare_fracture(
 
     cpl, cpm = cell_planes_a, cell_pmask_a
     cand_ok = torch.ones((C,), dtype=torch.bool, device=dev)
+
+    def solid(n):
+        """Every candidate's source solid: the one source mesh, broadcast."""
+        return tri_corners.expand((n,) + tri_corners.shape), tmask.expand(n, Tsrc)
+
     if cfg.max_islands > 1 and cfg.island_pool > 0:
         mmask0, x_cand, x_mmask, x_valid = _split_mesh_islands(
-            conv, mtris, mmask, tri_corners, tmask, mas, cfg)
+            conv, mtris, mmask, *solid(C), mas, cfg)
         conv = conv.map(lambda a: torch.cat([a, a[x_cand]]))
         mtris = torch.cat([mtris, mtris[x_cand]])
         mmask = torch.cat([mmask0, x_mmask])
@@ -487,7 +607,7 @@ def prepare_fracture(
         cand_ok = torch.cat([cand_ok, x_valid])
 
     conv, mtris, mmask, cand_valid, cap_drop = _finish_pieces(
-        conv, mtris, mmask, cpl, cpm, tri_corners, tmask, mas, cfg)
+        conv, mtris, mmask, cpl, cpm, *solid(cand_ok.shape[0]), mas, cfg)
     mdrop = mdrop + cap_drop
     cand_valid = cand_valid & cand_ok
     N = cand_valid.shape[0]
@@ -506,3 +626,368 @@ def prepare_fracture(
         "mesh_tris_dropped": mdrop,
     }
     return pieces, ctx, metrics
+
+
+def _pooled_job_mesh_clip(jmesh, jmmask, jcpl, jcpm, Tp: int, on_card: bool | None = None):
+    """Clip each job's triangle pool by its own plane list as one pool of
+    (job, triangle) lanes. jmesh (J, Tj, 3, 3), jmmask (J, Tj), jcpl
+    (J, K, 4), jcpm (J, K). Returns (mtris (J, Tp, 3, 3), mmask (J, Tp),
+    dropped), the contract of the per-job ``clip_trisoup``.
+
+    ``on_card`` (default: the tensors lie on a GPU) takes the branch the
+    JAX package runs on its accelerator: lanes whose triangle's bounding
+    sphere a job plane separates are culled (exact: they clip to empty),
+    and for pools of at least 8,192 lanes the survivors are packed stably
+    (job-major) into 3/8 of the pool, dead lanes carrying the sentinel job
+    J, which reads no planes; then kernel B10. Pool overflow drops whole
+    lanes, counted. Otherwise no pack and ``clip_polys_by_rows`` with
+    per-job context, the JAX package's CPU branch."""
+    if on_card is None:
+        on_card = jmesh.is_cuda
+    J, Tj = jmmask.shape
+    PC = J * Tj
+    dev = jmesh.device
+    pair_job = torch.arange(J, dtype=torch.int32, device=dev).repeat_interleave(Tj)
+    pair_valid = jmmask.reshape(PC)
+    pair_tris = jmesh.reshape(PC, 3, 3)
+    over_drop = torch.zeros((), dtype=torch.int64, device=dev)
+    if on_card and PC >= 8192:
+        tcent = torch.mean(jmesh, dim=2)                          # (J, Tj, 3)
+        rel = jmesh - tcent[:, :, None]
+        trad = sqrt_rn(torch.amax(dot3(rel, rel), dim=-1))        # (J, Tj)
+        dist = dot3(tcent[:, :, None, :], jcpl[:, None, :, :3]) + jcpl[:, None, :, 3]
+        sep = torch.any(jcpm[:, None, :] & (dist > trad[..., None] + 1e-6), dim=-1)
+        pair_valid = pair_valid & ~sep.reshape(PC)
+        ppool = min(PC, max(2048, (PC * 3) // 8))
+        sel = _stable_front(pair_valid, ppool)
+        sel_ok = pair_valid[sel]
+        over_drop = pair_valid.sum() - sel_ok.sum()
+        pair_tris = pair_tris[sel]
+        pair_valid = sel_ok
+        pair_job = torch.where(sel_ok, pair_job[sel], J).to(torch.int32)
+        pstart = torch.searchsorted(pair_job, torch.arange(J + 1, dtype=torch.int32, device=dev))
+    else:
+        pstart = torch.arange(J + 1, device=dev) * Tj
+    if on_card:
+        poly, nvp, mrun_drops = soup_clip_pooled(pair_tris, pair_valid, pair_job, jcpl, jcpm)
+    else:
+        poly, nvp, mrun_drops = clip_polys_by_rows(
+            pair_tris, pair_valid, jcpl[pair_job.long()], jcpm[pair_job.long()],
+            seg_starts=pstart, seg_id=pair_job)
+    fans, fcnt = fan_triangles(poly, nvp)
+    mtris, mmask, fan_drop = _pack_pool_fans(fans, fcnt, pair_valid, pair_job, pstart, Tp)
+    return mtris, mmask, fan_drop + mrun_drops + over_drop
+
+
+@torch.no_grad()
+def do_fracture(pieces: PieceSet, ctx: FractureContext, impact_pos, target_group,
+                cfg: FractureConfig, partial: bool = True):
+    """Refracture compounds at an impact point. Returns (PieceSet, metrics).
+
+    ``target_group`` is a scalar group id or a (P,) boolean piece mask.
+    partial=True uses the impact-local pattern and leaves out-of-sphere
+    candidates attached to their parent compound; partial=False uses the
+    general pattern on every target piece. Runs on the pieces' device."""
+    if cfg.exact_caps:
+        raise NotImplementedError(
+            "exact_caps=True (exact closed-mesh caps) is not ported yet (ROADMAP A10)"
+        )
+    A = cfg.max_active_pieces
+    P = cfg.max_pieces
+    Tp = cfg.max_piece_tris
+    mas = ctx.max_axis_scale
+    dev = pieces.valid.device
+    impact_pos = torch.as_tensor(impact_pos, dtype=torch.float32, device=dev)
+
+    pattern = ctx.partial_pattern if partial else ctx.general_pattern
+    C = pattern.n_verts.shape[0]
+    # The pattern scaled ×(2·maxAxisScale) and translated to the impact.
+    cells = translate_poly(scale_poly(pattern, 2.0 * mas), impact_pos)
+    cells_fm = cells.face_mask()
+    cloud = ctx.sphere_cloud * cfg.impact_radius + impact_pos
+
+    tg = torch.as_tensor(target_group, device=dev)
+    target_mask = pieces.group == tg.to(torch.int32) if tg.dim() == 0 else tg.to(torch.bool)
+    in_target = pieces.valid & target_mask
+    if partial:
+        outside = convex_out_of_sphere(pieces.convex, cloud, impact_pos, cfg.impact_radius)
+    else:
+        outside = torch.zeros_like(pieces.valid)
+    active = in_target & ~outside
+
+    # Up to A active pieces, largest first (stable); overflow stays whole.
+    vol0, _ = moments(pieces.convex)
+    score = torch.where(active, vol0, -1.0)
+    sel = torch.sort(-score, stable=True).indices[:A]
+    sel_ok = active[sel]
+    active_overflow = torch.clamp(active.sum() - A, min=0)
+    selected = torch.zeros_like(pieces.valid)
+    selected[sel] = sel_ok
+    src_conv = pieces.convex.map(lambda a: a[sel])
+    src_mesh = pieces.mesh[sel]
+    src_mmask = pieces.mesh_valid[sel] & sel_ok[:, None]
+
+    # A × C grid of (piece, cell) jobs. Partial mode culls jobs whose piece
+    # bounding sphere a cell plane separates (exact) into a pool of JPOOL,
+    # ascending job index first.
+    N0 = A * C
+    JPOOL = min(N0, max(256, N0 // 4)) if partial else N0
+    if JPOOL < N0:
+        fvs = src_conv.face_verts
+        smA = src_conv.slot_mask()
+        cntA = torch.clamp(smA.sum((1, 2)), min=1)
+        centA = torch.sum(torch.where(smA[..., None], fvs, 0.0), dim=(1, 2)) / cntA[:, None]
+        radA = sqrt_rn(torch.amax(torch.where(
+            smA, torch.sum((fvs - centA[:, None, None]) ** 2, -1), 0.0), dim=(1, 2)))
+        distAC = (torch.sum(cells.planes[None, :, :, :3] * centA[:, None, None, :], -1)
+                  + cells.planes[None, :, :, 3])                        # (A, C, F)
+        sepAC = torch.any(cells_fm[None] & (distAC > radA[:, None, None] + 1e-5 * mas), dim=-1)
+        alive0 = (sel_ok[:, None] & ~sepAC & ~cells.is_empty()[None]).reshape(N0)
+        jsel = _stable_front(alive0, JPOOL)
+        jsel_ok = alive0[jsel]
+        precull_over = torch.clamp(alive0.sum() - JPOOL, min=0)
+    else:
+        jsel = torch.arange(N0, device=dev)
+        jsel_ok = sel_ok.repeat_interleave(C)
+        precull_over = torch.zeros((), dtype=torch.int64, device=dev)
+    a_of = jsel // C
+    c_of = jsel % C
+    conv = clip_planes_batch(src_conv.map(lambda a: a[a_of]), cells.planes[c_of], cells_fm[c_of])
+    # An empty cell gives an empty piece; culled or unselected jobs are empty.
+    conv = ConvexPoly(conv.face_verts, torch.where(jsel_ok[:, None], conv.n_verts, 0),
+                      conv.planes)
+
+    # Job compaction: the JCAP largest live jobs (stable), overflow counted.
+    alive_job = ~conv.is_empty() & jsel_ok
+    JCAP = min(JPOOL, max(128, N0 // (8 if partial else 2)))
+    volj, _ = moments(conv)
+    jtake = torch.sort(-torch.where(alive_job, volj, -1.0), stable=True).indices[:JCAP]
+    jvalid = alive_job[jtake]
+    conv = conv.map(lambda a: a[jtake])
+    cell_of = c_of[jtake]
+    src_of = a_of[jtake]
+    src_valid = jvalid
+    job_overflow = torch.clamp(alive_job.sum() - JCAP, min=0) + precull_over
+
+    # Mesh clip on the live-job pool.
+    jmesh = src_mesh[src_of]
+    jmmask = src_mmask[src_of] & jvalid[:, None]
+    jcpl = cells.planes[cell_of]
+    jcpm = cells_fm[cell_of]
+    if cfg.mesh_pair_pool == "auto":
+        use_pool = jmmask.numel() >= 65536
+    else:
+        use_pool = bool(cfg.mesh_pair_pool)
+    if use_pool:
+        mtris, mmask, mdrop = _pooled_job_mesh_clip(jmesh, jmmask, jcpl, jcpm, Tp)
+    else:
+        mtris, mmask, mdrop = clip_trisoup(jmesh, jmmask, jcpl, jcpm, max_out=Tp)
+
+    # Mesh islands against each job's source piece.
+    if cfg.max_islands > 1 and cfg.island_pool > 0:
+        mmask0, x_cand, x_mmask, x_valid = _split_mesh_islands(
+            conv, mtris, mmask, src_mesh[src_of], src_mmask[src_of], mas, cfg)
+        conv = conv.map(lambda a: torch.cat([a, a[x_cand]]))
+        mtris = torch.cat([mtris, mtris[x_cand]])
+        mmask = torch.cat([mmask0, x_mmask])
+        cell_of = torch.cat([cell_of, cell_of[x_cand]])
+        src_of = torch.cat([src_of, src_of[x_cand]])
+        src_valid = torch.cat([src_valid, src_valid[x_cand] & x_valid])
+    N = conv.n_verts.shape[0]
+
+    conv2, mtris2, mmask2, cand_valid, cap_drop = _finish_pieces(
+        conv, mtris, mmask, cells.planes[cell_of], cells_fm[cell_of],
+        src_mesh[src_of], src_mmask[src_of], mas, cfg)
+    mdrop = mdrop.sum() + cap_drop
+    cand_valid = cand_valid & src_valid
+
+    # MergeOutOfImpact: partial-mode candidates outside the sphere rejoin
+    # their parent compound; the others get a fresh group per (parent, cell).
+    if partial:
+        cand_out = convex_out_of_sphere(conv2, cloud, impact_pos, cfg.impact_radius)
+    else:
+        cand_out = torch.zeros((N,), dtype=torch.bool, device=dev)
+    gmax = torch.amax(torch.where(pieces.valid, pieces.group, 0))
+    parent_of = pieces.group[sel][src_of]
+    cand_group = torch.where(cand_out, parent_of, gmax + 1 + parent_of * C + cell_of)
+
+    # Merge with the surviving pieces and compact to P.
+    keep_orig = pieces.valid & ~selected
+    vol_new, _ = moments(conv2)
+    packed = _pack_candidates(
+        ConvexPoly(*(torch.cat([a, b]) for a, b in zip(
+            (pieces.convex.face_verts, pieces.convex.n_verts, pieces.convex.planes),
+            (conv2.face_verts, conv2.n_verts, conv2.planes)))),
+        torch.cat([pieces.mesh, mtris2]),
+        torch.cat([pieces.mesh_valid & keep_orig[:, None], mmask2]),
+        torch.cat([keep_orig, cand_valid]),
+        torch.cat([pieces.group, cand_group.to(torch.int32)]),
+        torch.cat([pieces.tag, torch.full((N,), -1, dtype=torch.int32, device=dev)]),
+        torch.cat([torch.where(keep_orig, vol0, -1.0), vol_new]),
+        P,
+    )
+    piece_overflow = torch.clamp(keep_orig.sum() + cand_valid.sum() - P, min=0)
+
+    # HandleConvexIsland: every compound split into contact components.
+    packed, split_overflow = split_groups_by_contact(packed, eps=1e-3 * mas,
+                                                     exact=cfg.exact_face_overlap)
+    metrics = {
+        "split_face_overflow": split_overflow,
+        "active_pieces": active.sum(),
+        "active_overflow": active_overflow,
+        "job_overflow": job_overflow,
+        "new_pieces": cand_valid.sum(),
+        "piece_overflow": piece_overflow,
+        "merged_out": (cand_out & cand_valid).sum(),
+        "total_volume": torch.sum(torch.where(packed.valid, moments(packed.convex)[0], 0.0)),
+        "mesh_tris_dropped": mdrop,
+        "num_groups": packed.num_groups(),
+    }
+    return packed, metrics
+
+
+@torch.no_grad()
+def split_groups_by_contact(pieces: PieceSet, eps, exact: bool = False):
+    """Split every compound (group) into face-contact-connected components.
+    Returns (PieceSet, split_overflow), the overflow counting contact faces
+    beyond the exact test's face pool (0 when ``exact`` is False).
+
+    Two pieces touch when they own opposite, coplanar faces whose bounding
+    spheres overlap, among each piece's KP = 32 nearest same-group pieces
+    (first of ties by index); ``exact`` refines the four nearest such
+    partners of every face with a 2-D separating-axis test of the two
+    polygons, over a pool of the faces that have any candidate. Components
+    relabel ``group``, densely renumbered."""
+    P, F = pieces.P, pieces.convex.F
+    S = pieces.convex.S
+    dev = pieces.valid.device
+    fv = pieces.convex.face_verts
+    planes = pieces.convex.planes
+    valid = pieces.valid
+    fmask = pieces.convex.face_mask() & valid[:, None]
+
+    # Face centroids and radii.
+    sm = pieces.convex.slot_mask()
+    nv = torch.clamp(pieces.convex.n_verts, min=1)[..., None]
+    cent = torch.sum(torch.where(sm[..., None], fv, 0.0), dim=-2) / nv       # (P, F, 3)
+    r2 = torch.amax(torch.where(sm, torch.sum((fv - cent[..., None, :]) ** 2, -1), 0.0), dim=-1)
+    r_face = sqrt_rn(r2)
+
+    pf = P * F
+    n_flat = planes[..., :3].reshape(pf, 3)
+    m_flat = fmask.reshape(pf)
+    owner = torch.arange(P, device=dev).repeat_interleave(F)
+
+    # Piece-level candidates: same group, both valid, bounding spheres near;
+    # the KP nearest (first of ties by index).
+    KP = min(32, P)
+    pidx = torch.arange(P, device=dev)
+    pcnt = torch.clamp(sm.sum((1, 2)), min=1)
+    pcent = torch.sum(torch.where(sm[..., None], fv, 0.0), dim=(1, 2)) / pcnt[:, None]
+    pr = sqrt_rn(torch.amax(torch.where(
+        sm, torch.sum((fv - pcent[:, None, None]) ** 2, -1), 0.0), dim=(1, 2)))
+    pd2 = torch.sum((pcent[:, None] - pcent[None, :]) ** 2, -1)
+    cand_ok = (
+        (pieces.group[:, None] == pieces.group[None, :])
+        & valid[:, None] & valid[None, :]
+        & (pidx[:, None] != pidx[None, :])
+        & (pd2 <= (2.0 * (pr[:, None] + pr[None, :]) + eps) ** 2)
+    )
+    part = torch.sort(torch.where(cand_ok, -pd2, -BIG), dim=1, descending=True,
+                      stable=True).indices[:, :KP]                       # (P, KP)
+    part_ok = torch.gather(cand_ok, 1, part)
+
+    # Nearest opposite-coplanar-near face of each candidate piece, per own
+    # face: (P, F, KP, F) min-reduced over the partner's faces.
+    planes_k = planes[part]                                              # (P, KP, F, 4)
+    cent_k = cent[part]
+    rj_k = r_face[part]
+    fmask_k = fmask[part]
+    ndot = dot3(planes[:, :, None, None, :3], planes_k[:, None, :, :, :3])  # (P, F, KP, F)
+    opp = torch.abs(ndot + 1.0) < 1e-4
+    cop = torch.abs(planes[:, :, None, None, 3] + planes_k[:, None, :, :, 3]) < eps
+    cd2 = (
+        (cent[:, :, None, None, 0] - cent_k[:, None, :, :, 0]) ** 2
+        + (cent[:, :, None, None, 1] - cent_k[:, None, :, :, 1]) ** 2
+        + (cent[:, :, None, None, 2] - cent_k[:, None, :, :, 2]) ** 2
+    )
+    near_g = cd2 <= (r_face[:, :, None, None] + rj_k[:, None] + eps) ** 2
+    score_g = torch.where(opp & cop & near_g & fmask_k[:, None], cd2, BIG)
+    bdist = torch.amin(score_g, dim=-1).reshape(pf, KP)
+    bface = torch.argmin(score_g, dim=-1).reshape(pf, KP)             # first of ties
+    pair_ok = (bdist < BIG / 2) & m_flat[:, None] & part_ok.repeat_interleave(F, dim=0)
+    part_flat = part.repeat_interleave(F, dim=0)                       # (pf, KP)
+
+    adj = torch.zeros(((P + 1) * (P + 1),), dtype=torch.bool, device=dev)
+    trash = (P + 1) * (P + 1) - 1
+    if exact:
+        K4 = min(4, KP)
+        has_cand = torch.any(pair_ok, dim=1)
+        FPOOL = min(pf, max(1024, pf // 4))
+        fsel = _stable_front(has_cand, FPOOL)
+        fok = has_cand[fsel]
+        split_overflow = has_cand.sum() - fok.sum()
+        pair_ok_p = pair_ok[fsel] & fok[:, None]                         # (FPOOL, KP)
+        candk = torch.sort(torch.where(pair_ok_p, -bdist[fsel], -BIG), dim=1, descending=True,
+                           stable=True).indices[:, :K4]
+        cmask = torch.gather(pair_ok_p, 1, candk)
+        candp = torch.gather(part_flat[fsel], 1, candk)
+        cand = candp * F + torch.gather(bface[fsel], 1, candk)
+        fv_flat = fv.reshape(pf, S, 3)
+        nv_flat = pieces.convex.n_verts.reshape(pf)
+        slot = torch.arange(S, device=dev)
+
+        # Exact 2-D overlap of each pooled face with its K4 candidates, in
+        # the face plane's basis (edge normals of both polygons as axes;
+        # the edge of the last live slot runs to the next padded slot).
+        u, v = plane_basis(n_flat[fsel])                                 # (FPOOL, 3)
+        ai = fv_flat[fsel]
+        mi = slot < nv_flat[fsel][:, None]                               # (FPOOL, S)
+        a2 = torch.stack([dot3(ai, u[:, None]), dot3(ai, v[:, None])], -1)   # (FPOOL, S, 2)
+        bj = fv_flat[cand]                                               # (FPOOL, K4, S, 3)
+        mj = slot < nv_flat[cand][..., None]
+        b2 = torch.stack([dot3(bj, u[:, None, None]), dot3(bj, v[:, None, None])], -1)
+
+        def axes_of(p2):
+            e = torch.roll(p2, -1, dims=-2) - p2
+            return torch.stack([-e[..., 1], e[..., 0]], -1)
+
+        axes = torch.cat([axes_of(a2)[:, None].expand(-1, K4, S, 2), axes_of(b2)], dim=2)
+        am = torch.cat([mi[:, None].expand(-1, K4, S), mj], dim=2)       # (FPOOL, K4, 2S)
+        pa = torch.sum(a2[:, None, None] * axes[:, :, :, None, :], -1)  # (FPOOL, K4, 2S, S)
+        pb = torch.sum(b2[:, :, None] * axes[:, :, :, None, :], -1)
+        a_lo = torch.amin(torch.where(mi[:, None, None], pa, BIG), -1)
+        a_hi = torch.amax(torch.where(mi[:, None, None], pa, -BIG), -1)
+        b_lo = torch.amin(torch.where(mj[:, :, None], pb, BIG), -1)
+        b_hi = torch.amax(torch.where(mj[:, :, None], pb, -BIG), -1)
+        sep = am & ((a_hi < b_lo - eps) | (b_hi < a_lo - eps))
+        exact_ok = ~torch.any(sep, dim=-1) & cmask & fok[:, None]
+        rows = owner[fsel][:, None].expand(-1, K4)
+        adj[torch.where(exact_ok, rows * (P + 1) + candp, trash).reshape(-1)] = True
+    else:
+        ok_piece = torch.any(pair_ok.reshape(P, F, KP), dim=1)          # (P, KP)
+        adj[torch.where(ok_piece, pidx[:, None] * (P + 1) + part, trash).reshape(-1)] = True
+        split_overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    adj = adj.reshape(P + 1, P + 1)[:P, :P]
+
+    comp = adjacency_components(adj, valid)        # min reachable index per piece
+    # Dense-renumber the incoming ids first, then pair them with the
+    # component (bounded by P², no int32 overflow), and renumber again.
+    g = _dense_renumber(torch.where(valid, pieces.group, -1), valid).long()
+    new_group = torch.where(valid, g * P + torch.where(comp < P, comp, 0).long(), -1)
+    new_group = _dense_renumber(new_group, valid)
+    return PieceSet(convex=pieces.convex, mesh=pieces.mesh, mesh_valid=pieces.mesh_valid,
+                    valid=valid, group=new_group, tag=pieces.tag), split_overflow
+
+
+def _dense_renumber(group: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Relabel group ids to a dense 0..G-1 range, order-preserving; -1 for
+    invalid slots."""
+    P = group.shape[0]
+    key = torch.where(valid, group.long(), torch.iinfo(torch.int32).max)
+    sorted_key, order = torch.sort(key, stable=True)
+    first = torch.ones_like(valid)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    rank = torch.empty((P,), dtype=torch.int64, device=group.device)
+    rank[order] = torch.cumsum(first.long(), 0) - 1
+    return torch.where(valid, rank, -1).to(torch.int32)

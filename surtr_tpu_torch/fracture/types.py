@@ -38,6 +38,13 @@ class PieceSet:
     def num_pieces(self):
         return self.valid.sum()
 
+    def num_groups(self):
+        """Number of distinct group ids among the valid pieces."""
+        sg = torch.sort(torch.where(self.valid, self.group, -1)).values
+        new = torch.ones_like(self.valid)
+        new[1:] = sg[1:] != sg[:-1]
+        return (new & (sg >= 0)).sum()
+
 
 def empty_piece_set(P: int, T: int, F: int, S: int, dtype=torch.float32,
                     device=None) -> PieceSet:

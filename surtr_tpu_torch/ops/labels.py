@@ -5,6 +5,8 @@ Triangles sharing a tol-quantized corner position are adjacent; labels are
 closed by min-label relaxation plus pointer jumping, a bounded number of
 rounds. Label = min triangle index of the component; invalid triangles get
 T. Plain PyTorch; the kernel is in ``labels_cuda.py``.
+``adjacency_components`` labels the components of a boolean graph (the
+contact split of compounds).
 """
 
 from __future__ import annotations
@@ -43,3 +45,19 @@ def tri_soup_components(corners: torch.Tensor, tri_valid: torch.Tensor,
         lab = torch.minimum(lab, nb)
         lab = torch.minimum(lab, torch.gather(lab, -1, torch.clamp(lab, 0, T - 1).long()))
     return torch.where(tri_valid, lab, big)
+
+
+def adjacency_components(adj: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Component label per node of a boolean adjacency matrix (N, N) (need
+    not be symmetric): ceil(log2 N) squarings of the reachability relation
+    as float32 matrix products (0/1 entries, sums up to N: exact), then the
+    smallest reachable node index. Invalid nodes get N. Returns (N,) int32."""
+    N = adj.shape[0]
+    dev = adj.device
+    a = (adj | adj.T) & valid[:, None] & valid[None, :]
+    r = (a | torch.eye(N, dtype=torch.bool, device=dev)).to(torch.float32)
+    for _ in range(max(1, (N - 1).bit_length())):
+        r = torch.clamp(r + r @ r, max=1.0)
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    label = torch.amin(torch.where(r > 0.5, idx[None, :], N), dim=1)
+    return torch.where(valid, label, N).to(torch.int32)

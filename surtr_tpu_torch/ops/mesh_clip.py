@@ -4,9 +4,13 @@
 Each triangle × plane-list clip is an independent Sutherland–Hodgman pass
 over a small padded polygon with cyclic-run emission (the kept vertices of
 a convex loop form one cyclic run; the cut adds [exit, enter] after it),
-then a fan re-triangulation packed front-aligned. ``point_in_mesh`` (ray
-parity) and ``winding_inside`` (generalized winding number) answer the
-inside-solid queries of the island split and the occupancy test.
+then a fan re-triangulation packed front-aligned. ``clip_trisoup`` clips
+one soup by B plane lists; ``clip_polys_by_rows`` clips P pooled triangles,
+each by its own plane list (the pair-pool mesh clip; kernel B10 in
+``soup_clip_cuda.py`` computes the same fold on the card). ``point_in_mesh``
+(ray parity) and ``winding_inside`` (generalized winding number) answer the
+inside-solid queries of the island split and the occupancy test, batched
+over per-candidate solids.
 """
 
 from __future__ import annotations
@@ -14,26 +18,29 @@ from __future__ import annotations
 import torch
 
 from surtr_tpu_torch.ops.hull import _cross
-from surtr_tpu_torch.ops.linalg import compact
+from surtr_tpu_torch.ops.linalg import compact, dot3
 
 
-def _clip_polys_plane(poly, n_vert, plane, tol):
-    """SH-clip batches of small convex polygons by one plane per batch.
+def _clip_polys_plane(poly, n_vert, plane, tol, any_removed=None):
+    """SH-clip small convex polygons, each row by its own plane.
 
-    poly (B, T, S, 3); n_vert (B, T); plane (B, 4). The in-plane polygon
-    drop rule's "this plane removes material" context is per batch row.
-    Returns (poly, n_vert, multirun) with the same shapes."""
-    B, T, S, _ = poly.shape
+    poly (..., T, S, 3); n_vert (..., T); plane (..., T, 4) (a plane shared
+    by a batch row is passed expanded). ``any_removed`` (..., T) bool is the
+    "this plane removes material" context of the in-plane polygon drop
+    rule; None takes the any over the T axis of each batch row (the
+    per-soup semantics). Returns (poly, n_vert, multirun) with the same
+    shapes. Keeps n·x + d < 0."""
+    S = poly.shape[-2]
     dev = poly.device
-    n = plane[:, None, None, :3]
-    d = plane[:, None, None, 3]
+    n = plane[..., None, :3]
+    d = plane[..., None, 3]
     slot = torch.arange(S, dtype=torch.int32, device=dev)
     m = slot < n_vert[..., None]
-    dist = torch.sum(poly * n, dim=-1) + d
-    rolled = torch.roll(poly, -1, dims=2)
+    dist = dot3(poly, n) + d
+    rolled = torch.roll(poly, -1, dims=-2)
     is_last = slot == n_vert[..., None] - 1
-    v_next = torch.where(is_last[..., None], poly[:, :, 0:1, :], rolled)
-    d_next = torch.sum(v_next * n, dim=-1) + d
+    v_next = torch.where(is_last[..., None], poly[..., 0:1, :], rolled)
+    d_next = dot3(v_next, n) + d
     kept = m & (dist <= tol)
     denom = d_next - dist
     safe = torch.where(torch.abs(denom) > 1e-30, denom, torch.ones_like(denom))
@@ -41,23 +48,23 @@ def _clip_polys_plane(poly, n_vert, plane, tol):
 
     cross_exit = m & (dist < -tol) & (d_next > tol)
     cross_enter = m & (dist > tol) & (d_next < -tol)
-    exit_p = torch.sum(cross_exit.to(poly.dtype)[..., None] * p_cut, dim=2)
-    enter_p = torch.sum(cross_enter.to(poly.dtype)[..., None] * p_cut, dim=2)
-    ex_i = torch.any(cross_exit, dim=2).to(torch.int32)
-    en_i = torch.any(cross_enter, dim=2).to(torch.int32)
+    exit_p = torch.sum(cross_exit.to(poly.dtype)[..., None] * p_cut, dim=-2)
+    enter_p = torch.sum(cross_enter.to(poly.dtype)[..., None] * p_cut, dim=-2)
+    ex_i = torch.any(cross_exit, dim=-1).to(torch.int32)
+    en_i = torch.any(cross_enter, dim=-1).to(torch.int32)
 
     # Run start a = the kept vertex whose cyclic predecessor is removed.
     kept_i = kept.to(torch.int32)
     kprev = torch.cat(
-        [torch.sum(torch.where(is_last, kept_i, 0), 2, keepdim=True), kept_i[..., :-1]], dim=2
+        [torch.sum(torch.where(is_last, kept_i, 0), -1, keepdim=True), kept_i[..., :-1]], dim=-1
     )
     startm = kept & (kprev == 0)
-    nstarts = startm.to(torch.int32).sum(2)
-    a = torch.sum(torch.where(startm, slot, 0), dim=2)
-    mcnt = kept_i.sum(2)
+    nstarts = startm.to(torch.int32).sum(-1)
+    a = torch.sum(torch.where(startm, slot, 0), dim=-1)
+    mcnt = kept_i.sum(-1)
     # rot[j] = poly[(a + j) mod n_vert] (only slots j < mcnt are read).
     src = (a[..., None] + slot) % torch.clamp(n_vert, min=1)[..., None]
-    rot = torch.gather(poly, 2, src.long()[..., None].expand(B, T, S, 3))
+    rot = torch.gather(poly, -2, src.long()[..., None].expand(poly.shape))
 
     in_run = slot < mcnt[..., None]
     at_exit = (slot == mcnt[..., None]) & (ex_i[..., None] > 0)
@@ -65,14 +72,15 @@ def _clip_polys_plane(poly, n_vert, plane, tol):
     zero = torch.zeros((), dtype=poly.dtype, device=dev)
     out = torch.where(
         in_run[..., None], rot,
-        torch.where(at_exit[..., None], exit_p[:, :, None, :],
-                    torch.where(at_enter[..., None], enter_p[:, :, None, :], zero)),
+        torch.where(at_exit[..., None], exit_p[..., None, :],
+                    torch.where(at_enter[..., None], enter_p[..., None, :], zero)),
     )
     n_out = torch.clamp(mcnt + ex_i + en_i, max=S)
     # Polygons wholly in a plane that removes material are old cap geometry:
     # drop them (the new cap re-covers the cross-section).
-    inplane = torch.all((torch.abs(dist) <= tol) | ~m, dim=2) & (n_vert > 0)
-    any_removed = torch.any((m & (dist > tol)).reshape(B, -1), dim=1)[:, None]
+    inplane = torch.all((torch.abs(dist) <= tol) | ~m, dim=-1) & (n_vert > 0)
+    if any_removed is None:
+        any_removed = torch.any(m & (dist > tol), dim=-1).any(-1, keepdim=True)
     n_out = torch.where(inplane & any_removed, 0, n_out)
     # A convex loop has exactly one kept run; otherwise drop (counted).
     multirun = nstarts > 1
@@ -82,11 +90,13 @@ def _clip_polys_plane(poly, n_vert, plane, tol):
 
 def clip_trisoup(corners, tri_valid, planes, plane_mask, max_out: int,
                  poly_slots: int = 8, tol: float = 1e-6):
-    """Clip one triangle soup by B convex plane lists.
+    """Clip a triangle soup by B convex plane lists.
 
-    corners (T, 3, 3), tri_valid (T,), planes (B, K, 4), plane_mask (B, K).
-    Returns (out (B, max_out, 3, 3), out_valid (B, max_out), dropped (B,))."""
-    T = corners.shape[0]
+    corners (T, 3, 3) and tri_valid (T,), one soup shared by all B lists,
+    or (B, T, 3, 3) and (B, T), one soup each; planes (B, K, 4), plane_mask
+    (B, K). Returns (out (B, max_out, 3, 3), out_valid (B, max_out),
+    dropped (B,))."""
+    T = corners.shape[-3]
     B, K = planes.shape[0], planes.shape[1]
     S = poly_slots
     dev = corners.device
@@ -96,20 +106,14 @@ def clip_trisoup(corners, tri_valid, planes, plane_mask, max_out: int,
     mdrop = torch.zeros((B,), dtype=torch.int32, device=dev)
     for k in range(K):
         ok = plane_mask[:, k]
-        p2, n2, mrun = _clip_polys_plane(poly, n_vert, planes[:, k], tol)
+        p2, n2, mrun = _clip_polys_plane(poly, n_vert, planes[:, None, k].expand(B, T, 4), tol)
         poly = torch.where(ok[:, None, None, None], p2, poly)
         n_vert = torch.where(ok[:, None], n2, n_vert)
         mdrop = mdrop + torch.where(ok, mrun.to(torch.int32).sum(1), 0)
 
-    fan = torch.arange(S, device=dev)
-    i1 = torch.clamp(fan + 1, max=S - 1)
-    i2 = torch.clamp(fan + 2, max=S - 1)
-    tris = torch.stack(
-        [poly[:, :, 0:1, :].expand(B, T, S, 3), poly[:, :, i1, :], poly[:, :, i2, :]], dim=3
-    )                                                          # (B, T, S, 3, 3)
-    counts = torch.clamp(n_vert - 2, min=0)
+    tris, counts = fan_triangles(poly, n_vert)                 # (B, T, S, 3, 3)
     total = counts.sum(1)
-    fan_ok = fan < counts[..., None]
+    fan_ok = torch.arange(S, device=dev) < counts[..., None]
     out, _ = compact(tris.reshape(B, T * S, 9), fan_ok.reshape(B, T * S), max_out)
     out = out.reshape(B, max_out, 3, 3)
     out_valid = torch.arange(max_out, device=dev) < total[:, None]
@@ -117,33 +121,87 @@ def clip_trisoup(corners, tri_valid, planes, plane_mask, max_out: int,
     return out, out_valid, dropped.to(torch.int32)
 
 
+def clip_polys_by_rows(corners, valid, planes, pmask, seg_starts=None, seg_id=None,
+                       poly_slots: int = 8, tol: float = 1e-6):
+    """Clip P independent triangles, each by its own plane list.
+
+    corners (P, 3, 3); valid (P,); planes (P, K, 4); pmask (P, K).
+    ``seg_starts`` (C+1,) / ``seg_id`` (P,): rows grouped by cell in
+    contiguous runs; the in-plane drop rule's context is then evaluated per
+    cell from the current polygons at each plane step (boundary cumsum
+    differences). Without them it is the any over the whole pool.
+    Returns (poly (P, S, 3), n_vert (P,), multirun_drops)."""
+    P = corners.shape[0]
+    S = poly_slots
+    dev = corners.device
+    poly = torch.zeros((P, S, 3), dtype=corners.dtype, device=dev)
+    poly[:, :3] = corners
+    n_vert = torch.where(valid, 3, 0).to(torch.int32)
+    slot = torch.arange(S, dtype=torch.int32, device=dev)
+    drops = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(planes.shape[1]):
+        pl, ok = planes[:, k], pmask[:, k]
+        ctx = None
+        if seg_starts is not None:
+            dist = dot3(poly, pl[:, None, :3]) + pl[:, None, 3]
+            m = slot < n_vert[:, None]
+            rm = (torch.any(m & (dist > tol), dim=1) & ok).to(torch.int64)
+            cs = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev), torch.cumsum(rm, 0)])
+            per_seg = cs[seg_starts[1:].long()] - cs[seg_starts[:-1].long()]
+            # Out-of-range ids read the last segment, as the JAX gather clamps.
+            ctx = (per_seg > 0)[torch.clamp(seg_id.long(), 0, per_seg.shape[0] - 1)]
+        p2, n2, mrun = _clip_polys_plane(poly, n_vert, pl, tol, any_removed=ctx)
+        poly = torch.where(ok[:, None, None], p2, poly)
+        n_vert = torch.where(ok, n2, n_vert)
+        drops = drops + (mrun & ok).sum()
+    return poly, n_vert, drops
+
+
+def fan_triangles(poly, n_vert):
+    """Fan re-triangulation of padded polygons: (..., S, 3) + counts →
+    ((..., S, 3, 3) fan triangles, (...) triangle counts max(n − 2, 0))."""
+    S = poly.shape[-2]
+    fan = torch.arange(S, device=poly.device)
+    i1 = torch.clamp(fan + 1, max=S - 1)
+    i2 = torch.clamp(fan + 2, max=S - 1)
+    tris = torch.stack(
+        [poly[..., 0:1, :].expand(poly.shape), poly[..., i1, :], poly[..., i2, :]], dim=-2
+    )
+    return tris, torch.clamp(n_vert - 2, min=0)
+
+
 def point_in_mesh(points, corners, tri_valid):
     """Ray-parity solid test along a fixed generic direction (Möller–
-    Trumbore). points (P, 3), corners (T, 3, 3) → (P,) bool."""
-    a, b, c = corners[:, 0], corners[:, 1], corners[:, 2]
+    Trumbore). points (..., P, 3), corners (..., T, 3, 3), tri_valid
+    (..., T) → (..., P) bool; leading axes broadcast (one solid per
+    candidate, or one shared)."""
+    a, b, c = corners[..., 0, :], corners[..., 1, :], corners[..., 2, :]
     d = torch.tensor([0.8138294, 0.40996888, 0.41189286], dtype=corners.dtype,
                      device=corners.device)
     e1 = b - a
     e2 = c - a
-    pvec = _cross(d.expand_as(e2), e2)
+    pvec = _cross(d.expand_as(e2), e2)                         # (..., T, 3)
     det = torch.sum(e1 * pvec, dim=-1)
     ok = torch.abs(det) > 1e-12
     inv = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)), 0.0)
-    tvec = points[:, None, :] - a[None]
-    u = torch.sum(tvec * pvec[None], -1) * inv[None]
-    qvec = _cross(tvec, e1[None].expand_as(tvec))
-    v = torch.sum(qvec * d, -1) * inv[None]
-    t = torch.sum(qvec * e2[None], -1) * inv[None]
-    hit = ok[None] & tri_valid[None] & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-9)
-    return (hit.sum(dim=1) % 2) == 1
+    tvec = points[..., :, None, :] - a[..., None, :, :]        # (..., P, T, 3)
+    u = torch.sum(tvec * pvec[..., None, :, :], -1) * inv[..., None, :]
+    qvec = _cross(tvec, e1[..., None, :, :].expand_as(tvec))
+    v = torch.sum(qvec * d, -1) * inv[..., None, :]
+    t = torch.sum(qvec * e2[..., None, :, :], -1) * inv[..., None, :]
+    hit = ((ok & tri_valid)[..., None, :] & (u >= 0) & (v >= 0) & (u + v <= 1)
+           & (t > 1e-9))
+    return (hit.sum(dim=-1) % 2) == 1
 
 
 def winding_inside(points, corners, tri_valid, threshold: float = 0.5):
     """Generalized winding-number solid test (Van Oosterom–Strackee).
-    points (P, 3), corners (T, 3, 3) → (P,) bool."""
-    a = corners[None, :, 0] - points[:, None]
-    b = corners[None, :, 1] - points[:, None]
-    c = corners[None, :, 2] - points[:, None]
+    points (..., P, 3), corners (..., T, 3, 3), tri_valid (..., T) →
+    (..., P) bool; leading axes broadcast."""
+    p = points[..., :, None, :]
+    a = corners[..., None, :, 0, :] - p                        # (..., P, T, 3)
+    b = corners[..., None, :, 1, :] - p
+    c = corners[..., None, :, 2, :] - p
     la = torch.linalg.vector_norm(a, dim=-1)
     lb = torch.linalg.vector_norm(b, dim=-1)
     lc = torch.linalg.vector_norm(c, dim=-1)
@@ -155,5 +213,5 @@ def winding_inside(points, corners, tri_valid, threshold: float = 0.5):
         + torch.sum(c * a, -1) * lb
     )
     omega = 2.0 * torch.atan2(det, den)
-    total = torch.sum(torch.where(tri_valid[None], omega, 0.0), dim=-1)
+    total = torch.sum(torch.where(tri_valid[..., None, :], omega, 0.0), dim=-1)
     return torch.abs(total) > threshold * 4.0 * torch.pi

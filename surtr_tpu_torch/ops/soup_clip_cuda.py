@@ -1,0 +1,130 @@
+"""Pooled triangle-soup clip with device dispatch (kernel B10,
+``csrc/soup_clip.cu``). Replaces the JAX package's
+``soup_clip_pooled_pallas`` (surtr_tpu/ops/soup_clip_pallas.py).
+
+Every pooled lane is one triangle with its cell id; it becomes a polygon
+of S slots folded by each of its cell's K planes with cyclic-run emission
+(``mesh_clip._clip_polys_plane``). The in-plane drop rule's "this plane
+removes material" context is the kernel's own: for plane k of cell c it is
+true when any valid lane of cell c in the same block of ``BN`` lanes has an
+original triangle corner strictly beyond the plane (and the plane is
+live). ``clip_polys_by_rows`` evaluates it per cell from the current
+polygons instead; the two differ only for polygons lying within tol of a
+plane. A cell id outside [0, C) reads no planes (the sentinel job of the
+packed pool).
+
+``soup_clip_pooled`` runs the plain ``soup_clip_pooled_reference`` for CPU
+tensors and launches the kernel, or raises, for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from surtr_tpu_torch import _build
+from surtr_tpu_torch.ops.linalg import dot3
+from surtr_tpu_torch.ops.mesh_clip import _clip_polys_plane
+
+launches = 0  # kernel launches since the last reset (main-path proof)
+
+
+def block_lanes(P: int) -> int:
+    """The lane block ``BN`` over which the in-plane context is reduced:
+    2048 for pools of at least 2048 lanes, else P rounded up to a multiple
+    of 128 (soup_clip_pallas.py:249)."""
+    return 2048 if P >= 2048 else max(128, ((P + 127) // 128) * 128)
+
+
+def _lane_planes(cell_id, cell_planes, cell_pmask):
+    """Per lane its cell's planes and mask; zero planes, all masked, for
+    ids outside [0, C)."""
+    C = cell_planes.shape[0]
+    inside = (cell_id >= 0) & (cell_id < C)
+    cid = torch.clamp(cell_id.long(), 0, max(C - 1, 0))
+    pl = torch.where(inside[:, None, None], cell_planes[cid], 0.0)
+    ok = cell_pmask[cid] & inside[:, None]
+    return pl, ok, inside, cid
+
+
+def soup_clip_pooled_reference(tri_corners, valid, cell_id, cell_planes, cell_pmask,
+                               poly_slots: int = 8, tol: float = 1e-6):
+    """Plain PyTorch B10: (poly (P, S, 3), n_vert (P,), multirun drops)."""
+    P = tri_corners.shape[0]
+    C, K = cell_pmask.shape
+    S = poly_slots
+    dev = tri_corners.device
+    pl, ok, inside, cid = _lane_planes(cell_id, cell_planes, cell_pmask)
+    # In-plane context per (lane block, cell, plane) from the original
+    # corners: ((x·nx + y·ny) + z·nz) + d of each corner, any beyond tol.
+    d3 = dot3(tri_corners[:, None, :, :], pl[:, :, None, :3]) + pl[:, :, None, 3]
+    beyond = torch.amax(d3, dim=-1) > tol                      # (P, K)
+    rm_lane = beyond & valid[:, None] & ok
+    BN = block_lanes(P)
+    blk = torch.arange(P, device=dev) // BN
+    key = blk * max(C, 1) + cid
+    table = torch.zeros(((P + BN - 1) // BN * max(C, 1), K), dtype=torch.int32, device=dev)
+    table.index_add_(0, key, rm_lane.to(torch.int32))
+    rm_ctx = (table[key] > 0) & inside[:, None]
+
+    poly = torch.zeros((P, S, 3), dtype=tri_corners.dtype, device=dev)
+    poly[:, :3] = tri_corners
+    n_vert = torch.where(valid, 3, 0).to(torch.int32)
+    drops = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(K):
+        p2, n2, mrun = _clip_polys_plane(poly, n_vert, pl[:, k], tol, any_removed=rm_ctx[:, k])
+        o = ok[:, k]
+        poly = torch.where(o[:, None, None], p2, poly)
+        n_vert = torch.where(o, n2, n_vert)
+        drops = drops + (mrun & o).sum()
+    return poly, n_vert, drops
+
+
+def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
+    global launches
+    P = tri_corners.shape[0]
+    C, K = cell_pmask.shape
+    dev = tri_corners.device
+    if tri_corners.dtype != torch.float32 or cell_planes.dtype != torch.float32:
+        raise TypeError("soup clip kernel takes float32 triangles and planes")
+    if tri_corners.shape[1:] != (3, 3) or valid.shape != (P,) or cell_id.shape != (P,):
+        raise ValueError("soup clip kernel takes (P, 3, 3) triangles, (P,) valid and cell ids")
+    if cell_planes.shape != (C, K, 4) or S != 8:
+        raise ValueError(f"soup clip kernel takes (C, K, 4) planes and S = 8, got S = {S}")
+    for t in (valid, cell_id, cell_planes, cell_pmask):
+        if t.device != dev:
+            raise TypeError("soup clip kernel takes tensors on one device")
+    fn = _build.bind("surtr_soup_clip", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_void_p])
+    tri = tri_corners.contiguous()
+    v = valid.to(torch.uint8).contiguous()
+    cid = cell_id.to(torch.int32).contiguous()
+    pl = cell_planes.contiguous()
+    pm = cell_pmask.to(torch.uint8).contiguous()
+    BN = block_lanes(P)
+    W = max(1, (K + 31) // 32)
+    ctx = torch.empty(((P + BN - 1) // BN * max(C, 1) * W,), dtype=torch.int32, device=dev)
+    poly = torch.empty((P, S, 3), dtype=torch.float32, device=dev)
+    nv = torch.empty((P,), dtype=torch.int32, device=dev)
+    mrun = torch.empty((P,), dtype=torch.int32, device=dev)
+    if P == 0:
+        return poly, nv, mrun.sum()
+    rc = fn(tri.data_ptr(), v.data_ptr(), cid.data_ptr(), pl.data_ptr(), pm.data_ptr(),
+            ctx.data_ptr(), poly.data_ptr(), nv.data_ptr(), mrun.data_ptr(),
+            P, C, K, BN, W, float(tol), _build.stream_ptr(dev))
+    _build.check(rc, "surtr_soup_clip")
+    launches += 1
+    return poly, nv, mrun.sum()
+
+
+def soup_clip_pooled(tri_corners, valid, cell_id, cell_planes, cell_pmask,
+                     poly_slots: int = 8, tol: float = 1e-6):
+    """Pooled per-lane K-plane fold: (poly (P, S, 3), n_vert (P,), multirun
+    drops). The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if tri_corners.is_cuda:
+        return _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, poly_slots, tol)
+    if tri_corners.device.type != "cpu":
+        raise ValueError(f"soup_clip_pooled: unsupported device {tri_corners.device}")
+    return soup_clip_pooled_reference(tri_corners, valid, cell_id, cell_planes, cell_pmask,
+                                      poly_slots, tol)

@@ -2,7 +2,13 @@
 and inputs that ``chip_smoke.py``, the tools and the tests drive:
 
 * the 1k-seed decomposition of the cube at ``bench.py``'s
-  ``bench_decomposition_1k`` configuration (bench.py:70-92);
+  ``bench_decomposition_1k`` configuration (bench.py:70-92), and of the
+  procedural sphere at the same configuration (its 320 triangles exceed
+  the per-cell cull pool of 256, so it takes the culled pair-pool mesh
+  clip, kernel B10);
+* the cube32 impact of ``bench_cube32`` (bench.py:295-333): the cube
+  prepared at its configuration, then one partial ``do_fracture`` event at
+  (1.5, 1.5, 1.5);
 * the 10k-fragment physics lattice of ``bench_physics_10k``
   (bench.py:191-253) at its configuration (bench.py:207), and the
   variants ``chip_smoke.py`` drives beside it: the lattice bound in pairs
@@ -42,9 +48,23 @@ BENCH_CFG = FractureConfig(
 )
 
 
-def cube_inputs(device):
-    """``prepare_fracture``'s model arguments for the cube on ``device``."""
-    v, f = get_model("cube")
+CUBE32_CFG = FractureConfig(      # bench.py:301-310
+    initial_decompose_cell_cnt=32,
+    max_pieces=256,
+    max_active_pieces=16,
+    max_piece_tris=128,
+    partial_pattern_cell_cnt=128,
+    voronoi_neighbors=48,
+    general_pattern_cell_cnt=8,
+    exact_caps=False,
+)
+IMPACT = (1.5, 1.5, 1.5)          # bench.py:317
+
+
+def model_inputs(name, device):
+    """``prepare_fracture``'s model arguments for a procedural model
+    (``io.models.get_model``) on ``device``."""
+    v, f = get_model(name)
     return (
         torch.as_tensor(v, device=device),
         torch.ones(len(v), dtype=torch.bool, device=device),
@@ -64,9 +84,32 @@ def bench_seeds(cfg: FractureConfig = BENCH_CFG, seed: int = SEED):
     )
 
 
-def run_prepare(device="cuda", cfg: FractureConfig = BENCH_CFG):
-    """One ``prepare_fracture`` event of the cube on ``device``."""
-    return pipeline.prepare_fracture(*cube_inputs(device), cfg, *bench_seeds(cfg))
+def run_prepare(device="cuda", cfg: FractureConfig = BENCH_CFG, model: str = "cube"):
+    """One ``prepare_fracture`` event of ``model`` on ``device``."""
+    return pipeline.prepare_fracture(*model_inputs(model, device), cfg, *bench_seeds(cfg))
+
+
+def to_device(obj, device):
+    """A copy of nested dataclasses of tensors (pieces, contexts, scenes)
+    on ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    return dataclasses.replace(obj, **{f.name: to_device(getattr(obj, f.name), device)
+                                       for f in dataclasses.fields(obj)})
+
+
+def run_impact(device="cuda", cfg: FractureConfig = CUBE32_CFG, prepared=None):
+    """The cube32 impact on ``device``: the cube prepared at ``cfg`` (or
+    ``prepared``, a (PieceSet, FractureContext) pair, copied to ``device``),
+    then ``do_fracture`` at ``IMPACT``, group 0, partial. Returns
+    ((pieces, ctx), (out, metrics)), the prepared input first, so that a run
+    on another device can start from the same bits."""
+    if prepared is None:
+        pieces, ctx, _ = run_prepare(device, cfg)
+    else:
+        pieces, ctx = (to_device(p, device) for p in prepared)
+    out = pipeline.do_fracture(pieces, ctx, IMPACT, 0, cfg, partial=True)
+    return (pieces, ctx), out
 
 
 PHYSICS_CFG = PhysicsConfig(single_piece_bodies=True, max_hull_verts=8)   # bench.py:207

@@ -34,6 +34,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import surtr_tpu_torch, surtr_tpu_torch.fracture.pipeline, surtr_tpu_torch.convert\n"
         "import surtr_tpu_torch.ops.clip_cuda, surtr_tpu_torch.ops.hull_cuda\n"
         "import surtr_tpu_torch.ops.labels_cuda, surtr_tpu_torch.ops.refit_cuda\n"
+        "import surtr_tpu_torch.ops.soup_clip_cuda, surtr_tpu_torch.ops.mesh_clip\n"
         "import surtr_tpu_torch.physics.step, surtr_tpu_torch.physics.pack_cuda\n"
         "import surtr_tpu_torch.physics.narrowphase_cuda, surtr_tpu_torch.physics.prep_cuda\n"
         "import surtr_tpu_torch.physics.solver_cuda, surtr_tpu_torch.physics.slots\n"

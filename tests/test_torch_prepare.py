@@ -37,6 +37,10 @@ CONFIGS = {
     # the 320 source triangles) and mesh islands through the voxel merge.
     "blob32": ("blob", dict(BASE, initial_decompose_cell_cnt=32, max_pieces=32,
                             max_piece_tris=128, voronoi_neighbors=31)),
+    # The culled pair-pool mesh clip: cull_cap 256 < the sphere's 320
+    # triangles (no parity grid below 512); clip_polys_by_rows on the CPU.
+    "sphere64": ("sphere", dict(BASE, initial_decompose_cell_cnt=64, max_pieces=64,
+                                max_piece_tris=64, voronoi_neighbors=31)),
 }
 KEY = 46354
 
@@ -196,8 +200,8 @@ def test_prepare_out_of_slice_branches_raise():
     small = dict(initial_decompose_cell_cnt=16, max_pieces=16, voronoi_neighbors=15)
     with pytest.raises(NotImplementedError, match="A10"):
         run("cube", **dict(small, exact_caps=True))
-    with pytest.raises(NotImplementedError, match="B10"):       # 320 > cull_cap 256
-        run("sphere", **dict(small, max_piece_tris=64))
+    with pytest.raises(NotImplementedError, match="per-cell"):  # 320 > cull_cap 256
+        run("sphere", **dict(small, max_piece_tris=64, mesh_pair_pool=False))
     with pytest.raises(NotImplementedError, match="A5"):        # 516 source tris
         run("cube", tile=43, initial_decompose_cell_cnt=64, max_pieces=64,
             voronoi_neighbors=15, max_piece_tris=256, max_islands=1)

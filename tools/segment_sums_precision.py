@@ -18,7 +18,6 @@ and in float32 on the card; the float64 variant removes that difference.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -44,19 +43,13 @@ VARIANTS = {"float32 cumsum": phys_step._segment_sums,
             "float64 running sum": segment_sums_f64}
 
 
-def _to_device(obj, device):
-    return dataclasses.replace(obj, **{
-        f.name: (_to_device(v, device) if dataclasses.is_dataclass(v) else v.to(device))
-        for f in dataclasses.fields(obj) for v in [getattr(obj, f.name)]})
-
-
 def card_vs_cpu(start, cfg, steps: int, device: str) -> dict:
-    sg = _to_device(start, device)
+    sg = workload.to_device(start, device)
     sc = start
     for _ in range(steps):
         sg = phys_step.physics_step(sg, cfg)
         sc = phys_step.physics_step(sc, cfg)
-    bg, bc = _to_device(sg.bodies, "cpu"), sc.bodies
+    bg, bc = workload.to_device(sg.bodies, "cpu"), sc.bodies
     out = {f"max_abs_d{f}": float((getattr(bg, f) - getattr(bc, f)).abs().max())
            for f in ("x", "v", "q")}
     out["bitwise_equal"] = all(torch.equal(getattr(bg, f), getattr(bc, f))
