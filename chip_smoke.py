@@ -47,7 +47,20 @@ Phases (any failure exits non-zero):
  13. kernel B10 (pooled soup clip) against its plain version on the calls
      of 11 and 12 and on degenerate cases, with times and its bound;
  14. ms per event of the sphere decomposition and of the impact on both
-     routes, each impact route's stage split and device idle share.
+     routes, each impact route's stage split and device idle share;
+ 15. kernel B11 (tiled z-buffer raster) against its plain version on the
+     card, bitwise in depth, ids and G-buffer, on the interactive frame's two
+     calls, ``render_512``'s at shadow maps of 512² and 1024² and degenerate
+     tables, with times and its bound;
+ 16. the interactive frame (BASELINE config 4, bench.py:372-434):
+     ``Scene("cube", INTERACTIVE_CFG)`` on ``cuda:0`` and 16 chained
+     ``interactive_frame`` calls, launches per frame B11 2, B5 1, B7 1, no
+     B6/B8/B9/B10/B12, the first frame fracturing;
+ 17. the same frames from one CPU-built Scene, on the card and through the
+     plain path on the CPU in lockstep, compared after each of the first
+     three;
+ 18. ms per frame (median of the 16 frames, 3 runs), a stage split, the
+     device idle share, and ``render_512`` ms at shadow 512 and 1024.
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
@@ -87,6 +100,9 @@ from surtr_tpu_torch.physics import (broadphase_cuda, narrowphase_cuda, pack_cud
 from surtr_tpu_torch.physics import step as phys_step
 from surtr_tpu_torch.physics.rigid import quat_normalize
 from surtr_tpu_torch.physics.scene import build_scene
+from surtr_tpu_torch.render import raster as render_raster
+from surtr_tpu_torch.render import raster_cuda
+from surtr_tpu_torch import scene as scene_mod
 from surtr_tpu_torch.types import ConvexPoly, unit_cube
 from surtr_tpu_torch.workload import run_prepare
 
@@ -1171,6 +1187,7 @@ def all_counts() -> dict:
     """Launches of every kernel since the counts were last set to 0."""
     counts = {name: mod.launches for name, (mod, *_) in KERNELS.items()}
     counts["soup_clip"] = soup_clip_cuda.launches
+    counts["raster"] = raster_cuda.launches
     counts.update(launch_counts())
     return counts
 
@@ -1179,6 +1196,7 @@ def reset_all():
     for mod, *_ in KERNELS.values():
         mod.launches = 0
     soup_clip_cuda.launches = 0
+    raster_cuda.launches = 0
     reset_counts()
 
 
@@ -1546,6 +1564,362 @@ def fracture_timing(prepared, card, reps: int = 10):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The interactive frame (Scene, raycast, shadow-mapped render) and kernel B11.
+# ---------------------------------------------------------------------------
+
+RASTER_SRC = "surtr_tpu_torch/csrc/raster.cu"
+RASTER_REPLACES = "surtr_tpu/render/raster_pallas.py:37"
+# Launches of one interactive frame: the two raster passes, one physics step
+# (compound bodies, 256 pieces: the plain block sweep and the plain solver);
+# the fracture kernels B1, B3 and B4 as the event runs them.
+FRAME_LAUNCHES = {"raster": 2, "pack": 1, "narrowphase": 1}
+FRAME_ANY = ("clip_fold", "labels", "refit")
+FRAME_OVERFLOWS = ("active_overflow", "job_overflow", "piece_overflow", "split_face_overflow")
+FRAME_COMPARE = 3          # frames compared with the CPU plain run
+# Stages of a frame: (label, module, function); spans of outermost calls.
+FRAME_STAGES = [
+    ("raycast/targets", scene_mod, "raycast"), ("raycast/targets", scene_mod, "sphere_overlap"),
+    ("bake", scene_mod, "_bake_pieces"), ("do_fracture", scene_mod, "do_fracture"),
+    ("rebuild", scene_mod, "build_scene"), ("rebuild", scene_mod, "_transfer_velocities"),
+    ("physics", scene_mod, "physics_step"), ("shadow raster", render_raster, "rasterize_ids"),
+    ("camera raster", render_raster, "raster_screen"),
+    ("shading", render_raster, "_shade_deferred"),
+]
+# Operations per (pixel, live triangle) test of B11: three edge functions
+# (2 subtractions, 2 products, 1 subtraction each), three weights, the depth
+# (3 products, 2 sums) and six compares.
+RASTER_OPS = 29
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def compare_raster(a):
+    """B11 kernel against its plain version on one packed table: depth,
+    ids and G-buffer bit for bit. Returns the largest |kernel - plain| over
+    depth and G-buffer."""
+    got = raster_cuda.tile_raster(*a)
+    want = raster_cuda.tile_raster_reference(*a)
+    for what, g, w in zip(("depth", "ids", "G-buffer"), got, want):
+        if (g is None) != (w is None) or (g is not None and not torch.equal(_bits(g), _bits(w))):
+            bad = 0 if g is None or w is None else int((_bits(g) != _bits(w)).sum())
+            fail(f"raster: {what} differ from the plain version ({bad} entries, table "
+                 f"{tuple(a[0].shape)}, image {a[5]}x{a[6]})")
+    return max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
+               for g, w in zip(got, want) if g is not None and g.is_floating_point())
+
+
+def raster_ops(a) -> float:
+    """Operations B11 needs on this table: per (tile, chunk) pair inside
+    the tile's range and past the box reject, its live triangles (valid,
+    |area| > 1e-12) times the tile's 2,048 pixels times RASTER_OPS."""
+    attrs, bbox, rng, nty, ntx = a[:5]
+    ax, ay, bx, by, cx, cy = (attrs[:, j] for j in range(6))
+    area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    live = ((attrs[:, 9] > 0.5) & (area.abs() > 1e-12)).reshape(-1, raster_cuda.CHUNK).sum(1)
+    _, chunk = raster_cuda._chunk_pairs(bbox, rng, nty, ntx)
+    return float(live[chunk].sum()) * raster_cuda.TH * raster_cuda.TW * RASTER_OPS
+
+
+def raster_cases(device):
+    """B11's degenerate tables by name: 40 triangles (one partial chunk), 100
+    (not a multiple of 64), none valid, and a 256 x 64 image with a G-buffer,
+    a screen-covering triangle, an exact duplicate and off-screen ones."""
+    cases = {}
+    for name, (seed, T, W, H, A, none) in {
+            "T = 40": (1, 40, 512, 512, 0, False), "T = 100": (2, 100, 512, 512, 7, False),
+            "no valid triangle": (3, 96, 512, 512, 7, True),
+            "256 x 64, ties": (4, 160, 256, 64, 7, False)}.items():
+        rng = np.random.default_rng(seed)
+        c = rng.uniform(-20, [W + 20, H + 20], (T, 1, 2))
+        xy = (c + rng.normal(0, 40, (T, 3, 2))).astype(np.float32)
+        sz = rng.uniform(-0.1, 1.1, (T, 3)).astype(np.float32)
+        ok = rng.uniform(size=T) > 0.05
+        xy[0] = [[-10, -10], [3 * W, -10], [-10, 3 * H]]
+        sz[0] = 0.9
+        xy[2], sz[2] = xy[1], sz[1]
+        ok[:3], ok[3] = True, False
+        xy[4, :, 0] += 10 * W
+        ok &= not none
+        attr = rng.normal(size=(T, A)).astype(np.float32) if A else None
+        t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+        attrs, bbox, rngs, _, (nty, ntx) = raster_cuda._tile_table(
+            t(xy[..., 0]), t(xy[..., 1]), t(sz), t(ok), W, H, None if attr is None else t(attr))
+        cases[name] = (attrs, bbox, rngs, nty, ntx, H, W, A)
+    return cases
+
+
+def capture_raster(fn):
+    """The tables ``fn`` hands to ``raster_cuda.tile_raster`` (the kernel
+    still runs, so counts are unchanged)."""
+    calls = []
+    orig = raster_cuda.tile_raster
+
+    def rec(*a):
+        calls.append(a)
+        return orig(*a)
+
+    raster_cuda.tile_raster = rec
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        raster_cuda.tile_raster = orig
+    return calls
+
+
+def raster_kernel_phase(frame_calls, card):
+    """Phase 15: B11 against its plain version on the frame's two calls,
+    render_512's at shadow 512 and 1024 and the degenerate tables, bitwise;
+    per input set the kernel ms (CUDA events, median of 20, per call
+    summed), its device ms under the profiler, the plain ms and the bound."""
+    inputs = workload.render_512_inputs("cuda")
+    sets = {"interactive frame": frame_calls}
+    for shadow in (512, 1024):
+        sets[f"render_512, shadow {shadow}"] = capture_raster(
+            lambda s=shadow: workload.run_render_512("cuda", s, inputs))
+    cases = raster_cases("cuda")
+    err = max(compare_raster(a)
+              for a in [c for calls in sets.values() for c in calls] + list(cases.values()))
+    torch.cuda.synchronize()
+    out = {"max_abs_err": err}
+    for name, calls in sets.items():
+        ms = sum(event_ms(lambda a=a: raster_cuda.tile_raster(*a)) for a in calls)
+        device_ms = sum(profiled_kernel_ms(lambda a=a: raster_cuda.tile_raster(*a), "raster_")
+                        for a in calls)
+        plain_ms = sum(event_ms(lambda a=a: raster_cuda.tile_raster_reference(*a), reps=5,
+                                warmup=1) for a in calls)
+        b_ms, b_by = bound(sum(nbytes(a[:3]) + nbytes(raster_cuda.tile_raster(*a)) for a in calls),
+                           sum(raster_ops(a) for a in calls))
+        shapes = [[int(a[0].shape[0]), a[7], a[5], a[6]] for a in calls]
+        out[name] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "shapes": shapes}
+        print(f"raster ({name}): kernel {ms:.4f} ms (the kernel alone {device_ms:.4f} ms on the "
+              f"device)  plain {plain_ms:.3f} ms  bound {b_ms:.5f} ms ({b_by})  calls [T_pad, A, "
+              f"H, W] {shapes}  ({card})", flush=True)
+    print(f"raster: bitwise on {sum(map(len, sets.values()))} main-path calls and {len(cases)} "
+          f"degenerate tables ({', '.join(cases)}), max_abs_err {err:.3e}", flush=True)
+    return out
+
+
+def _frame_checks(i, met, img, what):
+    """The frame's image is finite, in [0, 1], of the configured size; the
+    first frame fractures and keeps the cube's volume (rtol 1e-3,
+    tests/test_fracture.py:88). Returns the metrics as floats."""
+    g = {k: float(v) for k, v in met.items()}
+    rc = workload.INTERACTIVE_CFG.render
+    if img.shape != (rc.height, rc.width, 3) or not bool(torch.isfinite(img).all()) \
+            or float(img.min()) < 0 or float(img.max()) > 1:
+        fail(f"{what}: frame {i} image is not a finite {rc.height}x{rc.width} image in [0, 1]")
+    if i == 0:
+        if not g["new_pieces"] > 0:
+            fail(f"{what}: the first frame did not fracture ({json.dumps(g)})")
+        if abs(g["total_volume"] - 27.0) > 1e-3 * 27.0:
+            fail(f"{what}: total_volume {g['total_volume']} not within rtol 1e-3 of 27")
+    return g
+
+
+def frame_main_path(card):
+    """Phase 16: Scene("cube", INTERACTIVE_CFG) on the card and 16 chained
+    frames through the user's entry points, counts set to 0 just before;
+    launches per frame checked. Returns (counts of the run, B11's two calls
+    of the first frame, per-frame metrics)."""
+    reset_all()
+    frames = []
+    prev = {}
+    first_calls = []
+    orig = raster_cuda.tile_raster
+
+    def rec(*a):
+        if not frames:
+            first_calls.append(a)
+        return orig(*a)
+
+    def on_frame(i, sc, img, met):
+        nonlocal prev
+        now = all_counts()
+        delta = {k: now[k] - prev.get(k, 0) for k in now}
+        prev = now
+        for k, n in delta.items():
+            want = FRAME_LAUNCHES.get(k, 0)
+            if k in FRAME_ANY:
+                if i == 0 and n <= 0:
+                    fail(f"interactive frame 0: {k} never launched ({json.dumps(delta)})")
+            elif n != want:
+                fail(f"interactive frame {i}: {k} launched {n} times, expected {want} "
+                     f"({json.dumps(delta)})")
+        g = _frame_checks(i, met, img, "interactive frame (cuda)")
+        frames.append({"launches": delta, "pieces": sc.num_pieces(), "bodies": sc.num_bodies(),
+                       **{k: g[k] for k in ("new_pieces", "total_volume", *FRAME_OVERFLOWS)}})
+
+    raster_cuda.tile_raster = rec
+    try:
+        t0 = time.perf_counter()
+        sc = workload.interactive_scene("cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prev = all_counts()
+        with StepRecorder() as steps:
+            workload.run_frames(sc, workload.FRAMES, on_frame=on_frame)
+            torch.cuda.synchronize()
+    finally:
+        raster_cuda.tile_raster = orig
+    counts = all_counts()
+    # B5 and B7 at the frame's hull size (Vh = 64, F = 32) against their
+    # plain versions, on the last frame's step.
+    errs = {name: cmp(*steps.last[name][:2]) for name, cmp in
+            (("pack", compare_pack), ("narrowphase", compare_narrowphase))}
+    a = steps.last["pack"][0]
+    print(f"pack and narrowphase at Vh {a[0].shape[1]}, F {a[2].shape[1]}, {a[0].shape[0]} "
+          f"pieces (the last frame's step): max_abs_err {json.dumps(errs)}", flush=True)
+    print(f"interactive frame (cuda): Scene init {init_s:.2f} s, launches {json.dumps(prev)} "
+          f"(the Scene's decomposition included)", flush=True)
+    for i, f in enumerate(frames):
+        print(f"  frame {i}: " + json.dumps({k: v for k, v in f.items() if k != "launches"})
+              + " launches " + json.dumps({k: v for k, v in f["launches"].items() if v}),
+              flush=True)
+    return counts, first_calls, frames
+
+
+def _scene_diff(g, c):
+    """Largest body x and v differences between the card's and the CPU's
+    scene."""
+    dx = float((g.phys.bodies.x.cpu() - c.phys.bodies.x).abs().max())
+    dv = float((g.phys.bodies.v.cpu() - c.phys.bodies.v).abs().max())
+    return dx, dv
+
+
+def _frame(sc):
+    return sc.interactive_frame(*workload.FRAME_RAY, eye=workload.FRAME_EYE,
+                                target=workload.FRAME_TARGET)
+
+
+def frame_cpu_compare(card, n: int = FRAME_COMPARE):
+    """Phase 17: one CPU-built Scene, copied to the card; the first ``n``
+    chained frames on both devices, compared after each: valid, group and
+    tag exactly, every overflow counter and count equal, total volume
+    within rtol 1e-5, body x within 2e-4 and v within 2e-3, at least 99.5%
+    of pixels within 1e-5. Returns the CPU-built Scene (the timing runs'
+    start)."""
+    t0 = time.perf_counter()
+    start = workload.interactive_scene("cpu")
+    print(f"interactive Scene (cpu, plain): built in {time.perf_counter() - t0:.2f} s, "
+          f"{start.num_pieces()} pieces", flush=True)
+    gsc, csc = workload.scene_to(start, "cuda"), workload.scene_to(start, "cpu")
+    for i in range(n):
+        gimg, gmet = _frame(gsc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cimg, cmet = _frame(csc)
+        cpu_s = time.perf_counter() - t0
+        g = _frame_checks(i, gmet, gimg, "interactive frame (cuda, from the cpu scene)")
+        c = {k: float(v) for k, v in cmet.items()}
+        for k in (*FRAME_OVERFLOWS, "new_pieces", "active_pieces", "merged_out", "num_groups",
+                  "mesh_tris_dropped"):
+            if g[k] != c[k]:
+                fail(f"interactive frame {i}: {k} cuda {g[k]} != cpu {c[k]}")
+        for k in ("valid", "group", "tag"):
+            if not torch.equal(getattr(gsc.pieces, k).cpu(), getattr(csc.pieces, k)):
+                fail(f"interactive frame {i}: pieces' {k} differ from the cpu plain run")
+        if abs(g["total_volume"] - c["total_volume"]) > 1e-5 * abs(c["total_volume"]):
+            fail(f"interactive frame {i}: total_volume cuda {g['total_volume']} vs cpu "
+                 f"{c['total_volume']}")
+        dx, dv = _scene_diff(gsc, csc)
+        share = float(((gimg.cpu() - cimg).abs() <= 1e-5).all(-1).float().mean())
+        print(f"interactive frame {i} (cuda vs cpu plain run, {cpu_s:.2f} s on the cpu): "
+              f"new_pieces {g['new_pieces']:.0f}, body x {dx:.3e}, v {dv:.3e}, pixels within "
+              f"1e-5 {share:.6f}", flush=True)
+        if not (dx <= 2e-4 and dv <= 2e-3 and share >= 0.995):
+            fail(f"interactive frame {i}: the card parts from the cpu plain run")
+    return start
+
+
+def frame_stage_split(start, frames: int = workload.FRAMES) -> dict:
+    """Median over ``frames`` chained frames of CUDA-event ms per stage
+    (outermost calls of the FRAME_STAGES functions, repeated calls summed),
+    "glue" the rest of the frame."""
+    spans, depth, saved = [], [0], []
+    for label, mod, name in FRAME_STAGES:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            if depth[0]:
+                return _fn(*a, **kw)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            depth[0] += 1
+            try:
+                return _fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                e.record()
+                spans.append((_label, s, e))
+
+        setattr(mod, name, wrapped)
+    per = {}
+    sc = workload.scene_to(start, "cuda")
+    try:
+        for _ in range(frames):
+            spans.clear()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            _frame(sc)
+            t1.record()
+            torch.cuda.synchronize()
+            acc = {}
+            for label, s, e in spans:
+                acc[label] = acc.get(label, 0.0) + s.elapsed_time(e)
+            acc["glue"] = t0.elapsed_time(t1) - sum(acc.values())
+            acc["frame"] = t0.elapsed_time(t1)
+            for k, v in acc.items():
+                per.setdefault(k, []).append(v)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return {k: statistics.median(v) for k, v in per.items()}
+
+
+def frame_timing(start, card, runs: int = 3) -> dict:
+    """Phase 18: ms per frame (host clock, synchronize after each frame) of
+    16 chained frames from the CPU-built Scene copied to the card, median
+    of the 16, per run; the stage split; the device idle share over 5
+    frames; render_512 ms at shadow 512 and 1024."""
+    medians = []
+    for _ in range(runs):
+        sc = workload.scene_to(start, "cuda")
+        ts = []
+        for _ in range(workload.FRAMES):
+            t0 = time.perf_counter()
+            _frame(sc)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        medians.append(statistics.median(ts))
+    split = frame_stage_split(start)
+    sc = workload.scene_to(start, "cuda")
+    busy, wall, idle, entries = profile_busy(lambda: _frame(sc), 5)
+    inputs = workload.render_512_inputs("cuda")
+    render = {s: host_ms(lambda s=s: workload.run_render_512("cuda", s, inputs))
+              for s in (512, 1024)}
+    out = {"frame_ms": statistics.median(medians), "frame_ms_runs": medians, "stages_ms": split,
+           "busy_ms": busy, "profiled_wall_ms": wall, "idle_share": idle,
+           "device_entries": entries, "render_512_ms": render[512],
+           "render_512_shadow1024_ms": render[1024]}
+    print(f"interactive frame: median {out['frame_ms']:.3f} ms/frame (medians of 16 frames in "
+          f"{runs} runs: {', '.join(f'{m:.3f}' for m in medians)}) ({card})", flush=True)
+    print("interactive frame stage split, median of 16 frames (CUDA events, ms): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    print("interactive frame idle share "
+          + (f"{idle:.3f}: device busy {busy:.3f} ms of {wall:.3f} ms per frame under the "
+             f"profiler, {entries:.0f} device entries per frame" if idle is not None
+             else "not measured: the profiler reported no device time"), flush=True)
+    print(f"render_512: {render[512]:.3f} ms (shadow 512), {render[1024]:.3f} ms (shadow 1024), "
+          f"median of 10 ({card})", flush=True)
+    return out
+
+
 def main():
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1652,6 +2026,19 @@ def main():
     # 14. Timing of the sphere decomposition and the impact.
     fracture = fracture_timing(prepared, card)
 
+    # 16. The interactive frame on the card, counting launches per frame.
+    frame_counts, frame_calls, frames = frame_main_path(card)
+
+    # 15. B11 against its plain version (the frame's calls, render_512's,
+    # degenerate tables).
+    raster = raster_kernel_phase(frame_calls, card)
+
+    # 17. The same frames from one CPU-built Scene on both devices.
+    start = frame_cpu_compare(card)
+
+    # 18. Timing of the frame and of render_512.
+    frame = frame_timing(start, card)
+
     path_counts = {"broadphase_sorted": ("b_sorted", variants["b_sorted"][0]),
                    "solver_warm": ("d_warm", variants["d_warm"][0])}
     kernels = [
@@ -1674,10 +2061,21 @@ def main():
         "pooled_impact": {"launches": impact["pooled"]["launches"]["soup_clip"],
                           **soup["cube32 impact, pooled"]},
     })
+    raster_main = raster["interactive frame"]
+    kernels.append({
+        "name": "raster", "route": "cuda", "source": RASTER_SRC, "replaces": RASTER_REPLACES,
+        "path": "interactive frame", "launches": frame_counts["raster"],
+        "max_abs_err": raster["max_abs_err"],
+        **{k: raster_main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                       "shapes")},
+        "library_ms": None,
+        "render_512": {k: v for k, v in raster.items() if k.startswith("render_512")},
+    })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels, "event_ms": ms_event, "physics": timing,
                       "sphere": {"metrics": sphere_met, "launches": sphere_counts},
-                      "impact": impact, "fracture_timing": fracture, "card": card}), flush=True)
+                      "impact": impact, "fracture_timing": fracture,
+                      "frame": {"timing": frame, "frames": frames}, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,7 @@
 Turns the JAX package's containers, seen as numpy arrays (any object with
 the same field names whose leaves convert with ``numpy.asarray``), into the
 port's containers and back: pieces, fracture contexts and physics scenes.
-``FractureConfig`` and ``PhysicsConfig`` convert through
-``dataclasses.asdict``. The tests use it to feed the same intermediate state
+The configurations convert through ``dataclasses.asdict``. The tests use it to feed the same intermediate state
 to both sides; nothing here imports JAX.
 """
 
@@ -15,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from surtr_tpu_torch.config import FractureConfig, PhysicsConfig
+from surtr_tpu_torch.config import FractureConfig, PhysicsConfig, RenderConfig, SceneConfig
 from surtr_tpu_torch.fracture.types import FractureContext, PieceSet
 from surtr_tpu_torch.physics.scene import PhysicsScene
 from surtr_tpu_torch.types import ConvexPoly, RigidState
@@ -96,6 +95,19 @@ def config_to_dict(cfg: FractureConfig) -> dict:
 def physics_config_from(cfg) -> PhysicsConfig:
     """The port's PhysicsConfig from any dataclass with the same fields."""
     return PhysicsConfig(**dataclasses.asdict(cfg))
+
+
+def render_config_from(cfg) -> RenderConfig:
+    """The port's RenderConfig from any dataclass with the same fields."""
+    return RenderConfig(**dataclasses.asdict(cfg))
+
+
+def scene_config_from(cfg) -> SceneConfig:
+    """The port's SceneConfig from the JAX package's (or any with the same
+    three parts)."""
+    return SceneConfig(fracture=config_from(cfg.fracture),
+                       physics=physics_config_from(cfg.physics),
+                       render=render_config_from(cfg.render))
 
 
 def _field(obj, name):

@@ -38,7 +38,7 @@ from surtr_tpu_torch.ops.hull_cuda import ich
 from surtr_tpu_torch.ops.kdop import kdop_planes
 from surtr_tpu_torch.ops.labels import adjacency_components
 from surtr_tpu_torch.ops.labels_cuda import tri_soup_components_batch
-from surtr_tpu_torch.ops.linalg import compact, dot3, pack_rows, sqrt_rn
+from surtr_tpu_torch.ops.linalg import compact, div_rn, dot3, pack_rows, sqrt_rn
 from surtr_tpu_torch.ops.mesh_clip import (clip_polys_by_rows, clip_trisoup, fan_triangles,
                                            point_in_mesh, winding_inside)
 from surtr_tpu_torch.ops.moments import moments
@@ -63,7 +63,8 @@ def convex_out_of_sphere(poly: ConvexPoly, cloud: torch.Tensor, center: torch.Te
     sphere-cloud points (Pc, 3) lies inside the convex (n·p + d <= 0 on
     every live face, in ``dot3`` order). poly batch (...) → (...) bool."""
     fv = poly.face_verts
-    d2 = torch.sum((fv - center) ** 2, dim=-1)
+    r = fv - center
+    d2 = dot3(r, r)
     vert_inside = torch.any((poly.slot_mask() & (d2 < radius * radius)).flatten(-2), dim=-1)
     s = dot3(poly.planes[..., None, :3], cloud) + poly.planes[..., 3:]   # (..., F, Pc)
     ok = (s <= 0) | ~poly.face_mask()[..., None]
@@ -113,7 +114,8 @@ def _cell_plane_sets(seeds: torch.Tensor, k: int, extent, center):
     and translate. Returns ((C, k+6, 4), (C, k+6) mask)."""
     C = seeds.shape[0]
     dev, dt = seeds.device, seeds.dtype
-    d2 = torch.sum((seeds[:, None] - seeds[None]) ** 2, dim=-1)
+    r = seeds[:, None] - seeds[None]
+    d2 = dot3(r, r)
     d2.fill_diagonal_(BIG)
     idx = nearest_first(-d2, k)
     bp, bm = bisector_planes(seeds, seeds[idx], torch.ones((C, k), dtype=torch.bool, device=dev))
@@ -122,11 +124,11 @@ def _cell_plane_sets(seeds: torch.Tensor, k: int, extent, center):
     planes_u = torch.cat([dom.expand(C, 6, 4), bp], dim=1)
     pmask = torch.cat([torch.ones((C, 6), dtype=torch.bool, device=dev), bm], dim=1)
     n = planes_u[..., :3] / extent
-    ln = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    ln = sqrt_rn(dot3(n, n))[..., None]
     safe = torch.where(ln > 0, ln, torch.ones_like(ln))
     n = n / safe
     d = planes_u[..., 3:4] / safe
-    d = d - torch.sum(n * center, dim=-1, keepdim=True)
+    d = d - dot3(n, center)[..., None]
     return torch.cat([n, d], dim=-1), pmask
 
 
@@ -235,7 +237,8 @@ def _voxel_labels(conv, solid_t, solid_m, mas, VR: int, chunk: int = 64):
 def _voxel_label_at(pts, occ, lab, c):
     """Label of the occupied voxel nearest to c (first of ties); -1 when the
     candidate has no occupied voxel. pts (N, G, 3), c (N, 3) → (N,)."""
-    d2 = torch.sum((pts - c[:, None]) ** 2, dim=-1)
+    r = pts - c[:, None]
+    d2 = dot3(r, r)
     d2 = torch.where(occ, d2, BIG)
     sel = (d2 <= torch.amin(d2, dim=1, keepdim=True)) & occ
     sel = sel & (torch.cumsum(sel.to(torch.int32), 1) == 1)
@@ -430,7 +433,7 @@ def _culled_pair_pool_clip(tri_corners, tmask, cell_planes, cell_pmask, cull_cap
     C = cell_planes.shape[0]
     Tsrc = tri_corners.shape[0]
     dev = tri_corners.device
-    cent_t = ((tri_corners[:, 0] + tri_corners[:, 1]) + tri_corners[:, 2]) / 3.0
+    cent_t = div_rn((tri_corners[:, 0] + tri_corners[:, 1]) + tri_corners[:, 2], 3.0)
     rel = tri_corners - cent_t[:, None]
     rad_t = torch.amax(sqrt_rn(dot3(rel, rel)), dim=1)
     tol_c = 1e-4 * mas
@@ -472,7 +475,8 @@ def _culled_pair_pool_clip(tri_corners, tmask, cell_planes, cell_pmask, cull_cap
 def density_sort(seeds: torch.Tensor) -> torch.Tensor:
     """Order seeds by nearest-neighbour distance (same set; the JAX package
     applies it for C > 128 so that cells of similar density share blocks)."""
-    d2 = torch.sum((seeds[:, None] - seeds[None]) ** 2, -1)
+    r = seeds[:, None] - seeds[None]
+    d2 = dot3(r, r)
     d2.fill_diagonal_(BIG)
     dmin = torch.amin(d2, dim=1)
     return seeds[torch.sort(dmin, stable=True).indices]
@@ -738,8 +742,8 @@ def do_fracture(pieces: PieceSet, ctx: FractureContext, impact_pos, target_group
         cntA = torch.clamp(smA.sum((1, 2)), min=1)
         centA = torch.sum(torch.where(smA[..., None], fvs, 0.0), dim=(1, 2)) / cntA[:, None]
         radA = sqrt_rn(torch.amax(torch.where(
-            smA, torch.sum((fvs - centA[:, None, None]) ** 2, -1), 0.0), dim=(1, 2)))
-        distAC = (torch.sum(cells.planes[None, :, :, :3] * centA[:, None, None, :], -1)
+            smA, dot3(fvs - centA[:, None, None], fvs - centA[:, None, None]), 0.0), dim=(1, 2)))
+        distAC = (dot3(cells.planes[None, :, :, :3], centA[:, None, None, :])
                   + cells.planes[None, :, :, 3])                        # (A, C, F)
         sepAC = torch.any(cells_fm[None] & (distAC > radA[:, None, None] + 1e-5 * mas), dim=-1)
         alive0 = (sel_ok[:, None] & ~sepAC & ~cells.is_empty()[None]).reshape(N0)
@@ -870,7 +874,8 @@ def split_groups_by_contact(pieces: PieceSet, eps, exact: bool = False):
     sm = pieces.convex.slot_mask()
     nv = torch.clamp(pieces.convex.n_verts, min=1)[..., None]
     cent = torch.sum(torch.where(sm[..., None], fv, 0.0), dim=-2) / nv       # (P, F, 3)
-    r2 = torch.amax(torch.where(sm, torch.sum((fv - cent[..., None, :]) ** 2, -1), 0.0), dim=-1)
+    rel = fv - cent[..., None, :]
+    r2 = torch.amax(torch.where(sm, dot3(rel, rel), 0.0), dim=-1)
     r_face = sqrt_rn(r2)
 
     pf = P * F
@@ -885,8 +890,9 @@ def split_groups_by_contact(pieces: PieceSet, eps, exact: bool = False):
     pcnt = torch.clamp(sm.sum((1, 2)), min=1)
     pcent = torch.sum(torch.where(sm[..., None], fv, 0.0), dim=(1, 2)) / pcnt[:, None]
     pr = sqrt_rn(torch.amax(torch.where(
-        sm, torch.sum((fv - pcent[:, None, None]) ** 2, -1), 0.0), dim=(1, 2)))
-    pd2 = torch.sum((pcent[:, None] - pcent[None, :]) ** 2, -1)
+        sm, dot3(fv - pcent[:, None, None], fv - pcent[:, None, None]), 0.0), dim=(1, 2)))
+    dp = pcent[:, None] - pcent[None, :]
+    pd2 = dot3(dp, dp)
     cand_ok = (
         (pieces.group[:, None] == pieces.group[None, :])
         & valid[:, None] & valid[None, :]

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from surtr_tpu_torch.ops.linalg import compact, dot3
+from surtr_tpu_torch.ops.hull import _cross
+from surtr_tpu_torch.ops.linalg import compact, dot3, sqrt_rn
 from surtr_tpu_torch.types import ConvexPoly
 
 DEFAULT_TOL = 1e-6
@@ -41,9 +42,9 @@ def plane_basis(n: torch.Tensor):
     batched over leading axes: u = e × n, e the axis of smallest |n|."""
     axis = torch.argmin(torch.abs(n), dim=-1)
     e = torch.nn.functional.one_hot(axis, 3).to(n.dtype)
-    u = torch.linalg.cross(e, n, dim=-1)
-    u = u / torch.clamp(torch.sqrt(dot3(u, u)), min=1e-30)[..., None]
-    v = torch.linalg.cross(n, u, dim=-1)
+    u = _cross(e, n)
+    u = u / torch.clamp(sqrt_rn(dot3(u, u)), min=1e-30)[..., None]
+    v = _cross(n, u)
     return u, v
 
 
@@ -94,7 +95,7 @@ def clip_poly_plane(poly: ConvexPoly, plane: torch.Tensor,
     centroid = wsum / torch.clamp(cnt, min=1).to(fv.dtype)[:, None]
     nn = plane[:, :3]
     u, v = plane_basis(
-        nn / torch.clamp(torch.sqrt(dot3(nn, nn)), min=1e-30)[..., None]
+        nn / torch.clamp(sqrt_rn(dot3(nn, nn)), min=1e-30)[..., None]
     )
     rel = cap_pts - centroid[:, None, :]
     ang = torch.atan2(dot3(rel, v[:, None]), dot3(rel, u[:, None]))

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from surtr_tpu_torch.ops.linalg import dot3
+from surtr_tpu_torch.ops.linalg import dot3, sqrt_rn
 
 NEG = -3.4e38
 
@@ -144,7 +144,7 @@ def ich(points: torch.Tensor, mask: torch.Tensor, limit: int, max_faces: int | N
 
     tp = pts[faces]
     nrm = _cross(tp[:, 1] - tp[:, 0], tp[:, 2] - tp[:, 0])
-    ln = torch.sqrt(dot3(nrm, nrm))[:, None]
+    ln = sqrt_rn(dot3(nrm, nrm))[:, None]
     nrm = nrm / torch.clamp(ln, min=1e-30)
     fvalid = fvalid & (ln[:, 0] > 1e-20)
     return {
@@ -186,7 +186,7 @@ def tetra_hull(points: torch.Tensor, mask: torch.Tensor):
         n = _cross(fb - fa, fc - fa)
         s = dot3(n, inner - fa)[..., None]
         n = torch.where(s > 0, -n, n)
-        ln = torch.sqrt(dot3(n, n))[..., None]
+        ln = sqrt_rn(dot3(n, n))[..., None]
         nrms.append(n / torch.clamp(ln, min=1e-30))
         valids.append(ln[..., 0] > 1e-20)
     normals = torch.stack(nrms, dim=-2)

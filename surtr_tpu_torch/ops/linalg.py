@@ -37,6 +37,14 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(x.dtype)
 
 
+def div_rn(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded as one true division on every device. The card
+    divides a float tensor by a Python number as a product with its rounded
+    reciprocal, which can differ by one ulp; a divisor tensor on the
+    device takes the true division, as the CPU always does."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def matvec3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) @ (..., 3) → (..., 3), each row in ``dot3`` order."""
     return dot3(m, v[..., None, :])

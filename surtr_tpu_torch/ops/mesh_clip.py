@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from surtr_tpu_torch.ops.hull import _cross
-from surtr_tpu_torch.ops.linalg import compact, dot3
+from surtr_tpu_torch.ops.linalg import compact, dot3, sqrt_rn
 
 
 def _clip_polys_plane(poly, n_vert, plane, tol, any_removed=None):
@@ -202,9 +202,7 @@ def winding_inside(points, corners, tri_valid, threshold: float = 0.5):
     a = corners[..., None, :, 0, :] - p                        # (..., P, T, 3)
     b = corners[..., None, :, 1, :] - p
     c = corners[..., None, :, 2, :] - p
-    la = torch.linalg.vector_norm(a, dim=-1)
-    lb = torch.linalg.vector_norm(b, dim=-1)
-    lc = torch.linalg.vector_norm(c, dim=-1)
+    la, lb, lc = sqrt_rn(dot3(a, a)), sqrt_rn(dot3(b, b)), sqrt_rn(dot3(c, c))
     det = torch.sum(a * _cross(b, c), dim=-1)
     den = (
         la * lb * lc

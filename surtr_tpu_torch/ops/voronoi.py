@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from surtr_tpu_torch.ops.clip_cuda import clip_planes_batch
+from surtr_tpu_torch.ops.linalg import dot3, sqrt_rn
 from surtr_tpu_torch.types import ConvexPoly, unit_cube
 
 BIG = 3.4e38
@@ -24,7 +25,7 @@ def bisector_planes(seed: torch.Tensor, others: torch.Tensor, other_mask: torch.
     ((..., K, 4), (..., K) mask)."""
     seed = seed[..., None, :]
     diff = others - seed
-    dist = torch.linalg.vector_norm(diff, dim=-1, keepdim=True)
+    dist = sqrt_rn(dot3(diff, diff))[..., None]
     ok = other_mask & (dist[..., 0] > 1e-12)
     n = diff / torch.clamp(dist, min=1e-30)
     mid = (others + seed) * 0.5

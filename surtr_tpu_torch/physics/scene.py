@@ -110,9 +110,29 @@ def _edge_dirs(fv: torch.Tensor, nv: torch.Tensor, Ne: int):
     return torch.stack(chosen, 1), torch.stack(cmask, 1)
 
 
+def _inv3(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) inverse as adjugate / determinant, written out: the same
+    bits on every device (the card's batched solver and the CPU's LAPACK
+    round their steps differently). Callers pass float64 and round once."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    A, B, C = e * i - f * h, f * g - d * i, d * h - e * g
+    det = (a * A + b * B) + c * C
+    adj = torch.stack([A, c * h - b * i, b * f - c * e,
+                       B, a * i - c * g, c * d - a * f,
+                       C, b * g - a * h, a * e - b * d], -1).reshape(m.shape)
+    return adj / det[..., None, None]
+
+
 def _segment_sum(x: torch.Tensor, gid: torch.Tensor, B: int) -> torch.Tensor:
-    out = torch.zeros((B + 1,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, gid.long(), x)[:B]
+    """Per-body sums of piece rows, accumulated in float64 and rounded once.
+    The card's ``index_add_`` still adds in no fixed order; in float64 that
+    order moves the float32 result only where the sum lies next to a
+    float32 rounding boundary, so the card agrees with the CPU but for such
+    rare sums."""
+    out = torch.zeros((B + 1,) + x.shape[1:], dtype=torch.float64, device=x.device)
+    return out.index_add_(0, gid.long(), x.double())[:B].to(x.dtype)
 
 
 def build_scene(pieces: PieceSet, cfg: PhysicsConfig, max_bodies: int | None = None) -> PhysicsScene:
@@ -133,7 +153,7 @@ def build_scene(pieces: PieceSet, cfg: PhysicsConfig, max_bodies: int | None = N
 
     # Inertia about the body COM (parallel axis per piece).
     d = com_p - com_b[torch.clamp(gid, 0, B - 1).long()]
-    d2 = torch.sum(d * d, dim=-1)
+    d2 = dot3(d, d)
     eye = torch.eye(3, device=dev)
     shift = mass_p[:, None, None] * (d2[:, None, None] * eye - d[:, :, None] * d[:, None, :])
     I_b = _segment_sum(I_p + shift, gid, B)
@@ -141,7 +161,7 @@ def build_scene(pieces: PieceSet, cfg: PhysicsConfig, max_bodies: int | None = N
 
     inv_m = torch.where(body_valid, 1.0 / torch.clamp(m_b, min=1e-12), 0.0)
     I_safe = torch.where(body_valid[:, None, None], I_b, eye)
-    inv_I = torch.linalg.inv(I_safe + 1e-9 * eye)
+    inv_I = _inv3((I_safe + 1e-9 * eye).double()).to(I_safe.dtype)
     inv_I = torch.where(body_valid[:, None, None], inv_I, 0.0)
 
     q = torch.zeros((B, 4), device=dev)
@@ -156,7 +176,7 @@ def build_scene(pieces: PieceSet, cfg: PhysicsConfig, max_bodies: int | None = N
     fv_local = conv.face_verts - shift_p[:, None, None, :]
     verts, vmask = _dedup_verts(fv_local, conv.slot_mask(), Vh)
     n = conv.planes[..., :3]
-    dpl = conv.planes[..., 3:4] + torch.sum(n * shift_p[:, None, :], dim=-1, keepdim=True)
+    dpl = conv.planes[..., 3:4] + dot3(n, shift_p[:, None, :])[..., None]
     planes_local = torch.cat([n, dpl], dim=-1)
     edges, emask = _edge_dirs(fv_local, conv.n_verts, cfg.max_edge_dirs)
 

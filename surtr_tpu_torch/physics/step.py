@@ -276,15 +276,16 @@ def _fused_prep_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, ground
 
 
 def _segment_sums(vals: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
-    """Per-body sums of piece rows (pieces sorted by owner): a float32
-    cumsum down the rows, then the difference at the segment ends, as the
-    JAX package computes them (no scatter); (Np, D) → (B, D). PyTorch's
+    """Per-body sums of piece rows (pieces sorted by owner): a cumsum down
+    the rows, then the difference at the segment ends, as the JAX package
+    computes them (no scatter); (Np, D) → (B, D). The cumsum runs in
+    float64 and each difference is rounded once to float32: PyTorch's
     float32 cumsum accumulates in float64 on the CPU and in float32 on the
-    card, so CPU and card runs part by a few ulps
-    (``tools/segment_sums_precision.py`` measures it)."""
-    csum = torch.cat([torch.zeros_like(vals[:1]), torch.cumsum(vals, dim=0)])
+    card, which parted the two runs by a few ulps."""
+    v = vals.double()
+    csum = torch.cat([torch.zeros_like(v[:1]), torch.cumsum(v, dim=0)])
     seg = seg_start.long()
-    return csum[seg[1:]] - csum[seg[:-1]]
+    return (csum[seg[1:]] - csum[seg[:-1]]).to(vals.dtype)
 
 
 def _segment_any(flags: torch.Tensor, myb: torch.Tensor, B: int) -> torch.Tensor:

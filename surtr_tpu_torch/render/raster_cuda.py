@@ -1,0 +1,216 @@
+"""Tiled z-buffer raster with device dispatch (kernel B11,
+``csrc/raster.cu``). Replaces the JAX package's ``rasterize_ids_pallas``
+(surtr_tpu/render/raster_pallas.py).
+
+The image is cut into 16 × 128 tiles. Triangles are sorted stably by the
+tile of their bounding-box centre (invalid last) and packed into one
+(T_pad, 10 + A) table of ax ay bx by cx cy za zb zc ok and the A G-buffer
+columns, in chunks of 64 rows. Each chunk has a screen bounding box over
+its valid triangles, and each tile the range [lo, hi) of chunks whose box
+overlaps it. Per pixel, the depth is the smallest z = (w0·za + w1·zb) +
+w2·zc over the covering triangles of the tile's overlapping chunks, walked
+in order and replaced only on a strictly smaller z, which keeps the first
+minimum: the winning id is the first such triangle in sorted order, mapped
+back to the caller's order. Uncovered pixels keep depth ``BIG`` and id -1;
+the G-buffer is the winner's attribute row, zeros on background.
+
+``rasterize_ids_tiled`` does the sort, packing, boxes and ranges in plain
+PyTorch on the input's device, then ``tile_raster`` launches the kernel for
+CUDA tensors (or raises) and runs the plain version,
+``tile_raster_reference``, for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from surtr_tpu_torch import _build
+from surtr_tpu_torch.ops.linalg import div_rn
+
+BIG = 3.4e38
+TH, TW = 16, 128      # tile rows, tile columns
+CHUNK = 64            # triangles per chunk
+
+launches = 0  # kernel launches since the last reset (main-path proof)
+
+
+def _tile_table(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
+    """Sort, pack, chunk boxes and tile ranges of ``rasterize_ids_pallas``.
+
+    Returns (attrs (T_pad, 10 + A), bbox (nblk, 4) bx0 bx1 by0 by1,
+    rng (tiles, 2) int32, order (T,) int64, (nty, ntx))."""
+    T = sx.shape[0]
+    dev = sx.device
+    A = 0 if attr_tab is None else attr_tab.shape[1]
+    nty, ntx = -(-H // TH), -(-W // TW)
+
+    # Tile of the bbox centre, ((a + b) + c) / 3 as jnp.mean; floor division
+    # then clip, the clip done in float first (XLA saturates out-of-range
+    # conversions, PyTorch does not).
+    cx_mid = div_rn((sx[:, 0] + sx[:, 1]) + sx[:, 2], 3.0)
+    cy_mid = div_rn((sy[:, 0] + sy[:, 1]) + sy[:, 2], 3.0)
+    tx = torch.clamp(torch.floor_divide(cx_mid, float(TW)), 0, ntx - 1).to(torch.int32)
+    ty = torch.clamp(torch.floor_divide(cy_mid, float(TH)), 0, nty - 1).to(torch.int32)
+    key = torch.where(ok, ty * ntx + tx, 1 << 30)
+    order = torch.argsort(key, stable=True)
+
+    T_pad = -(-T // CHUNK) * CHUNK
+    nblk = T_pad // CHUNK
+    cols = [sx[:, 0], sy[:, 0], sx[:, 1], sy[:, 1], sx[:, 2], sy[:, 2],
+            sz[:, 0], sz[:, 1], sz[:, 2], ok.to(sx.dtype)]
+    attrs = torch.zeros((T_pad, 10 + A), dtype=torch.float32, device=dev)
+    attrs[:T, :10] = torch.stack(cols, 1)[order]
+    if A:
+        attrs[:T, 10:] = attr_tab.to(torch.float32)[order]
+    oks = attrs[:, 9] > 0.5
+
+    def chunk_minmax(cs, lo: bool):
+        fill = BIG if lo else -BIG
+        v = torch.where(oks[:, None], attrs[:, cs], fill).reshape(nblk, CHUNK * 3)
+        return v.amin(1) if lo else v.amax(1)
+
+    xs, ys = [0, 2, 4], [1, 3, 5]
+    bbox = torch.stack([chunk_minmax(xs, True), chunk_minmax(xs, False),
+                        chunk_minmax(ys, True), chunk_minmax(ys, False)], 1)
+
+    t = torch.arange(nty * ntx, device=dev)
+    tx0 = (t % ntx).to(torch.float32) * TW
+    ty0 = (t // ntx).to(torch.float32) * TH
+    ov = ((bbox[None, :, 0] <= (tx0 + TW)[:, None]) & (bbox[None, :, 1] >= tx0[:, None])
+          & (bbox[None, :, 2] <= (ty0 + TH)[:, None]) & (bbox[None, :, 3] >= ty0[:, None]))
+    b = torch.arange(nblk, device=dev)[None]
+    lo = torch.where(ov, b, nblk).amin(1)
+    hi = torch.where(ov, b + 1, 0).amax(1)
+    rng = torch.stack([lo, torch.maximum(hi, lo)], 1).to(torch.int32).contiguous()
+    return attrs, bbox.contiguous(), rng, order, (nty, ntx)
+
+
+def _chunk_pairs(bbox, rng, nty: int, ntx: int):
+    """(tile, chunk) pairs the kernel evaluates: inside the tile's range and
+    past the chunk-box reject, sorted by tile then chunk."""
+    dev = bbox.device
+    nblk = bbox.shape[0]
+    t = torch.arange(nty * ntx, device=dev)
+    x0 = (t % ntx).to(torch.float32) * TW
+    y0 = (t // ntx).to(torch.float32) * TH
+    b = torch.arange(nblk, device=dev)[None]
+    live = ((b >= rng[:, :1]) & (b < rng[:, 1:])
+            & (bbox[None, :, 0] <= (x0 + TW)[:, None]) & (bbox[None, :, 1] >= x0[:, None])
+            & (bbox[None, :, 2] <= (y0 + TH)[:, None]) & (bbox[None, :, 3] >= y0[:, None]))
+    return torch.nonzero(live, as_tuple=True)
+
+
+def tile_raster_reference(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int,
+                          pairs_per_batch: int = 64):
+    """Plain B11 on the packed table: (depth (H, W), sorted-domain id (H, W)
+    int32, gbuf (H, W, A) or None).
+
+    Per (tile, chunk) pair the chunk's best z and first best triangle per
+    pixel, as the kernel computes them; per tile the smallest over its
+    pairs, the first pair in chunk order on ties. That is the kernel's walk
+    (replace on strictly smaller), evaluated in batches of pairs."""
+    dev = attrs.device
+    PX = TH * TW
+    ntiles = nty * ntx
+    tile_of, chunk_of = _chunk_pairs(bbox, rng, nty, ntx)
+    k = torch.arange(PX, device=dev)
+    zbest = torch.full((tile_of.shape[0], PX), BIG, dtype=torch.float32, device=dev)
+    ibest = torch.zeros((tile_of.shape[0], PX), dtype=torch.int64, device=dev)
+    for s in range(0, tile_of.shape[0], pairs_per_batch):
+        tt, cc = tile_of[s:s + pairs_per_batch], chunk_of[s:s + pairs_per_batch]
+        py = ((k // TW)[None] + (tt // ntx)[:, None] * TH).to(torch.float32)[:, None] + 0.5
+        px = ((k % TW)[None] + (tt % ntx)[:, None] * TW).to(torch.float32)[:, None] + 0.5
+        rows = (cc[:, None] * CHUNK + torch.arange(CHUNK, device=dev)[None])   # (n, 64)
+        blk = attrs[rows]                                                      # (n, 64, 10+A)
+        col = lambda j: blk[:, :, j, None]                                     # noqa: E731
+        ax, ay, bx, by, cx, cy = (col(j) for j in range(6))
+        za, zb, zc = col(6), col(7), col(8)
+        okb = col(9) > 0.5
+        area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+        live = okb & (torch.abs(area) > 1e-12)
+        inv_area = torch.where(torch.abs(area) > 1e-12, 1.0 / area, 0.0)
+        e0 = (cx - bx) * (py - by) - (cy - by) * (px - bx)                     # (n, 64, PX)
+        e1 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx)
+        e2 = (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+        w0, w1, w2 = e0 * inv_area, e1 * inv_area, e2 * inv_area
+        z = (w0 * za + w1 * zb) + w2 * zc
+        cov = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & live & (z > 0) & (z < 1)
+        z = torch.where(cov, z, BIG)
+        zb_, ib_ = torch.min(z, dim=1)                    # first minimum in the chunk
+        zbest[s:s + pairs_per_batch] = zb_
+        ibest[s:s + pairs_per_batch] = chunk_of[s:s + pairs_per_batch, None] * CHUNK + ib_
+    # Per tile: the smallest z over its pairs; the first pair holding it.
+    zt = torch.full((ntiles, PX), BIG, dtype=torch.float32, device=dev)
+    zt.scatter_reduce_(0, tile_of[:, None].expand(-1, PX), zbest, "amin")
+    npair = tile_of.shape[0]
+    first = torch.full((ntiles, PX), npair, dtype=torch.int64, device=dev)
+    pidx = torch.arange(npair, device=dev)[:, None].expand(-1, PX)
+    hold = zbest == zt[tile_of]
+    first.scatter_reduce_(0, tile_of[:, None].expand(-1, PX), torch.where(hold, pidx, npair),
+                          "amin")
+    ibest_ext = torch.cat([ibest, torch.zeros((1, PX), dtype=torch.int64, device=dev)])
+    tid = torch.gather(ibest_ext, 0, first)
+    tid = torch.where(zt < BIG, tid, -1)
+    # Tile-major rows → image.
+    Hp, Wp = nty * TH, ntx * TW
+    depth = zt.reshape(nty, ntx, TH, TW).permute(0, 2, 1, 3).reshape(Hp, Wp)[:H, :W]
+    tid = tid.reshape(nty, ntx, TH, TW).permute(0, 2, 1, 3).reshape(Hp, Wp)[:H, :W]
+    gbuf = None
+    if A:
+        gbuf = torch.where((tid >= 0)[..., None], attrs[torch.clamp(tid, min=0), 10:], 0.0)
+    return depth.contiguous(), tid.to(torch.int32).contiguous(), gbuf
+
+
+def _kernel(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int):
+    global launches
+    if attrs.dtype != torch.float32 or attrs.dim() != 2 or attrs.shape[1] != 10 + A \
+            or attrs.shape[0] % CHUNK or bbox.shape != (attrs.shape[0] // CHUNK, 4) \
+            or rng.shape != (nty * ntx, 2) or rng.dtype != torch.int32 \
+            or not (attrs.is_contiguous() and bbox.is_contiguous() and rng.is_contiguous()):
+        raise ValueError("raster kernel takes a contiguous (T_pad, 10 + A) float32 table, "
+                         "(T_pad / 64, 4) chunk boxes and (tiles, 2) int32 ranges")
+    if not 0 <= A <= 16:
+        raise ValueError(f"raster kernel takes 0 <= A <= 16 G-buffer columns, got {A}")
+    dev = attrs.device
+    fn = _build.bind("surtr_raster", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
+    depth = torch.empty((H, W), dtype=torch.float32, device=dev)
+    tid = torch.empty((H, W), dtype=torch.int32, device=dev)
+    gbuf = torch.empty((H, W, A), dtype=torch.float32, device=dev) if A else None
+    rc = fn(attrs.data_ptr(), bbox.data_ptr(), rng.data_ptr(), depth.data_ptr(),
+            tid.data_ptr(), gbuf.data_ptr() if A else None, H, W, ntx, nty, A,
+            _build.stream_ptr(dev))
+    _build.check(rc, "surtr_raster")
+    launches += 1
+    return depth, tid, gbuf
+
+
+def tile_raster(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int):
+    """B11 on the packed table: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if attrs.is_cuda:
+        return _kernel(attrs, bbox, rng, nty, ntx, H, W, A)
+    if attrs.device.type != "cpu":
+        raise ValueError(f"tile_raster: unsupported device {attrs.device}")
+    return tile_raster_reference(attrs, bbox, rng, nty, ntx, H, W, A)
+
+
+def _finish(T, order, depth, tid, gbuf):
+    """Sorted-domain ids back to the caller's order (-1 stays -1)."""
+    order_ext = torch.cat([order, torch.full((1,), -1, dtype=order.dtype, device=order.device)])
+    tid = order_ext[torch.where((tid >= 0) & (tid < T), tid, T).long()].to(torch.int32)
+    return (depth, tid) if gbuf is None else (depth, tid, gbuf)
+
+
+def rasterize_ids_tiled(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
+    """Z-buffer raster of screen-space triangles: sx, sy, sz (T, 3) screen
+    x, y and NDC depth, ok (T,) bool. Returns (depth (H, W), tid (H, W)
+    int32 in the caller's order, -1 = background), and gbuf (H, W, A) =
+    attr_tab[tid] (zeros on background) when ``attr_tab`` (T, A) is given."""
+    A = 0 if attr_tab is None else attr_tab.shape[1]
+    attrs, bbox, rng, order, (nty, ntx) = _tile_table(sx, sy, sz, ok, W, H, attr_tab)
+    out = tile_raster(attrs, bbox, rng, nty, ntx, H, W, A)
+    return _finish(sx.shape[0], order, *out)
+

@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from surtr_tpu_torch.ops.linalg import dot3, sqrt_rn
+
 
 @dataclasses.dataclass
 class ConvexPoly:
@@ -128,7 +130,7 @@ def scale_poly(p: ConvexPoly, s) -> ConvexPoly:
     s = torch.as_tensor(s, dtype=p.face_verts.dtype, device=p.device).expand(3)
     fv = p.face_verts * s
     n = p.planes[..., :3] / s
-    norm = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    norm = sqrt_rn(dot3(n, n))[..., None]
     safe = torch.where(norm > 0, norm, torch.ones_like(norm))
     d = p.planes[..., 3:4] / safe
     n = n / safe

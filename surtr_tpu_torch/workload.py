@@ -13,7 +13,12 @@ and inputs that ``chip_smoke.py``, the tools and the tests drive:
   (bench.py:191-253) at its configuration (bench.py:207), and the
   variants ``chip_smoke.py`` drives beside it: the lattice bound in pairs
   (compound bodies) and a 66,000-cube lattice (beyond the exact sweep's
-  pool limit).
+  pool limit);
+* the interactive frame of ``bench_interactive_frame`` (bench.py:372-434):
+  ``Scene("cube", INTERACTIVE_CFG)`` and chained ``interactive_frame``
+  calls with the bench's ray, camera and spawn, and its render tail
+  ``bench_render`` (bench.py:336-369): 4,096 random triangles rendered
+  at 512² with a 512² or 1024² shadow map.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import subprocess
 import numpy as np
 import torch
 
-from surtr_tpu_torch.config import FractureConfig, PhysicsConfig
+from surtr_tpu_torch.config import FractureConfig, PhysicsConfig, RenderConfig, SceneConfig
 from surtr_tpu_torch.fracture import pipeline
 from surtr_tpu_torch.fracture.pattern import radial_seeds, uniform_seeds
 from surtr_tpu_torch.fracture.types import PieceSet
@@ -180,6 +185,87 @@ def run_physics(steps: int = PHYSICS_STEPS, device="cuda", n: int = 10_000,
         if on_step is not None:
             on_step(i, scene)
     return scene
+
+
+INTERACTIVE_CFG = SceneConfig(   # bench.py:382-395
+    fracture=FractureConfig(
+        initial_decompose_cell_cnt=64,
+        max_pieces=256,
+        max_active_pieces=32,
+        max_piece_tris=64,
+        max_mesh_tris=512,
+        partial_pattern_cell_cnt=128,
+        general_pattern_cell_cnt=64,
+        voronoi_neighbors=48,
+    ),
+    physics=PhysicsConfig(),
+    render=RenderConfig(width=512, height=512, shadow_size=512),
+)
+FRAME_RAY = ((0.0, 10.0, 0.0), (0.0, -1.0, 0.0))   # bench.py:402-403
+FRAME_EYE = (8.0, 6.0, 8.0)                         # bench.py:404-405
+FRAME_TARGET = (0.0, 1.0, 0.0)
+FRAME_SPAWN = (0.0, 5.0, 0.0)                       # Scene's default spawn
+FRAMES = 16                                         # bench.py's REP
+
+
+def interactive_scene(device="cuda"):
+    """``Scene("cube", INTERACTIVE_CFG)`` on ``device``; its ``cfg`` is the
+    one the frames run (the convex-model dispatch turns ``exact_caps`` off)."""
+    from surtr_tpu_torch.scene import Scene
+
+    return Scene("cube", INTERACTIVE_CFG, spawn=FRAME_SPAWN, device=device)
+
+
+def scene_to(scene, device):
+    """A copy of a ``Scene`` on ``device`` (pieces, context, bodies, x0),
+    so that runs on two devices can start from the same bits."""
+    from surtr_tpu_torch.scene import Scene
+
+    out = Scene.__new__(Scene)
+    out.__dict__.update(scene.__dict__)
+    out.device = torch.device(device)
+    for name in ("pieces", "ctx", "phys", "_x0"):
+        setattr(out, name, to_device(getattr(scene, name), device))
+    out.events = list(scene.events)
+    return out
+
+
+def run_frames(scene, n: int = FRAMES, on_frame=None):
+    """``n`` chained ``interactive_frame`` calls with the bench's ray and
+    camera; ``on_frame(i, scene, image, metrics)`` sees each frame. Returns
+    the last (image, metrics)."""
+    out = None
+    for i in range(n):
+        out = scene.interactive_frame(*FRAME_RAY, eye=FRAME_EYE, target=FRAME_TARGET)
+        if on_frame is not None:
+            on_frame(i, scene, *out)
+    return out
+
+
+def render_512_inputs(device="cuda"):
+    """bench_render's frame (bench.py:343-351): 4,096 triangles from
+    ``np.random.default_rng(0)``, gray, seen from (8, 6, 8); returns the
+    arguments of ``render_scene`` before W, H and the shadow size."""
+    from surtr_tpu_torch.render.camera import camera_view_proj, light_view_proj
+
+    rng = np.random.default_rng(0)
+    T = 4096
+    centers = rng.uniform(-4, 4, (T, 1, 3)).astype(np.float32)
+    tris = torch.as_tensor(centers + rng.normal(0, 0.3, (T, 3, 3)).astype(np.float32),
+                           device=device)
+    valid = torch.ones((T,), dtype=torch.bool, device=device)
+    colors = torch.full((T, 3), 0.5, device=device)
+    cam = camera_view_proj((8, 6, 8), (0, 0, 0), 45, 1.0, 0.1, 100)
+    ldir = (-0.4, -1.0, -0.3)
+    return tris, valid, colors, cam, light_view_proj(ldir, (0, 0, 0), 8.0), ldir
+
+
+def run_render_512(device="cuda", shadow: int = 512, inputs=None):
+    """One bench_render frame at 512² with a ``shadow``² shadow map."""
+    from surtr_tpu_torch.render.raster import render_scene
+
+    inputs = render_512_inputs(device) if inputs is None else inputs
+    return render_scene(*inputs, W=512, H=512, shadow_size=shadow)
 
 
 def card() -> str:

@@ -38,7 +38,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import surtr_tpu_torch.physics.step, surtr_tpu_torch.physics.pack_cuda\n"
         "import surtr_tpu_torch.physics.narrowphase_cuda, surtr_tpu_torch.physics.prep_cuda\n"
         "import surtr_tpu_torch.physics.solver_cuda, surtr_tpu_torch.physics.slots\n"
-        "import surtr_tpu_torch.workload\n"
+        "import surtr_tpu_torch.workload, surtr_tpu_torch.scene, surtr_tpu_torch.checkpoint\n"
+        "import surtr_tpu_torch.render.camera, surtr_tpu_torch.render.raster\n"
+        "import surtr_tpu_torch.render.raster_cuda, surtr_tpu_torch.physics.queries\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
