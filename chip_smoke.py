@@ -43,7 +43,8 @@ Phases (any failure exits non-zero):
  12. the cube32 impact (``workload.run_impact``, bench.py:295-333) from one
      cube prepared on the card, under mesh_pair_pool "auto" (B1, B3, B4,
      no B10) and True (B10 once), each compared with the CPU plain run from
-     the same prepared pieces;
+     the same prepared pieces; B1 against its plain fold on both routes'
+     calls;
  13. kernel B10 (pooled soup clip) against its plain version on the calls
      of 11 and 12 and on degenerate cases, with times and its bound;
  14. ms per event of the sphere decomposition and of the impact on both
@@ -51,7 +52,9 @@ Phases (any failure exits non-zero):
  15. kernel B11 (tiled z-buffer raster) against its plain version on the
      card, bitwise in depth, ids and G-buffer, on the interactive frame's two
      calls, ``render_512``'s at shadow maps of 512² and 1024² and degenerate
-     tables, with times and its bound;
+     tables, with times and its bound; B1, B3 and B4 on the first frame's
+     calls and B5, B7 on the last frame's step against their plain versions,
+     timed at the frame's shapes;
  16. the interactive frame (BASELINE config 4, bench.py:372-434):
      ``Scene("cube", INTERACTIVE_CFG)`` on ``cuda:0`` and 16 chained
      ``interactive_frame`` calls, launches per frame B11 2, B5 1, B7 1, no
@@ -68,6 +71,7 @@ is the device JSON object.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -326,6 +330,27 @@ def degenerate_cases(device):
     }
 
 
+KERNEL_FN = {"clip_fold": clip_cuda.clip_planes_batch, "ich": hull_cuda.ich,
+             "labels": labels_cuda.tri_soup_components_batch,
+             "refit": refit_cuda.refit_planes_batch}
+# Name fragments of each kernel's device functions (torch.profiler keys).
+DEVICE_NAME = {"clip_fold": "clip_fold", "ich": "ich_kernel", "labels": "labels_kernel",
+               "refit": "refit_kernel", "pack": "pack_kernel", "narrowphase": "narrow_kernel"}
+
+
+def per_call_times(name, calls, fn=None, required=True):
+    """Per call of a kernel wrapper: the wrapper's ms (CUDA events around
+    the call, median of 20) and the kernel's device ms (torch.profiler;
+    None where ``required`` is False and the trace lacks the kernel)."""
+    fn = fn or KERNEL_FN[name]
+    out = []
+    for a, kw in calls:
+        call = lambda a=a, kw=kw: fn(*a, **kw)  # noqa: E731
+        out.append({"ms": event_ms(call),
+                    "device_ms": device_split(call, DEVICE_NAME[name], required=required)[0]})
+    return out
+
+
 def time_kernel(name, calls):
     """Summed median ms of the main path's calls: kernel vs plain version."""
     if name == "clip_fold":
@@ -394,9 +419,7 @@ def decomposition_ops(name, a, kw) -> float:
 
 
 def decomposition_bound(name, calls):
-    fn = {"clip_fold": clip_cuda.clip_planes_batch, "ich": hull_cuda.ich,
-          "labels": labels_cuda.tri_soup_components_batch,
-          "refit": refit_cuda.refit_planes_batch}[name]
+    fn = KERNEL_FN[name]
     b = ops = 0.0
     for a, kw in calls:
         b += nbytes(a) + nbytes(kw) + nbytes(fn(*a, **kw))
@@ -698,21 +721,23 @@ def overlap_pairs(a, block: int = 1024) -> int:
     return n
 
 
-def sweep_tests(a) -> int:
+def sweep_tests(a) -> tuple[int, int]:
     """Candidate tests B6's sweep makes on these inputs (a design statistic,
-    not its bound): 128 x 128 for every chunk of a block's range whose AABB
-    union meets the block's."""
+    not its bound): per (query tile, row tile) pair its walk visits, 32
+    pieces times the rows whose AABB meets the query tile's union
+    (``broadphase_cuda.tile_schedule``); and the first design's count, 128
+    x 128 for every chunk of a block's range whose union meets the block's."""
     centers, lo, hi, owner, valid = a[:5]
-    packR, cab, rng = broadphase_cuda.exact_glue(centers, lo, hi, owner, valid)
-    NB, NCH, CH = rng.shape[0], cab.shape[0], broadphase_cuda.CHUNK
-    blk = packR.reshape(NB, CH, 16)
-    v = (blk[..., 10] > 0.5)[..., None]
-    blo = torch.where(v, blk[..., 3:6], 3.4e38).amin(1)
-    bhi = torch.where(v, blk[..., 6:9], -3.4e38).amax(1)
-    ch = torch.arange(NCH, device=cab.device)[None]
+    table, tiles, rng = broadphase_cuda.exact_glue(centers, lo, hi, owner, valid)
+    _, rows = broadphase_cuda.tile_schedule(table, tiles, rng)
+    CH = broadphase_cuda.CHUNK
+    NCH = rng.shape[0]
+    cu = tiles.reshape(NCH, CH // broadphase_cuda.TILE, 6)
+    clo, chi = cu[..., :3].amin(1), cu[..., 3:].amax(1)
+    ch = torch.arange(NCH, device=tiles.device)[None]
     in_range = (ch >= rng[:, :1]) & (ch < rng[:, 1:])
-    meets = ((cab[None, :, 0:3] <= bhi[:, None]) & (blo[:, None] <= cab[None, :, 3:6])).all(-1)
-    return int((in_range & meets).sum()) * CH * CH
+    meets = ((clo[None] <= chi[:, None]) & (clo[:, None] <= chi[None])).all(-1)
+    return int(rows.sum()) * broadphase_cuda.TILE, int((in_range & meets).sum()) * CH * CH
 
 
 def physics_ops(name, a, kw) -> float:
@@ -917,12 +942,20 @@ def physics_kernel_phase(card):
                          "bound_ms": b_ms, "bound_by": b_by}
         extra = ""
         if name == "broadphase_exact":
-            glue_ms = event_ms(lambda: broadphase_cuda.exact_glue(*a[:5]))
-            results[name]["glue_ms"] = glue_ms
-            tests, pairs = sweep_tests(a), overlap_pairs(a)
-            results[name].update(sweep_tests=tests, overlap_pairs=pairs)
-            extra = (f" (glue {glue_ms:.4f} ms of it; {tests} candidate tests for {pairs} "
-                     "overlapping pairs)")
+            dev_ms, glue_ms, entries = device_split(lambda: PHYS_KERNEL_FN[name](*a, **kw),
+                                                    "bp_exact_kernel")
+            _, _, stage = device_split(lambda: phys_step._broadphase(
+                "exact_pallas", cfg, *a[:5]), "bp_exact_kernel")
+            tests, first = sweep_tests(a)
+            pairs = overlap_pairs(a)
+            results[name].update(device_ms=dev_ms, glue_device_ms=glue_ms,
+                                 device_launches=entries, stage_device_launches=stage,
+                                 sweep_tests=tests, first_design_tests=first,
+                                 overlap_pairs=pairs)
+            extra = (f" (on the device: kernel {dev_ms:.4f} ms, glue {glue_ms:.4f} ms; "
+                     f"{entries:.0f} device launches a call, {stage:.0f} for the step's "
+                     f"broadphase stage with the mutual mask; {tests} candidate tests for {pairs} "
+                     f"overlapping pairs, the first design's chunk walk {first})")
         print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms{extra}  plain {plain_ms:.4f} ms  "
               f"bound {b_ms:.4f} ms ({b_by})  ({len(cases[name])} cases; {card})", flush=True)
     return results
@@ -1321,8 +1354,9 @@ def soup_kernel_phase(calls, card):
                  for a, kw in pc)
         # The two kernels alone, as the profiler sees them on the device
         # (``ms`` is the wrapper's whole call: casts, allocations, memset).
-        device_ms = sum(profiled_kernel_ms(
-            lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled(*a, **kw), "soup_") for a, kw in pc)
+        device_ms = sum(device_split(
+            lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled(*a, **kw), "soup_")[0]
+            for a, kw in pc)
         plain_ms = sum(event_ms(lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled_reference(
             *a, **kw), warmup=1) for a, kw in pc)
         b_ms, b_by = bound(sum(nbytes(a) + nbytes(soup_clip_cuda.soup_clip_pooled(*a, **kw))
@@ -1412,15 +1446,15 @@ def impact_phase():
     are compared. Returns (prepared pieces, per route launches and metrics,
     B10 calls)."""
     prepared, _ = workload.run_impact("cuda")
-    res, soup_calls = {}, []
+    res, soup_calls, clip_calls = {}, [], []
     for route, cfg in IMPACT_ROUTES.items():
         reset_all()
-        pooled, (soup, (_, (out, met))) = capture(
-            "_pooled_job_mesh_clip",
-            lambda cfg=cfg: capture("soup_clip_pooled",
-                                    lambda: workload.run_impact("cuda", cfg, prepared)))
+        run = lambda cfg=cfg: workload.run_impact("cuda", cfg, prepared)  # noqa: E731
+        clips, (pooled, (soup, (_, (out, met)))) = capture("clip_planes_batch", lambda: capture(
+            "_pooled_job_mesh_clip", lambda: capture("soup_clip_pooled", run)))
         counts = all_counts()
         soup_calls += soup
+        clip_calls += clips
         want = {"clip_fold": "> 0", "labels": "> 0", "refit": "> 0",
                 "soup_clip": 1 if route == "pooled" else 0}
         check_launches(f"impact ({route})", counts, want)
@@ -1442,6 +1476,11 @@ def impact_phase():
                  f"{splits}" if pooled else ""), flush=True)
         _impact_compare(route, out, met, cout, cmet, strict=splits == 0)
         res[route] = {"launches": counts, "metrics": g, "context_splits": splits}
+    err = max(compare_clip(a, kw) for a, kw in clip_calls)
+    res["clip_fold_max_abs_err"] = err
+    print(f"clip_fold on the impact's {len(clip_calls)} calls (N, F, S, K) "
+          f"{[list(a[0].face_verts.shape[:3]) + [a[1].shape[1]] for a, _ in clip_calls]}: "
+          f"max_abs_err {err:.3e}", flush=True)
     return prepared, res, soup_calls
 
 
@@ -1472,24 +1511,39 @@ def profile_busy(fn, runs: int):
     return busy, wall, ((1.0 - busy / wall) if busy > 0 else None), entries / runs
 
 
-def profiled_kernel_ms(fn, prefix: str, runs: int = 20) -> float:
-    """Device ms per run of ``fn`` spent in kernels whose names contain
-    ``prefix``, under torch.profiler, after one warm-up run; fails when
-    the profiler shows no such kernel."""
+def device_split(fn, kernel: str, runs: int = 20, required: bool = True):
+    """(kernel device ms, other device ms, device entries) per run of
+    ``fn`` under torch.profiler, after one warm-up run: the entries whose
+    names contain ``kernel``, and everything else ``fn`` runs on the
+    device. A session whose trace lacks the kernel is repeated once; then
+    it fails, or with ``required=False`` gives None for the kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    us = [getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-          for e in prof.key_averages() if e.device_type == DeviceType.CUDA and prefix in e.key]
-    if not us:
-        fail(f"the profiler shows no device kernel named *{prefix}*")
-    return sum(us) / runs / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        k_us, o_us, n, seen = 0.0, 0.0, 0, False
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0))
+            if kernel in e.key:
+                k_us += us
+                seen = True
+            else:
+                o_us += us
+            n += e.count
+        if seen:
+            return k_us / runs / 1e3, o_us / runs / 1e3, n / runs
+    if required:
+        fail(f"the profiler shows no device kernel named *{kernel}*")
+    return None, o_us / runs / 1e3, n / runs
 
 
 def impact_stage_split(cfg, prepared, reps: int = 10) -> dict:
@@ -1577,6 +1631,9 @@ FRAME_LAUNCHES = {"raster": 2, "pack": 1, "narrowphase": 1}
 FRAME_ANY = ("clip_fold", "labels", "refit")
 FRAME_OVERFLOWS = ("active_overflow", "job_overflow", "piece_overflow", "split_face_overflow")
 FRAME_COMPARE = 3          # frames compared with the CPU plain run
+# The fracture kernels of the first frame, by pipeline function.
+FRAME_FRACTURE = {"clip_fold": "clip_planes_batch", "labels": "tri_soup_components_batch",
+                  "refit": "refit_planes_batch"}
 # Stages of a frame: (label, module, function); spans of outermost calls.
 FRAME_STAGES = [
     ("raycast/targets", scene_mod, "raycast"), ("raycast/targets", scene_mod, "sphere_overlap"),
@@ -1687,7 +1744,7 @@ def raster_kernel_phase(frame_calls, card):
     out = {"max_abs_err": err}
     for name, calls in sets.items():
         ms = sum(event_ms(lambda a=a: raster_cuda.tile_raster(*a)) for a in calls)
-        device_ms = sum(profiled_kernel_ms(lambda a=a: raster_cuda.tile_raster(*a), "raster_")
+        device_ms = sum(device_split(lambda a=a: raster_cuda.tile_raster(*a), "raster_")[0]
                         for a in calls)
         plain_ms = sum(event_ms(lambda a=a: raster_cuda.tile_raster_reference(*a), reps=5,
                                 warmup=1) for a in calls)
@@ -1725,17 +1782,25 @@ def frame_main_path(card):
     """Phase 16: Scene("cube", INTERACTIVE_CFG) on the card and 16 chained
     frames through the user's entry points, counts set to 0 just before;
     launches per frame checked. Returns (counts of the run, B11's two calls
-    of the first frame, per-frame metrics)."""
+    of the first frame, per-frame metrics, B1/B3/B4's calls of the first
+    frame, B5/B7's calls of the last frame's step)."""
     reset_all()
     frames = []
     prev = {}
     first_calls = []
+    frac_calls = {name: [] for name in FRAME_FRACTURE}
     orig = raster_cuda.tile_raster
+    saved = [(attr, getattr(pipeline, attr)) for attr in FRAME_FRACTURE.values()]
 
     def rec(*a):
         if not frames:
             first_calls.append(a)
         return orig(*a)
+
+    def rec_frac(*a, _fn, _name, **kw):
+        if not frames:
+            frac_calls[_name].append((a, kw))
+        return _fn(*a, **kw)
 
     def on_frame(i, sc, img, met):
         nonlocal prev
@@ -1761,11 +1826,15 @@ def frame_main_path(card):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         prev = all_counts()
+        for name, (attr, fn) in zip(FRAME_FRACTURE, saved):   # after the Scene's decomposition
+            setattr(pipeline, attr, functools.partial(rec_frac, _fn=fn, _name=name))
         with StepRecorder() as steps:
             workload.run_frames(sc, workload.FRAMES, on_frame=on_frame)
             torch.cuda.synchronize()
     finally:
         raster_cuda.tile_raster = orig
+        for attr, fn in saved:
+            setattr(pipeline, attr, fn)
     counts = all_counts()
     # B5 and B7 at the frame's hull size (Vh = 64, F = 32) against their
     # plain versions, on the last frame's step.
@@ -1780,7 +1849,42 @@ def frame_main_path(card):
         print(f"  frame {i}: " + json.dumps({k: v for k, v in f.items() if k != "launches"})
               + " launches " + json.dumps({k: v for k, v in f["launches"].items() if v}),
               flush=True)
-    return counts, first_calls, frames
+    phys = {name: steps.last[name][:2] for name in ("pack", "narrowphase")}
+    return counts, first_calls, frames, frac_calls, phys
+
+
+FRAME_COMPARE_FN = {"clip_fold": compare_clip, "labels": compare_labels, "refit": compare_refit,
+                    "pack": compare_pack, "narrowphase": compare_narrowphase}
+FRAME_KERNEL_FN = {**KERNEL_FN, "pack": pack_cuda.transform_pack,
+                   "narrowphase": narrowphase_cuda.narrowphase}
+
+
+def frame_kernel_phase(frac_calls, phys, card):
+    """Phase 15, second part: B1, B3 and B4 on the first frame's calls, B5
+    and B7 on the last frame's step, each against its plain version on the
+    card (the checks of phases 3 and 7) and timed at the frame's shapes:
+    wrapper ms (CUDA events, median of 20, per call summed) and the
+    kernel's device ms (torch.profiler)."""
+    sets = {**frac_calls, **{name: [call] for name, call in phys.items()}}
+    out = {}
+    for name, calls in sets.items():
+        if not calls:
+            fail(f"interactive frame: no {name} call was recorded")
+        err = max(FRAME_COMPARE_FN[name](a, kw) for a, kw in calls)
+        torch.cuda.synchronize()
+        split = per_call_times(name, calls, FRAME_KERNEL_FN[name], required=False)
+        shapes = [list(a[0].face_verts.shape[:3]) + [a[1].shape[1]] if name == "clip_fold"
+                  else list(a[0].shape[:2]) for a, _ in calls]
+        ms = sum(t["ms"] for t in split)
+        devs = [t["device_ms"] for t in split]
+        dev = None if None in devs else sum(devs)
+        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev, "shapes": shapes,
+                     "calls": split}
+        where = ("not measured (the profiler's trace lacked the kernel)" if dev is None
+                 else f"{dev:.4f} ms")
+        print(f"{name} at the frame's shapes {shapes}: max_abs_err {err:.3e}, wrapper {ms:.4f} ms, "
+              f"kernel on the device {where} ({len(calls)} calls; {card})", flush=True)
+    return out
 
 
 def _scene_diff(g, c):
@@ -1960,6 +2064,14 @@ def main():
         b_ms, b_by = decomposition_bound(name, calls[name])
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by}
+        if name == "clip_fold":
+            split = per_call_times(name, calls[name])
+            for shape, t in zip(shapes[name], split):
+                t["shape"] = list(shape)
+                print(f"clip_fold call (N, F, S, K) {list(shape)}: wrapper {t['ms']:.4f} ms, "
+                      f"kernel {t['device_ms']:.4f} ms on the device ({card})", flush=True)
+            results[name]["calls"] = split
+            results[name]["device_ms"] = sum(t["device_ms"] for t in split)
         print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"bound {b_ms:.4f} ms ({b_by}) ({len(calls[name])} main-path calls; {card})",
               flush=True)
@@ -2027,11 +2139,12 @@ def main():
     fracture = fracture_timing(prepared, card)
 
     # 16. The interactive frame on the card, counting launches per frame.
-    frame_counts, frame_calls, frames = frame_main_path(card)
+    frame_counts, frame_calls, frames, frac_calls, frame_phys = frame_main_path(card)
 
     # 15. B11 against its plain version (the frame's calls, render_512's,
-    # degenerate tables).
+    # degenerate tables); B1, B3, B4, B5 and B7 at the frame's shapes.
     raster = raster_kernel_phase(frame_calls, card)
+    frame_kernels = frame_kernel_phase(frac_calls, frame_phys, card)
 
     # 17. The same frames from one CPU-built Scene on both devices.
     start = frame_cpu_compare(card)
@@ -2075,7 +2188,8 @@ def main():
     print(json.dumps({"kernels": kernels, "event_ms": ms_event, "physics": timing,
                       "sphere": {"metrics": sphere_met, "launches": sphere_counts},
                       "impact": impact, "fracture_timing": fracture,
-                      "frame": {"timing": frame, "frames": frames}, "card": card}), flush=True)
+                      "frame": {"timing": frame, "frames": frames, "kernels": frame_kernels},
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

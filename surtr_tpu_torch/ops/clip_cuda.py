@@ -9,6 +9,7 @@ hand-written kernel or raises. Replaces the JAX package's
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,6 +29,19 @@ def clip_planes_batch_reference(poly: ConvexPoly, planes: torch.Tensor,
     return clip_poly_planes(poly, planes, plane_mask, tol)
 
 
+@functools.lru_cache(maxsize=None)
+def _fold_fn():
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("surtr_clip_fold", [P] * 5 + [I] * 2 + [P] * 3 + [I] * 4
+                       + [ctypes.c_float, P])
+
+
+@functools.lru_cache(maxsize=None)
+def _smem(F: int, S: int) -> int:
+    """Bytes of shared memory one polytope takes in the kernel."""
+    return _build.bind("surtr_clip_fold_smem", [ctypes.c_int] * 2, ctypes.c_size_t)(F, S)
+
+
 def _kernel(poly, planes, plane_mask, tol):
     global launches
     N, F, S = poly.face_verts.shape[:3]
@@ -35,29 +49,32 @@ def _kernel(poly, planes, plane_mask, tol):
     dev = poly.face_verts.device
     if F > 1024:
         raise ValueError(f"clip fold kernel takes F <= 1024, got {F}")
-    fn = _build.bind("surtr_clip_fold", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                     + [ctypes.c_float, ctypes.c_void_p])
-    smem = _build.bind("surtr_clip_fold_smem", [ctypes.c_int] * 2, ctypes.c_size_t)(F, S)
+    smem = _smem(F, S)
     if smem > MAX_SMEM:
         raise ValueError(f"clip fold kernel: F={F}, S={S} needs {smem} B of shared memory")
     fv = poly.face_verts.contiguous()
     nv = poly.n_verts.to(torch.int32).contiguous()
     pl = poly.planes.contiguous()
-    cuts = planes.contiguous()
-    cm = plane_mask.to(torch.uint8).contiguous()
+    # Plane lists and masks are read in place at any row stride (the
+    # two-pass Voronoi fold hands in column slices).
+    cuts = planes if planes.stride()[1:] == (4, 1) else planes.contiguous()
+    cm = plane_mask.to(torch.bool)
+    cm = cm if cm.stride(1) == 1 else cm.contiguous()
     for t, dt in ((fv, torch.float32), (pl, torch.float32), (cuts, torch.float32)):
         if t.dtype != dt or t.device != dev:
             raise TypeError("clip fold kernel takes float32 tensors on one device")
     if planes.shape != (N, K, 4) or plane_mask.shape != (N, K) or pl.shape != (N, F, 4):
         raise ValueError("clip fold kernel: inconsistent shapes")
+    if cm.device != dev:
+        raise TypeError("clip fold kernel takes the plane mask on the polytopes' device")
     ofv = torch.empty_like(fv)
     onv = torch.empty_like(nv)
     opl = torch.empty_like(pl)
     if N == 0:
         return ConvexPoly(ofv, onv, opl)
-    rc = fn(fv.data_ptr(), nv.data_ptr(), pl.data_ptr(), cuts.data_ptr(), cm.data_ptr(),
-            ofv.data_ptr(), onv.data_ptr(), opl.data_ptr(), N, F, S, K, float(tol),
-            _build.stream_ptr(dev))
+    rc = _fold_fn()(fv.data_ptr(), nv.data_ptr(), pl.data_ptr(), cuts.data_ptr(), cm.data_ptr(),
+                    cuts.stride(0), cm.stride(0), ofv.data_ptr(), onv.data_ptr(), opl.data_ptr(),
+                    N, F, S, K, float(tol), _build.stream_ptr(dev))
     _build.check(rc, "surtr_clip_fold")
     launches += 1
     return ConvexPoly(ofv, onv, opl)

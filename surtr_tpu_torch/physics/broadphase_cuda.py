@@ -16,14 +16,17 @@
   mask applied.
 
 The plain versions (``*_reference``) run for CPU tensors; for CUDA tensors
-the wrappers launch the kernel or raise. B6's glue (sweep axis, stable sort,
-chunk unions and chunk ranges) and B12's (Morton codes, stable sort) stay
-in PyTorch and make no host sync.
+the wrappers launch the kernel or raise. B6's glue is two hand-written
+launches around one ``torch.sort`` (the sweep key; the sorted table, tile
+unions and chunk intervals), mirrored in plain PyTorch by ``exact_glue``
+and ``tile_schedule``; B12's (Morton codes, stable sort) stays in PyTorch.
+Neither makes a host sync.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,7 +40,9 @@ IMAX = 0x7FFFFFFF
 # and "auto" degrades to the Morton window with a RecallDegradedWarning.
 MAX_EXACT_NP = 65536
 MAX_K = 16          # the kernels keep their K best in registers
-CHUNK = 128         # B6: rows per candidate chunk and pieces per block (CH in the kernel)
+CHUNK = 128         # B6: rows per sweep chunk (the JAX kernel's block; CHUNK in the kernel)
+TILE = 32           # B6: pieces per query tile and rows per row tile (a warp)
+ROW = 12            # B6: floats per row of the sorted table
 
 exact_launches = 0   # kernel launches since the last reset (main-path proof)
 sorted_launches = 0
@@ -48,6 +53,7 @@ def id_bits(Np: int) -> int:
     return max(14, (max(Np, 2) - 1).bit_length())
 
 
+@functools.lru_cache(maxsize=None)
 def _quant(Np: int):
     """(ID_BITS, QMAX, QS): d² ≤ 3 on normalized centers maps to
     [0, QMAX]; QS is QMAX / 3 rounded once to float32."""
@@ -106,14 +112,17 @@ def broadphase_exact_reference(centers, lo, hi, owner, valid, K: int, block: int
 
 
 def exact_glue(centers, lo, hi, owner, valid):
-    """B6's inputs, built on the device without a host sync: the sweep axis
-    (largest valid extent, first of ties; x when nothing is valid), the
-    stable sort along it with invalid rows last, the (Np_pad, 16) sorted
-    piece table [normalized center 3 | lo 3 | hi 3 | owner | valid | id |
-    0 × 4], per-chunk AABB unions of valid rows (NCH, 6) and each CHUNK-piece
-    block's contiguous chunk range [lo, hi) (NCH, 2) from the prefix-max /
-    suffix-min envelopes of the chunks' sweep-axis intervals (every chunk
-    holding an overlap of the block lies inside it)."""
+    """Plain mirror of B6's glue and of its kernel's range step: the sweep
+    axis (largest valid extent, first of ties; x when nothing is valid), the
+    stable sort along it with invalid rows last, the (Np_pad, ROW) sorted
+    table [normalized center 3 | owner | lo 3 | valid | hi 3 | id], padded
+    with zero rows to whole CHUNKs; each TILE-row tile's AABB union over
+    valid rows (NT, 6) [lo 3 | hi 3] (empty: BIG, -BIG); and each CHUNK-piece
+    block's contiguous chunk range [lo, hi) (NCH, 2): the chunks from the
+    first whose sweep-axis interval reaches the block's low end to the last
+    that starts below its high end (the JAX wrapper's prefix-max /
+    suffix-min envelopes, searched; every chunk holding an overlap of the
+    block lies inside it)."""
     Np = centers.shape[0]
     dev = centers.device
     f = centers.dtype
@@ -121,29 +130,46 @@ def exact_glue(centers, lo, hi, owner, valid):
     axis = torch.where(torch.any(valid), torch.argmax(extent), 0).reshape(1)
     cx = centers.index_select(1, axis)[:, 0]
     order = torch.sort(torch.where(valid, cx, BIG), stable=True).indices
-    pack = torch.cat([cn, lo, hi, owner[:, None].to(f), valid[:, None].to(f),
-                      torch.arange(Np, dtype=f, device=dev)[:, None],
-                      torch.zeros((Np, 4), dtype=f, device=dev)], 1)[order]
-    NCH = max(-(-Np // CHUNK), 1)       # chunks, and blocks: one chunk is one block
+    NCH = max(-(-Np // CHUNK), 1)
     Np_pad = NCH * CHUNK
-    packR = torch.cat([pack, torch.zeros((Np_pad - Np, 16), dtype=f, device=dev)])
-    v_s = torch.cat([valid[order], torch.zeros(Np_pad - Np, dtype=torch.bool, device=dev)])
-    vm = v_s[:, None]
-    cab = torch.cat([torch.amin(torch.where(vm, packR[:, 3:6], BIG).reshape(NCH, CHUNK, 3), 1),
-                     torch.amax(torch.where(vm, packR[:, 6:9], -BIG).reshape(NCH, CHUNK, 3), 1)],
-                    1).contiguous()
-    lox = packR.index_select(1, axis + 3)[:, 0]
-    hix = packR.index_select(1, axis + 6)[:, 0]
-    v_ch = v_s.reshape(NCH, CHUNK)
-    c_hix = torch.amax(torch.where(v_ch, hix.reshape(NCH, CHUNK), -BIG), 1)
-    c_lox = torch.amin(torch.where(v_ch, lox.reshape(NCH, CHUNK), BIG), 1)
-    prefmax_hi = torch.cummax(c_hix, 0).values.contiguous()
-    sufmin_lo = (-torch.cummax(-c_lox.flip(0), 0).values).flip(0).contiguous()
-    # A block is a chunk, so its sweep-axis interval is the chunk's own.
-    lo_ch = torch.searchsorted(prefmax_hi, c_lox)
-    hi_ch = torch.searchsorted(sufmin_lo, c_hix, right=True)
-    rng = torch.stack([torch.clamp(lo_ch, max=NCH), torch.clamp(hi_ch, max=NCH)], 1)
-    return packR.contiguous(), cab, rng.to(torch.int32).contiguous()
+    table = torch.zeros((Np_pad, ROW), dtype=f, device=dev)
+    table[:Np] = torch.cat([cn, owner[:, None].to(f), lo, valid[:, None].to(f), hi,
+                            torch.arange(Np, dtype=f, device=dev)[:, None]], 1)[order]
+    vm = (table[:, 7] > 0.5)[:, None]
+    tiles = torch.cat([torch.where(vm, table[:, 4:7], BIG).reshape(-1, TILE, 3).amin(1),
+                       torch.where(vm, table[:, 8:11], -BIG).reshape(-1, TILE, 3).amax(1)], 1)
+    per_chunk = CHUNK // TILE
+    c_lox = tiles.index_select(1, axis)[:, 0].reshape(NCH, per_chunk).amin(1)
+    c_hix = tiles.index_select(1, axis + 3)[:, 0].reshape(NCH, per_chunk).amax(1)
+    reach = c_hix[None, :] >= c_lox[:, None]           # [block, chunk]
+    start = c_lox[None, :] <= c_hix[:, None]
+    ch = torch.arange(NCH, device=dev)
+    lo_ch = torch.where(reach, ch, NCH).amin(1)
+    hi_ch = torch.where(start, ch + 1, 0).amax(1)
+    rng = torch.stack([lo_ch, hi_ch], 1).to(torch.int32)
+    return table, tiles, rng
+
+
+def tile_schedule(table, tiles, rng):
+    """The walk B6's kernel makes, in plain PyTorch: ``(pairs, rows)``.
+    ``pairs`` (P, 2) are the (query tile, row tile) pairs it visits: the row
+    tile lies in the chunk range of the query tile's chunk and the two
+    tiles' AABB unions meet. ``rows`` (P, TILE) marks, per pair, the valid
+    rows of the row tile whose own AABB meets the query tile's union: the
+    rows the kernel tests against each piece of the query tile."""
+    NT = tiles.shape[0]
+    dev = tiles.device
+    u = torch.arange(NT, device=dev)
+    r = rng.long()[u // (CHUNK // TILE)] * (CHUNK // TILE)
+    in_range = (u[None, :] >= r[:, :1]) & (u[None, :] < r[:, 1:])
+    meets = torch.all((tiles[None, :, :3] <= tiles[:, None, 3:])
+                      & (tiles[:, None, :3] <= tiles[None, :, 3:]), -1)   # [query, row]
+    pairs = torch.nonzero(in_range & meets)
+    rows = table.reshape(NT, TILE, ROW)[pairs[:, 1]]
+    q = tiles[pairs[:, 0]][:, None]
+    rows_ok = ((rows[..., 7] > 0.5)
+               & torch.all((rows[..., 4:7] <= q[..., 3:]) & (q[..., :3] <= rows[..., 8:11]), -1))
+    return pairs, rows_ok
 
 
 def _check_inputs(name, centers, lo, hi, owner, valid, K):
@@ -159,6 +185,16 @@ def _check_inputs(name, centers, lo, hi, owner, valid, K):
         raise ValueError(f"{name}: the kernel keeps K ≤ {MAX_K} best, got K={K}")
 
 
+@functools.lru_cache(maxsize=None)
+def _exact_fns():
+    """B6's three C entry points: sweep key, table pack, sweep."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return (_build.bind("surtr_broadphase_exact_key", [P, I, P, I, P, P, P, P]),
+            _build.bind("surtr_broadphase_exact_pack", [P, I, P, I, P, I] + [P] * 5 + [I, I]
+                        + [P] * 4),
+            _build.bind("surtr_broadphase_exact", [P] * 3 + [I] * 4 + [F] * 2 + [P] * 5))
+
+
 def _exact_kernel(centers, lo, hi, owner, valid, K):
     global exact_launches
     Np = centers.shape[0]
@@ -171,12 +207,32 @@ def _exact_kernel(centers, lo, hi, owner, valid, K):
     theta = torch.empty((Np,), dtype=torch.int32, device=dev)
     if Np == 0:
         return pidx, pok, (key_ji, theta)
-    packR, cab, rng = exact_glue(centers, lo, hi, owner, valid)
-    fn = _build.bind("surtr_broadphase_exact", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                     + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5)
-    rc = fn(packR.data_ptr(), cab.data_ptr(), rng.data_ptr(), Np, rng.shape[0], K, bits,
-            qs, qmax, pidx.data_ptr(), pok.data_ptr(), key_ji.data_ptr(), theta.data_ptr(),
-            _build.stream_ptr(dev))
+    # Row-strided (Np, 3) views are read in place (the step hands in columns
+    # of its (Np, 9) AABB table).
+    c, lo, hi = (t if t.stride(1) == 1 else t.contiguous() for t in (centers, lo, hi))
+    own = owner.to(torch.int32).contiguous()
+    val = valid.contiguous()
+    NCH = max(-(-Np // CHUNK), 1)
+    NT = NCH * CHUNK // TILE
+    # One float32 scratch: sort key (Np), params (4: low corner, extent),
+    # axis (1, an int), table (NCH·CHUNK, ROW), tile unions (NT, 8), chunk
+    # intervals (NCH, 2); every part starts 16-byte aligned.
+    offs = [0]
+    for n in (Np, 4, 1, NCH * CHUNK * ROW, NT * 8, NCH * 2):
+        offs.append(offs[-1] + -(-n // 4) * 4)
+    scratch = torch.empty((offs[-1],), dtype=torch.float32, device=dev)
+    o_key, o_par, o_ax, o_tab, o_til, o_chk = (scratch.data_ptr() + 4 * o for o in offs[:-1])
+    stream = _build.stream_ptr(dev)
+    key_fn, pack_fn, sweep_fn = _exact_fns()
+    _build.check(key_fn(c.data_ptr(), c.stride(0), val.data_ptr(), Np, o_key, o_par, o_ax,
+                        stream), "surtr_broadphase_exact_key")
+    order = torch.sort(scratch[:Np], stable=True).indices
+    _build.check(pack_fn(c.data_ptr(), c.stride(0), lo.data_ptr(), lo.stride(0), hi.data_ptr(),
+                         hi.stride(0), own.data_ptr(), val.data_ptr(), order.data_ptr(),
+                         o_par, o_ax, Np, NCH, o_tab, o_til, o_chk, stream),
+                 "surtr_broadphase_exact_pack")
+    rc = sweep_fn(o_tab, o_til, o_chk, Np, NCH, K, bits, qs, qmax,
+                  pidx.data_ptr(), pok.data_ptr(), key_ji.data_ptr(), theta.data_ptr(), stream)
     _build.check(rc, "surtr_broadphase_exact")
     exact_launches += 1
     return pidx, pok, (key_ji, theta)

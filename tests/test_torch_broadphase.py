@@ -126,6 +126,79 @@ def test_exact_chunk_ranges_match_and_cover(exact_case):
     assert ((r[blk, 0] <= chj) & (chj < r[blk, 1])).all()
 
 
+def _overlaps(args):
+    """(i, j) of every ordered pair that produces a key."""
+    c, lo, hi, owner, valid = args
+    over = np.all((lo[:, None] <= hi[None]) & (lo[None] <= hi[:, None]), -1)
+    over &= valid[:, None] & valid[None] & (owner[:, None] != owner[None])
+    np.fill_diagonal(over, False)
+    return np.nonzero(over)
+
+
+def test_tile_schedule_covers_every_overlap(exact_case):
+    """The kernel's walk: every overlapping pair's row tile is visited by
+    the query tile of its piece, and its row is among the rows tested."""
+    args = exact_case[0]
+    table, tiles, rng = bp.exact_glue(*(torch.as_tensor(a) for a in args))
+    pairs, rows = bp.tile_schedule(table, tiles, rng)
+    n = len(args[0])
+    rank = np.empty(n, np.int64)
+    rank[table[:n, 11].long().numpy()] = np.arange(n)
+    i, j = _overlaps(args)
+    NT = tiles.shape[0]
+    at = np.full((NT, NT), -1)
+    at[pairs[:, 0].numpy(), pairs[:, 1].numpy()] = np.arange(len(pairs))
+    p = at[rank[i] // bp.TILE, rank[j] // bp.TILE]
+    assert (p >= 0).all()
+    assert rows.numpy()[p, rank[j] % bp.TILE].all()
+    # The cull is finer than the JAX kernel's 128 x 128 chunk walk.
+    assert int(rows.sum()) * bp.TILE <= int((rng[:, 1] - rng[:, 0]).clamp(min=0).sum()) * 128 * 128
+
+
+def _tile_keys(q, cand, bits, qs, qmax):
+    """Keys of query rows q (32, ROW) against candidate rows (C, ROW) of the
+    sorted table, IMAX where the pair makes none (the kernel's row test)."""
+    over = torch.all((cand[None, :, 4:7] <= q[:, None, 8:11])
+                     & (q[:, None, 4:7] <= cand[None, :, 8:11]), -1)
+    ok = (over & (q[:, None, 7] > 0.5) & (cand[None, :, 7] > 0.5)
+          & (q[:, None, 3] != cand[None, :, 3]) & (q[:, None, 11] != cand[None, :, 11]))
+    da = cand[None, :, :3] - q[:, None, :3]
+    d2 = (da[..., 0] * da[..., 0] + da[..., 1] * da[..., 1]) + da[..., 2] * da[..., 2]
+    qv = torch.clamp(d2 * qs, max=qmax).to(torch.int32)
+    return torch.where(ok, (qv << bits) | cand[None, :, 11].to(torch.int32), bp.IMAX)
+
+
+def _k_smallest(keys, K):
+    pad = torch.full((keys.shape[0], K), bp.IMAX, dtype=torch.int32)
+    return torch.topk(torch.cat([keys, pad], 1), K, 1, largest=False, sorted=True).values
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+def test_group_kbest_merge_equals_one_pass(exact_case, groups):
+    """The kernel's split, emulated: per query tile, warp g takes the
+    visited row tiles g, g + groups, ..., keeps the K smallest keys of its
+    rows, and the lists merge; slot for slot the one-pass K best."""
+    args, K, got, _, _ = exact_case
+    table, tiles, rng = bp.exact_glue(*(torch.as_tensor(a) for a in args))
+    pairs, rows = bp.tile_schedule(table, tiles, rng)
+    n = len(args[0])
+    bits, qmax, qs = bp._quant(n)
+    NT = tiles.shape[0]
+    T = table.reshape(NT, bp.TILE, bp.ROW)
+    best = torch.empty((NT * bp.TILE, K), dtype=torch.int32)
+    for tq in range(NT):
+        sel = pairs[:, 0] == tq
+        mine, ok = pairs[sel, 1], rows[sel]
+        lists = [_k_smallest(_tile_keys(T[tq], T[mine[g::groups]][ok[g::groups]], bits, qs, qmax),
+                             K) for g in range(groups)]
+        best[tq * bp.TILE:(tq + 1) * bp.TILE] = _k_smallest(torch.cat(lists, 1), K)
+    merged = torch.empty((n, K), dtype=torch.int32)
+    merged[table[:n, 11].long()] = best[:n]
+    mask = (1 << bits) - 1
+    one_pass = (got[2] & ~mask) | got[0]           # the keys from (key_ji, pidx)
+    np.testing.assert_array_equal(merged.numpy(), one_pass)
+
+
 def _pairs(pidx, pok):
     return {(i, int(pidx[i, k])) for i, k in zip(*np.nonzero(pok))}
 

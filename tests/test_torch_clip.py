@@ -22,7 +22,7 @@ from surtr_tpu.ops.clip_pallas import clip_planes_batch_pallas
 from surtr_tpu.ops.moments import moments as j_moments
 from surtr_tpu.types import ConvexPoly as JPoly
 from surtr_tpu_torch.ops import clip_cuda
-from surtr_tpu_torch.ops.clip import contains_point
+from surtr_tpu_torch.ops.clip import clip_poly_plane, contains_point
 from surtr_tpu_torch.ops.moments import moments
 from surtr_tpu_torch.types import ConvexPoly, unit_cube
 
@@ -187,6 +187,72 @@ def test_clip_vertices_inside_all_planes():
     live = vol > 1e-6
     assert bool(contains_point(ConvexPoly(out.face_verts[live], out.n_verts[live],
                                           out.planes[live]), cen[live], tol=1e-5).all())
+
+
+def _identity_expected(poly, plane, tol=1e-6):
+    """Per polytope, kernel B1's skip rule: every live vertex kept
+    (distance <= tol), every n_verts in {0} ∪ [3, S], every slot past
+    n_verts bitwise +0.0, and 0 or >= 4 live faces."""
+    fv, nv = poly.face_verts, poly.n_verts
+    S = fv.shape[2]
+    m = torch.arange(S) < nv[..., None]
+    dist = (fv[..., 0] * plane[:, None, None, 0] + fv[..., 1] * plane[:, None, None, 1]
+            + fv[..., 2] * plane[:, None, None, 2]) + plane[:, None, None, 3]
+    kept = torch.all(~m | (dist <= tol), dim=(1, 2))
+    pad_zero = torch.all(m[..., None] | (fv.view(torch.int32) == 0), dim=(1, 2, 3))
+    nv_ok = torch.all((nv == 0) | ((nv >= 3) & (nv <= S)), dim=1)
+    live = (nv >= 3).sum(1)
+    return kept & pad_zero & nv_ok & ((live == 0) | (live >= 4))
+
+
+def _states(name):
+    """Every state the plain fold passes through on a case, plus states
+    the fold never makes: a face of 2 vertices, junk in a padding slot."""
+    poly, planes, mask = _case(name)
+    p = ConvexPoly(*(torch.as_tensor(a) for a in poly))
+    planes, mask = torch.as_tensor(planes), torch.as_tensor(mask)
+    out = [p]
+    for k in range(planes.shape[1]):
+        q = clip_poly_plane(out[-1], planes[:, k])
+        ok = mask[:, k]
+        prev = out[-1]
+        out.append(ConvexPoly(torch.where(ok[:, None, None, None], q.face_verts, prev.face_verts),
+                              torch.where(ok[:, None], q.n_verts, prev.n_verts),
+                              torch.where(ok[:, None, None], q.planes, prev.planes)))
+    two = out[0].map(torch.clone)
+    two.n_verts[:, 0] = 2
+    junk = out[0].map(torch.clone)
+    junk.face_verts[:, 1, 6] = 0.25
+    return out + [two, junk]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plane_that_removes_nothing_is_the_identity_exactly_when_skipped(name):
+    """The plain fold's step by a plane that removes no vertex (one clear
+    of every vertex, and one through the farthest vertex) returns its input
+    bitwise exactly where kernel B1 skips the step, and only there."""
+    rng = np.random.default_rng(3)
+    seen = set()
+    for state in _states(name):
+        N = state.n_verts.shape[0]
+        n = torch.as_tensor(_normalize(np.concatenate(
+            [rng.normal(size=(N, 3)), np.zeros((N, 1))], -1))[:, :3])
+        live = state.slot_mask()
+        proj = (state.face_verts[..., 0] * n[:, None, None, 0]
+                + state.face_verts[..., 1] * n[:, None, None, 1]
+                + state.face_verts[..., 2] * n[:, None, None, 2])
+        far = torch.where(live, proj, -1e30).flatten(1).amax(1)
+        for d in (-far - 0.5, -far):
+            plane = torch.cat([n, d[:, None]], 1)
+            step = clip_poly_plane(state, plane)
+            bits = lambda t: t.view(torch.int32).flatten(1)  # noqa: E731
+            same = (torch.all(bits(step.face_verts) == bits(state.face_verts), 1)
+                    & torch.all(step.n_verts == state.n_verts, 1)
+                    & torch.all(bits(step.planes) == bits(state.planes), 1))
+            want = _identity_expected(state, plane)
+            np.testing.assert_array_equal(same.numpy(), want.numpy())
+            seen.update(want.tolist())
+    assert seen == {True, False}
 
 
 def test_clip_kernel_path_rejects_unsupported_device():
