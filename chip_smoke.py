@@ -20,11 +20,12 @@ Phases (any failure exits non-zero):
      accumulated mode): the kernel against its plain version on the inputs
      of the last of the 64 steps of the 10k lattice (pair and ground hits
      asserted present; the accumulated mode's of the 32nd step of a
-     warm-start run) plus degenerate cases, with times; B6, B12 and the
-     accumulated mode bitwise;
+     warm-start run) plus degenerate cases, with times; B6, B9 (both modes)
+     and B12 bitwise; B9's device time a launch and a step and its device
+     launches a solve;
   8. the physics main path: ``workload.run_physics(64)`` at bench.py:207's
      configuration ("auto" broadphase on 10,000 pieces) on ``cuda:0``,
-     launches pack 1, B6 1, narrowphase 1, prep 1, solver 4 on every step
+     launches pack 1, B6 1, narrowphase 1, prep 1, solver 1 on every step
      that is not skipped as all-asleep;
   9. the same lattice stepped through the plain path on the CPU, compared
      after 30 steps;
@@ -50,15 +51,19 @@ Phases (any failure exits non-zero):
  14. ms per event of the sphere decomposition and of the impact on both
      routes, each impact route's stage split and device idle share;
  15. kernel B11 (tiled z-buffer raster) against its plain version on the
-     card, bitwise in depth, ids and G-buffer, on the interactive frame's two
-     calls, ``render_512``'s at shadow maps of 512² and 1024² and degenerate
-     tables, with times and its bound; B1, B3 and B4 on the first frame's
-     calls and B5, B7 on the last frame's step against their plain versions,
-     timed at the frame's shapes;
+     card, bitwise in depth, ids (sorted and the caller's order) and
+     G-buffer, on the interactive frame's two calls, ``render_512``'s at
+     shadow maps of 512² and 1024² and degenerate tables (a dense tile
+     among them), and its glue against ``_tile_table`` bitwise on the same
+     inputs; per call the wrapper's time, the kernel's and the glue's device
+     time and device launches, the live (tile, chunk) pairs and the most in
+     one tile; times per input set and its bound; B1, B3 and B4 on the first
+     frame's calls and B5, B7 on the last frame's step against their plain
+     versions, timed at the frame's shapes;
  16. the interactive frame (BASELINE config 4, bench.py:372-434):
      ``Scene("cube", INTERACTIVE_CFG)`` on ``cuda:0`` and 16 chained
-     ``interactive_frame`` calls, launches per frame B11 2, B5 1, B7 1, no
-     B6/B8/B9/B10/B12, the first frame fracturing;
+     ``interactive_frame`` calls, launches per frame B11 2 (and its glue
+     2 calls), B5 1, B7 1, no B6/B8/B9/B10/B12, the first frame fracturing;
  17. the same frames from one CPU-built Scene, on the card and through the
      plain path on the CPU in lockstep, compared after each of the first
      three;
@@ -465,7 +470,7 @@ def reset_counts():
 def launches_a_step(**changes) -> dict:
     """Launches a step that is not skipped as all-asleep makes: the main
     path's (bench.py:207, "auto" on 10k pieces), with ``changes``."""
-    want = dict(pack=1, broadphase_exact=1, narrowphase=1, prep=1, solver=4,
+    want = dict(pack=1, broadphase_exact=1, narrowphase=1, prep=1, solver=1,
                 broadphase_sorted=0, solver_warm=0)
     want.update(changes)
     return want
@@ -485,7 +490,7 @@ VARIANTS = {
                    workload.PHYSICS_CFG, 1, 0,
                    launches_a_step(broadphase_exact=0, broadphase_sorted=1)),
     "d_warm": (lambda: workload.physics_lattice(device="cpu", cfg=workload.WARM_CFG),
-               workload.WARM_CFG, 32, 16, launches_a_step(solver=0, solver_warm=4)),
+               workload.WARM_CFG, 32, 16, launches_a_step(solver=0, solver_warm=1)),
     "e_pairs": (lambda: workload.paired_lattice(device="cpu"), workload.PAIRED_CFG, 32, 16,
                 launches_a_step(prep=0, solver=0)),
 }
@@ -629,17 +634,10 @@ def compare_prep(a, kw):
 
 
 def compare_solver(a, kw):
-    """After all outer iterations: the wake flag exactly; v and w within
-    1e-5 x (1 + |v|) per component."""
-    got = solver_cuda.solve(*a, **kw)
-    want = solver_cuda.solve_reference(*a, **kw)
-    _exact("solver", "wake flags", got[:, 6] > 0.5, want[:, 6] > 0.5)
-    d = (got[:, :6] - want[:, :6]).abs()
-    bad = torch.nonzero(~(d <= 1e-5 * (1.0 + want[:, :6].abs())).any(1)).flatten().tolist()
-    if bad:
-        fail(f"solver: v or w differ from the plain version in bodies {bad[:10]} "
-             f"({len(bad)} in all, max {float(d.max()):.3e})")
-    return float(d.max())
+    """The state bitwise equal to the plain version's after all outer
+    iterations (same formulas, same order)."""
+    return _bitwise("solver", ("state",), solver_cuda.solve(*a, **kw),
+                    solver_cuda.solve_reference(*a, **kw))
 
 
 def _flat(out):
@@ -941,6 +939,17 @@ def physics_kernel_phase(card):
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by}
         extra = ""
+        if name in ("solver", "solver_warm"):
+            dev_ms, other_ms, entries = device_split(lambda: PHYS_KERNEL_FN[name](*a, **kw),
+                                                     "solver_kernel")
+            S = max(1, kw["substeps"])
+            outer = (kw["iters"] + S - 1) // S
+            results[name].update(device_ms=dev_ms, other_device_ms=other_ms,
+                                 device_launches=entries, outer_iterations=outer)
+            extra = (f" (on the device: {dev_ms:.4f} ms a launch, which runs all {outer} "
+                     f"iterations: one launch a solve and a step, {dev_ms:.4f} ms a step; "
+                     f"{entries:.0f} device launches a solve, {other_ms:.4f} ms beside the "
+                     f"kernel)")
         if name == "broadphase_exact":
             dev_ms, glue_ms, entries = device_split(lambda: PHYS_KERNEL_FN[name](*a, **kw),
                                                     "bp_exact_kernel")
@@ -1221,6 +1230,7 @@ def all_counts() -> dict:
     counts = {name: mod.launches for name, (mod, *_) in KERNELS.items()}
     counts["soup_clip"] = soup_clip_cuda.launches
     counts["raster"] = raster_cuda.launches
+    counts["raster_glue"] = raster_cuda.glue_launches
     counts.update(launch_counts())
     return counts
 
@@ -1230,6 +1240,7 @@ def reset_all():
         mod.launches = 0
     soup_clip_cuda.launches = 0
     raster_cuda.launches = 0
+    raster_cuda.glue_launches = 0
     reset_counts()
 
 
@@ -1627,7 +1638,7 @@ RASTER_REPLACES = "surtr_tpu/render/raster_pallas.py:37"
 # Launches of one interactive frame: the two raster passes, one physics step
 # (compound bodies, 256 pieces: the plain block sweep and the plain solver);
 # the fracture kernels B1, B3 and B4 as the event runs them.
-FRAME_LAUNCHES = {"raster": 2, "pack": 1, "narrowphase": 1}
+FRAME_LAUNCHES = {"raster": 2, "raster_glue": 2, "pack": 1, "narrowphase": 1}
 FRAME_ANY = ("clip_fold", "labels", "refit")
 FRAME_OVERFLOWS = ("active_overflow", "job_overflow", "piece_overflow", "split_face_overflow")
 FRAME_COMPARE = 3          # frames compared with the CPU plain run
@@ -1654,18 +1665,38 @@ def _bits(t):
 
 
 def compare_raster(a):
-    """B11 kernel against its plain version on one packed table: depth,
-    ids and G-buffer bit for bit. Returns the largest |kernel - plain| over
-    depth and G-buffer."""
-    got = raster_cuda.tile_raster(*a)
-    want = raster_cuda.tile_raster_reference(*a)
-    for what, g, w in zip(("depth", "ids", "G-buffer"), got, want):
+    """B11 kernel against its plain version on one packed table ``a`` =
+    (attrs, bbox, rng, nty, ntx, H, W, A, order): depth, sorted-domain ids
+    and G-buffer bit for bit, and the ids in the caller's order. Returns the
+    largest |kernel - plain| over depth and G-buffer."""
+    got = raster_cuda.tile_raster(*a[:8])
+    want = raster_cuda.tile_raster_reference(*a[:8])
+    mapped = raster_cuda.tile_raster(*a)[1]
+    want_mapped = raster_cuda._finish(a[8], *want)[1]
+    for what, g, w in zip(("depth", "ids", "G-buffer", "ids (caller's order)"),
+                          (*got, mapped), (*want, want_mapped)):
         if (g is None) != (w is None) or (g is not None and not torch.equal(_bits(g), _bits(w))):
             bad = 0 if g is None or w is None else int((_bits(g) != _bits(w)).sum())
             fail(f"raster: {what} differ from the plain version ({bad} entries, table "
                  f"{tuple(a[0].shape)}, image {a[5]}x{a[6]})")
     return max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
                for g, w in zip(got, want) if g is not None and g.is_floating_point())
+
+
+def compare_raster_glue(g):
+    """B11's glue kernels (``raster_cuda.tile_table`` on the card) against
+    ``_tile_table`` on the same inputs ``g`` = (sx, sy, sz, ok, W, H,
+    attr_tab): the table and ranges bit for bit, the sort order equal, the
+    chunk boxes equal in value (a box edge of 0 may come out as -0 or +0,
+    which the raster's compares do not tell apart)."""
+    got = raster_cuda.tile_table(*g)
+    want = raster_cuda._tile_table(*g)
+    for what, x, y in zip(("table", "chunk boxes", "tile ranges", "order"), got[:4], want[:4]):
+        same = torch.equal(x, y) if what == "chunk boxes" else torch.equal(_bits(x), _bits(y))
+        if x.shape != y.shape or not same:
+            fail(f"raster glue: {what} differ from _tile_table's (table {tuple(want[0].shape)})")
+    if got[4] != want[4]:
+        fail(f"raster glue: tile grid {got[4]} != {want[4]}")
 
 
 def raster_ops(a) -> float:
@@ -1680,84 +1711,153 @@ def raster_ops(a) -> float:
     return float(live[chunk].sum()) * raster_cuda.TH * raster_cuda.TW * RASTER_OPS
 
 
+def live_pairs(a) -> tuple[int, int]:
+    """(live (tile, chunk) pairs of the table, the most in one tile)."""
+    tiles, _ = raster_cuda._chunk_pairs(a[1], a[2], a[3], a[4])
+    return int(tiles.numel()), int(torch.bincount(tiles).max()) if tiles.numel() else 0
+
+
+def _dense_tile_inputs():
+    """400 triangles centred in one 16 x 128 tile of a 256 x 64 image (7
+    chunks), with copies of a tile-covering triangle at constant depth 0.5
+    and of one random triangle across chunk boundaries (depth ties)."""
+    rng = np.random.default_rng(9)
+    T = 400
+    c = rng.uniform([8.0, 2.0], [120.0, 14.0], (T, 1, 2))
+    xy = c + rng.normal(0, [30.0, 6.0], (T, 3, 2))
+    xy = (xy - xy.mean(1, keepdims=True) + c).astype(np.float32)
+    sz = rng.uniform(0.05, 0.95, (T, 3)).astype(np.float32)
+    ok = rng.uniform(size=T) > 0.05
+    for i in (5, 63, 64, 130, 200, 260):
+        xy[i], sz[i], ok[i] = [[-200.0, -40.0], [300.0, -40.0], [64.0, 80.0]], 0.5, True
+    for i in (127, 128, 191, 192):
+        xy[i], sz[i], ok[i] = xy[10], sz[10], True
+    ok[10] = True
+    return xy, sz, ok, rng.normal(size=(T, 7)).astype(np.float32), 256, 64
+
+
 def raster_cases(device):
-    """B11's degenerate tables by name: 40 triangles (one partial chunk), 100
-    (not a multiple of 64), none valid, and a 256 x 64 image with a G-buffer,
-    a screen-covering triangle, an exact duplicate and off-screen ones."""
+    """B11's degenerate inputs by name, as (glue inputs, packed table): 40
+    triangles (one partial chunk), 100 (not a multiple of 64), none valid, a
+    256 x 64 image with a G-buffer, a screen-covering triangle, an exact
+    duplicate and off-screen ones, and a dense tile of 400 triangles with
+    depth ties across chunks."""
     cases = {}
     for name, (seed, T, W, H, A, none) in {
             "T = 40": (1, 40, 512, 512, 0, False), "T = 100": (2, 100, 512, 512, 7, False),
             "no valid triangle": (3, 96, 512, 512, 7, True),
-            "256 x 64, ties": (4, 160, 256, 64, 7, False)}.items():
-        rng = np.random.default_rng(seed)
-        c = rng.uniform(-20, [W + 20, H + 20], (T, 1, 2))
-        xy = (c + rng.normal(0, 40, (T, 3, 2))).astype(np.float32)
-        sz = rng.uniform(-0.1, 1.1, (T, 3)).astype(np.float32)
-        ok = rng.uniform(size=T) > 0.05
-        xy[0] = [[-10, -10], [3 * W, -10], [-10, 3 * H]]
-        sz[0] = 0.9
-        xy[2], sz[2] = xy[1], sz[1]
-        ok[:3], ok[3] = True, False
-        xy[4, :, 0] += 10 * W
-        ok &= not none
-        attr = rng.normal(size=(T, A)).astype(np.float32) if A else None
-        t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
-        attrs, bbox, rngs, _, (nty, ntx) = raster_cuda._tile_table(
-            t(xy[..., 0]), t(xy[..., 1]), t(sz), t(ok), W, H, None if attr is None else t(attr))
-        cases[name] = (attrs, bbox, rngs, nty, ntx, H, W, A)
+            "256 x 64, ties": (4, 160, 256, 64, 7, False),
+            "dense tile": (9, 400, 256, 64, 7, False)}.items():
+        if name == "dense tile":
+            xy, sz, ok, attr, W, H = _dense_tile_inputs()
+        else:
+            rng = np.random.default_rng(seed)
+            c = rng.uniform(-20, [W + 20, H + 20], (T, 1, 2))
+            xy = (c + rng.normal(0, 40, (T, 3, 2))).astype(np.float32)
+            sz = rng.uniform(-0.1, 1.1, (T, 3)).astype(np.float32)
+            ok = rng.uniform(size=T) > 0.05
+            xy[0] = [[-10, -10], [3 * W, -10], [-10, 3 * H]]
+            sz[0] = 0.9
+            xy[2], sz[2] = xy[1], sz[1]
+            ok[:3], ok[3] = True, False
+            xy[4, :, 0] += 10 * W
+            ok &= not none
+            attr = rng.normal(size=(T, A)).astype(np.float32) if A else None
+        t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=device)  # noqa: E731
+        g = (t(xy[..., 0]), t(xy[..., 1]), t(sz), t(ok), W, H, None if attr is None else t(attr))
+        attrs, bbox, rngs, order, (nty, ntx) = raster_cuda._tile_table(*g)
+        cases[name] = (g, (attrs, bbox, rngs, nty, ntx, H, W, A, order))
     return cases
 
 
 def capture_raster(fn):
-    """The tables ``fn`` hands to ``raster_cuda.tile_raster`` (the kernel
-    still runs, so counts are unchanged)."""
-    calls = []
-    orig = raster_cuda.tile_raster
+    """The glue inputs ``fn`` hands to ``raster_cuda.tile_table`` and the
+    tables it hands to ``raster_cuda.tile_raster``, as (glue inputs,
+    table) per call (the kernels still run, so counts are unchanged)."""
+    glue, tables = [], []
+    orig = raster_cuda.tile_table, raster_cuda.tile_raster
+
+    def rec_glue(*g):
+        glue.append(g)
+        return orig[0](*g)
 
     def rec(*a):
-        calls.append(a)
-        return orig(*a)
+        tables.append(a)
+        return orig[1](*a)
 
-    raster_cuda.tile_raster = rec
+    raster_cuda.tile_table, raster_cuda.tile_raster = rec_glue, rec
     try:
         fn()
         torch.cuda.synchronize()
     finally:
-        raster_cuda.tile_raster = orig
-    return calls
+        raster_cuda.tile_table, raster_cuda.tile_raster = orig
+    return list(zip(glue, tables))
+
+
+def raster_call_times(g, a):
+    """One call's split: the wrapper's ms (CUDA events around
+    ``rasterize_ids_tiled``, median of 20), the kernel's device ms, the
+    glue's device ms and device launches (torch.profiler), the live pairs
+    and the most in one tile."""
+    wrapper = event_ms(lambda: raster_cuda.rasterize_ids_tiled(*g))
+    kernel, memset, _ = device_split(lambda: raster_cuda.tile_raster(*a), "raster_kernel")
+    pack, rest, entries = device_split(lambda: raster_cuda.tile_table(*g), "raster_pack")
+    pairs, most = live_pairs(a)
+    return {"wrapper_ms": wrapper, "device_ms": kernel, "memset_device_ms": memset,
+            "glue_device_ms": pack + rest, "glue_device_launches": entries, "live_pairs": pairs,
+            "max_tile_pairs": most, "shape": [int(a[0].shape[0]), a[7], a[5], a[6]]}
 
 
 def raster_kernel_phase(frame_calls, card):
-    """Phase 15: B11 against its plain version on the frame's two calls,
-    render_512's at shadow 512 and 1024 and the degenerate tables, bitwise;
-    per input set the kernel ms (CUDA events, median of 20, per call
-    summed), its device ms under the profiler, the plain ms and the bound."""
+    """Phase 15: B11 against its plain version, and its glue against
+    ``_tile_table``, on the frame's two calls, render_512's at shadow 512
+    and 1024 and the degenerate inputs, bitwise; per call the wrapper's
+    time, the kernel's and the glue's device time and launches and the live
+    pairs; per input set the kernel ms (CUDA events, median of 20, per call
+    summed), its device ms under the profiler, the plain ms and the
+    bound."""
     inputs = workload.render_512_inputs("cuda")
     sets = {"interactive frame": frame_calls}
     for shadow in (512, 1024):
         sets[f"render_512, shadow {shadow}"] = capture_raster(
             lambda s=shadow: workload.run_render_512("cuda", s, inputs))
     cases = raster_cases("cuda")
-    err = max(compare_raster(a)
-              for a in [c for calls in sets.values() for c in calls] + list(cases.values()))
+    pairs = [c for calls in sets.values() for c in calls] + list(cases.values())
+    err = max(compare_raster(a) for _, a in pairs)
+    for g, _ in pairs:
+        compare_raster_glue(g)
     torch.cuda.synchronize()
+    dense = live_pairs(cases["dense tile"][1])
+    print(f"raster: dense tile {dense[0]} live pairs, {dense[1]} in one tile", flush=True)
     out = {"max_abs_err": err}
     for name, calls in sets.items():
-        ms = sum(event_ms(lambda a=a: raster_cuda.tile_raster(*a)) for a in calls)
-        device_ms = sum(device_split(lambda a=a: raster_cuda.tile_raster(*a), "raster_")[0]
-                        for a in calls)
-        plain_ms = sum(event_ms(lambda a=a: raster_cuda.tile_raster_reference(*a), reps=5,
-                                warmup=1) for a in calls)
-        b_ms, b_by = bound(sum(nbytes(a[:3]) + nbytes(raster_cuda.tile_raster(*a)) for a in calls),
-                           sum(raster_ops(a) for a in calls))
-        shapes = [[int(a[0].shape[0]), a[7], a[5], a[6]] for a in calls]
+        tables = [a for _, a in calls]
+        ms = sum(event_ms(lambda a=a: raster_cuda.tile_raster(*a)) for a in tables)
+        split = [raster_call_times(g, a) for g, a in calls]
+        for t in split:
+            print(f"raster ({name}) call [T_pad, A, H, W] {t['shape']}: wrapper "
+                  f"{t['wrapper_ms']:.4f} ms; on the device kernel {t['device_ms']:.4f} ms, "
+                  f"glue {t['glue_device_ms']:.4f} ms in {t['glue_device_launches']:.0f} launches; "
+                  f"{t['live_pairs']} live pairs, {t['max_tile_pairs']} in the densest tile "
+                  f"({card})", flush=True)
+        device_ms = sum(t["device_ms"] for t in split)
+        plain_ms = sum(event_ms(lambda a=a: raster_cuda.tile_raster_reference(*a[:8]), reps=5,
+                                warmup=1) for a in tables)
+        b_ms, b_by = bound(sum(nbytes(a[:3]) + nbytes(raster_cuda.tile_raster(*a))
+                               for a in tables), sum(raster_ops(a) for a in tables))
         out[name] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "shapes": shapes}
+                     "bound_by": b_by, "shapes": [t["shape"] for t in split],
+                     "wrapper_ms": sum(t["wrapper_ms"] for t in split),
+                     "glue_device_ms": sum(t["glue_device_ms"] for t in split),
+                     "glue_device_launches": sum(t["glue_device_launches"] for t in split),
+                     "calls": split}
         print(f"raster ({name}): kernel {ms:.4f} ms (the kernel alone {device_ms:.4f} ms on the "
-              f"device)  plain {plain_ms:.3f} ms  bound {b_ms:.5f} ms ({b_by})  calls [T_pad, A, "
-              f"H, W] {shapes}  ({card})", flush=True)
+              f"device; glue {out[name]['glue_device_ms']:.4f} ms on the device; wrapper "
+              f"{out[name]['wrapper_ms']:.4f} ms)  plain {plain_ms:.3f} ms  bound {b_ms:.5f} ms "
+              f"({b_by})  ({card})", flush=True)
     print(f"raster: bitwise on {sum(map(len, sets.values()))} main-path calls and {len(cases)} "
-          f"degenerate tables ({', '.join(cases)}), max_abs_err {err:.3e}", flush=True)
+          f"degenerate inputs ({', '.join(cases)}), glue and kernel, max_abs_err {err:.3e}",
+          flush=True)
     return out
 
 
@@ -1782,20 +1882,25 @@ def frame_main_path(card):
     """Phase 16: Scene("cube", INTERACTIVE_CFG) on the card and 16 chained
     frames through the user's entry points, counts set to 0 just before;
     launches per frame checked. Returns (counts of the run, B11's two calls
-    of the first frame, per-frame metrics, B1/B3/B4's calls of the first
+    of the first frame as (glue inputs, table), per-frame metrics, B1/B3/B4's calls of the first
     frame, B5/B7's calls of the last frame's step)."""
     reset_all()
     frames = []
     prev = {}
-    first_calls = []
+    first_glue, first_calls = [], []
     frac_calls = {name: [] for name in FRAME_FRACTURE}
-    orig = raster_cuda.tile_raster
+    orig = raster_cuda.tile_table, raster_cuda.tile_raster
     saved = [(attr, getattr(pipeline, attr)) for attr in FRAME_FRACTURE.values()]
+
+    def rec_glue(*g):
+        if not frames:
+            first_glue.append(g)
+        return orig[0](*g)
 
     def rec(*a):
         if not frames:
             first_calls.append(a)
-        return orig(*a)
+        return orig[1](*a)
 
     def rec_frac(*a, _fn, _name, **kw):
         if not frames:
@@ -1819,7 +1924,7 @@ def frame_main_path(card):
         frames.append({"launches": delta, "pieces": sc.num_pieces(), "bodies": sc.num_bodies(),
                        **{k: g[k] for k in ("new_pieces", "total_volume", *FRAME_OVERFLOWS)}})
 
-    raster_cuda.tile_raster = rec
+    raster_cuda.tile_table, raster_cuda.tile_raster = rec_glue, rec
     try:
         t0 = time.perf_counter()
         sc = workload.interactive_scene("cuda")
@@ -1832,7 +1937,7 @@ def frame_main_path(card):
             workload.run_frames(sc, workload.FRAMES, on_frame=on_frame)
             torch.cuda.synchronize()
     finally:
-        raster_cuda.tile_raster = orig
+        raster_cuda.tile_table, raster_cuda.tile_raster = orig
         for attr, fn in saved:
             setattr(pipeline, attr, fn)
     counts = all_counts()
@@ -1850,7 +1955,7 @@ def frame_main_path(card):
               + " launches " + json.dumps({k: v for k, v in f["launches"].items() if v}),
               flush=True)
     phys = {name: steps.last[name][:2] for name in ("pack", "narrowphase")}
-    return counts, first_calls, frames, frac_calls, phys
+    return counts, list(zip(first_glue, first_calls)), frames, frac_calls, phys
 
 
 FRAME_COMPARE_FN = {"clip_fold": compare_clip, "labels": compare_labels, "refit": compare_refit,
@@ -2180,7 +2285,9 @@ def main():
         "path": "interactive frame", "launches": frame_counts["raster"],
         "max_abs_err": raster["max_abs_err"],
         **{k: raster_main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                       "shapes")},
+                                       "shapes", "wrapper_ms", "glue_device_ms",
+                                       "glue_device_launches", "calls")},
+        "glue_launches": frame_counts["raster_glue"],
         "library_ms": None,
         "render_512": {k: v for k, v in raster.items() if k.startswith("render_512")},
     })

@@ -1,41 +1,69 @@
-// One outer iteration of the single-piece contact solver (kernel B9).
+// The single-piece contact solver's outer iterations (kernel B9).
 //
 // Replaces: surtr_tpu/physics/solver_pallas.py `_solver_iter_kernel`
 // (wrapper `solve_packed`), both modes. Semantics of the plain versions in
 // surtr_tpu_torch/physics/solver_cuda.py `solver_iteration_reference` and,
 // for the accumulated (warm-start) mode, `solver_iteration_warm_reference`
-// (entry point surtr_solver_iter_warm: the per-slot accumulators
-// [λn | λu | λv] come in and go out as a second pair of ping-pong buffers,
-// and the clamps act on the totals): per body row, partner velocities vB per
-// slot from the previous iteration's state (slot m·K + k reads pair k;
-// ground and static slots get 0); then S substeps, each computing on every
-// slot the relative velocity, the normal impulse max(-(vn - target)·m_eff, 0)
-// and the friction impulse min(|vt|·m_eff, mu·λn) against the tangential
-// direction, summing impulse and torque over the C slots in slot order, and
-// updating v += (inv_m·split)·Σλ, w += split·I⁻¹·Σ(rA x λ). Last, the wake
-// flag takes the max of its own value and hit·live·(partner wake).
+// (the per-slot totals [λn | λu | λv] come in and go out beside the state,
+// and the clamps act on the totals). One outer iteration, per body row:
+// partner velocities vB per slot from the previous iteration's state (slot
+// m·K + k reads pair k; ground and static slots get 0); then S substeps,
+// each computing on every slot the relative velocity, the normal impulse
+// max(-(vn - target)·m_eff, 0) and the friction impulse min(|vt|·m_eff,
+// mu·λn) against the tangential direction, summing impulse and torque over
+// the C slots in slot order from 0, and updating v += (inv_m·split)·Σλ,
+// w += split·I⁻¹·Σ(rA x λ). Last, the wake flag takes the max of its own
+// value and hit·live·(partner wake).
 //
-// What bounds it on the card: bytes. Per row one launch reads the tables
-// (11C + 11 floats, 1.6 KB at C = 36) and K partner states, and writes
-// 32 B; ~95 flops a slot and substep. At 10k rows: ~16 MB and ~70 MFLOP a
-// launch, about 5 us at 3.35 TB/s; the step makes 4 launches. The warm
-// mode adds 3C floats in and out a row (~0.9 KB) and ~45 flops a slot.
-// Design: one thread per row. The TPU version needed the partner gather in
-// XLA between launches; here the kernel reads the partner rows by index
-// itself, from the input state buffer, and writes the next state to a
-// second buffer, so blocks running in any order see only the previous
-// iteration (ping-pong across the 4 launches). Sums run in slot order
-// starting from 0, as the plain version's, and -fmad=false keeps each
-// rounding, so kernel and plain agree to the last bit on the same inputs.
+// What bounds it on the card: bytes. A row's tables are 13C + 11 floats
+// (1.9 KB at C = 36) and it reads K partner states; ~95 flops a slot and
+// substep. At the 10k lattice: ~19 MB and ~70 MFLOP an iteration, about
+// 6 us at 3.35 TB/s.
+//
+// The first design ran one thread per row and one launch per iteration:
+// 79 CTAs of 4 warps at 10k rows (about 3% of the card's warp slots), each
+// thread walking its C slots serially with loads 3C floats apart across a
+// warp, gathering a partner state for every pair slot on every substep, and
+// the wrapper converting the tables before each of the 4 launches. It took
+// 0.32-0.46 ms a step on an NVIDIA H100 80GB HBM3 at 700 W. This design:
+//  - lanes over slots: a group of 16 lanes per row, slot c on lane c % 16
+//    (SPL = ceil(C / 16) slots a lane, 3 at the lattice); the row's tables
+//    load coalesced once per iteration into registers for the S substeps;
+//    lanes 0..K-1 gather the K partner states once per iteration and the
+//    slots take them by shuffle; vB, and in warm mode the tangent basis and
+//    the accumulated totals, stay in registers across the substeps;
+//  - sums in slot order: each lane stages its slots' six impulse and
+//    torque components in shared memory and six lanes add one component
+//    each over the slots from 0 (no tree, the plain version's order); the
+//    sums come back by shuffle and every lane updates v and w alike. The
+//    wake max is order-free and reduces by shuffle;
+//  - one launch a solve: a cooperative kernel whose CTAs walk the rows and
+//    meet at a grid-wide barrier between iterations, reading one state
+//    buffer and writing the other (ping-pong), so no row sees a partner's
+//    update of the same iteration. The wrapper checks and converts the
+//    tables once a solve.
+// Every product and sum is rounded on its own (built with -fmad=false,
+// IEEE division and square root), so the plain version gives the same bits.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/time_b9_b11.py, the
+// 10k lattice's 64th step, 4 iterations of 2 substeps; the first design in
+// the same call): 0.047 ms a solve on the device in one launch against
+// 0.24 ms in four (warm mode 0.050 against 0.34 ms), 0.104-0.106 ms with
+// the wrapper's host work against 0.29-0.30 ms.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// The deterministic tangent basis of solver_cuda.tangent_basis: u =
-// normalize(e x n) with e the axis of n's smallest |component| (first of
-// ties), v = n x u.
+constexpr int GS = 16;                   // lanes of a row's group
+constexpr int ROWS = 8;                  // rows of a CTA (4 warps of 2 groups)
+constexpr int THREADS = GS * ROWS;
+
+// The deterministic tangent basis of slots.tangent_basis: u = normalize(e x
+// n) with e the axis of n's smallest |component| (first of ties), v = n x u.
 __device__ inline void tangent_basis(float nx, float ny, float nz, float& ux, float& uy,
                                      float& uz, float& vx, float& vy, float& vz) {
   const float ax = fabsf(nx), ay = fabsf(ny), az = fabsf(nz);
@@ -55,105 +83,140 @@ __device__ inline void tangent_basis(float nx, float ny, float nz, float& ux, fl
   vz = nx * uy - ny * ux;
 }
 
-template <bool WARM>
-__global__ void solver_iter_kernel(const float* __restrict__ vw, const int* __restrict__ pb,
-                                   const float* __restrict__ rA, const float* __restrict__ rB,
-                                   const float* __restrict__ nrm, const float* __restrict__ mt,
-                                   const float* __restrict__ hs, const float* __restrict__ scale,
-                                   const float* __restrict__ iAI, const float* __restrict__ lam,
-                                   float* __restrict__ vw_out, float* __restrict__ lam_out,
-                                   int Np, int K, int M, int G, int S, float mu) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= Np) return;
-  const int C = K * M + G, KM = K * M;
-  const float* a = rA + (size_t)row * 3 * C;
-  const float* b = rB + (size_t)row * 3 * C;
-  const float* n = nrm + (size_t)row * 3 * C;
-  const float* t = mt + (size_t)row * 2 * C;
-  const float* h = hs + (size_t)row * 2 * C;
-  const int* partner = pb + (size_t)row * K;
-  const float m_s = scale[(size_t)row * 2 + 0], s_s = scale[(size_t)row * 2 + 1];
-  float II[9];
-#pragma unroll
-  for (int q = 0; q < 9; ++q) II[q] = iAI[(size_t)row * 9 + q];
-  const float* own = vw + (size_t)row * 8;
+struct Params {
+  const float* vw0;   // (Np, 8) state in
+  const int* pb;      // (Np, K) partner rows
+  const float *rA, *rB, *nrm, *mt, *hs, *scale, *iAI;  // B8's tables
+  const float* lam0;  // (Np, 3C) totals in (warm mode)
+  float* vw_buf;      // (2, Np, 8): iteration i writes buffer i % 2
+  float* lam_buf;     // (2, Np, 3C) (warm mode)
+  int Np, K, M, G, S, outer;
+  float mu;
+};
+
+__device__ inline float gshfl(float v, int src) { return __shfl_sync(0xffffffffu, v, src, GS); }
+
+template <int SPL, bool WARM>
+__device__ void solve_row(const Params& p, int row, bool store, int lane, float* st,
+                          const float* vin, float* vout, const float* lin, float* lout) {
+  const int C = p.K * p.M + p.G, KM = p.K * p.M;
+  constexpr int CS = SPL * GS + 1;  // odd stride: the six summing lanes hit six banks
+  const size_t r3 = (size_t)row * 3 * C, r2 = (size_t)row * 2 * C;
+  const float* own = vin + (size_t)row * 8;
   float v0 = own[0], v1 = own[1], v2 = own[2];
   float w0 = own[3], w1 = own[4], w2 = own[5];
-  // Warm mode: the row's accumulators live in the output buffer, copied
-  // from the input first (lam and lam_out are two buffers, ping-ponged).
-  float* la = WARM ? lam_out + (size_t)row * 3 * C : nullptr;
-  if (WARM) {
-    const float* li = lam + (size_t)row * 3 * C;
-    for (int q = 0; q < 3 * C; ++q) la[q] = li[q];
+  const float wake_own = own[6];
+  const float m_s = p.scale[(size_t)row * 2 + 0], s_s = p.scale[(size_t)row * 2 + 1];
+  float II[9];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) II[q] = p.iAI[(size_t)row * 9 + q];
+
+  // Lanes 0..K-1 gather the K partner states once.
+  float pst[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (lane < p.K) {
+    const float* q = vin + (size_t)p.pb[(size_t)row * p.K + lane] * 8;
+#pragma unroll
+    for (int r = 0; r < 7; ++r) pst[r] = q[r];
   }
 
-  for (int s = 0; s < S; ++s) {
-    float sx = 0.f, sy = 0.f, sz = 0.f, tqx = 0.f, tqy = 0.f, tqz = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float rAx = a[c], rAy = a[C + c], rAz = a[2 * C + c];
-      const float rBx = b[c], rBy = b[C + c], rBz = b[2 * C + c];
-      const float nx = n[c], ny = n[C + c], nz = n[2 * C + c];
-      const float meff = t[c], targ = t[C + c];
-      const float hit = h[c], live = 1.0f - h[C + c];
-      float pv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (c < KM) {
-        const float* q = vw + (size_t)partner[c % K] * 8;
+  float rAx[SPL], rAy[SPL], rAz[SPL], nx[SPL], ny[SPL], nz[SPL];
+  float meff[SPL], targ[SPL], hit[SPL], vBx[SPL], vBy[SPL], vBz[SPL];
+  float an[SPL], au[SPL], av[SPL], ux[SPL], uy[SPL], uz[SPL], tx[SPL], ty[SPL], tz[SPL];
+  float wmax = 0.0f;
 #pragma unroll
-        for (int r = 0; r < 6; ++r) pv[r] = q[r];
-      }
-      const float vBx = live * (pv[0] + (pv[4] * rBz - pv[5] * rBy));
-      const float vBy = live * (pv[1] + (pv[5] * rBx - pv[3] * rBz));
-      const float vBz = live * (pv[2] + (pv[3] * rBy - pv[4] * rBx));
-      const float vrx = (v0 + (w1 * rAz - w2 * rAy)) - vBx;
-      const float vry = (v1 + (w2 * rAx - w0 * rAz)) - vBy;
-      const float vrz = (v2 + (w0 * rAy - w1 * rAx)) - vBz;
-      const float vn = (vrx * nx + vry * ny) + vrz * nz;
+  for (int q = 0; q < SPL; ++q) {
+    const int c = lane + GS * q;
+    const bool ok = c < C;
+    const bool pair = c < KM;
+    const int src = pair ? c % p.K : 0;
+    float pv[7];
+#pragma unroll
+    for (int r = 0; r < 7; ++r) {
+      const float x = gshfl(pst[r], src);
+      pv[r] = pair ? x : 0.0f;
+    }
+    rAx[q] = ok ? p.rA[r3 + c] : 0.f;
+    rAy[q] = ok ? p.rA[r3 + C + c] : 0.f;
+    rAz[q] = ok ? p.rA[r3 + 2 * C + c] : 0.f;
+    const float rBx = ok ? p.rB[r3 + c] : 0.f;
+    const float rBy = ok ? p.rB[r3 + C + c] : 0.f;
+    const float rBz = ok ? p.rB[r3 + 2 * C + c] : 0.f;
+    nx[q] = ok ? p.nrm[r3 + c] : 0.f;
+    ny[q] = ok ? p.nrm[r3 + C + c] : 0.f;
+    nz[q] = ok ? p.nrm[r3 + 2 * C + c] : 0.f;
+    meff[q] = ok ? p.mt[r2 + c] : 0.f;
+    targ[q] = ok ? p.mt[r2 + C + c] : 0.f;
+    hit[q] = ok ? p.hs[r2 + c] : 0.f;
+    const float live = ok ? 1.0f - p.hs[r2 + C + c] : 0.f;
+    vBx[q] = live * (pv[0] + (pv[4] * rBz - pv[5] * rBy));
+    vBy[q] = live * (pv[1] + (pv[5] * rBx - pv[3] * rBz));
+    vBz[q] = live * (pv[2] + (pv[3] * rBy - pv[4] * rBx));
+    if (pair) wmax = fmaxf(wmax, hit[q] * live * pv[6]);
+    if (WARM) {
+      tangent_basis(nx[q], ny[q], nz[q], ux[q], uy[q], uz[q], tx[q], ty[q], tz[q]);
+      an[q] = ok ? lin[r3 + c] : 0.f;
+      au[q] = ok ? lin[r3 + C + c] : 0.f;
+      av[q] = ok ? lin[r3 + 2 * C + c] : 0.f;
+    }
+  }
+
+  for (int s = 0; s < p.S; ++s) {
+#pragma unroll
+    for (int q = 0; q < SPL; ++q) {
+      const int c = lane + GS * q;
+      const float vrx = (v0 + (w1 * rAz[q] - w2 * rAy[q])) - vBx[q];
+      const float vry = (v1 + (w2 * rAx[q] - w0 * rAz[q])) - vBy[q];
+      const float vrz = (v2 + (w0 * rAy[q] - w1 * rAx[q])) - vBz[q];
+      const float vn = (vrx * nx[q] + vry * ny[q]) + vrz * nz[q];
       float ix, iy, iz;
       if (WARM) {
-        // Accumulated impulses: the clamps act on the totals [λn | λu | λv],
-        // friction as a 2-D vector in the tangent basis, cone-clamped by
-        // rescaling against mu·λn.
-        float ux, uy, uz, wx, wy, wz;
-        tangent_basis(nx, ny, nz, ux, uy, uz, wx, wy, wz);
-        const float acc_n = la[c], acc_u = la[C + c], acc_v = la[2 * C + c];
-        const float dlam = -(vn - targ) * meff;
-        const float lam_new = fmaxf(acc_n + dlam, 0.0f) * hit;
-        const float lam_n = lam_new - acc_n;
-        const float vtu = (vrx * ux + vry * uy) + vrz * uz;
-        const float vtv = (vrx * wx + vry * wy) + vrz * wz;
-        float lu = (acc_u - vtu * meff) * hit;
-        float lv = (acc_v - vtv * meff) * hit;
+        const float dlam = -(vn - targ[q]) * meff[q];
+        const float lam_new = fmaxf(an[q] + dlam, 0.0f) * hit[q];
+        const float lam_n = lam_new - an[q];
+        const float vtu = (vrx * ux[q] + vry * uy[q]) + vrz * uz[q];
+        const float vtv = (vrx * tx[q] + vry * ty[q]) + vrz * tz[q];
+        float lu = (au[q] - vtu * meff[q]) * hit[q];
+        float lv = (av[q] - vtv * meff[q]) * hit[q];
         const float tl = sqrtf(lu * lu + lv * lv);
-        const float cone = mu * lam_new;
+        const float cone = p.mu * lam_new;
         const float scl = tl > cone ? cone / fmaxf(tl, 1e-12f) : 1.0f;
         lu = lu * scl;
         lv = lv * scl;
-        const float imp_u = lu - acc_u, imp_v = lv - acc_v;
-        la[c] = lam_new;
-        la[C + c] = lu;
-        la[2 * C + c] = lv;
-        ix = hit * ((lam_n * nx + imp_u * ux) + imp_v * wx);
-        iy = hit * ((lam_n * ny + imp_u * uy) + imp_v * wy);
-        iz = hit * ((lam_n * nz + imp_u * uz) + imp_v * wz);
+        const float imp_u = lu - au[q], imp_v = lv - av[q];
+        an[q] = lam_new;
+        au[q] = lu;
+        av[q] = lv;
+        ix = hit[q] * ((lam_n * nx[q] + imp_u * ux[q]) + imp_v * tx[q]);
+        iy = hit[q] * ((lam_n * ny[q] + imp_u * uy[q]) + imp_v * ty[q]);
+        iz = hit[q] * ((lam_n * nz[q] + imp_u * uz[q]) + imp_v * tz[q]);
       } else {
-        const float vtx = vrx - vn * nx;
-        const float vty = vry - vn * ny;
-        const float vtz = vrz - vn * nz;
+        const float vtx = vrx - vn * nx[q];
+        const float vty = vry - vn * ny[q];
+        const float vtz = vrz - vn * nz[q];
         const float vt_len = sqrtf((vtx * vtx + vty * vty) + vtz * vtz);
         const float inv_vt = 1.0f / fmaxf(vt_len, 1e-9f);
-        const float lam_n = fmaxf(-(vn - targ) * meff, 0.0f);
-        const float lam_t = fminf(vt_len * meff, mu * lam_n);
-        ix = hit * (lam_n * nx - lam_t * vtx * inv_vt);
-        iy = hit * (lam_n * ny - lam_t * vty * inv_vt);
-        iz = hit * (lam_n * nz - lam_t * vtz * inv_vt);
+        const float lam_n = fmaxf(-(vn - targ[q]) * meff[q], 0.0f);
+        const float lam_t = fminf(vt_len * meff[q], p.mu * lam_n);
+        ix = hit[q] * (lam_n * nx[q] - lam_t * vtx * inv_vt);
+        iy = hit[q] * (lam_n * ny[q] - lam_t * vty * inv_vt);
+        iz = hit[q] * (lam_n * nz[q] - lam_t * vtz * inv_vt);
       }
-      sx = sx + ix;
-      sy = sy + iy;
-      sz = sz + iz;
-      tqx = tqx + (rAy * iz - rAz * iy);
-      tqy = tqy + (rAz * ix - rAx * iz);
-      tqz = tqz + (rAx * iy - rAy * ix);
+      if (c < C) {
+        st[0 * CS + c] = ix;
+        st[1 * CS + c] = iy;
+        st[2 * CS + c] = iz;
+        st[3 * CS + c] = rAy[q] * iz - rAz[q] * iy;
+        st[4 * CS + c] = rAz[q] * ix - rAx[q] * iz;
+        st[5 * CS + c] = rAx[q] * iy - rAy[q] * ix;
+      }
     }
+    __syncwarp();
+    float sum = 0.0f;
+    if (lane < 6)
+      for (int c = 0; c < C; ++c) sum = sum + st[lane * CS + c];
+    __syncwarp();  // the next substep overwrites the staged values
+    const float sx = gshfl(sum, 0), sy = gshfl(sum, 1), sz = gshfl(sum, 2);
+    const float tqx = gshfl(sum, 3), tqy = gshfl(sum, 4), tqz = gshfl(sum, 5);
     const float dwx = s_s * ((II[0] * tqx + II[1] * tqy) + II[2] * tqz);
     const float dwy = s_s * ((II[3] * tqx + II[4] * tqy) + II[5] * tqz);
     const float dwz = s_s * ((II[6] * tqx + II[7] * tqy) + II[8] * tqz);
@@ -161,40 +224,106 @@ __global__ void solver_iter_kernel(const float* __restrict__ vw, const int* __re
     w0 = w0 + dwx; w1 = w1 + dwy; w2 = w2 + dwz;
   }
 
-  float wmax = 0.0f;
-  for (int c = 0; c < KM; ++c) {
-    const float pw = vw[(size_t)partner[c % K] * 8 + 6];
-    wmax = fmaxf(wmax, h[c] * (1.0f - h[C + c]) * pw);
+#pragma unroll
+  for (int off = GS / 2; off > 0; off >>= 1)
+    wmax = fmaxf(wmax, __shfl_xor_sync(0xffffffffu, wmax, off, GS));
+  if (!store) return;
+  if (lane < 8) {
+    const float o[8] = {v0, v1, v2, w0, w1, w2, fmaxf(wake_own, wmax), 0.0f};
+    float val = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) val = lane == r ? o[r] : val;
+    vout[(size_t)row * 8 + lane] = val;
   }
-  float* o = vw_out + (size_t)row * 8;
-  o[0] = v0; o[1] = v1; o[2] = v2;
-  o[3] = w0; o[4] = w1; o[5] = w2;
-  o[6] = fmaxf(own[6], wmax);
-  o[7] = 0.0f;
+  if (WARM) {
+#pragma unroll
+    for (int q = 0; q < SPL; ++q) {
+      const int c = lane + GS * q;
+      if (c < C) {
+        lout[r3 + c] = an[q];
+        lout[r3 + C + c] = au[q];
+        lout[r3 + 2 * C + c] = av[q];
+      }
+    }
+  }
+}
+
+template <int SPL, bool WARM>
+__global__ void __launch_bounds__(THREADS) solver_kernel(Params p) {
+  __shared__ float stage[ROWS][6 * (SPL * GS + 1)];
+  const int lane = threadIdx.x % GS, grp = threadIdx.x / GS;
+  const int C = p.K * p.M + p.G;
+  cg::grid_group grid = cg::this_grid();
+  for (int it = 0; it < p.outer; ++it) {
+    const float* vin = it == 0 ? p.vw0 : p.vw_buf + (size_t)((it - 1) & 1) * p.Np * 8;
+    float* vout = p.vw_buf + (size_t)(it & 1) * p.Np * 8;
+    const float* lin = nullptr;
+    float* lout = nullptr;
+    if (WARM) {
+      lin = it == 0 ? p.lam0 : p.lam_buf + (size_t)((it - 1) & 1) * p.Np * 3 * C;
+      lout = p.lam_buf + (size_t)(it & 1) * p.Np * 3 * C;
+    }
+    // Rows walk in steps of whole warps (two groups), so a warp's shuffles
+    // stay converged; a group past the last row repeats it and stores nothing.
+    const int per_warp = 32 / GS;
+    const int wbase = (blockIdx.x * THREADS + threadIdx.x) / 32 * per_warp;
+    const int wstep = gridDim.x * THREADS / 32 * per_warp;
+    for (int base = wbase; base < p.Np; base += wstep) {
+      const int row = base + grp % per_warp;
+      solve_row<SPL, WARM>(p, min(row, p.Np - 1), row < p.Np, lane, stage[grp], vin, vout,
+                           lin, lout);
+    }
+    if (it + 1 < p.outer) grid.sync();
+  }
+}
+
+template <int SPL, bool WARM>
+int launch(Params p, cudaStream_t stream) {
+  static int per_sm = -1;
+  static int sms = 0;
+  if (per_sm < 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, solver_kernel<SPL, WARM>, THREADS, 0);
+    if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int want = (p.Np + ROWS - 1) / ROWS;
+  const int blocks = want < per_sm * sms ? want : per_sm * sms;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)solver_kernel<SPL, WARM>,
+                                                    dim3(blocks), dim3(THREADS), args, 0, stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <bool WARM>
+int dispatch(const Params& p, cudaStream_t stream) {
+  const int spl = (p.K * p.M + p.G + GS - 1) / GS;
+  switch (spl) {
+    case 1: return launch<1, WARM>(p, stream);
+    case 2: return launch<2, WARM>(p, stream);
+    case 3: return launch<3, WARM>(p, stream);
+    case 4: return launch<4, WARM>(p, stream);
+    case 5: case 6: case 7: case 8: return launch<8, WARM>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-extern "C" int surtr_solver_iter(const float* vw, const int* pb, const float* rA,
-                                 const float* rB, const float* nrm, const float* mt,
-                                 const float* hs, const float* scale, const float* iAI,
-                                 float* vw_out, int Np, int K, int M, int G, int S, float mu,
-                                 void* stream) {
-  const int threads = 128;
-  if (Np > 0)
-    solver_iter_kernel<false><<<(Np + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        vw, pb, rA, rB, nrm, mt, hs, scale, iAI, nullptr, vw_out, nullptr, Np, K, M, G, S, mu);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int surtr_solver_iter_warm(const float* vw, const int* pb, const float* rA,
-                                      const float* rB, const float* nrm, const float* mt,
-                                      const float* hs, const float* scale, const float* iAI,
-                                      const float* lam, float* vw_out, float* lam_out, int Np,
-                                      int K, int M, int G, int S, float mu, void* stream) {
-  const int threads = 128;
-  if (Np > 0)
-    solver_iter_kernel<true><<<(Np + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        vw, pb, rA, rB, nrm, mt, hs, scale, iAI, lam, vw_out, lam_out, Np, K, M, G, S, mu);
-  return (int)cudaGetLastError();
+// `outer` iterations of S substeps from state vw0 (and totals lam0 in warm
+// mode); iteration i writes vw_buf[i % 2] (and lam_buf[i % 2]). C = K·M + G
+// must be at most 8·16 = 128.
+extern "C" int surtr_solver_solve(const float* vw0, const int* pb, const float* rA,
+                                  const float* rB, const float* nrm, const float* mt,
+                                  const float* hs, const float* scale, const float* iAI,
+                                  const float* lam0, float* vw_buf, float* lam_buf, int Np, int K,
+                                  int M, int G, int S, int outer, float mu, void* stream) {
+  if (Np <= 0 || outer <= 0) return 0;
+  if (K <= 0 || K > GS || (lam0 == nullptr) != (lam_buf == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Params p{vw0, pb, rA, rB, nrm, mt, hs, scale, iAI, lam0, vw_buf, lam_buf,
+                 Np, K, M, G, S, outer, mu};
+  return lam0 ? dispatch<true>(p, (cudaStream_t)stream)
+              : dispatch<false>(p, (cudaStream_t)stream);
 }

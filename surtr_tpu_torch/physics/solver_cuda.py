@@ -12,10 +12,13 @@ the island-wake flag spreads one hop over live hit contacts.
 
 State ``vw`` (Np, 8) = [v(3) | w(3) | wake | 0]. The tables are B8's
 outputs (``prep_cuda``). ``solve`` runs ceil(iters / substeps) iterations;
-on CUDA tensors each is one kernel launch reading one state buffer and
-writing another, so no block sees a partner's update of the same iteration.
-``solve_warm`` is the accumulated-impulse mode of warm start: the per-slot
-totals (Np, 3C) = [λn | λu | λv] ride along, ping-ponged like the state.
+on CUDA tensors all of them are one cooperative kernel launch whose
+iterations meet at a grid-wide barrier, each reading one state buffer and
+writing the other, so no row sees a partner's update of the same
+iteration; the tables and the partner index are checked and converted once
+a solve. ``solve_warm`` is the accumulated-impulse mode of warm start: the
+per-slot totals (Np, 3C) = [λn | λu | λv] ride along, ping-ponged like the
+state.
 """
 
 from __future__ import annotations
@@ -140,125 +143,101 @@ def solver_iteration_warm_reference(vw, lam, pb, rA, rB, nrm, mt, hs, scale, iAI
             torch.cat([acc_n, acc_u, acc_v], dim=1))
 
 
-def _check_tables(vw, pb, tables, K, M, G):
-    Np = vw.shape[0]
+# The kernel keeps a row's slots in registers, up to 8 on each of 16 lanes.
+MAX_SLOTS = 128
+
+
+def _solve_kernel(vw0, lam0, pb, tables, K, M, G, iters, substeps, mu):
+    """All outer iterations in one launch (warm mode when ``lam0`` is
+    given): the tables, the state and ``pb`` are checked and converted once
+    a solve. Returns the final state (and totals)."""
+    global launches, warm_launches
+    warm = lam0 is not None
+    Np = vw0.shape[0]
     C = K * M + G
-    dev = vw.device
+    dev = vw0.device
+    S = max(1, substeps)
+    outer = (iters + S - 1) // S
+    if not 1 <= K <= 16 or C > MAX_SLOTS:
+        raise ValueError(f"solver kernel takes 1 <= K <= 16 and K*M + G <= {MAX_SLOTS}, "
+                         f"got K={K}, C={C}")
     widths = (3 * C, 3 * C, 3 * C, 2 * C, 2 * C, 2, 9)
     tabs = [t.contiguous() for t in tables]
     for t, wd in zip(tabs, widths):
         if t.dtype != torch.float32 or t.device != dev or t.shape != (Np, wd):
             raise ValueError("solver kernel: tables must be B8's float32 outputs on one device")
-    v_in = vw.contiguous()
+    v_in = vw0.contiguous()
     if v_in.dtype != torch.float32 or v_in.shape != (Np, 8):
         raise ValueError("solver kernel: state must be (Np, 8) float32")
     pbi = pb.to(torch.int32).contiguous()
     if pbi.shape != (Np, K) or pbi.device != dev:
         raise ValueError("solver kernel: partner index must be (Np, K) on the state's device")
-    return v_in, pbi, tabs
-
-
-def _warm_kernel(vw, lam, pb, tables, K, M, G, substeps, mu):
-    global warm_launches
-    Np = vw.shape[0]
-    C = K * M + G
-    v_in, pbi, tabs = _check_tables(vw, pb, tables, K, M, G)
-    l_in = lam.contiguous()
-    if l_in.dtype != torch.float32 or l_in.shape != (Np, 3 * C) or l_in.device != vw.device:
-        raise ValueError("solver kernel: accumulators must be (Np, 3C) float32")
-    out, l_out = torch.empty_like(v_in), torch.empty_like(l_in)
-    if Np == 0:
-        return out, l_out
-    fn = _build.bind("surtr_solver_iter_warm", [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_void_p])
-    rc = fn(v_in.data_ptr(), pbi.data_ptr(), *[t.data_ptr() for t in tabs], l_in.data_ptr(),
-            out.data_ptr(), l_out.data_ptr(), Np, K, M, G, max(1, substeps), float(mu),
-            _build.stream_ptr(vw.device))
-    _build.check(rc, "surtr_solver_iter_warm")
-    warm_launches += 1
-    return out, l_out
-
-
-def solver_iteration_warm(vw, lam, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: int, M: int,
-                          G: int, substeps: int, mu: float):
-    """One outer iteration in the accumulated mode: the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if vw.is_cuda:
-        return _warm_kernel(vw, lam, pb, (rA, rB, nrm, mt, hs, scale, iAI), K, M, G, substeps,
-                            mu)
-    if vw.device.type != "cpu":
-        raise ValueError(f"solver_iteration_warm: unsupported device {vw.device}")
-    return solver_iteration_warm_reference(vw, lam, pb, rA, rB, nrm, mt, hs, scale, iAI, K=K,
-                                           M=M, G=G, substeps=substeps, mu=mu)
-
-
-def _kernel(vw, pb, tables, K, M, G, substeps, mu):
-    global launches
-    Np = vw.shape[0]
-    dev = vw.device
-    v_in, pbi, tabs = _check_tables(vw, pb, tables, K, M, G)
-    out = torch.empty_like(v_in)
-    if Np == 0:
-        return out
-    fn = _build.bind("surtr_solver_iter", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_void_p])
-    rc = fn(v_in.data_ptr(), pbi.data_ptr(), *[t.data_ptr() for t in tabs], out.data_ptr(),
-            Np, K, M, G, max(1, substeps), float(mu), _build.stream_ptr(dev))
-    _build.check(rc, "surtr_solver_iter")
+    l_in = lbuf = None
+    if warm:
+        l_in = lam0.contiguous()
+        if l_in.dtype != torch.float32 or l_in.shape != (Np, 3 * C) or l_in.device != dev:
+            raise ValueError("solver kernel: accumulators must be (Np, 3C) float32")
+    if Np == 0 or outer == 0:
+        return (v_in, l_in) if warm else v_in
+    buf = torch.empty((2, Np, 8), dtype=torch.float32, device=dev)
+    if warm:
+        lbuf = torch.empty((2, Np, 3 * C), dtype=torch.float32, device=dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _build.bind("surtr_solver_solve", [P] * 12 + [I] * 6 + [ctypes.c_float, P])
+    rc = fn(v_in.data_ptr(), pbi.data_ptr(), *[t.data_ptr() for t in tabs],
+            l_in.data_ptr() if warm else None, buf.data_ptr(),
+            lbuf.data_ptr() if warm else None, Np, K, M, G, S, outer, float(mu),
+            _build.stream_ptr(dev))
+    _build.check(rc, "surtr_solver_solve")
+    last = (outer - 1) % 2
+    if warm:
+        warm_launches += 1
+        return buf[last], lbuf[last]
     launches += 1
-    return out
-
-
-def solver_iteration(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: int, M: int, G: int,
-                     substeps: int, mu: float):
-    """One outer iteration: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    if vw.is_cuda:
-        return _kernel(vw, pb, (rA, rB, nrm, mt, hs, scale, iAI), K, M, G, substeps, mu)
-    if vw.device.type != "cpu":
-        raise ValueError(f"solver_iteration: unsupported device {vw.device}")
-    return solver_iteration_reference(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, K=K, M=M, G=G,
-                                      substeps=substeps, mu=mu)
-
-
-def _iterate(iteration, vw0, pb, tables, K, M, G, iters, substeps, mu):
-    S = max(1, substeps)
-    vw = vw0
-    for _ in range((iters + S - 1) // S):
-        vw = iteration(vw, pb, *tables, K=K, M=M, G=G, substeps=S, mu=mu)
-    return vw
+    return buf[last]
 
 
 def solve_reference(vw0, pb, tables, *, K: int, M: int, G: int, iters: int, substeps: int,
                     mu: float):
     """Plain version of ``solve`` (every iteration plain, on any device)."""
-    return _iterate(solver_iteration_reference, vw0, pb, tables, K, M, G, iters, substeps, mu)
+    S = max(1, substeps)
+    vw = vw0
+    for _ in range((iters + S - 1) // S):
+        vw = solver_iteration_reference(vw, pb, *tables, K=K, M=M, G=G, substeps=S, mu=mu)
+    return vw
 
 
 def solve(vw0, pb, tables, *, K: int, M: int, G: int, iters: int, substeps: int, mu: float):
     """ceil(iters / substeps) outer iterations from state ``vw0``; ``tables``
-    = (rA, rB, n, mt, hs, scale, iAI) from B8. Returns the final (Np, 8)."""
-    return _iterate(solver_iteration, vw0, pb, tables, K, M, G, iters, substeps, mu)
-
-
-def _iterate_warm(iteration, vw0, lam0, pb, tables, K, M, G, iters, substeps, mu):
-    S = max(1, substeps)
-    vw, lam = vw0, lam0
-    for _ in range((iters + S - 1) // S):
-        vw, lam = iteration(vw, lam, pb, *tables, K=K, M=M, G=G, substeps=S, mu=mu)
-    return vw, lam
+    = (rA, rB, n, mt, hs, scale, iAI) from B8. Returns the final (Np, 8):
+    one kernel launch for CUDA tensors, the plain version for CPU tensors."""
+    if vw0.is_cuda:
+        return _solve_kernel(vw0, None, pb, tables, K, M, G, iters, substeps, mu)
+    if vw0.device.type != "cpu":
+        raise ValueError(f"solve: unsupported device {vw0.device}")
+    return solve_reference(vw0, pb, tables, K=K, M=M, G=G, iters=iters, substeps=substeps,
+                           mu=mu)
 
 
 def solve_warm_reference(vw0, lam0, pb, tables, *, K: int, M: int, G: int, iters: int,
                          substeps: int, mu: float):
     """Plain version of ``solve_warm`` (every iteration plain, on any device)."""
-    return _iterate_warm(solver_iteration_warm_reference, vw0, lam0, pb, tables, K, M, G, iters,
-                         substeps, mu)
+    S = max(1, substeps)
+    vw, lam = vw0, lam0
+    for _ in range((iters + S - 1) // S):
+        vw, lam = solver_iteration_warm_reference(vw, lam, pb, *tables, K=K, M=M, G=G,
+                                                  substeps=S, mu=mu)
+    return vw, lam
 
 
 def solve_warm(vw0, lam0, pb, tables, *, K: int, M: int, G: int, iters: int, substeps: int,
                mu: float):
     """``solve`` in the accumulated mode from accumulators ``lam0`` (Np, 3C)
-    = [λn | λu | λv]. Returns ((Np, 8) state, (Np, 3C) accumulators)."""
-    return _iterate_warm(solver_iteration_warm, vw0, lam0, pb, tables, K, M, G, iters, substeps,
-                         mu)
+    = [λn | λu | λv]. Returns ((Np, 8) state, (Np, 3C) accumulators): one
+    kernel launch for CUDA tensors, the plain version for CPU tensors."""
+    if vw0.is_cuda:
+        return _solve_kernel(vw0, lam0, pb, tables, K, M, G, iters, substeps, mu)
+    if vw0.device.type != "cpu":
+        raise ValueError(f"solve_warm: unsupported device {vw0.device}")
+    return solve_warm_reference(vw0, lam0, pb, tables, K=K, M=M, G=G, iters=iters,
+                                substeps=substeps, mu=mu)

@@ -14,15 +14,20 @@ minimum: the winning id is the first such triangle in sorted order, mapped
 back to the caller's order. Uncovered pixels keep depth ``BIG`` and id -1;
 the G-buffer is the winner's attribute row, zeros on background.
 
-``rasterize_ids_tiled`` does the sort, packing, boxes and ranges in plain
-PyTorch on the input's device, then ``tile_raster`` launches the kernel for
-CUDA tensors (or raises) and runs the plain version,
-``tile_raster_reference``, for CPU tensors.
+``rasterize_ids_tiled`` builds the table with ``tile_table`` (for CUDA
+tensors two glue launches around one ``torch.sort``, no host sync; for CPU
+tensors the plain ``_tile_table``), then ``tile_raster`` launches the
+kernel for CUDA tensors (or raises) and runs the plain version,
+``tile_raster_reference``, for CPU tensors. The kernel spreads each tile's
+live (tile, chunk) pairs over several CTAs and merges their partial results
+by the packed key ``pack_key``; ``split_raster_reference`` is the plain
+mirror of that split and merge.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,7 +38,10 @@ BIG = 3.4e38
 TH, TW = 16, 128      # tile rows, tile columns
 CHUNK = 64            # triangles per chunk
 
-launches = 0  # kernel launches since the last reset (main-path proof)
+KEY_NONE = (1 << 63) - 1   # packed key of an untouched pixel, above every (z, id) key
+
+launches = 0       # raster kernel launches since the last reset (main-path proof)
+glue_launches = 0  # glue calls (two launches each) since the last reset
 
 
 def _tile_table(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
@@ -102,19 +110,20 @@ def _chunk_pairs(bbox, rng, nty: int, ntx: int):
     return torch.nonzero(live, as_tuple=True)
 
 
-def tile_raster_reference(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int,
-                          pairs_per_batch: int = 64):
-    """Plain B11 on the packed table: (depth (H, W), sorted-domain id (H, W)
-    int32, gbuf (H, W, A) or None).
+def pack_key(z, ids):
+    """The merge key of a (z, id) pair: float32 bits of z above the id, as
+    int64. For z in (0, 1) (subnormals included) and BIG, and 0 <= id <
+    2^31, keys order as (z, id) lexicographically: the smallest key is the
+    smallest z and, on equal z, the first triangle."""
+    return (z.to(torch.float32).view(torch.int32).to(torch.int64) << 32) | ids.to(torch.int64)
 
-    Per (tile, chunk) pair the chunk's best z and first best triangle per
-    pixel, as the kernel computes them; per tile the smallest over its
-    pairs, the first pair in chunk order on ties. That is the kernel's walk
-    (replace on strictly smaller), evaluated in batches of pairs."""
+
+def _pair_bests(attrs, tile_of, chunk_of, ntx: int, pairs_per_batch: int = 64):
+    """Per (tile, chunk) pair and tile pixel (tile-major rows of 2,048): the
+    chunk's smallest covering z in (0, 1) (BIG where none) and the first
+    triangle holding it, as the kernel's walk of one chunk finds them."""
     dev = attrs.device
     PX = TH * TW
-    ntiles = nty * ntx
-    tile_of, chunk_of = _chunk_pairs(bbox, rng, nty, ntx)
     k = torch.arange(PX, device=dev)
     zbest = torch.full((tile_of.shape[0], PX), BIG, dtype=torch.float32, device=dev)
     ibest = torch.zeros((tile_of.shape[0], PX), dtype=torch.int64, device=dev)
@@ -140,7 +149,37 @@ def tile_raster_reference(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, 
         z = torch.where(cov, z, BIG)
         zb_, ib_ = torch.min(z, dim=1)                    # first minimum in the chunk
         zbest[s:s + pairs_per_batch] = zb_
-        ibest[s:s + pairs_per_batch] = chunk_of[s:s + pairs_per_batch, None] * CHUNK + ib_
+        ibest[s:s + pairs_per_batch] = cc[:, None] * CHUNK + ib_
+    return zbest, ibest
+
+
+def _image(zt, tid, attrs, nty: int, ntx: int, H: int, W: int, A: int):
+    """Tile-major (tiles, 2,048) depth and sorted-domain ids (-1 =
+    background) → (depth (H, W), tid (H, W) int32, gbuf (H, W, A) or
+    None)."""
+    Hp, Wp = nty * TH, ntx * TW
+    depth = zt.reshape(nty, ntx, TH, TW).permute(0, 2, 1, 3).reshape(Hp, Wp)[:H, :W]
+    tid = tid.reshape(nty, ntx, TH, TW).permute(0, 2, 1, 3).reshape(Hp, Wp)[:H, :W]
+    gbuf = None
+    if A:
+        gbuf = torch.where((tid >= 0)[..., None], attrs[torch.clamp(tid, min=0), 10:], 0.0)
+    return depth.contiguous(), tid.to(torch.int32).contiguous(), gbuf
+
+
+def tile_raster_reference(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int,
+                          pairs_per_batch: int = 64):
+    """Plain B11 on the packed table: (depth (H, W), sorted-domain id (H, W)
+    int32, gbuf (H, W, A) or None).
+
+    Per (tile, chunk) pair the chunk's best z and first best triangle per
+    pixel, as the kernel computes them; per tile the smallest over its
+    pairs, the first pair in chunk order on ties. That is the kernel's walk
+    (replace on strictly smaller), evaluated in batches of pairs."""
+    dev = attrs.device
+    PX = TH * TW
+    ntiles = nty * ntx
+    tile_of, chunk_of = _chunk_pairs(bbox, rng, nty, ntx)
+    zbest, ibest = _pair_bests(attrs, tile_of, chunk_of, ntx, pairs_per_batch)
     # Per tile: the smallest z over its pairs; the first pair holding it.
     zt = torch.full((ntiles, PX), BIG, dtype=torch.float32, device=dev)
     zt.scatter_reduce_(0, tile_of[:, None].expand(-1, PX), zbest, "amin")
@@ -153,17 +192,105 @@ def tile_raster_reference(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, 
     ibest_ext = torch.cat([ibest, torch.zeros((1, PX), dtype=torch.int64, device=dev)])
     tid = torch.gather(ibest_ext, 0, first)
     tid = torch.where(zt < BIG, tid, -1)
-    # Tile-major rows → image.
-    Hp, Wp = nty * TH, ntx * TW
-    depth = zt.reshape(nty, ntx, TH, TW).permute(0, 2, 1, 3).reshape(Hp, Wp)[:H, :W]
-    tid = tid.reshape(nty, ntx, TH, TW).permute(0, 2, 1, 3).reshape(Hp, Wp)[:H, :W]
-    gbuf = None
-    if A:
-        gbuf = torch.where((tid >= 0)[..., None], attrs[torch.clamp(tid, min=0), 10:], 0.0)
-    return depth.contiguous(), tid.to(torch.int32).contiguous(), gbuf
+    return _image(zt, tid, attrs, nty, ntx, H, W, A)
 
 
-def _kernel(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int):
+def split_raster_reference(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int,
+                           slices: int):
+    """Plain mirror of the kernel's split and merge: the tile-major list of
+    live (tile, chunk) pairs cut into ``slices`` equal contiguous slices
+    (slice c holds pairs [c·L // slices, (c + 1)·L // slices)); each slice
+    walks its pairs in order, replacing a pixel only on a strictly smaller
+    z below 1, and each tile's partials merge by the smallest ``pack_key``.
+    Returns what ``tile_raster_reference`` returns."""
+    dev = attrs.device
+    PX = TH * TW
+    tile_of, chunk_of = _chunk_pairs(bbox, rng, nty, ntx)
+    zbest, ibest = _pair_bests(attrs, tile_of, chunk_of, ntx)
+    L = tile_of.shape[0]
+    keys = torch.full((nty * ntx, PX), KEY_NONE, dtype=torch.int64, device=dev)
+    for c in range(slices):
+        p, s1 = c * L // slices, (c + 1) * L // slices
+        while p < s1:
+            t = int(tile_of[p])
+            thr = torch.ones(PX, dtype=torch.float32, device=dev)
+            ids = torch.full((PX,), -1, dtype=torch.int64, device=dev)
+            while p < s1 and int(tile_of[p]) == t:
+                take = zbest[p] < thr
+                thr = torch.where(take, zbest[p], thr)
+                ids = torch.where(take, ibest[p], ids)
+                p += 1
+            part = torch.where(ids >= 0, pack_key(thr, torch.clamp(ids, min=0)), KEY_NONE)
+            keys[t] = torch.minimum(keys[t], part)
+    hit = keys != KEY_NONE
+    zt = torch.where(hit, (keys >> 32).to(torch.int32).view(torch.float32), BIG)
+    tid = torch.where(hit, keys & 0xFFFFFFFF, -1)
+    return _image(zt, tid, attrs, nty, ntx, H, W, A)
+
+
+@functools.lru_cache(maxsize=None)
+def _fns():
+    """B11's three C entry points: the glue's key and pack, the raster."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return (_build.bind("surtr_raster_key", [P, P, P] + [I] * 4 + [P, P, P, P]),
+            _build.bind("surtr_raster_pack", [P] * 5 + [I, P] + [I] * 4 + [P] * 5),
+            _build.bind("surtr_raster", [P] * 4 + [I] + [P] * 4 + [I] * 5 + [P]))
+
+
+def _glue_kernel(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
+    """``_tile_table`` on the card: the centre-tile key (first launch), one
+    stable ``torch.sort``, then the sorted table, the chunk boxes and the
+    tile ranges (second launch). No host sync."""
+    global glue_launches
+    T = sx.shape[0]
+    dev = sx.device
+    A = 0 if attr_tab is None else attr_tab.shape[1]
+    for t in (sx, sy, sz):
+        if t.shape != (T, 3) or t.device != dev:
+            raise ValueError("raster glue takes (T, 3) screen x, y and z on one device")
+    if ok.shape != (T,) or ok.dtype != torch.bool or T == 0:
+        raise ValueError("raster glue takes T >= 1 triangles and an (T,) bool mask")
+    if not 0 <= A <= 16:
+        raise ValueError(f"raster glue takes 0 <= A <= 16 G-buffer columns, got {A}")
+    nty, ntx = -(-H // TH), -(-W // TW)
+    ntiles = nty * ntx
+    nblk = -(-T // CHUNK)
+    D = 10 + A
+    sx, sy, sz = (t.to(torch.float32).contiguous() for t in (sx, sy, sz))
+    okc = ok.contiguous()
+    attr = attr_tab.to(torch.float32).contiguous() if A else None
+    # int32 scratch: sort key (T), tile ranges (ntiles, 2), the pack's CTA
+    # count; float32: chunk boxes (nblk, 4), then the table (16-byte aligned).
+    ints = torch.empty((T + 2 * ntiles + 1,), dtype=torch.int32, device=dev)
+    flts = torch.empty((4 * nblk + nblk * CHUNK * D,), dtype=torch.float32, device=dev)
+    key, rng, done = ints[:T], ints[T:T + 2 * ntiles], ints[T + 2 * ntiles:]
+    bbox, attrs = flts[:4 * nblk].view(nblk, 4), flts[4 * nblk:].view(nblk * CHUNK, D)
+    stream = _build.stream_ptr(dev)
+    key_fn, pack_fn, _ = _fns()
+    _build.check(key_fn(sx.data_ptr(), sy.data_ptr(), okc.data_ptr(), T, ntx, nty, nblk,
+                        key.data_ptr(), rng.data_ptr(), done.data_ptr(), stream),
+                 "surtr_raster_key")
+    order = torch.sort(key, stable=True).indices
+    _build.check(pack_fn(sx.data_ptr(), sy.data_ptr(), sz.data_ptr(), okc.data_ptr(),
+                         attr.data_ptr() if A else None, A, order.data_ptr(), T, nblk, ntx, nty,
+                         attrs.data_ptr(), bbox.data_ptr(), rng.data_ptr(), done.data_ptr(),
+                         stream), "surtr_raster_pack")
+    glue_launches += 1
+    return attrs, bbox, rng.view(ntiles, 2), order, (nty, ntx)
+
+
+def tile_table(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
+    """Sort, pack, chunk boxes and tile ranges (what ``_tile_table``
+    returns): the glue kernels for CUDA tensors, ``_tile_table`` for CPU
+    tensors."""
+    if sx.is_cuda:
+        return _glue_kernel(sx, sy, sz, ok, W, H, attr_tab)
+    if sx.device.type != "cpu":
+        raise ValueError(f"tile_table: unsupported device {sx.device}")
+    return _tile_table(sx, sy, sz, ok, W, H, attr_tab)
+
+
+def _kernel(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int, order=None):
     global launches
     if attrs.dtype != torch.float32 or attrs.dim() != 2 or attrs.shape[1] != 10 + A \
             or attrs.shape[0] % CHUNK or bbox.shape != (attrs.shape[0] // CHUNK, 4) \
@@ -173,35 +300,45 @@ def _kernel(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int):
                          "(T_pad / 64, 4) chunk boxes and (tiles, 2) int32 ranges")
     if not 0 <= A <= 16:
         raise ValueError(f"raster kernel takes 0 <= A <= 16 G-buffer columns, got {A}")
+    if (nty * ntx + 1) * 4 > 40 * 1024:
+        raise ValueError(f"raster kernel takes at most 10,239 tiles, got {nty * ntx}")
+    if bbox.data_ptr() % 16:
+        bbox = bbox.clone()
     dev = attrs.device
-    fn = _build.bind("surtr_raster", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p])
+    if order is not None:
+        order = order.to(torch.int64).contiguous()
     depth = torch.empty((H, W), dtype=torch.float32, device=dev)
     tid = torch.empty((H, W), dtype=torch.int32, device=dev)
     gbuf = torch.empty((H, W, A), dtype=torch.float32, device=dev) if A else None
-    rc = fn(attrs.data_ptr(), bbox.data_ptr(), rng.data_ptr(), depth.data_ptr(),
-            tid.data_ptr(), gbuf.data_ptr() if A else None, H, W, ntx, nty, A,
-            _build.stream_ptr(dev))
+    scratch = torch.empty((nty * ntx * (TH * TW * 8 + 4),), dtype=torch.uint8, device=dev)
+    rc = _fns()[2](attrs.data_ptr(), bbox.data_ptr(), rng.data_ptr(),
+                   None if order is None else order.data_ptr(),
+                   0 if order is None else order.shape[0], depth.data_ptr(), tid.data_ptr(),
+                   gbuf.data_ptr() if A else None, scratch.data_ptr(), H, W, ntx, nty, A,
+                   _build.stream_ptr(dev))
     _build.check(rc, "surtr_raster")
     launches += 1
     return depth, tid, gbuf
 
 
-def tile_raster(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int):
-    """B11 on the packed table: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if attrs.is_cuda:
-        return _kernel(attrs, bbox, rng, nty, ntx, H, W, A)
-    if attrs.device.type != "cpu":
-        raise ValueError(f"tile_raster: unsupported device {attrs.device}")
-    return tile_raster_reference(attrs, bbox, rng, nty, ntx, H, W, A)
-
-
-def _finish(T, order, depth, tid, gbuf):
+def _finish(order, depth, tid, gbuf):
     """Sorted-domain ids back to the caller's order (-1 stays -1)."""
+    T = order.shape[0]
     order_ext = torch.cat([order, torch.full((1,), -1, dtype=order.dtype, device=order.device)])
     tid = order_ext[torch.where((tid >= 0) & (tid < T), tid, T).long()].to(torch.int32)
-    return (depth, tid) if gbuf is None else (depth, tid, gbuf)
+    return depth, tid, gbuf
+
+
+def tile_raster(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int, order=None):
+    """B11 on the packed table: (depth, tid, gbuf or None) with sorted-domain
+    ids, or with ``order`` (the table's sort) ids in the caller's order. The
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if attrs.is_cuda:
+        return _kernel(attrs, bbox, rng, nty, ntx, H, W, A, order)
+    if attrs.device.type != "cpu":
+        raise ValueError(f"tile_raster: unsupported device {attrs.device}")
+    out = tile_raster_reference(attrs, bbox, rng, nty, ntx, H, W, A)
+    return out if order is None else _finish(order, *out)
 
 
 def rasterize_ids_tiled(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
@@ -210,7 +347,6 @@ def rasterize_ids_tiled(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
     int32 in the caller's order, -1 = background), and gbuf (H, W, A) =
     attr_tab[tid] (zeros on background) when ``attr_tab`` (T, A) is given."""
     A = 0 if attr_tab is None else attr_tab.shape[1]
-    attrs, bbox, rng, order, (nty, ntx) = _tile_table(sx, sy, sz, ok, W, H, attr_tab)
-    out = tile_raster(attrs, bbox, rng, nty, ntx, H, W, A)
-    return _finish(sx.shape[0], order, *out)
-
+    attrs, bbox, rng, order, (nty, ntx) = tile_table(sx, sy, sz, ok, W, H, attr_tab)
+    depth, tid, gbuf = tile_raster(attrs, bbox, rng, nty, ntx, H, W, A, order)
+    return (depth, tid) if gbuf is None else (depth, tid, gbuf)

@@ -209,3 +209,33 @@ def test_tangent_basis_matches():
     for g3, w3 in zip(got, want):
         for g, w in zip(g3, w3):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)
+
+
+@pytest.mark.parametrize("variant", ["pb_int32", "strided", "pb_int32_strided"])
+@pytest.mark.parametrize("warm", [False, True], ids=["plain_mode", "accumulated_mode"])
+def test_solve_bits_do_not_depend_on_partner_dtype_or_table_strides(prep, warm, variant):
+    # ``solve`` and ``solve_warm`` check and convert the partner index, the
+    # state and the tables once a solve (on the card, before its one
+    # launch); the result must not depend on pb's integer type or on the
+    # inputs' strides.
+    _, partner, v0, w0, wake, _, got_tabs = prep
+    tables = list(got_tabs[:7])
+    vw0 = torch.cat([torch.as_tensor(v0), torch.as_tensor(w0), torch.as_tensor(wake)[:, None],
+                     torch.zeros((NP, 1))], 1)
+    lam0 = torch.as_tensor(np.ascontiguousarray(
+        _warm_lam(tables[4][:, :C].numpy()).transpose(0, 2, 1).reshape(NP, 3 * C)))
+    kw = dict(K=K, M=M, G=G, iters=8, substeps=CFG.solver_substeps, mu=CFG.dynamic_friction)
+
+    def run(pb, vw, lam, tabs):
+        out = solver_cuda.solve_warm(vw, lam, pb, tabs, **kw) if warm else \
+            (solver_cuda.solve(vw, pb, tabs, **kw),)
+        return [o.view(torch.int32) for o in out]
+
+    base = run(torch.as_tensor(partner, dtype=torch.int64), vw0, lam0, tables)
+    pb = torch.as_tensor(partner, dtype=torch.int32 if "int32" in variant else torch.int64)
+    vw, lam, tabs = vw0, lam0, tables
+    if "strided" in variant:
+        vw, lam, *tabs = (t.T.contiguous().T for t in [vw0, lam0, *tables])
+        assert not any(t.is_contiguous() for t in (vw, lam, *tabs))
+    for g, w in zip(run(pb, vw, lam, tabs), base):
+        assert torch.equal(g, w)

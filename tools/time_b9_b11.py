@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Per-call times of kernels B9 (the contact solver's iterations) and B11
+(tiled z-buffer raster, with its glue) on the card, held against their plain
+versions first.
+
+    python3 tools/time_b9_b11.py [--out FILE.json]
+    PYTHONPATH=<other checkout> python3 tools/time_b9_b11.py [--out FILE.json]
+
+The second form measures another checkout's ``surtr_tpu_torch`` (and uses
+its ``chip_smoke.py`` helpers), so two trees can be compared in one session
+on one card. It prints the package path it measured.
+
+B9: the solve of the 10k lattice's 64th step (bench_physics_10k, "auto")
+and the accumulated-mode solve of the warm-start lattice's 32nd step: the
+wrapper's time (CUDA events around ``solve`` / ``solve_warm``, median of
+20), the device time of the kernels named *solver_* and of everything else
+the call runs on the device, and the device launches of one solve. B11: the
+first interactive frame's two calls (shadow and camera, ``Scene("cube",
+INTERACTIVE_CFG)``) and render_512's at shadow 512 and 1024: per call the
+wrapper's time (``rasterize_ids_tiled``: glue and kernel), the device time
+of the kernel (*raster_kernel*) and of the rest of the call (the glue), the
+call's device launches, and the live (tile, chunk) pairs with the most in
+one tile. Before timing, both solves must match the plain version (bitwise
+equality is printed; the tool fails beyond 1e-5 x (1 + |v|)), and B11's
+kernel its plain version bitwise on every call's table. Needs one NVIDIA
+GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+
+def fail(msg):
+    print(f"time_b9_b11: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def device_split(fn, kernel: str, runs: int = 20):
+    """(kernel device ms, other device ms, device launches, kernel launches)
+    per call of ``fn`` under torch.profiler, after one warm-up call; a trace
+    that lacks the kernel is taken once more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        k_us = o_us = n = nk = 0.0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0))
+            if kernel in e.key:
+                k_us += us
+                nk += e.count
+            else:
+                o_us += us
+            n += e.count
+        if k_us > 0.0:
+            return k_us / runs / 1e3, o_us / runs / 1e3, n / runs, nk / runs
+    fail(f"the profiler shows no device kernel named *{kernel}*")
+
+
+def capture(mod, attr, fn):
+    """The (args, kwargs) of every call ``fn`` makes to ``mod.attr``."""
+    calls = []
+    orig = getattr(mod, attr)
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+
+    setattr(mod, attr, rec)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        setattr(mod, attr, orig)
+    return calls
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the results as JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this tool needs an NVIDIA GPU")
+    import chip_smoke as cs
+    import surtr_tpu_torch
+    from surtr_tpu_torch import workload
+    from surtr_tpu_torch.physics import solver_cuda
+    from surtr_tpu_torch.physics import step as phys_step
+    from surtr_tpu_torch.render import raster as render_raster
+    from surtr_tpu_torch.render import raster_cuda
+
+    pkg = os.path.dirname(os.path.abspath(surtr_tpu_torch.__file__))
+    card = workload.card()
+    print(f"package {pkg}; {card}", flush=True)
+    out = {"package": pkg, "card": card}
+
+    # B9: the main path's solve and the warm-start path's.
+    solves = {
+        "solve, 10k lattice step 64": (
+            capture(phys_step, "solve", lambda: workload.run_physics(workload.PHYSICS_STEPS))[-1],
+            solver_cuda.solve, solver_cuda.solve_reference),
+        "solve_warm, warm lattice step 32": (
+            capture(phys_step, "solve_warm",
+                    lambda: workload.run_physics(32, cfg=workload.WARM_CFG))[-1],
+            solver_cuda.solve_warm, solver_cuda.solve_warm_reference),
+    }
+    out["b9"] = {}
+    for name, ((a, kw), fn, plain) in solves.items():
+        got, want = (o if isinstance(o, tuple) else (o,) for o in (fn(*a, **kw), plain(*a, **kw)))
+        bitwise = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                      for g, w in zip(got, want))
+        if not all(bool(((g - w).abs() <= 1e-5 * (1 + w.abs())).all()) for g, w in zip(got, want)):
+            fail(f"B9 {name}: differs from the plain version beyond 1e-5 x (1 + |v|)")
+        call = lambda a=a, kw=kw, fn=fn: fn(*a, **kw)  # noqa: E731
+        ms = cs.event_ms(call)
+        dev, other, n, nk = device_split(call, "solver_")
+        S = max(1, kw["substeps"])
+        outer = (kw["iters"] + S - 1) // S
+        out["b9"][name] = {"ms": ms, "kernel_device_ms": dev, "other_device_ms": other,
+                           "device_launches": n, "kernel_launches": nk, "iterations": outer,
+                           "bitwise": bitwise, "Np": int(a[0].shape[0])}
+        print(f"B9 {name}: wrapper {ms:.4f} ms; kernel {dev:.4f} ms on the device in {nk:.0f} "
+              f"launches for {outer} iterations, {other:.4f} ms beside it; {n:.0f} device "
+              f"launches a solve; bitwise {bitwise} ({card})", flush=True)
+
+    # B11: the frame's first two calls and render_512's.
+    scene = workload.interactive_scene("cuda")
+    sets = {"interactive frame": capture(render_raster, "rasterize_ids_tiled",
+                                         lambda: workload.run_frames(scene, 1))}
+    inputs = workload.render_512_inputs("cuda")
+    for shadow in (512, 1024):
+        sets[f"render_512, shadow {shadow}"] = capture(
+            render_raster, "rasterize_ids_tiled",
+            lambda s=shadow: workload.run_render_512("cuda", s, inputs))
+    out["b11"] = {}
+    for name, calls in sets.items():
+        rows = []
+        for a, kw in calls:
+            attrs, bbox, rng, _, (nty, ntx) = raster_cuda._tile_table(*a, **kw)
+            W, H = a[4], a[5]
+            A = attrs.shape[1] - 10
+            tab = (attrs, bbox, rng, nty, ntx, H, W, A)
+            for g, w in zip(raster_cuda.tile_raster(*tab), raster_cuda.tile_raster_reference(*tab)):
+                if (g is None) != (w is None) or (g is not None and not torch.equal(
+                        cs._bits(g), cs._bits(w))):
+                    fail(f"B11 {name}: the kernel differs from its plain version")
+            tiles, _ = raster_cuda._chunk_pairs(bbox, rng, nty, ntx)
+            call = lambda a=a, kw=kw: raster_cuda.rasterize_ids_tiled(*a, **kw)  # noqa: E731
+            ms = cs.event_ms(call)
+            dev, glue, n, nk = device_split(call, "raster_kernel")
+            row = {"shape": [int(attrs.shape[0]), A, H, W], "ms": ms, "kernel_device_ms": dev,
+                   "glue_device_ms": glue, "device_launches": n, "kernel_launches": nk,
+                   "live_pairs": int(tiles.numel()),
+                   "max_tile_pairs": int(torch.bincount(tiles).max()) if tiles.numel() else 0}
+            rows.append(row)
+            print(f"B11 {name} [T_pad, A, H, W] {row['shape']}: wrapper {ms:.4f} ms; kernel "
+                  f"{dev:.4f} ms and the rest {glue:.4f} ms on the device, {n:.0f} device "
+                  f"launches; {row['live_pairs']} live pairs, {row['max_tile_pairs']} in the "
+                  f"densest tile ({card})", flush=True)
+        tot = {k: sum(r[k] for r in rows) for k in ("ms", "kernel_device_ms", "glue_device_ms",
+                                                    "device_launches")}
+        out["b11"][name] = {"calls": rows, **tot}
+        print(f"B11 {name}, {len(rows)} calls: wrapper {tot['ms']:.4f} ms, kernel "
+              f"{tot['kernel_device_ms']:.4f} ms and glue {tot['glue_device_ms']:.4f} ms on the "
+              f"device, {tot['device_launches']:.0f} device launches; kernel bitwise ({card})",
+              flush=True)
+    print(json.dumps(out), flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(out, fh, indent=1)
+
+
+if __name__ == "__main__":
+    # After PYTHONPATH: a checkout named there is the one measured.
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    main()
