@@ -15,14 +15,17 @@ Phases (any failure exits non-zero):
      every kernel ran;
   5. the same event through the plain path on the CPU, compared;
   6. median ms per event on the card;
-  7. per physics kernel (B5 pack, B6 sweep-and-prune, B7 narrowphase, B8
-     contact prep, B9 solver iteration, B12 Morton window, B9's
-     accumulated mode): the kernel against its plain version on the inputs
-     of the last of the 64 steps of the 10k lattice (pair and ground hits
-     asserted present; the accumulated mode's of the 32nd step of a
-     warm-start run) plus degenerate cases, with times; B6, B9 (both modes)
-     and B12 bitwise; B9's device time a launch and a step and its device
-     launches a solve;
+  7. per physics kernel (B5 pack with its owner gather, B6 sweep-and-prune,
+     B7 narrowphase, B8 contact prep from the pair records, B9 solver
+     iteration, B12 Morton window, B9's accumulated mode): the kernel
+     against its plain version on the inputs of the last of the 64 steps of
+     the 10k lattice (pair and ground hits asserted present; the
+     accumulated mode's of the 32nd step of a warm-start run) plus
+     degenerate cases (for B5 and B8: one row, a count that is not a
+     multiple of a block, -1 owners and partners, every slot missed, NaN
+     depth), with times; B5, B6, B8, B9 (both modes) and B12 bitwise; B5,
+     B7 and B8's device time and device launches a call, B9's a launch and
+     a step and its device launches a solve;
   8. the physics main path: ``workload.run_physics(64)`` at bench.py:207's
      configuration ("auto" broadphase on 10,000 pieces) on ``cuda:0``,
      launches pack 1, B6 1, narrowphase 1, prep 1, solver 1 on every step
@@ -37,7 +40,10 @@ Phases (any failure exits non-zero):
      the CPU plain run after 16; (e) the lattice bound in pairs (5,000
      two-cube compound bodies), 32 steps, compared likewise;
  10. ms per physics step, a per-stage split and the device idle share;
-     ms per step of (b), (d) and (e) and the stage splits of (d) and (e);
+     per step each kernel's device ms and launches and, per stage, the
+     host events of the CUDA API (kernel launches, copies, memsets,
+     synchronizes) under torch.profiler; ms per step of (b), (d) and (e)
+     and the stage splits of (d) and (e);
  11. the sphere's 1k decomposition (the culled pair-pool mesh clip) on
      ``cuda:0``, launches B10 1 and B1-B4 as in phase 4, compared with the
      CPU plain run;
@@ -58,8 +64,9 @@ Phases (any failure exits non-zero):
      inputs; per call the wrapper's time, the kernel's and the glue's device
      time and device launches, the live (tile, chunk) pairs and the most in
      one tile; times per input set and its bound; B1, B3 and B4 on the first
-     frame's calls and B5, B7 on the last frame's step against their plain
-     versions, timed at the frame's shapes;
+     frame's calls and B5 (bitwise, with its degenerate inputs at Vh = 64),
+     B7 on the last frame's step against their plain versions, timed at the
+     frame's shapes;
  16. the interactive frame (BASELINE config 4, bench.py:372-434):
      ``Scene("cube", INTERACTIVE_CFG)`` on ``cuda:0`` and 16 chained
      ``interactive_frame`` calls, launches per frame B11 2 (and its glue
@@ -114,6 +121,7 @@ from surtr_tpu_torch.render import raster_cuda
 from surtr_tpu_torch import scene as scene_mod
 from surtr_tpu_torch.types import ConvexPoly, unit_cube
 from surtr_tpu_torch.workload import run_prepare
+from tools.time_b5_b8 import HOST_EVENTS, step_profile
 
 KERNELS = {
     "clip_fold": (clip_cuda, "surtr_tpu_torch/csrc/clip_fold.cu",
@@ -340,7 +348,8 @@ KERNEL_FN = {"clip_fold": clip_cuda.clip_planes_batch, "ich": hull_cuda.ich,
              "refit": refit_cuda.refit_planes_batch}
 # Name fragments of each kernel's device functions (torch.profiler keys).
 DEVICE_NAME = {"clip_fold": "clip_fold", "ich": "ich_kernel", "labels": "labels_kernel",
-               "refit": "refit_kernel", "pack": "pack_kernel", "narrowphase": "narrow_kernel"}
+               "refit": "refit_kernel", "pack": "pack_kernel", "narrowphase": "narrow_kernel",
+               "prep": "prep_kernel", "broadphase_sorted": "bp_sorted_kernel"}
 
 
 def per_call_times(name, calls, fn=None, required=True):
@@ -439,14 +448,14 @@ def decomposition_bound(name, calls):
 PHYS_KERNELS = {
     # name: (module, launch counter, source, TPU kernel, step attribute)
     "pack": (pack_cuda, "launches", "surtr_tpu_torch/csrc/pack.cu",
-             "surtr_tpu/physics/pack_pallas.py:31", "transform_pack"),
+             "surtr_tpu/physics/pack_pallas.py:31", "transform_pack_owned"),
     "broadphase_exact": (broadphase_cuda, "exact_launches",
                          "surtr_tpu_torch/csrc/broadphase_exact.cu",
                          "surtr_tpu/physics/broadphase_pallas.py:221", "broadphase_exact"),
     "narrowphase": (narrowphase_cuda, "launches", "surtr_tpu_torch/csrc/narrowphase.cu",
                     "surtr_tpu/physics/narrowphase_pallas.py:103", "narrowphase"),
     "prep": (prep_cuda, "launches", "surtr_tpu_torch/csrc/prep.cu",
-             "surtr_tpu/physics/prep_pallas.py:42", "prep_contacts"),
+             "surtr_tpu/physics/prep_pallas.py:42", "prep_from_records"),
     "solver": (solver_cuda, "launches", "surtr_tpu_torch/csrc/solver.cu",
                "surtr_tpu/physics/solver_pallas.py:53", "solve"),
     "broadphase_sorted": (broadphase_cuda, "sorted_launches",
@@ -549,10 +558,10 @@ class LaunchCheck:
 
 def hit_counts(prep_call):
     """(pair hit slots, ground hit slots) of a recorded prep call."""
-    a, kw, _ = prep_call
+    _, kw, out = prep_call
     K, M, G = kw["K"], kw["M"], kw["G"]
     C = K * M + G
-    hit = a[1][:, C:] > 0.5
+    hit = out[4][:, :C] > 0.5
     return int(hit[:, : K * M].sum()), int(hit[:, K * M :].sum())
 
 
@@ -584,22 +593,31 @@ def _exact(name, what, got, want):
              f"({len(bad)} in all)")
 
 
+def _same_bits(name, what, got, want):
+    """Every float of ``got`` has the bits of ``want``'s (NaN against NaN of
+    any payload); fails naming the rows that differ. Returns the largest
+    difference, 0."""
+    got, want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    if got.shape != want.shape:
+        fail(f"{name}: {what} has shape {tuple(got.shape)}, the plain version {tuple(want.shape)}")
+    bad = (got.view(torch.int32) != want.view(torch.int32)) & ~(torch.isnan(got)
+                                                                & torch.isnan(want))
+    if bool(bad.any()):
+        rows = torch.nonzero(bad.any(1)).flatten().tolist()
+        i = rows[0]
+        j = int(torch.nonzero(bad[i])[0])
+        fail(f"{name}: {what} differ from the plain version in rows {rows[:10]} ({len(rows)} in "
+             f"all; row {i} column {j}: {float(got[i, j])!r} against {float(want[i, j])!r})")
+    return 0.0
+
+
 def compare_pack(a, kw):
-    """Mask columns exactly; per piece, every float of the packed row and
-    the AABB row within 1e-5 x the piece's scale (its largest world
-    coordinate, at least 1)."""
-    got = pack_cuda.transform_pack(*a, **kw)
-    want = pack_cuda.transform_pack_reference(*a, **kw)
-    Vh, F, Ne = a[0].shape[1], a[2].shape[1], a[4].shape[1]
-    offs, _ = pack_cuda.pack_layout(Vh, F, Ne)
-    for name in ("wm", "pm", "em"):
-        if name in offs:
-            o, n = offs[name]
-            _exact("pack", f"mask column {name}", got[0][:, o : o + n], want[0][:, o : o + n])
-    scale = _rowscale(want[0][:, : 3 * Vh])
-    e1 = _rows_close("pack", "packed rows", got[0], want[0], scale)
-    e2 = _rows_close("pack", "AABB rows", got[1], want[1], scale)
-    return max(e1, e2)
+    """The packed rows and the AABB rows bitwise equal to the plain
+    version's (the owner gather included)."""
+    got = pack_cuda.transform_pack_owned(*a, **kw)
+    want = pack_cuda.transform_pack_owned_reference(*a, **kw)
+    return max(_same_bits("pack", "packed rows", got[0], want[0]),
+               _same_bits("pack", "AABB rows", got[1], want[1]))
 
 
 def compare_narrowphase(a, kw):
@@ -619,18 +637,13 @@ def compare_narrowphase(a, kw):
 
 
 def compare_prep(a, kw):
-    """hit/static exactly; every other table per row within 1e-5 x the
-    row's scale."""
-    got = prep_cuda.prep_contacts(*a, **kw)
-    want = prep_cuda.prep_contacts_reference(*a, **kw)
+    """All eight tables bitwise equal to the plain version's (the slot
+    assembly and the partner gather included; NaN targets of dead partners
+    against NaN)."""
+    got = prep_cuda.prep_from_records(*a, **kw)
+    want = prep_cuda.prep_from_records_reference(*a, **kw)
     names = ["rA", "rB", "n", "m_eff|target", "hit|static", "scale", "inv_I", "vn0"]
-    err = 0.0
-    for nm, g, w in zip(names, got, want):
-        if nm == "hit|static":
-            _exact("prep", nm, g, w)
-        else:
-            err = max(err, _rows_close("prep", nm, g, w, _rowscale(w)))
-    return err
+    return max(_same_bits("prep", nm, g, w) for nm, g, w in zip(names, got, want))
 
 
 def compare_solver(a, kw):
@@ -685,19 +698,19 @@ PHYS_COMPARE = {"pack": compare_pack, "broadphase_exact": compare_broadphase_exa
                 "solver": compare_solver, "broadphase_sorted": compare_broadphase_sorted,
                 "solver_warm": compare_solver_warm}
 PHYS_PLAIN = {
-    "pack": pack_cuda.transform_pack_reference,
+    "pack": pack_cuda.transform_pack_owned_reference,
     "broadphase_exact": broadphase_cuda.broadphase_exact_reference,
     "narrowphase": narrowphase_cuda.narrowphase_reference,
-    "prep": prep_cuda.prep_contacts_reference,
+    "prep": prep_cuda.prep_from_records_reference,
     "solver": solver_cuda.solve_reference,
     "broadphase_sorted": broadphase_cuda.broadphase_sorted_reference,
     "solver_warm": solver_cuda.solve_warm_reference,
 }
 PHYS_KERNEL_FN = {
-    "pack": pack_cuda.transform_pack,
+    "pack": pack_cuda.transform_pack_owned,
     "broadphase_exact": broadphase_cuda.broadphase_exact,
     "narrowphase": narrowphase_cuda.narrowphase,
-    "prep": prep_cuda.prep_contacts,
+    "prep": prep_cuda.prep_from_records,
     "solver": solver_cuda.solve,
     "broadphase_sorted": broadphase_cuda.broadphase_sorted,
     "solver_warm": solver_cuda.solve_warm,
@@ -770,23 +783,67 @@ def physics_bound(name, a, kw, out):
 
 
 def with_sleepers(prep_call, solver_call):
-    """Copies of captured prep/solver inputs with every 7th partner marked
-    asleep and every 5th body carrying the wake seed; the solver's tables are
-    rebuilt from the changed prep inputs by the plain prep. The solver call
-    is (state, partners, tables) or, in the accumulated mode, (state,
-    impulses, partners, tables)."""
+    """Copies of captured prep/solver inputs with every 7th body marked
+    asleep (a sleeping partner wherever a slot names one) and every 5th body
+    carrying the wake seed; the solver's tables are rebuilt from the changed
+    prep inputs by the plain prep. The prep call is (records, partners,
+    ground points, depths, hits, x, v0, w0, inv_m, inv_I, asleep); the
+    solver call is (state, partners, tables) or, in the accumulated mode,
+    (state, impulses, partners, tables)."""
     a, kw, _ = prep_call
-    pt3, dh, pn3, btf, own = a
-    K = kw["K"]
-    btf = btf.clone()
-    every7 = torch.arange(btf.shape[0] * K, device=btf.device).reshape(-1, K) % 7 == 0
-    btf[:, 19 * K : 20 * K][every7] = 1.0
-    tables = prep_cuda.prep_contacts_reference(pt3, dh, pn3, btf, own, **kw)
+    asleep = a[10].clone()
+    asleep[::7] = True
+    a = (*a[:10], asleep)
+    tables = prep_cuda.prep_from_records_reference(*a, **kw)
     sa, skw, _ = solver_call
     vw0 = sa[0].clone()
     vw0[::5, 6] = 1.0
     rest = sa[1:-1]
-    return ((pt3, dh, pn3, btf, own), kw), ((vw0, *rest, tuple(tables[:-1])), skw)
+    return (a, kw), ((vw0, *rest, tuple(tables[:-1])), skw)
+
+
+def pack_edge_cases(call):
+    """B5's degenerate inputs beside a recorded call: one piece; a count
+    that is not a multiple of a block's pieces (8 at Vh <= 16, 4 above);
+    owners of -1 and past the last body, invalid pieces, and a piece whose
+    corners are all masked (its intervals stay at +-BIG)."""
+    a, kw = call[:2]
+    verts, vmask, planes, pmask, edges, emask, owner, valid, q, x = a[:10]
+    n = min(13, verts.shape[0])
+    cut = lambda t: t[:n]  # noqa: E731
+    sub = (*map(cut, (verts, vmask, planes, pmask, edges, emask, owner, valid)), q, x, *a[10:])
+    own, val, vm = owner[:n].clone(), valid[:n].clone(), vmask[:n].clone()
+    own[1::4] = -1
+    own[2] = q.shape[0] + 5
+    val[3::5] = False
+    vm[min(4, n - 1)] = False
+    odd = (verts[:n], vm, planes[:n], pmask[:n], edges[:n], emask[:n], own, val, q, x, *a[10:])
+    one = (*(t[:1] for t in (verts, vmask, planes, pmask, edges, emask, owner, valid)), q, x,
+           *a[10:])
+    return [(one, kw), (sub, kw), (odd, kw)]
+
+
+def prep_edge_cases(call):
+    """B8's degenerate inputs beside a recorded call: one row; 10 rows (not
+    a multiple of a block's rows); every slot missed; NaN depth on the
+    slots of a dead partner, partners of -1 and past the last row."""
+    a, kw = call[:2]
+    raw, pidx, g_pts, gd, g_hit = a[:5]
+    bodies = a[5:]
+    one = (raw[:1], pidx[:1], g_pts[:1], gd[:1], g_hit[:1], *(t[:1] for t in bodies))
+    n = min(10, raw.shape[0])
+    ten = (raw[:n], pidx[:n], g_pts[:n], gd[:n], g_hit[:n], *(t[:n] for t in bodies))
+    missed = raw.clone()
+    missed[:, :, 4] = 0.0
+    missed[:, :, 6::6] = 0.0
+    none = (missed, pidx, g_pts, gd, torch.zeros_like(g_hit), *bodies)
+    dead, pk = raw.clone(), pidx.clone()
+    dead[::3, ::2, 5::6] = float("nan")
+    dead[::3, ::2, 0:3] = 0.0
+    pk[1::4, 1] = -1
+    pk[2::4, 2] = raw.shape[0] + 3
+    nan = (dead, pk, g_pts, gd, g_hit, *bodies)
+    return [(one, kw), (ten, kw), (none, kw), (nan, kw)]
 
 
 def degenerate_physics_scene(device):
@@ -910,11 +967,12 @@ def physics_kernel_phase(card):
     K = cfg.max_neighbors
     bcases = broadphase_cases("cuda")
     cases = {
-        "pack": [main["pack"], (dcalls["pack"][0], dcalls["pack"][1])],
+        "pack": [main["pack"], (dcalls["pack"][0], dcalls["pack"][1])]
+        + pack_edge_cases(main["pack"]),
         "broadphase_exact": [main["broadphase_exact"]] + [(b + (K,), {}) for b in bcases.values()],
         "narrowphase": [main["narrowphase"]] + dnar,
         "prep": [main["prep"], sleepy_prep, (dcalls["prep"][0], dcalls["prep"][1]),
-                 dsleepy_prep],
+                 dsleepy_prep] + prep_edge_cases(main["prep"]),
         "solver": [main["solver"], sleepy_solver, (dcalls["solver"][0], dcalls["solver"][1]),
                    dsleepy_solver],
         "broadphase_sorted": [main["broadphase_sorted"]]
@@ -950,6 +1008,13 @@ def physics_kernel_phase(card):
                      f"iterations: one launch a solve and a step, {dev_ms:.4f} ms a step; "
                      f"{entries:.0f} device launches a solve, {other_ms:.4f} ms beside the "
                      f"kernel)")
+        if name in DEVICE_NAME:
+            dev_ms, other_ms, entries = device_split(lambda: PHYS_KERNEL_FN[name](*a, **kw),
+                                                     DEVICE_NAME[name])
+            results[name].update(device_ms=dev_ms, other_device_ms=other_ms,
+                                 device_launches=entries)
+            extra = (f" (on the device: {dev_ms:.4f} ms, {other_ms:.4f} ms beside the kernel, "
+                     f"{entries:.0f} device launches a call)")
         if name == "broadphase_exact":
             dev_ms, glue_ms, entries = device_split(lambda: PHYS_KERNEL_FN[name](*a, **kw),
                                                     "bp_exact_kernel")
@@ -1159,6 +1224,14 @@ def stage_split(state, cfg, reps: int = 10) -> dict:
     return {k: statistics.median(v) for k, v in split.items() if v}
 
 
+# Device kernels of one 10k step by name (regular expressions on the
+# profiler's keys; B6's sort is part of its glue).
+STEP_KERNELS = {"pack": r"(?<![A-Za-z0-9_])pack_kernel", "broadphase_exact": r"bp_exact_kernel",
+                "broadphase_exact glue": r"bp_key_kernel|bp_pack_kernel",
+                "narrowphase": r"narrow_kernel", "prep": r"prep_kernel",
+                "solver": r"solver_kernel"}
+
+
 def physics_timing(state, variants, card, runs: int = 3):
     """Phase 10: ms per step over the 64-step main path run (host clock,
     synchronize at the end, / 64; median of ``runs`` runs from the fresh
@@ -1189,8 +1262,17 @@ def physics_timing(state, variants, card, runs: int = 3):
     else:
         print(f"physics idle share {idle:.3f}: device busy {busy:.3f} ms of {wall:.3f} ms per "
               f"step under the profiler, {entries:.0f} device entries per step", flush=True)
+    prof = step_profile(phys_step, STAGES, state, cfg, STEP_KERNELS)
+    print("physics kernels on the device a step (torch.profiler, ms and launches): " + json.dumps(
+        {k: [round(v["device_ms"], 5), v["launches"]] for k, v in prof["kernels"].items()}),
+        flush=True)
+    print(f"physics host events a step by stage (CUDA API: launch, memcpy, memset, sync; "
+          f"{prof['device_entries']:.0f} device entries a step, copies on the device "
+          f"{json.dumps(prof['device_copies'])}): " + json.dumps(
+              {k: [round(v[h], 2) for h in HOST_EVENTS] for k, v in prof["stages"].items()}),
+          flush=True)
     out = {"step_ms": step_ms, "per_run_ms": per_run[1:], "stages_ms": stages,
-           "idle_share": idle, "busy_ms": busy, "profiled_wall_ms": wall}
+           "idle_share": idle, "busy_ms": busy, "profiled_wall_ms": wall, "step_profile": prof}
     for name in ("b_sorted", "d_warm", "e_pairs"):
         _, vcfg, vsteps, _, _ = VARIANTS[name]
         ms, runs_ms = steps_ms(variants[name][1], vcfg, vsteps, runs)
@@ -1960,7 +2042,7 @@ def frame_main_path(card):
 
 FRAME_COMPARE_FN = {"clip_fold": compare_clip, "labels": compare_labels, "refit": compare_refit,
                     "pack": compare_pack, "narrowphase": compare_narrowphase}
-FRAME_KERNEL_FN = {**KERNEL_FN, "pack": pack_cuda.transform_pack,
+FRAME_KERNEL_FN = {**KERNEL_FN, "pack": pack_cuda.transform_pack_owned,
                    "narrowphase": narrowphase_cuda.narrowphase}
 
 
@@ -1975,7 +2057,8 @@ def frame_kernel_phase(frac_calls, phys, card):
     for name, calls in sets.items():
         if not calls:
             fail(f"interactive frame: no {name} call was recorded")
-        err = max(FRAME_COMPARE_FN[name](a, kw) for a, kw in calls)
+        edge = pack_edge_cases(calls[0]) if name == "pack" else []
+        err = max(FRAME_COMPARE_FN[name](a, kw) for a, kw in calls + edge)
         torch.cuda.synchronize()
         split = per_call_times(name, calls, FRAME_KERNEL_FN[name], required=False)
         shapes = [list(a[0].face_verts.shape[:3]) + [a[1].shape[1]] if name == "clip_fold"
@@ -2169,15 +2252,16 @@ def main():
         b_ms, b_by = decomposition_bound(name, calls[name])
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by}
-        if name == "clip_fold":
-            split = per_call_times(name, calls[name])
-            for shape, t in zip(shapes[name], split):
-                t["shape"] = list(shape)
+        split = per_call_times(name, calls[name])
+        for shape, t in zip(shapes[name], split):
+            t["shape"] = list(shape)
+            if name == "clip_fold":
                 print(f"clip_fold call (N, F, S, K) {list(shape)}: wrapper {t['ms']:.4f} ms, "
                       f"kernel {t['device_ms']:.4f} ms on the device ({card})", flush=True)
-            results[name]["calls"] = split
-            results[name]["device_ms"] = sum(t["device_ms"] for t in split)
-        print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        results[name]["calls"] = split
+        results[name]["device_ms"] = sum(t["device_ms"] for t in split)
+        print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms (on the device "
+              f"{results[name]['device_ms']:.4f} ms)  plain {plain_ms:.4f} ms  "
               f"bound {b_ms:.4f} ms ({b_by}) ({len(calls[name])} main-path calls; {card})",
               flush=True)
 

@@ -5,6 +5,8 @@ masked vertex set, emitted as a pair of outward slab planes pushed out by
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -23,9 +25,13 @@ _DOP26 = np.asarray(
 _DOP26 /= np.linalg.norm(_DOP26, axis=1, keepdims=True)
 
 
+@functools.lru_cache(maxsize=None)
 def dop26_directions(dtype=torch.float32, device=None) -> torch.Tensor:
     """The 13 unit axes of a 26-DOP (coordinate axes, face diagonals, corner
-    diagonals), normalized in float64 and rounded once to ``dtype``."""
+    diagonals), normalized in float64 and rounded once to ``dtype``. One
+    tensor per (dtype, device), made at first use: on the card a copy from
+    host memory waits for the stream, so no call after the first makes one.
+    Callers must not write to it."""
     return torch.as_tensor(_DOP26, dtype=dtype, device=device)
 
 

@@ -41,7 +41,7 @@ def _dot(a, b):
 
 
 def narrowphase_reference(packed, pidx, pok, Vh: int, F: int, Ne: int, M: int, slop: float):
-    """Plain version: packed (Np, D) from ``transform_pack``, pidx (Np, K),
+    """Plain version: packed (Np, D) from ``transform_pack_owned``, pidx (Np, K),
     pok (Np, K) → (Np, K, 5 + 6M)."""
     Np, K = pidx.shape
     offs, _ = pack_layout(Vh, F, Ne)

@@ -6,9 +6,11 @@ Per piece: world hull corners, world face planes and edge directions, the
 26-DOP support intervals, packed into one row of the narrowphase table in
 ``pack_layout`` order, plus the margin AABB row [lo3 | hi3 | center3]
 (center = BIG for dead pieces). The table is piece-major (Np, D): the
-narrowphase reads a partner's whole row contiguously. ``transform_pack``
-runs the plain version for CPU tensors and the kernel, or raises, for CUDA
-tensors.
+narrowphase reads a partner's whole row contiguously. The entry,
+``transform_pack_owned``, takes each piece's owner and valid flag and
+gathers the owner's pose itself; it runs the plain version for CPU tensors
+and the kernel, or raises, for CUDA tensors. ``transform_pack_reference``
+takes per-piece poses (the JAX package's signature).
 """
 
 from __future__ import annotations
@@ -88,45 +90,70 @@ def transform_pack_reference(piece_verts, piece_vmask, piece_planes, piece_pmask
     return packed, torch.stack(lo + hi + ctr, dim=1)
 
 
+def transform_pack_owned_reference(piece_verts, piece_vmask, piece_planes, piece_pmask,
+                                   piece_edges, piece_emask, piece_owner, piece_valid, q, x,
+                                   margin: float):
+    """Plain version of the kernel: each piece's owner clamped to [0, B)
+    gives its pose (``q`` (B, 4), ``x`` (B, 3)); a piece is valid where
+    ``piece_valid`` holds and its owner is not negative. Returns (packed
+    (Np, D), aabb (Np, 9))."""
+    own = torch.clamp(piece_owner, 0, q.shape[0] - 1).long()
+    pvalid = piece_valid & (piece_owner >= 0)
+    return transform_pack_reference(piece_verts, piece_vmask, piece_planes, piece_pmask,
+                                    piece_edges, piece_emask, q[own], x[own], pvalid, margin)
+
+
 def _kernel(piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges, piece_emask,
-            q_own, x_own, pvalid, margin):
+            piece_owner, piece_valid, q, x, margin):
     global launches
     Np, Vh = piece_verts.shape[:2]
     F, Ne = piece_planes.shape[1], piece_edges.shape[1]
+    B = q.shape[0]
     dev = piece_verts.device
     _, D = pack_layout(Vh, F, Ne)
-    f = [t.contiguous() for t in (piece_verts, piece_planes, piece_edges, q_own, x_own)]
+    f = [t.contiguous() for t in (piece_verts, piece_planes, piece_edges, q, x)]
     for t in f:
         if t.dtype != torch.float32 or t.device != dev:
             raise TypeError("pack kernel takes float32 tensors on one device")
     if (f[0].shape != (Np, Vh, 3) or f[1].shape != (Np, F, 4) or f[2].shape != (Np, Ne, 3)
-            or f[3].shape != (Np, 4) or f[4].shape != (Np, 3)):
+            or f[3].shape != (B, 4) or f[4].shape != (B, 3) or piece_owner.shape != (Np,)
+            or piece_valid.shape != (Np,) or (Np and B == 0)):
         raise ValueError("pack kernel: inconsistent shapes")
-    m = [t.to(torch.uint8).contiguous() for t in (piece_vmask, piece_pmask, piece_emask, pvalid)]
+    masks = []
+    for t in (piece_vmask, piece_pmask, piece_emask, piece_valid):
+        if t.dtype != torch.bool or t.device != dev:
+            raise TypeError("pack kernel takes bool masks on the pieces' device")
+        masks.append(t.contiguous().view(torch.uint8))
+    own = piece_owner.to(torch.int32).contiguous()
     dop = dop26_directions(torch.float32, dev)
     packed = torch.empty((Np, D), dtype=torch.float32, device=dev)
     aabb = torch.empty((Np, 9), dtype=torch.float32, device=dev)
     if Np == 0:
         return packed, aabb
-    fn = _build.bind("surtr_pack", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+    smem = _build.bind("surtr_pack_smem", [ctypes.c_int] * 3)(Vh, F, Ne)
+    if smem > 48 * 1024:
+        raise ValueError(f"pack kernel: a block's rows take {smem} B of shared memory, "
+                         "more than 48 KB (hulls too large)")
+    fn = _build.bind("surtr_pack", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                      + [ctypes.c_float] + [ctypes.c_void_p] * 3)
-    rc = fn(f[0].data_ptr(), m[0].data_ptr(), f[1].data_ptr(), m[1].data_ptr(),
-            f[2].data_ptr(), m[2].data_ptr(), f[3].data_ptr(), f[4].data_ptr(),
-            m[3].data_ptr(), dop.data_ptr(), Np, Vh, F, Ne, float(margin),
+    rc = fn(f[0].data_ptr(), masks[0].data_ptr(), f[1].data_ptr(), masks[1].data_ptr(),
+            f[2].data_ptr(), masks[2].data_ptr(), own.data_ptr(), masks[3].data_ptr(),
+            f[3].data_ptr(), f[4].data_ptr(), dop.data_ptr(), Np, B, Vh, F, Ne, float(margin),
             packed.data_ptr(), aabb.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, "surtr_pack")
     launches += 1
     return packed, aabb
 
 
-def transform_pack(piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges,
-                   piece_emask, q_own, x_own, pvalid, margin: float):
-    """(packed (Np, D), aabb (Np, 9)): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def transform_pack_owned(piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges,
+                         piece_emask, piece_owner, piece_valid, q, x, margin: float):
+    """(packed (Np, D), aabb (Np, 9)) of the pieces at their owners' poses:
+    the kernel for CUDA tensors, the plain version for CPU tensors. The
+    step's entry: the owner gather and the valid mask happen inside."""
     args = (piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges, piece_emask,
-            q_own, x_own, pvalid, margin)
+            piece_owner, piece_valid, q, x, margin)
     if piece_verts.is_cuda:
         return _kernel(*args)
     if piece_verts.device.type != "cpu":
-        raise ValueError(f"transform_pack: unsupported device {piece_verts.device}")
-    return transform_pack_reference(*args)
+        raise ValueError(f"transform_pack_owned: unsupported device {piece_verts.device}")
+    return transform_pack_owned_reference(*args)

@@ -3,8 +3,13 @@
 ``prep_contacts_pallas``).
 
 Single-piece bodies: row i is body i. C = K·M + G contact slots per row,
-slot = m·K + k for pair slots, then G ground slots. Inputs (as the JAX
-package lays them out):
+slot = m·K + k for pair slots, then G ground slots. The step's entry,
+``prep_from_records``, takes the narrowphase's pair records (Np, K, 5+6M),
+the partners, the ground contacts and the bodies' fields; its kernel
+assembles the slots and gathers the partners itself. Its plain version is
+``slot_tables`` (that assembly in PyTorch) followed by
+``prep_contacts_reference``, whose inputs are the assembled slot tables as
+the JAX package lays them out:
 
   pt3 (Np, 3C)  [px | py | pz] contact points
   dh  (Np, 2C)  [depth | hit]
@@ -22,8 +27,9 @@ the mass-splitting scale 1/max(#hits, 1). Outputs, tight (no lane padding):
   hs (Np, 2C) [hit | static];  scale (Np, 2) [inv_m·split, split];
   iAI (Np, 9) own world inverse inertia;  vn0 (Np, C)
 
-``prep_contacts`` runs the plain version for CPU tensors and the kernel, or
-raises, for CUDA tensors.
+``prep_from_records`` runs the plain version for CPU tensors and the
+kernel, or raises, for CUDA tensors; ``prep_contacts`` takes the slot
+tables and the CPU only.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import ctypes
 import torch
 
 from surtr_tpu_torch import _build
-from surtr_tpu_torch.physics.slots import expand_slots, slot_sum, tangent_basis
+from surtr_tpu_torch.physics.slots import expand_slots, slot_rows, slot_sum, tangent_basis
 
 launches = 0  # kernel launches since the last reset (main-path proof)
 
@@ -104,40 +110,108 @@ def prep_contacts_reference(pt3, dh, pn3, btf, own, *, K: int, M: int, G: int, d
     )
 
 
-def _kernel(pt3, dh, pn3, btf, own, K, M, G, dt, slop, baumgarte, restitution, bounce_thr):
+def slot_tables(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in, *, M: int):
+    """(pt3, dh, pn3, btf, own) of ``prep_contacts_reference`` from the pair
+    records: the slot assembly and partner gather the kernel does itself,
+    as the step's glue did them in plain PyTorch."""
+    Np, K = pidx.shape
+    f32 = raw.dtype
+    val, mh, px, py, pz = (slot_rows(raw, r, M) for r in range(5, 10))
+    pn3 = raw[:, :, 0:3].permute(0, 2, 1).reshape(Np, 3 * K)
+    pt3 = torch.cat([px, g_pts[..., 0], py, g_pts[..., 1], pz, g_pts[..., 2]], dim=1)
+    dh = torch.cat([torch.clamp(val, min=0.0), torch.clamp(gd, min=0.0), mh, g_hit.to(f32)],
+                   dim=1)
+    btab = torch.cat([x, inv_m[:, None], inv_I, v0, w0, asleep_in.to(f32)[:, None]],
+                     dim=1)                                                     # (Np, 20)
+    pb = torch.clamp(pidx.long(), 0, Np - 1)
+    btf = btab[pb].transpose(1, 2).reshape(Np, 20 * K)
+    own = torch.cat([x, v0, w0, inv_m[:, None], inv_I], dim=1)
+    return pt3, dh, pn3, btf, own
+
+
+def prep_from_records_reference(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in,
+                                *, K: int, M: int, G: int, dt: float, slop: float,
+                                baumgarte: float, restitution: float, bounce_thr: float):
+    """Plain version of the kernel: ``slot_tables`` then
+    ``prep_contacts_reference``."""
+    tabs = slot_tables(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in, M=M)
+    return prep_contacts_reference(*tabs, K=K, M=M, G=G, dt=dt, slop=slop, baumgarte=baumgarte,
+                                   restitution=restitution, bounce_thr=bounce_thr)
+
+
+def _kernel(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in, K, M, G, dt, slop,
+            baumgarte, restitution, bounce_thr):
     global launches
-    Np = pt3.shape[0]
+    Np = pidx.shape[0]
     C = K * M + G
-    dev = pt3.device
-    ins = [t.contiguous() for t in (pt3, dh, pn3, btf, own)]
-    widths = (3 * C, 2 * C, 3 * K, 20 * K, 19)
-    for t, w in zip(ins, widths):
-        if t.dtype != torch.float32 or t.device != dev or t.shape != (Np, w):
-            raise ValueError("prep kernel: float32 inputs (Np, 3C), (Np, 2C), (Np, 3K), "
-                             "(Np, 20K), (Np, 19) on one device")
+    dev = raw.device
+    f = [t.contiguous() for t in (raw, g_pts, x, v0, w0, inv_m, inv_I)]
+    shapes = ((Np, K, 5 + 6 * M), (Np, G, 3), (Np, 3), (Np, 3), (Np, 3), (Np,), (Np, 9))
+    for t, shape in zip(f, shapes):
+        if t.dtype != torch.float32 or t.device != dev or t.shape != shape:
+            raise ValueError("prep kernel: float32 raw (Np, K, 5+6M), g_pts (Np, G, 3), x, v0, "
+                             "w0 (Np, 3), inv_m (Np,), inv_I (Np, 9) on one device")
+    if gd.dtype != torch.float32 or gd.device != dev or gd.shape != (Np, G):
+        raise ValueError("prep kernel: gd must be float32 (Np, G) on the records' device")
+    if G and Np and gd.stride(1) != 1:
+        gd = gd.contiguous()
+    flags = []
+    for t, shape in ((g_hit, (Np, G)), (asleep_in, (Np,))):
+        if t.dtype != torch.bool or t.device != dev or t.shape != shape:
+            raise ValueError("prep kernel: g_hit (Np, G) and asleep_in (Np,) are bool on the "
+                             "records' device")
+        flags.append(t.contiguous().view(torch.uint8))
+    if pidx.shape != (Np, K) or pidx.device != dev:
+        raise ValueError("prep kernel: pidx must be (Np, K) on the records' device")
+    pi = pidx.to(torch.int32).contiguous()
     e = lambda w: torch.empty((Np, w), dtype=torch.float32, device=dev)  # noqa: E731
     outs = [e(3 * C), e(3 * C), e(3 * C), e(2 * C), e(2 * C), e(2), e(9), e(C)]
     if Np == 0:
         return tuple(outs)
-    fn = _build.bind("surtr_prep", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
-                     + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    rc = fn(*[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], Np, K, M, G,
-            float(slop), float(baumgarte / dt), float(-restitution), float(bounce_thr),
+    if not _build.bind("surtr_prep_fits", [ctypes.c_int] * 3)(K, M, G):
+        raise ValueError(f"prep kernel: one row at K={K}, M={M}, G={G} needs more than 48 KB "
+                         "of shared memory")
+    fn = _build.bind("surtr_prep", [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+                     + [ctypes.c_void_p])
+    rc = fn(f[0].data_ptr(), pi.data_ptr(), f[1].data_ptr(), gd.data_ptr(),
+            gd.stride(0) if G else 0, flags[0].data_ptr(), *[t.data_ptr() for t in f[2:]],
+            flags[1].data_ptr(), *[t.data_ptr() for t in outs], Np, K, M, G, float(slop),
+            float(baumgarte / dt), float(-restitution), float(bounce_thr),
             _build.stream_ptr(dev))
     _build.check(rc, "surtr_prep")
     launches += 1
     return tuple(outs)
 
 
+def prep_from_records(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in, *, K: int,
+                      M: int, G: int, dt: float, slop: float, baumgarte: float,
+                      restitution: float, bounce_thr: float):
+    """The solver's tables from the narrowphase's pair records (Np, K, 5+6M),
+    the partners ``pidx`` (Np, K), the ground contacts (``g_pts`` (Np, G, 3),
+    ``gd`` (Np, G), ``g_hit`` (Np, G) bool) and the bodies' ``x``, start
+    velocities ``v0``, ``w0``, ``inv_m``, world ``inv_I`` (Np, 9) and
+    ``asleep_in`` (Np,) bool: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    kw = dict(K=K, M=M, G=G, dt=dt, slop=slop, baumgarte=baumgarte, restitution=restitution,
+              bounce_thr=bounce_thr)
+    args = (raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in)
+    if raw.is_cuda:
+        return _kernel(*args, **kw)
+    if raw.device.type != "cpu":
+        raise ValueError(f"prep_from_records: unsupported device {raw.device}")
+    return prep_from_records_reference(*args, **kw)
+
+
 def prep_contacts(pt3, dh, pn3, btf, own, *, K: int, M: int, G: int, dt: float, slop: float,
                   baumgarte: float, restitution: float, bounce_thr: float):
-    """The solver's tables from the contact slots: the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if pt3.is_cuda:
-        return _kernel(pt3, dh, pn3, btf, own, K, M, G, dt, slop, baumgarte, restitution,
-                       bounce_thr)
+    """The solver's tables from assembled slot tables (the JAX package's
+    ``prep_contacts_pallas`` signature), for CPU tensors. On the card the
+    step calls ``prep_from_records``, whose kernel assembles the slots
+    itself."""
     if pt3.device.type != "cpu":
-        raise ValueError(f"prep_contacts: unsupported device {pt3.device}")
+        raise ValueError(f"prep_contacts: CPU tensors only, got {pt3.device}; on the card "
+                         "call prep_from_records")
     return prep_contacts_reference(pt3, dh, pn3, btf, own, K=K, M=M, G=G, dt=dt, slop=slop,
                                    baumgarte=baumgarte, restitution=restitution,
                                    bounce_thr=bounce_thr)

@@ -16,6 +16,13 @@ def expand_slots(block: torch.Tensor, M: int, G: int) -> torch.Tensor:
     return torch.cat([block.repeat(1, M), block.new_zeros((block.shape[0], G))], dim=1)
 
 
+def slot_rows(raw: torch.Tensor, r: int, M: int) -> torch.Tensor:
+    """Row r of every manifold point of the (Np, K, 5+6M) pair records →
+    (Np, M·K), slot = m·K + k."""
+    Np, K = raw.shape[:2]
+    return raw[:, :, r::6][:, :, :M].permute(0, 2, 1).reshape(Np, M * K)
+
+
 def slot_sum(x: torch.Tensor) -> torch.Tensor:
     """(Np, C, ...) → (Np, 1, ...), summed slot by slot from 0 (the kernels'
     order)."""

@@ -31,6 +31,7 @@ the ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 
 import torch
@@ -42,11 +43,11 @@ from surtr_tpu_torch.physics.broadphase import block_sweep, mutual
 from surtr_tpu_torch.physics.broadphase_cuda import (MAX_EXACT_NP, apply_theta_mutual,
                                                      broadphase_exact, broadphase_sorted)
 from surtr_tpu_torch.physics.narrowphase_cuda import narrowphase
-from surtr_tpu_torch.physics.pack_cuda import transform_pack
-from surtr_tpu_torch.physics.prep_cuda import prep_contacts, warm_preapply
+from surtr_tpu_torch.physics.pack_cuda import transform_pack_owned
+from surtr_tpu_torch.physics.prep_cuda import prep_from_records, warm_preapply
 from surtr_tpu_torch.physics.rigid import quat_integrate, world_inv_inertia
 from surtr_tpu_torch.physics.scene import PhysicsScene
-from surtr_tpu_torch.physics.slots import slot_sum
+from surtr_tpu_torch.physics.slots import slot_rows, slot_sum
 from surtr_tpu_torch.physics.solver_cuda import solve, solve_warm
 
 BIG = 3.4e38
@@ -149,6 +150,14 @@ def _wake_seed(v0, w0, active, cfg: PhysicsConfig):
     return ((speed2 > cfg.wake_speed ** 2) & active).to(v0.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _gravity_vector(g: float, dtype, device) -> torch.Tensor:
+    """(0, g, 0), one tensor per (g, dtype, device): building it from a list
+    every step would copy from host memory, which on the card waits for the
+    stream."""
+    return torch.tensor([0.0, g, 0.0], dtype=dtype, device=device)
+
+
 def _start_velocities(scene: PhysicsScene, cfg: PhysicsConfig):
     """(asleep_in, v0, w0): the bodies asleep at the start, and the start
     velocities with gravity on awake dynamic bodies."""
@@ -157,7 +166,7 @@ def _start_velocities(scene: PhysicsScene, cfg: PhysicsConfig):
         asleep_in = (scene.sleep_frames >= cfg.sleep_frames) & bodies.active
     else:
         asleep_in = torch.zeros_like(bodies.active)
-    gravity = torch.tensor([0.0, cfg.gravity, 0.0], dtype=bodies.v.dtype, device=bodies.v.device)
+    gravity = _gravity_vector(cfg.gravity, bodies.v.dtype, bodies.v.device)
     grav_on = (bodies.inv_mass > 0) & ~asleep_in
     return asleep_in, bodies.v + cfg.dt * gravity * grav_on[:, None], bodies.w
 
@@ -168,18 +177,17 @@ def _step_body(scene: PhysicsScene, cfg: PhysicsConfig, mode: str, mark) -> Phys
     M = max(1, cfg.manifold_points)
     Ne = max(cfg.max_edge_dirs, 0)
     Vh, Fp = scene.piece_verts.shape[1], scene.piece_planes.shape[1]
-    owner = torch.clamp(scene.piece_owner, 0, scene.B - 1).long()
-    pvalid = scene.piece_valid & (scene.piece_owner >= 0)
 
-    # 1. World transforms + packing (B5).
-    packed, aabb = transform_pack(
+    # 1. World transforms + packing at the owners' poses (B5).
+    packed, aabb = transform_pack_owned(
         scene.piece_verts, scene.piece_vmask, scene.piece_planes, scene.piece_pmask,
-        scene.piece_edges, scene.piece_emask, bodies.q[owner], bodies.x[owner], pvalid,
-        cfg.contact_slop * 4.0,
+        scene.piece_edges, scene.piece_emask, scene.piece_owner, scene.piece_valid, bodies.q,
+        bodies.x, cfg.contact_slop * 4.0,
     )
     mark("pack")
 
     # 2. Broadphase, mutual pairs only.
+    pvalid = scene.piece_valid & (scene.piece_owner >= 0)
     pidx, pok = _broadphase(mode, cfg, aabb[:, 6:9], aabb[:, 0:3], aabb[:, 3:6],
                             scene.piece_owner, pvalid)
     mark("broadphase")
@@ -192,14 +200,8 @@ def _step_body(scene: PhysicsScene, cfg: PhysicsConfig, mode: str, mark) -> Phys
 
     if cfg.single_piece_bodies and Np == scene.B:
         return _fused_prep_solve(scene, cfg, raw, pidx, ground, mark)
+    owner = torch.clamp(scene.piece_owner, 0, scene.B - 1).long()
     return _assemble_and_solve(scene, cfg, raw, pidx, owner, ground, mark)
-
-
-def _slot_rows(raw, r: int, M: int):
-    """Row r of every manifold point of the (Np, K, 5+6M) records →
-    (Np, M·K), slot = m·K + k."""
-    Np, K = raw.shape[:2]
-    return raw[:, :, r::6][:, :, :M].permute(0, 2, 1).reshape(Np, M * K)
 
 
 def _warm_match(scene: PhysicsScene, pidx, fid, K: int, M: int, G: int):
@@ -224,36 +226,25 @@ def _fused_prep_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, ground
     Np, K = pidx.shape
     M, G = max(1, cfg.manifold_points), cfg.max_ground_contacts
     C = K * M + G
-    f32 = raw.dtype
     g_pts, gd, g_hit = ground
-
-    # Prep tables (slot = m·K + k, then G ground).
-    val, mh, px, py, pz = (_slot_rows(raw, r, M) for r in range(5, 10))
-    pn3 = raw[:, :, 0:3].permute(0, 2, 1).reshape(Np, 3 * K)
-    pt3 = torch.cat([px, g_pts[..., 0], py, g_pts[..., 1], pz, g_pts[..., 2]], dim=1)
-    dh = torch.cat([torch.clamp(val, min=0.0), torch.clamp(gd, min=0.0), mh, g_hit.to(f32)],
-                   dim=1)
-    inv_m = bodies.inv_mass
     inv_I = world_inv_inertia(bodies.q, bodies.inv_inertia_body).reshape(Np, 9)
     asleep_in, v0, w0 = _start_velocities(scene, cfg)
-    btab = torch.cat([bodies.x, inv_m[:, None], inv_I, v0, w0, asleep_in.to(f32)[:, None]],
-                     dim=1)                                                     # (Np, 20)
     pb = torch.clamp(pidx.long(), 0, Np - 1)
-    btf = btab[pb].transpose(1, 2).reshape(Np, 20 * K)
-    own = torch.cat([bodies.x, v0, w0, inv_m[:, None], inv_I], dim=1)
     wake0 = _wake_seed(v0, w0, bodies.active, cfg)
     mark("glue")
 
-    # 4. Contact prep (B8) and the solver iterations (B9).
-    *tables, vn0 = prep_contacts(
-        pt3, dh, pn3, btf, own, K=K, M=M, G=G, dt=cfg.dt, slop=cfg.contact_slop,
-        baumgarte=cfg.baumgarte, restitution=cfg.restitution, bounce_thr=cfg.bounce_threshold,
+    # 4. Contact prep from the pair records (B8, which assembles the slots
+    # and gathers the partners itself) and the solver iterations (B9).
+    *tables, vn0 = prep_from_records(
+        raw, pidx, g_pts, gd, g_hit, bodies.x, v0, w0, bodies.inv_mass, inv_I, asleep_in,
+        K=K, M=M, G=G, dt=cfg.dt, slop=cfg.contact_slop, baumgarte=cfg.baumgarte,
+        restitution=cfg.restitution, bounce_thr=cfg.bounce_threshold,
     )
     kw = dict(K=K, M=M, G=G, iters=cfg.solver_iters, substeps=cfg.solver_substeps,
               mu=cfg.dynamic_friction)
     warm = None
     if cfg.warm_start:
-        fid = _slot_rows(raw, 10, M).to(torch.int32)
+        fid = slot_rows(raw, 10, M).to(torch.int32)
         v0, w0, lam0 = warm_preapply(v0, w0, _warm_match(scene, pidx, fid, K, M, G), tables,
                                      C=C)
         mark("prep")
@@ -311,13 +302,13 @@ def _assemble_and_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, owne
     MK = M * K
 
     # Contact slots: pairs (slot m·K + k), then G ground slots.
-    pc_p = torch.stack([_slot_rows(raw, r, M) for r in (7, 8, 9)], dim=-1)      # (Np, MK, 3)
+    pc_p = torch.stack([slot_rows(raw, r, M) for r in (7, 8, 9)], dim=-1)      # (Np, MK, 3)
     up = torch.zeros((Np, G, 3), dtype=f32, device=dev)
     up[..., 1] = 1.0
     nrm = torch.cat([raw[:, :, 0:3].repeat(1, M, 1), up], dim=1)                # (Np, C, 3)
     pts = torch.cat([pc_p, g_pts], dim=1)
-    dep = torch.cat([torch.clamp(_slot_rows(raw, 5, M), min=0.0), torch.clamp(gd, min=0.0)], 1)
-    hit = torch.cat([_slot_rows(raw, 6, M) > 0.5, g_hit], dim=1)
+    dep = torch.cat([torch.clamp(slot_rows(raw, 5, M), min=0.0), torch.clamp(gd, min=0.0)], 1)
+    hit = torch.cat([slot_rows(raw, 6, M) > 0.5, g_hit], dim=1)
     partner = torch.cat([pidx.long().repeat(1, M),
                          torch.full((Np, G), -1, dtype=torch.long, device=dev)], dim=1)
     is_static = partner < 0

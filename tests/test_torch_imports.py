@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and no ``surtr_tpu`` import in its source,
-and importing it pulls in neither."""
+"""The port stands alone: no JAX and no ``surtr_tpu`` import in its source
+(the package, ``chip_smoke.py`` and its kernel timing tools), and importing
+it pulls in neither."""
 
 import os
 import re
@@ -18,6 +19,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    tools = os.path.join(REPO, "tools")
+    for f in os.listdir(tools):
+        if f.startswith("time_b") and f.endswith(".py"):
+            yield os.path.join(tools, f)
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))

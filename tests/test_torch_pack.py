@@ -7,6 +7,11 @@ Tolerances: the mask columns exactly (copies of the scene's masks); every
 other value within 1e-6 × the piece's scale, its largest world coordinate
 and at least 1 (XLA may contract the rotation's products into FMAs, one
 rounding fewer than the port's mul-then-add); BIG sentinels exactly.
+
+B5's entry ``transform_pack_owned`` (the owner gather and valid mask
+inside) equals, bit for bit, the per-piece-pose plain version at the poses
+the step's former glue gathered, on compound ownership with -1 owners, an
+owner past the last body, invalid pieces and a piece with no valid corner.
 """
 
 import jax.numpy as jnp
@@ -63,9 +68,8 @@ def packs():
     Vh, F, Ne = ins["piece_verts"].shape[1], ins["piece_planes"].shape[1], ins["piece_edges"].shape[1]
     pT, ab = transform_pack_pallas(*[jnp.asarray(v) for v in ins.values()], Vh=Vh, F=F, Ne=Ne,
                                    margin=margin, interpret=True)
-    before = pack_cuda.launches
-    got = pack_cuda.transform_pack(*[torch.as_tensor(np.array(v)) for v in ins.values()], margin)
-    assert pack_cuda.launches == before      # CPU tensors: the plain version, no launch
+    got = pack_cuda.transform_pack_reference(*[torch.as_tensor(np.array(v)) for v in ins.values()],
+                                             margin)
     return ins, (Vh, F, Ne), got, (np.asarray(pT).T, np.asarray(ab).T)
 
 
@@ -94,3 +98,54 @@ def test_dead_piece_center_is_big(packs):
     _, _, got, _ = packs
     assert (got[1][5, 6:9] == torch.tensor(3.4e38, dtype=torch.float32)).all()
     assert torch.isfinite(got[1][:5, 6:9]).all()
+
+
+def _bits_equal(a, b):
+    """Bit for bit, NaN against NaN."""
+    return a.shape == b.shape and bool(
+        ((a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _owned_inputs(Vh=8, F=8, Ne=3, Np=40, B=12):
+    """Random pieces of compound bodies: owners shared, some -1, one past
+    the last body; invalid pieces; a piece with every corner masked."""
+    rng = np.random.default_rng(23)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    owner = rng.integers(0, B, Np).astype(np.int32)
+    owner[::7] = -1
+    owner[5] = B + 2
+    valid = rng.random(Np) > 0.2
+    vmask = rng.random((Np, Vh)) > 0.3
+    vmask[9] = False
+    q = rng.standard_normal((B, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return dict(
+        piece_verts=f(rng.uniform(-1, 1, (Np, Vh, 3))), piece_vmask=torch.as_tensor(vmask),
+        piece_planes=f(rng.uniform(-1, 1, (Np, F, 4))),
+        piece_pmask=torch.as_tensor(rng.random((Np, F)) > 0.3),
+        piece_edges=f(rng.uniform(-1, 1, (Np, Ne, 3))),
+        piece_emask=torch.as_tensor(rng.random((Np, Ne)) > 0.3),
+        piece_owner=torch.as_tensor(owner), piece_valid=torch.as_tensor(valid),
+        q=f(q), x=f(rng.uniform(-5, 5, (B, 3))),
+    )
+
+
+@pytest.mark.parametrize("Vh,F,Ne", [(8, 8, 3), (64, 32, 0)])
+def test_owned_pack_equals_pack_at_gathered_poses(Vh, F, Ne):
+    """The step's entry (owner gather inside) against the per-piece-pose
+    call with the old step glue's gathers, bit for bit, on the CPU."""
+    ins = _owned_inputs(Vh, F, Ne)
+    margin = 0.02
+    before = pack_cuda.launches
+    got = pack_cuda.transform_pack_owned(*ins.values(), margin)
+    assert pack_cuda.launches == before      # CPU tensors: the plain version, no launch
+    owner, valid, q, x = ins["piece_owner"], ins["piece_valid"], ins["q"], ins["x"]
+    own = torch.clamp(owner, 0, q.shape[0] - 1).long()
+    pvalid = valid & (owner >= 0)
+    args = [ins[k] for k in ("piece_verts", "piece_vmask", "piece_planes", "piece_pmask",
+                             "piece_edges", "piece_emask")]
+    want = pack_cuda.transform_pack_reference(*args, q[own], x[own], pvalid, margin)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+    assert (got[1][:, 6][~pvalid] == torch.tensor(3.4e38)).all()     # dead pieces' centers
+    assert (got[1][:, 6][pvalid] < 1e30).all()

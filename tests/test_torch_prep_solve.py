@@ -6,7 +6,13 @@ hit and missed slots, static and sleeping partners, zero and positive
 inverse masses, and a wake seed. The accumulated (warm-start) mode of B9,
 ``solver_cuda.solve_warm``, against ``solve_packed(..., lam0=...)``, and
 ``prep_cuda.warm_preapply`` followed by it against ``prep_and_solve`` with
-matched warm impulses.
+matched warm impulses. B8's entry ``prep_from_records`` (the slot assembly
+and partner gather inside): bitwise equal to the step's former PyTorch glue
+followed by ``prep_contacts_reference`` on random pair records (NaN depths
+of dead partners, pidx = -1 slots, sleeping and static partners, rows with
+no hit), and against the JAX package's own step glue (``_fused_prep_solve``
+stopped after its prep) with ``prep_contacts_pallas`` at the tolerances
+below, NaN against NaN.
 
 Tolerances: hit and static flags and the wake flag exactly (0/1 values);
 every prep table within 1e-5 × max(1, |value|) per entry (XLA may contract
@@ -18,16 +24,27 @@ JAX kernel's per-row sums over the C slots are taken in an order XLA
 chooses, the port's in slot order.
 """
 
+import dataclasses
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import surtr_tpu.physics.prep_pallas as j_prep
 from surtr_tpu.config import PhysicsConfig as JPhysicsConfig
+from surtr_tpu.physics import step as j_step
 from surtr_tpu.physics.prep_pallas import prep_and_solve, prep_contacts_pallas
+from surtr_tpu.physics.rigid import quat_normalize as j_quat_normalize
+from surtr_tpu.physics.scene import build_scene as j_build_scene
 from surtr_tpu.physics.solver_pallas import solve_packed
 from surtr_tpu.physics.solver_pallas import tangent_basis as j_tangent_basis
+from surtr_tpu_torch import workload
 from surtr_tpu_torch.physics import prep_cuda, solver_cuda
+from surtr_tpu_torch.physics import step as t_step
+from surtr_tpu_torch.physics.rigid import world_inv_inertia
+from tests.test_torch_pack import j_cube_pieces
 
 CFG = JPhysicsConfig()
 K, M, G = CFG.max_neighbors, CFG.manifold_points, CFG.max_ground_contacts
@@ -239,3 +256,159 @@ def test_solve_bits_do_not_depend_on_partner_dtype_or_table_strides(prep, warm, 
         assert not any(t.is_contiguous() for t in (vw, lam, *tabs))
     for g, w in zip(run(pb, vw, lam, tabs), base):
         assert torch.equal(g, w)
+
+
+# --- B8's entry from the narrowphase's pair records ------------------------
+
+R = 5 + 6 * M
+
+
+def _bits_equal(a, b):
+    """Bit for bit, NaN against NaN."""
+    return a.shape == b.shape and bool(
+        ((a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _record_inputs(seed=47):
+    """Random inputs of ``prep_from_records``: pair records with hit and
+    missed points; a dead partner's slots (NaN depth, zero normal, no hit);
+    pidx = -1 slots; sleeping and static (inv_m = 0) bodies; rows with no
+    hit at all; ground contacts with and without hits."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, (NP, 3)).astype(np.float32)
+    raw = np.zeros((NP, K, R), np.float32)
+    n = rng.standard_normal((NP, K, 3))
+    raw[..., 0:3] = n / np.linalg.norm(n, axis=-1, keepdims=True)
+    raw[..., 3] = rng.uniform(-0.01, 0.05, (NP, K))
+    for m in range(M):
+        raw[..., 5 + 6 * m] = rng.uniform(-0.01, 0.05, (NP, K))
+        raw[..., 6 + 6 * m] = rng.random((NP, K)) < 0.5
+        raw[..., 7 + 6 * m : 10 + 6 * m] = x[:, None] + rng.uniform(-0.6, 0.6, (NP, K, 3))
+        raw[..., 10 + 6 * m] = rng.integers(1, 40, (NP, K))
+    raw[..., 4] = raw[..., 6::6].max(-1)
+    pidx = rng.integers(0, NP, (NP, K)).astype(np.int32)
+    dead = rng.random((NP, K)) < 0.1
+    raw[dead, 0:3] = 0.0
+    raw[dead, 3] = np.nan
+    raw[dead, 4] = 0.0
+    raw[:, :, 5::6][dead] = np.nan
+    raw[:, :, 6::6][dead] = 0.0
+    empty = rng.random((NP, K)) < 0.1
+    pidx[empty] = -1
+    raw[:, :, 6::6][empty] = 0.0
+    quiet = np.arange(NP) % 9 == 4                     # rows with no hit
+    raw[quiet, :, 6::6] = 0.0
+    g_pts = x[:, None] + rng.uniform(-0.6, 0.6, (NP, G, 3)).astype(np.float32)
+    gd = rng.uniform(-0.02, 0.05, (NP, G)).astype(np.float32)
+    g_hit = (gd > -CFG.contact_slop) & ~quiet[:, None] & (rng.random((NP, G)) < 0.8)
+    inv_m = rng.uniform(0.05, 0.3, NP).astype(np.float32)
+    inv_m[::11] = 0.0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a))  # noqa: E731
+    return dict(raw=t(raw), pidx=t(pidx), g_pts=t(g_pts), gd=t(gd), g_hit=t(g_hit), x=t(x),
+                v0=t(rng.standard_normal((NP, 3)).astype(np.float32)),
+                w0=t(rng.standard_normal((NP, 3)).astype(np.float32)), inv_m=t(inv_m),
+                inv_I=t(_spd(rng, NP)), asleep_in=t(rng.random(NP) < 0.25))
+
+
+def _old_step_glue(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in):
+    """The slot tables as the single-piece step assembled them in PyTorch
+    before B8 took that work (slot = m·K + k, then G ground slots)."""
+    Np = pidx.shape[0]
+    f32 = raw.dtype
+
+    def rows(r):
+        return raw[:, :, r::6][:, :, :M].permute(0, 2, 1).reshape(Np, M * K)
+
+    val, mh, px, py, pz = (rows(r) for r in range(5, 10))
+    pn3 = raw[:, :, 0:3].permute(0, 2, 1).reshape(Np, 3 * K)
+    pt3 = torch.cat([px, g_pts[..., 0], py, g_pts[..., 1], pz, g_pts[..., 2]], dim=1)
+    dh = torch.cat([torch.clamp(val, min=0.0), torch.clamp(gd, min=0.0), mh, g_hit.to(f32)],
+                   dim=1)
+    btab = torch.cat([x, inv_m[:, None], inv_I, v0, w0, asleep_in.to(f32)[:, None]], dim=1)
+    pb = torch.clamp(pidx.long(), 0, Np - 1)
+    btf = btab[pb].transpose(1, 2).reshape(Np, 20 * K)
+    own = torch.cat([x, v0, w0, inv_m[:, None], inv_I], dim=1)
+    return pt3, dh, pn3, btf, own
+
+
+@pytest.mark.parametrize("seed", [47, 48])
+def test_prep_from_records_equals_old_glue_then_prep(seed):
+    ins = _record_inputs(seed)
+    before = prep_cuda.launches
+    got = prep_cuda.prep_from_records(*ins.values(), **PREP_KW)
+    assert prep_cuda.launches == before       # CPU tensors: the plain version, no launch
+    want = prep_cuda.prep_contacts_reference(*_old_step_glue(*ins.values()), **PREP_KW)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+    hs = got[4]
+    quiet = torch.arange(NP) % 9 == 4
+    assert (hs[quiet, :C] == 0).all() and (got[5][quiet, 1] == 1.0).all()   # no hit: split 1
+    assert torch.isnan(got[3][:, C:]).any()                                  # dead partners
+    assert (hs[:, C : C + K * M] == 1).any() and (hs[:, C : C + K * M] == 0).any()
+
+
+def test_prep_from_records_matches_jax_step_glue_and_prep_pallas(monkeypatch):
+    """The JAX package's single-piece glue (``_fused_prep_solve``, stopped
+    after the prep at profile stage 35) and ``prep_contacts_pallas`` in
+    interpret mode, against ``prep_from_records`` on the same records,
+    bodies and world corners (the ground contacts taken from them on each
+    side), at this file's tolerances."""
+    rng = np.random.default_rng(49)
+    ins = _record_inputs(49)
+    raw = ins["raw"].numpy()
+    cfg = dataclasses.replace(CFG, single_piece_bodies=True, max_hull_verts=8)
+    sc = j_build_scene(j_cube_pieces(workload.lattice_offsets(NP)), cfg, max_bodies=NP)
+    b = sc.bodies
+    bodies = dataclasses.replace(
+        b, x=jnp.asarray(ins["x"].numpy()),
+        q=j_quat_normalize(jnp.asarray(rng.standard_normal((NP, 4)).astype(np.float32))),
+        v=jnp.asarray(rng.standard_normal((NP, 3)).astype(np.float32)),
+        w=jnp.asarray(rng.standard_normal((NP, 3)).astype(np.float32)),
+        inv_mass=jnp.asarray(ins["inv_m"].numpy()))
+    sleep = rng.integers(0, 2 * cfg.sleep_frames, NP).astype(np.int32)
+    sc = dataclasses.replace(sc, bodies=bodies, sleep_frames=jnp.asarray(sleep))
+    Vh = sc.piece_verts.shape[1]
+    wverts = rng.uniform(-0.5, 0.5, (NP, Vh, 3)).astype(np.float32)
+    wverts[..., 1] += cfg.ground_y + 0.45                  # some corners below the ground
+    wmask = np.asarray(sc.piece_vmask)
+    pvalid = np.ones(NP, bool)
+    pvalid[3] = False
+
+    seen = {}
+    orig = j_prep.prep_contacts_pallas
+
+    def rec(*a, **kw):
+        seen["out"] = orig(*a, **kw)
+        return seen["out"]
+
+    monkeypatch.setattr(j_prep, "prep_contacts_pallas", rec)
+    mpts = np.stack([raw[..., 7 + 6 * m : 10 + 6 * m] for m in range(M)], 2)
+    mvals = np.stack([raw[..., 5 + 6 * m] for m in range(M)], 2)
+    mhit = np.stack([raw[..., 6 + 6 * m] > 0.5 for m in range(M)], 2)
+    j_step._fused_prep_solve(
+        sc, cfg, 35, bodies, NP, K, G, M, jnp.asarray(wverts), jnp.asarray(wmask),
+        jnp.arange(NP), jnp.asarray(pvalid), jnp.asarray(ins["pidx"].numpy()),
+        jnp.asarray(mpts), jnp.asarray(mvals), jnp.asarray(mhit), jnp.asarray(raw[..., 0:3]),
+        False)
+    want = _jax_tables([np.asarray(a) for a in seen["out"]])
+
+    t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
+    ground = t_step._ground_contacts(cfg, t(wverts), t(wmask), t(pvalid))
+    tb = types.SimpleNamespace(
+        bodies=types.SimpleNamespace(v=t(bodies.v), w=t(bodies.w), inv_mass=ins["inv_m"],
+                                     active=t(b.active)),
+        sleep_frames=t(sleep))
+    asleep_in, v0, w0 = t_step._start_velocities(tb, cfg)
+    inv_I = world_inv_inertia(t(bodies.q), t(b.inv_inertia_body)).reshape(NP, 9)
+    got = prep_cuda.prep_from_records(ins["raw"], ins["pidx"], *ground, ins["x"], v0, w0,
+                                      ins["inv_m"], inv_I, asleep_in, **PREP_KW)
+    assert bool(asleep_in.any()) and bool(ground[2].any())
+    np.testing.assert_array_equal(got[4].numpy(), want[4])            # hit | static
+    for i, name in [(0, "rA"), (1, "rB"), (2, "n"), (3, "m_eff|target"), (5, "scale"),
+                    (6, "inv_I"), (7, "vn0")]:
+        g, w = got[i].numpy(), want[i]
+        assert g.shape == w.shape, name
+        both_nan = np.isnan(g) & np.isnan(w)
+        err = np.where(both_nan, 0.0, np.abs(g - w))
+        np.testing.assert_array_less(err, 1e-5 * np.maximum(1.0, np.nan_to_num(np.abs(w)))
+                                     + 1e-30, err_msg=name)

@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Per-call times of kernels B5 (world transform and pack, with the owner
+gather) and B8 (contact prep from the pair records) on the card, held
+bitwise against their plain versions first.
+
+    python3 tools/time_b5_b8.py [--out FILE.json]
+    PYTHONPATH=<other checkout> python3 tools/time_b5_b8.py [--out FILE.json]
+
+The second form measures another checkout's ``surtr_tpu_torch`` (and uses
+its ``chip_smoke.py`` helpers), so two trees can be compared in one session
+on one card. It prints the package path it measured. A tree whose step
+calls ``transform_pack`` and ``prep_contacts`` (before B5 and B8 took their
+glue) is measured through those entries.
+
+B5: the pack of the 10k lattice's 64th step (bench_physics_10k, "auto") and
+of the first interactive frame's step (``Scene("cube", INTERACTIVE_CFG)``:
+compound owners, Vh = 64, F = 32). B8: the prep of the 10k lattice's 64th
+step. Per call: the wrapper's time (CUDA events around the step's entry,
+median of 20), the kernel's device time (*pack_kernel* / *prep_kernel*),
+the device time of everything else the call runs, and the device launches
+of one call. Then the 10k step's pack, glue and prep stages: CUDA-event ms
+(median of 10 steps) and, under torch.profiler, each stage's host events of
+the CUDA API (kernel launches, copies, synchronizes). Before timing, each
+call, plus the degenerate inputs ``chip_smoke.py`` builds where the tree
+has them, must equal the plain version bit for bit (NaN against NaN); the
+tool fails otherwise. Needs one NVIDIA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+
+def fail(msg):
+    print(f"time_b5_b8: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def device_split(fn, kernel: str, runs: int = 20):
+    """(kernel device ms, other device ms, device launches) per call of
+    ``fn`` under torch.profiler, after one warm-up call; a trace that lacks
+    the kernel is taken once more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        k_us = o_us = n = 0.0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0))
+            if kernel in e.key:
+                k_us += us
+            else:
+                o_us += us
+            n += e.count
+        if k_us > 0.0:
+            return k_us / runs / 1e3, o_us / runs / 1e3, n / runs
+    fail(f"the profiler shows no device kernel named *{kernel}*")
+
+
+def same_bits(got, want) -> bool:
+    """Every output tensor equal bit for bit (NaN against NaN)."""
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            return False
+        diff = (g.view(torch.int32) != w.view(torch.int32)) & ~(torch.isnan(g) & torch.isnan(w))
+        if bool(diff.any()):
+            return False
+    return len(got) == len(want)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the results as JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this tool needs an NVIDIA GPU")
+    import chip_smoke as cs
+    import surtr_tpu_torch
+    from surtr_tpu_torch import workload
+    from surtr_tpu_torch.physics import pack_cuda, prep_cuda
+    from surtr_tpu_torch.physics import step as phys_step
+
+    pkg = os.path.dirname(os.path.abspath(surtr_tpu_torch.__file__))
+    card = workload.card()
+    owned = hasattr(pack_cuda, "transform_pack_owned")
+    entries = ("transform_pack_owned, prep_from_records" if owned
+               else "transform_pack, prep_contacts")
+    print(f"package {pkg}; {card}; entries {entries}", flush=True)
+    out = {"package": pkg, "card": card, "glue_in_kernels": owned}
+    if owned:
+        pack = (pack_cuda.transform_pack_owned, pack_cuda.transform_pack_owned_reference)
+        prep = (prep_cuda.prep_from_records, prep_cuda.prep_from_records_reference)
+    else:
+        pack = (pack_cuda.transform_pack, pack_cuda.transform_pack_reference)
+        prep = (prep_cuda.prep_contacts, prep_cuda.prep_contacts_reference)
+
+    calls, _ = cs.physics_capture(workload.PHYSICS_STEPS)
+    with cs.StepRecorder() as rec:
+        scene = workload.interactive_scene("cuda")
+        workload.run_frames(scene, 1)
+        torch.cuda.synchronize()
+    frame_pack = rec.last["pack"]
+    sets = {
+        "B5 pack, 10k lattice step 64": (calls["pack"], pack, "pack_kernel",
+                                        getattr(cs, "pack_edge_cases", None)),
+        "B5 pack, interactive frame 1": (frame_pack, pack, "pack_kernel",
+                                        getattr(cs, "pack_edge_cases", None)),
+        "B8 prep, 10k lattice step 64": (calls["prep"], prep, "prep_kernel",
+                                        getattr(cs, "prep_edge_cases", None)),
+    }
+    out["calls"] = {}
+    for name, (call, (fn, plain), kname, edge) in sets.items():
+        a, kw = call[:2]
+        cases = [(a, kw)] + (edge(call) if edge is not None else [])
+        for i, (ca, ckw) in enumerate(cases):
+            if not same_bits(fn(*ca, **ckw), plain(*ca, **ckw)):
+                fail(f"{name}: case {i} differs from the plain version")
+        torch.cuda.synchronize()
+        f = lambda a=a, kw=kw, fn=fn: fn(*a, **kw)  # noqa: E731
+        ms = cs.event_ms(f)
+        dev, other, n = device_split(f, kname)
+        row = {"ms": ms, "kernel_device_ms": dev, "other_device_ms": other,
+               "device_launches": n, "bitwise_cases": len(cases),
+               "shape": [int(a[0].shape[0]), *map(int, a[0].shape[1:2])]}
+        out["calls"][name] = row
+        print(f"{name} {row['shape']}: wrapper {ms:.4f} ms; kernel {dev:.4f} ms and the rest "
+              f"{other:.4f} ms on the device, {n:.0f} device launches a call; bitwise on "
+              f"{len(cases)} cases ({card})", flush=True)
+
+    # The 10k step's stages around both kernels, from a contact-rich state.
+    cfg = workload.PHYSICS_CFG
+    state = workload.run_physics(workload.PHYSICS_STEPS - 1)
+    torch.cuda.synchronize()
+    split = cs.stage_split(state, cfg)
+    out["stages_ms"] = split
+    print("10k step stage split (CUDA events, ms, median of 10): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    prof = step_profile(phys_step, cs.STAGES, state, cfg,
+                        {"pack": r"(?<![A-Za-z0-9_])pack_kernel", "prep": r"prep_kernel"})
+    out["step_profile"] = prof
+    print("10k step host events by stage (CUDA API: launch, memcpy, memset, sync): " + json.dumps(
+        {k: [round(v[h], 2) for h in HOST_EVENTS] for k, v in prof["stages"].items()})
+        + f"; {prof['device_entries']:.0f} device entries a step, copies on the device "
+        + json.dumps(prof["device_copies"]) + "; B5 and B8 in the step: "
+        + json.dumps({k: [round(v["device_ms"], 5), v["launches"]]
+                      for k, v in prof["kernels"].items()}) + f" ({card})", flush=True)
+    print(json.dumps(out), flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(out, fh, indent=1)
+
+
+# Host events of the CUDA API counted per stage, by name fragment.
+HOST_EVENTS = {"launch": "LaunchKernel", "memcpy": "Memcpy", "memset": "Memset",
+               "sync": "Synchronize"}
+
+
+def step_profile(phys_step, stages, state, cfg, kernels=None, runs: int = 5) -> dict:
+    """One step from ``state`` under torch.profiler, ``runs`` times, per step:
+    per stage (``stages``, the names ``physics_step`` marks, in order, after
+    "entry", the all-asleep check before the pack) the host events of the
+    CUDA API (kernel launches, copies, memsets, synchronizes); the device
+    entries and the device's copies by direction; and per name in
+    ``kernels`` ({name: regular expression on the profiler's keys}) the
+    device ms and launches."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    order = ["entry", *stages]
+    cur = []
+
+    def switch(label):
+        if cur:
+            cur.pop().__exit__(None, None, None)
+        if label is not None:
+            rf = record_function(f"stage:{label}")
+            rf.__enter__()
+            cur.append(rf)
+
+    def mark(name):
+        i = order.index(name)
+        switch(order[i + 1] if i + 1 < len(order) else None)
+
+    orig = phys_step._step_body
+
+    def body(*a):
+        switch("pack")
+        return orig(*a)
+
+    phys_step.physics_step(state, cfg)
+    torch.cuda.synchronize()
+    phys_step._step_body = body
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                switch("entry")
+                phys_step.physics_step(state, cfg, mark=mark)
+                switch(None)
+            torch.cuda.synchronize()
+    finally:
+        phys_step._step_body = orig
+    found = {k: [0.0, 0.0] for k in (kernels or {})}
+    copies = {"HtoD": 0.0, "DtoH": 0.0, "DtoD": 0.0}
+    entries = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        entries += e.count
+        for kind in copies:
+            if kind in e.key:
+                copies[kind] += e.count / runs
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0.0))
+        for k, pat in (kernels or {}).items():
+            if re.search(pat, e.key):
+                found[k][0] += us / runs / 1e3
+                found[k][1] += e.count / runs
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [(e.name.split(":", 1)[1], e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith("stage:")]
+    per_stage = {k: dict.fromkeys(HOST_EVENTS, 0.0) for k in order}
+    for e in events:
+        kind = next((k for k, frag in HOST_EVENTS.items()
+                     if e.name.startswith(("cuda", "cu")) and frag in e.name), None)
+        if kind is None:
+            continue
+        for label, t0, t1 in spans:
+            if t0 <= e.time_range.start < t1:
+                per_stage[label][kind] += 1.0 / runs
+                break
+    return {"stages": per_stage, "device_entries": entries / runs, "device_copies": copies,
+            "kernels": {k: {"device_ms": v[0], "launches": v[1]} for k, v in found.items()}}
+
+
+if __name__ == "__main__":
+    # After PYTHONPATH: a checkout named there is the one measured.
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    main()
