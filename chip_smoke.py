@@ -9,7 +9,10 @@ Phases (any failure exits non-zero):
   3. per decomposition kernel (B1 clip fold, B2 ICH, B3 island labels, B4
      refit planes): the kernel against its plain PyTorch version on the
      card, on the inputs the main path gives it plus degenerate cases, with
-     times;
+     times; B2 bitwise (face slots, face_valid, normals, inner) also on the
+     sphere's hull, 4 points, tied extreme points, 300 points, 4 live
+     points, limit 62 and 13,000 points, and its wrapper and device time a
+     call on the cube and on the sphere;
   4. the decomposition main path: ``prepare_fracture`` of the cube at the
      1k-seed bench configuration on ``cuda:0``, with launch counts proving
      every kernel ran;
@@ -23,9 +26,13 @@ Phases (any failure exits non-zero):
      accumulated mode's of the 32nd step of a warm-start run) plus
      degenerate cases (for B5 and B8: one row, a count that is not a
      multiple of a block, -1 owners and partners, every slot missed, NaN
-     depth), with times; B5, B6, B8, B9 (both modes) and B12 bitwise; B5,
-     B7 and B8's device time and device launches a call, B9's a launch and
-     a step and its device launches a solve;
+     depth; for B7 at Vh = 8 and, with the first interactive frame's step
+     and the degenerate scene at Vh = 64, at Vh = 64 too: one piece, 39
+     pairs, -1 and out-of-range partners, a dead partner, pieces with no
+     live corner, rotated boxes that reach the support fallback), with
+     times; B5-B9 (B9 in both modes) and B12 bitwise; B5, B7 and B8's device
+     time and device launches a call (B7 also at Vh = 64), B9's a launch
+     and a step and its device launches a solve;
   8. the physics main path: ``workload.run_physics(64)`` at bench.py:207's
      configuration ("auto" broadphase on 10,000 pieces) on ``cuda:0``,
      launches pack 1, B6 1, narrowphase 1, prep 1, solver 1 on every step
@@ -272,18 +279,21 @@ def compare_clip(args, kw):
 
 
 def compare_ich(args, kw):
+    """Face slots slot for slot, face_valid, normals and inner bitwise equal
+    to the plain hull's."""
     pts, mask = args[:2]
     limit = kw.get("limit", args[2] if len(args) > 2 else 20)
     got = hull_cuda.ich(pts, mask, limit=limit)
     want = hull_cuda.ich_reference(pts, mask, limit=limit)
+    what = f"ich ({pts.shape[0]} points, limit {limit})"
+    if not torch.equal(got["faces"], want["faces"]):
+        bad = torch.nonzero((got["faces"] != want["faces"]).any(-1)).flatten().tolist()
+        fail(f"{what}: face slots {bad[:10]} differ from the plain hull")
     if not torch.equal(got["face_valid"], want["face_valid"]):
-        fail("ich: face_valid differs from the plain hull")
-    err = float(torch.amax(torch.abs(got["normals"] - want["normals"])))
-    ierr = float(torch.amax(torch.abs(got["inner"] - want["inner"])))
-    scale = float(torch.amax(torch.abs(pts))) or 1.0
-    if not (err <= 1e-5 and ierr <= 1e-6 * scale):
-        fail(f"ich: normals differ by {err}, inner by {ierr}")
-    return max(err, ierr)
+        fail(f"{what}: face_valid differs from the plain hull")
+    _same_bits(what, "normals", got["normals"], want["normals"])
+    _same_bits(what, "inner", got["inner"][None], want["inner"][None])
+    return 0.0
 
 
 def compare_labels(args, kw):
@@ -309,6 +319,36 @@ def compare_refit(args, kw):
     return _check_close("refit", "slab planes", err, _scale(pool, pmask))
 
 
+def sphere_ich_call(device):
+    """The sphere decomposition's B2 call: ``icosphere(2)``'s 162 points,
+    all live, at the bench configuration's limit."""
+    pts, mask = workload.model_inputs("sphere", device)[:2]
+    return (pts, mask), {"limit": workload.BENCH_CFG.ich_include_point_limit}
+
+
+def ich_edge_cases(device, g):
+    """B2's inputs beside the main path's: 4 points (no insertion); a
+    3 x 3 x 3 integer grid (exact ties among the extreme points and among
+    the priorities, integer volumes); 300 points (more than one pass a
+    lane); a mask that leaves 4 live points; limit 62 (F = 128, the
+    wrapper's limit); 13,000 points (more than the kernel stages in shared
+    memory)."""
+    grid = torch.stack(torch.meshgrid(*[torch.arange(3.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    four = torch.randn((50, 3), generator=g)
+    m4 = torch.zeros(50, dtype=torch.bool)
+    m4[[3, 17, 29, 41]] = True
+    cases = [
+        (torch.tensor([[0.0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]]), None, 20),
+        (grid, None, 20),
+        (torch.randn((300, 3), generator=g), None, 20),
+        (four, m4, 20),
+        (torch.randn((200, 3), generator=g), None, 62),
+        (torch.rand((13_000, 3), generator=g), None, 20),
+    ]
+    return [((c.to(device), (torch.ones(len(c), dtype=torch.bool) if m is None else m).to(device)),
+             {"limit": lim}) for c, m, lim in cases]
+
+
 def degenerate_cases(device):
     g = torch.Generator().manual_seed(7)
     v, _ = get_model("cube")
@@ -320,6 +360,7 @@ def degenerate_cases(device):
     ]
     ich_cases = [((c.to(device), torch.ones(len(c), dtype=torch.bool, device=device)),
                   {"limit": 20}) for c in clouds]
+    ich_cases += ich_edge_cases(device, g)
     N, T = 6, 16
     corners = torch.rand((N, T, 3, 3), generator=g)
     for t in range(T - 1):
@@ -571,20 +612,6 @@ def all_asleep(scene, cfg) -> bool:
     return bool(torch.all(asleep) & torch.any(b.active))
 
 
-def _rowscale(t):
-    """Per row: the largest finite |value| below 1e30, at least 1."""
-    a = t.abs().flatten(1)
-    return torch.where(a < 1e30, a, 0.0).amax(1).clamp_min(1.0)
-
-
-def _rows_close(name, what, got, want, scale):
-    """Per row of (N, ...) tensors, |got - want| within 1e-5 x scale; equal
-    entries (BIG against BIG, NaN against NaN) count as 0."""
-    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
-    err = torch.where(same, 0.0, (got - want).abs()).flatten(1).amax(1)
-    return _check_close(name, what, err, scale)
-
-
 def _exact(name, what, got, want):
     got, want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
     if not torch.equal(got, want):
@@ -621,19 +648,12 @@ def compare_pack(a, kw):
 
 
 def compare_narrowphase(a, kw):
-    """Hit flags and feature ids exactly; per pair, normals, depths, values
-    and points within 1e-5 x the larger of the two pieces' scales."""
-    packed, pidx, pok, Vh, F, Ne, M, slop = a
-    got = narrowphase_cuda.narrowphase(*a)
-    want = narrowphase_cuda.narrowphase_reference(*a)
-    Np, K, R = want.shape
-    exact = [4] + [6 + 6 * m for m in range(M)] + [10 + 6 * m for m in range(M)]
-    _exact("narrowphase", "hit flags or feature ids", got[..., exact].reshape(Np * K, -1),
-           want[..., exact].reshape(Np * K, -1))
-    ps = _rowscale(packed[:, : 3 * Vh])
-    scale = torch.maximum(ps[:, None], ps[pidx.long().clamp(0, Np - 1)]).reshape(-1)
-    return _rows_close("narrowphase", "normals, depths or points", got.reshape(Np * K, R),
-                       want.reshape(Np * K, R), scale)
+    """Every record bitwise equal to the plain version's (NaN against
+    NaN)."""
+    Np, K = a[1].shape
+    return _same_bits("narrowphase", "pair records",
+                      narrowphase_cuda.narrowphase(*a).reshape(Np * K, -1),
+                      narrowphase_cuda.narrowphase_reference(*a).reshape(Np * K, -1))
 
 
 def compare_prep(a, kw):
@@ -846,11 +866,11 @@ def prep_edge_cases(call):
     return [(one, kw), (ten, kw), (none, kw), (nan, kw)]
 
 
-def degenerate_physics_scene(device):
+def degenerate_physics_scene(device, cfg=workload.PHYSICS_CFG):
     """20 boxes: a strongly rotated overlapping cluster, an edge-edge crossing
     pair (no corner of either inside the other: the support-point fallback),
     a grounded box, a far box and one dead piece; one physics step's kernel
-    inputs."""
+    inputs (at ``cfg``'s hull size)."""
     g = torch.Generator().manual_seed(11)
     cluster = (torch.rand((14, 3), generator=g) * 1.2 - 0.6) + torch.tensor([0.0, -0.8, 0.0])
     r2 = 2 ** 0.5
@@ -859,7 +879,6 @@ def degenerate_physics_scene(device):
     offs = torch.cat([cluster, extra]).numpy()
     pieces = workload.cube_pieces(offs, device)
     pieces.valid[-1] = False                                   # dead piece
-    cfg = workload.PHYSICS_CFG
     scene = build_scene(pieces, cfg, max_bodies=len(offs))
     b = scene.bodies
     q = quat_normalize(b.q + 0.35 * torch.randn(b.q.shape, generator=g).to(device))
@@ -883,6 +902,43 @@ def degenerate_physics_scene(device):
     nar = [(a, kw), ((a[0], a[1], pok) + tuple(a[3:]), kw),
            ((a[0], sentinel) + tuple(a[2:]), kw)]
     return calls, nar
+
+
+def narrowphase_edge_cases(call):
+    """B7's degenerate inputs beside a recorded call: one piece; 13 pieces
+    and 3 partner columns (39 pairs, not a multiple of a block's pairs at
+    any Vh; partners past the 13th clamp to the last); partners of -1 and
+    past the last piece; pieces whose corners are all masked, some of them
+    with their edges masked too (a NaN axis: depth NaN, normal 0)."""
+    a, kw = call[:2]
+    packed, pidx, pok, Vh, F, Ne = a[:6]
+    offs, _ = pack_cuda.pack_layout(Vh, F, Ne)
+    one = (packed[:1], pidx[:1], pok[:1], *a[3:])
+    n = min(13, packed.shape[0])
+    odd = (packed[:n], pidx[:n, :3].contiguous(), pok[:n, :3].contiguous(), *a[3:])
+    pk = pidx.clone()
+    pk[1::4, 1] = -1
+    pk[2::4, 2] = packed.shape[0] + 3
+    bad = (packed, pk, pok, *a[3:])
+    dead = packed.clone()
+    wo, wc = offs["wm"]
+    dead[1::5, wo:wo + wc] = 0.0
+    dead[2::5, wo:wo + wc] = 0.0
+    if "em" in offs:
+        eo, ec = offs["em"]
+        dead[2::5, eo:eo + ec] = 0.0
+    masked = (dead, pidx, pok, *a[3:])
+    return [(one, kw), (odd, kw), (bad, kw), (masked, kw)]
+
+
+def frame_step_calls():
+    """The kernel inputs of the first interactive frame's step on the card
+    (``Scene("cube", INTERACTIVE_CFG)``: compound owners, Vh = 64, F = 32)."""
+    with StepRecorder() as rec:
+        scene = workload.interactive_scene("cuda")
+        workload.run_frames(scene, 1)
+        torch.cuda.synchronize()
+    return rec.last
 
 
 def broadphase_cases(device):
@@ -959,18 +1015,25 @@ def physics_kernel_phase(card):
     _, sleepy_warm = with_sleepers(wcalls["prep"], wcalls["solver_warm"])
     dcalls, dnar = degenerate_physics_scene("cuda")
     dsleepy_prep, dsleepy_solver = with_sleepers(dcalls["prep"], dcalls["solver"])
-    out, Vh = dcalls["narrowphase"][2], dcalls["narrowphase"][0][3]
-    fb = (out[..., 10] > 2 * Vh) & (out[..., 6] > 0.5)
-    print(f"degenerate scene: {int(fb.sum())} fallback contacts (fid > 2Vh)", flush=True)
-    if int(fb.sum()) == 0:
-        fail("the degenerate scene reached no support-point fallback")
+    # B7 at the frame's hull size too: the first interactive frame's step
+    # and the degenerate scene at Vh = 64.
+    fcall = frame_step_calls()["narrowphase"]
+    _, dnar64 = degenerate_physics_scene(
+        "cuda", dataclasses.replace(workload.PHYSICS_CFG, max_hull_verts=fcall[0][3]))
+    for (da, _), what in ((dnar[0], "degenerate scene"), (dnar64[0], "degenerate scene (Vh 64)")):
+        out, Vh = narrowphase_cuda.narrowphase(*da), da[3]
+        fb = (out[..., 10] > 2 * Vh) & (out[..., 6] > 0.5)
+        print(f"{what}: {int(fb.sum())} fallback contacts (fid > 2Vh)", flush=True)
+        if int(fb.sum()) == 0:
+            fail(f"the {what} reached no support-point fallback")
     K = cfg.max_neighbors
     bcases = broadphase_cases("cuda")
     cases = {
         "pack": [main["pack"], (dcalls["pack"][0], dcalls["pack"][1])]
         + pack_edge_cases(main["pack"]),
         "broadphase_exact": [main["broadphase_exact"]] + [(b + (K,), {}) for b in bcases.values()],
-        "narrowphase": [main["narrowphase"]] + dnar,
+        "narrowphase": [main["narrowphase"]] + dnar + narrowphase_edge_cases(main["narrowphase"])
+        + [fcall[:2]] + dnar64 + narrowphase_edge_cases(fcall),
         "prep": [main["prep"], sleepy_prep, (dcalls["prep"][0], dcalls["prep"][1]),
                  dsleepy_prep] + prep_edge_cases(main["prep"]),
         "solver": [main["solver"], sleepy_solver, (dcalls["solver"][0], dcalls["solver"][1]),
@@ -1015,6 +1078,14 @@ def physics_kernel_phase(card):
                                  device_launches=entries)
             extra = (f" (on the device: {dev_ms:.4f} ms, {other_ms:.4f} ms beside the kernel, "
                      f"{entries:.0f} device launches a call)")
+        if name == "narrowphase":   # B7 at the frame's Vh = 64 as well
+            fa, fkw = fcall[:2]
+            t = per_call_times(name, [(fa, fkw)], PHYS_KERNEL_FN[name])[0]
+            t["shape"] = [*fa[1].shape, fa[3], fa[4]]
+            results[name]["frame_call"] = t
+            print(f"narrowphase at the frame's shapes (Np, K, Vh, F) {t['shape']} (interactive "
+                  f"frame 1's step): wrapper {t['ms']:.4f} ms, kernel {t['device_ms']:.4f} ms on "
+                  f"the device ({card})", flush=True)
         if name == "broadphase_exact":
             dev_ms, glue_ms, entries = device_split(lambda: PHYS_KERNEL_FN[name](*a, **kw),
                                                     "bp_exact_kernel")
@@ -2260,6 +2331,15 @@ def main():
                       f"kernel {t['device_ms']:.4f} ms on the device ({card})", flush=True)
         results[name]["calls"] = split
         results[name]["device_ms"] = sum(t["device_ms"] for t in split)
+        if name == "ich":   # B2 a call on the cube and on the sphere
+            sphere = sphere_ich_call("cuda")
+            compare_ich(*sphere)
+            t = per_call_times(name, [sphere])[0]
+            t["shape"] = list(sphere[0][0].shape)
+            results[name]["sphere_call"] = t
+            for model, c in (("cube", split[0]), ("sphere", t)):
+                print(f"ich call {model} (N, 3) {c['shape']}: wrapper {c['ms']:.4f} ms, kernel "
+                      f"{c['device_ms']:.4f} ms on the device ({card})", flush=True)
         print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms (on the device "
               f"{results[name]['device_ms']:.4f} ms)  plain {plain_ms:.4f} ms  "
               f"bound {b_ms:.4f} ms ({b_by}) ({len(calls[name])} main-path calls; {card})",

@@ -15,18 +15,38 @@
 // val hit px py pz fid.
 //
 // What bounds it on the card: bytes, barely. Per pair it reads two packed
-// rows (2 x 440 B at Vh = 8, F = 8, Ne = 3; the partner row from L2) and
-// writes 116 B, and does ~2,600 flops (the 2 x Vh x F plane distances
-// dominate). At 80,000 pairs: ~14 MB unique traffic and ~0.2 GFLOP.
-// Design: one thread per pair; the K threads of one piece are neighbours in
-// a warp, so the own row is one broadcast read; the partner row is read by
-// index inside the kernel (the TPU version gathered it beforehand). The two
-// corner sets, the containment maxima and the manifold scores live in
-// registers (Vh is a template parameter and every register array is indexed
-// by unrolled constants); planes and edges are streamed from the rows.
-// Every pick walks candidates in the plain version's order and replaces
-// only on a strictly better value, so ties resolve to the first, as
-// jnp.argmin/argmax and torch.argmin/argmax do. Built with -fmad=false.
+// rows (2 x 440 B at Vh = 8, F = 8, Ne = 3) and writes 116 B, and does
+// ~2,600 flops (the 2 x Vh x F plane distances dominate). At 80,000 pairs:
+// ~14 MB unique traffic and ~0.2 GFLOP; in practice the instructions
+// bound it (a lane's share of the plane distances, folds and reductions).
+// Design: a block of 128 threads takes a run of consecutive pairs (a tile
+// of pieces). It copies the pieces' own rows (one contiguous span) and the
+// partner row of each pair (a warp a row) into shared memory, 16 bytes a
+// lane over each row's 16-byte aligned cover, so a row costs its own bytes
+// and not a sector per field, then computes from there. (cp.async copies
+// of the same spans measured slower on the H100 than these loads.) A pair
+// gets a group of G = Vh / 4 lanes (2 at the lattice's Vh = 8, 16 at the
+// frame's Vh = 64, whose 2,048 pairs then fill 256 blocks; 1 and 4 lanes
+// at Vh = 8, 8 and 32 at Vh = 64 measured slower), and each lane
+// holds four corners of each hull in registers, so no thread holds arrays
+// of length Vh and a plane or an edge axis is read once a lane, not once
+// a corner:
+// - the 13 DOP axes go round the group's lanes; then every lane walks the
+//   face and edge axes in family order (j's faces, i's faces, the Ne^2
+//   edge crosses), folding its corners' distances to a face (and their
+//   containment maxima over the other hull's planes) or its corners'
+//   projections on an edge axis, and a shuffle reduction across the group
+//   completes each fold (fminf / fmaxf order -0 below +0, so any tree gives
+//   the bits of a fold in corner order); the lanes take turns normalizing
+//   the edge axes (one sqrt and one divide each) and pass them round;
+// - each lane keeps its best (penetration, family index); the group's
+//   least is a shuffle reduction on that key, first of ties;
+// - si_min / sj_max, each of the M manifold picks and the fallback's
+//   support corners are shuffle reductions ((value, index) keys, lowest
+//   index on ties, and the plain walk's NaN rule);
+// - the block's records are assembled in shared memory and written as one
+//   contiguous span.
+// Built with -fmad=false, every value rounds as the plain version's.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,164 +56,297 @@ namespace {
 
 constexpr float BIG = 3.4e38f;
 constexpr float HALF_BIG = 1.7e38f;  // BIG / 2, exact in binary
+constexpr int THREADS = 128;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NO_IDX = 0x7fffffff;
 
-template <int VH>
-__global__ void narrow_kernel(const float* __restrict__ packed, const int* __restrict__ pidx,
-                              const uint8_t* __restrict__ pok, const float* __restrict__ dop,
-                              int Np, int K, int F, int NE, int M, float slop,
-                              float* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= Np * K) return;
+// Floats a staged partner row takes: the 16-byte aligned cover of any row
+// of D floats.
+__host__ __device__ __forceinline__ int row_slot(int D) { return ((D + 6 + 3) / 4) * 4; }
+
+// (v, i) takes (x, j) when x is larger (largest=true) or smaller, or equal
+// with a lower index.
+template <bool LARGEST>
+__device__ __forceinline__ bool wins(float x, int j, float v, int i) {
+  return (LARGEST ? x > v : x < v) || (x == v && j < i);
+}
+
+template <int G, bool LARGEST>
+__device__ __forceinline__ void group_pick(float& v, int& i) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(FULL, v, o);
+    const int oi = __shfl_xor_sync(FULL, i, o);
+    if (wins<LARGEST>(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+}
+
+template <int G>
+__device__ __forceinline__ float group_min(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ int group_min_int(int v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// First-of-ties argmax as the sequential walk `if (x > best) take` from the
+// first candidate: the first candidate when it is NaN, else the first
+// maximum among the non-NaN ones. Each lane passes its best non-NaN
+// (value, index); `first` is the lowest candidate index.
+template <int G>
+__device__ __forceinline__ int seq_argmax(float lv, int li, int first, bool first_nan) {
+  group_pick<G, true>(lv, li);
+  return first_nan ? first : li;
+}
+
+template <int VH, int G>
+__global__ void __launch_bounds__(THREADS)
+narrow_kernel(const float* __restrict__ packed, const int* __restrict__ pidx,
+              const uint8_t* __restrict__ pok, const float* __restrict__ dop, int Np, int K,
+              int F, int NE, int M, float slop, int own_cap, float* __restrict__ out) {
+  constexpr int PB = THREADS / G;      // pairs a block
+  constexpr int CPL = VH / G;          // corners of each hull a lane holds
+  extern __shared__ float4 sm4[];
+  __shared__ float dop_s[39];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int D = 4 * VH + 5 * F + 26 + 4 * NE;
+  const int SLOT = row_slot(D);
+  const int R = 5 + 6 * M;
+  float* own = sm;                     // the block's own rows, a 16-byte aligned span
+  float* part = own + own_cap;         // PB partner rows, SLOT floats each; then records
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int P = Np * K;
+  const int p0 = blockIdx.x * PB;
+  const int npairs = min(PB, P - p0);
+
+  // --- stage the own rows (one span) and each pair's partner row (a warp
+  // a row), 16 bytes a lane ---
+  const int i_lo = p0 / K, i_hi = (p0 + npairs - 1) / K;
+  const long long os4 = ((long long)i_lo * D) >> 2;
+  const int on4 = (int)((((long long)(i_hi + 1) * D + 3) >> 2) - os4);
+  const float4* src = reinterpret_cast<const float4*>(packed);
+  for (int v = tid; v < on4; v += THREADS) reinterpret_cast<float4*>(own)[v] = src[os4 + v];
+  for (int r = warp; r < npairs; r += THREADS / 32) {
+    int j = pidx[p0 + r];
+    j = j < 0 ? 0 : (j >= Np ? Np - 1 : j);
+    const long long js4 = ((long long)j * D) >> 2;
+    const int jn4 = (int)((((long long)(j + 1) * D + 3) >> 2) - js4);
+    float4* dst = reinterpret_cast<float4*>(part + r * SLOT);
+    for (int v = wl; v < jn4; v += 32) dst[v] = src[js4 + v];
+  }
+  if (tid < 39) dop_s[tid] = dop[tid];
+  __syncthreads();
+
+  // --- one group of G lanes a pair ---
+  const int q = tid / G, g = tid - q * G;
+  const int glane = wl - g;            // the group's first lane in the warp
+  const int qe = q < npairs ? q : 0;   // lanes past the last pair shadow pair 0
+  const int p = p0 + qe;
   const int i = p / K;
   int j = pidx[p];
   j = j < 0 ? 0 : (j >= Np ? Np - 1 : j);
-  const int D = 4 * VH + 5 * F + 26 + 4 * NE;
-  const float* I = packed + (size_t)i * D;
-  const float* J = packed + (size_t)j * D;
+  const float* I = own + (int)((long long)i * D - 4 * os4);
+  const float* J = part + qe * SLOT + (int)((long long)j * D - 4 * ((((long long)j * D) >> 2)));
   const int PN = 4 * VH, PD = PN + 3 * F, PM = PN + 4 * F;
   const int LOD = PN + 5 * F, HID = LOD + 13, EX = HID + 13, EM = EX + 3 * NE;
 
-  float iv[3][VH], jv[3][VH];
-  bool im[VH], jm[VH];
+  // This lane's corners v = g + G·r of both hulls, in registers.
+  float xi[CPL], yi[CPL], zi[CPL], xj[CPL], yj[CPL], zj[CPL], ins_j[CPL], ins_i[CPL];
+  bool mi[CPL], mj[CPL];
 #pragma unroll
-  for (int v = 0; v < VH; ++v) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      iv[c][v] = I[c * VH + v];
-      jv[c][v] = J[c * VH + v];
-    }
-    im[v] = I[3 * VH + v] > 0.5f;
-    jm[v] = J[3 * VH + v] > 0.5f;
+  for (int r = 0; r < CPL; ++r) {
+    const int v = g + G * r;
+    xi[r] = I[v]; yi[r] = I[VH + v]; zi[r] = I[2 * VH + v]; mi[r] = I[3 * VH + v] > 0.5f;
+    xj[r] = J[v]; yj[r] = J[VH + v]; zj[r] = J[2 * VH + v]; mj[r] = J[3 * VH + v] > 0.5f;
+    ins_j[r] = -BIG; ins_i[r] = -BIG;
   }
 
-  // Running least penetration over the axis families, first of ties. A
-  // masked axis counts BIG, or NaN when its penetration is not finite (an
-  // edge axis against a piece with no live corner); a NaN axis leaves the
-  // pair's depth NaN and its normal 0 (the JAX kernel's pen·mask +
-  // (1 - mask)·BIG, min and one-hot pick).
-  float depth = 0.f, nx = 0.f, ny = 0.f, nz = 0.f;
-  bool first = true, undefined = false;
-  auto axis = [&](bool live, float pen, float dx, float dy, float dz) {
+  // Least penetration over the axis candidates in family order. A masked
+  // axis counts BIG, or NaN when its penetration is not finite (an edge axis
+  // against a piece with no live corner); a NaN axis leaves the pair's depth
+  // NaN and its normal 0 (the JAX kernel's pen·mask + (1 - mask)·BIG, min
+  // and one-hot pick). The DOP axes go round the group's lanes; every lane
+  // follows the face and edge axes, whose folds over the corners end in a
+  // group reduction.
+  float best = INFINITY, bnx = 0.f, bny = 0.f, bnz = 0.f;
+  int bidx = NO_IDX;
+  bool undefined = false;
+  auto axis = [&](int t, bool live, float pen, float dx, float dy, float dz) {
     if (!live) pen = isfinite(pen) ? BIG : NAN;
-    if (isnan(pen)) { undefined = true; return; }
-    if (first || pen < depth) { depth = pen; nx = dx; ny = dy; nz = dz; first = false; }
+    if (isnan(pen)) {
+      undefined = true;
+    } else if (bidx == NO_IDX || pen < best) {
+      best = pen; bidx = t; bnx = dx; bny = dy; bnz = dz;
+    }
   };
-
   // (1) 26-DOP interval axes.
-#pragma unroll
-  for (int a = 0; a < 13; ++a) {
-    const float ilo = I[LOD + a], ihi = I[HID + a], jlo = J[LOD + a], jhi = J[HID + a];
-    const float ov = fminf(ihi, jhi) - fmaxf(ilo, jlo);
+  for (int t = g; t < 13; t += G) {
+    const float ilo = I[LOD + t], ihi = I[HID + t], jlo = J[LOD + t], jhi = J[HID + t];
     const float s = (ihi + ilo) < (jhi + jlo) ? -1.0f : 1.0f;
-    axis(true, ov, s * dop[a * 3 + 0], s * dop[a * 3 + 1], s * dop[a * 3 + 2]);
+    axis(t, true, fminf(ihi, jhi) - fmaxf(ilo, jlo),
+         s * dop_s[t * 3 + 0], s * dop_s[t * 3 + 1], s * dop_s[t * 3 + 2]);
   }
-
-  // (2) i's corners against j's planes; containment of i's corners in j.
-  float ins_j[VH], ins_i[VH];
-#pragma unroll
-  for (int v = 0; v < VH; ++v) { ins_j[v] = -BIG; ins_i[v] = -BIG; }
+  // (2) i's corners against j's planes, with their containment in j; (3)
+  // j's corners against i's planes.
+#pragma unroll 4
   for (int f = 0; f < F; ++f) {
     const float px = J[PN + f], py = J[PN + F + f], pz = J[PN + 2 * F + f], pd = J[PD + f];
     const bool live = J[PM + f] > 0.5f;
     float mn = BIG;
 #pragma unroll
-    for (int v = 0; v < VH; ++v) {
-      const float dist = ((iv[0][v] * px + iv[1][v] * py) + iv[2][v] * pz) + pd;
-      if (im[v]) mn = fminf(mn, dist);
-      if (live) ins_j[v] = fmaxf(ins_j[v], dist);
+    for (int r = 0; r < CPL; ++r) {
+      const float dist = ((xi[r] * px + yi[r] * py) + zi[r] * pz) + pd;
+      if (mi[r]) mn = fminf(mn, dist);
+      if (live) ins_j[r] = fmaxf(ins_j[r], dist);
     }
-    axis(live, -mn, px, py, pz);
+    axis(13 + f, live, -group_min<G>(mn), px, py, pz);
   }
-  // (3) j's corners against i's planes.
+#pragma unroll 4
   for (int f = 0; f < F; ++f) {
     const float px = I[PN + f], py = I[PN + F + f], pz = I[PN + 2 * F + f], pd = I[PD + f];
     const bool live = I[PM + f] > 0.5f;
     float mn = BIG;
 #pragma unroll
-    for (int v = 0; v < VH; ++v) {
-      const float dist = ((jv[0][v] * px + jv[1][v] * py) + jv[2][v] * pz) + pd;
-      if (jm[v]) mn = fminf(mn, dist);
-      if (live) ins_i[v] = fmaxf(ins_i[v], dist);
+    for (int r = 0; r < CPL; ++r) {
+      const float dist = ((xj[r] * px + yj[r] * py) + zj[r] * pz) + pd;
+      if (mj[r]) mn = fminf(mn, dist);
+      if (live) ins_i[r] = fmaxf(ins_i[r], dist);
     }
-    axis(live, -mn, -px, -py, -pz);
+    axis(13 + F + f, live, -group_min<G>(mn), -px, -py, -pz);
   }
-  // (4) edge x edge cross axes, i's edge major.
-  for (int a = 0; a < NE; ++a) {
-    const float ax = I[EX + a], ay = I[EX + NE + a], az = I[EX + 2 * NE + a];
-    const bool ia = I[EM + a] > 0.5f;
-    for (int b = 0; b < NE; ++b) {
+  // (4) edge x edge cross axes, i's edge major. The group's lanes take
+  // turns normalizing an axis (one sqrt and one divide each) and pass it
+  // round by shuffles.
+  const int NE2 = NE * NE;
+  for (int e0 = 0; e0 < NE2; e0 += G) {
+    float cx = 0.f, cy = 0.f, cz = 0.f;
+    bool live = false;
+    if (e0 + g < NE2) {
+      const int a = (e0 + g) / NE, b = (e0 + g) - a * NE;
+      const float ax = I[EX + a], ay = I[EX + NE + a], az = I[EX + 2 * NE + a];
       const float bx = J[EX + b], by = J[EX + NE + b], bz = J[EX + 2 * NE + b];
-      float cx = ay * bz - az * by;
-      float cy = az * bx - ax * bz;
-      float cz = ax * by - ay * bx;
+      cx = ay * bz - az * by;
+      cy = az * bx - ax * bz;
+      cz = ax * by - ay * bx;
       const float nl = sqrtf((cx * cx + cy * cy) + cz * cz);
       const float inv = 1.0f / fmaxf(nl, 1e-30f);
       cx = cx * inv; cy = cy * inv; cz = cz * inv;
-      const bool live = ia && (J[EM + b] > 0.5f) && (nl > 1e-6f);
+      live = (I[EM + a] > 0.5f) && (J[EM + b] > 0.5f) && (nl > 1e-6f);
+    }
+    const int n = min(G, NE2 - e0);
+    for (int k = 0; k < n; ++k) {
+      const float ux = __shfl_sync(FULL, cx, glane + k);
+      const float uy = __shfl_sync(FULL, cy, glane + k);
+      const float uz = __shfl_sync(FULL, cz, glane + k);
+      const bool ul = __shfl_sync(FULL, (int)live, glane + k) != 0;
       float ilo = BIG, ihi = -BIG, jlo = BIG, jhi = -BIG;
 #pragma unroll
-      for (int v = 0; v < VH; ++v) {
-        const float ti = (iv[0][v] * cx + iv[1][v] * cy) + iv[2][v] * cz;
-        const float tj = (jv[0][v] * cx + jv[1][v] * cy) + jv[2][v] * cz;
-        if (im[v]) { ilo = fminf(ilo, ti); ihi = fmaxf(ihi, ti); }
-        if (jm[v]) { jlo = fminf(jlo, tj); jhi = fmaxf(jhi, tj); }
+      for (int r = 0; r < CPL; ++r) {
+        const float ti = (xi[r] * ux + yi[r] * uy) + zi[r] * uz;
+        const float tj = (xj[r] * ux + yj[r] * uy) + zj[r] * uz;
+        if (mi[r]) { ilo = fminf(ilo, ti); ihi = fmaxf(ihi, ti); }
+        if (mj[r]) { jlo = fminf(jlo, tj); jhi = fmaxf(jhi, tj); }
       }
-      const float ov = fminf(ihi, jhi) - fmaxf(ilo, jlo);
+      ilo = group_min<G>(ilo); ihi = group_max<G>(ihi);
+      jlo = group_min<G>(jlo); jhi = group_max<G>(jhi);
       const float s = (ihi + ilo) < (jhi + jlo) ? -1.0f : 1.0f;
-      axis(live, ov, cx * s, cy * s, cz * s);
+      axis(13 + 2 * F + e0 + k, ul, fminf(ihi, jhi) - fmaxf(ilo, jlo), ux * s, uy * s, uz * s);
     }
   }
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(FULL, best, o);
+    const int oi = __shfl_xor_sync(FULL, bidx, o);
+    const float ox = __shfl_xor_sync(FULL, bnx, o);
+    const float oy = __shfl_xor_sync(FULL, bny, o);
+    const float oz = __shfl_xor_sync(FULL, bnz, o);
+    undefined |= __shfl_xor_sync(FULL, (int)undefined, o) != 0;
+    if (wins<false>(ob, oi, best, bidx)) { best = ob; bidx = oi; bnx = ox; bny = oy; bnz = oz; }
+  }
+  float depth = best, nx = bnx, ny = bny, nz = bnz;
   if (undefined) { depth = NAN; nx = 0.f; ny = 0.f; nz = 0.f; }
   const bool hit = (pok[p] != 0) && (depth > -slop) && (depth < HALF_BIG);
 
-  // Containment manifold.
-  float si[VH], sj[VH];
+  // --- containment manifold over this lane's corners ---
+  float si[CPL], sj[CPL], sc[2 * CPL];
   float si_min = BIG, sj_max = -BIG;
 #pragma unroll
-  for (int v = 0; v < VH; ++v) {
-    si[v] = (iv[0][v] * nx + iv[1][v] * ny) + iv[2][v] * nz;
-    sj[v] = (jv[0][v] * nx + jv[1][v] * ny) + jv[2][v] * nz;
-    if (im[v]) si_min = fminf(si_min, si[v]);
-    if (jm[v]) sj_max = fmaxf(sj_max, sj[v]);
+  for (int r = 0; r < CPL; ++r) {
+    si[r] = (xi[r] * nx + yi[r] * ny) + zi[r] * nz;
+    sj[r] = (xj[r] * nx + yj[r] * ny) + zj[r] * nz;
+    if (mi[r]) si_min = fminf(si_min, si[r]);
+    if (mj[r]) sj_max = fmaxf(sj_max, sj[r]);
   }
-  float sc[2 * VH];
+  si_min = group_min<G>(si_min);
+  sj_max = group_max<G>(sj_max);
 #pragma unroll
-  for (int v = 0; v < VH; ++v) {
-    sc[v] = (ins_j[v] <= slop && im[v]) ? sj_max - si[v] : -BIG;
-    sc[VH + v] = (ins_i[v] <= slop && jm[v]) ? sj[v] - si_min : -BIG;
+  for (int r = 0; r < CPL; ++r) {
+    sc[r] = (ins_j[r] <= slop && mi[r]) ? sj_max - si[r] : -BIG;
+    sc[CPL + r] = (ins_i[r] <= slop && mj[r]) ? sj[r] - si_min : -BIG;
   }
+  // Each corner's contact point: moved half its depth along the normal.
+  float cxs[2 * CPL], cys[2 * CPL], czs[2 * CPL];
+#pragma unroll
+  for (int r = 0; r < CPL; ++r) {
+    const float hi = (sj_max - si[r]) * 0.5f, hj = (sj[r] - si_min) * 0.5f;
+    cxs[r] = xi[r] + nx * hi; cys[r] = yi[r] + ny * hi; czs[r] = zi[r] + nz * hi;
+    cxs[CPL + r] = xj[r] - nx * hj; cys[CPL + r] = yj[r] - ny * hj; czs[CPL + r] = zj[r] - nz * hj;
+  }
+  // The rows are read; the records take the partner rows' place.
+  __syncthreads();
+  float* o = part + q * R;
 
-  const int R = 5 + 6 * M;
-  float* o = out + (size_t)p * R;
-  o[0] = nx; o[1] = ny; o[2] = nz; o[3] = depth; o[4] = hit ? 1.0f : 0.0f;
   bool any_h = false;
   float v0 = 0.f, x0 = 0.f, y0 = 0.f, z0 = 0.f, f0 = 0.f;
   bool h0 = false;
   for (int m = 0; m < M; ++m) {
-    float mx = sc[0];
-    int b = 0;
+    // Candidate index of score sc[r]: i's corner g + G·r, or VH + j's.
+    float lv = -INFINITY;
+    int li = NO_IDX;
 #pragma unroll
-    for (int r = 1; r < 2 * VH; ++r)
-      if (sc[r] > mx) { mx = sc[r]; b = r; }
-    float px = 0.f, py = 0.f, pz = 0.f;
-#pragma unroll
-    for (int r = 0; r < 2 * VH; ++r) {
-      if (r != b) continue;
-      if (r < VH) {
-        const float h = (sj_max - si[r]) * 0.5f;
-        px = iv[0][r] + nx * h; py = iv[1][r] + ny * h; pz = iv[2][r] + nz * h;
-      } else {
-        const int v = r - VH;
-        const float h = (sj[v] - si_min) * 0.5f;
-        px = jv[0][v] - nx * h; py = jv[1][v] - ny * h; pz = jv[2][v] - nz * h;
-      }
-      sc[r] = -BIG;
+    for (int r = 0; r < 2 * CPL; ++r) {
+      const int idx = r < CPL ? g + G * r : VH + g + G * (r - CPL);
+      if (!isnan(sc[r]) && wins<true>(sc[r], idx, lv, li)) { lv = sc[r]; li = idx; }
     }
+    const bool nan0 = __shfl_sync(FULL, (int)isnan(sc[0]), glane) != 0;  // candidate 0
+    const int b = seq_argmax<G>(lv, li, 0, nan0);
+    // The lane holding candidate b reads it out and retires it (selects
+    // over the unrolled slots keep the arrays in registers).
+    const int bv = b < VH ? b : b - VH;
+    const int owner = glane + bv % G;
+    const int rb = g == bv % G ? bv / G + (b < VH ? 0 : CPL) : -1;
+    float mx = 0.f, px = 0.f, py = 0.f, pz = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2 * CPL; ++r) {
+      const bool here = r == rb;
+      mx = here ? sc[r] : mx;
+      px = here ? cxs[r] : px;
+      py = here ? cys[r] : py;
+      pz = here ? czs[r] : pz;
+      sc[r] = here ? -BIG : sc[r];
+    }
+    mx = __shfl_sync(FULL, mx, owner);
+    px = __shfl_sync(FULL, px, owner);
+    py = __shfl_sync(FULL, py, owner);
+    pz = __shfl_sync(FULL, pz, owner);
     const bool h = hit && (mx > -slop) && (mx < HALF_BIG);
     any_h = any_h || h;
     if (m == 0) {
       v0 = mx; h0 = h; x0 = px; y0 = py; z0 = pz; f0 = (float)(b + 1);
-    } else {
+    } else if (g == 0 && q < npairs) {
       float* om = o + 5 + 6 * m;
       om[0] = mx; om[1] = h ? 1.0f : 0.0f; om[2] = px; om[3] = py; om[4] = pz;
       om[5] = (float)(b + 1);
@@ -201,41 +354,90 @@ __global__ void narrow_kernel(const float* __restrict__ packed, const int* __res
   }
 
   // Fallback when no corner is contained: the midpoint of the deepest
-  // support corners, fid 2Vh + fi·Vh + fj + 1.
-  if (hit && !any_h) {
-    int fi = -1, fj = -1;
-    float bi = 0.f, bj = 0.f;
+  // support corners (the first live corner of each hull when its value is
+  // NaN, as the plain walk), fid 2Vh + fi·Vh + fj + 1.
+  {
+    float lvi = -INFINITY, lvj = -INFINITY;
+    int lii = NO_IDX, lij = NO_IDX, fli = NO_IDX, flj = NO_IDX;
 #pragma unroll
-    for (int v = 0; v < VH; ++v) {
-      if (im[v] && (fi < 0 || -si[v] > bi)) { bi = -si[v]; fi = v; }
-      if (jm[v] && (fj < 0 || sj[v] > bj)) { bj = sj[v]; fj = v; }
-    }
-    float pi[3] = {0.f, 0.f, 0.f}, pj[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int v = 0; v < VH; ++v) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        if (v == fi) pi[c] = iv[c][v];
-        if (v == fj) pj[c] = jv[c][v];
+    for (int r = 0; r < CPL; ++r) {
+      const int v = g + G * r;
+      if (mi[r]) {
+        fli = min(fli, v);
+        if (!isnan(-si[r]) && wins<true>(-si[r], v, lvi, lii)) { lvi = -si[r]; lii = v; }
+      }
+      if (mj[r]) {
+        flj = min(flj, v);
+        if (!isnan(sj[r]) && wins<true>(sj[r], v, lvj, lij)) { lvj = sj[r]; lij = v; }
       }
     }
-    x0 = 0.5f * (pi[0] + pj[0]);
-    y0 = 0.5f * (pi[1] + pj[1]);
-    z0 = 0.5f * (pi[2] + pj[2]);
-    v0 = depth;
-    h0 = true;
-    f0 = (2.0f * VH + (float)(fi < 0 ? 0 : fi) * VH) + (float)(fj < 0 ? 0 : fj + 1);
+    fli = group_min_int<G>(fli);
+    flj = group_min_int<G>(flj);
+    // NaN-ness of each hull's first live corner, from the lane holding it.
+    bool ni = false, nj = false;
+#pragma unroll
+    for (int r = 0; r < CPL; ++r) {
+      ni = g + G * r == fli ? isnan(-si[r]) : ni;
+      nj = g + G * r == flj ? isnan(sj[r]) : nj;
+    }
+    ni = __shfl_sync(FULL, (int)ni, glane + (fli == NO_IDX ? 0 : fli % G)) != 0;
+    nj = __shfl_sync(FULL, (int)nj, glane + (flj == NO_IDX ? 0 : flj % G)) != 0;
+    int fi = seq_argmax<G>(lvi, lii, fli, ni);
+    int fj = seq_argmax<G>(lvj, lij, flj, nj);
+    if (fli == NO_IDX) fi = -1;
+    if (flj == NO_IDX) fj = -1;
+    float pi[3] = {0.f, 0.f, 0.f}, pj[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < CPL; ++r) {
+      const bool ai = g + G * r == fi, aj = g + G * r == fj;
+      pi[0] = ai ? xi[r] : pi[0]; pi[1] = ai ? yi[r] : pi[1]; pi[2] = ai ? zi[r] : pi[2];
+      pj[0] = aj ? xj[r] : pj[0]; pj[1] = aj ? yj[r] : pj[1]; pj[2] = aj ? zj[r] : pj[2];
+    }
+    const int oi = glane + (fi < 0 ? 0 : fi % G), oj = glane + (fj < 0 ? 0 : fj % G);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      pi[c] = __shfl_sync(FULL, pi[c], oi);
+      pj[c] = __shfl_sync(FULL, pj[c], oj);
+    }
+    if (fi < 0) { pi[0] = 0.f; pi[1] = 0.f; pi[2] = 0.f; }
+    if (fj < 0) { pj[0] = 0.f; pj[1] = 0.f; pj[2] = 0.f; }
+    if (hit && !any_h) {
+      x0 = 0.5f * (pi[0] + pj[0]);
+      y0 = 0.5f * (pi[1] + pj[1]);
+      z0 = 0.5f * (pi[2] + pj[2]);
+      v0 = depth;
+      h0 = true;
+      f0 = (2.0f * VH + (float)(fi < 0 ? 0 : fi) * VH) + (float)(fj < 0 ? 0 : fj + 1);
+    }
   }
-  o[5] = v0; o[6] = h0 ? 1.0f : 0.0f; o[7] = x0; o[8] = y0; o[9] = z0; o[10] = f0;
+  if (g == 0 && q < npairs) {
+    o[0] = nx; o[1] = ny; o[2] = nz; o[3] = depth; o[4] = hit ? 1.0f : 0.0f;
+    o[5] = v0; o[6] = h0 ? 1.0f : 0.0f; o[7] = x0; o[8] = y0; o[9] = z0; o[10] = f0;
+  }
+  __syncthreads();
+  float* dst = out + (size_t)p0 * R;
+  for (int k = tid; k < npairs * R; k += THREADS) dst[k] = part[k];
 }
 
-template <int VH>
+template <int VH, int G>
 int launch(const float* packed, const int* pidx, const uint8_t* pok, const float* dop, int Np,
            int K, int F, int NE, int M, float slop, float* out, cudaStream_t stream) {
-  const int threads = 128;
+  constexpr int PB = THREADS / G;
+  const int D = 4 * VH + 5 * F + 26 + 4 * NE;
+  // A run of PB pairs spans at most (PB - 1) / K + 2 pieces.
+  const int own_cap = (((PB - 1) / K + 2) * D + 6 + 3) / 4 * 4;
+  const int slot = row_slot(D), R = 5 + 6 * M;
+  const size_t smem = sizeof(float) * ((size_t)own_cap + (size_t)PB * (slot > R ? slot : R));
+  if (slot < R) return (int)cudaErrorInvalidValue;   // records must fit the rows' place
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(narrow_kernel<VH, G>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const int pairs = Np * K;
-  narrow_kernel<VH><<<(pairs + threads - 1) / threads, threads, 0, stream>>>(
-      packed, pidx, pok, dop, Np, K, F, NE, M, slop, out);
+  narrow_kernel<VH, G><<<(pairs + PB - 1) / PB, THREADS, smem, stream>>>(
+      packed, pidx, pok, dop, Np, K, F, NE, M, slop, own_cap, out);
   return (int)cudaGetLastError();
 }
 
@@ -246,16 +448,18 @@ extern "C" int surtr_narrowphase_supports(int Vh) {
   return Vh == 8 || Vh == 16 || Vh == 32 || Vh == 64;
 }
 
+// packed must start 16-byte aligned (the wrapper checks).
 extern "C" int surtr_narrowphase(const float* packed, const int* pidx, const uint8_t* pok,
                                  const float* dop, int Np, int K, int Vh, int F, int Ne, int M,
                                  float slop, float* out, void* stream) {
   if (Np * K == 0) return 0;
+  if (M < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (Vh) {
-    case 8: return launch<8>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
-    case 16: return launch<16>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
-    case 32: return launch<32>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
-    case 64: return launch<64>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
+    case 8: return launch<8, 2>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
+    case 16: return launch<16, 4>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
+    case 32: return launch<32, 8>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
+    case 64: return launch<64, 16>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
     default: return -1;
   }
 }

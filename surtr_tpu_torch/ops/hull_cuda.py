@@ -23,20 +23,24 @@ def _kernel(points, mask, limit, F):
     N = points.shape[0]
     if points.dtype != torch.float32 or points.shape != (N, 3) or mask.shape != (N,):
         raise ValueError("ich kernel takes (N, 3) float32 points and an (N,) mask")
+    if N < 1:
+        raise ValueError("ich kernel takes at least one point")
     if F > 128:
         raise ValueError(f"ich kernel takes at most 128 faces, got {F}")
     dev = points.device
-    fn = _build.bind("surtr_ich", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-                     + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+    fn = _build.bind("surtr_ich", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p] * 5)
     pts = points.contiguous()
     m = mask.to(torch.uint8).contiguous()
-    prio = torch.empty((max(N, 1),), dtype=torch.float32, device=dev)
+    # (x, y, z, priority) per point; the kernel stages them in shared memory
+    # up to 12,288 points and uses this scratch beyond.
+    scratch = torch.empty((N, 4), dtype=torch.float32, device=dev)
     normals = torch.empty((F, 3), dtype=torch.float32, device=dev)
     fvalid = torch.empty((F,), dtype=torch.uint8, device=dev)
     inner = torch.empty((3,), dtype=torch.float32, device=dev)
     faces = torch.empty((F, 3), dtype=torch.int32, device=dev)
     n_insert = max(min(limit, N) - 4, 0)
-    rc = fn(pts.data_ptr(), m.data_ptr(), prio.data_ptr(), N, F, n_insert,
+    rc = fn(pts.data_ptr(), m.data_ptr(), scratch.data_ptr(), N, F, n_insert,
             normals.data_ptr(), fvalid.data_ptr(), inner.data_ptr(), faces.data_ptr(),
             _build.stream_ptr(dev))
     _build.check(rc, "surtr_ich")

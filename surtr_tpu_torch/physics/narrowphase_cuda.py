@@ -183,6 +183,8 @@ def _kernel(packed, pidx, pok, Vh, F, Ne, M, slop):
     if not _build.bind("surtr_narrowphase_supports", [ctypes.c_int])(Vh):
         raise ValueError(f"narrowphase kernel is built for Vh in (8, 16, 32, 64), got {Vh}")
     pk = packed.contiguous()
+    if pk.data_ptr() % 16:        # the kernel stages rows with 16-byte copies
+        pk = pk.clone()
     pi = pidx.to(torch.int32).contiguous()
     po = pok.to(torch.uint8).contiguous()
     for t in (pi, po):

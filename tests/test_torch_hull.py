@@ -1,6 +1,18 @@
 """The port's plain ICH and tetra hull (the CPU sides of kernels B2 and B4's
 extreme-point picks) against the JAX package: ``ich_pallas`` in interpret
-mode and the XLA ``ich`` / ``tetra_hull``."""
+mode and the XLA ``ich`` / ``tetra_hull``.
+
+The hulls of ``test_ich_matches_reference`` are computed on the JAX side in
+a child process with ``--xla_cpu_max_isa=AVX`` (ROADMAP C5): on an
+AVX2/AVX-512 host XLA:CPU contracts products into FMAs, which moves the
+greedy pick between the near-equal priorities of the sphere's points.
+Without FMA both sides round every product. Run as a script
+(``python tests/test_torch_hull.py OUT.npz``) it writes the JAX side.
+"""
+
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -8,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from surtr_tpu.io.models import get_model
+from surtr_tpu.io.models import get_model, icosphere
 from surtr_tpu.ops.hull import ich as j_ich
 from surtr_tpu.ops.hull import tetra_hull as j_tetra_hull
 from surtr_tpu.ops.hull_pallas import ich_pallas
@@ -18,30 +30,58 @@ from surtr_tpu_torch.ops.hull import tetra_hull
 
 def _clouds():
     rng = np.random.RandomState(7)
+    grid = np.stack(np.meshgrid(*[np.arange(3.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
     return {
         "cube": np.asarray(get_model("cube")[0], np.float32),
         "gauss40": rng.randn(40, 3).astype(np.float32),
         "box100": (rng.rand(100, 3) * np.asarray([2.0, 1.0, 0.5])).astype(np.float32),
+        # The sphere decomposition's hull input: 162 points, many near-equal
+        # priorities.
+        "sphere": np.asarray(icosphere(2)[0], np.float32),
+        # A 3 x 3 x 3 integer grid: exact ties among the extreme points and
+        # among the priorities (integer volumes), decided by the lowest index.
+        "ties": grid.astype(np.float32),
     }
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REFS = ("pallas", "xla")
+
+
+def _jax_hulls():
+    """``ich_pallas`` (interpret) and the XLA ``ich`` of every cloud, flat."""
+    out = {}
+    for name, pts in _clouds().items():
+        m = jnp.ones(len(pts), bool)
+        refs = (ich_pallas(jnp.asarray(pts), m, limit=20, interpret=True),
+                j_ich(jnp.asarray(pts), m, limit=20))
+        for ref, r in zip(REFS, refs):
+            out.update({f"{name}/{ref}/{k}": np.asarray(v) for k, v in r.items()})
+    return out
+
+
 @pytest.fixture(scope="module")
-def hulls():
+def hulls(tmp_path_factory):
+    path = tmp_path_factory.mktemp("hull") / "ref.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX",
+               PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), str(path)], env=env,
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    data = np.load(path)
     out = {}
     for name, pts in _clouds().items():
         m = np.ones(len(pts), bool)
         before = hull_cuda.launches
         got = hull_cuda.ich(torch.as_tensor(pts), torch.as_tensor(m), limit=20)
         assert hull_cuda.launches == before  # CPU tensors run the plain hull
-        out[name] = (
-            got,
-            ich_pallas(jnp.asarray(pts), jnp.asarray(m), limit=20, interpret=True),
-            j_ich(jnp.asarray(pts), jnp.asarray(m), limit=20),
-        )
+        want = [{k.rsplit("/", 1)[1]: data[k] for k in data.files if k.startswith(f"{name}/{ref}/")}
+                for ref in REFS]
+        out[name] = (got, *want)
     return out
 
 
-@pytest.mark.parametrize("cloud", ["cube", "gauss40", "box100"])
+@pytest.mark.parametrize("cloud", ["cube", "gauss40", "box100", "sphere", "ties"])
 @pytest.mark.parametrize("ref", ["pallas", "xla"])
 def test_ich_matches_reference(hulls, cloud, ref):
     got, pallas, xla = hulls[cloud]
@@ -82,3 +122,7 @@ def test_tetra_hull_matches_xla(degenerate):
     np.testing.assert_array_equal(got["face_valid"].numpy(), np.asarray(want["face_valid"]))
     np.testing.assert_allclose(got["inner"].numpy(), np.asarray(want["inner"]), atol=1e-6)
     np.testing.assert_allclose(got["normals"].numpy(), np.asarray(want["normals"]), atol=1e-5)
+
+
+if __name__ == "__main__":
+    np.savez(sys.argv[1], **_jax_hulls())

@@ -4,14 +4,17 @@ CPU side of ``csrc/narrowphase.cu``) against the JAX package's
 partner indices and candidate flags; and the port's exact broadphase
 against the JAX package's ``_broadphase`` with its mutual mask.
 
-Three scenes: strongly rotated overlapping boxes, whose SAT minima are
+Four scenes: strongly rotated overlapping boxes, whose SAT minima are
 unique; an axis-aligned lattice of cubes pressed 0.002 into each other,
 where DOP and face axes tie exactly and the first-of-ties order decides the
-normal; and the rotated boxes with a dead last piece that every empty slot
+normal; the rotated boxes with a dead last piece that every empty slot
 names, as the sweep-and-prune B6 leaves its empty slots (the id sentinel,
 clamped to the last piece): against a piece with no live corner an edge
 axis has no finite penetration, and the pair's depth is NaN and its normal
-0. Tolerances: hit flags and feature ids exactly; normals, depths,
+0; and a frame-shaped scene at the interactive frame's hull size
+(``max_hull_verts=64``, F = 32): 24 Voronoi cells of the unit cube, two to
+a compound body, the bodies turned a little so that neighbouring cells
+overlap. Tolerances: hit flags and feature ids exactly; normals, depths,
 manifold values and points within 1e-5 absolute on these unit-scale scenes
 (they agree bit for bit with the JAX run below; the bound leaves room for
 another XLA version's rounding); the broadphase exactly (indices and flags,
@@ -38,6 +41,8 @@ import pytest
 import torch
 
 from surtr_tpu.config import PhysicsConfig as JPhysicsConfig
+from surtr_tpu.fracture.types import PieceSet as JPieceSet
+from surtr_tpu.ops.voronoi import voronoi_cells
 from surtr_tpu.physics.narrowphase_pallas import narrowphase_raw_pallas
 from surtr_tpu.physics.pack_pallas import transform_pack_pallas
 from surtr_tpu.physics.rigid import quat_normalize as j_quat_normalize
@@ -49,12 +54,35 @@ from surtr_tpu_torch.physics.broadphase import block_sweep, mutual
 from test_torch_pack import j_cube_pieces
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCENES = ("rotated", "lattice", "dead_partner")
+SCENES = ("rotated", "lattice", "dead_partner", "frame")
 CFG = JPhysicsConfig(single_piece_bodies=True, max_hull_verts=8)
+# The interactive frame's physics: compound bodies, hulls of up to 64 corners.
+FRAME_CFG = JPhysicsConfig(max_hull_verts=64)
 K, M, G = CFG.max_neighbors, CFG.manifold_points, CFG.max_ground_contacts
+assert (FRAME_CFG.max_neighbors, FRAME_CFG.manifold_points) == (K, M)
+
+
+def _frame_scene():
+    """24 Voronoi cells of the unit cube (F = 32), two a body, each body
+    turned a little."""
+    rng = np.random.default_rng(33)
+    n = 24
+    cells = voronoi_cells(jnp.asarray(rng.uniform(-0.5, 0.5, (n, 3)), jnp.float32),
+                          k=n - 1, F=32, S=16)
+    pieces = JPieceSet(convex=cells, mesh=jnp.zeros((n, 1, 3, 3)),
+                       mesh_valid=jnp.zeros((n, 1), bool), valid=jnp.ones(n, bool),
+                       group=jnp.arange(n, dtype=jnp.int32) // 2,
+                       tag=jnp.full((n,), -1, jnp.int32))
+    sc = j_build_scene(pieces, FRAME_CFG, max_bodies=n // 2)
+    q = np.asarray(sc.bodies.q)
+    q = np.asarray(j_quat_normalize(jnp.asarray(q + 0.05 * rng.standard_normal(q.shape),
+                                                jnp.float32)))
+    return sc, q
 
 
 def _scene(kind):
+    if kind == "frame":
+        return _frame_scene()
     rng = np.random.default_rng(31)
     if kind != "lattice":
         offs = np.concatenate([rng.uniform(-0.7, 0.7, (10, 3)) + [0.0, -0.8, 0.0],
@@ -79,9 +107,13 @@ def _jax_side(kind):
     sc, q = _scene(kind)
     Vh, F, Ne = sc.piece_verts.shape[1], sc.piece_planes.shape[1], sc.piece_edges.shape[1]
     pvalid = sc.piece_valid & (sc.piece_owner >= 0)
+    pose = (jnp.asarray(q), sc.bodies.x)
+    if kind == "frame":                       # compound bodies: each piece's owner's pose
+        own = jnp.clip(sc.piece_owner, 0)
+        pose = (pose[0][own], pose[1][own])
     pT, ab = transform_pack_pallas(
         sc.piece_verts, sc.piece_vmask, sc.piece_planes, sc.piece_pmask, sc.piece_edges,
-        sc.piece_emask, jnp.asarray(q), sc.bodies.x, pvalid, Vh=Vh, F=F, Ne=Ne,
+        sc.piece_emask, *pose, pvalid, Vh=Vh, F=F, Ne=Ne,
         margin=CFG.contact_slop * 4.0, interpret=True)
     abT = ab.T
     jp, jok = j_broadphase(abT[:, 6:9], abT[:, 0:3], abT[:, 3:6], sc.piece_owner, pvalid, K,
