@@ -12,7 +12,13 @@ Phases (any failure exits non-zero):
      times; B2 bitwise (face slots, face_valid, normals, inner) also on the
      sphere's hull, 4 points, tied extreme points, 300 points, 4 live
      points, limit 62 and 13,000 points, and its wrapper and device time a
-     call on the cube and on the sphere;
+     call on the cube and on the sphere; B3 exactly also at T = 1, 40 and
+     200, on strips that need all 6 rounds at T = 64 (and at iters 1 and
+     2, unclosed), a complete graph, corners on a half-tol rounding
+     boundary and all-invalid soups; B4 bitwise (the mask and all 32 floats
+     of every candidate) on the main path's pool parts, the same pools
+     built, and all-masked, 2-live, coplanar, tied, ±0-support, odd-sized
+     and 9,001-point pools;
   4. the decomposition main path: ``prepare_fracture`` of the cube at the
      1k-seed bench configuration on ``cuda:0``, with launch counts proving
      every kernel ran;
@@ -189,7 +195,7 @@ def capture_main_path_inputs():
         (voronoi, "clip_planes_batch", "clip_fold"),
         (pipeline, "ich", "ich"),
         (pipeline, "tri_soup_components_batch", "labels"),
-        (pipeline, "refit_planes_batch", "refit"),
+        (pipeline, "refit_planes_from_parts", "refit"),
     ]
     saved = []
     for mod, attr, name in patches:
@@ -306,17 +312,38 @@ def compare_labels(args, kw):
     return 0.0
 
 
+def refit_any(*a):
+    """B4 on a built pool (pool, mask) or on its parts (tris, tri_mask,
+    caps, cap_mask), as the call's arguments say."""
+    if len(a) == 4:
+        return refit_cuda.refit_planes_from_parts(*a)
+    return refit_cuda.refit_planes_batch(*a)
+
+
+def refit_any_reference(*a):
+    if len(a) == 4:
+        return refit_cuda.refit_planes_from_parts_reference(*a)
+    return refit_cuda.refit_planes_batch_reference(*a)
+
+
+def refit_points(a) -> tuple[int, int]:
+    """(N, Pv) of a B4 call: Pv = 3T + C on parts."""
+    if len(a) == 4:
+        return a[0].shape[0], 3 * a[0].shape[1] + a[2].shape[1]
+    return tuple(a[0].shape[:2])
+
+
 def compare_refit(args, kw):
-    """The plane mask exactly; per candidate, the valid slab planes (normals
-    and offsets) within 1e-5 x its pool's scale."""
-    pool, pmask = args[:2]
-    gp, gm = refit_cuda.refit_planes_batch(pool, pmask)
-    wp, wm = refit_cuda.refit_planes_batch_reference(pool, pmask)
+    """The plane mask exactly and all 32 floats of every candidate's planes
+    bit for bit, masked slots included."""
+    gp, gm = refit_any(*args)
+    wp, wm = refit_any_reference(*args)
+    what = f"refit {list(refit_points(args))}"
     if not torch.equal(gm, wm):
         bad = torch.nonzero((gm != wm).any(-1)).flatten().tolist()
-        fail(f"refit: plane masks differ in candidates {bad[:10]} ({len(bad)} in all)")
-    err = torch.where(gm[..., None], (gp - wp).abs(), 0.0).flatten(1).amax(1)
-    return _check_close("refit", "slab planes", err, _scale(pool, pmask))
+        fail(f"{what}: plane masks differ in candidates {bad[:10]} ({len(bad)} in all)")
+    _same_bits(what, "slab planes", gp, wp)
+    return 0.0
 
 
 def sphere_ich_call(device):
@@ -371,11 +398,13 @@ def degenerate_cases(device):
     valid[2] = False
     valid[3, T // 2:] = False
     label_cases = [((corners.to(device), valid.to(device)), {})]
+    label_cases += [((c.to(device), v.to(device)), kw) for c, v, kw in label_edge_cases(g)]
     pool = torch.randn((5, 40, 3), generator=g)
     pm = torch.rand((5, 40), generator=g) > 0.3
     pm[3, 4:] = False
     pm[4] = False
     refit_cases = [((pool.to(device), pm.to(device)), {})]
+    refit_cases += [(tuple(t.to(device) for t in a), {}) for a in refit_edge_cases(g)]
     return {
         "clip_fold": [degenerate_clip_cases(device)],
         "ich": ich_cases,
@@ -384,11 +413,162 @@ def degenerate_cases(device):
     }
 
 
+def _strip(T, order, g):
+    """T triangles, consecutive ones (in strip order) sharing a corner,
+    triangle k of the strip stored at index order[k]."""
+    P = torch.rand((T + 1, 3), generator=g)
+    Q = torch.rand((T, 3), generator=g)
+    c = torch.empty((T, 3, 3))
+    c[torch.as_tensor(order)] = torch.stack([P[:-1], Q, P[1:]], 1)
+    return c
+
+
+def label_edge_cases(g, tol=1e-5):
+    """B3 beside the main path: T = 1 (one lane), 40 (a partial second
+    word; with a soup whose corner keys collide, ``key_wrap_soup``) and 200;
+    at T = 64 a strip in reversed order (closes in its 6th round), one in
+    bit-reversed order (still open after 6) and one in random order, a
+    complete graph (one corner shared by all), corners a half-tol apart that
+    fall on rounding boundaries (x / tol = k + 0.5 exactly, rounded to
+    even), and an all-invalid soup, also at iters 1 and 2 (unclosed
+    labels); then T = 512 (``FractureConfig.max_piece_tris``' default) and
+    1024 (the wrapper's limit: a block of 1024 threads), strips in random
+    order and, at 1024, a complete graph."""
+    cases = []
+    c1 = torch.rand((4, 1, 3, 3), generator=g)
+    cases.append((c1, torch.tensor([[True], [False], [True], [False]]), {}))
+    c40 = torch.rand((5, 40, 3, 3), generator=g)
+    c40[0] = _strip(40, torch.randperm(40, generator=g), g)
+    c40[1, 20:] = c40[1, :20] + 0.5
+    c40[4] = key_wrap_soup(40, g, tol)
+    v40 = torch.ones((5, 40), dtype=torch.bool)
+    v40[2] = False
+    v40[3, ::3] = False
+    cases.append((c40, v40, {}))
+    c200 = torch.rand((3, 200, 3, 3), generator=g)
+    c200[0] = _strip(200, torch.randperm(200, generator=g), g)
+    c200[1] = _strip(200, torch.arange(200).flip(0), g)
+    v200 = torch.ones((3, 200), dtype=torch.bool)
+    v200[1, 150:] = False
+    v200[2] = False
+    cases.append((c200, v200, {}))
+    T = 64
+    bitrev = [int(format(i, "06b")[::-1], 2) for i in range(T)]
+    c64 = torch.stack([_strip(T, torch.arange(T).flip(0), g), _strip(T, bitrev, g),
+                       _strip(T, torch.randperm(T, generator=g), g),
+                       torch.rand((T, 3, 3), generator=g), half_tol_soup(T, g, tol),
+                       torch.rand((T, 3, 3), generator=g)])
+    c64[3, :, 1] = 0.5
+    v64 = torch.ones((6, T), dtype=torch.bool)
+    v64[5] = False
+    for iters in (None, 1, 2):
+        cases.append((c64, v64, {} if iters is None else {"iters": iters}))
+    c512 = torch.rand((3, 512, 3, 3), generator=g)
+    c512[0] = _strip(512, torch.randperm(512, generator=g), g)
+    c512[1] = _strip(512, torch.arange(512).flip(0), g)
+    v512 = torch.ones((3, 512), dtype=torch.bool)
+    v512[1, 400:] = False
+    v512[2] = False
+    cases.append((c512, v512, {}))
+    c1024 = torch.rand((2, 1024, 3, 3), generator=g)
+    c1024[0] = _strip(1024, torch.randperm(1024, generator=g), g)
+    c1024[1, :, 1] = 0.5                                   # a complete graph
+    cases.append((c1024, torch.ones((2, 1024), dtype=torch.bool), {}))
+    return cases
+
+
+def half_tol_soup(T, g, tol):
+    """Triangles whose corners sit where x / tol is exactly k + 0.5 in float32
+    (round half to even joins k + 0.5 and k + 1.5 at k + 1 for odd k and
+    parts them otherwise): a chain that a rounding or a division other than
+    the true one cuts or joins differently."""
+    t32 = np.float32(tol)
+    ks = []
+    k = 1000
+    while len(ks) < 3 * T + 2:
+        x = np.float32((k + 0.5) * float(t32))
+        for cand in (x, np.nextafter(x, np.float32(0)), np.nextafter(x, np.float32(1))):
+            if np.float32(cand) / t32 == np.float32(k + 0.5):
+                ks.append(float(cand))
+                break
+        k += 1
+    xs = torch.tensor(ks[:3 * T + 2], dtype=torch.float32)
+    c = torch.rand((T, 3, 3), generator=g)
+    for t in range(T):
+        c[t, 0, 0], c[t, 1, 0], c[t, 2, 0] = xs[3 * t], xs[3 * t + 1], xs[3 * t + 2]
+        c[t, :, 1:] = 0.25
+    return c
+
+
+def key_wrap_soup(T, g, tol):
+    """Two strips of T / 2 triangles; triangle t of the second has a corner
+    2^21 quanta beyond one of triangle t of the first in x: equal in their
+    low 21 bits (B3's corner keys) but not equal, so B3 must confirm its key
+    matches by the triple compare (coordinates beyond 2^20 quanta), or it
+    joins the strips."""
+    t32 = np.float32(tol)
+
+    def at(q):   # a float32 x with rint(x / tol) == q
+        x = np.float32(q * float(t32))
+        while np.rint(x / t32) < q:
+            x = np.nextafter(x, np.float32(np.inf))
+        while np.rint(x / t32) > q:
+            x = np.nextafter(x, np.float32(-np.inf))
+        assert np.rint(x / t32) == q
+        return float(x)
+
+    h = T // 2
+    c = torch.cat([_strip(h, torch.arange(h), g), _strip(T - h, torch.arange(T - h), g)])
+    for t in range(h):
+        q = 3_000 + 7 * t
+        c[t, 1] = torch.tensor([at(q), 0.25, 0.25])
+        c[h + t, 1] = torch.tensor([at(q + (1 << 21)), 0.25, 0.25])
+    return c
+
+
+def refit_edge_cases(g):
+    """B4 beside the main path: 2 live points; a coplanar pool; a 3 x 3 x 3
+    integer grid (exact ties in x and in distance); collinear points
+    through the origin (every normal zero, supports of -0 and +0 tied at
+    the minimum); points on the plane x = 0 of both signs (a zero support
+    tie on a live normal); Pv = 41 (not a multiple of 4: unaligned rows);
+    parts with T = 5, C = 7 (an unaligned span boundary); one pool of 9,001
+    points (staged in 9 chunks, compacted into the device scratch)."""
+    grid = torch.stack(torch.meshgrid(*[torch.arange(3.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    line = torch.randn((27, 1), generator=g).expand(27, 3)
+    plane = torch.randn((27, 3), generator=g)
+    plane[:20, 0] = 0.0
+    plane[20:, 0] = plane[20:, 0].abs() + 0.1
+    plane[:5, 1:] = -plane[:5, 1:].abs()
+    cop = torch.randn((27, 3), generator=g)
+    cop[:, 1] = 0.25
+    two = torch.randn((27, 3), generator=g)
+    pools = torch.stack([two, cop, grid, line, plane])
+    masks = torch.ones((5, 27), dtype=torch.bool)
+    masks[0, 2:] = False
+    masks[3, 20:] = False
+    cases = [(pools, masks)]
+    p41 = torch.randn((3, 41, 3), generator=g)
+    m41 = torch.rand((3, 41), generator=g) > 0.4
+    m41[2] = False
+    cases.append((p41, m41))
+    tris = torch.randn((3, 5, 3, 3), generator=g)
+    caps = torch.randn((3, 7, 3), generator=g)
+    tm = torch.rand((3, 5), generator=g) > 0.3
+    cm = torch.rand((3, 7), generator=g) > 0.3
+    tm[1] = False
+    cm[2] = False
+    cases.append((tris, tm, caps, cm))
+    big = torch.randn((1, 9001, 3), generator=g)
+    cases.append((big, torch.rand((1, 9001), generator=g) > 0.5))
+    return cases
+
+
 KERNEL_FN = {"clip_fold": clip_cuda.clip_planes_batch, "ich": hull_cuda.ich,
              "labels": labels_cuda.tri_soup_components_batch,
-             "refit": refit_cuda.refit_planes_batch}
+             "refit": refit_any}
 # Name fragments of each kernel's device functions (torch.profiler keys).
-DEVICE_NAME = {"clip_fold": "clip_fold", "ich": "ich_kernel", "labels": "labels_kernel",
+DEVICE_NAME = {"clip_fold": "clip_fold", "ich": "ich_kernel", "labels": "labels_",
                "refit": "refit_kernel", "pack": "pack_kernel", "narrowphase": "narrow_kernel",
                "prep": "prep_kernel", "broadphase_sorted": "bp_sorted_kernel"}
 
@@ -418,8 +598,8 @@ def time_kernel(name, calls):
         k = lambda a, kw: labels_cuda.tri_soup_components_batch(*a, **kw)
         p = lambda a, kw: labels_cuda.tri_soup_components_batch_reference(*a, **kw)
     else:
-        k = lambda a, kw: refit_cuda.refit_planes_batch(*a, **kw)
-        p = lambda a, kw: refit_cuda.refit_planes_batch_reference(*a, **kw)
+        k = lambda a, kw: refit_any(*a, **kw)
+        p = lambda a, kw: refit_any_reference(*a, **kw)
     ms = sum(event_ms(lambda a=a, kw=kw: k(a, kw)) for a, kw in calls)
     plain_ms = sum(event_ms(lambda a=a, kw=kw: p(a, kw), warmup=1) for a, kw in calls)
     return ms, plain_ms
@@ -466,10 +646,10 @@ def decomposition_ops(name, a, kw) -> float:
         pts = a[0]
         limit = kw.get("limit", a[2] if len(a) > 2 else 20)
         return limit * pts.shape[0] * (2 * max(limit, 4) + 4) * 6.0
-    if name == "labels":
-        N, T = a[0].shape[:2]
-        return N * T * T * 81.0
-    N, Pv = a[0].shape[:2]        # refit: 4 extreme-point passes + 4 slab passes
+    if name == "labels":          # the valid pairs' corner tests (invalid rows and columns skip)
+        v = a[1].sum(-1).to(torch.float64)
+        return float((v * v).sum()) * 81.0
+    N, Pv = refit_points(a)        # refit: 4 extreme-point passes + 4 slab passes
     return N * Pv * 8 * 8.0
 
 
@@ -1675,23 +1855,35 @@ def profile_busy(fn, runs: int):
     return busy, wall, ((1.0 - busy / wall) if busy > 0 else None), entries / runs
 
 
-def device_split(fn, kernel: str, runs: int = 20, required: bool = True):
+def device_split(fn, kernel: str, runs: int = 20, required: bool = True, sessions: int = 8):
     """(kernel device ms, other device ms, device entries) per run of
     ``fn`` under torch.profiler, after one warm-up run: the entries whose
     names contain ``kernel``, and everything else ``fn`` runs on the
-    device. A session whose trace lacks the kernel is repeated once; then
-    it fails, or with ``required=False`` gives None for the kernel."""
+    device.
+
+    The profiler drops device records once the process has launched many
+    kernels (on the H100 most sessions of phases 13 to 15 keep only part
+    of the runs' records); the records it keeps are whole launches. So a
+    session is used as it stands only when it holds the kernel's records
+    whole (a multiple of ``runs``) and no fewer device records than any
+    session before it. Up to ``sessions`` are taken; if none holds the
+    kernel whole, its time is the mean of the records of the fullest
+    session times its launches a run (that session's records ÷ ``runs``,
+    rounded up), the rest scaled alike, and a line says so. A kernel that
+    no session shows fails, or with ``required=False`` gives None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    seen = []   # (kernel us, kernel records, other us, records) of each session
+    for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        k_us, o_us, n, seen = 0.0, 0.0, 0, False
+        k_us = o_us = 0.0
+        k_n = n = 0
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
@@ -1699,12 +1891,21 @@ def device_split(fn, kernel: str, runs: int = 20, required: bool = True):
                   or getattr(e, "self_cuda_time_total", 0.0))
             if kernel in e.key:
                 k_us += us
-                seen = True
+                k_n += e.count
             else:
                 o_us += us
             n += e.count
-        if seen:
+        seen.append((k_us, k_n, o_us, n))
+        if k_n and k_n % runs == 0 and n >= max(r[3] for r in seen):
             return k_us / runs / 1e3, o_us / runs / 1e3, n / runs
+    k_us, k_n, o_us, n = max(seen, key=lambda r: (r[1], r[3]))
+    if k_n:
+        per_run = -(-k_n // runs)
+        scale = per_run * runs / k_n
+        print(f"device_split: *{kernel}*: {k_n} of {per_run * runs} records in the fullest of "
+              f"{len(seen)} profiler sessions; its time is their mean times {per_run} a run",
+              flush=True)
+        return k_us * scale / runs / 1e3, o_us * scale / runs / 1e3, n * scale / runs
     if required:
         fail(f"the profiler shows no device kernel named *{kernel}*")
     return None, o_us / runs / 1e3, n / runs
@@ -1797,7 +1998,7 @@ FRAME_OVERFLOWS = ("active_overflow", "job_overflow", "piece_overflow", "split_f
 FRAME_COMPARE = 3          # frames compared with the CPU plain run
 # The fracture kernels of the first frame, by pipeline function.
 FRAME_FRACTURE = {"clip_fold": "clip_planes_batch", "labels": "tri_soup_components_batch",
-                  "refit": "refit_planes_batch"}
+                  "refit": "refit_planes_from_parts"}
 # Stages of a frame: (label, module, function); spans of outermost calls.
 FRAME_STAGES = [
     ("raycast/targets", scene_mod, "raycast"), ("raycast/targets", scene_mod, "sphere_overlap"),
@@ -2031,6 +2232,21 @@ def _frame_checks(i, met, img, what):
     return g
 
 
+def snapshot(obj):
+    """``obj`` with every tensor in it copied at the same strides (tuples,
+    lists, dicts, ConvexPoly): a replay then reads the same layout."""
+    if isinstance(obj, torch.Tensor):
+        return torch.empty_strided(obj.size(), obj.stride(), dtype=obj.dtype,
+                                   device=obj.device).copy_(obj)
+    if isinstance(obj, ConvexPoly):
+        return obj.map(snapshot)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(snapshot(o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: snapshot(v) for k, v in obj.items()}
+    return obj
+
+
 def frame_main_path(card):
     """Phase 16: Scene("cube", INTERACTIVE_CFG) on the card and 16 chained
     frames through the user's entry points, counts set to 0 just before;
@@ -2056,8 +2272,8 @@ def frame_main_path(card):
         return orig[1](*a)
 
     def rec_frac(*a, _fn, _name, **kw):
-        if not frames:
-            frac_calls[_name].append((a, kw))
+        if not frames:   # a copy: the later frames must not change what is replayed
+            frac_calls[_name].append((snapshot(a), snapshot(kw)))
         return _fn(*a, **kw)
 
     def on_frame(i, sc, img, met):
@@ -2133,7 +2349,8 @@ def frame_kernel_phase(frac_calls, phys, card):
         torch.cuda.synchronize()
         split = per_call_times(name, calls, FRAME_KERNEL_FN[name], required=False)
         shapes = [list(a[0].face_verts.shape[:3]) + [a[1].shape[1]] if name == "clip_fold"
-                  else list(a[0].shape[:2]) for a, _ in calls]
+                  else list(refit_points(a)) if name == "refit" else list(a[0].shape[:2])
+                  for a, _ in calls]
         ms = sum(t["ms"] for t in split)
         devs = [t["device_ms"] for t in split]
         dev = None if None in devs else sum(devs)
@@ -2141,8 +2358,18 @@ def frame_kernel_phase(frac_calls, phys, card):
                      "calls": split}
         where = ("not measured (the profiler's trace lacked the kernel)" if dev is None
                  else f"{dev:.4f} ms")
+        bnd = ""
+        if name in FRAME_FRACTURE:
+            b_ms, b_by = decomposition_bound(name, calls)
+            out[name].update(bound_ms=b_ms, bound_by=b_by)
+            bnd = f", bound {b_ms:.4f} ms ({b_by})"
+        if name == "labels":
+            bnd += f"; {sum(int(a[1].sum()) for a, _ in calls)} valid triangles"
+        elif name == "refit":
+            live = sum(3 * int(a[1].sum()) + int(a[3].sum()) for a, _ in calls)
+            bnd += f"; {live} live points"
         print(f"{name} at the frame's shapes {shapes}: max_abs_err {err:.3e}, wrapper {ms:.4f} ms, "
-              f"kernel on the device {where} ({len(calls)} calls; {card})", flush=True)
+              f"kernel on the device {where}{bnd} ({len(calls)} calls; {card})", flush=True)
     return out
 
 
@@ -2307,7 +2534,7 @@ def main():
         "clip_fold": [tuple(a[0].face_verts.shape[:3]) + (a[1].shape[1],) for a, _ in calls["clip_fold"]],
         "ich": [tuple(a[0].shape) for a, _ in calls["ich"]],
         "labels": [tuple(a[0].shape[:2]) for a, _ in calls["labels"]],
-        "refit": [tuple(a[0].shape[:2]) for a, _ in calls["refit"]],
+        "refit": [refit_points(a) for a, _ in calls["refit"]],
     }
     print("main-path kernel shapes:", json.dumps(shapes), flush=True)
     compare = {"clip_fold": compare_clip, "ich": compare_ich,

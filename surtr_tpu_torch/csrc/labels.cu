@@ -4,114 +4,272 @@
 // `tri_soup_components_batch_pallas`). Semantics of the plain
 // surtr_tpu_torch/ops/labels.py: corners quantized as rint(x / tol) (round
 // half to even, a true division, as jnp.round(corners / tol)); triangles
-// adjacent when any corner pair has equal quantized triples; exactly
+// adjacent when any corner pair has equal quantized triples; at most
 // `rounds` rounds of min-label relaxation then pointer jumping
 // (lab <- min(lab, lab[lab])); label = min triangle index of the component,
 // invalid triangles get T.
 //
-// What bounds it on the card: per candidate the T x T corner test (9 triple
-// compares per pair, 37k at T = 64) and 2 * rounds dependent passes, i.e.
-// integer compare throughput and barrier latency; the input is 2.3 KB per
-// candidate at T = 64. Design: one block per candidate, one thread per
-// triangle; the adjacency is built once into shared-memory bitmasks
-// (T x T bits = 512 B at T = 64) and every round reads it with one word
-// per 32 neighbours, labels stay in shared memory across all rounds.
+// What bounds it on the card: per candidate the T x T corner test (9
+// corner compares a pair) and the dependent rounds, i.e. the latency of one
+// candidate's chain; the input is 2.3 KB a candidate at T = 64.
+// Design: a thread owns a triangle and a warp 32 of them; the warps read
+// the candidate's 9T floats with 16-byte loads, issued with the mask's
+// before any wait, and quantize them into shared memory. Each corner gets a
+// 64-bit key (21 bits a coordinate), kept in registers by its owner. Row i
+// of the adjacency is built by ballot, four rows at a time (independent
+// tests whose latencies overlap): lane l of warp w tests its triangle
+// 32 w + l against row i's keys (a broadcast read), and the ballot is row
+// i's word w. A key match is exact when every quantized coordinate of the
+// soup fits 21 bits (a vote); otherwise it is confirmed by the triple
+// compare. Invalid rows and columns and an all-invalid candidate are
+// skipped by uniform branches. Each round is the relax over the row's set
+// bits (four labels at a time), then the jump, reads before writes; the
+// candidate stops at the first round that changes no label (a round is a
+// function of the labels alone, so the remaining rounds are the identity).
+// One block a candidate, a warp per 32 triangles (1 <= T <= 1024), the
+// words in shared memory, block barriers. (At T = 64 the block of two warps
+// measured faster than one warp owning two triangles a lane: PERF.md.)
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-__global__ void labels_kernel(const float* __restrict__ corners,
-                              const unsigned char* __restrict__ valid,
-                              int* __restrict__ labels_out, int T, int rounds,
-                              float tol) {
-  extern __shared__ int smem[];
-  const int W = (T + 31) / 32;
-  int* q = smem;                  // T * 9 quantized corners
-  unsigned* adj = reinterpret_cast<unsigned*>(q + T * 9);  // T * W bits
-  int* lab = reinterpret_cast<int*>(adj + T * W);          // T
-  int* vm = lab + T;                                       // T
-  const int b = blockIdx.x;
-  const int i = threadIdx.x;
-  const float* cb = corners + (size_t)b * T * 9;
+constexpr unsigned FULL = 0xffffffffu;
 
-  for (int j = i; j < T * 9; j += blockDim.x) q[j] = (int)rintf(cb[j] / tol);
-  if (i < T) vm[i] = valid[(size_t)b * T + i] != 0;
-  __syncthreads();
+// A corner's 64-bit key: the low 21 bits of each quantized coordinate.
+// Equal corners have equal keys; where every coordinate of the soup lies in
+// [-2^20, 2^20) the converse holds too, and a key match is exact.
+__device__ __forceinline__ unsigned long long corner_key(int x, int y, int z) {
+  constexpr unsigned M = 0x1FFFFFu;
+  return ((unsigned long long)((unsigned)x & M) << 42) |
+         ((unsigned long long)((unsigned)y & M) << 21) | (unsigned long long)((unsigned)z & M);
+}
 
-  if (i < T) {
-    const int* qi = q + i * 9;
-    for (int w = 0; w < W; ++w) {
-      unsigned bits = 0u;
-      for (int jj = 0; jj < 32; ++jj) {
-        const int j = w * 32 + jj;
-        if (j >= T) break;
-        bool hit = false;
-        if (vm[i] && vm[j]) {
-          const int* qj = q + j * 9;
-          for (int a = 0; a < 3 && !hit; ++a)
-            for (int c = 0; c < 3; ++c)
-              if (qi[a * 3] == qj[c * 3] && qi[a * 3 + 1] == qj[c * 3 + 1] &&
-                  qi[a * 3 + 2] == qj[c * 3 + 2]) { hit = true; break; }
-        }
-        bits |= (unsigned)hit << jj;
-      }
-      adj[i * W + w] = bits;
+__device__ __forceinline__ bool key_range(int x) { return x >= -(1 << 20) && x < (1 << 20); }
+
+__device__ __forceinline__ int quantize(float x, float tol) { return (int)rintf(__fdiv_rn(x, tol)); }
+
+// The soup's 9T floats by `nt` threads (nt >= T): every load in flight
+// before the first use, 16-byte loads where the soup is 16-byte aligned.
+struct Corners {
+  float4 v[3];
+};
+
+__device__ __forceinline__ Corners load_corners(const float* cb, int T, int tid, int nt) {
+  Corners c;
+  const int n4 = (9 * T) >> 2;
+  const bool al = (reinterpret_cast<uintptr_t>(cb) & 15) == 0;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {  // 9T / 4 <= 3 nt
+    const int i = tid + nt * f;
+    if (i < n4) {
+      if (al) c.v[f] = __ldg(reinterpret_cast<const float4*>(cb) + i);
+      else c.v[f] = make_float4(__ldg(cb + 4 * i), __ldg(cb + 4 * i + 1), __ldg(cb + 4 * i + 2),
+                                __ldg(cb + 4 * i + 3));
     }
-    lab[i] = vm[i] ? i : T;
+  }
+  return c;
+}
+
+// The loaded floats quantized into q (and the last 9T % 4 floats).
+__device__ __forceinline__ void store_quantized(const Corners& c, const float* cb, int T, int* q,
+                                                float tol, int tid, int nt) {
+  const int n4 = (9 * T) >> 2;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    const int i = tid + nt * f;
+    if (i < n4) {
+      q[4 * i + 0] = quantize(c.v[f].x, tol);
+      q[4 * i + 1] = quantize(c.v[f].y, tol);
+      q[4 * i + 2] = quantize(c.v[f].z, tol);
+      q[4 * i + 3] = quantize(c.v[f].w, tol);
+    }
+  }
+  for (int i = 4 * n4 + tid; i < 9 * T; i += nt) q[i] = quantize(cb[i], tol);
+}
+
+// Triangle t's quantized corners into registers and its keys into shared
+// memory; false where a coordinate does not fit a key exactly.
+__device__ __forceinline__ bool own_corners(const int* q, unsigned long long* keys, int t,
+                                            int (&my)[9], unsigned long long (&mk)[3]) {
+  bool in_range = true;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) {
+    my[e] = q[t * 9 + e];
+    in_range &= key_range(my[e]);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    mk[c] = corner_key(my[3 * c], my[3 * c + 1], my[3 * c + 2]);
+    keys[t * 3 + c] = mk[c];
+  }
+  return in_range;
+}
+
+// Any of the 3 x 3 corner key pairs equal.
+__device__ __forceinline__ bool keys_meet(const unsigned long long (&mk)[3],
+                                          const unsigned long long (&rk)[3]) {
+  bool m = false;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) m |= mk[c] == rk[a];
+  return m;
+}
+
+// Any corner of triangle `mine` (9 ints and 3 keys in registers) equal to
+// any corner of `row` (9 ints in shared memory, keys rk): a key match
+// confirmed by the triples.
+__device__ __forceinline__ bool corners_meet(const int (&mine)[9],
+                                             const unsigned long long (&mk)[3], const int* row,
+                                             const unsigned long long (&rk)[3]) {
+  if (!keys_meet(mk, rk)) return false;
+  bool hit = false;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      hit |= (mine[c * 3] == row[a * 3]) & (mine[c * 3 + 1] == row[a * 3 + 1]) &
+             (mine[c * 3 + 2] == row[a * 3 + 2]);
+  return hit;
+}
+
+// The words of the rows set in `rows` (row i = base + bit), four rows at a
+// time: the calling warp's lanes test their own triangles (valid `vt`)
+// against each row, and `keep(i, word)` receives each row's ballot.
+template <typename Keep>
+__device__ __forceinline__ void build_rows(unsigned rows, int base,
+                                           const unsigned long long* keys, const int* q,
+                                           const int (&my)[9], const unsigned long long (&mk)[3],
+                                           bool vt, bool exact, Keep keep) {
+  while (rows) {
+    int ii[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ii[u] = rows ? base + __ffs(rows) - 1 : -1;
+      rows &= rows - 1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = max(ii[u], 0);
+      const unsigned long long rk[3] = {keys[3 * i], keys[3 * i + 1], keys[3 * i + 2]};
+      const bool hit = vt && (exact ? keys_meet(mk, rk) : corners_meet(my, mk, q + i * 9, rk));
+      const unsigned word = __ballot_sync(FULL, hit);
+      if (ii[u] >= 0) keep(ii[u], word);
+    }
+  }
+}
+
+// min(m, lab[j]) over the set bits j of `bits`, four at a time (a repeat
+// where fewer are left).
+__device__ __forceinline__ int relax_word(int m, unsigned bits, const int* lab) {
+  while (bits) {
+    const int j0 = __ffs(bits) - 1;
+    bits &= bits - 1;
+    const int j1 = bits ? __ffs(bits) - 1 : j0;
+    bits &= bits - 1;
+    const int j2 = bits ? __ffs(bits) - 1 : j0;
+    bits &= bits - 1;
+    const int j3 = bits ? __ffs(bits) - 1 : j0;
+    bits &= bits - 1;
+    m = min(m, min(min(lab[j0], lab[j1]), min(lab[j2], lab[j3])));
+  }
+  return m;
+}
+
+// One block a candidate, thread t owns triangle t, warp w builds word w of
+// every valid row. At most 64 registers a thread, so T = 1024 launches.
+__global__ void __launch_bounds__(1024)
+labels_block_kernel(const float* __restrict__ corners, const unsigned char* __restrict__ valid,
+                    int* __restrict__ labels_out, int T, long long cstride, int rounds,
+                    float tol) {
+  extern __shared__ int smem[];
+  const int NW = (T + 31) >> 5;
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);  // 3T
+  int* q = smem + 6 * T;                                         // 9T
+  int* lab = q + 9 * T;                                          // T
+  unsigned* adj = reinterpret_cast<unsigned*>(lab + T);          // T * NW
+  unsigned* vws = adj + (size_t)T * NW;                          // NW
+  const int b = blockIdx.x;
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  int* ob = labels_out + (size_t)b * T;
+
+  const float* cb = corners + (size_t)b * cstride;
+  const Corners cv = load_corners(cb, T, t, blockDim.x);
+  const bool vt = t < T && valid[(size_t)b * T + t] != 0;
+  const unsigned vw = __ballot_sync(FULL, vt);
+  if (lane == 0) vws[w] = vw;
+  if (!__syncthreads_or(vt)) {
+    if (t < T) ob[t] = T;
+    return;
+  }
+  store_quantized(cv, cb, T, q, tol, t, blockDim.x);
+  __syncthreads();
+  int my[9] = {};
+  unsigned long long mk[3] = {};
+  bool in_range = true;
+  if (t < T) {
+    in_range = own_corners(q, keys, t, my, mk);
+    lab[t] = vt ? t : T;
+  }
+  const bool exact = __syncthreads_and(in_range);
+  if (vw != 0u) {
+    for (int wi = 0; wi < NW; ++wi)
+      build_rows(vws[wi], 32 * wi, keys, q, my, mk, vt, exact, [&](int i, unsigned word) {
+        if (lane == 0) adj[(size_t)i * NW + w] = word;
+      });
+  } else if (lane == 0) {
+    for (int i = 0; i < T; ++i) adj[(size_t)i * NW + w] = 0u;
   }
   __syncthreads();
 
   for (int r = 0; r < rounds; ++r) {
-    // Relax: min label over adjacent triangles (all reads before writes).
     int nl = T;
-    if (i < T) {
-      nl = lab[i];
-      for (int w = 0; w < W; ++w) {
-        unsigned bits = adj[i * W + w];
-        while (bits) {
-          const int j = w * 32 + __ffs(bits) - 1;
-          bits &= bits - 1;
-          nl = min(nl, lab[j]);
-        }
-      }
+    bool changed = false;
+    if (vt) {
+      nl = lab[t];
+      for (int wj = 0; wj < NW; ++wj)
+        nl = relax_word(nl, adj[(size_t)t * NW + wj], lab + 32 * wj);
     }
     __syncthreads();
-    if (i < T) lab[i] = vm[i] ? nl : T;
-    __syncthreads();
-    // Pointer jump: lab <- min(lab, lab[lab]).
-    if (i < T) {
-      const int l = lab[i];
-      nl = (vm[i] && l < T) ? min(l, lab[l]) : T;
+    if (vt) {
+      changed |= nl != lab[t];
+      lab[t] = nl;
     }
     __syncthreads();
-    if (i < T) lab[i] = nl;
+    if (vt) {  // jump: lab <- min(lab, lab[lab])
+      const int l = lab[t];
+      nl = min(l, lab[l]);
+    }
     __syncthreads();
+    if (vt) {
+      changed |= nl != lab[t];
+      lab[t] = nl;
+    }
+    if (!__syncthreads_or(changed)) break;
   }
-  if (i < T) labels_out[(size_t)b * T + i] = vm[i] ? lab[i] : T;
-}
-
-size_t smem_bytes(int T) {
-  const int W = (T + 31) / 32;
-  return (size_t)(T * 9 + T * W + 2 * T) * 4;
+  if (t < T) ob[t] = vt ? lab[t] : T;
 }
 
 }  // namespace
 
-extern "C" int surtr_labels(const float* corners, const unsigned char* valid,
+// corners: candidate b's (T, 3, 3) floats are contiguous from
+// corners + b * cstride.
+extern "C" int surtr_labels(const float* corners, long long cstride, const unsigned char* valid,
                             int* labels, int N, int T, int rounds, float tol,
                             void* stream) {
   if (T < 1 || T > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(T);
+  if (N <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int NW = (T + 31) / 32;
+  const size_t smem = ((size_t)16 * T + (size_t)T * NW + NW) * sizeof(int);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        labels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        labels_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int threads = ((T + 31) / 32) * 32;
-  if (N > 0)
-    labels_kernel<<<N, threads, smem, (cudaStream_t)stream>>>(
-        corners, valid, labels, T, rounds, tol);
+  labels_block_kernel<<<N, NW * 32, smem, s>>>(corners, valid, labels, T, cstride, rounds, tol);
   return (int)cudaGetLastError();
 }

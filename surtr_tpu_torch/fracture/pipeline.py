@@ -42,7 +42,7 @@ from surtr_tpu_torch.ops.linalg import compact, div_rn, dot3, pack_rows, sqrt_rn
 from surtr_tpu_torch.ops.mesh_clip import (clip_polys_by_rows, clip_trisoup, fan_triangles,
                                            point_in_mesh, winding_inside)
 from surtr_tpu_torch.ops.moments import moments
-from surtr_tpu_torch.ops.refit_cuda import refit_planes_batch
+from surtr_tpu_torch.ops.refit_cuda import refit_planes_from_parts
 from surtr_tpu_torch.ops.soup_clip_cuda import soup_clip_pooled
 from surtr_tpu_torch.ops.voronoi import bisector_planes, nearest_first
 from surtr_tpu_torch.types import ConvexPoly, scale_poly, translate_poly, unit_cube
@@ -341,14 +341,13 @@ def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, m
     cut_sel = match_cut_faces(conv, cut_planes, cut_mask, mas)
     cap_v = conv.face_verts.reshape(N, -1, 3)
     cap_m = (conv.slot_mask() & cut_sel[..., None]).reshape(N, -1)
-    pool = torch.cat([mtris.reshape(N, -1, 3), cap_v], dim=1)
-    pool_m = torch.cat([mmask.repeat_interleave(3, dim=1), cap_m], dim=1)
 
     if cfg.refitting_point_limit > 4:
         raise NotImplementedError(
             "refitting_point_limit > 4 (ICH refit) is not ported yet (ROADMAP A10)"
         )
-    slabs, slab_m = refit_planes_batch(pool, pool_m)
+    # The pool [mesh corners; cap vertices] is read from its parts.
+    slabs, slab_m = refit_planes_from_parts(mtris, mmask, cap_v, cap_m)
     conv2 = clip_planes_batch(conv, slabs, slab_m)
 
     cut2 = match_cut_faces(conv2, cut_planes, cut_mask, mas)

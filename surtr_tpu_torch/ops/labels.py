@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from surtr_tpu_torch.ops.linalg import div_rn
+
 
 def label_rounds(T: int, iters: int | None) -> int:
     """Relax + jump rounds: ceil(log2 T), capped by ``iters``, at least 1."""
@@ -23,28 +25,69 @@ def label_rounds(T: int, iters: int | None) -> int:
 
 
 def quantize(corners: torch.Tensor, tol: float) -> torch.Tensor:
-    """round-half-even(corners / tol) as int32 (jnp.round semantics)."""
-    return torch.round(corners / tol).to(torch.int32)
+    """round-half-even(corners / tol) as int32 (jnp.round semantics), the
+    division a true one on every device (``div_rn``: the card multiplies by
+    the rounded reciprocal of a Python divisor, which moves a corner that
+    sits on a rounding boundary)."""
+    return torch.round(div_rn(corners, tol)).to(torch.int32)
 
 
-def tri_soup_components(corners: torch.Tensor, tri_valid: torch.Tensor,
-                        iters: int | None = None, tol: float = 1e-5) -> torch.Tensor:
-    """corners (..., T, 3, 3), tri_valid (..., T) → (..., T) int32 labels."""
+def _adjacency(corners: torch.Tensor, tri_valid: torch.Tensor, tol: float) -> torch.Tensor:
+    """(..., T, T) bool: both valid and some corner pair equal after
+    quantization."""
     T = corners.shape[-3]
     q = quantize(corners, tol)
     adj = torch.zeros(corners.shape[:-3] + (T, T), dtype=torch.bool, device=corners.device)
     for a in range(3):
         for b in range(3):
             adj |= torch.all(q[..., :, None, a, :] == q[..., None, :, b, :], dim=-1)
-    adj &= tri_valid[..., :, None] & tri_valid[..., None, :]
-    idx = torch.arange(T, dtype=torch.int32, device=corners.device)
-    big = torch.tensor(T, dtype=torch.int32, device=corners.device)
-    lab = torch.where(tri_valid, idx, big)
+    return adj & tri_valid[..., :, None] & tri_valid[..., None, :]
+
+
+def _round(lab: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    """One round: min-label relaxation, then the pointer jump."""
+    T = lab.shape[-1]
+    big = torch.tensor(T, dtype=torch.int32, device=lab.device)
+    nb = torch.amin(torch.where(adj, lab[..., None, :], big), dim=-1)
+    lab = torch.minimum(lab, nb)
+    return torch.minimum(lab, torch.gather(lab, -1, torch.clamp(lab, 0, T - 1).long()))
+
+
+def _start(tri_valid: torch.Tensor) -> torch.Tensor:
+    T = tri_valid.shape[-1]
+    idx = torch.arange(T, dtype=torch.int32, device=tri_valid.device)
+    return torch.where(tri_valid, idx, torch.tensor(T, dtype=torch.int32, device=idx.device))
+
+
+def tri_soup_components(corners: torch.Tensor, tri_valid: torch.Tensor,
+                        iters: int | None = None, tol: float = 1e-5) -> torch.Tensor:
+    """corners (..., T, 3, 3), tri_valid (..., T) → (..., T) int32 labels."""
+    T = corners.shape[-3]
+    adj = _adjacency(corners, tri_valid, tol)
+    lab = _start(tri_valid)
     for _ in range(label_rounds(T, iters)):
-        nb = torch.amin(torch.where(adj, lab[..., None, :], big), dim=-1)
-        lab = torch.minimum(lab, nb)
-        lab = torch.minimum(lab, torch.gather(lab, -1, torch.clamp(lab, 0, T - 1).long()))
-    return torch.where(tri_valid, lab, big)
+        lab = _round(lab, adj)
+    return torch.where(tri_valid, lab, T)
+
+
+def label_rounds_run(corners: torch.Tensor, tri_valid: torch.Tensor,
+                     iters: int | None = None, tol: float = 1e-5) -> torch.Tensor:
+    """(...,) int32: the rounds a soup's labels take when the loop stops
+    after the first round that changes no label (as kernel B3 does), at
+    most ``label_rounds(T, iters)``; 0 for a soup with no valid triangle.
+    A round is a function of the labels alone, so stopping there returns
+    the labels of all the rounds."""
+    T = corners.shape[-3]
+    adj = _adjacency(corners, tri_valid, tol)
+    lab = _start(tri_valid)
+    run = torch.zeros(tri_valid.shape[:-1], dtype=torch.int32, device=corners.device)
+    live = torch.any(tri_valid, dim=-1)
+    for _ in range(label_rounds(T, iters)):
+        run += live.to(torch.int32)
+        nxt = _round(lab, adj)
+        live &= torch.any((nxt != lab) & tri_valid, dim=-1)
+        lab = nxt
+    return run
 
 
 def adjacency_components(adj: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -28,20 +28,23 @@ def tri_soup_components_batch_reference(corners, tri_valid, tol: float = 1e-5,
 def _kernel(corners, tri_valid, tol, iters):
     global launches
     N, T = corners.shape[0], corners.shape[1]
-    if corners.dtype != torch.float32 or corners.shape[2:] != (3, 3) or tri_valid.shape != (N, T):
-        raise ValueError("labels kernel takes (N, T, 3, 3) float32 corners and an (N, T) mask")
+    if (corners.dtype != torch.float32 or corners.shape[2:] != (3, 3)
+            or tri_valid.shape != (N, T) or tri_valid.dtype != torch.bool):
+        raise ValueError("labels kernel takes (N, T, 3, 3) float32 corners and an (N, T) bool mask")
     if not 1 <= T <= 1024:
         raise ValueError(f"labels kernel takes 1 <= T <= 1024, got {T}")
     dev = corners.device
-    fn = _build.bind("surtr_labels", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                     + [ctypes.c_float, ctypes.c_void_p])
-    c = corners.contiguous()
-    v = tri_valid.to(torch.uint8).contiguous()
+    fn = _build.bind("surtr_labels", [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    # Each soup's (T, 3, 3) floats must be contiguous; the soups may lie at
+    # any stride (the pipeline's are rows of a wider table): no copy then.
+    c = corners if corners.stride()[1:] == (9, 3, 1) else corners.contiguous()
+    v = tri_valid.contiguous().view(torch.uint8)   # the bool bytes, no conversion launch
     out = torch.empty((N, T), dtype=torch.int32, device=dev)
     if N == 0:
         return out
-    rc = fn(c.data_ptr(), v.data_ptr(), out.data_ptr(), N, T, label_rounds(T, iters),
-            float(tol), _build.stream_ptr(dev))
+    rc = fn(c.data_ptr(), c.stride()[0], v.data_ptr(), out.data_ptr(), N, T,
+            label_rounds(T, iters), float(tol), _build.stream_ptr(dev))
     _build.check(rc, "surtr_labels")
     launches += 1
     return out

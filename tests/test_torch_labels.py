@@ -10,7 +10,7 @@ import torch
 
 from surtr_tpu.ops.labels import tri_soup_components as j_labels
 from surtr_tpu.ops.labels_pallas import tri_soup_components_batch_pallas
-from surtr_tpu_torch.ops import labels_cuda
+from surtr_tpu_torch.ops import labels, labels_cuda
 
 
 def _soups(T=16):
@@ -60,3 +60,77 @@ def test_labels_at_pipeline_width():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got.numpy()[0] == 0).all()            # the strip is one component
     assert (got.numpy()[2] == 64).all()           # invalid triangles get T
+
+
+def _strips(T=64):
+    """Three 64-triangle strips whose consecutive triangles share a corner,
+    their indices in reversed, bit-reversed and random order, and a
+    complete graph (one corner shared by all): the reversed strip closes
+    only in its 6th round, the bit-reversed one is still open after it."""
+    rng = np.random.RandomState(11)
+    bits = T.bit_length() - 1
+    orders = [np.arange(T)[::-1],
+              np.array([int(format(i, f"0{bits}b")[::-1], 2) for i in range(T)]),
+              rng.permutation(T)]
+    corners = np.zeros((len(orders) + 1, T, 3, 3), np.float32)
+    for n, order in enumerate(orders):
+        P = rng.rand(T + 1, 3).astype(np.float32)
+        Q = rng.rand(T, 3).astype(np.float32)
+        for k in range(T):
+            corners[n, order[k]] = [P[k], Q[k], P[k + 1]]
+    corners[-1] = rng.rand(T, 3, 3)
+    corners[-1, :, 1] = 0.5
+    return corners, np.ones(corners.shape[:2], bool)
+
+
+@pytest.mark.parametrize("iters", [None, 1, 2, 3])
+def test_permuted_strip_labels_match_pallas(iters):
+    # Unclosed labels (iters 1-3, and the bit-reversed strip at 6 rounds)
+    # must still match round for round: the kernel's early exit stops only
+    # at a round that changes no label.
+    corners, valid = _strips()
+    got = labels_cuda.tri_soup_components_batch(torch.as_tensor(corners), torch.as_tensor(valid),
+                                                iters=iters)
+    want = tri_soup_components_batch_pallas(jnp.asarray(corners), jnp.asarray(valid),
+                                            iters=iters, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if iters is None:
+        assert (got.numpy()[0] == 0).all() and (got.numpy()[3] == 0).all()
+        assert len(np.unique(got.numpy()[1])) > 1
+
+
+def test_rounds_run_stop_at_the_first_unchanged_round():
+    corners, valid = _strips()
+    valid[2] = False
+    c, v = torch.as_tensor(corners), torch.as_tensor(valid)
+    run = labels.label_rounds_run(c, v)
+    # Reversed strip: all 6 rounds; bit-reversed: 6 (still open); empty: 0;
+    # the complete graph closes in round 1 and round 2 changes nothing.
+    assert run.tolist() == [6, 6, 0, 2]
+    for it in (1, 2, 3):
+        assert labels.label_rounds_run(c, v, iters=it).tolist() == [it, it, 0, min(it, 2)]
+    # Stopping there returns the labels of all the rounds.
+    for n in range(4):
+        r = max(int(run[n]), 1)
+        np.testing.assert_array_equal(labels.tri_soup_components(c[n], v[n], iters=r).numpy(),
+                                      labels.tri_soup_components(c[n], v[n]).numpy())
+
+
+def test_quantize_is_a_true_division_on_rounding_boundaries():
+    # Corners whose x / tol is exactly k + 1/2 in float32: a product with
+    # the rounded reciprocal (which the card takes for a Python divisor)
+    # moves some of them to the other integer; quantize divides.
+    tol = np.float32(1e-5)
+    xs = []
+    for k in range(1000, 1400):
+        x = np.float32((k + 0.5) * float(tol))
+        for c in (x, np.nextafter(x, np.float32(0)), np.nextafter(x, np.float32(1))):
+            if c / tol == np.float32(k + 0.5):
+                xs.append(c)
+                break
+    xs = np.array(xs, np.float32)
+    assert len(xs) > 100
+    want = np.rint(xs / tol).astype(np.int32)
+    got = labels.quantize(torch.as_tensor(xs), float(tol)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (np.rint(xs * (np.float32(1) / tol)).astype(np.int32) != want).any()

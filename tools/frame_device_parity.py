@@ -35,7 +35,7 @@ from surtr_tpu_torch.fracture import pipeline  # noqa: E402
 STAGES = [(pipeline, n) for n in (
     "convex_out_of_sphere", "clip_planes_batch", "clip_trisoup", "_split_mesh_islands",
     "_finish_pieces", "_pack_candidates", "split_groups_by_contact", "moments",
-    "tri_soup_components_batch", "refit_planes_batch", "_dense_renumber")]
+    "tri_soup_components_batch", "refit_planes_from_parts", "_dense_renumber")]
 STAGES += [(scene_mod, n) for n in (
     "raycast", "sphere_overlap", "_bake_pieces", "do_fracture", "build_scene",
     "_transfer_velocities", "physics_step")]
