@@ -35,10 +35,14 @@ Phases (any failure exits non-zero):
      depth; for B7 at Vh = 8 and, with the first interactive frame's step
      and the degenerate scene at Vh = 64, at Vh = 64 too: one piece, 39
      pairs, -1 and out-of-range partners, a dead partner, pieces with no
-     live corner, rotated boxes that reach the support fallback), with
-     times; B5-B9 (B9 in both modes) and B12 bitwise; B5, B7 and B8's device
-     time and device launches a call (B7 also at Vh = 64), B9's a launch
-     and a step and its device launches a solve;
+     live corner, rotated boxes that reach the support fallback; for B12
+     ``sorted_edge_cases``: one piece, 1,001 pieces, all invalid, one
+     owner, equal centers, int64 owners, W = 128 with K = 16, K = 2W),
+     with times; B5-B9 (B9 in both modes) and B12 bitwise (B12's glue,
+     codes, order and sorted table, against its plain mirror too); B5, B7
+     and B8's device time and device launches a call (B7 also at Vh = 64),
+     B12's sweep and glue device time and its device launches a call, B9's
+     a launch and a step and its device launches a solve;
   8. the physics main path: ``workload.run_physics(64)`` at bench.py:207's
      configuration ("auto" broadphase on 10,000 pieces) on ``cuda:0``,
      launches pack 1, B6 1, narrowphase 1, prep 1, solver 1 on every step
@@ -49,7 +53,8 @@ Phases (any failure exits non-zero):
      the CPU and copied, with launch counts per step: (a) the exact block
      sweep, 16 steps; (b) broadphase "sorted" (B12), 16 steps; (c) one
      step of a 66,000-cube lattice under "auto" (RecallDegradedWarning,
-     B12); (d) warm start (B9's accumulated mode), 32 steps, compared with
+     B12); on (b) and (c) each step's B12 result bitwise against its plain
+     version on the step's inputs; (d) warm start (B9's accumulated mode), 32 steps, compared with
      the CPU plain run after 16; (e) the lattice bound in pairs (5,000
      two-cube compound bodies), 32 steps, compared likewise;
  10. ms per physics step, a per-stage split and the device idle share;
@@ -66,7 +71,12 @@ Phases (any failure exits non-zero):
      the same prepared pieces; B1 against its plain fold on both routes'
      calls;
  13. kernel B10 (pooled soup clip) against its plain version on the calls
-     of 11 and 12 and on degenerate cases, with times and its bound;
+     of 11 and 12 and on degenerate cases (``soup_cases``: multiruns with
+     up to four crossings a plane at K = 32, cut sums of -0, lanes emptied
+     at the first and the last plane, int64 and int32 cell ids among
+     them), bitwise in n_vert, the drops and all 8 slots, with times, its
+     device operations a call, the live lanes and lane x plane steps, and
+     its bound;
  14. ms per event of the sphere decomposition and of the impact on both
      routes, each impact route's stage split and device idle share;
  15. kernel B11 (tiled z-buffer raster) against its plain version on the
@@ -122,8 +132,8 @@ import numpy as np
 from surtr_tpu_torch import _build, workload
 from surtr_tpu_torch.fracture import pipeline
 from surtr_tpu_torch.io.models import get_model
-from surtr_tpu_torch.ops import (clip_cuda, hull_cuda, labels_cuda, refit_cuda, soup_clip_cuda,
-                                 voronoi)
+from surtr_tpu_torch.ops import (clip_cuda, hull_cuda, labels_cuda, mesh_clip, refit_cuda,
+                                 soup_clip_cuda, voronoi)
 from surtr_tpu_torch.physics import (broadphase_cuda, narrowphase_cuda, pack_cuda, prep_cuda,
                                      solver_cuda)
 from surtr_tpu_torch.physics import step as phys_step
@@ -570,7 +580,7 @@ KERNEL_FN = {"clip_fold": clip_cuda.clip_planes_batch, "ich": hull_cuda.ich,
 # Name fragments of each kernel's device functions (torch.profiler keys).
 DEVICE_NAME = {"clip_fold": "clip_fold", "ich": "ich_kernel", "labels": "labels_",
                "refit": "refit_kernel", "pack": "pack_kernel", "narrowphase": "narrow_kernel",
-               "prep": "prep_kernel", "broadphase_sorted": "bp_sorted_kernel"}
+               "prep": "prep_kernel", "broadphase_sorted": "bp_sorted_sweep"}
 
 
 def per_call_times(name, calls, fn=None, required=True):
@@ -880,9 +890,14 @@ def compare_broadphase_exact(a, kw):
 
 def compare_broadphase_sorted(a, kw):
     """pidx and the mutual pok equal to the plain version's, filler slots
-    included."""
-    return _bitwise("broadphase_sorted", ("pidx", "pok"),
-                    broadphase_cuda.broadphase_sorted(*a, **kw),
+    included; the glue's Morton codes, sort order and sorted table equal to
+    its plain mirror ``sorted_glue`` (the table bit for bit)."""
+    pidx, pok, glue = broadphase_cuda._sorted_launch(*a, **kw)
+    codes, order, table = broadphase_cuda.sorted_glue(*a[:5])
+    _exact("broadphase_sorted", "Morton codes", glue[0][:, None], codes[:, None])
+    _exact("broadphase_sorted", "sort order", glue[1][:, None], order[:, None])
+    _same_bits("broadphase_sorted", "sorted table", glue[2], table)
+    return _bitwise("broadphase_sorted", ("pidx", "pok"), (pidx, pok),
                     broadphase_cuda.broadphase_sorted_reference(*a, **kw))
 
 
@@ -1159,6 +1174,39 @@ def broadphase_cases(device):
     }
 
 
+def sorted_edge_cases(bcases, K: int, W: int):
+    """B12's inputs beside the main path's: ``broadphase_cases``' pools at
+    the path's K and W, and, as (centers, lo, hi, owner, valid, K, W): one
+    piece; 1,001 pieces (no multiple of the select launch's 8 lanes or of
+    a 256-thread block); all invalid; one owner for all; equal centers
+    (equal codes, pairs at d² = 0); int64 owners; W = 128 with K = 16 and
+    K = 2W (W = 4 and 8) on a random pool and the lattice of exact ties."""
+    rng = np.random.default_rng(29)
+    dev = next(iter(bcases.values()))[0].device
+    u = rng.uniform
+
+    def boxes(c, owner=None, valid=None, odt=np.int32):
+        n = len(c)
+        f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+        own = np.arange(n) if owner is None else owner
+        val = np.ones(n, bool) if valid is None else valid
+        return (f(c), f(c - 0.6), f(c + 0.6), torch.as_tensor(np.asarray(own, odt), device=dev),
+                torch.as_tensor(val, device=dev))
+
+    dup = u(-3, 3, (400, 3))
+    dup[:200] = dup[200:]
+    rand, ties = bcases["700 random, 5% invalid"], bcases["lattice ties"]
+    cases = [(b, K, W) for b in bcases.values()] + [
+        (boxes(u(-1, 1, (1, 3))), K, W),
+        (boxes(u(-6, 6, (1001, 3)), valid=u(size=1001) > 0.1), K, W),
+        (boxes(u(-3, 3, (300, 3)), valid=np.zeros(300, bool)), K, W),
+        (boxes(u(-2, 2, (300, 3)), owner=np.zeros(300)), K, W),
+        (boxes(dup), K, W),
+        (boxes(u(-4, 4, (500, 3)), owner=np.arange(500) // 2, odt=np.int64), K, W),
+        (rand, 16, 128), (ties, 16, 128), (rand, 8, 4), (ties, 16, 8)]
+    return [(tuple(b) + (k, w), {}) for b, k, w in cases]
+
+
 def physics_capture(steps: int, cfg=workload.PHYSICS_CFG):
     """Run the lattice once with recording wrappers; the inputs of the last
     step that ran, that step's index and the final scene."""
@@ -1219,7 +1267,7 @@ def physics_kernel_phase(card):
         "solver": [main["solver"], sleepy_solver, (dcalls["solver"][0], dcalls["solver"][1]),
                    dsleepy_solver],
         "broadphase_sorted": [main["broadphase_sorted"]]
-        + [(b + (K, cfg.broadphase_window), {}) for b in bcases.values()],
+        + sorted_edge_cases(bcases, K, cfg.broadphase_window),
         "solver_warm": [main["solver_warm"], sleepy_warm],
     }
     live = {name: int(broadphase_cuda.broadphase_exact(*b, K)[1].sum())
@@ -1258,6 +1306,11 @@ def physics_kernel_phase(card):
                                  device_launches=entries)
             extra = (f" (on the device: {dev_ms:.4f} ms, {other_ms:.4f} ms beside the kernel, "
                      f"{entries:.0f} device launches a call)")
+            if name == "broadphase_sorted":
+                results[name]["glue_device_ms"] = other_ms
+                extra = (f" (on the device: sweep {dev_ms:.4f} ms in its two launches, glue "
+                         f"{other_ms:.4f} ms (codes, torch.sort, table); {entries:.0f} device "
+                         f"launches a call)")
         if name == "narrowphase":   # B7 at the frame's Vh = 64 as well
             fa, fkw = fcall[:2]
             t = per_call_times(name, [(fa, fkw)], PHYS_KERNEL_FN[name])[0]
@@ -1391,7 +1444,8 @@ def physics_variants(card):
         start = build()
         built_s = time.perf_counter() - t0
         sg = workload.to_device(start, "cuda")
-        with warnings.catch_warnings(record=True) as caught:
+        held = 0
+        with warnings.catch_warnings(record=True) as caught, StepRecorder() as rec:
             warnings.simplefilter("always")
             check = LaunchCheck(f"physics path {name}", cfg, want)
             for i in range(steps):
@@ -1399,8 +1453,18 @@ def physics_variants(card):
                 check(i, sg)
                 if i + 1 == cmp_steps:
                     cg = sg
+                # B12's result in this step against its plain version on the
+                # step's own inputs (no second launch).
+                a, kw, got = rec.last.pop("broadphase_sorted", (None, None, None))
+                if a is not None:
+                    _bitwise("broadphase_sorted", ("pidx", "pok"), got,
+                             broadphase_cuda.broadphase_sorted_reference(*a, **kw))
+                    held += 1
             torch.cuda.synchronize()
             counts = launch_counts()
+        if held != counts["broadphase_sorted"]:
+            fail(f"physics path {name}: B12 held on {held} of its {counts['broadphase_sorted']} "
+                 f"calls")
         degraded = [w for w in caught if issubclass(w.category, phys_step.RecallDegradedWarning)]
         if bool(degraded) != (name == "c_auto_66k"):
             fail(f"physics path {name}: RecallDegradedWarning raised {len(degraded)} times")
@@ -1408,7 +1472,8 @@ def physics_variants(card):
         if not all(bool(torch.isfinite(getattr(b, f)).all()) for f in ("x", "q", "v", "w")):
             fail(f"physics path {name}: the state is not finite after {steps} steps")
         line = (f"physics path {name}: Np {start.Np}, B {start.B}, {steps} steps (scene built in "
-                f"{built_s:.1f} s), launches {json.dumps(counts)}, {check.skipped} skipped")
+                f"{built_s:.1f} s), launches {json.dumps(counts)}, {check.skipped} skipped"
+                + (f", B12 bitwise on all {held} calls" if held else ""))
         if degraded:
             line += f", warned: {str(degraded[0].message)[:60]}..."
         if cmp_steps:
@@ -1621,13 +1686,67 @@ def _soup_random(seed, P=300, C=16, K=12):
     return [tris, valid, cell, np.concatenate([n, d], axis=-1), pmask]
 
 
+def soup_multirun_pool(seed=22, P=1024, C=4, K=32):
+    """A pool whose folds cross planes several times: zero-area triangles on
+    a line through far-off points for each cell, and planes that contain
+    the line. Every distance is rounding noise, mostly beyond tol, so the
+    kept corners of a polygon alternate (multiruns, up to four crossings a
+    plane) and the exit and enter points sum several cuts."""
+    rng = np.random.default_rng(seed)
+    t, v, c, p, m = _soup_random(seed, P, C, K)
+    base = rng.uniform(50, 200, (C, 3))
+    u = rng.normal(size=(C, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    s = rng.uniform(-30, 30, (P, 3))
+    t[:] = base[c][:, None, :] + s[..., None] * u[c][:, None, :]
+    w = rng.normal(size=(C, K, 3))
+    w -= (w * u[:, None, :]).sum(-1, keepdims=True) * u[:, None, :]
+    w /= np.linalg.norm(w, axis=-1, keepdims=True)
+    p[..., :3] = w
+    p[..., 3] = -(w * base[:, None, :]).sum(-1)
+    m[:] = True
+    return [t, v, c, p, m]
+
+
+def soup_crossings(tris, valid, cell, planes, pmask, tol=1e-6):
+    """Per plane k, the most crossings (exits plus enters) of a lane whose
+    plane k is live, and the multiruns it drops, by the plain fold on the
+    CPU (the in-plane context taken per pool; only the counts are read)."""
+    T = [torch.as_tensor(np.asarray(x)).cpu() for x in (tris, valid, cell, planes, pmask)]
+    pl, ok, _, _ = soup_clip_cuda._lane_planes(T[2], T[3], T[4])
+    P = T[0].shape[0]
+    poly = torch.zeros((P, 8, 3))
+    poly[:, :3] = T[0]
+    nv = torch.where(T[1], 3, 0).to(torch.int32)
+    slot = torch.arange(8)
+    most, runs = [], []
+    for k in range(pl.shape[1]):
+        n, d = pl[:, k, None, :3], pl[:, k, None, 3]
+        dist = (poly[..., 0] * n[..., 0] + poly[..., 1] * n[..., 1]) + poly[..., 2] * n[..., 2] + d
+        m = slot < nv[:, None]
+        dn = torch.where(slot == nv[:, None] - 1, dist[:, :1], torch.roll(dist, -1, 1))
+        cross = (m & (dist < -tol) & (dn > tol)).sum(1) + (m & (dist > tol) & (dn < -tol)).sum(1)
+        p2, n2, mrun = mesh_clip._clip_polys_plane(poly, nv, pl[:, k], tol)
+        live = ok[:, k]
+        poly = torch.where(live[:, None, None], p2, poly)
+        nv = torch.where(live, n2, nv)
+        most.append(int(torch.where(live, cross, 0).max()) if P else 0)
+        runs.append(int((mrun & live).sum()))
+    return most, runs
+
+
 def soup_cases(device):
     """B10's degenerate cases by name: an in-plane triangle; a cell that
     straddles the 2,048-lane block boundary with an in-plane triangle on
     each side and material beyond the plane on one side only (lanes 2001
     and 2090: the block-local context keeps the first and drops the
     second); dead lanes and one live lane with the sentinel cell id C; 77
-    lanes; one plane; no valid lane."""
+    lanes; one plane; no valid lane; at K = 32 the multirun pool
+    (``soup_multirun_pool``) whole and cut after the first plane on which a
+    lane crosses three or more times (its multi-cut sums then stand in the
+    result's slots); triangles in the plane z = -0 (cut points with z = -0,
+    summed from +0); lanes emptied at the first plane and at the last;
+    the random pool with int64 cell ids and with int32 ids."""
     flat = np.array([[0.2, 0.0, 0.0], [0.0, 0.3, 0.0], [-0.2, -0.1, 0.0]], np.float32)
     cases = {"random": _soup_random(0)}
     t, v, c, p, m = cases["in-plane triangle"] = _soup_random(3)
@@ -1648,13 +1767,33 @@ def soup_cases(device):
     cases["K = 1"] = _soup_random(10, K=1)
     t, v, c, p, m = cases["no valid lane"] = _soup_random(12)
     v[:] = False
+    mr = cases["multirun, K = 32"] = soup_multirun_pool()
+    most, _ = soup_crossings(*mr)
+    cut = next(k for k, n in enumerate(most) if n >= 3) + 1
+    cases[f"multirun cut at K = {cut}"] = [mr[0], mr[1], mr[2], mr[3][:, :cut].copy(),
+                                          mr[4][:, :cut].copy()]
+    t, v, c, p, m = cases["z = -0 plane"] = _soup_random(13, K=32)
+    t[..., 2] = -0.0
+    p[..., 2] = 0.0
+    p[..., :2] /= np.linalg.norm(p[..., :2], axis=-1, keepdims=True)
+    m[:, 3:] = False                                   # three live planes: lanes survive
+    t, v, c, p, m = cases["emptied at the first and the last plane"] = _soup_random(14, K=32)
+    m[:] = True
+    t[c == 0] = np.abs(t[c == 0])
+    p[0, 0] = [1.0, 1.0, 1.0, 0.01]                    # removes cell 0's lanes at once
+    t[c == 1] *= 0.1
+    p[1, :, 3] = -np.abs(p[1, :, 3]) - 0.5             # cell 1 keeps its lanes ...
+    p[1, -1] = [0.0, 0.0, 0.0, 1.0]                    # ... until its last plane
+    r = _soup_random(15, P=600)
+    cases["int64 cell ids"] = [r[0], r[1], r[2].astype(np.int64), r[3], r[4]]
+    cases["int32 cell ids"] = r
     return {name: (tuple(torch.as_tensor(x, device=device) for x in case), {})
             for name, case in cases.items()}
 
 
 def compare_soup(a, kw):
-    """n_vert and the drop count exactly; the live polygon slots within
-    1e-5 (absolute). Returns their largest difference."""
+    """n_vert and the drop count exactly; all S = 8 slots of every lane bit
+    for bit (NaN against NaN). Returns the largest difference, 0."""
     got = soup_clip_cuda.soup_clip_pooled(*a, **kw)
     want = soup_clip_cuda.soup_clip_pooled_reference(*a, **kw)
     if not torch.equal(got[1], want[1]):
@@ -1663,20 +1802,27 @@ def compare_soup(a, kw):
              f"({len(bad)} in all)")
     if int(got[2]) != int(want[2]):
         fail(f"soup_clip: {int(got[2])} multirun drops, the plain fold {int(want[2])}")
-    live = (torch.arange(got[0].shape[1], device=got[0].device) < want[1][:, None])[..., None]
-    err = torch.where(live, (got[0] - want[0]).abs(), 0.0).flatten(1).amax(1)
-    return _check_close("soup_clip", "live polygon slots", err, torch.ones_like(err))
+    return _same_bits("soup_clip", "polygon slots", got[0], want[0])
+
+
+def soup_live(a) -> tuple[int, int]:
+    """(lanes, lane x plane steps) that B10's fold runs on these inputs: the
+    lanes folded through at least one live plane, and the live planes of
+    each up to the one that finds its polygon empty."""
+    steps = soup_clip_cuda.soup_clip_pooled_reference(*a, per_lane=True)[3][1]
+    return int((steps > 0).sum()), int(steps.sum())
 
 
 def soup_ops(a) -> float:
     """Float operations the pooled fold needs on these inputs: per valid
     lane with a cell, per live plane of its cell, the context test of its
-    three corners (18) and the fold of its S = 8 slots (36 each)."""
+    three corners (18); per fold step (``soup_live``) the fold of its S = 8
+    slots (36 each)."""
     tri, valid, cell, planes, pmask = a[:5]
     C = planes.shape[0]
     inside = (cell >= 0) & (cell < C)
     live = pmask[cell.long().clamp(0, C - 1)].sum(1) * (valid & inside)
-    return float(live.sum()) * (18 + 8 * 36)
+    return float(live.sum()) * 18 + soup_live(a)[1] * 8 * 36.0
 
 
 def soup_kernel_phase(calls, card):
@@ -1697,20 +1843,26 @@ def soup_kernel_phase(calls, card):
         ms = sum(event_ms(lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled(*a, **kw))
                  for a, kw in pc)
         # The two kernels alone, as the profiler sees them on the device
-        # (``ms`` is the wrapper's whole call: casts, allocations, memset).
-        device_ms = sum(device_split(
-            lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled(*a, **kw), "soup_")[0]
-            for a, kw in pc)
+        # (``ms`` is the wrapper's whole call); the memset is the rest.
+        split = [device_split(lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled(*a, **kw),
+                              "soup_") for a, kw in pc]
+        device_ms = sum(x[0] for x in split)
+        ops = sum(x[2] for x in split)
         plain_ms = sum(event_ms(lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled_reference(
             *a, **kw), warmup=1) for a, kw in pc)
         b_ms, b_by = bound(sum(nbytes(a) + nbytes(soup_clip_cuda.soup_clip_pooled(*a, **kw))
                                for a, kw in pc), sum(soup_ops(a) for a, _ in pc))
-        out[path] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by,
+        live = [soup_live(a) for a, _ in pc]
+        out[path] = {"ms": ms, "device_ms": device_ms, "other_device_ms": sum(x[1] for x in split),
+                     "device_launches": ops, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "live_lanes": [x[0] for x in live],
+                     "live_lane_planes": [x[1] for x in live],
                      "shapes": [[tuple(a[0].shape), tuple(a[3].shape)] for a, _ in pc]}
         print(f"soup_clip ({path}): kernel {ms:.4f} ms (its two kernels {device_ms:.4f} ms on the "
-              f"device)  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  lanes x planes "
-              f"{out[path]['shapes']}  ({card})", flush=True)
+              f"device; {ops:.0f} device operations a call, the memset and the two launches)  "
+              f"plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  lanes x planes "
+              f"{out[path]['shapes']}, live lanes {out[path]['live_lanes']}, live lane x plane "
+              f"{out[path]['live_lane_planes']}  ({card})", flush=True)
     print(f"soup_clip: max_abs_err {err:.3e} over {sum(map(len, calls.values()))} main-path "
           f"calls and {len(cases)} degenerate cases ({', '.join(cases)})", flush=True)
     return out

@@ -12,8 +12,9 @@
 // lists built over any split of the candidates merge exactly.
 //
 // Three launches and one torch.sort (`broadphase_cuda._exact_kernel`):
-//  1. bp_key_kernel (one CTA): the valid extent, the sweep axis (largest
-//     extent, first of ties) and the sort key where(valid, c[axis], BIG);
+//  1. bp_key_kernel (one CTA): the valid extent (bp_extent.cuh, shared
+//     with B12's key launch), the sweep axis (largest extent, first of
+//     ties) and the sort key where(valid, c[axis], BIG);
 //  2. torch.sort(key, stable=True) in PyTorch;
 //  3. bp_pack_kernel (one CTA per 128-row chunk): the sorted (Np_pad, 12)
 //     table [normalized center 3 | owner | lo 3 | valid | hi 3 | id], each
@@ -58,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bp_extent.cuh"
+
 namespace {
 
 constexpr int TILE = 32;        // pieces per query tile and rows per row tile
@@ -70,17 +73,8 @@ constexpr int IMAX = 0x7FFFFFFF;
 constexpr float BIG = 3.4e38f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ inline float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ inline float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
+using surtr_bp::warp_max;
+using surtr_bp::warp_min;
 
 __device__ inline void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -99,59 +93,26 @@ __global__ void __launch_bounds__(1024)
 bp_key_kernel(const float* __restrict__ c, int cs, const unsigned char* __restrict__ valid,
               int Np, float* __restrict__ key, float* __restrict__ params,
               int* __restrict__ axis_out) {
-  __shared__ float red[32][6];
-  __shared__ float sp[4];
   __shared__ int sax;
   const int t = threadIdx.x;
-  float mn[3] = {INFINITY, INFINITY, INFINITY}, mx[3] = {-INFINITY, -INFINITY, -INFINITY};
-  int any = 0;
-  for (int i = t; i < Np; i += blockDim.x) {
-    const bool v = valid[i] != 0;
-    any |= v;
+  float mn[3], mx[3];
+  const bool any = surtr_bp::valid_extent(c, cs, valid, Np, mn, mx);
+  if (t == 0) {
+    float ext3[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float x = c[(size_t)i * cs + a];
-      mn[a] = fminf(mn[a], v ? x : BIG);    // amin(where(valid, c, BIG))
-      mx[a] = fmaxf(mx[a], v ? x : -BIG);
-    }
-  }
-  any = __syncthreads_or(any);
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    mn[a] = warp_min(mn[a]);
-    mx[a] = warp_max(mx[a]);
-  }
-  if ((t & 31) == 0) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      red[t >> 5][a] = mn[a];
-      red[t >> 5][3 + a] = mx[a];
-    }
-  }
-  __syncthreads();
-  if (t < 32) {
-    const int nw = blockDim.x >> 5;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      mn[a] = warp_min(t < nw ? red[t][a] : INFINITY);
-      mx[a] = warp_max(t < nw ? red[t][3 + a] : -INFINITY);
-    }
-    if (t == 0) {
-      float ext3[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) ext3[a] = mx[a] - mn[a];
-      int ax = 0;                                   // argmax, first of ties
-      if (ext3[1] > ext3[ax]) ax = 1;
-      if (ext3[2] > ext3[ax]) ax = 2;
-      float e = fmaxf(fmaxf(ext3[0], ext3[1]), ext3[2]);
-      e = e < 1e-6f ? 1e-6f : e;                    // clamp(min=1e-6)
-      if (!any) ax = 0;
-      sp[0] = mn[0]; sp[1] = mn[1]; sp[2] = mn[2]; sp[3] = e;
-      sax = ax;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) params[a] = sp[a];
-      *axis_out = ax;
-    }
+    for (int a = 0; a < 3; ++a) ext3[a] = mx[a] - mn[a];
+    int ax = 0;                                   // argmax, first of ties
+    if (ext3[1] > ext3[ax]) ax = 1;
+    if (ext3[2] > ext3[ax]) ax = 2;
+    float e = fmaxf(fmaxf(ext3[0], ext3[1]), ext3[2]);
+    e = e < 1e-6f ? 1e-6f : e;                    // clamp(min=1e-6)
+    if (!any) ax = 0;
+    params[0] = mn[0];
+    params[1] = mn[1];
+    params[2] = mn[2];
+    params[3] = e;
+    *axis_out = ax;
+    sax = ax;
   }
   __syncthreads();
   const int ax = sax;

@@ -6,30 +6,49 @@
 // pooled lane is one triangle with its cell id, turned into a polygon of
 // S = 8 slots and folded by each live plane of its cell (Sutherland-Hodgman
 // with cyclic-run emission [rotated kept run, exit, enter]; exit and enter
-// are sums over the slots; n_out = min(mcnt + ex + en, S); the in-plane
-// drop rule; the multirun guard, counted; n_out < 3 becomes 0). Masked
-// planes are no-ops; a cell id outside [0, C) reads no planes.
+// are sums over the slots in slot order from +0; n_out = min(mcnt + ex +
+// en, S); the in-plane drop rule; the multirun guard, counted; n_out < 3
+// becomes 0). Masked planes are no-ops; a cell id outside [0, C) reads no
+// planes. Cell ids come as int32 or int64.
 //
 // The in-plane rule's context is per block of BN lanes, as the TPU kernel
 // computes it (its grid step is a BN-lane block): for plane k of cell c it
 // is true when any valid lane of cell c in the same block has an original
 // corner with ((x*nx + y*ny) + z*nz) + d > tol and plane k is live. Blocks
 // run in no order here, so a first launch ORs each lane's K-bit mask into a
-// zeroed (P/BN, C, ceil(K/32)) table in global memory with atomicOr, and a
-// second launch folds, one thread per lane, its polygon in registers
-// through all K planes.
+// zeroed (P/BN, C, ceil(K/32)) table with atomicOr, and a second launch
+// folds. One cudaMemsetAsync zeroes the table and the drop counter, which
+// the fold's warps add their multirun drops into: three device operations
+// a call.
 //
 // What bounds it on the card: the bytes of the pool, about 150 a lane
-// (triangle, ids, the 8-slot result), against the fold's float work, about
-// 36 operations per slot per live plane of a live lane; the pools of the
-// pipeline are mostly dead lanes (capacity over live pairs), so bytes bound
-// it, at a microsecond or two, and launch latency and the serial plane
-// loop of one thread dominate. A lane stops at the first live plane that
-// finds its polygon empty. The planes of a cell are read by cell id (the
-// TPU kernel gathered them with a one-hot matrix product); lanes of one
-// cell are contiguous, so a warp mostly reads one row (broadcast). Built
-// with -fmad=false, so every product and sum rounds as in the plain
-// version.
+// (triangle, id, the 8-slot result), against the fold's float work, about
+// 36 operations per slot per live plane of a live lane; the pipeline's
+// pools are mostly dead lanes (capacity over live pairs), so bytes bound
+// it, at a microsecond or two. What the time is: a live lane's fold, a
+// dependent chain through its cell's planes. The first design ran it on
+// one thread (~10^4 instructions at K = 32, an 8 x 8 select for the
+// rotation). This design gives a lane 8 threads, one a slot (4 lanes a
+// warp): each thread computes its slot's distance and cut point; the kept,
+// exit, enter and off-plane masks are ballots, the run count and start
+// popcounts, the rotated emission one shuffle from slot (a + j) mod nv. The
+// exit and enter points are the eight-term sums of the plain version, in
+// slot order from +0, by shuffles. A plane that keeps every live corner of
+// every lane of the warp is skipped: its step is the identity
+// (tests/test_torch_soup_clip.py holds the plain step to that), and most
+// of a cell's planes miss a given triangle. A step of the fold is a long
+// dependent chain of one warp (a plane load, distances, shuffles, ballots,
+// three divisions, the emission); the skip test costs a distance and two
+// ballots. A group stages its cell's planes eight at a time in shared
+// memory, fetched one chunk ahead (masks and context bits by ballot); the
+// warp walks the planes in step and leaves when every lane is done (no
+// planes, or emptied at a live plane).
+// Measured by tools/time_b10_b12.py on an NVIDIA H100 80GB HBM3 at 700 W,
+// the first design in the same call: the two kernels 0.0234-0.0238 ms on
+// the sphere's call (32,768 lanes, 4,596 live) against 0.087-0.090, and
+// 0.0211-0.0212 ms on the pooled impact's (12,288 lanes) against 0.080;
+// 3 device operations a call against 7-8. Built with -fmad=false, so every
+// product and sum rounds as in the plain version.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,194 +56,228 @@
 namespace {
 
 constexpr int S = 8;
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;          // 16 lanes a CTA, 4 a warp
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void soup_ctx_kernel(const float* __restrict__ tri,
-                                const unsigned char* __restrict__ valid,
-                                const int* __restrict__ cell,
-                                const float* __restrict__ planes,
-                                const unsigned char* __restrict__ pmask,
-                                unsigned* __restrict__ ctx, int P, int C, int K,
-                                int BN, int W, float tol) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// The lane's cell id, and whether it lies in [0, C).
+__device__ inline bool lane_cell(const void* cell, int ids64, int i, int C, int* c) {
+  const long long v = ids64 ? static_cast<const long long*>(cell)[i]
+                            : (long long)static_cast<const int*>(cell)[i];
+  *c = (int)v;
+  return v >= 0 && v < C;
+}
+
+// 1. The per-block context: 8 threads a lane, thread s tests the planes
+// k = 32w + 8q + s of each context word w.
+__global__ void __launch_bounds__(THREADS)
+soup_ctx_kernel(const float* __restrict__ tri, const unsigned char* __restrict__ valid,
+                const void* __restrict__ cell, int ids64, const float* __restrict__ planes,
+                const unsigned char* __restrict__ pmask, unsigned* __restrict__ ctx, int P,
+                int C, int K, int BN, int W, float tol) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const int i = (int)(t >> 3), s = (int)(t & 7);
   if (i >= P) return;
-  const int c = cell[i];
-  if (!valid[i] || c < 0 || c >= C) return;
-  float t[9];
+  int c;
+  if (!valid[i] || !lane_cell(cell, ids64, i, C, &c)) return;   // the whole group
+  const unsigned gm = 0xffu << (threadIdx.x & 24);
+  float v[9];
 #pragma unroll
-  for (int j = 0; j < 9; ++j) t[j] = tri[(size_t)i * 9 + j];
+  for (int j = 0; j < 9; ++j) v[j] = tri[(size_t)i * 9 + j];
   unsigned* row = ctx + ((size_t)(i / BN) * C + c) * W;
   for (int w = 0; w < W; ++w) {
     unsigned bits = 0u;
-    for (int kk = 0; kk < 32; ++kk) {
-      const int k = w * 32 + kk;
-      if (k >= K) break;
-      if (!pmask[(size_t)c * K + k]) continue;
-      const float* p = planes + ((size_t)c * K + k) * 4;
-      bool beyond = false;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float d = ((t[j * 3] * p[0] + t[j * 3 + 1] * p[1]) + t[j * 3 + 2] * p[2]) + p[3];
-        beyond |= d > tol;
+    for (int q = 0; q < 4; ++q) {
+      const int kk = q * 8 + s, k = w * 32 + kk;
+      if (k < K && pmask[(size_t)c * K + k]) {
+        const float* p = planes + ((size_t)c * K + k) * 4;
+        const float nx = p[0], ny = p[1], nz = p[2], d = p[3];
+        const float d0 = ((v[0] * nx + v[1] * ny) + v[2] * nz) + d;
+        const float d1 = ((v[3] * nx + v[4] * ny) + v[5] * nz) + d;
+        const float d2 = ((v[6] * nx + v[7] * ny) + v[8] * nz) + d;
+        // amax(d) > tol: a NaN distance makes the max NaN, never beyond.
+        const bool nan = isnan(d0) || isnan(d1) || isnan(d2);
+        if (!nan && (d0 > tol || d1 > tol || d2 > tol)) bits |= 1u << kk;
       }
-      if (beyond) bits |= 1u << kk;
     }
-    if (bits) atomicOr(row + w, bits);
+    bits |= __shfl_xor_sync(gm, bits, 1, 8);
+    bits |= __shfl_xor_sync(gm, bits, 2, 8);
+    bits |= __shfl_xor_sync(gm, bits, 4, 8);
+    if (s == 0 && bits) atomicOr(row + w, bits);
   }
 }
 
+// 2. The fold: 8 threads a lane (thread s holds slot s), 4 lanes a warp,
+// the warp's planes in step.
 __global__ void __launch_bounds__(THREADS)
 soup_fold_kernel(const float* __restrict__ tri, const unsigned char* __restrict__ valid,
-                 const int* __restrict__ cell, const float* __restrict__ planes,
+                 const void* __restrict__ cell, int ids64, const float* __restrict__ planes,
                  const unsigned char* __restrict__ pmask, const unsigned* __restrict__ ctx,
                  float* __restrict__ poly_out, int* __restrict__ nv_out,
-                 int* __restrict__ mrun_out, int P, int C, int K, int BN, int W, float tol) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P) return;
-  float px[S], py[S], pz[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    if (s < 3) {
-      px[s] = tri[(size_t)i * 9 + s * 3];
-      py[s] = tri[(size_t)i * 9 + s * 3 + 1];
-      pz[s] = tri[(size_t)i * 9 + s * 3 + 2];
-    } else {
-      px[s] = py[s] = pz[s] = 0.0f;
-    }
+                 unsigned long long* __restrict__ drops, int P, int C, int K, int BN, int W,
+                 float tol) {
+  __shared__ float4 staged[THREADS];                // a group's 8 planes of the current chunk
+  const int lane = threadIdx.x & 31, gb = lane & 24, s = lane & 7;
+  const int i = (int)(((long long)blockIdx.x * THREADS + threadIdx.x) >> 3);
+  const bool exists = i < P;
+  int c = 0;
+  const bool inside = exists && lane_cell(cell, ids64, i, C, &c);
+  float px = 0.0f, py = 0.0f, pz = 0.0f;
+  if (exists && s < 3) {
+    px = tri[(size_t)i * 9 + s * 3];
+    py = tri[(size_t)i * 9 + s * 3 + 1];
+    pz = tri[(size_t)i * 9 + s * 3 + 2];
   }
-  int nv = valid[i] ? 3 : 0;
+  int nv = exists && valid[i] ? 3 : 0;
   int mrun = 0;
-  const int c = cell[i];
-  if (c >= 0 && c < C) {
-    const unsigned* crow = ctx + ((size_t)(i / BN) * C + c) * W;
-    for (int k = 0; k < K; ++k) {
-      if (!pmask[(size_t)c * K + k]) continue;      // masked plane: no-op
-      if (nv == 0) {
+  bool done = !inside;
+  const unsigned* crow = ctx + ((size_t)(i / BN) * C + c) * W;
+  float4* gpl = staged + (threadIdx.x & ~7);
+  // Thread s reads plane k0 + s of its lane's cell, its mask and context
+  // bit, one chunk ahead of the fold.
+  float4 pv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  bool pv_live = false, pv_rm = false;
+  auto fetch = [&](int k0) {
+    const int k = k0 + s;
+    pv_live = pv_rm = false;
+    if (!done && k < K) {
+      const float* p = planes + ((size_t)c * K + k) * 4;
+      pv = make_float4(p[0], p[1], p[2], p[3]);
+      pv_live = pmask[(size_t)c * K + k] != 0;
+      pv_rm = (crow[k >> 5] >> (k & 31)) & 1u;
+    }
+  };
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    if (__all_sync(FULL, done)) break;
+    const bool live_k = pv_live && !done, rm_k = pv_rm;
+    __syncwarp();
+    gpl[s] = pv;
+    __syncwarp();
+    fetch(k0 + 8);
+    const unsigned lb = __ballot_sync(FULL, live_k), rb = __ballot_sync(FULL, rm_k);
+    const unsigned glive = (lb >> gb) & 0xffu, grm = (rb >> gb) & 0xffu;
+    const unsigned wlive = (lb | (lb >> 8) | (lb >> 16) | (lb >> 24)) & 0xffu;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!((wlive >> j) & 1u)) continue;           // no lane of the warp has plane j live
+      bool live = !done && ((glive >> j) & 1u);
+      if (live && nv == 0) {
         // A live plane folds an empty polygon to all-zero slots, and every
         // later plane keeps them so: the same result without the work.
-#pragma unroll
-        for (int s = 0; s < S; ++s) px[s] = py[s] = pz[s] = 0.0f;
-        break;
+        px = py = pz = 0.0f;
+        done = true;
+        live = false;
       }
-      const float* p = planes + ((size_t)c * K + k) * 4;
-      const float nx = p[0], ny = p[1], nz = p[2], d = p[3];
-      const bool rm_any = (crow[k >> 5] >> (k & 31)) & 1u;
+      if (!__any_sync(FULL, live)) continue;
+      const float4 pl = gpl[j];
+      const float ds = ((px * pl.x + py * pl.y) + pz * pl.z) + pl.w;
+      const bool m = s < nv;
+      const bool kept = m && ds <= tol;
+      const bool off = m && !(fabsf(ds) <= tol);
+      const unsigned bk = (__ballot_sync(FULL, kept) >> gb) & 0xffu;
+      const unsigned bo = (__ballot_sync(FULL, off) >> gb) & 0xffu;
+      const bool rm = (grm >> j) & 1u;
+      // A plane that keeps every corner is the identity (one run from slot
+      // 0, no crossing; the slots past nv are +0 already), unless the
+      // polygon lies in it and the plane removes material: when that holds
+      // for every lane of the warp, the step is skipped.
+      const bool same = !live || (bk == (1u << nv) - 1u && !(bo == 0u && nv > 0 && rm));
+      if (__all_sync(FULL, same)) continue;
+      const int src = gb + (s == nv - 1 ? 0 : ((s + 1) & 7));
+      const float vx = __shfl_sync(FULL, px, src);
+      const float vy = __shfl_sync(FULL, py, src);
+      const float vz = __shfl_sync(FULL, pz, src);
+      const float dn = ((vx * pl.x + vy * pl.y) + vz * pl.z) + pl.w;   // ds of slot src
+      const float denom = dn - ds;
+      const float safe = fabsf(denom) > 1e-30f ? denom : 1.0f;
+      const float cx = (px * dn - vx * ds) / safe, cy = (py * dn - vy * ds) / safe,
+                  cz = (pz * dn - vz * ds) / safe;
+      const bool cex = m && ds < -tol && dn > tol;
+      const bool cen = m && ds > tol && dn < -tol;
+      const unsigned bx = (__ballot_sync(FULL, cex) >> gb) & 0xffu;
+      const unsigned bn = (__ballot_sync(FULL, cen) >> gb) & 0xffu;
+      const int ex = bx != 0u, en = bn != 0u;
+      const int mcnt = __popc(bk);
+      const unsigned klast = nv > 0 ? (bk >> (nv - 1)) & 1u : 0u;
+      const unsigned st = bk & ~(((bk << 1) | klast) & 0xffu);   // run starts
+      const int nstarts = __popc(st);
+      const int a = __popc(st & 0xAAu) + 2 * __popc(st & 0xCCu) + 4 * __popc(st & 0xF0u);
 
-      float dist[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) dist[s] = ((px[s] * nx + py[s] * ny) + pz[s] * nz) + d;
-
+      // Exit and enter points: sums over the slots in slot order from +0.
+      const float fe = cex ? 1.0f : 0.0f, fn = cen ? 1.0f : 0.0f;
+      const float tx = fe * cx, ty = fe * cy, tz = fe * cz;
+      const float ux = fn * cx, uy = fn * cy, uz = fn * cz;
       float exx = 0.0f, exy = 0.0f, exz = 0.0f, enx = 0.0f, eny = 0.0f, enz = 0.0f;
-      int ex = 0, en = 0, mcnt = 0, nstarts = 0, a = 0;
-      bool inplane = true;
-      bool kprev = false;                            // kept[nv - 1], cyclic predecessor of slot 0
 #pragma unroll
-      for (int s = 0; s < S; ++s)
-        if (s == nv - 1) kprev = dist[s] <= tol;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const bool m = s < nv;
-        const bool last = s == nv - 1;
-        const int n1 = (s + 1) % S;
-        const float vx = last ? px[0] : px[n1];
-        const float vy = last ? py[0] : py[n1];
-        const float vz = last ? pz[0] : pz[n1];
-        const float dn = last ? dist[0] : dist[n1];
-        const float ds = dist[s];
-        const float denom = dn - ds;
-        const float safe = fabsf(denom) > 1e-30f ? denom : 1.0f;
-        const float cx = (px[s] * dn - vx * ds) / safe;
-        const float cy = (py[s] * dn - vy * ds) / safe;
-        const float cz = (pz[s] * dn - vz * ds) / safe;
-        const bool cex = m && ds < -tol && dn > tol;
-        const bool cen = m && ds > tol && dn < -tol;
-        const float fe = cex ? 1.0f : 0.0f;
-        const float fn = cen ? 1.0f : 0.0f;
-        exx = exx + fe * cx;
-        exy = exy + fe * cy;
-        exz = exz + fe * cz;
-        enx = enx + fn * cx;
-        eny = eny + fn * cy;
-        enz = enz + fn * cz;
-        ex |= cex;
-        en |= cen;
-        const bool kept = m && ds <= tol;
-        if (kept && !kprev) {
-          ++nstarts;
-          a += s;
-        }
-        mcnt += kept;
-        if (m && !(fabsf(ds) <= tol)) inplane = false;
-        kprev = kept;
+      for (int q = 0; q < S; ++q) {
+        exx = exx + __shfl_sync(FULL, tx, gb + q);
+        exy = exy + __shfl_sync(FULL, ty, gb + q);
+        exz = exz + __shfl_sync(FULL, tz, gb + q);
+        enx = enx + __shfl_sync(FULL, ux, gb + q);
+        eny = eny + __shfl_sync(FULL, uy, gb + q);
+        enz = enz + __shfl_sync(FULL, uz, gb + q);
       }
-      inplane = inplane && nv > 0;
 
-      // Emit [rotated kept run, exit, enter]: rot[j] = poly[(a + j) mod nv].
-      float ox[S], oy[S], oz[S];
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
-        int src = a + j;
-        if (src >= nv) src -= nv;
-        float rx = 0.0f, ry = 0.0f, rz = 0.0f;
-#pragma unroll
-        for (int s = 0; s < S; ++s)
-          if (s == src) { rx = px[s]; ry = py[s]; rz = pz[s]; }
-        if (j < mcnt) {
-          ox[j] = rx; oy[j] = ry; oz[j] = rz;
-        } else if (j == mcnt && ex) {
-          ox[j] = exx; oy[j] = exy; oz[j] = exz;
-        } else if (j == mcnt + ex && en) {
-          ox[j] = enx; oy[j] = eny; oz[j] = enz;
+      // Emit [rotated kept run, exit, enter]: slot s takes poly[(a + s) mod nv].
+      const int nvc = nv > 0 ? nv : 1;
+      const int rs = gb + (a + s) % nvc;
+      const float rx = __shfl_sync(FULL, px, rs);
+      const float ry = __shfl_sync(FULL, py, rs);
+      const float rz = __shfl_sync(FULL, pz, rs);
+      if (live) {
+        if (s < mcnt) {
+          px = rx; py = ry; pz = rz;
+        } else if (s == mcnt && ex) {
+          px = exx; py = exy; pz = exz;
+        } else if (s == mcnt + ex && en) {
+          px = enx; py = eny; pz = enz;
         } else {
-          ox[j] = 0.0f; oy[j] = 0.0f; oz[j] = 0.0f;
+          px = py = pz = 0.0f;
         }
+        int n_out = min(mcnt + ex + en, S);
+        if (bo == 0u && nv > 0 && rm) n_out = 0;   // in-plane, material removed
+        const bool multirun = nstarts > 1;
+        if (multirun) n_out = 0;
+        if (n_out < 3) n_out = 0;
+        nv = n_out;
+        mrun += multirun;
       }
-      int n_out = min(mcnt + ex + en, S);
-      if (inplane && rm_any) n_out = 0;
-      const bool multirun = nstarts > 1;
-      if (multirun) n_out = 0;
-      if (n_out < 3) n_out = 0;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        px[s] = ox[s];
-        py[s] = oy[s];
-        pz[s] = oz[s];
-      }
-      nv = n_out;
-      mrun += multirun;
     }
   }
-  float* o = poly_out + (size_t)i * S * 3;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    o[s * 3] = px[s];
-    o[s * 3 + 1] = py[s];
-    o[s * 3 + 2] = pz[s];
+  if (exists) {
+    float* o = poly_out + ((size_t)i * S + s) * 3;
+    o[0] = px;
+    o[1] = py;
+    o[2] = pz;
+    if (s == 0) nv_out[i] = nv;
   }
-  nv_out[i] = nv;
-  mrun_out[i] = mrun;
+  const unsigned md = __reduce_add_sync(FULL, exists && s == 0 ? (unsigned)mrun : 0u);
+  if (lane == 0 && md) atomicAdd(drops, (unsigned long long)md);
 }
 
 }  // namespace
 
-// ctx: scratch of ceil(P / BN) * C * W words, zeroed here. Launches the
-// context pass then the fold on `stream`; returns the first CUDA error.
-extern "C" int surtr_soup_clip(const float* tri, const unsigned char* valid, const int* cell,
-                               const float* planes, const unsigned char* pmask, unsigned* ctx,
-                               float* poly, int* nv, int* mrun, int P, int C, int K, int BN,
-                               int W, float tol, void* stream) {
+// scratch: 8 bytes of drop counter, then ceil(P / BN) * max(C, 1) * W
+// context words; zeroed here. Launches the context pass then the fold on
+// `stream`; returns the first CUDA error.
+extern "C" int surtr_soup_clip(const float* tri, const unsigned char* valid, const void* cell,
+                               int ids64, const float* planes, const unsigned char* pmask,
+                               unsigned long long* scratch, float* poly, int* nv, int P, int C,
+                               int K, int BN, int W, float tol, void* stream) {
   if (P <= 0) return 0;
   if (BN <= 0 || W < (K + 31) / 32 || W < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t words = (size_t)((P + BN - 1) / BN) * (size_t)(C > 0 ? C : 1) * W;
-  cudaError_t e = cudaMemsetAsync(ctx, 0, words * sizeof(unsigned), st);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) + words * 4, st);
   if (e != cudaSuccess) return (int)e;
-  const int grid = (P + THREADS - 1) / THREADS;
-  soup_ctx_kernel<<<grid, THREADS, 0, st>>>(tri, valid, cell, planes, pmask, ctx, P, C, K, BN,
-                                            W, tol);
+  unsigned* ctx = reinterpret_cast<unsigned*>(scratch + 1);
+  const unsigned grid = (unsigned)(((long long)P * S + THREADS - 1) / THREADS);
+  soup_ctx_kernel<<<grid, THREADS, 0, st>>>(tri, valid, cell, ids64, planes, pmask, ctx, P, C,
+                                            K, BN, W, tol);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  soup_fold_kernel<<<grid, THREADS, 0, st>>>(tri, valid, cell, planes, pmask, ctx, poly, nv,
-                                             mrun, P, C, K, BN, W, tol);
+  soup_fold_kernel<<<grid, THREADS, 0, st>>>(tri, valid, cell, ids64, planes, pmask, ctx, poly,
+                                             nv, scratch, P, C, K, BN, W, tol);
   return (int)cudaGetLastError();
 }

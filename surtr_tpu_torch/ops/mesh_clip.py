@@ -48,8 +48,16 @@ def _clip_polys_plane(poly, n_vert, plane, tol, any_removed=None):
 
     cross_exit = m & (dist < -tol) & (d_next > tol)
     cross_enter = m & (dist > tol) & (d_next < -tol)
-    exit_p = torch.sum(cross_exit.to(poly.dtype)[..., None] * p_cut, dim=-2)
-    enter_p = torch.sum(cross_enter.to(poly.dtype)[..., None] * p_cut, dim=-2)
+    # Exit and enter points, both from one (..., S, 2, 3) tensor of terms
+    # summed slot by slot from +0. Written out rather than ``torch.sum``,
+    # whose order is unspecified: a lane that crosses a plane more than once
+    # (a multirun, dropped) sums several cuts, and kernel B10 adds them in
+    # this order.
+    terms = torch.stack((cross_exit, cross_enter), dim=-1)[..., None] * p_cut[..., None, :]
+    acc = 0.0 + terms[..., 0, :, :]
+    for s in range(1, S):
+        acc = acc + terms[..., s, :, :]
+    exit_p, enter_p = acc[..., 0, :], acc[..., 1, :]
     ex_i = torch.any(cross_exit, dim=-1).to(torch.int32)
     en_i = torch.any(cross_enter, dim=-1).to(torch.int32)
 

@@ -49,8 +49,12 @@ def _lane_planes(cell_id, cell_planes, cell_pmask):
 
 
 def soup_clip_pooled_reference(tri_corners, valid, cell_id, cell_planes, cell_pmask,
-                               poly_slots: int = 8, tol: float = 1e-6):
-    """Plain PyTorch B10: (poly (P, S, 3), n_vert (P,), multirun drops)."""
+                               poly_slots: int = 8, tol: float = 1e-6, per_lane: bool = False):
+    """Plain PyTorch B10: (poly (P, S, 3), n_vert (P,), multirun drops).
+    ``per_lane`` adds ((P,) drops, (P,) fold steps): each lane's multirun
+    drops, which sum to the total (the kernel's counter adds them up), and
+    the live planes it is folded through while its polygon is not empty
+    (the work the kernel does for it)."""
     P = tri_corners.shape[0]
     C, K = cell_pmask.shape
     S = poly_slots
@@ -71,23 +75,33 @@ def soup_clip_pooled_reference(tri_corners, valid, cell_id, cell_planes, cell_pm
     poly = torch.zeros((P, S, 3), dtype=tri_corners.dtype, device=dev)
     poly[:, :3] = tri_corners
     n_vert = torch.where(valid, 3, 0).to(torch.int32)
-    drops = torch.zeros((), dtype=torch.int64, device=dev)
+    lane_drops = torch.zeros((P,), dtype=torch.int64, device=dev)
+    steps = torch.zeros((P,), dtype=torch.int64, device=dev)
     for k in range(K):
         p2, n2, mrun = _clip_polys_plane(poly, n_vert, pl[:, k], tol, any_removed=rm_ctx[:, k])
         o = ok[:, k]
+        steps += o & (n_vert > 0)
         poly = torch.where(o[:, None, None], p2, poly)
         n_vert = torch.where(o, n2, n_vert)
-        drops = drops + (mrun & o).sum()
-    return poly, n_vert, drops
+        lane_drops += mrun & o
+    if per_lane:
+        return poly, n_vert, lane_drops.sum(), (lane_drops, steps)
+    return poly, n_vert, lane_drops.sum()
 
 
 def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
+    """Three device operations, none a cast: the memset of the scratch
+    (drop counter and context table), the context launch, the fold."""
     global launches
     P = tri_corners.shape[0]
     C, K = cell_pmask.shape
     dev = tri_corners.device
     if tri_corners.dtype != torch.float32 or cell_planes.dtype != torch.float32:
         raise TypeError("soup clip kernel takes float32 triangles and planes")
+    if valid.dtype != torch.bool or cell_pmask.dtype != torch.bool:
+        raise TypeError("soup clip kernel takes a bool valid and plane mask")
+    if cell_id.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"soup clip kernel takes int32 or int64 cell ids, got {cell_id.dtype}")
     if tri_corners.shape[1:] != (3, 3) or valid.shape != (P,) or cell_id.shape != (P,):
         raise ValueError("soup clip kernel takes (P, 3, 3) triangles, (P,) valid and cell ids")
     if cell_planes.shape != (C, K, 4) or S != 8:
@@ -95,27 +109,28 @@ def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
     for t in (valid, cell_id, cell_planes, cell_pmask):
         if t.device != dev:
             raise TypeError("soup clip kernel takes tensors on one device")
-    fn = _build.bind("surtr_soup_clip", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_void_p])
-    tri = tri_corners.contiguous()
-    v = valid.to(torch.uint8).contiguous()
-    cid = cell_id.to(torch.int32).contiguous()
-    pl = cell_planes.contiguous()
-    pm = cell_pmask.to(torch.uint8).contiguous()
-    BN = block_lanes(P)
-    W = max(1, (K + 31) // 32)
-    ctx = torch.empty(((P + BN - 1) // BN * max(C, 1) * W,), dtype=torch.int32, device=dev)
     poly = torch.empty((P, S, 3), dtype=torch.float32, device=dev)
     nv = torch.empty((P,), dtype=torch.int32, device=dev)
-    mrun = torch.empty((P,), dtype=torch.int32, device=dev)
     if P == 0:
-        return poly, nv, mrun.sum()
-    rc = fn(tri.data_ptr(), v.data_ptr(), cid.data_ptr(), pl.data_ptr(), pm.data_ptr(),
-            ctx.data_ptr(), poly.data_ptr(), nv.data_ptr(), mrun.data_ptr(),
+        return poly, nv, torch.zeros((), dtype=torch.int64, device=dev)
+    fn = _build.bind("surtr_soup_clip", [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_void_p])
+    # Bool tensors are read as bytes in place; contiguous() copies nothing
+    # for the pipeline's contiguous inputs.
+    tri, v, cid, pl, pm = (t.contiguous() for t in (tri_corners, valid, cell_id, cell_planes,
+                                                    cell_pmask))
+    BN = block_lanes(P)
+    W = max(1, (K + 31) // 32)
+    words = (P + BN - 1) // BN * max(C, 1) * W
+    # One int64 scratch: the drop counter, then the context table's words.
+    scratch = torch.empty((1 + (words + 1) // 2,), dtype=torch.int64, device=dev)
+    rc = fn(tri.data_ptr(), v.data_ptr(), cid.data_ptr(), int(cid.dtype == torch.int64),
+            pl.data_ptr(), pm.data_ptr(), scratch.data_ptr(), poly.data_ptr(), nv.data_ptr(),
             P, C, K, BN, W, float(tol), _build.stream_ptr(dev))
     _build.check(rc, "surtr_soup_clip")
     launches += 1
-    return poly, nv, mrun.sum()
+    return poly, nv, scratch[0]
 
 
 def soup_clip_pooled(tri_corners, valid, cell_id, cell_planes, cell_pmask,

@@ -19,8 +19,9 @@ The plain versions (``*_reference``) run for CPU tensors; for CUDA tensors
 the wrappers launch the kernel or raise. B6's glue is two hand-written
 launches around one ``torch.sort`` (the sweep key; the sorted table, tile
 unions and chunk intervals), mirrored in plain PyTorch by ``exact_glue``
-and ``tile_schedule``; B12's (Morton codes, stable sort) stays in PyTorch.
-Neither makes a host sync.
+and ``tile_schedule``. B12's is too (the Morton codes; the sorted table),
+mirrored by ``sorted_glue``; its sweep's selection and mutual steps by
+``window_selection`` and ``window_mutual``. Neither makes a host sync.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ import functools
 import torch
 
 from surtr_tpu_torch import _build
-from surtr_tpu_torch.physics.broadphase import morton, morton_window_sweep, mutual
+from surtr_tpu_torch.ops.linalg import dot3
+from surtr_tpu_torch.physics.broadphase import (morton, morton_window_sweep, mutual,
+                                                window_deltas)
 
 BIG = 3.4e38
 IMAX = 0x7FFFFFFF
@@ -43,6 +46,8 @@ MAX_K = 16          # the kernels keep their K best in registers
 CHUNK = 128         # B6: rows per sweep chunk (the JAX kernel's block; CHUNK in the kernel)
 TILE = 32           # B6: pieces per query tile and rows per row tile (a warp)
 ROW = 12            # B6: floats per row of the sorted table
+SROW = 12           # B12: floats per row of its sorted table
+KEY_PARTS = 256     # B12: CTAs of its key launch at most (MAX_KEY_BLOCKS in the kernel)
 
 exact_launches = 0   # kernel launches since the last reset (main-path proof)
 sorted_launches = 0
@@ -266,7 +271,77 @@ def broadphase_sorted_reference(centers, lo, hi, owner, valid, K: int, window: i
     return pidx, mutual(pidx, pok)
 
 
-def _sorted_kernel(centers, lo, hi, owner, valid, K, window):
+def sorted_glue(centers, lo, hi, owner, valid):
+    """Plain mirror of B12's glue: the Morton codes (``morton``), the order
+    of their stable sort, and the sorted (Np, SROW) table [center 3 | owner
+    | lo 3 | valid | hi 3 | piece id], the id as int32 bits."""
+    Np = centers.shape[0]
+    f = centers.dtype
+    codes = morton(centers, valid)
+    order = torch.sort(codes, stable=True).indices
+    ids = torch.arange(Np, dtype=torch.int32, device=centers.device).view(f)
+    table = torch.cat([centers, owner[:, None].to(f), lo, valid[:, None].to(f), hi, ids[:, None]],
+                      1)[order]
+    return codes, order, table
+
+
+def window_selection(table, K: int, window: int):
+    """Plain mirror of B12's selection on the sorted table: per sorted lane
+    the candidate indices of its K picks, in pick order ((Np, K) int64, in
+    ``window_deltas`` order), whether each pick's score is real (Np, K),
+    and the lane's selection mask (Np, 2W) bool."""
+    Np = table.shape[0]
+    dev = table.device
+    deltas = torch.tensor(window_deltas(window), device=dev)
+    rank = torch.arange(Np, device=dev)[:, None] + deltas[None, :]
+    cand = table[torch.clamp(rank, 0, Np - 1)]                        # (Np, 2W, SROW)
+    me = table[:, None]
+    over = torch.all((me[..., 4:7] <= cand[..., 8:11]) & (cand[..., 4:7] <= me[..., 8:11]), -1)
+    ok = (over & (rank >= 0) & (rank < Np) & (cand[..., 7] > 0.5) & (me[..., 7] > 0.5)
+          & (cand[..., 3] != me[..., 3]))
+    diff = me[..., 0:3] - cand[..., 0:3]
+    score = torch.where(ok, -dot3(diff, diff), -BIG)
+    s = torch.sort(score, dim=1, descending=True, stable=True)
+    picks = s.indices[:, :K]
+    sel = torch.zeros((Np, deltas.shape[0]), dtype=torch.bool, device=dev)
+    sel.scatter_(1, picks, True)
+    return picks, s.values[:, :K] > -BIG / 2, sel
+
+
+def window_mutual(table, picks, real, sel, window: int):
+    """Plain mirror of B12's output step: (pidx, pok) in piece order. Slot k
+    of sorted lane r names the piece at rank clamp(r + d, 0, Np - 1); it is
+    live when real and lane r + d selected -d."""
+    Np = table.shape[0]
+    dev = table.device
+    W = window
+    d = torch.tensor(window_deltas(W), device=dev)[picks]              # (Np, K)
+    rj = torch.arange(Np, device=dev)[:, None] + d
+    rc = torch.clamp(rj, 0, Np - 1)
+    ids = table[:, 11].contiguous().view(torch.int32)
+    back = torch.where(d > 0, W + d - 1, -d - 1)
+    live = real & sel[rc, back]
+    o = ids.long()
+    pidx = torch.empty_like(picks, dtype=torch.int32)
+    pok = torch.empty_like(real)
+    pidx[o] = ids[rc]
+    pok[o] = live
+    return pidx, pok
+
+
+@functools.lru_cache(maxsize=None)
+def _sorted_fns():
+    """B12's three C entry points: codes, table pack, selection + mutual."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return (_build.bind("surtr_broadphase_sorted_key", [P, I, P, I, P, P, P]),
+            _build.bind("surtr_broadphase_sorted_pack", [P, I, P, I, P, I, P, I, P, P, I, P, P]),
+            _build.bind("surtr_broadphase_sorted", [P, I, I, I, P, P, P, P, P]))
+
+
+def _sorted_launch(centers, lo, hi, owner, valid, K, window):
+    """B12 on the card: (pidx, pok, glue), glue = (codes, order, table) as
+    ``sorted_glue`` gives them. Four launches and one ``torch.sort``; no
+    other PyTorch op on the device, no host sync."""
     global sorted_launches
     Np = centers.shape[0]
     dev = centers.device
@@ -275,29 +350,43 @@ def _sorted_kernel(centers, lo, hi, owner, valid, K, window):
         raise ValueError(f"broadphase_sorted: K={K} > 2·window={2 * window}")
     if window > 128:
         raise ValueError(f"broadphase_sorted kernel takes window <= 128, got {window}")
+    if owner.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"broadphase_sorted kernel takes int32 or int64 owners, got {owner.dtype}")
     pidx = torch.empty((Np, K), dtype=torch.int32, device=dev)
     pok = torch.empty((Np, K), dtype=torch.bool, device=dev)
+    codes = torch.empty((Np,), dtype=torch.int32, device=dev)
     if Np == 0:
-        return pidx, pok
-    order = torch.sort(morton(centers, valid), stable=True).indices
-    f = centers.dtype
-    pack = torch.cat([centers, lo, hi, owner[:, None].to(f), valid[:, None].to(f)],
-                     1)[order].contiguous()
-    order32 = order.to(torch.int32)
-    fn = _build.bind("surtr_broadphase_sorted", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p] * 3)
-    rc = fn(pack.data_ptr(), order32.data_ptr(), Np, K, window, pidx.data_ptr(),
-            pok.data_ptr(), _build.stream_ptr(dev))
-    _build.check(rc, "surtr_broadphase_sorted")
+        return pidx, pok, (codes, torch.empty((0,), dtype=torch.int64, device=dev),
+                           torch.empty((0, SROW), dtype=torch.float32, device=dev))
+    # Row-strided (Np, 3) views are read in place (the step hands in columns
+    # of its (Np, 9) AABB table); bool and int tensors as they come.
+    c, lo, hi = (t if t.stride(1) == 1 else t.contiguous() for t in (centers, lo, hi))
+    own, val = owner.contiguous(), valid.contiguous()
+    NW = (2 * window + 31) // 32
+    table = torch.empty((Np, SROW), dtype=torch.float32, device=dev)
+    picks = torch.empty((Np * K,), dtype=torch.int16, device=dev)
+    masks = torch.empty((Np * NW,), dtype=torch.int32, device=dev)
+    parts = torch.empty((6 * KEY_PARTS,), dtype=torch.float32, device=dev)
+    stream = _build.stream_ptr(dev)
+    key_fn, pack_fn, sweep_fn = _sorted_fns()
+    _build.check(key_fn(c.data_ptr(), c.stride(0), val.data_ptr(), Np, parts.data_ptr(),
+                        codes.data_ptr(), stream), "surtr_broadphase_sorted_key")
+    order = torch.sort(codes, stable=True).indices
+    _build.check(pack_fn(c.data_ptr(), c.stride(0), lo.data_ptr(), lo.stride(0), hi.data_ptr(),
+                         hi.stride(0), own.data_ptr(), int(own.dtype == torch.int64),
+                         val.data_ptr(), order.data_ptr(), Np, table.data_ptr(), stream),
+                 "surtr_broadphase_sorted_pack")
+    _build.check(sweep_fn(table.data_ptr(), Np, K, window, pidx.data_ptr(), pok.data_ptr(),
+                          picks.data_ptr(), masks.data_ptr(), stream), "surtr_broadphase_sorted")
     sorted_launches += 1
-    return pidx, pok
+    return pidx, pok, (codes, order, table)
 
 
 def broadphase_sorted(centers, lo, hi, owner, valid, K: int, window: int):
     """Morton-window broadphase, mutual: (pidx (Np, K) i32, pok (Np, K)
     bool); the kernel for CUDA tensors, the plain version for CPU tensors."""
     if centers.is_cuda:
-        return _sorted_kernel(centers, lo, hi, owner, valid, K, window)
+        return _sorted_launch(centers, lo, hi, owner, valid, K, window)[:2]
     if centers.device.type != "cpu":
         raise ValueError(f"broadphase_sorted: unsupported device {centers.device}")
     return broadphase_sorted_reference(centers, lo, hi, owner, valid, K, window)

@@ -2,9 +2,12 @@
 and ``broadphase_sorted`` on CPU tensors, the CPU sides of
 ``csrc/broadphase_exact.cu`` and ``csrc/broadphase_sorted.cu``) against the
 JAX package's ``broadphase_exact_pallas`` and ``broadphase_sorted_pallas``
-in interpret mode, B6's glue (its chunk ranges) against the ranges the JAX
-wrapper hands its kernel, the Morton codes, and the broadphase dispatch of
-``physics_step``.
+in interpret mode (B12 at K, W = 4, 8; 8, 32 and the K = 2W of 16, 8), B6's
+glue (its chunk ranges) against the ranges the JAX wrapper hands its
+kernel, B12's glue mirror (``sorted_glue``: codes, order, sorted table)
+against the JAX wrapper's sorted pack and order, B12's selection and mutual
+mirrors against ``morton_window_sweep`` and the plain version, the Morton
+codes, and the broadphase dispatch of ``physics_step``.
 
 Tolerances: none. B6's keys are integers (quantized d² and the piece id)
 and are compared slot for slot with pidx, pok, key_ji and θ; B12's live
@@ -28,7 +31,7 @@ from surtr_tpu.physics.step import _morton as j_morton
 from surtr_tpu_torch import workload
 from surtr_tpu_torch.physics import broadphase_cuda as bp
 from surtr_tpu_torch.physics import step as tstep
-from surtr_tpu_torch.physics.broadphase import morton
+from surtr_tpu_torch.physics.broadphase import morton, morton_window_sweep
 from surtr_tpu_torch.physics.scene import build_scene
 
 
@@ -245,10 +248,17 @@ def _sorted_case(kind):
     return c, c - h, c + h, owner.astype(np.int32), valid
 
 
-@pytest.mark.parametrize("kind", ["random", "lattice_ties", "invalid_shared_owner"])
-def test_sorted_matches_pallas_live_slots(kind):
+SORTED_KINDS = ["random", "lattice_ties", "invalid_shared_owner"]
+# (K, W): the first cases' 4 and 8, the physics configuration's 8 and 32, and
+# K = 2W.
+SORTED_PARAMS = ([pytest.param(kind, 4, 8, id=kind) for kind in SORTED_KINDS]
+                 + [pytest.param(kind, K, W, id=f"{kind}-K{K}-W{W}")
+                    for K, W in ((8, 32), (16, 8)) for kind in SORTED_KINDS])
+
+
+@pytest.mark.parametrize("kind,K,W", SORTED_PARAMS)
+def test_sorted_matches_pallas_live_slots(kind, K, W):
     args = _sorted_case(kind)
-    K, W = 4, 8
     jp, jok = jbp.broadphase_sorted_pallas(*(jnp.asarray(a) for a in args), K, W, interpret=True)
     jp, jok = np.asarray(jp), np.asarray(jok)
     before = bp.sorted_launches
@@ -258,6 +268,66 @@ def test_sorted_matches_pallas_live_slots(kind):
     np.testing.assert_array_equal(tok, jok)
     np.testing.assert_array_equal(np.where(tok, tp, -1), np.where(jok, jp, -1))
     assert tok.any()
+
+
+def _jax_sorted_operands(args, K, W):
+    """The (11, Np_pad) sorted pack and (1, Np_pad) order that the JAX
+    wrapper hands its kernel."""
+    seen = {}
+    real = jbp.pl.pallas_call
+
+    def recording(kernel, **kw):
+        call = real(kernel, **kw)
+
+        def run(*ops):
+            seen["ops"] = [np.asarray(o) for o in ops]
+            return call(*ops)
+        return run
+
+    jbp.pl.pallas_call = recording
+    try:
+        jbp.broadphase_sorted_pallas(*(jnp.asarray(a) for a in args), K, W, interpret=True)
+    finally:
+        jbp.pl.pallas_call = real
+    return seen["ops"]
+
+
+@pytest.mark.parametrize("kind", SORTED_KINDS)
+def test_sorted_glue_mirror_matches_the_jax_wrapper(kind):
+    # B12's glue mirror: the codes of morton() (the JAX package's _morton),
+    # the JAX wrapper's argsort and its sorted pack, column for column.
+    args = _sorted_case(kind)
+    t = [torch.as_tensor(a) for a in args]
+    codes, order, table = bp.sorted_glue(*t)
+    np.testing.assert_array_equal(codes.numpy(), morton(t[0], t[4]).numpy())
+    np.testing.assert_array_equal(codes.numpy(),
+                                  np.asarray(j_morton(jnp.asarray(args[0]), jnp.asarray(args[4]))))
+    packT, origT = _jax_sorted_operands(args, 4, 8)
+    Np = t[0].shape[0]
+    np.testing.assert_array_equal(order.numpy(), origT[0, :Np])
+    tab = table.numpy()
+    for cols, rows in (((0, 1, 2), (0, 1, 2)), ((3,), (9,)), ((4, 5, 6), (3, 4, 5)), ((7,), (10,)),
+                       ((8, 9, 10), (6, 7, 8))):
+        np.testing.assert_array_equal(tab[:, list(cols)], packT[list(rows), :Np].T)
+    np.testing.assert_array_equal(tab[:, 11].view(np.int32), origT[0, :Np])
+
+
+@pytest.mark.parametrize("kind,K,W", SORTED_PARAMS)
+def test_selection_mirror_reproduces_the_window_sweep(kind, K, W):
+    # B12's selection and mutual mirrors on the mirror's table give
+    # morton_window_sweep's picks (every slot, filler included) and the
+    # plain version's mutual mask; each lane's mask holds its K picks.
+    t = [torch.as_tensor(a) for a in _sorted_case(kind)]
+    _, _, table = bp.sorted_glue(*t)
+    picks, real, sel = bp.window_selection(table, K, W)
+    assert torch.equal(sel.sum(1), torch.full((table.shape[0],), K))
+    assert torch.equal(torch.gather(sel, 1, picks), torch.ones_like(real))
+    pidx, pok = bp.window_mutual(table, picks, real, sel, W)
+    sp, sok = morton_window_sweep(*t, K, W)
+    rp, rok = bp.broadphase_sorted_reference(*t, K, W)
+    assert torch.equal(pidx, sp) and torch.equal(pidx, rp)
+    assert torch.equal(pok, rok) and bool((sok | ~pok).all())
+    assert bool(pok.any())
 
 
 def test_sorted_k_beyond_two_windows_raises():
