@@ -98,7 +98,36 @@ Phases (any failure exits non-zero):
      plain path on the CPU in lockstep, compared after each of the first
      three;
  18. ms per frame (median of the 16 frames, 3 runs), a stage split, the
-     device idle share, and ``render_512`` ms at shadow 512 and 1024.
+     device idle share, and ``render_512`` ms at shadow 512 and 1024;
+ 19. the concave path's kernels at its calls: the torus decomposition at
+     BASELINE config 1's configuration (``workload.MODEL_1K_CFG``: F = 96,
+     S = 32, Tp = 128, exact caps, the parity grid, the culled pair pool)
+     run once on the card with recording wrappers, then B1 (its six calls
+     at F = 96, S = 32), B2 (the torus's 288 points), B3 (T = 128), B4
+     (the pool of mesh corners and exact-cap points) and B10 (the torus's
+     pair pool) against their plain versions on those calls, bit for bit,
+     and on their degenerate cases (B1's at F = 96, S = 32); per kernel
+     the wrapper's and the device ms a call, the plain version's ms and
+     the bound;
+ 20. that event on ``cuda:0`` with launch counts (B1 6, B2 1, B3 1, B4 1,
+     B10 1; one parity grid), compared with the CPU plain run at full
+     width: piece_cnt, ich_face_cnt and mesh_tris_dropped equal, total
+     volume within rtol 1e-5, pieces slot for slot;
+ 21. ``workload.concave_scene("torus")`` and ``("blob")`` (the default
+     SceneConfig, exact caps kept), each built on the CPU, and on the card
+     with recording wrappers: launches (B1 6, B2 1, B3 1 at T = 512, B4 1),
+     each recorded kernel call bit for bit against its plain version, the
+     prepare metrics and pieces (slot for slot) against the CPU-built
+     Scene's. From the CPU-built Scene copied to the card and to the CPU:
+     one ``fire_impact`` (exact caps; B1, B3, B4 and the pooled job clip's
+     B10 each launched, and each recorded call bit for bit against its
+     plain version), 16 steps (B5, B7) and one render (B11) in lockstep,
+     compared as phase 17 compares frames;
+ 22. ms per event of the torus config-1 decomposition (its stage split:
+     grid build, cell clip, mesh clip, islands, caps, refit, the ACH and
+     refit folds, pack; its device idle share) and of each Scene's
+     ``fire_impact`` (its stage split and idle share), beside the card's
+     name and power limit.
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
@@ -196,16 +225,18 @@ def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(ts)
 
 
-def capture_main_path_inputs():
-    """Run the main path once on the card with recording wrappers, returning
-    the arguments each kernel wrapper received (its real shapes)."""
-    calls = {k: [] for k in KERNELS}
+def capture_main_path_inputs(run=lambda: run_prepare("cuda")):
+    """Run a decomposition (the main path unless ``run`` says otherwise)
+    once on the card with recording wrappers, returning the arguments each
+    kernel wrapper received (its real shapes)."""
+    calls = {k: [] for k in (*KERNELS, "soup_clip")}
     patches = [
         (pipeline, "clip_planes_batch", "clip_fold"),
         (voronoi, "clip_planes_batch", "clip_fold"),
         (pipeline, "ich", "ich"),
         (pipeline, "tri_soup_components_batch", "labels"),
         (pipeline, "refit_planes_from_parts", "refit"),
+        (pipeline, "soup_clip_pooled", "soup_clip"),
     ]
     saved = []
     for mod, attr, name in patches:
@@ -218,7 +249,7 @@ def capture_main_path_inputs():
 
         setattr(mod, attr, rec)
     try:
-        run_prepare("cuda")
+        run()
         torch.cuda.synchronize()
     finally:
         for mod, attr, fn in saved:
@@ -259,39 +290,18 @@ def degenerate_clip_cases(device, F=26, S=16):
     return (poly.map(lambda a: a.to(device)), planes.to(device), mask.to(device)), {}
 
 
-def _scale(x, valid):
-    """Per item of the batch: the largest |coordinate| of its valid points,
-    at least 1 (planes carry unit normals)."""
-    m = torch.where(valid[..., None], x.abs(), 0.0)
-    return m.flatten(1).amax(1).clamp_min(1.0)
-
-
-def _check_close(name, what, err, scale):
-    """Fail naming each batch item whose ``err`` exceeds 1e-5 x its scale
-    (NaN counts as exceeding)."""
-    bad = torch.nonzero(~(err <= 1e-5 * scale)).flatten().tolist()
-    if bad:
-        fail(f"{name}: {what} differ from the plain version in items {bad[:10]} "
-             f"({len(bad)} in all, max {float(err.max()):.3e})")
-    return float(err.max()) if err.numel() else 0.0
-
-
 def compare_clip(args, kw):
-    """n_verts exactly (so emptiness and live faces too); per polytope, face
-    vertices and planes within 1e-5 x its scale. Returns the largest vertex
-    or plane difference."""
+    """n_verts exactly (so emptiness and live faces too) and every live face
+    vertex and plane bit for bit. Returns the largest difference, 0."""
     poly, planes, mask = args[:3]
     got = clip_cuda.clip_planes_batch(poly, planes, mask)
     want = clip_cuda.clip_planes_batch_reference(poly, planes, mask)
-    if not torch.equal(got.n_verts, want.n_verts):
-        bad = torch.nonzero((got.n_verts != want.n_verts).any(-1)).flatten().tolist()
-        fail(f"clip_fold: n_verts differ from the plain fold in polytopes {bad[:10]} "
-             f"({len(bad)} in all)")
-    dv = torch.where(got.slot_mask()[..., None], (got.face_verts - want.face_verts).abs(), 0.0)
-    dp = torch.where(got.face_mask()[..., None], (got.planes - want.planes).abs(), 0.0)
-    err = torch.maximum(dv.flatten(1).amax(1), dp.flatten(1).amax(1))
-    return _check_close("clip_fold", "face vertices or planes", err,
-                        _scale(poly.face_verts, poly.slot_mask()))
+    _exact("clip_fold", "n_verts", got.n_verts, want.n_verts)
+    sm, fm = want.slot_mask()[..., None], want.face_mask()[..., None]
+    _same_bits("clip_fold", "face vertices", torch.where(sm, got.face_verts, 0.0),
+               torch.where(sm, want.face_verts, 0.0))
+    return _same_bits("clip_fold", "planes", torch.where(fm, got.planes, 0.0),
+                      torch.where(fm, want.planes, 0.0))
 
 
 def compare_ich(args, kw):
@@ -576,7 +586,11 @@ def refit_edge_cases(g):
 
 KERNEL_FN = {"clip_fold": clip_cuda.clip_planes_batch, "ich": hull_cuda.ich,
              "labels": labels_cuda.tri_soup_components_batch,
-             "refit": refit_any}
+             "refit": refit_any, "soup_clip": soup_clip_cuda.soup_clip_pooled}
+PLAIN_FN = {"clip_fold": clip_cuda.clip_planes_batch_reference, "ich": hull_cuda.ich_reference,
+            "labels": labels_cuda.tri_soup_components_batch_reference,
+            "refit": refit_any_reference,
+            "soup_clip": soup_clip_cuda.soup_clip_pooled_reference}
 # Name fragments of each kernel's device functions (torch.profiler keys).
 DEVICE_NAME = {"clip_fold": "clip_fold", "ich": "ich_kernel", "labels": "labels_",
                "refit": "refit_kernel", "pack": "pack_kernel", "narrowphase": "narrow_kernel",
@@ -596,22 +610,11 @@ def per_call_times(name, calls, fn=None, required=True):
     return out
 
 
-def time_kernel(name, calls):
-    """Summed median ms of the main path's calls: kernel vs plain version."""
-    if name == "clip_fold":
-        k = lambda a, kw: clip_cuda.clip_planes_batch(*a, **kw)
-        p = lambda a, kw: clip_cuda.clip_planes_batch_reference(*a, **kw)
-    elif name == "ich":
-        k = lambda a, kw: hull_cuda.ich(*a, **kw)
-        p = lambda a, kw: hull_cuda.ich_reference(*a, **kw)
-    elif name == "labels":
-        k = lambda a, kw: labels_cuda.tri_soup_components_batch(*a, **kw)
-        p = lambda a, kw: labels_cuda.tri_soup_components_batch_reference(*a, **kw)
-    else:
-        k = lambda a, kw: refit_any(*a, **kw)
-        p = lambda a, kw: refit_any_reference(*a, **kw)
-    ms = sum(event_ms(lambda a=a, kw=kw: k(a, kw)) for a, kw in calls)
-    plain_ms = sum(event_ms(lambda a=a, kw=kw: p(a, kw), warmup=1) for a, kw in calls)
+def time_kernel(name, calls, plain_reps: int = 20):
+    """Summed median ms of a path's calls: kernel vs plain version."""
+    ms = sum(event_ms(lambda a=a, kw=kw: KERNEL_FN[name](*a, **kw)) for a, kw in calls)
+    plain_ms = sum(event_ms(lambda a=a, kw=kw: PLAIN_FN[name](*a, **kw), reps=plain_reps,
+                            warmup=1) for a, kw in calls)
     return ms, plain_ms
 
 
@@ -1868,6 +1871,13 @@ def soup_kernel_phase(calls, card):
     return out
 
 
+def _mesh_volume(model):
+    """A procedural model's mesh volume (float64)."""
+    v, f = get_model(model)
+    v = v.astype(np.float64)
+    return float(np.einsum("ij,ij->i", v[f[:, 0]], np.cross(v[f[:, 1]], v[f[:, 2]])).sum() / 6)
+
+
 def sphere_phase():
     """The sphere's 1k decomposition on the card (launches counted: B10
     once, B1-B4 as the cube's), its output checked, and the same event
@@ -1882,8 +1892,7 @@ def sphere_phase():
           flush=True)
     check_launches("sphere decomposition", counts,
                    {**{name: want for name, (*_, want) in KERNELS.items()}, "soup_clip": 1})
-    v, f = get_model("sphere")
-    mesh_vol = float(np.einsum("ij,ij->i", v[f[:, 0]], np.cross(v[f[:, 1]], v[f[:, 2]])).sum() / 6)
+    mesh_vol = _mesh_volume("sphere")
     fv = pieces.convex.face_verts
     P = workload.BENCH_CFG.max_pieces
     if fv.shape[0] != P or not bool(torch.isfinite(fv).all()) or int(gpu["piece_cnt"]) <= 0:
@@ -2063,16 +2072,17 @@ def device_split(fn, kernel: str, runs: int = 20, required: bool = True, session
     return None, o_us / runs / 1e3, n / runs
 
 
-def impact_stage_split(cfg, prepared, reps: int = 10) -> dict:
-    """Median CUDA-event ms per stage of one impact event: a stage is the
-    span of a pipeline function ``do_fracture`` calls (outermost calls
-    only, repeated calls summed), "glue" the rest of the event."""
-    pieces, ctx = prepared
-    spans, depth, saved = [], [0], {}
-    for name in IMPACT_STAGES:
-        fn = saved[name] = getattr(pipeline, name)
+def span_split(stages, run, reps: int, warmup: int = 0, total: str = "event") -> dict:
+    """Median over ``reps`` runs of ``run`` (after ``warmup`` more) of
+    CUDA-event ms per stage: a stage is the span of one of ``stages``'
+    (label, module, function) (outermost calls only, repeated calls
+    summed), "glue" the rest of the run and ``total`` the whole run."""
+    spans, depth, saved = [], [0], []
+    for label, mod, name in stages:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
 
-        def wrapped(*a, _fn=fn, _name=name, **kw):
+        def wrapped(*a, _fn=fn, _label=label, **kw):
             if depth[0]:
                 return _fn(*a, **kw)
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2083,31 +2093,41 @@ def impact_stage_split(cfg, prepared, reps: int = 10) -> dict:
             finally:
                 depth[0] -= 1
                 e.record()
-                spans.append((_name, s, e))
+                spans.append((_label, s, e))
 
-        setattr(pipeline, name, wrapped)
+        setattr(mod, name, wrapped)
     per = {}
     try:
-        for r in range(reps + 2):
+        for r in range(warmup + reps):
             spans.clear()
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
-            pipeline.do_fracture(pieces, ctx, workload.IMPACT, 0, cfg, partial=True)
+            run()
             t1.record()
             torch.cuda.synchronize()
-            if r < 2:
+            if r < warmup:
                 continue
             acc = {}
-            for name, s, e in spans:
-                acc[name] = acc.get(name, 0.0) + s.elapsed_time(e)
+            for label, s, e in spans:
+                acc[label] = acc.get(label, 0.0) + s.elapsed_time(e)
             acc["glue"] = t0.elapsed_time(t1) - sum(acc.values())
-            acc["event"] = t0.elapsed_time(t1)
+            acc[total] = t0.elapsed_time(t1)
             for k, v in acc.items():
                 per.setdefault(k, []).append(v)
     finally:
-        for name, fn in saved.items():
-            setattr(pipeline, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     return {k: statistics.median(v) for k, v in per.items()}
+
+
+def impact_stage_split(cfg, prepared, reps: int = 10) -> dict:
+    """Median CUDA-event ms per stage of one impact event: a stage is the
+    span of a pipeline function ``do_fracture`` calls, "glue" the rest of
+    the event."""
+    pieces, ctx = prepared
+    return span_split([(n, pipeline, n) for n in IMPACT_STAGES],
+                      lambda: pipeline.do_fracture(pieces, ctx, workload.IMPACT, 0, cfg,
+                                                   partial=True), reps, warmup=2)
 
 
 def fracture_timing(prepared, card, reps: int = 10):
@@ -2582,46 +2602,8 @@ def frame_stage_split(start, frames: int = workload.FRAMES) -> dict:
     """Median over ``frames`` chained frames of CUDA-event ms per stage
     (outermost calls of the FRAME_STAGES functions, repeated calls summed),
     "glue" the rest of the frame."""
-    spans, depth, saved = [], [0], []
-    for label, mod, name in FRAME_STAGES:
-        fn = getattr(mod, name)
-        saved.append((mod, name, fn))
-
-        def wrapped(*a, _fn=fn, _label=label, **kw):
-            if depth[0]:
-                return _fn(*a, **kw)
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            depth[0] += 1
-            try:
-                return _fn(*a, **kw)
-            finally:
-                depth[0] -= 1
-                e.record()
-                spans.append((_label, s, e))
-
-        setattr(mod, name, wrapped)
-    per = {}
     sc = workload.scene_to(start, "cuda")
-    try:
-        for _ in range(frames):
-            spans.clear()
-            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0.record()
-            _frame(sc)
-            t1.record()
-            torch.cuda.synchronize()
-            acc = {}
-            for label, s, e in spans:
-                acc[label] = acc.get(label, 0.0) + s.elapsed_time(e)
-            acc["glue"] = t0.elapsed_time(t1) - sum(acc.values())
-            acc["frame"] = t0.elapsed_time(t1)
-            for k, v in acc.items():
-                per.setdefault(k, []).append(v)
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    return {k: statistics.median(v) for k, v in per.items()}
+    return span_split(FRAME_STAGES, lambda: _frame(sc), frames, total="frame")
 
 
 def frame_timing(start, card, runs: int = 3) -> dict:
@@ -2659,6 +2641,428 @@ def frame_timing(start, card, runs: int = 3) -> dict:
              else "not measured: the profiler reported no device time"), flush=True)
     print(f"render_512: {render[512]:.3f} ms (shadow 512), {render[1024]:.3f} ms (shadow 1024), "
           f"median of 10 ({card})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The concave-model path: BASELINE config 1 on the torus (exact caps, the
+# parity grid, the culled pair pool), Scene("torus") and Scene("blob").
+# ---------------------------------------------------------------------------
+
+CONCAVE_CFG = workload.MODEL_1K_CFG
+CONCAVE_MODEL = workload.CONCAVE_MODEL
+# Launches of one torus config-1 decomposition: B1's six folds (ACH, the two
+# pattern cell sets, the two Voronoi passes, the refit), B2, B3, B4, B10.
+CONCAVE_LAUNCHES = {"clip_fold": 6, "ich": 1, "labels": 1, "refit": 1, "soup_clip": 1}
+# Its stages: (label, pipeline function), spans of outermost calls; the
+# ACH clip and the refit fold are the clip_planes_batch calls outside the
+# cell clip.
+CONCAVE_STAGES = (("grid build", "build_parity_grid"), ("cell clip", "_two_pass_cell_clip"),
+                  ("mesh clip", "_culled_pair_pool_clip"), ("islands", "_split_mesh_islands"),
+                  ("caps", "cap_fans_batch"), ("refit", "refit_planes_from_parts"),
+                  ("ACH and refit folds", "clip_planes_batch"), ("pack", "_pack_candidates"))
+# Stages of a concave Scene's fire_impact (the caps and the refit outside
+# _finish_pieces' other work; the rebuild).
+CONCAVE_IMPACT_STAGES = [(n, pipeline, n) for n in (
+    "convex_out_of_sphere", "clip_planes_batch", "_pooled_job_mesh_clip", "clip_trisoup",
+    "_split_mesh_islands", "cap_fans_batch", "refit_planes_from_parts", "_pack_candidates",
+    "split_groups_by_contact")] + [("rebuild", scene_mod, "build_scene")]
+CONCAVE_KERNELS = ("clip_fold", "ich", "labels", "refit", "soup_clip")
+# Kernels a concave Scene's prepare and its fire_impact launch.
+SCENE_PREPARE_LAUNCHES = {"clip_fold": 6, "ich": 1, "labels": 1, "refit": 1}
+SCENE_IMPACT_KERNELS = ("clip_fold", "labels", "refit", "soup_clip")
+SCENE_STEPS = 16
+SCENE_MODELS = ("torus", "blob")
+
+
+CONCAVE_COMPARE = {"clip_fold": compare_clip, "ich": compare_ich, "labels": compare_labels,
+                   "refit": compare_refit, "soup_clip": compare_soup}
+
+
+def concave_shape(name, a):
+    if name == "clip_fold":
+        return list(a[0].face_verts.shape[:3]) + [a[1].shape[1]]
+    if name == "refit":
+        return list(refit_points(a))
+    if name == "soup_clip":
+        return [a[0].shape[0], a[3].shape[0], a[3].shape[1]]
+    return list(a[0].shape[:2])
+
+
+def concave_kernel_phase(card):
+    """Phase 19: the torus config-1 event on the card with recording
+    wrappers, then each of its kernels (B1 at F = 96, S = 32, B2, B3, B4,
+    B10) against its plain version on those calls, bit for bit, and on its
+    degenerate cases (B1's at F = 96, S = 32); per kernel the wrapper's ms
+    and the kernel's device ms a call, the plain version's ms and the
+    bound. Returns the per-kernel results."""
+    calls = capture_main_path_inputs(lambda: run_prepare("cuda", CONCAVE_CFG, CONCAVE_MODEL))
+    degen = degenerate_cases("cuda")
+    degen["clip_fold"] = [degenerate_clip_cases("cuda", F=CONCAVE_CFG.max_faces,
+                                                S=CONCAVE_CFG.max_face_verts)]
+    degen["soup_clip"] = list(soup_cases("cuda").values())
+    out = {}
+    for name in CONCAVE_KERNELS:
+        if not calls[name]:
+            fail(f"torus config 1: no {name} call was recorded")
+        err = max(CONCAVE_COMPARE[name](a, kw) for a, kw in calls[name] + degen[name])
+        torch.cuda.synchronize()
+        fn = KERNEL_FN[name]
+        shapes = [concave_shape(name, a) for a, _ in calls[name]]
+        if name == "soup_clip":
+            split = [device_split(lambda a=a, kw=kw: fn(*a, **kw), "soup_")
+                     for a, kw in calls[name]]
+            per_call = [{"ms": event_ms(lambda a=a, kw=kw: fn(*a, **kw)), "device_ms": x[0]}
+                        for (a, kw), x in zip(calls[name], split)]
+            b_ms, b_by = bound(sum(nbytes(a) + nbytes(fn(*a, **kw)) for a, kw in calls[name]),
+                               sum(soup_ops(a) for a, _ in calls[name]))
+            live = [soup_live(a) for a, _ in calls[name]]
+            extra = (f"; live lanes {[x[0] for x in live]}, live lane x plane "
+                     f"{[x[1] for x in live]}")
+        else:
+            per_call = per_call_times(name, calls[name])
+            b_ms, b_by = decomposition_bound(name, calls[name])
+            extra = ""
+            if name == "labels":
+                extra = f"; {sum(int(a[1].sum()) for a, _ in calls[name])} valid triangles"
+            elif name == "refit":
+                extra = (f"; {sum(3 * int(a[1].sum()) + int(a[3].sum()) for a, _ in calls[name])}"
+                         f" live points")
+        plain_ms = time_kernel(name, calls[name], plain_reps=5)[1]
+        for t, shp in zip(per_call, shapes):
+            t["shape"] = shp
+        ms = sum(t["ms"] for t in per_call)
+        dev = sum(t["device_ms"] for t in per_call)
+        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "calls": per_call,
+                     "degenerate_cases": len(degen[name])}
+        for t in per_call:
+            print(f"{name} call {t['shape']} (torus config 1): wrapper {t['ms']:.4f} ms, kernel "
+                  f"{t['device_ms']:.4f} ms on the device ({card})", flush=True)
+        print(f"{name} (torus config 1): bit for bit on {len(calls[name])} calls and "
+              f"{len(degen[name])} degenerate cases; kernel {ms:.4f} ms (on the device "
+              f"{dev:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra} "
+              f"({card})", flush=True)
+    return out
+
+
+def _piece_compare(what, g, c, mas):
+    """The card's pieces against the CPU plain run's, slot for slot:
+    valid, group, tag, n_verts and mesh_valid exactly; live face vertices
+    and mesh corners within 1e-5 × scale. Returns the largest vertex
+    difference."""
+    for k in ("valid", "group", "tag", "mesh_valid"):
+        if not torch.equal(getattr(g, k).cpu(), getattr(c, k)):
+            fail(f"{what}: pieces' {k} differ from the cpu plain run")
+    if not torch.equal(g.convex.n_verts.cpu(), c.convex.n_verts):
+        fail(f"{what}: pieces' n_verts differ from the cpu plain run")
+    sm = c.convex.slot_mask()[..., None]
+    dv = float(torch.where(sm, (g.convex.face_verts.cpu() - c.convex.face_verts).abs(), 0.0).max())
+    mv = c.mesh_valid[..., None, None]
+    dm = float(torch.where(mv, (g.mesh.cpu() - c.mesh).abs(), 0.0).max())
+    if not (dv <= 1e-5 * mas and dm <= 1e-5 * mas):
+        fail(f"{what}: face vertices ({dv:.3e}) or mesh corners ({dm:.3e}) part from the cpu "
+             f"plain run")
+    return max(dv, dm)
+
+
+def concave_main_path(card):
+    """Phase 20: ``prepare_fracture`` of the torus at config 1 on the card,
+    launch counts proving every kernel ran (and the parity grid built),
+    then the same event through the plain path on the CPU: counts equal,
+    total volume within rtol 1e-5, pieces slot for slot. Returns
+    (launches, metrics, comparison)."""
+    grids = []
+    build = pipeline.build_parity_grid
+    pipeline.build_parity_grid = lambda *a, **k: grids.append(build(*a, **k)) or grids[-1]
+    try:
+        reset_all()
+        pieces, ctx, met = run_prepare("cuda", CONCAVE_CFG, CONCAVE_MODEL)
+        torch.cuda.synchronize()
+        counts = all_counts()
+    finally:
+        pipeline.build_parity_grid = build
+    gpu = {k: float(v) for k, v in met.items()}
+    print(f"torus config 1 (cuda): {json.dumps(gpu)} launches: {json.dumps(counts)}; parity "
+          f"grids built {len(grids)}", flush=True)
+    check_launches("torus config 1", counts, CONCAVE_LAUNCHES)
+    if len(grids) != 1:
+        fail(f"torus config 1: {len(grids)} parity grids built, expected 1")
+    P, F, S = CONCAVE_CFG.max_pieces, CONCAVE_CFG.max_faces, CONCAVE_CFG.max_face_verts
+    fv = pieces.convex.face_verts
+    if fv.shape != (P, F, S, 3) or not bool(torch.isfinite(fv).all()) or gpu["piece_cnt"] <= 0:
+        fail("torus config 1: pieces are not finite, not of the expected shape or none")
+    mesh_vol = _mesh_volume(CONCAVE_MODEL)
+    if not 0.0 < gpu["total_volume"] <= 1.6 * mesh_vol:
+        fail(f"torus config 1: total_volume {gpu['total_volume']} against the mesh's {mesh_vol}")
+    t0 = time.perf_counter()
+    cpieces, _, cmet = run_prepare("cpu", CONCAVE_CFG, CONCAVE_MODEL)
+    cpu_s = time.perf_counter() - t0
+    g = gpu
+    c = {k: float(v) for k, v in cmet.items()}
+    what = "torus config 1"
+    print(f"{what} (cpu, plain): {json.dumps(c)} in {cpu_s:.2f} s", flush=True)
+    for k in ("piece_cnt", "ich_face_cnt", "mesh_tris_dropped"):
+        if g[k] != c[k]:
+            fail(f"{what}: {k} cuda {g[k]} != cpu {c[k]}")
+    if abs(g["total_volume"] - c["total_volume"]) > 1e-5 * abs(c["total_volume"]):
+        fail(f"{what}: total_volume cuda {g['total_volume']} vs cpu {c['total_volume']}")
+    err = _piece_compare(what, pieces, cpieces, float(ctx.max_axis_scale))
+    print(f"{what}: card and cpu plain run agree (counts, volume, pieces slot for slot, largest "
+          f"vertex difference {err:.3e}); mesh volume {mesh_vol:.6f}", flush=True)
+    return counts, gpu, {"cpu_s": cpu_s, "cpu": c, "cuda": g, "max_vertex_diff": err}
+
+
+def _scene_state_compare(what, gsc, csc):
+    """The card's Scene against the CPU's: valid, group, tag exactly, total
+    volume within rtol 1e-5, body x within 2e-4 and v within 2e-3."""
+    for k in ("valid", "group", "tag"):
+        if not torch.equal(getattr(gsc.pieces, k).cpu(), getattr(csc.pieces, k)):
+            fail(f"{what}: pieces' {k} differ from the cpu plain run")
+    gv, cv = gsc.total_volume(), csc.total_volume()
+    if abs(gv - cv) > 1e-5 * abs(cv):
+        fail(f"{what}: total volume cuda {gv} vs cpu {cv}")
+    dx, dv = _scene_diff(gsc, csc)
+    if not (dx <= 2e-4 and dv <= 2e-3):
+        fail(f"{what}: bodies part from the cpu plain run (x {dx:.3e}, v {dv:.3e})")
+    return dx, dv
+
+
+SCENE_PLAIN = {"pack": pack_cuda.transform_pack_owned_reference,
+               "narrowphase": narrowphase_cuda.narrowphase_reference}
+
+
+def scene_kernel_times(what, step_calls, raster_calls, card):
+    """B5 and B7 on a Scene's last step and B11 on its render: each against
+    its plain version (bitwise, as phases 7 and 15 hold them) and timed at
+    the Scene's shapes: the wrapper's ms (CUDA events, median of 20, per
+    call summed), the kernel's device ms, the plain version's ms and the
+    bound."""
+    out = {}
+    for name in ("pack", "narrowphase"):
+        a, kw, res = step_calls[name]
+        err = FRAME_COMPARE_FN[name](a, kw)
+        t = per_call_times(name, [(a, kw)], FRAME_KERNEL_FN[name], required=False)[0]
+        plain_ms = event_ms(lambda a=a, kw=kw: SCENE_PLAIN[name](*a, **kw), reps=5, warmup=1)
+        b_ms, b_by = physics_bound(name, a, kw, res)
+        out[name] = {"max_abs_err": err, "ms": t["ms"], "device_ms": t["device_ms"],
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": list(a[0].shape[:2])}
+    tables = [a for _, a in raster_calls]
+    err = max(compare_raster(a) for a in tables)
+    for g, _ in raster_calls:
+        compare_raster_glue(g)
+    split = [raster_call_times(g, a) for g, a in raster_calls]
+    b_ms, b_by = bound(sum(nbytes(a[:3]) + nbytes(raster_cuda.tile_raster(*a)) for a in tables),
+                       sum(raster_ops(a) for a in tables))
+    out["raster"] = {
+        "max_abs_err": err, "ms": sum(event_ms(lambda a=a: raster_cuda.tile_raster(*a))
+                                      for a in tables),
+        "device_ms": sum(t["device_ms"] for t in split),
+        "glue_device_ms": sum(t["glue_device_ms"] for t in split),
+        "plain_ms": sum(event_ms(lambda a=a: raster_cuda.tile_raster_reference(*a[:8]), reps=5,
+                                 warmup=1) for a in tables),
+        "bound_ms": b_ms, "bound_by": b_by, "shapes": [t["shape"] for t in split],
+        "live_pairs": [t["live_pairs"] for t in split]}
+    for name, r in out.items():
+        dev = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+        print(f"{name} at {what}'s shapes {r.get('shape', r.get('shapes'))}: bit for bit, "
+              f"wrapper {r['ms']:.4f} ms, kernel on the device {dev}, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}) ({card})", flush=True)
+    return out
+
+
+def compare_recorded(what, calls, counts) -> dict:
+    """Each kernel's recorded calls of one run (``capture_main_path_inputs``)
+    against its plain version, bit for bit, as phase 19 holds them; a
+    kernel launched in that run (``counts``) with no call recorded fails.
+    Returns per kernel the calls, their shapes and the largest
+    difference."""
+    out = {}
+    for name in CONCAVE_KERNELS:
+        if counts[name] and not calls[name]:
+            fail(f"{what}: {name} launched {counts[name]} times but no call was recorded")
+        if not calls[name]:
+            continue
+        err = max(CONCAVE_COMPARE[name](a, kw) for a, kw in calls[name])
+        out[name] = {"calls": len(calls[name]), "max_abs_err": err,
+                     "shapes": [concave_shape(name, a) for a, _ in calls[name]]}
+    torch.cuda.synchronize()
+    print(f"{what}: kernels bit for bit against their plain versions on the recorded calls "
+          + json.dumps({k: [v["calls"], v["shapes"]] for k, v in out.items()}), flush=True)
+    return out
+
+
+def scene_prepare_on_card(model, start):
+    """``concave_scene(model)`` built on the card with recording wrappers:
+    its launches (B1 6, B2 1, B3 1 at the Scene's T = 512, B4 1), each
+    recorded kernel call bit for bit against its plain version, and its
+    prepare metrics and pieces (slot for slot) against the CPU-built
+    ``start``'s."""
+    what = f"Scene({model!r}) prepare on the card"
+    built = []
+    reset_all()
+    calls = capture_main_path_inputs(
+        lambda: built.append(workload.concave_scene(model, "cuda")))
+    counts = all_counts()
+    check_launches(what, counts, SCENE_PREPARE_LAUNCHES)
+    kernels = compare_recorded(what, calls, counts)
+    gsc = built[0]
+    g = {k: float(v) for k, v in gsc.prepare_metrics.items()}
+    c = {k: float(v) for k, v in start.prepare_metrics.items()}
+    for k in ("piece_cnt", "ich_face_cnt", "mesh_tris_dropped"):
+        if g[k] != c[k]:
+            fail(f"{what}: {k} cuda {g[k]} != cpu {c[k]}")
+    if abs(g["total_volume"] - c["total_volume"]) > 1e-5 * abs(c["total_volume"]):
+        fail(f"{what}: total_volume cuda {g['total_volume']} vs cpu {c['total_volume']}")
+    err = _piece_compare(what, gsc.pieces, start.pieces, float(start.ctx.max_axis_scale))
+    print(f"{what}: {json.dumps(g)} launches {json.dumps(counts)} (B3 at T = "
+          f"{gsc.cfg.fracture.max_piece_tris}); equal to the cpu-built Scene's (metrics, pieces "
+          f"slot for slot, largest vertex difference {err:.3e})", flush=True)
+    return {"metrics": g, "launches": counts, "kernels": kernels, "max_vertex_diff": err}
+
+
+def concave_scene_phase(card):
+    """Phase 21: per model, ``concave_scene`` built on the CPU, and again on
+    the card with recording wrappers (``scene_prepare_on_card``). From the
+    CPU-built Scene copied to the card and to the CPU, in lockstep on both:
+    one ``fire_impact`` (exact caps in ``do_fracture``) with recording
+    wrappers, its kernels' calls bit for bit against their plain versions;
+    ``SCENE_STEPS`` steps and one render; each compared with the CPU plain
+    run (pieces exactly, x 2e-4, v 2e-3, 99.5% of pixels within 1e-5), with
+    the card's launches per part. Returns (the CPU-built Scenes,
+    results)."""
+    starts, res = {}, {}
+    for model in SCENE_MODELS:
+        ray = workload.CONCAVE_RAYS[model]
+        t0 = time.perf_counter()
+        start = workload.concave_scene(model, "cpu")
+        build_s = time.perf_counter() - t0
+        if not start.cfg.fracture.exact_caps:
+            fail(f"Scene({model!r}) dropped exact caps")
+        starts[model] = start
+        prep = scene_prepare_on_card(model, start)
+        gsc, csc = workload.scene_to(start, "cuda"), workload.scene_to(start, "cpu")
+        what = f"Scene({model!r})"
+        out_img, got = [], []
+        reset_all()
+        impact_calls = capture_main_path_inputs(lambda: got.append(gsc.fire_impact(*ray)))
+        gout = got[0]
+        impact_counts = all_counts()
+        for k in SCENE_IMPACT_KERNELS:
+            if impact_counts[k] <= 0:
+                fail(f"{what} impact: {k} never launched ({json.dumps(impact_counts)})")
+        impact_kernels = compare_recorded(f"{what} impact", impact_calls, impact_counts)
+        t0 = time.perf_counter()
+        cout = csc.fire_impact(*ray)
+        cpu_impact_s = time.perf_counter() - t0
+        if not gout or not cout:
+            fail(f"{what}: the impact ray missed")
+        gm = {k: float(v) for k, v in gout["metrics"][0].items()}
+        cm = {k: float(v) for k, v in cout["metrics"][0].items()}
+        for k in (*FRAME_OVERFLOWS, "new_pieces", "active_pieces", "merged_out", "num_groups",
+                  "mesh_tris_dropped"):
+            if gm[k] != cm[k]:
+                fail(f"{what} impact: {k} cuda {gm[k]} != cpu {cm[k]}")
+        if gm["new_pieces"] <= 0:
+            fail(f"{what} impact: no new piece ({json.dumps(gm)})")
+        d_imp = float(np.abs(gout["impact"] - cout["impact"]).max())
+        if gout["targets"] != cout["targets"] or d_imp > 1e-5:
+            fail(f"{what} impact: targets or impact point ({d_imp:.3e}) differ from the cpu "
+                 f"plain run")
+        dx_i, dv_i = _scene_state_compare(f"{what} impact", gsc, csc)
+        reset_all()
+        with StepRecorder() as steps:
+            gsc.step(SCENE_STEPS)
+            torch.cuda.synchronize()
+        step_counts = all_counts()
+        csc.step(SCENE_STEPS)
+        for k in ("pack", "narrowphase"):
+            if step_counts[k] != SCENE_STEPS:
+                fail(f"{what}: {k} launched {step_counts[k]} times in {SCENE_STEPS} steps")
+        dx_s, dv_s = _scene_state_compare(f"{what} after {SCENE_STEPS} steps", gsc, csc)
+        reset_all()
+        raster_calls = capture_raster(lambda: out_img.append(gsc.render()))
+        gimg = out_img.pop()
+        render_counts = all_counts()
+        cimg = csc.render()
+        if render_counts["raster"] != 2:
+            fail(f"{what} render: raster launched {render_counts['raster']} times, expected 2")
+        share = float(((gimg.cpu() - cimg).abs() <= 1e-5).all(-1).float().mean())
+        if not (share >= 0.995 and bool(torch.isfinite(gimg).all())):
+            fail(f"{what} render: {share:.6f} of pixels within 1e-5 of the cpu plain run")
+        nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+        kernels = scene_kernel_times(what, steps.last, raster_calls, card)
+        res[model] = {"kernels": kernels, "impact_kernels": impact_kernels, "prepare_on_card": prep,
+                      "build_cpu_s": build_s, "impact_cpu_s": cpu_impact_s, "metrics": gm,
+                      "launches": {"impact": nz(impact_counts), "steps": nz(step_counts),
+                                   "render": nz(render_counts)},
+                      "impact_dx_dv": [dx_i, dv_i], "steps_dx_dv": [dx_s, dv_s],
+                      "pixels_within_1e-5": share, "pieces": gsc.num_pieces(),
+                      "bodies": gsc.num_bodies()}
+        print(f"{what} (built on the cpu in {build_s:.2f} s; {start.num_pieces()} pieces): "
+              f"impact {json.dumps(gm)} launches {json.dumps(nz(impact_counts))}; body x "
+              f"{dx_i:.3e}, v {dv_i:.3e}; {SCENE_STEPS} steps launches "
+              f"{json.dumps(nz(step_counts))}, x {dx_s:.3e}, v {dv_s:.3e}; render launches "
+              f"{json.dumps(nz(render_counts))}, pixels within 1e-5 {share:.6f}; cpu impact "
+              f"{cpu_impact_s:.2f} s", flush=True)
+    return starts, res
+
+
+def prepare_stage_split(cfg, model, reps: int = 5) -> dict:
+    """Median CUDA-event ms per stage of one decomposition: a stage is the
+    span of a CONCAVE_STAGES function, "glue" the rest of the event."""
+    return span_split([(label, pipeline, name) for label, name in CONCAVE_STAGES],
+                      lambda: run_prepare("cuda", cfg, model), reps, warmup=1)
+
+
+def concave_timing(starts, card, reps: int = 5) -> dict:
+    """Phase 22: ms per event on the card (host clock, synchronize at the
+    end, median of ``reps``) of the torus config-1 decomposition, its stage
+    split and device idle share; ms per ``fire_impact`` of each concave
+    Scene (each run from a fresh copy of the CPU-built Scene), its stage
+    split and idle share."""
+    out = {"torus_config1_ms": host_ms(lambda: run_prepare("cuda", CONCAVE_CFG, CONCAVE_MODEL),
+                                       reps=reps, warmup=1)}
+    split = prepare_stage_split(CONCAVE_CFG, CONCAVE_MODEL)
+    busy, wall, idle, entries = profile_busy(
+        lambda: run_prepare("cuda", CONCAVE_CFG, CONCAVE_MODEL), 3)
+    out["torus_config1"] = {"stages_ms": split, "busy_ms": busy, "profiled_wall_ms": wall,
+                            "idle_share": idle, "device_entries": entries}
+    print(f"prepare_fracture torus config 1: median {out['torus_config1_ms']:.3f} ms/event of "
+          f"{reps} ({card})", flush=True)
+    print("torus config 1 stage split, median of 5 events (CUDA events, ms): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+    print("torus config 1 idle share "
+          + (f"{idle:.3f}: device busy {busy:.3f} ms of {wall:.3f} ms per event under the "
+             f"profiler, {entries:.0f} device entries per event" if idle is not None
+             else "not measured: the profiler reported no device time") + f" ({card})",
+          flush=True)
+    for model, start in starts.items():
+        ray = workload.CONCAVE_RAYS[model]
+        copies = [workload.scene_to(start, "cuda") for _ in range(reps + 1)]
+        ts = []
+        for sc in copies:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc.fire_impact(*ray)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        prof = [workload.scene_to(start, "cuda") for _ in range(3)]
+        busy, wall, idle, entries = profile_busy(lambda: prof.pop().fire_impact(*ray), 3)
+        split_from = [workload.scene_to(start, "cuda") for _ in range(reps + 1)]
+        split = span_split(CONCAVE_IMPACT_STAGES, lambda: split_from.pop().fire_impact(*ray),
+                           reps, warmup=1)
+        out[f"{model}_impact"] = {"event_ms": statistics.median(ts[1:]), "runs_ms": ts[1:],
+                                  "stages_ms": split, "busy_ms": busy, "profiled_wall_ms": wall,
+                                  "idle_share": idle, "device_entries": entries}
+        print(f"Scene({model!r}).fire_impact: median {statistics.median(ts[1:]):.3f} ms/event "
+              f"of {reps}; idle share "
+              + (f"{idle:.3f} (device busy {busy:.3f} ms of {wall:.3f} ms, {entries:.0f} device "
+                 f"entries per event)" if idle is not None else "not measured") + f" ({card})",
+              flush=True)
+        print(f"Scene({model!r}).fire_impact stage split, median of {reps} events (CUDA events, "
+              f"ms): " + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
     return out
 
 
@@ -2800,6 +3204,18 @@ def main():
     # 18. Timing of the frame and of render_512.
     frame = frame_timing(start, card)
 
+    # 19. The kernels at the torus config-1 event's calls.
+    concave_kernels = concave_kernel_phase(card)
+
+    # 20. The torus at config 1 on the card, against the CPU plain run.
+    concave_counts, concave_met, concave_cmp = concave_main_path(card)
+
+    # 21. Scene("torus") and Scene("blob") in lockstep on both devices.
+    concave_starts, concave_scenes = concave_scene_phase(card)
+
+    # 22. Times of the concave path.
+    concave_times = concave_timing(concave_starts, card)
+
     path_counts = {"broadphase_sorted": ("b_sorted", variants["b_sorted"][0]),
                    "solver_warm": ("d_warm", variants["d_warm"][0])}
     kernels = [
@@ -2834,11 +3250,19 @@ def main():
         "library_ms": None,
         "render_512": {k: v for k, v in raster.items() if k.startswith("render_512")},
     })
+    for k in kernels:
+        if k["name"] in concave_kernels:
+            k["torus_config1"] = {"launches": concave_counts[k["name"]],
+                                  **concave_kernels[k["name"]]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels, "event_ms": ms_event, "physics": timing,
                       "sphere": {"metrics": sphere_met, "launches": sphere_counts},
                       "impact": impact, "fracture_timing": fracture,
                       "frame": {"timing": frame, "frames": frames, "kernels": frame_kernels},
+                      "concave": {"torus_config1": {"metrics": concave_met,
+                                                    "launches": concave_counts,
+                                                    "cpu_compare": concave_cmp},
+                                  "scenes": concave_scenes, "timing": concave_times},
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -31,9 +31,12 @@
 //    shows the plain fold returns its input bitwise exactly then);
 //  - the cap is assembled in parallel: a warp scan compacts the per-face
 //    candidates into a dense pool in pool order (face-major, then slot),
-//    every lane sums the centroid over it in that order (the plain
-//    version's float32 order), one lane per candidate takes atan2 and its
-//    stable (key, index) rank, and a ballot scan drops adjacent bitwise
+//    every lane sums the centroid over it in float64 and rounds it once
+//    (as the plain version does: a float32 sum's order is the device's),
+//    one lane per candidate takes atan2 in float64 rounded once to float32
+//    (a float32 atan2 differs by an ulp between devices, and a near tie of
+//    two angles decides the dedup) and its stable (key, index) rank, and
+//    a ballot scan drops adjacent bitwise
 //    duplicates, truncates to S and places the cap in the first free face;
 //  - the polytope loads 16 values a lane at once, each plane a step ahead.
 // Measured on the same card (tools/time_b1_b6.py, the first design in the
@@ -266,8 +269,8 @@ clip_fold_kernel(const float* __restrict__ fv_in, const int* __restrict__ nv_in,
           pz[i] = cand[(q * 3 + 2) * F + f];
         }
       __syncwarp();
-      // Centroid in pool order (every lane, the same float32 sum), basis.
-      float cxs = 0.f, cys = 0.f, czs = 0.f;
+      // Centroid (every lane, a float64 sum rounded once), basis.
+      double cxs = 0.0, cys = 0.0, czs = 0.0;
 #pragma unroll 4
       for (int i = 0; i < cnt; ++i) {
         cxs += px[i];
@@ -275,7 +278,8 @@ clip_fold_kernel(const float* __restrict__ fv_in, const int* __restrict__ nv_in,
         czs += pz[i];
       }
       const float fc = (float)(cnt > 1 ? cnt : 1);
-      const float ccx = cxs / fc, ccy = cys / fc, ccz = czs / fc;
+      const float ccx = __double2float_rn(cxs) / fc, ccy = __double2float_rn(cys) / fc,
+                  ccz = __double2float_rn(czs) / fc;
       const float ln = fmaxf(sqrtf((nx * nx + ny * ny) + nz * nz), 1e-30f);
       const float ux_n = nx / ln, uy_n = ny / ln, uz_n = nz / ln;
       const float aax = fabsf(ux_n), aay = fabsf(uy_n), aaz = fabsf(uz_n);
@@ -296,7 +300,7 @@ clip_fold_kernel(const float* __restrict__ fv_in, const int* __restrict__ nv_in,
         const float rx = px[i] - ccx, ry = py[i] - ccy, rz = pz[i] - ccz;
         const float pu = (rx * ux + ry * uy) + rz * uz;
         const float pv = (rx * vx + ry * vy) + rz * vz;
-        key[i] = atan2f(pv, pu);
+        key[i] = __double2float_rn(atan2((double)pv, (double)pu));
       }
       __syncwarp();
       // Stable rank by (key, pool index) -> the angle-sorted list.

@@ -13,15 +13,21 @@ split, the pieces refit and capped, out-of-sphere pieces merged back, and
 every compound split into contact-connected components
 (``split_groups_by_contact``).
 
+With ``exact_caps`` (the default) each candidate's caps are its pre-refit
+convex's cut faces intersected with its source solid's cross-sections
+(``ops/caps.py``), and their boundary points join the refit pool; without
+it the caps are the refit convex's cut faces. ``prepare_fracture`` answers
+its inside-solid queries from a parity grid of the source mesh when
+``island_grid_res`` > 0, C >= 64 and the mesh has >= 512 triangles.
+
 Five hand-written kernels carry it on the GPU: the clip fold B1 (ACH,
 pattern cells, the Voronoi and impact folds, the refit fold), the ICH B2,
 the island labels B3, the refit planes B4 and the pooled soup clip B10;
 everything around them is plain PyTorch on the input tensors' device.
 
-Branches outside the port raise ``NotImplementedError`` naming the ROADMAP
-item: exact caps (A10), the per-cell ``mesh_pair_pool=False`` fallback of
-the culled mesh clip (A10), the prepare-time parity grid (A5) and
-``refitting_point_limit > 4``.
+Two branches outside the port raise ``NotImplementedError`` naming their
+ROADMAP item: the per-cell ``mesh_pair_pool=False`` fallback of the culled
+mesh clip (A10, left out) and ``refitting_point_limit > 4`` (A15).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 from surtr_tpu_torch.config import FractureConfig
 from surtr_tpu_torch.fracture.pattern import pattern_cells, radial_seeds, uniform_seeds
 from surtr_tpu_torch.fracture.types import FractureContext, PieceSet
-from surtr_tpu_torch.ops.caps import match_cut_faces
+from surtr_tpu_torch.ops.caps import cap_fans_batch, match_cut_faces
 from surtr_tpu_torch.ops.clip import contains_point, plane_basis
 from surtr_tpu_torch.ops.clip_cuda import clip_planes_batch
 from surtr_tpu_torch.ops.hull_cuda import ich
@@ -39,8 +45,9 @@ from surtr_tpu_torch.ops.kdop import kdop_planes
 from surtr_tpu_torch.ops.labels import adjacency_components
 from surtr_tpu_torch.ops.labels_cuda import tri_soup_components_batch
 from surtr_tpu_torch.ops.linalg import compact, div_rn, dot3, pack_rows, sqrt_rn
-from surtr_tpu_torch.ops.mesh_clip import (clip_polys_by_rows, clip_trisoup, fan_triangles,
-                                           point_in_mesh, winding_inside)
+from surtr_tpu_torch.ops.mesh_clip import (build_parity_grid, clip_polys_by_rows, clip_trisoup,
+                                           fan_triangles, parity_grid_inside, point_in_mesh,
+                                           winding_inside)
 from surtr_tpu_torch.ops.moments import moments
 from surtr_tpu_torch.ops.refit_cuda import refit_planes_from_parts
 from surtr_tpu_torch.ops.soup_clip_cuda import soup_clip_pooled
@@ -126,7 +133,9 @@ def _cell_plane_sets(seeds: torch.Tensor, k: int, extent, center):
     n = planes_u[..., :3] / extent
     ln = sqrt_rn(dot3(n, n))[..., None]
     safe = torch.where(ln > 0, ln, torch.ones_like(ln))
-    n = n / safe
+    # (u / extent) / safe as XLA rewrites it, u / (extent · safe): the JAX
+    # package's bits.
+    n = planes_u[..., :3] / (extent * safe)
     d = planes_u[..., 3:4] / safe
     d = d - dot3(n, center)[..., None]
     return torch.cat([n, d], dim=-1), pmask
@@ -191,11 +200,11 @@ def _active_planes(conv, cell_planes, cell_pmask, KA: int, mas):
     return sel, selm, over.sum()
 
 
-def _voxel_labels(conv, solid_t, solid_m, mas, VR: int, chunk: int = 64):
+def _voxel_labels(conv, solid_t, solid_m, mas, VR: int, chunk: int = 64, solid_grid=None):
     """Occupancy of a VR³ grid over each candidate hull (inside the
-    candidate's source solid (N, T, 3, 3) and its convex), closed by 3·VR
-    rounds of 6-neighbour min-label propagation. Returns (pts (N, G, 3),
-    occ (N, G), lab (N, G))."""
+    candidate's source solid (N, T, 3, 3), or the shared ``solid_grid``,
+    and its convex), closed by 3·VR rounds of 6-neighbour min-label
+    propagation. Returns (pts (N, G, 3), occ (N, G), lab (N, G))."""
     N = conv.n_verts.shape[0]
     dev, dt = conv.face_verts.device, conv.face_verts.dtype
     G = VR ** 3
@@ -210,10 +219,13 @@ def _voxel_labels(conv, solid_t, solid_m, mas, VR: int, chunk: int = 64):
     gy = g[:, None, :, None, 1].expand(N, VR, VR, VR)
     gz = g[:, None, None, :, 2].expand(N, VR, VR, VR)
     pts = torch.stack([gx, gy, gz], dim=-1).reshape(N, G, 3)
-    in_solid = torch.cat(
-        [winding_inside(p, t, m)
-         for p, t, m in zip(pts.split(chunk), solid_t.split(chunk), solid_m.split(chunk))]
-    )
+    if solid_grid is not None:
+        in_solid = parity_grid_inside(solid_grid, pts.reshape(-1, 3)).reshape(N, G)
+    else:
+        in_solid = torch.cat(
+            [winding_inside(p, t, m)
+             for p, t, m in zip(pts.split(chunk), solid_t.split(chunk), solid_m.split(chunk))]
+        )
     in_conv = contains_point(
         conv.map(lambda a: a[:, None]), pts, tol=1e-4 * mas
     )
@@ -246,10 +258,12 @@ def _voxel_label_at(pts, occ, lab, c):
     return torch.where(torch.any(occ, dim=1), val, -1)
 
 
-def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg: FractureConfig):
+def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg: FractureConfig,
+                        solid_grid=None):
     """CheckMeshIsland over a candidate batch; solid_t (N, T, 3, 3) /
     solid_m (N, T) are each candidate's source solid (prepare passes the
-    one source mesh broadcast, do_fracture each job's source piece).
+    one source mesh broadcast, do_fracture each job's source piece);
+    ``solid_grid``, when given, answers the inside-solid queries instead.
 
     Surface components (vertex-coincidence labels, kernel B3) beyond the
     first are merged back into island 0 when a probe on the segment between
@@ -287,14 +301,17 @@ def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg: Fracture
 
     def merge_test(c0, ck):
         probes = torch.stack([c0 + (ck - c0) * t for t in (0.25, 0.5, 0.75)], dim=1)
-        in_solid = winding_inside(probes, solid_t, solid_m)
+        if solid_grid is not None:
+            in_solid = parity_grid_inside(solid_grid, probes.reshape(-1, 3)).reshape(-1, 3)
+        else:
+            in_solid = winding_inside(probes, solid_t, solid_m)
         in_conv = contains_point(conv.map(lambda a: a[:, None]), probes, tol=tol_c)
         return torch.any(in_solid & in_conv, dim=1)
 
     VR = cfg.island_voxel_res
     vox = None
     if VR > 0 and bool(torch.any(sub[:, 1:, :])):
-        vox = _voxel_labels(conv, solid_t, solid_m, mas, VR)
+        vox = _voxel_labels(conv, solid_t, solid_m, mas, VR, solid_grid=solid_grid)
 
     merged = []
     for k in range(1, ISL):
@@ -327,33 +344,47 @@ def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg: Fracture
 
 
 def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, mas,
-                   cfg: FractureConfig):
-    """Occupancy test against each candidate's source solid (N, Ts, 3, 3),
-    refit (kernel B4 planes + kernel B1 fold) and caps from the refit
-    convex's cut faces (``exact_caps=False``).
-    Returns (conv2, mtris2, mmask2, cand_valid, cap_dropped)."""
+                   cfg: FractureConfig, solid_grid=None):
+    """Occupancy test against each candidate's source solid (N, Ts, 3, 3)
+    (or the shared ``solid_grid``), refit (kernel B4 planes + kernel B1
+    fold) and caps: exact closed-mesh caps (``cap_fans_batch``, their
+    boundary points in the refit pool) with ``exact_caps``, else the refit
+    convex's cut faces. Returns (conv2, mtris2, mmask2, cand_valid,
+    cap_dropped)."""
     N = mmask.shape[0]
     has_tris = torch.any(mmask, dim=-1)
     _, cent = moments(conv)
-    inside = point_in_mesh(cent[:, None, :], solid_t, solid_m)[:, 0]
+    if solid_grid is not None:
+        inside = parity_grid_inside(solid_grid, cent)
+    else:
+        inside = point_in_mesh(cent[:, None, :], solid_t, solid_m)[:, 0]
     cand_valid = ~conv.is_empty() & (has_tris | inside)
-
-    cut_sel = match_cut_faces(conv, cut_planes, cut_mask, mas)
-    cap_v = conv.face_verts.reshape(N, -1, 3)
-    cap_m = (conv.slot_mask() & cut_sel[..., None]).reshape(N, -1)
 
     if cfg.refitting_point_limit > 4:
         raise NotImplementedError(
-            "refitting_point_limit > 4 (ICH refit) is not ported yet (ROADMAP A10)"
+            "refitting_point_limit > 4 (ICH refit) is not ported yet (ROADMAP A15)"
         )
-    # The pool [mesh corners; cap vertices] is read from its parts.
+    if cfg.exact_caps:
+        cap_rows, cap_ok, cap_v, cap_m, cap_dropped = cap_fans_batch(
+            conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, mas, cfg,
+            solid_grid=solid_grid)
+    else:
+        cut_sel = match_cut_faces(conv, cut_planes, cut_mask, mas)
+        cap_v = conv.face_verts.reshape(N, -1, 3)
+        cap_m = (conv.slot_mask() & cut_sel[..., None]).reshape(N, -1)
+    # The pool [mesh corners; cap points] is read from its parts.
     slabs, slab_m = refit_planes_from_parts(mtris, mmask, cap_v, cap_m)
     conv2 = clip_planes_batch(conv, slabs, slab_m)
 
-    cut2 = match_cut_faces(conv2, cut_planes, cut_mask, mas)
-    cap_rows, cap_counts = cut_face_tris(conv2, cut2)
-    mtris2, mmask2, app_drop = _append_tris(mtris, mmask, cap_rows, cap_counts)
-    cap_dropped = app_drop.sum()
+    if cfg.exact_caps:
+        mtris2, mmask2, app_drop = _append_tris(mtris, mmask, cap_rows[:, :, None],
+                                                cap_ok.to(torch.int32))
+        cap_dropped = cap_dropped + app_drop.sum()
+    else:
+        cut2 = match_cut_faces(conv2, cut_planes, cut_mask, mas)
+        cap_rows, cap_counts = cut_face_tris(conv2, cut2)
+        mtris2, mmask2, app_drop = _append_tris(mtris, mmask, cap_rows, cap_counts)
+        cap_dropped = app_drop.sum()
 
     cand_valid = cand_valid & ~conv2.is_empty()
     nv = torch.where(cand_valid[:, None], conv2.n_verts, 0).to(torch.int32)
@@ -501,10 +532,6 @@ def prepare_fracture(
     radial pattern seeds. Missing seeds are drawn from ``generator`` (a
     ``torch.Generator``, seeded from ``cfg.seed`` when None). All work runs
     on ``verts.device``. Returns (PieceSet, FractureContext, metrics)."""
-    if cfg.exact_caps:
-        raise NotImplementedError(
-            "exact_caps=True (exact closed-mesh caps) is not ported yet (ROADMAP A10)"
-        )
     dev = verts.device
     F, S = cfg.max_faces, cfg.max_face_verts
     C = cfg.initial_decompose_cell_cnt
@@ -586,11 +613,11 @@ def prepare_fracture(
         # sum, as the JAX package does on this branch.
         mdrop = (mdrop + act_over).sum()
 
+    # Every candidate shares the one closed source solid: above this size a
+    # parity grid of it answers the island and cap queries.
+    solid_grid = None
     if cfg.island_grid_res > 0 and C >= 64 and Tsrc >= 512:
-        raise NotImplementedError(
-            "prepare-time inside-solid parity grid (>= 512 source triangles) is "
-            "not ported yet (ROADMAP A5)"
-        )
+        solid_grid = build_parity_grid(tri_corners, tmask, res=cfg.island_grid_res)
 
     cpl, cpm = cell_planes_a, cell_pmask_a
     cand_ok = torch.ones((C,), dtype=torch.bool, device=dev)
@@ -601,7 +628,7 @@ def prepare_fracture(
 
     if cfg.max_islands > 1 and cfg.island_pool > 0:
         mmask0, x_cand, x_mmask, x_valid = _split_mesh_islands(
-            conv, mtris, mmask, *solid(C), mas, cfg)
+            conv, mtris, mmask, *solid(C), mas, cfg, solid_grid=solid_grid)
         conv = conv.map(lambda a: torch.cat([a, a[x_cand]]))
         mtris = torch.cat([mtris, mtris[x_cand]])
         mmask = torch.cat([mmask0, x_mmask])
@@ -610,7 +637,7 @@ def prepare_fracture(
         cand_ok = torch.cat([cand_ok, x_valid])
 
     conv, mtris, mmask, cand_valid, cap_drop = _finish_pieces(
-        conv, mtris, mmask, cpl, cpm, *solid(cand_ok.shape[0]), mas, cfg)
+        conv, mtris, mmask, cpl, cpm, *solid(cand_ok.shape[0]), mas, cfg, solid_grid=solid_grid)
     mdrop = mdrop + cap_drop
     cand_valid = cand_valid & cand_ok
     N = cand_valid.shape[0]
@@ -691,10 +718,6 @@ def do_fracture(pieces: PieceSet, ctx: FractureContext, impact_pos, target_group
     partial=True uses the impact-local pattern and leaves out-of-sphere
     candidates attached to their parent compound; partial=False uses the
     general pattern on every target piece. Runs on the pieces' device."""
-    if cfg.exact_caps:
-        raise NotImplementedError(
-            "exact_caps=True (exact closed-mesh caps) is not ported yet (ROADMAP A10)"
-        )
     A = cfg.max_active_pieces
     P = cfg.max_pieces
     Tp = cfg.max_piece_tris

@@ -4,8 +4,10 @@
 Faces are clipped independently by Sutherland–Hodgman (per slot emit
 [v if kept][cut point if the edge crosses], compacted to S), and the cap
 face is rebuilt from the cut points: at most CAPS candidates per face,
-ordered by atan2 about their centroid in the plane basis, bitwise duplicates
-removed, truncated to S and written to the first free face slot. A
+ordered by atan2 about their centroid in the plane basis (the centroid's
+sum and the angle taken in float64, each rounded once to float32, so that
+every device orders them alike), bitwise duplicates removed, truncated to
+S and written to the first free face slot. A
 polytope left with fewer than 4 faces is cleared.
 
 Everything is batched over a leading polytope axis N (the JAX package's
@@ -90,15 +92,19 @@ def clip_poly_plane(poly: ConvexPoly, plane: torch.Tensor,
     ).reshape(N, P)
     cap_pts = pool.reshape(N, P, 3)
 
+    # The centroid's sum and the angles run in float64 and round once to
+    # float32: a float32 sum's order and a float32 atan2 are each device's
+    # own, and a near tie of two angles decides the cap's dedup.
     cnt = pool_mask.sum(dim=-1)
-    wsum = torch.sum(torch.where(pool_mask[..., None], cap_pts, 0.0), dim=1)
-    centroid = wsum / torch.clamp(cnt, min=1).to(fv.dtype)[:, None]
+    wsum = torch.sum(torch.where(pool_mask[..., None], cap_pts, 0.0).double(), dim=1)
+    centroid = wsum.to(fv.dtype) / torch.clamp(cnt, min=1).to(fv.dtype)[:, None]
     nn = plane[:, :3]
     u, v = plane_basis(
         nn / torch.clamp(sqrt_rn(dot3(nn, nn)), min=1e-30)[..., None]
     )
     rel = cap_pts - centroid[:, None, :]
-    ang = torch.atan2(dot3(rel, v[:, None]), dot3(rel, u[:, None]))
+    ang = torch.atan2(dot3(rel, v[:, None]).double(),
+                      dot3(rel, u[:, None]).double()).to(fv.dtype)
     key = torch.where(pool_mask, ang, torch.full_like(ang, float("inf")))
     order = torch.sort(key, dim=-1, stable=True).indices
     sorted_pts = torch.gather(cap_pts, 1, order[..., None].expand(N, P, 3))

@@ -9,8 +9,10 @@ one soup by B plane lists; ``clip_polys_by_rows`` clips P pooled triangles,
 each by its own plane list (the pair-pool mesh clip; kernel B10 in
 ``soup_clip_cuda.py`` computes the same fold on the card). ``point_in_mesh``
 (ray parity) and ``winding_inside`` (generalized winding number) answer the
-inside-solid queries of the island split and the occupancy test, batched
-over per-candidate solids.
+inside-solid queries of the island split, the occupancy test and the cap
+probes, batched over per-candidate solids; ``build_parity_grid`` and
+``parity_grid_inside`` answer them from one precomputed grid when every
+candidate shares one closed source solid (prepare).
 """
 
 from __future__ import annotations
@@ -18,7 +20,11 @@ from __future__ import annotations
 import torch
 
 from surtr_tpu_torch.ops.hull import _cross
-from surtr_tpu_torch.ops.linalg import compact, dot3, sqrt_rn
+from surtr_tpu_torch.ops.linalg import compact, div_rn, dot3, sqrt_rn
+
+BIG = 3.4e38
+# Golden-ratio cell offsets of the grid's ray columns (x, y).
+GRID_FX, GRID_FY = 0.381966, 0.618034
 
 
 def _clip_polys_plane(poly, n_vert, plane, tol, any_removed=None):
@@ -189,14 +195,14 @@ def point_in_mesh(points, corners, tri_valid):
     e1 = b - a
     e2 = c - a
     pvec = _cross(d.expand_as(e2), e2)                         # (..., T, 3)
-    det = torch.sum(e1 * pvec, dim=-1)
+    det = dot3(e1, pvec)
     ok = torch.abs(det) > 1e-12
     inv = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)), 0.0)
     tvec = points[..., :, None, :] - a[..., None, :, :]        # (..., P, T, 3)
-    u = torch.sum(tvec * pvec[..., None, :, :], -1) * inv[..., None, :]
+    u = dot3(tvec, pvec[..., None, :, :]) * inv[..., None, :]
     qvec = _cross(tvec, e1[..., None, :, :].expand_as(tvec))
-    v = torch.sum(qvec * d, -1) * inv[..., None, :]
-    t = torch.sum(qvec * e2[..., None, :, :], -1) * inv[..., None, :]
+    v = dot3(qvec, d) * inv[..., None, :]
+    t = dot3(qvec, e2[..., None, :, :]) * inv[..., None, :]
     hit = ((ok & tri_valid)[..., None, :] & (u >= 0) & (v >= 0) & (u + v <= 1)
            & (t > 1e-9))
     return (hit.sum(dim=-1) % 2) == 1
@@ -211,13 +217,77 @@ def winding_inside(points, corners, tri_valid, threshold: float = 0.5):
     b = corners[..., None, :, 1, :] - p
     c = corners[..., None, :, 2, :] - p
     la, lb, lc = sqrt_rn(dot3(a, a)), sqrt_rn(dot3(b, b)), sqrt_rn(dot3(c, c))
-    det = torch.sum(a * _cross(b, c), dim=-1)
-    den = (
-        la * lb * lc
-        + torch.sum(a * b, -1) * lc
-        + torch.sum(b * c, -1) * la
-        + torch.sum(c * a, -1) * lb
-    )
+    det = dot3(a, _cross(b, c))
+    den = la * lb * lc + dot3(a, b) * lc + dot3(b, c) * la + dot3(c, a) * lb
     omega = 2.0 * torch.atan2(det, den)
     total = torch.sum(torch.where(tri_valid[..., None, :], omega, 0.0), dim=-1)
     return torch.abs(total) > threshold * 4.0 * torch.pi
+
+
+def build_parity_grid(corners, tri_valid, res: int = 64):
+    """Inside-solid parity grid of ONE closed triangle soup (T, 3, 3): the
+    crossing parity of a vertical ray at the centres of a res³ grid over
+    the soup's bounding box (padded 0.5%), the ray columns at golden-ratio
+    fractions of a cell so they miss axis-aligned vertices and edges.
+
+    Each column's crossing heights are sorted and counted below every
+    z-bin centre with a left ``searchsorted``: the strict-less count of
+    the JAX package's fused (R², T, R) compare, without building that
+    tensor. Returns {lo (3,), ext (3,), res, inside (res³,) bool}; query
+    with ``parity_grid_inside``."""
+    R = int(res)
+    dev, dt = corners.device, corners.dtype
+    c2 = corners.reshape(-1, 3)
+    m2 = tri_valid.repeat_interleave(3)[:, None]
+    lo = torch.amin(torch.where(m2, c2, BIG), dim=0)
+    hi = torch.amax(torch.where(m2, c2, -BIG), dim=0)
+    ext = torch.clamp(hi - lo, min=1e-6)
+    lo = lo - 0.005 * ext
+    ext = ext * 1.01
+
+    ar = torch.arange(R, dtype=dt, device=dev)
+    xs = lo[0] + div_rn(ar + GRID_FX, R) * ext[0]
+    ys = lo[1] + div_rn(ar + GRID_FY, R) * ext[1]
+    zc = lo[2] + div_rn(ar + 0.5, R) * ext[2]
+    px = xs.repeat_interleave(R)[:, None]                      # (R², 1) x-major
+    py = ys.repeat(R)[:, None]
+
+    A, B, Cc = corners[:, 0], corners[:, 1], corners[:, 2]
+
+    def edge(p0, p1):
+        return (p1[:, 0] - p0[:, 0]) * (py - p0[:, 1]) - (p1[:, 1] - p0[:, 1]) * (px - p0[:, 0])
+
+    e0 = edge(A, B)                                            # (R², T)
+    e1 = edge(B, Cc)
+    e2 = edge(Cc, A)
+    area = (B[:, 0] - A[:, 0]) * (Cc[:, 1] - A[:, 1]) - (B[:, 1] - A[:, 1]) * (Cc[:, 0] - A[:, 0])
+    big_a = torch.abs(area) > 1e-14
+    ok = big_a & tri_valid
+    s = torch.sign(area)
+    hit = ok & (e0 * s >= 0) & (e1 * s >= 0) & (e2 * s >= 0)
+    inv_a = 1.0 / torch.where(big_a, area, torch.ones_like(area))
+    sia = s * torch.abs(inv_a)                                 # 1 / area
+    w0 = e1 * sia
+    w1 = e2 * sia
+    w2 = 1.0 - w0 - w1
+    zhit = w0 * A[:, 2] + w1 * B[:, 2] + w2 * Cc[:, 2]
+    zhit = torch.where(hit, zhit, BIG)
+    zs = torch.sort(zhit, dim=1).values
+    cnt = torch.searchsorted(zs, zc.expand(R * R, R).contiguous(), side="left")
+    inside = (cnt % 2) == 1                                    # (R², R)
+    return {"lo": lo, "ext": ext, "res": R, "inside": inside.reshape(R * R * R)}
+
+
+def parity_grid_inside(grid: dict, points):
+    """Sample a ``build_parity_grid`` result at (P, 3) points → (P,) bool,
+    each point snapped to its cell's centre; points outside the grid's
+    box are outside the solid."""
+    R = grid["res"]
+    rel = (points - grid["lo"]) / grid["ext"] * R
+    ix = torch.round(rel[:, 0] - GRID_FX).to(torch.int64)
+    iy = torch.round(rel[:, 1] - GRID_FY).to(torch.int64)
+    iz = torch.round(rel[:, 2] - 0.5).to(torch.int64)
+    inb = (ix >= 0) & (ix < R) & (iy >= 0) & (iy < R) & (iz >= 0) & (iz < R)
+    flat = (torch.clamp(ix, 0, R - 1) * (R * R) + torch.clamp(iy, 0, R - 1) * R
+            + torch.clamp(iz, 0, R - 1))
+    return grid["inside"][flat] & inb

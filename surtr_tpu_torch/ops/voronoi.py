@@ -29,7 +29,7 @@ def bisector_planes(seed: torch.Tensor, others: torch.Tensor, other_mask: torch.
     ok = other_mask & (dist[..., 0] > 1e-12)
     n = diff / torch.clamp(dist, min=1e-30)
     mid = (others + seed) * 0.5
-    d = -torch.sum(n * mid, dim=-1, keepdim=True)
+    d = -dot3(n, mid)[..., None]
     return torch.cat([n, d], dim=-1), ok
 
 
@@ -42,7 +42,8 @@ def voronoi_cells(seeds: torch.Tensor, seed_mask: torch.Tensor | None = None,
     if seed_mask is None:
         seed_mask = torch.ones((N,), dtype=torch.bool, device=dev)
     k = min(k, max(N - 1, 1))
-    d2 = torch.sum((seeds[:, None] - seeds[None, :]) ** 2, dim=-1)
+    r = seeds[:, None] - seeds[None, :]
+    d2 = dot3(r, r)
     d2 = torch.where(seed_mask[None, :], d2, torch.full_like(d2, BIG))
     d2.fill_diagonal_(BIG)
     idx = nearest_first(-d2, k)

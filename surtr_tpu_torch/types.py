@@ -133,7 +133,9 @@ def scale_poly(p: ConvexPoly, s) -> ConvexPoly:
     norm = sqrt_rn(dot3(n, n))[..., None]
     safe = torch.where(norm > 0, norm, torch.ones_like(norm))
     d = p.planes[..., 3:4] / safe
-    n = n / safe
+    # (n / s) / safe as XLA rewrites it under jit, n / (s · safe): the JAX
+    # package's bits.
+    n = p.planes[..., :3] / (s * safe)
     return ConvexPoly(fv, p.n_verts, torch.cat([n, d], dim=-1))
 
 
@@ -142,5 +144,5 @@ def translate_poly(p: ConvexPoly, t) -> ConvexPoly:
     t = torch.as_tensor(t, dtype=p.face_verts.dtype, device=p.device)
     fv = p.face_verts + t
     n = p.planes[..., :3]
-    d = p.planes[..., 3:4] - torch.sum(n * t, dim=-1, keepdim=True)
+    d = p.planes[..., 3:4] - dot3(n, t)[..., None]
     return ConvexPoly(fv, p.n_verts, torch.cat([n, d], dim=-1))

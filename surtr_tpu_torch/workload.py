@@ -6,6 +6,13 @@ and inputs that ``chip_smoke.py``, the tools and the tests drive:
   procedural sphere at the same configuration (its 320 triangles exceed
   the per-cell cull pool of 256, so it takes the culled pair-pool mesh
   clip, kernel B10);
+* the 1k-seed decomposition of a concave model at BASELINE config 1's
+  configuration (``bench_decomposition_1k_model``, bench.py:136-188, its
+  pumpkin absent here, so the procedural torus stands in): exact caps, the
+  prepare-time parity grid and the culled pair-pool mesh clip;
+* ``Scene`` of a concave model (the torus, the blob) at the default
+  ``SceneConfig``, which keeps exact caps, and one impact on a fixed ray
+  through the model;
 * the cube32 impact of ``bench_cube32`` (bench.py:295-333): the cube
   prepared at its configuration, then one partial ``do_fracture`` event at
   (1.5, 1.5, 1.5);
@@ -53,6 +60,19 @@ BENCH_CFG = FractureConfig(
 )
 
 
+MODEL_1K_CFG = FractureConfig(    # bench.py:152-161; every other field at its default
+    initial_decompose_cell_cnt=1024,
+    max_pieces=1024,
+    max_faces=96,
+    max_face_verts=32,
+    max_piece_tris=128,
+    voronoi_neighbors=48,
+    partial_pattern_cell_cnt=8,
+    general_pattern_cell_cnt=8,
+)
+CONCAVE_MODEL = "torus"           # the stand-in for config 1's pumpkin
+
+
 CUBE32_CFG = FractureConfig(      # bench.py:301-310
     initial_decompose_cell_cnt=32,
     max_pieces=256,
@@ -90,7 +110,9 @@ def bench_seeds(cfg: FractureConfig = BENCH_CFG, seed: int = SEED):
 
 
 def run_prepare(device="cuda", cfg: FractureConfig = BENCH_CFG, model: str = "cube"):
-    """One ``prepare_fracture`` event of ``model`` on ``device``."""
+    """One ``prepare_fracture`` event of ``model`` on ``device``, seeded from
+    ``manual_seed(SEED)`` (``bench_seeds``); config 1's stand-in is
+    ``run_prepare(device, MODEL_1K_CFG, CONCAVE_MODEL)``."""
     return pipeline.prepare_fracture(*model_inputs(model, device), cfg, *bench_seeds(cfg))
 
 
@@ -214,6 +236,21 @@ def interactive_scene(device="cuda"):
     from surtr_tpu_torch.scene import Scene
 
     return Scene("cube", INTERACTIVE_CFG, spawn=FRAME_SPAWN, device=device)
+
+
+# A ray down onto each concave model at the Scene's default spawn (0, 5, 0):
+# through the torus's tube (its hole is at the axis), through the blob's top.
+CONCAVE_RAYS = {"torus": ((1.2, 10.0, 0.0), (0.0, -1.0, 0.0)),
+                "blob": ((0.0, 10.0, 0.0), (0.0, -1.0, 0.0))}
+
+
+def concave_scene(model: str = CONCAVE_MODEL, device="cuda"):
+    """``Scene(model)`` at the default ``SceneConfig`` on ``device`` (a
+    concave model keeps exact caps); ``CONCAVE_RAYS[model]`` is its impact
+    ray for ``fire_impact``."""
+    from surtr_tpu_torch.scene import Scene
+
+    return Scene(model, device=device)
 
 
 def scene_to(scene, device):

@@ -198,13 +198,19 @@ def test_prepare_out_of_slice_branches_raise():
             torch.as_tensor(sphere_point_cloud()), cfg)
 
     small = dict(initial_decompose_cell_cnt=16, max_pieces=16, voronoi_neighbors=15)
-    with pytest.raises(NotImplementedError, match="A10"):
-        run("cube", **dict(small, exact_caps=True))
+    # Exact caps and the parity grid are ported: the calls return.
+    _, _, met = run("cube", **dict(small, exact_caps=True))
+    assert int(met["piece_cnt"]) == 16
+    assert float(met["total_volume"]) == pytest.approx(27.0, rel=1e-3)
+    # 516 source triangles and 64 cells build the grid.
+    _, _, met = run("cube", tile=43, initial_decompose_cell_cnt=64, max_pieces=64,
+                    voronoi_neighbors=15, max_piece_tris=256, max_islands=1)
+    assert int(met["piece_cnt"]) == 64
+    # The per-cell uniform-pool fallback stays out of the port.
     with pytest.raises(NotImplementedError, match="per-cell"):  # 320 > cull_cap 256
         run("sphere", **dict(small, max_piece_tris=64, mesh_pair_pool=False))
-    with pytest.raises(NotImplementedError, match="A5"):        # 516 source tris
-        run("cube", tile=43, initial_decompose_cell_cnt=64, max_pieces=64,
-            voronoi_neighbors=15, max_piece_tris=256, max_islands=1)
+    with pytest.raises(NotImplementedError, match="A15"):
+        run("cube", **dict(small, refitting_point_limit=8))
 
 
 def test_prepare_generator_seeds_are_deterministic():
