@@ -128,6 +128,30 @@ Phases (any failure exits non-zero):
      refit folds, pack; its device idle share) and of each Scene's
      ``fire_impact`` (its stage split and idle share), beside the card's
      name and power limit.
+ 23. every ``PhysicsConfig`` route (``workload.ROUTES``: the XLA
+     narrowphase, the unfused prep, no kernel broadphase, the Morton window
+     beyond 2·window, the grid broadphase, all three switches off) and the
+     kernel route on the 10k lattice from the main path's contact-rich
+     state: 8 steps on ``cuda:0`` with launch counts per step (which kernels
+     each route runs and which it does not) and through the plain path on
+     the CPU from the same bits, compared; ms per step of each route;
+ 24. BASELINE config 2: ``batch_decompose`` of 64 cubes at 1k seeds
+     (``workload.BATCH_CFG``) on ``cuda:0``, launches B1 6·64, B2, B3 and
+     B4 64 each; every mesh bit for bit equal to its own
+     ``prepare_fracture`` on the card from the same seeds, mesh 0 against
+     the CPU plain run; ms a batch and a mesh, the device idle share (of
+     the first 4 meshes);
+ 25. ``batch_step`` of four copies of the 10k lattice, 16 steps, launches
+     4·16 of each main-path kernel, each copy bit for bit equal to its own
+     run;
+ 26. the CLI: ``python -m surtr_tpu_torch --preset tiny`` as a subprocess,
+     then ``main`` in-process at the full preset for the cube (240 steps,
+     an impact, 512² frames, snapshot, trajectory) and the torus (120
+     steps, an impact), with launch counts; the snapshots load back;
+ 27. ``PhaseTimer`` ms of the cube 1k prepare, the cube32 impact and a 10k
+     step, and of each ``prepare_fracture`` (1-7) and ``physics_step``
+     (1, 2, 3, 35, 4) stage on the card, each stage's fence within rtol
+     1e-5 of the CPU plain run's; ``profiling.trace`` of one 10k step.
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
@@ -171,7 +195,7 @@ from surtr_tpu_torch.physics.scene import build_scene
 from surtr_tpu_torch.render import raster as render_raster
 from surtr_tpu_torch.render import raster_cuda
 from surtr_tpu_torch import scene as scene_mod
-from surtr_tpu_torch.types import ConvexPoly, unit_cube
+from surtr_tpu_torch.types import ConvexPoly, index_tree, unit_cube
 from surtr_tpu_torch.workload import run_prepare
 from tools.time_b5_b8 import HOST_EVENTS, step_profile
 
@@ -3066,6 +3090,375 @@ def concave_timing(starts, card, reps: int = 5) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-27: every PhysicsConfig route, BASELINE config 2, batch_step, the
+# CLI and the stage truncation.
+# ---------------------------------------------------------------------------
+
+ROUTE_STEPS = 8
+# Launches a step of each route on the 10k lattice ("auto" on 10,000 pieces).
+ROUTE_LAUNCHES = {
+    "kernel": launches_a_step(),
+    "xla_narrowphase": launches_a_step(pack=0, narrowphase=0),
+    "unfused_prep": launches_a_step(prep=0),
+    "xla_broadphase": launches_a_step(broadphase_exact=0),
+    "sorted_k_beyond_two_windows": launches_a_step(broadphase_exact=0),
+    "grid": launches_a_step(broadphase_exact=0),
+    "all_off": launches_a_step(pack=0, broadphase_exact=0, narrowphase=0, prep=0),
+}
+
+
+def routes_phase(state, card):
+    """Phase 23: the 10k lattice (bench.py:207's configuration) under each
+    route of ``workload.ROUTES`` and the kernel route, from the main path's
+    contact-rich state copied to the CPU: ``ROUTE_STEPS`` steps on the card
+    with launch counts per step and, for every route but the kernel route
+    (held against the CPU plain run over 64 steps in phase 9), through the
+    plain path on the CPU, compared after the last (bit for bit, else x
+    within 2e-4 and v within 2e-3, phase 9's bounds); ms per step on the
+    card."""
+    start = workload.to_device(state, "cpu")
+    out = {}
+    for name in ROUTE_LAUNCHES:
+        cfg = workload.PHYSICS_CFG if name == "kernel" else workload.route_cfg(name)
+        sg, sc = workload.to_device(start, "cuda"), start
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            check = LaunchCheck(f"route {name}", cfg, ROUTE_LAUNCHES[name])
+            for i in range(ROUTE_STEPS):
+                sg = phys_step.physics_step(sg, cfg)
+                check(i, sg)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            t0 = time.perf_counter()
+            if name != "kernel":
+                for _ in range(ROUTE_STEPS):
+                    sc = phys_step.physics_step(sc, cfg)
+            cpu_s = time.perf_counter() - t0
+            ms, runs = steps_ms(start, cfg, ROUTE_STEPS)
+        recall = [str(w.message)[:80] for w in warned
+                  if issubclass(w.category, phys_step.RecallDegradedWarning)]
+        # "auto" on 10,000 pieces without the kernel broadphase warns.
+        if bool(recall) != (not cfg.pallas_broadphase):
+            fail(f"route {name}: RecallDegradedWarning {'missing' if not recall else recall[0]}")
+        b = sg.bodies
+        for f in ("x", "q", "v", "w"):
+            if not bool(torch.isfinite(getattr(b, f)).all()):
+                fail(f"route {name}: {f} is not finite after {ROUTE_STEPS} steps")
+        out[name] = {"launches": counts, "skipped": check.skipped, "ms_per_step": ms,
+                     "runs_ms": runs, "recall_warning": bool(recall)}
+        if name == "kernel":
+            vs = "vs cpu plain: in phase 9"
+        else:
+            dx = float((b.x.cpu() - sc.bodies.x).abs().max())
+            dv = float((b.v.cpu() - sc.bodies.v).abs().max())
+            bitwise = all(torch.equal(getattr(b, f).cpu(), getattr(sc.bodies, f))
+                          for f in ("x", "q", "v", "w")) and torch.equal(sg.sleep_frames.cpu(),
+                                                                         sc.sleep_frames)
+            if not (dx <= 2e-4 and dv <= 2e-3):
+                fail(f"route {name}: card and cpu plain run differ (x {dx:.3e}, v {dv:.3e})")
+            out[name].update(dx=dx, dv=dv, bitwise=bitwise, cpu_s_per_step=cpu_s / ROUTE_STEPS)
+            vs = (f"vs cpu plain: {'bit for bit' if bitwise else ''} max |dx| {dx:.3e}, "
+                  f"max |dv| {dv:.3e}, cpu plain {cpu_s / ROUTE_STEPS:.2f} s/step")
+        print(f"route {name}: launches {json.dumps(counts)} over {ROUTE_STEPS} steps "
+              f"({check.skipped} skipped); {vs}; {ms:.3f} ms/step on the card ({card})",
+              flush=True)
+    print("routes ms/step on the card: " + json.dumps({k: round(v["ms_per_step"], 4)
+                                                        for k, v in out.items()})
+          + f" ({card})", flush=True)
+    return out
+
+
+PROFILED_MESHES = 4
+BATCH_LAUNCHES = {"clip_fold": 6 * workload.BATCH_M, "ich": workload.BATCH_M,
+                  "labels": workload.BATCH_M, "refit": workload.BATCH_M}
+
+
+def _pieces_bits_equal(a, b) -> bool:
+    """Every field of two PieceSets equal, floats by their bits."""
+    for f in ("face_verts", "n_verts", "planes"):
+        x, y = getattr(a.convex, f), getattr(b.convex, f)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            return False
+    return (torch.equal(a.mesh.view(torch.int32), b.mesh.view(torch.int32))
+            and all(torch.equal(getattr(a, f), getattr(b, f))
+                    for f in ("mesh_valid", "valid", "group", "tag")))
+
+
+def batch_phase(card):
+    """Phase 24: BASELINE config 2, ``batch_decompose`` of 64 cubes at
+    ``workload.BATCH_CFG`` on ``cuda:0`` (launches B1 6·64, B2, B3 and B4
+    64 each); each mesh against its own single-mesh ``prepare_fracture`` on
+    the card from the same seeds, bit for bit; mesh 0 against the CPU plain
+    run; ms a batch and a mesh and the device idle share of its first
+    ``PROFILED_MESHES``."""
+    from surtr_tpu_torch.fracture.batch import batch_decompose
+
+    cfg, M = workload.BATCH_CFG, workload.BATCH_M
+    v, vm, tc, tm, cloud, seeds, pseeds, gseeds = workload.batch_inputs("cuda")
+
+    def run(m=M):
+        return batch_decompose(v[:m], vm[:m], tc[:m], tm[:m], cloud, cfg, seeds=seeds[:m],
+                               partial_seeds=pseeds[:m], general_seeds=gseeds[:m])
+
+    reset_all()
+    t0 = time.perf_counter()
+    pieces, met = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = all_counts()
+    check_launches("config 2", counts, BATCH_LAUNCHES)
+    if pieces.valid.shape != (M, cfg.max_pieces) or met["piece_cnt"].shape != (M,):
+        fail(f"config 2: stacked shapes {tuple(pieces.valid.shape)}, "
+             f"{tuple(met['piece_cnt'].shape)}")
+    if not bool(torch.isfinite(pieces.convex.face_verts).all()):
+        fail("config 2: pieces are not finite")
+    for i in range(M):
+        one, _, m1 = pipeline.prepare_fracture(v[i], vm[i], tc[i], tm[i], cloud, cfg, seeds[i],
+                                               pseeds[i], gseeds[i])
+        if not _pieces_bits_equal(index_tree(pieces, i), one):
+            fail(f"config 2: mesh {i} differs from its single-mesh run")
+        if any(not torch.equal(met[k][i], m1[k]) for k in m1):
+            fail(f"config 2: mesh {i}'s metrics differ from its single-mesh run")
+    t0 = time.perf_counter()
+    _, _, cpu = run_prepare("cpu", cfg)
+    cpu_s = time.perf_counter() - t0
+    for k in ("piece_cnt", "mesh_tris_dropped"):
+        if int(cpu[k]) != int(met[k][0]):
+            fail(f"config 2: mesh 0 {k} {int(met[k][0])} != cpu plain {int(cpu[k])}")
+    vg, vc = float(met["total_volume"][0]), float(cpu["total_volume"])
+    if abs(vg - vc) > 1e-5 * abs(vc):
+        fail(f"config 2: mesh 0 volume {vg} vs cpu plain {vc}")
+    ms = host_ms(run, reps=2, warmup=0)
+    # The idle share of the first PROFILED_MESHES meshes: the batch is a loop
+    # of like events, and the profiler takes minutes over a whole batch's
+    # ~390,000 device records.
+    busy, wall, idle, entries = profile_busy(lambda: run(PROFILED_MESHES), 1)
+    res = {"launches": counts, "first_run_s": first_s, "ms_batch": ms, "ms_per_mesh": ms / M,
+           "idle_share": idle, "device_busy_ms": busy, "profiled_wall_ms": wall,
+           "profiled_meshes": PROFILED_MESHES,
+           "device_entries": entries, "cpu_mesh0_s": cpu_s,
+           "piece_cnt": [int(c) for c in met["piece_cnt"].tolist()],
+           "total_volume_mesh0": vg, "cpu_total_volume_mesh0": vc}
+    print(f"config 2 (batch_decompose, {M} cubes at 1k seeds): launches {json.dumps(counts)}; "
+          f"every mesh bit for bit equal to its single run; mesh 0 as the cpu plain run "
+          f"(piece_cnt {int(met['piece_cnt'][0])}, volume {vg} vs {vc}); {ms:.1f} ms a batch, "
+          f"{ms / M:.2f} ms a mesh; idle share of {PROFILED_MESHES} meshes "
+          f"{'not measured' if idle is None else f'{idle:.3f}'} (device busy {busy:.1f} ms of "
+          f"{wall:.1f} ms, {entries:.0f} device entries) ({card})", flush=True)
+    return res
+
+
+BATCH_STEP_COPIES = 4
+BATCH_STEP_STEPS = 16
+
+
+def batch_step_phase(card):
+    """Phase 25: four copies of the 10k lattice, 30 apart in x, stepped 16
+    times by ``batch_step`` (launches 4·16 of each main-path kernel); each
+    copy bit for bit equal to its own ``physics_step`` run on the card."""
+    from surtr_tpu_torch.physics.batch import batch_step, stack_scenes
+
+    cfg = workload.PHYSICS_CFG
+    base = workload.physics_lattice(device="cuda")
+    scenes = []
+    for i in range(BATCH_STEP_COPIES):
+        shift = torch.tensor([30.0 * i, 0.0, 0.0], device="cuda")
+        scenes.append(dataclasses.replace(base, bodies=dataclasses.replace(
+            base.bodies, x=base.bodies.x + shift)))
+    batch = stack_scenes(scenes)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = batch_step(batch, cfg, BATCH_STEP_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    n = BATCH_STEP_COPIES * BATCH_STEP_STEPS
+    want = {k: v * n for k, v in launches_a_step().items()}
+    if counts != want:
+        fail(f"batch_step: launches {json.dumps(counts)}, expected {json.dumps(want)}")
+    for i, s in enumerate(scenes):
+        for _ in range(BATCH_STEP_STEPS):
+            s = phys_step.physics_step(s, cfg)
+        for f in dataclasses.fields(s.bodies):
+            a, b = getattr(out.bodies, f.name)[i], getattr(s.bodies, f.name)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                fail(f"batch_step: copy {i} {f.name} differs from its single run")
+        if not torch.equal(out.sleep_frames[i], s.sleep_frames):
+            fail(f"batch_step: copy {i} sleep counters differ from its single run")
+    print(f"batch_step ({BATCH_STEP_COPIES} copies of the 10k lattice, {BATCH_STEP_STEPS} steps): "
+          f"launches {json.dumps(counts)}; every copy bit for bit equal to its single run; "
+          f"{ms:.1f} ms, {ms / n:.3f} ms per scene step ({card})", flush=True)
+    return {"launches": counts, "ms": ms, "ms_per_scene_step": ms / n}
+
+
+CLI_DIR = "build/cli"
+CLI_RUNS = {
+    "cube": ["--model", "cube", "--steps", "240", "--impact", "0,4.5,-10:0,0,1@60",
+             "--size", "512"],
+    "torus": ["--model", "torus", "--steps", "120", "--impact",
+              "{},{},{}:{},{},{}@30".format(*workload.CONCAVE_RAYS["torus"][0],
+                                            *workload.CONCAVE_RAYS["torus"][1])],
+}
+# Kernels each CLI run must launch, and those it must not (the Scene's
+# physics is the compound-body path on 256 pieces: the plain block sweep and
+# the plain solver).
+CLI_NEEDS = {"cube": ("clip_fold", "ich", "labels", "refit", "pack", "narrowphase", "raster"),
+             "torus": ("clip_fold", "ich", "labels", "refit", "pack", "narrowphase",
+                       "soup_clip")}
+CLI_NEVER = ("broadphase_exact", "broadphase_sorted", "prep", "solver", "solver_warm")
+
+
+def cli_phase(card):
+    """Phase 26: ``python -m surtr_tpu_torch --preset tiny`` as a subprocess
+    (exit 0, the last line parses), then ``main`` in-process at the full
+    preset on ``cuda:0``: the cube (240 steps, one impact, frames of 512²
+    every 10 steps, snapshot, trajectory) and the torus (120 steps, one
+    impact, snapshot), with launch counts; each snapshot loaded back with
+    ``checkpoint.load_scene`` gives the run's piece count and volume."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+
+    from surtr_tpu_torch.__main__ import main as cli_main
+    from surtr_tpu_torch.checkpoint import load_scene
+
+    os.makedirs(CLI_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "surtr_tpu_torch", "--preset", "tiny", "--model", "cube",
+         "--steps", "12", "--impact", "0,10,0:0,-1,0@5", "--size", "64", "--shadow", "64",
+         "--frames", f"{CLI_DIR}/tiny_frames", "--save", f"{CLI_DIR}/tiny.npz"],
+        capture_output=True, text=True, timeout=300)
+    tiny_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli --preset tiny exited {proc.returncode}: {proc.stderr[-2000:]}")
+    tiny = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"cli --preset tiny (subprocess, {tiny_s:.1f} s): {json.dumps(tiny)}", flush=True)
+    out = {"tiny": {**tiny, "subprocess_s": tiny_s}}
+    for model, args in CLI_RUNS.items():
+        snap = f"{CLI_DIR}/{model}.npz"
+        extra = ["--save", snap]
+        if model == "cube":
+            extra += ["--frames", f"{CLI_DIR}/cube_frames", "--trajectory",
+                      f"{CLI_DIR}/cube_traj.npz"]
+        reset_all()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_main(args + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts()
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        missing = [k for k in CLI_NEEDS[model] if counts[k] <= 0]
+        extra_k = [k for k in CLI_NEVER if counts[k]]
+        if missing or extra_k:
+            fail(f"cli {model}: launches {json.dumps(counts)}; none of {missing}, "
+                 f"unexpected {extra_k}")
+        steps = int(args[args.index("--steps") + 1])
+        if res["steps"] != steps or res["pieces"] <= 0 or not math.isfinite(res["volume"]):
+            fail(f"cli {model}: {json.dumps(res)}")
+        back = load_scene(snap, device="cuda")
+        if back.num_pieces() != res["pieces"] or round(back.total_volume(), 4) != res["volume"]:
+            fail(f"cli {model}: the snapshot gives {back.num_pieces()} pieces, volume "
+                 f"{back.total_volume()}, the run {res['pieces']}, {res['volume']}")
+        if model == "cube":
+            traj = np.load(f"{CLI_DIR}/cube_traj.npz")["x"]
+            frames = len(os.listdir(f"{CLI_DIR}/cube_frames"))
+            if traj.shape[0] != steps or not np.isfinite(traj).all() or frames != steps // 10:
+                fail(f"cli cube: trajectory {traj.shape}, {frames} frames")
+        out[model] = {**res, "launches": counts, "wall_s_measured": wall,
+                      "ms_per_step": wall * 1e3 / steps}
+        print(f"cli {model} (main in-process): {json.dumps(res)}; launches {json.dumps(counts)}; "
+              f"snapshot loads back with the same pieces and volume; wall {wall:.2f} s, "
+              f"{wall * 1e3 / steps:.2f} ms/step with prepare, impact and frames ({card})",
+              flush=True)
+    return out
+
+
+PREPARE_STAGES = (1, 2, 3, 4, 5, 6, 7)
+PHYSICS_STAGES = (1, 2, 3, 35, 4)
+
+
+def _fence_close(a: float, b: float) -> bool:
+    return math.isfinite(a) and math.isfinite(b) and abs(a - b) <= 1e-5 * abs(b)
+
+
+def stages_phase(state, prepared, card, reps: int = 3):
+    """Phase 27: ``profiling.PhaseTimer`` ms of the cube 1k prepare, the
+    cube32 impact and one 10k step on the card; each ``prepare_fracture``
+    stage (``profile_stage`` 1-7, cube 1k) and each ``physics_step`` stage
+    (1, 2, 3, 35, 4; the 10k lattice's contact-rich state) on the card, the
+    fence of each finite and within rtol 1e-5 of the CPU plain run's (the
+    physics fences over ``stage_arrays``; stage 3's over B7's live records,
+    since its unfilled points hold -BIG and the raw fence is -inf on both
+    devices); ``profiling.trace`` of one 10k step keeps its CUDA kernel
+    records."""
+    import os
+
+    from surtr_tpu_torch.profiling import PhaseTimer, fence_sum, trace
+
+    timer = PhaseTimer()
+    cfg = workload.PHYSICS_CFG
+    for _ in range(reps + 1):
+        with timer.phase("prepare cube 1k") as h:
+            h["out"] = run_prepare("cuda")
+        with timer.phase("impact cube32") as h:
+            h["out"] = workload.run_impact("cuda", prepared=prepared)[1]
+        with timer.phase("step 10k") as h:
+            h["out"] = phys_step.physics_step(state, cfg)
+    for name in list(timer.times):
+        timer.times[name] = timer.times[name][1:]      # the first run warms up
+    inputs = {dev: (workload.model_inputs("cube", dev), workload.bench_seeds())
+              for dev in ("cuda", "cpu")}
+    fences = {}
+    for st in PREPARE_STAGES:
+        def prep(dev, st=st):
+            args, seeds = inputs[dev]
+            return pipeline.prepare_fracture(*args, workload.BENCH_CFG, *seeds,
+                                             profile_stage=st)[0]
+        for _ in range(reps + 1):
+            with timer.phase(f"prepare stage {st}") as h:
+                h["out"] = g = prep("cuda")
+        timer.times[f"prepare stage {st}"] = timer.times[f"prepare stage {st}"][1:]
+        fences[f"prepare {st}"] = (float(g), float(prep("cpu")))
+    states = {"cuda": state, "cpu": workload.to_device(state, "cpu")}
+    for st in PHYSICS_STAGES:
+        for _ in range(reps + 1):
+            with timer.phase(f"step stage {st}") as h:
+                h["out"] = phys_step.physics_step(state, cfg, profile_stage=st)
+        timer.times[f"step stage {st}"] = timer.times[f"step stage {st}"][1:]
+        arrays = {dev: phys_step.stage_arrays(s, cfg, st) for dev, s in states.items()}
+        if st == 3:
+            if not math.isinf(float(fence_sum(*arrays["cuda"]))):
+                fail("step stage 3: B7's raw records no longer overflow the fence")
+            arrays = {dev: (narrowphase_cuda.live_records(a[0], cfg.manifold_points),)
+                      for dev, a in arrays.items()}
+        fences[f"step {st}"] = tuple(float(fence_sum(*arrays[dev])) for dev in ("cuda", "cpu"))
+    bad = {k: v for k, v in fences.items() if not _fence_close(*v)}
+    if bad:
+        fail("stage fences not finite or differ from the cpu plain run beyond rtol 1e-5: "
+             + json.dumps(bad))
+    os.makedirs(CLI_DIR, exist_ok=True)
+    # The profiler can drop device records late in a long process: the
+    # count says how many it kept (printed, not checked).
+    _, records = trace(phys_step.physics_step, state, cfg, path=f"{CLI_DIR}/step_trace.json")
+    med = timer.medians()
+    print(f"profiling.trace of one 10k step: {records} CUDA kernel records, Chrome trace "
+          f"{os.path.getsize(f'{CLI_DIR}/step_trace.json')} bytes", flush=True)
+    print("PhaseTimer (median ms, host clock fenced by synchronize):\n" + timer.report()
+          + f"\n({card})", flush=True)
+    print("stage fences, card against cpu plain (all finite, within rtol 1e-5; step 3 over "
+          f"B7's live records): {json.dumps(fences)}", flush=True)
+    return {"ms": med, "fences": fences, "trace_kernel_records": records}
+
+
 def main():
     # 1. Device.
     if not torch.cuda.is_available():
@@ -3216,6 +3609,30 @@ def main():
     # 22. Times of the concave path.
     concave_times = concave_timing(concave_starts, card)
 
+    phase_s = {}
+
+    def timed(n, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        phase_s[n] = round(time.perf_counter() - t0, 1)
+        return res
+
+    # 23. Every PhysicsConfig route on the 10k lattice.
+    routes = timed(23, routes_phase, before_last, card)
+
+    # 24. BASELINE config 2: batch_decompose of 64 cubes.
+    config2 = timed(24, batch_phase, card)
+
+    # 25. batch_step: four copies of the 10k lattice.
+    bstep = timed(25, batch_step_phase, card)
+
+    # 26. The CLI.
+    cli = timed(26, cli_phase, card)
+
+    # 27. PhaseTimer and the stage fences.
+    stages = timed(27, stages_phase, before_last, prepared, card)
+    print(f"phases 23-27, s: {json.dumps(phase_s)}", flush=True)
+
     path_counts = {"broadphase_sorted": ("b_sorted", variants["b_sorted"][0]),
                    "solver_warm": ("d_warm", variants["d_warm"][0])}
     kernels = [
@@ -3263,7 +3680,8 @@ def main():
                                                     "launches": concave_counts,
                                                     "cpu_compare": concave_cmp},
                                   "scenes": concave_scenes, "timing": concave_times},
-                      "card": card}), flush=True)
+                      "routes": routes, "config2": config2, "batch_step": bstep, "cli": cli,
+                      "stages": stages, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,11 @@
 Turns the JAX package's containers, seen as numpy arrays (any object with
 the same field names whose leaves convert with ``numpy.asarray``), into the
 port's containers and back: pieces, fracture contexts and physics scenes.
-The configurations convert through ``dataclasses.asdict``. The tests use it to feed the same intermediate state
-to both sides; nothing here imports JAX.
+The configurations convert through ``dataclasses.asdict``. Every
+conversion works field by field, so a stacked batch (a leading (M,) axis on
+every field, as the JAX package's ``batch_decompose`` and ``batch_step``
+take and give it) converts as it stands. The tests use it to feed the same
+intermediate state to both sides; nothing here imports JAX.
 """
 
 from __future__ import annotations

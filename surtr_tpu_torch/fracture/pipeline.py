@@ -25,9 +25,19 @@ pattern cells, the Voronoi and impact folds, the refit fold), the ICH B2,
 the island labels B3, the refit planes B4 and the pooled soup clip B10;
 everything around them is plain PyTorch on the input tensors' device.
 
+``profile_stage`` truncates either entry point after a stage, as the JAX
+package's does, returning the stage's fence (``profiling.fence_sum`` of its
+outputs) in place of the results: ``prepare_fracture`` after 1 (ICH, k-DOP,
+ACH), 2 (+ cell planes), 3 (+ patterns), 4 (+ convex clip), 42-44 (inside
+the culled mesh clip: + active planes and cull, + pair pack, + pooled
+fold), 5 (+ mesh clip), 6 (+ islands), 45-49 (inside ``_finish_pieces``) or
+7 (+ finish); ``do_fracture`` after 1 (selection and convex clip grid), 2
+(+ mesh clip), 3 (+ islands), 41-49 (inside ``_finish_pieces``), 4 (+
+finish) or 5 (+ merge and pack).
+
 Two branches outside the port raise ``NotImplementedError`` naming their
 ROADMAP item: the per-cell ``mesh_pair_pool=False`` fallback of the culled
-mesh clip (A10, left out) and ``refitting_point_limit > 4`` (A15).
+mesh clip and ``refitting_point_limit > 4`` (both A15).
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from surtr_tpu_torch.ops.moments import moments
 from surtr_tpu_torch.ops.refit_cuda import refit_planes_from_parts
 from surtr_tpu_torch.ops.soup_clip_cuda import soup_clip_pooled
 from surtr_tpu_torch.ops.voronoi import bisector_planes, nearest_first
+from surtr_tpu_torch.profiling import fence_sum
 from surtr_tpu_torch.types import ConvexPoly, scale_poly, translate_poly, unit_cube
 
 BIG = 3.4e38
@@ -344,13 +355,14 @@ def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg: Fracture
 
 
 def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, mas,
-                   cfg: FractureConfig, solid_grid=None):
+                   cfg: FractureConfig, solid_grid=None, profile_stage: int = 99):
     """Occupancy test against each candidate's source solid (N, Ts, 3, 3)
     (or the shared ``solid_grid``), refit (kernel B4 planes + kernel B1
     fold) and caps: exact closed-mesh caps (``cap_fans_batch``, their
     boundary points in the refit pool) with ``exact_caps``, else the refit
     convex's cut faces. Returns (conv2, mtris2, mmask2, cand_valid,
-    cap_dropped)."""
+    cap_dropped), or the fence after the occupancy test (``profile_stage``
+    45), the refit planes (46) or the refit fold (47)."""
     N = mmask.shape[0]
     has_tris = torch.any(mmask, dim=-1)
     _, cent = moments(conv)
@@ -359,6 +371,8 @@ def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, m
     else:
         inside = point_in_mesh(cent[:, None, :], solid_t, solid_m)[:, 0]
     cand_valid = ~conv.is_empty() & (has_tris | inside)
+    if profile_stage == 45:
+        return fence_sum(conv, mtris, mmask, cand_valid)
 
     if cfg.refitting_point_limit > 4:
         raise NotImplementedError(
@@ -374,7 +388,11 @@ def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, m
         cap_m = (conv.slot_mask() & cut_sel[..., None]).reshape(N, -1)
     # The pool [mesh corners; cap points] is read from its parts.
     slabs, slab_m = refit_planes_from_parts(mtris, mmask, cap_v, cap_m)
+    if profile_stage == 46:
+        return fence_sum(conv, mtris, mmask, cand_valid, slabs, slab_m)
     conv2 = clip_planes_batch(conv, slabs, slab_m)
+    if profile_stage == 47:
+        return fence_sum(conv2, mtris, mmask, cand_valid)
 
     if cfg.exact_caps:
         mtris2, mmask2, app_drop = _append_tris(mtris, mmask, cap_rows[:, :, None],
@@ -447,18 +465,20 @@ def _pack_pool_fans(fans, fcnt, lane_valid, lane_seg, pstart, Tp: int):
 
 
 def _culled_pair_pool_clip(tri_corners, tmask, cell_planes, cell_pmask, cull_cap: int, mas,
-                           Tp: int, cfg: FractureConfig):
+                           Tp: int, cfg: FractureConfig, profile_stage: int = 99, conv=None):
     """The mesh clip when a per-cell pool of ``cull_cap`` triangles is
     smaller than the source: triangles whose bounding sphere a cell plane
     separates are culled per cell (exact), the survivors of every cell are
     packed into one pool of (cell, triangle) lanes, and every lane is
     folded by its own cell's planes: kernel B10 for CUDA tensors,
     ``clip_polys_by_rows`` (per-cell context) for CPU tensors. Returns
-    (mtris (C, Tp, 3, 3), mmask (C, Tp), dropped triangles)."""
+    (mtris (C, Tp, 3, 3), mmask (C, Tp), dropped triangles), or with
+    ``profile_stage`` 42, 43 or 44 the fence (with the cells' convex
+    ``conv``) after the cull, the pair pack or the pooled fold."""
     if cfg.mesh_pair_pool not in (True, "auto"):
         raise NotImplementedError(
             "mesh_pair_pool=False on the culled mesh clip (the per-cell uniform-pool "
-            "fallback) is not ported (ROADMAP A10)"
+            "fallback) is not ported yet (ROADMAP A15)"
         )
     C = cell_planes.shape[0]
     Tsrc = tri_corners.shape[0]
@@ -477,6 +497,8 @@ def _culled_pair_pool_clip(tri_corners, tmask, cell_planes, cell_pmask, cull_cap
     cidx = _stable_front(keep, cull_cap)                       # kept first, index order
     csel = torch.gather(keep, 1, cidx)
     cull_over = torch.clamp(keep.sum(1) - cull_cap, min=0)
+    if profile_stage == 42:
+        return fence_sum(conv, cidx, csel)
 
     # Pool of the live (cell, triangle) pairs, grouped by cell.
     kept_cnt = csel.sum(1)
@@ -490,6 +512,8 @@ def _culled_pair_pool_clip(tri_corners, tmask, cell_planes, cell_pmask, cull_cap
     z = torch.zeros((1,), dtype=torch.int64, device=dev)
     pstart = torch.clamp(torch.cat([z, torch.cumsum(kept_cnt, 0)]), max=pair_cap)
     ptris = tri_corners[pair_tri]
+    if profile_stage == 43:
+        return fence_sum(conv, ptris, cell_planes[pair_cell], cell_pmask[pair_cell])
     if ptris.is_cuda:
         poly, nvp, mrun_drops = soup_clip_pooled(ptris, pair_valid, pair_cell, cell_planes,
                                                  cell_pmask)
@@ -497,6 +521,8 @@ def _culled_pair_pool_clip(tri_corners, tmask, cell_planes, cell_pmask, cull_cap
         poly, nvp, mrun_drops = clip_polys_by_rows(
             ptris, pair_valid, cell_planes[pair_cell], cell_pmask[pair_cell],
             seg_starts=pstart, seg_id=pair_cell)
+    if profile_stage == 44:
+        return fence_sum(conv, poly, nvp, mrun_drops)
     fans, fcnt = fan_triangles(poly, nvp)
     mtris, mmask, fan_drop = _pack_pool_fans(fans, fcnt, pair_valid, pair_cell, pstart, Tp)
     return mtris, mmask, cull_over.sum() + pair_over + fan_drop + mrun_drops
@@ -524,6 +550,7 @@ def prepare_fracture(
     partial_seeds: torch.Tensor | None = None,
     general_seeds: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    profile_stage: int = 99,
 ):
     """Initial decomposition of a model into one compound.
 
@@ -531,7 +558,9 @@ def prepare_fracture(
     sorted here when C > 128); ``partial_seeds`` / ``general_seeds`` the
     radial pattern seeds. Missing seeds are drawn from ``generator`` (a
     ``torch.Generator``, seeded from ``cfg.seed`` when None). All work runs
-    on ``verts.device``. Returns (PieceSet, FractureContext, metrics)."""
+    on ``verts.device``. Returns (PieceSet, FractureContext, metrics), or
+    (fence, None, None) when ``profile_stage`` truncates it (module
+    docstring)."""
     dev = verts.device
     F, S = cfg.max_faces, cfg.max_face_verts
     C = cfg.initial_decompose_cell_cnt
@@ -572,16 +601,22 @@ def prepare_fracture(
         bb_center,
     )
     ach = clip_planes_batch(ach.map(lambda a: a[None]), planes[None], pm[None])
+    if profile_stage <= 1:
+        return fence_sum(ach), None, None
 
     # 8. Initial Voronoi decomposition as half-space lists.
     if C > 128:
         seeds = density_sort(seeds)
     kN = min(cfg.voronoi_neighbors, C - 1)
     cell_planes, cell_pmask = _cell_plane_sets(seeds, kN, extent, bb_center)
+    if profile_stage <= 2:
+        return fence_sum(ach, cell_planes, cell_pmask), None, None
 
     # 9. Impact patterns in unit space (all-pairs bisectors).
     pp = pattern_cells(partial_seeds, k=None, F=F, S=S)
     gp = pattern_cells(general_seeds, k=None, F=F, S=S)
+    if profile_stage <= 3:
+        return fence_sum(ach, cell_planes, pp, gp), None, None
     ctx = FractureContext(
         bb_center=bb_center, bb_min=bb_min, bb_max=bb_max, max_axis_scale=mas,
         partial_pattern=pp, general_pattern=gp, sphere_cloud=sphere_cloud,
@@ -590,6 +625,8 @@ def prepare_fracture(
     # 10. Initial pieces: ACH ∩ cell (two-pass fold), mesh ∩ cell.
     ach_b = ach.map(lambda a: a.expand((C,) + a.shape[1:]).contiguous())
     conv = _two_pass_cell_clip(ach_b, cell_planes, cell_pmask, cfg.voronoi_prefix)
+    if profile_stage <= 4:
+        return fence_sum(conv, cell_planes, pp, gp), None, None
 
     Kt_cell = cell_planes.shape[1]
     KA = min(Kt_cell, 32)
@@ -603,8 +640,11 @@ def prepare_fracture(
     Tsrc = tri_corners.shape[0]
     cull_cap = min(Tsrc, max(4 * Tp, -(-6 * Tsrc // max(C, 1))))
     if cull_cap < Tsrc:
-        mtris, mmask, mdrop = _culled_pair_pool_clip(
-            tri_corners, tmask, cell_planes_a, cell_pmask_a, cull_cap, mas, Tp, cfg)
+        out = _culled_pair_pool_clip(tri_corners, tmask, cell_planes_a, cell_pmask_a, cull_cap,
+                                     mas, Tp, cfg, profile_stage, conv)
+        if 42 <= profile_stage <= 44:
+            return out, None, None
+        mtris, mmask, mdrop = out
         mdrop = mdrop + act_over
     else:
         mtris, mmask, mdrop = clip_trisoup(tri_corners, tmask, cell_planes_a, cell_pmask_a,
@@ -612,6 +652,8 @@ def prepare_fracture(
         # The overflow count is added to every cell's drop count before the
         # sum, as the JAX package does on this branch.
         mdrop = (mdrop + act_over).sum()
+    if profile_stage <= 5:
+        return fence_sum(conv, mtris, mmask, mdrop, pp, gp), None, None
 
     # Every candidate shares the one closed source solid: above this size a
     # parity grid of it answers the island and cap queries.
@@ -635,12 +677,20 @@ def prepare_fracture(
         cpl = torch.cat([cell_planes, cell_planes[x_cand]])
         cpm = torch.cat([cell_pmask, cell_pmask[x_cand]])
         cand_ok = torch.cat([cand_ok, x_valid])
+    if profile_stage <= 6:
+        return fence_sum(conv, mtris, mmask, cand_ok, pp, gp), None, None
 
-    conv, mtris, mmask, cand_valid, cap_drop = _finish_pieces(
-        conv, mtris, mmask, cpl, cpm, *solid(cand_ok.shape[0]), mas, cfg, solid_grid=solid_grid)
+    out = _finish_pieces(conv, mtris, mmask, cpl, cpm, *solid(cand_ok.shape[0]), mas, cfg,
+                         solid_grid=solid_grid,
+                         profile_stage=profile_stage if 45 <= profile_stage <= 49 else 99)
+    if 45 <= profile_stage <= 49:   # the finish's own sub-stages
+        return out, None, None
+    conv, mtris, mmask, cand_valid, cap_drop = out
     mdrop = mdrop + cap_drop
     cand_valid = cand_valid & cand_ok
     N = cand_valid.shape[0]
+    if profile_stage <= 7:
+        return fence_sum(conv, mtris, mmask, cand_valid, pp, gp), None, None
 
     vol, _ = moments(conv)
     pieces = _pack_candidates(
@@ -711,13 +761,15 @@ def _pooled_job_mesh_clip(jmesh, jmmask, jcpl, jcpm, Tp: int, on_card: bool | No
 
 @torch.no_grad()
 def do_fracture(pieces: PieceSet, ctx: FractureContext, impact_pos, target_group,
-                cfg: FractureConfig, partial: bool = True):
+                cfg: FractureConfig, partial: bool = True, profile_stage: int = 99):
     """Refracture compounds at an impact point. Returns (PieceSet, metrics).
 
     ``target_group`` is a scalar group id or a (P,) boolean piece mask.
     partial=True uses the impact-local pattern and leaves out-of-sphere
     candidates attached to their parent compound; partial=False uses the
-    general pattern on every target piece. Runs on the pieces' device."""
+    general pattern on every target piece. Runs on the pieces' device.
+    With ``profile_stage`` < 99 returns (fence, None) after that stage
+    (module docstring)."""
     A = cfg.max_active_pieces
     P = cfg.max_pieces
     Tp = cfg.max_piece_tris
@@ -782,6 +834,8 @@ def do_fracture(pieces: PieceSet, ctx: FractureContext, impact_pos, target_group
     # An empty cell gives an empty piece; culled or unselected jobs are empty.
     conv = ConvexPoly(conv.face_verts, torch.where(jsel_ok[:, None], conv.n_verts, 0),
                       conv.planes)
+    if profile_stage <= 1:
+        return fence_sum(conv, src_mesh, src_mmask), None
 
     # Job compaction: the JCAP largest live jobs (stable), overflow counted.
     alive_job = ~conv.is_empty() & jsel_ok
@@ -808,6 +862,8 @@ def do_fracture(pieces: PieceSet, ctx: FractureContext, impact_pos, target_group
         mtris, mmask, mdrop = _pooled_job_mesh_clip(jmesh, jmmask, jcpl, jcpm, Tp)
     else:
         mtris, mmask, mdrop = clip_trisoup(jmesh, jmmask, jcpl, jcpm, max_out=Tp)
+    if profile_stage <= 2:
+        return fence_sum(conv, mtris, mmask, mdrop), None
 
     # Mesh islands against each job's source piece.
     if cfg.max_islands > 1 and cfg.island_pool > 0:
@@ -820,12 +876,19 @@ def do_fracture(pieces: PieceSet, ctx: FractureContext, impact_pos, target_group
         src_of = torch.cat([src_of, src_of[x_cand]])
         src_valid = torch.cat([src_valid, src_valid[x_cand] & x_valid])
     N = conv.n_verts.shape[0]
+    if profile_stage <= 3:
+        return fence_sum(conv, mtris, mmask, src_valid), None
 
-    conv2, mtris2, mmask2, cand_valid, cap_drop = _finish_pieces(
-        conv, mtris, mmask, cells.planes[cell_of], cells_fm[cell_of],
-        src_mesh[src_of], src_mmask[src_of], mas, cfg)
+    out = _finish_pieces(conv, mtris, mmask, cells.planes[cell_of], cells_fm[cell_of],
+                         src_mesh[src_of], src_mmask[src_of], mas, cfg,
+                         profile_stage=profile_stage)
+    if 41 <= profile_stage <= 49:   # the finish's own sub-stages
+        return out, None
+    conv2, mtris2, mmask2, cand_valid, cap_drop = out
     mdrop = mdrop.sum() + cap_drop
     cand_valid = cand_valid & src_valid
+    if profile_stage <= 4:
+        return fence_sum(conv2, mtris2, mmask2, cand_valid), None
 
     # MergeOutOfImpact: partial-mode candidates outside the sphere rejoin
     # their parent compound; the others get a fresh group per (parent, cell).
@@ -853,6 +916,8 @@ def do_fracture(pieces: PieceSet, ctx: FractureContext, impact_pos, target_group
         P,
     )
     piece_overflow = torch.clamp(keep_orig.sum() + cand_valid.sum() - P, min=0)
+    if profile_stage <= 5:
+        return fence_sum(packed.valid, packed.convex, piece_overflow), None
 
     # HandleConvexIsland: every compound split into contact components.
     packed, split_overflow = split_groups_by_contact(packed, eps=1e-3 * mas,

@@ -30,6 +30,7 @@ from surtr_tpu_torch.ops.clip import plane_basis
 from surtr_tpu_torch.ops.hull import _cross
 from surtr_tpu_torch.ops.linalg import compact, dot3, sqrt_rn, supports
 from surtr_tpu_torch.ops.mesh_clip import parity_grid_inside, point_in_mesh
+from surtr_tpu_torch.profiling import fence_sum
 
 
 def match_cut_faces(poly, cut_planes, cut_mask, scale, tol: float = 1e-4):
@@ -54,11 +55,15 @@ def _cross2(a, b):
     return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
 
 
-def _cap_candidates(conv, mtris, mmask, cut_planes, cut_mask, mas, cfg):
+def _cap_candidates(conv, mtris, mmask, cut_planes, cut_mask, mas, cfg, profile_stage: int = 99):
     """Candidate cap-boundary edge records of a candidate batch: rec (N, RT,
     8) [p, q, face, kind (0 dA, 1 dB)], flag (N, RT) live before any probe,
     pls (N, CF, 4) the cut faces' planes, n_over (N,) the cut faces and dA
-    edges lost to capacity. RT = CF·NA + CF·S·(X+1)."""
+    edges lost to capacity. RT = CF·NA + CF·S·(X+1). ``profile_stage`` 1-4
+    returns the fence after the face selection and on-plane edge masks (1),
+    the dA compaction (2), the crossing parameters (3) or the dA coverage
+    (4), the JAX package's ``_cap_candidates_one`` stages summed over the
+    batch."""
     N, F, S = conv.face_verts.shape[:3]
     CF, NA, X = cfg.cap_faces, cfg.cap_edges, cfg.cap_crossings
     Tp = mtris.shape[1]
@@ -89,8 +94,12 @@ def _cap_candidates(conv, mtris, mmask, cut_planes, cut_mask, mas, cfg):
     ea = mtris.reshape(N, 1, 3 * Tp, 3).expand(N, CF, 3 * Tp, 3)
     eb = mtris[:, :, nxt].reshape(N, 1, 3 * Tp, 3).expand(N, CF, 3 * Tp, 3)
     n_a_over = (torch.clamp(e_ok.sum(-1) - NA, min=0) * cf_ok).sum(1)
+    if profile_stage <= 1:
+        return fence_sum(e_ok, loops, dv)
     # The cap traverses the shared edge opposite to its surface triangle.
     packed, n_a = compact(torch.cat([eb, ea], dim=-1), e_ok, NA)         # (N, CF, NA, 6)
+    if profile_stage <= 2:
+        return fence_sum(packed, n_a)
     a_p, a_q = packed[..., 0:3], packed[..., 3:6]
     dpq = a_p - a_q
     a_ok = ((torch.arange(NA, device=dev) < n_a[..., None]) & cf_ok[..., None]
@@ -141,6 +150,8 @@ def _cap_candidates(conv, mtris, mmask, cut_planes, cut_mask, mas, cfg):
         m = torch.amin(tt_m, dim=-1, keepdim=True)                        # (N, CF, S, 1)
         ts.append(m)
         tt_m = torch.where(tt_m <= m, 1.0, tt_m)
+    if profile_stage <= 3:
+        return fence_sum(ts)
     ones = torch.ones_like(ts[0])
     bounds = torch.cat([ones * 0.0, *ts, ones], dim=-1)                   # (N, CF, S, X+2)
     e3 = w_next - loops                                                   # (N, CF, S, 3)
@@ -162,6 +173,8 @@ def _cap_candidates(conv, mtris, mmask, cut_planes, cut_mask, mas, cfg):
     d2 = ex * ex + ey * ey
     eps_cov = 3e-4 * mas
     covered = torch.any((d2 < eps_cov * eps_cov) & a_ok[:, :, None, None, :], dim=-1)
+    if profile_stage <= 4:
+        return fence_sum(covered, pts)
     seg = bounds[..., 1:] - bounds[..., :-1]
     seg2 = seg * seg * dot3(e3, e3)[..., None]                            # (N, CF, S, X+1)
 
@@ -178,7 +191,7 @@ def _cap_candidates(conv, mtris, mmask, cut_planes, cut_mask, mas, cfg):
 
 
 def cap_fans_batch(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, mas, cfg,
-                   solid_grid=None):
+                   solid_grid=None, profile_stage: int = 99):
     """Exact caps for a candidate batch (leading axis N).
 
     conv is the pre-refit candidate convex (its faces on the cut planes
@@ -190,12 +203,16 @@ def cap_fans_batch(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, m
     each candidate's solid is probed by ray parity.
 
     Returns (cap_rows (N, CT, 3, 3), cap_ok (N, CT), pool_v (N, CP, 3),
-    pool_m (N, CP), dropped ())."""
+    pool_m (N, CP), dropped ()), or with ``profile_stage`` 1-4 the fence of
+    that stage of ``_cap_candidates``."""
     CF, CT, CP = cfg.cap_faces, cfg.cap_tris, cfg.cap_pool
     # The record pool is never smaller than the cap count asked for.
     E = max(cfg.cap_edge_pool, cfg.cap_tris)
     dev = mtris.device
-    rec, flag, pls, n_over = _cap_candidates(conv, mtris, mmask, cut_planes, cut_mask, mas, cfg)
+    cc = _cap_candidates(conv, mtris, mmask, cut_planes, cut_mask, mas, cfg, profile_stage)
+    if profile_stage <= 4:
+        return cc
+    rec, flag, pls, n_over = cc
     N, RT = flag.shape
 
     idx, n_e = compact(torch.arange(RT, device=dev).expand(N, RT)[..., None], flag, E)

@@ -1,8 +1,10 @@
 """The broadphases that are plain PyTorch on both devices (counterparts of
 ``surtr_tpu/physics/step.py``): ``block_sweep``, the XLA blocked
 full-recall sweep ``_broadphase``; ``morton`` and ``morton_window_sweep``,
-the XLA Morton-window sweep ``_broadphase_sorted`` (the plain version of
-kernel B12, ``broadphase_cuda``); and the ``pidx[pidx]`` mutual mask.
+the XLA Morton-window sweep ``_broadphase_sorted`` (also the plain version
+of kernel B12, ``broadphase_cuda``, which takes K <= 2·window only);
+``grid_sweep``, the uniform-grid sweep ``_broadphase_grid``; and the
+``pidx[pidx]`` mutual mask.
 
 The exact sweep's contract, as the JAX package's ``jax.lax.top_k`` over the
 score row ``where(ok, -d², -BIG)`` gives it: each piece lists the K nearest pieces
@@ -109,12 +111,12 @@ def morton_window_sweep(centers, lo, hi, owner, valid, K: int, window: int):
     d = 1..W, inside [0, Np) with the exact AABB test (both valid, other
     owner) and keeps the K best by -d², ties and filler to the earliest
     delta. Returns (pidx, pok) in original piece order, not yet mutual;
-    a filler slot names the piece at the clamped rank r + d."""
+    a filler slot names the piece at the clamped rank r + d. With K > 2W
+    the slots past the 2W candidates are filler at delta +1, as the JAX
+    package pads its top_k."""
     Np = centers.shape[0]
     dev = centers.device
     deltas = window_deltas(window)
-    if K > len(deltas):
-        raise ValueError(f"morton_window_sweep: K={K} > 2·window={len(deltas)}")
     order = torch.sort(morton(centers, valid), stable=True).indices
     inv = torch.empty_like(order)
     inv[order] = torch.arange(Np, device=dev)
@@ -133,6 +135,64 @@ def morton_window_sweep(centers, lo, hi, owner, valid, K: int, window: int):
     score = torch.where(ok, -d2, -BIG)
     s = torch.sort(score, dim=1, descending=True, stable=True)
     top, kidx = s.values[:, :K], s.indices[:, :K]
+    if K > len(deltas):
+        pad = K - len(deltas)
+        top = torch.cat([top, top.new_full((Np, pad), -BIG)], 1)
+        kidx = torch.cat([kidx, kidx.new_zeros((Np, pad))], 1)
     part_rank = torch.clamp(torch.gather(rank, 1, kidx), 0, Np - 1)
+    pidx = order[part_rank].to(torch.int32)
+    return pidx[inv], (top > -BIG / 2)[inv]
+
+
+def grid_sweep(centers, lo, hi, owner, valid, K: int, cap: int):
+    """Uniform-grid broadphase (the JAX package's ``step._broadphase_grid``):
+    full recall up to ``cap`` pieces per cell. The cell edge is the largest
+    valid AABB extent, so overlapping pieces' centres lie in neighbouring
+    cells; pieces sort (stable) by a packed cell key (10 bits an axis, z
+    lowest), each of a piece's 9 neighbour columns (three cells along z)
+    is one run of the sorted table found by ``searchsorted``, the first
+    3·cap of each run are tested with the exact AABB test, and the K
+    nearest are kept (ties and filler to the earlier candidate). Returns
+    (pidx, pok) in original piece order, not yet mutual."""
+    Np = centers.shape[0]
+    dev = centers.device
+    f = centers.dtype
+    vm = valid[:, None]
+    ext = torch.amax(torch.where(vm, hi - lo, 0.0))
+    h = torch.clamp(ext, min=1e-6) * (1.0 + 1e-5)
+    wlo = torch.amin(torch.where(vm, centers, BIG), dim=0)
+    # Clamped before the integer conversion, which then saturates as
+    # XLA's does; clipping far pieces into the boundary cell only adds
+    # candidates.
+    cf = torch.clamp(torch.floor((centers - wlo) / h), -2.0, 1100.0)
+    cc = torch.clamp(cf.to(torch.int32) + 1, 1, 1022)
+    key = (cc[:, 0] << 20) | (cc[:, 1] << 10) | cc[:, 2]
+    key = torch.where(valid, key, 0x7F000000).to(torch.int32)
+    order = torch.sort(key, stable=True).indices
+    keys_s = key[order].contiguous()
+    pack = torch.cat([centers, lo, hi, owner[:, None].to(f), valid[:, None].to(f)], 1)[order]
+
+    dc = torch.tensor([dx * (1 << 20) + dy * (1 << 10) for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
+                      dtype=torch.int32, device=dev)
+    probes = torch.cat([keys_s[:, None] + (dc - 1), keys_s[:, None] + (dc + 2)], 1)
+    se = torch.searchsorted(keys_s, probes.contiguous())                # (Np, 18)
+    start, end = se[:, :9], se[:, 9:]
+    ccap = 3 * cap
+    ranks = (start[:, :, None] + torch.arange(ccap, device=dev)).reshape(Np, 9 * ccap)
+    rk = torch.clamp(ranks, 0, Np - 1)
+    in_cell = ranks < torch.repeat_interleave(end, ccap, dim=1)
+
+    cand = pack[rk]                                                      # (Np, 27·cap, 11)
+    me = pack[:, None]
+    over = torch.all((me[..., 3:6] <= cand[..., 6:9]) & (cand[..., 3:6] <= me[..., 6:9]), -1)
+    ok = (over & in_cell & (cand[..., 10] > 0.5) & (me[..., 10] > 0.5)
+          & (cand[..., 9] != me[..., 9]) & (rk != torch.arange(Np, device=dev)[:, None]))
+    diff = me[..., 0:3] - cand[..., 0:3]
+    score = torch.where(ok, -dot3(diff, diff), -BIG)
+    s = torch.sort(score, dim=1, descending=True, stable=True)
+    top, kidx = s.values[:, :K], s.indices[:, :K]
+    part_rank = torch.gather(rk, 1, kidx)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(Np, device=dev)
     pidx = order[part_rank].to(torch.int32)
     return pidx[inv], (top > -BIG / 2)[inv]

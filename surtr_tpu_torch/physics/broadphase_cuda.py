@@ -266,7 +266,10 @@ def apply_theta_mutual(pidx, pok, mut):
 
 def broadphase_sorted_reference(centers, lo, hi, owner, valid, K: int, window: int):
     """Plain version of B12: the Morton-window sweep, then the mutual mask
-    ``any(pidx[pidx] == i)``. (pidx, pok) in original order."""
+    ``any(pidx[pidx] == i)``. (pidx, pok) in original order. B12 takes
+    K <= 2·window only."""
+    if K > 2 * window:
+        raise ValueError(f"broadphase_sorted: K={K} > 2·window={2 * window}")
     pidx, pok = morton_window_sweep(centers, lo, hi, owner, valid, K, window)
     return pidx, mutual(pidx, pok)
 

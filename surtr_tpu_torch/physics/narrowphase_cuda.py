@@ -13,7 +13,11 @@ fj + 1).
 Output (Np, K, 5 + 6M) f32: [nx, ny, nz, depth, hit] then per point m
 [val, hit, px, py, pz, fid] — the JAX kernel's output rows, pair-major.
 ``narrowphase`` runs the plain version for CPU tensors and the kernel, or
-raises, for CUDA tensors.
+raises, for CUDA tensors. ``narrowphase_reference(..., divide=True)`` is
+also the JAX package's XLA narrowphase (``physics_step`` with
+``pallas_narrowphase`` off), plain PyTorch on either device: the XLA code
+normalises the edge cross axes by division where the kernel multiplies by a
+reciprocal, which moves an axis by an ulp and, through near ties, the pick.
 """
 
 from __future__ import annotations
@@ -36,13 +40,28 @@ def out_rows(M: int) -> int:
     return 5 + 6 * M
 
 
+def live_records(raw, M: int):
+    """Records (..., 5 + 6M) with every field that is not live set to 0: the
+    pair's [n, depth, hit] where the pair hits, each point's [val, hit, p,
+    fid] where the point hits. Unfilled points hold -BIG, so a sum over the
+    raw records overflows; over the live ones it does not."""
+    keep = torch.zeros_like(raw, dtype=torch.bool)
+    keep[..., :5] = raw[..., 4:5] > 0.5
+    for m in range(M):
+        o = 5 + 6 * m
+        keep[..., o : o + 6] = raw[..., o + 1 : o + 2] > 0.5
+    return torch.where(keep, raw, 0.0)
+
+
 def _dot(a, b):
     return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
 
 
-def narrowphase_reference(packed, pidx, pok, Vh: int, F: int, Ne: int, M: int, slop: float):
+def narrowphase_reference(packed, pidx, pok, Vh: int, F: int, Ne: int, M: int, slop: float,
+                          divide: bool = False):
     """Plain version: packed (Np, D) from ``transform_pack_owned``, pidx (Np, K),
-    pok (Np, K) → (Np, K, 5 + 6M)."""
+    pok (Np, K) → (Np, K, 5 + 6M). ``divide`` normalises the edge axes by
+    division, as the JAX package's XLA narrowphase does (module docstring)."""
     Np, K = pidx.shape
     offs, _ = pack_layout(Vh, F, Ne)
     pj = packed[torch.clamp(pidx.long(), 0, Np - 1)]            # (Np, K, D)
@@ -87,8 +106,12 @@ def narrowphase_reference(packed, pidx, pok, Vh: int, F: int, Ne: int, M: int, s
         cy = (ie[2] * je[0] - ie[0] * je[2]).reshape(Np, K, Ne * Ne)
         cz = (ie[0] * je[1] - ie[1] * je[0]).reshape(Np, K, Ne * Ne)
         nl = sqrt_rn((cx * cx + cy * cy) + cz * cz)
-        inv = 1.0 / torch.clamp(nl, min=1e-30)
-        c = [cx * inv, cy * inv, cz * inv]
+        den = torch.clamp(nl, min=1e-30)
+        if divide:
+            c = [cx / den, cy / den, cz / den]
+        else:
+            inv = 1.0 / den
+            c = [cx * inv, cy * inv, cz * inv]
         emk = ((take(pi, "em")[..., :, None] > 0.5) & (take(pj, "em")[..., None, :] > 0.5))
         emk = emk.reshape(Np, K, Ne * Ne) & (nl > 1e-6)
         cc = [t[..., None, :] for t in c]                        # (Np,K,1,E2)

@@ -1,31 +1,42 @@
 """The rigid-body step (counterpart of ``surtr_tpu/physics/step.py``
-``physics_step`` as the JAX package runs it on its kernels: the fused path
-of ``_physics_step_body`` with ``_fused_prep_solve`` for single-piece
-bodies, ``_assemble_and_solve`` for compound bodies, ``_finish_step`` and
-``_integrate``).
+``physics_step``, every ``PhysicsConfig`` route of ``_physics_step_body``).
 
 One call is one fixed ``cfg.dt`` step:
-  1. world transforms, 26-DOP intervals and AABBs in one pass (kernel B5);
-  2. broadphase, mutual pairs only, dispatched as the JAX package does on
-     its kernels: "auto" takes the exact block sweep (``broadphase.py``)
-     up to ``broadphase_block`` pieces, the sweep-and-prune B6 up to
-     ``MAX_EXACT_NP`` and beyond that the Morton window B12 with a
-     ``RecallDegradedWarning``; "exact", "exact_pallas" and "sorted" pick
-     one of the three;
-  3. pair narrowphase: SAT normal, depth and an M-point manifold (B7);
+  1. world transforms, 26-DOP intervals and AABBs in one pass: kernel B5,
+     which also packs the narrowphase's rows; with ``pallas_narrowphase``
+     off, B5's plain version on either device (the JAX package's XLA
+     stage 1 computes the same rows and values);
+  2. broadphase, mutual pairs only, dispatched as the JAX package does:
+     "auto" takes the exact block sweep (``broadphase.py``) up to
+     ``broadphase_block`` pieces, the sweep-and-prune B6 up to
+     ``MAX_EXACT_NP`` and beyond that the Morton window with a
+     ``RecallDegradedWarning`` (without ``pallas_broadphase`` the XLA
+     window sweep past ``broadphase_block``); "sorted" runs B12 for K <=
+     2·window with ``pallas_broadphase``, else the XLA window sweep
+     (``morton_window_sweep``); "grid" the uniform-grid sweep
+     (``grid_sweep``); "exact" and "exact_pallas" one of the first two;
+  3. pair narrowphase: SAT normal, depth and an M-point manifold (B7, or
+     with ``pallas_narrowphase`` off the JAX package's XLA formulation:
+     B7's plain version with ``divide=True``, on either device);
      ground contacts: the G deepest corners below ``ground_y``;
-  4. single-piece bodies (row i is body i): contact prep (B8), the matched
-     warm impulses under ``warm_start``, then ceil(iters / substeps)
-     Jacobi iterations (B9, accumulated mode under ``warm_start``), the
-     island-wake flag riding along. Compound bodies: slot assembly and the
-     Jacobi solver in plain PyTorch with per-body segment sums, as the JAX
-     package runs them in XLA on every device;
+  4. single-piece bodies (row i is body i) with ``fused_prep``: contact
+     prep (B8), the matched warm impulses under ``warm_start``, then
+     ceil(iters / substeps) Jacobi iterations (B9, accumulated mode under
+     ``warm_start``), the island-wake flag riding along. Otherwise the slot
+     assembly and contact prep in plain PyTorch (the JAX package's
+     ``_assemble_and_solve``), then B9 for single-piece bodies and, for
+     compound bodies, the Jacobi solver with per-body segment sums in plain
+     PyTorch, as the JAX package runs it in XLA on every device;
   5. sleep bookkeeping and symplectic Euler with quaternion
      renormalization.
 
-On CUDA tensors the kernels run; on CPU tensors their plain versions. What
-the JAX package does off these paths raises ``NotImplementedError`` naming
-the ROADMAP item.
+On CUDA tensors the kernels run; on CPU tensors their plain versions.
+The ``force_pallas_*`` fields are no-ops here: the kernel route is the
+default on both devices, as the JAX package's forced route is off its TPU.
+``profile_stage`` truncates the step after stage 1, 2, 3, 35 (contact prep
+without the solver) or 4, at the JAX package's points, returning the scene
+with ``bodies.x + Σ·1e-30`` (``_stage_out``); ``stage_arrays`` returns the
+arrays that sum is taken over.
 """
 
 from __future__ import annotations
@@ -39,16 +50,19 @@ import torch
 from surtr_tpu_torch.config import PhysicsConfig
 from surtr_tpu_torch.ops.hull import _cross
 from surtr_tpu_torch.ops.linalg import dot3, matvec3, sqrt_rn
-from surtr_tpu_torch.physics.broadphase import block_sweep, mutual
+from surtr_tpu_torch.physics.broadphase import (block_sweep, grid_sweep, morton_window_sweep,
+                                                mutual)
 from surtr_tpu_torch.physics.broadphase_cuda import (MAX_EXACT_NP, apply_theta_mutual,
                                                      broadphase_exact, broadphase_sorted)
-from surtr_tpu_torch.physics.narrowphase_cuda import narrowphase
-from surtr_tpu_torch.physics.pack_cuda import transform_pack_owned
+from surtr_tpu_torch.physics.narrowphase_cuda import narrowphase, narrowphase_reference
+from surtr_tpu_torch.physics.pack_cuda import (pack_layout, transform_pack_owned,
+                                               transform_pack_owned_reference)
 from surtr_tpu_torch.physics.prep_cuda import prep_from_records, warm_preapply
 from surtr_tpu_torch.physics.rigid import quat_integrate, world_inv_inertia
 from surtr_tpu_torch.physics.scene import PhysicsScene
 from surtr_tpu_torch.physics.slots import slot_rows, slot_sum
 from surtr_tpu_torch.physics.solver_cuda import solve, solve_warm
+from surtr_tpu_torch.profiling import fence_sum
 
 BIG = 3.4e38
 
@@ -59,42 +73,29 @@ class RecallDegradedWarning(UserWarning):
     made loud."""
 
 
-def _check_slice(cfg: PhysicsConfig, profile_stage: int) -> None:
-    """Raise for every configuration the port does not run."""
-    if profile_stage != 99:
-        raise NotImplementedError(
-            "physics_step: profile_stage truncation is not ported (ROADMAP A14, profiling)")
-    for flag in ("pallas_narrowphase", "fused_prep", "pallas_broadphase"):
-        if not getattr(cfg, flag):
-            raise NotImplementedError(
-                f"physics_step: {flag}=False picks the JAX package's XLA formulation of a "
-                "function a ported kernel computes; not ported (ROADMAP A9)")
-
-
 def _broadphase_mode(cfg: PhysicsConfig, Np: int) -> str:
+    """The broadphase the JAX package's dispatch picks: "exact",
+    "exact_pallas" (B6), "sorted" (B12), "sorted_xla" or "grid"."""
     mode = cfg.broadphase
     if mode == "auto":
         if Np <= cfg.broadphase_block:
             return "exact"
-        if Np <= MAX_EXACT_NP:
+        if cfg.pallas_broadphase and Np <= MAX_EXACT_NP:
             return "exact_pallas"
+        why = (f"> MAX_EXACT_NP={MAX_EXACT_NP}" if cfg.pallas_broadphase
+               else "and pallas_broadphase=False (no kernel broadphase)")
         warnings.warn(
-            f"broadphase='auto' with Np={Np} > MAX_EXACT_NP={MAX_EXACT_NP}: falling back to "
-            "the Morton-window sweep, which can MISS overlapping pairs on dense piles. Set "
-            "broadphase='sorted' to acknowledge, or 'exact' for full recall at higher cost.",
+            f"broadphase='auto' with Np={Np} {why}: falling back to the Morton-window sweep, "
+            "which can MISS overlapping pairs on dense piles. Set broadphase='sorted' to "
+            "acknowledge, or 'grid'/'exact' for full recall at higher cost.",
             RecallDegradedWarning, stacklevel=3)
         mode = "sorted"
-    if mode == "grid":
-        raise NotImplementedError(
-            "physics_step: broadphase='grid' needs the uniform-grid sweep, which the port "
-            "leaves out (ROADMAP A, Leave out)")
-    if mode not in ("exact", "exact_pallas", "sorted"):
-        raise NotImplementedError(f"physics_step: unknown broadphase {cfg.broadphase!r}")
-    if mode == "sorted" and cfg.max_neighbors > 2 * cfg.broadphase_window:
-        raise NotImplementedError(
-            f"physics_step: broadphase='sorted' with K={cfg.max_neighbors} > 2·window="
-            f"{2 * cfg.broadphase_window} takes the JAX package's XLA window sweep; not "
-            "ported (ROADMAP A9)")
+    if mode == "sorted":
+        if cfg.pallas_broadphase and cfg.max_neighbors <= 2 * cfg.broadphase_window:
+            return "sorted"
+        return "sorted_xla"
+    if mode not in ("exact", "exact_pallas", "grid"):
+        raise ValueError(f"physics_step: unknown broadphase {cfg.broadphase!r}")
     return mode
 
 
@@ -102,30 +103,65 @@ def physics_step(scene: PhysicsScene, cfg: PhysicsConfig, profile_stage: int = 9
                  mark=None) -> PhysicsScene:
     """One fixed step. ``mark``, when given, is called with each stage's name
     as the stage's work has been issued (pack, broadphase, narrowphase,
-    glue, prep, solver, finish; compound bodies have no prep stage), for
-    stage timing."""
-    _check_slice(cfg, profile_stage)
+    glue, prep, solver, finish; without ``fused_prep`` or with compound
+    bodies there is no prep stage), for
+    stage timing. ``profile_stage`` < 99 truncates the step (module
+    docstring)."""
     mode = _broadphase_mode(cfg, scene.Np)
-    if cfg.sleep_velocity > 0 and cfg.skip_all_asleep:
+    if cfg.sleep_velocity > 0 and cfg.skip_all_asleep and profile_stage >= 99:
         # Nothing inside the step can wake a scene whose every active body
         # sleeps (a wake needs a moving contact): the step is the identity.
         b = scene.bodies
         asleep = (scene.sleep_frames >= cfg.sleep_frames) | ~b.active
         if bool(torch.all(asleep) & torch.any(b.active)):
             return scene
-    return _step_body(scene, cfg, mode, mark or (lambda name: None))
+    out = _step_body(scene, cfg, mode, mark or (lambda name: None), profile_stage)
+    return _stage_out(scene, *out) if isinstance(out, _Stage) else out
+
+
+def stage_arrays(scene: PhysicsScene, cfg: PhysicsConfig, profile_stage: int,
+                 mark=None) -> tuple:
+    """The arrays the step truncated at ``profile_stage`` folds into
+    ``bodies.x`` (their ``profiling.fence_sum`` is the fence), for reading
+    a stage's output. On the kernel route, stage 3's are B7's raw records,
+    whose unfilled points hold -BIG, so their fence is -inf there as in the
+    JAX package."""
+    out = _step_body(scene, cfg, _broadphase_mode(cfg, scene.Np), mark or (lambda name: None),
+                     profile_stage)
+    if not isinstance(out, _Stage):
+        raise ValueError(f"stage_arrays: profile_stage {profile_stage} truncates nothing")
+    return tuple(out)
+
+
+class _Stage(tuple):
+    """What a truncated step body returns: the stage's arrays."""
+
+
+def _stage_out(scene: PhysicsScene, *arrays) -> PhysicsScene:
+    """The truncated step's result: ``bodies.x`` plus 1e-30 times the sum of
+    every element of ``arrays`` (the JAX package's fence). The sum runs in
+    float64 and is rounded once, so its value does not depend on the
+    device's reduction order."""
+    b = scene.bodies
+    x = b.x + fence_sum(*arrays).to(b.x.dtype) * 1e-30
+    return dataclasses.replace(scene, bodies=dataclasses.replace(b, x=x))
 
 
 def _broadphase(mode, cfg: PhysicsConfig, centers, lo, hi, owner, valid):
     """(pidx (Np, K) i32, pok (Np, K) bool), mutual pairs only."""
     K = cfg.max_neighbors
-    if mode == "exact":
-        pidx, pok = block_sweep(centers, lo, hi, owner, valid, K, cfg.broadphase_block)
-        return pidx, mutual(pidx, pok)
     if mode == "exact_pallas":
         pidx, pok, mut = broadphase_exact(centers, lo, hi, owner, valid, K)
         return pidx, apply_theta_mutual(pidx, pok, mut)
-    return broadphase_sorted(centers, lo, hi, owner, valid, K, cfg.broadphase_window)
+    if mode == "sorted":
+        return broadphase_sorted(centers, lo, hi, owner, valid, K, cfg.broadphase_window)
+    if mode == "exact":
+        pidx, pok = block_sweep(centers, lo, hi, owner, valid, K, cfg.broadphase_block)
+    elif mode == "grid":
+        pidx, pok = grid_sweep(centers, lo, hi, owner, valid, K, cfg.broadphase_bucket_cap)
+    else:
+        pidx, pok = morton_window_sweep(centers, lo, hi, owner, valid, K, cfg.broadphase_window)
+    return pidx, mutual(pidx, pok)
 
 
 def _ground_contacts(cfg: PhysicsConfig, wverts, wmask, pvalid):
@@ -171,37 +207,56 @@ def _start_velocities(scene: PhysicsScene, cfg: PhysicsConfig):
     return asleep_in, bodies.v + cfg.dt * gravity * grav_on[:, None], bodies.w
 
 
-def _step_body(scene: PhysicsScene, cfg: PhysicsConfig, mode: str, mark) -> PhysicsScene:
+def _step_body(scene: PhysicsScene, cfg: PhysicsConfig, mode: str, mark,
+               profile_stage: int = 99) -> PhysicsScene:
     bodies = scene.bodies
     Np = scene.Np
     M = max(1, cfg.manifold_points)
     Ne = max(cfg.max_edge_dirs, 0)
     Vh, Fp = scene.piece_verts.shape[1], scene.piece_planes.shape[1]
+    single = cfg.single_piece_bodies and Np == scene.B
+    use_fast = cfg.pallas_narrowphase and single and cfg.fused_prep
+    margin = cfg.contact_slop * 4.0
 
-    # 1. World transforms + packing at the owners' poses (B5).
-    packed, aabb = transform_pack_owned(
+    # 1. World transforms + packing at the owners' poses (B5, or its plain
+    # version on either device, which gives the XLA formulation's values).
+    pack = transform_pack_owned if cfg.pallas_narrowphase else transform_pack_owned_reference
+    packed, aabb = pack(
         scene.piece_verts, scene.piece_vmask, scene.piece_planes, scene.piece_pmask,
-        scene.piece_edges, scene.piece_emask, scene.piece_owner, scene.piece_valid, bodies.q,
-        bodies.x, cfg.contact_slop * 4.0,
+        scene.piece_edges, scene.piece_emask, scene.piece_owner, scene.piece_valid,
+        bodies.q, bodies.x, margin,
     )
     mark("pack")
+    if profile_stage <= 1:
+        if use_fast:
+            return _Stage((aabb,))
+        o = pack_layout(Vh, Fp, Ne)[0]["lod"][0]
+        return _Stage((aabb[:, 6:9], packed[:, o : o + 26]))
 
     # 2. Broadphase, mutual pairs only.
     pvalid = scene.piece_valid & (scene.piece_owner >= 0)
     pidx, pok = _broadphase(mode, cfg, aabb[:, 6:9], aabb[:, 0:3], aabb[:, 3:6],
                             scene.piece_owner, pvalid)
     mark("broadphase")
+    if profile_stage <= 2:
+        return _Stage((pidx, pok))
 
-    # 3. Pair narrowphase (B7) and the ground contacts.
-    raw = narrowphase(packed, pidx, pok, Vh, Fp, Ne, M, cfg.contact_slop)   # (Np, K, 5+6M)
+    # 3. Pair narrowphase (B7 or the XLA formulation) and the ground contacts.
+    if cfg.pallas_narrowphase:
+        raw = narrowphase(packed, pidx, pok, Vh, Fp, Ne, M, cfg.contact_slop)   # (Np, K, 5+6M)
+    else:
+        raw = narrowphase_reference(packed, pidx, pok, Vh, Fp, Ne, M, cfg.contact_slop,
+                                    divide=True)
     mark("narrowphase")
+    if use_fast and profile_stage <= 3:
+        return _Stage((raw,))
     wverts = packed[:, : 3 * Vh].reshape(Np, 3, Vh).transpose(1, 2)
     ground = _ground_contacts(cfg, wverts, scene.piece_vmask, pvalid)
 
-    if cfg.single_piece_bodies and Np == scene.B:
-        return _fused_prep_solve(scene, cfg, raw, pidx, ground, mark)
+    if single and cfg.fused_prep and profile_stage > 3:
+        return _fused_prep_solve(scene, cfg, raw, pidx, ground, mark, profile_stage)
     owner = torch.clamp(scene.piece_owner, 0, scene.B - 1).long()
-    return _assemble_and_solve(scene, cfg, raw, pidx, owner, ground, mark)
+    return _assemble_and_solve(scene, cfg, raw, pidx, owner, ground, mark, single, profile_stage)
 
 
 def _warm_match(scene: PhysicsScene, pidx, fid, K: int, M: int, G: int):
@@ -220,7 +275,8 @@ def _warm_match(scene: PhysicsScene, pidx, fid, K: int, M: int, G: int):
     return torch.cat([lam.reshape(Np, M * K, 3), lam.new_zeros((Np, G, 3))], dim=1)
 
 
-def _fused_prep_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, ground, mark):
+def _fused_prep_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, ground, mark,
+                      profile_stage: int = 99):
     """Single-piece bodies: prep (B8) and the solver iterations (B9)."""
     bodies = scene.bodies
     Np, K = pidx.shape
@@ -240,6 +296,8 @@ def _fused_prep_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, ground
         K=K, M=M, G=G, dt=cfg.dt, slop=cfg.contact_slop, baumgarte=cfg.baumgarte,
         restitution=cfg.restitution, bounce_thr=cfg.bounce_threshold,
     )
+    if profile_stage == 35:   # contact prep only
+        return _Stage(tables)
     kw = dict(K=K, M=M, G=G, iters=cfg.solver_iters, substeps=cfg.solver_substeps,
               mu=cfg.dynamic_friction)
     warm = None
@@ -261,7 +319,7 @@ def _fused_prep_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, ground
 
     hs = tables[4]
     out = _finish_step(scene, vw[:, 0:3], vw[:, 3:6], cfg, vn0, hs[:, :C] > 0.5, hs[:, C:] > 0.5,
-                       wake_prop=vw[:, 6] > 0.5, warm=warm)
+                       wake_prop=vw[:, 6] > 0.5, warm=warm, profile_stage=profile_stage)
     mark("finish")
     return out
 
@@ -285,11 +343,14 @@ def _segment_any(flags: torch.Tensor, myb: torch.Tensor, B: int) -> torch.Tensor
     return out.scatter_reduce(0, myb, flags.to(torch.int32), "amax") > 0
 
 
-def _assemble_and_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, owner, ground, mark):
-    """Compound bodies: (Np, C) slot assembly, sleeping partners made
-    static, and the Jacobi solver over body velocities with mass splitting
-    and per-body segment sums (the JAX package's ``_assemble_and_solve``
-    solver path, plain PyTorch on both devices)."""
+def _assemble_and_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, owner, ground, mark,
+                        single: bool = False, profile_stage: int = 99):
+    """The JAX package's ``_assemble_and_solve``, plain PyTorch on both
+    devices up to the solver: (Np, C) slot assembly, sleeping partners made
+    static, contact prep (lever arms, effective masses, targets, mass
+    splitting). Single-piece bodies (row i is body i, no gathers through
+    the owner) then take B9 on the same tables; compound bodies the Jacobi
+    solver over body velocities with per-body segment sums."""
     bodies = scene.bodies
     Np, K = pidx.shape
     B = scene.B
@@ -318,10 +379,13 @@ def _assemble_and_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, owne
     asleep_in, v0, w0 = _start_velocities(scene, cfg)
     if cfg.sleep_velocity > 0:
         is_static = is_static | (asleep_in[partner_body] & ~is_static)
+    if profile_stage <= 3:
+        return _Stage((nrm, pts, dep, hit))
 
     inv_m = bodies.inv_mass
     inv_I = world_inv_inertia(bodies.q, bodies.inv_inertia_body)               # (B, 3, 3)
     myb = owner
+    own = (lambda a: a) if single else (lambda a: a[myb])  # noqa: E731
     pair_body = owner[torch.clamp(pidx.long(), 0, Np - 1)]                      # (Np, K)
     btab = torch.cat([bodies.x, inv_m[:, None], inv_I.reshape(B, 9), v0, w0], dim=1)
     bt_pair = btab[pair_body]                                                   # (Np, K, 19)
@@ -335,8 +399,8 @@ def _assemble_and_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, owne
     iB_I = torch.where(stat3[..., None], 0.0, tile_slots(bt_pair[..., 4:13]).reshape(Np, C, 3, 3))
     rA = pts - bodies.x[myb][:, None]
     rB = pts - xB
-    iA_m = inv_m[myb][:, None]                                                  # (Np, 1)
-    iA_I = inv_I[myb][:, None].expand(Np, C, 3, 3)
+    iA_m = own(inv_m)[:, None]                                                  # (Np, 1)
+    iA_I = own(inv_I)[:, None].expand(Np, C, 3, 3)
 
     def k_term(im, iI, r):
         rxn = _cross(r, nrm)
@@ -352,7 +416,7 @@ def _assemble_and_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, owne
         return torch.where(stat3, 0.0, vB + _cross(wB, rB))
 
     def own_vel(v, w):
-        return v[myb][:, None] + _cross(w[myb][:, None].expand(rA.shape), rA)
+        return own(v)[:, None] + _cross(own(w)[:, None].expand(rA.shape), rA)
 
     vB0 = torch.where(stat3, 0.0, tile_slots(bt_pair[..., 13:16])
                       + _cross(tile_slots(bt_pair[..., 16:19]), rB))
@@ -364,12 +428,32 @@ def _assemble_and_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, owne
 
     # Mass splitting: per-body hit counts.
     seg = scene.seg_start
-    cnt_body = _segment_sums(torch.sum(hit, dim=1, keepdim=True).to(f32), seg)[:, 0]
-    sA = (1.0 / torch.clamp(cnt_body, min=1.0))[myb][:, None]                  # (Np, 1)
+    cnt_piece = torch.sum(hit, dim=1, keepdim=True).to(f32)
+    cnt_body = (cnt_piece if single else _segment_sums(cnt_piece, seg))[:, 0]
+    split_body = 1.0 / torch.clamp(cnt_body, min=1.0)
+    sA = own(split_body)[:, None]                                              # (Np, 1)
+    if profile_stage == 35:   # contact prep only
+        return _Stage((m_eff, target, sA, rA, rB, v0, w0))
     mark("glue")
 
     mu = cfg.dynamic_friction
     S = max(1, cfg.solver_substeps)
+    if single:
+        # B9 on the assembled tables (the JAX package's solve_contacts_pallas).
+        planar = lambda a: torch.cat([a[..., 0], a[..., 1], a[..., 2]], dim=1)  # noqa: E731
+        tables = (planar(rA), planar(rB), planar(nrm), torch.cat([m_eff, target], 1),
+                  torch.cat([hit.to(f32), is_static.to(f32)], 1),
+                  torch.cat([iA_m * sA, sA], 1), inv_I.reshape(Np, 9))
+        wake0 = _wake_seed(v0, w0, bodies.active, cfg)
+        vw0 = torch.cat([v0, w0, wake0[:, None], torch.zeros_like(wake0[:, None])], dim=1)
+        vw = solve(vw0, torch.clamp(pidx.long(), 0, Np - 1), tables, K=K, M=M, G=G,
+                   iters=cfg.solver_iters, substeps=S, mu=mu)
+        mark("solver")
+        out = _finish_step(scene, vw[:, 0:3], vw[:, 3:6], cfg, vn0, hit, is_static,
+                           wake_prop=vw[:, 6] > 0.5, profile_stage=profile_stage)
+        mark("finish")
+        return out
+
     v, w = v0, w0
     for _ in range((cfg.solver_iters + S - 1) // S):
         # Chaotic-relaxation Jacobi: partner velocities once per outer
@@ -391,17 +475,20 @@ def _assemble_and_solve(scene: PhysicsScene, cfg: PhysicsConfig, raw, pidx, owne
             w = w + _segment_sums(piece_dw, seg)
     mark("solver")
 
-    out = _finish_step(scene, v, w, cfg, vn0, hit, is_static, myb=myb, pidx=pidx)
+    out = _finish_step(scene, v, w, cfg, vn0, hit, is_static, myb=myb, pidx=pidx,
+                       profile_stage=profile_stage)
     mark("finish")
     return out
 
 
 def _finish_step(scene, v1, w1, cfg: PhysicsConfig, vn0, hit, is_static, wake_prop=None,
-                 myb=None, pidx=None, warm=None):
+                 myb=None, pidx=None, warm=None, profile_stage: int = 99):
     """Sleep bookkeeping + stage-5 integration. Single-piece bodies bring the
     solver's island-wake flag (``wake_prop``); compound bodies (``myb``, the
     owner of each piece row) spread wake sources ``wake_hops`` hops over the
     pair-contact graph here, then reduce per body."""
+    if profile_stage <= 4:
+        return _Stage((v1, w1))
     bodies = scene.bodies
     sleep_frames = scene.sleep_frames
     push_frames = scene.push_frames

@@ -146,3 +146,27 @@ def translate_poly(p: ConvexPoly, t) -> ConvexPoly:
     n = p.planes[..., :3]
     d = p.planes[..., 3:4] - dot3(n, t)[..., None]
     return ConvexPoly(fv, p.n_verts, torch.cat([n, d], dim=-1))
+
+
+def stack_tree(trees: list):
+    """Stack a list of like-shaped containers (nested dataclasses, dicts or
+    tensors) field by field along a new leading axis (the counterpart of
+    ``jax.tree_util.tree_map(jnp.stack, *trees)``)."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, dict):
+        return {k: stack_tree([t[k] for t in trees]) for k in first}
+    return dataclasses.replace(first, **{f.name: stack_tree([getattr(t, f.name) for t in trees])
+                                         for f in dataclasses.fields(first)})
+
+
+def index_tree(tree, i: int):
+    """Element ``i`` of the leading axis of every field of a stacked
+    container (the inverse of ``stack_tree``)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    return dataclasses.replace(tree, **{f.name: index_tree(getattr(tree, f.name), i)
+                                        for f in dataclasses.fields(tree)})

@@ -6,6 +6,9 @@ and inputs that ``chip_smoke.py``, the tools and the tests drive:
   procedural sphere at the same configuration (its 320 triangles exceed
   the per-cell cull pool of 256, so it takes the culled pair-pool mesh
   clip, kernel B10);
+* BASELINE config 2, ``bench_batch64_1k`` (bench.py:256-292): 64 cubes
+  decomposed at 1k seeds each (``BATCH_CFG``, ``batch_inputs``), one
+  ``batch_decompose`` call;
 * the 1k-seed decomposition of a concave model at BASELINE config 1's
   configuration (``bench_decomposition_1k_model``, bench.py:136-188, its
   pumpkin absent here, so the procedural torus stands in): exact caps, the
@@ -19,8 +22,9 @@ and inputs that ``chip_smoke.py``, the tools and the tests drive:
 * the 10k-fragment physics lattice of ``bench_physics_10k``
   (bench.py:191-253) at its configuration (bench.py:207), and the
   variants ``chip_smoke.py`` drives beside it: the lattice bound in pairs
-  (compound bodies) and a 66,000-cube lattice (beyond the exact sweep's
-  pool limit);
+  (compound bodies), a 66,000-cube lattice (beyond the exact sweep's
+  pool limit) and the lattice under each ``PhysicsConfig`` route
+  (``ROUTES``);
 * the interactive frame of ``bench_interactive_frame`` (bench.py:372-434):
   ``Scene("cube", INTERACTIVE_CFG)`` and chained ``interactive_frame``
   calls with the bench's ray, camera and spawn, and its render tail
@@ -58,6 +62,21 @@ BENCH_CFG = FractureConfig(
     general_pattern_cell_cnt=8,
     exact_caps=False,
 )
+
+
+BATCH_CFG = FractureConfig(       # bench.py:264-275
+    initial_decompose_cell_cnt=1024,
+    max_pieces=1024,
+    max_faces=26,
+    max_face_verts=16,
+    max_piece_tris=64,
+    voronoi_neighbors=48,
+    voronoi_prefix=24,
+    partial_pattern_cell_cnt=8,
+    general_pattern_cell_cnt=8,
+    exact_caps=False,
+)
+BATCH_M = 64                      # bench.py:256
 
 
 MODEL_1K_CFG = FractureConfig(    # bench.py:152-161; every other field at its default
@@ -109,6 +128,19 @@ def bench_seeds(cfg: FractureConfig = BENCH_CFG, seed: int = SEED):
     )
 
 
+def batch_inputs(device="cuda", M: int = BATCH_M, cfg: FractureConfig = BATCH_CFG,
+                 model: str = "cube"):
+    """``batch_decompose``'s arguments for config 2: ``model`` stacked M
+    times (verts (M, V, 3), vmask, tri corners (M, T, 3, 3), tmask), the
+    sphere cloud, and per mesh i the seeds of ``bench_seeds(cfg, SEED + i)``
+    stacked to (M, C, 3), (M, Cp, 3), (M, Cg, 3), all on ``device``."""
+    v, vm, tc, tm, cloud = model_inputs(model, device)
+    seeds = [bench_seeds(cfg, SEED + i) for i in range(M)]
+    stack = lambda j: torch.stack([s[j] for s in seeds]).to(device)  # noqa: E731
+    return (v.expand((M,) + v.shape), vm.expand(M, -1), tc.expand((M,) + tc.shape),
+            tm.expand(M, -1), cloud, stack(0), stack(1), stack(2))
+
+
 def run_prepare(device="cuda", cfg: FractureConfig = BENCH_CFG, model: str = "cube"):
     """One ``prepare_fracture`` event of ``model`` on ``device``, seeded from
     ``manual_seed(SEED)`` (``bench_seeds``); config 1's stand-in is
@@ -148,6 +180,25 @@ WARM_CFG = dataclasses.replace(PHYSICS_CFG, warm_start=True, solver_iters=4, sol
 PAIRED_CFG = PhysicsConfig(max_hull_verts=8)
 # A lattice beyond the exact sweep's pool limit (MAX_EXACT_NP = 65,536).
 LARGE_LATTICE_N = 66_000
+
+
+# Every PhysicsConfig route beside the kernel route, as field changes of the
+# lattice's configuration: the XLA formulations the JAX package takes when
+# a switch is off, the Morton window beyond 2·window (K = 8 > 6) and the
+# uniform-grid broadphase. "all_off" turns the three switches off together.
+ROUTES = {
+    "xla_narrowphase": dict(pallas_narrowphase=False),
+    "unfused_prep": dict(fused_prep=False),
+    "xla_broadphase": dict(pallas_broadphase=False),
+    "sorted_k_beyond_two_windows": dict(broadphase="sorted", broadphase_window=3),
+    "grid": dict(broadphase="grid"),
+    "all_off": dict(pallas_narrowphase=False, fused_prep=False, pallas_broadphase=False),
+}
+
+
+def route_cfg(name: str, base: PhysicsConfig = PHYSICS_CFG) -> PhysicsConfig:
+    """``base`` with the field changes of ``ROUTES[name]``."""
+    return dataclasses.replace(base, **ROUTES[name])
 
 
 def lattice_offsets(n: int) -> np.ndarray:

@@ -46,6 +46,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import surtr_tpu_torch.workload, surtr_tpu_torch.scene, surtr_tpu_torch.checkpoint\n"
         "import surtr_tpu_torch.render.camera, surtr_tpu_torch.render.raster\n"
         "import surtr_tpu_torch.render.raster_cuda, surtr_tpu_torch.physics.queries\n"
+        "import surtr_tpu_torch.__main__, surtr_tpu_torch.profiling\n"
+        "import surtr_tpu_torch.fracture.batch, surtr_tpu_torch.physics.batch\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
