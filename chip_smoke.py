@@ -152,6 +152,23 @@ Phases (any failure exits non-zero):
      step, and of each ``prepare_fracture`` (1-7) and ``physics_step``
      (1, 2, 3, 35, 4) stage on the card, each stage's fence within rtol
      1e-5 of the CPU plain run's; ``profiling.trace`` of one 10k step.
+ 28. the last module slice: (a) B2's batched entry (``hull_cuda.ich_batch``,
+     one block a point set) against its plain version on the card, bit for
+     bit, on the refit pools of the cube 1k event at refitting_point_limit
+     8 and 20 and of the torus config-1 event at 20 and on degenerate
+     batches (0-3 live points, all masked, ties, coplanar, P = 45, 13,000
+     points a set, B = 1), with its wrapper, device and plain ms and its
+     bound; (b) the cube 1k event at limit 20 (B1 6, B2 2 of which one
+     batched, B3 1, no B4) and (c) the torus config-1 event at limit 20 and
+     the cube32 impact at limit 20 (B2 once, batched; no B4), and (d) the
+     sphere's 1k prepare with mesh_pair_pool=False (no B10), each against
+     its CPU plain run; (e) ``delaunay3d`` (24 and 256 points),
+     ``delaunay2d`` (30 and 512) and ``voronoi_dual_edges`` (20) on the
+     card against the CPU run, the small sizes also against scipy; (f)
+     ``sharded_batch_decompose`` (4 cubes at config 2's configuration) and
+     ``sharded_batch_step`` (2 copies of the 10k lattice, 8 steps) over
+     every visible GPU and over [cuda:0, cuda:0], each shard bit for bit
+     equal to its unsharded run, each tally to the unsharded sum.
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
@@ -1653,6 +1670,7 @@ IMPACT_STAGES = ("convex_out_of_sphere", "clip_planes_batch", "clip_trisoup",
 def all_counts() -> dict:
     """Launches of every kernel since the counts were last set to 0."""
     counts = {name: mod.launches for name, (mod, *_) in KERNELS.items()}
+    counts["ich_batch"] = hull_cuda.batch_launches
     counts["soup_clip"] = soup_clip_cuda.launches
     counts["raster"] = raster_cuda.launches
     counts["raster_glue"] = raster_cuda.glue_launches
@@ -1663,6 +1681,7 @@ def all_counts() -> dict:
 def reset_all():
     for mod, *_ in KERNELS.values():
         mod.launches = 0
+    hull_cuda.batch_launches = 0
     soup_clip_cuda.launches = 0
     raster_cuda.launches = 0
     raster_cuda.glue_launches = 0
@@ -3459,6 +3478,341 @@ def stages_phase(state, prepared, card, reps: int = 3):
     return {"ms": med, "fences": fences, "trace_kernel_records": records}
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the last module slice (the ICH refit on the batched B2, the
+# per-cell mesh-clip fallback, Delaunay, the sharded batch variants).
+# ---------------------------------------------------------------------------
+
+ICH_BATCH_SRC = "surtr_tpu_torch/csrc/ich.cu"
+ICH_BATCH_REPLACES = "surtr_tpu/ops/hull_pallas.py:51"
+REFIT_LIMITS = (8, 20)
+REFIT_EVENT_LAUNCHES = {"clip_fold": 6, "ich": 2, "ich_batch": 1, "labels": 1}
+REFIT_TORUS_LAUNCHES = {**REFIT_EVENT_LAUNCHES, "soup_clip": 1}
+REFIT_IMPACT_LAUNCHES = {"clip_fold": "> 0", "ich": 1, "ich_batch": 1, "labels": "> 0"}
+NOPOOL_LAUNCHES = {"clip_fold": 6, "ich": 1, "labels": 1, "refit": 1}
+SHARD_MESHES = 4
+SHARD_LATTICES = 2
+SHARD_STEPS = 8
+
+
+def refit_cfg(cfg, limit: int):
+    return dataclasses.replace(cfg, refitting_point_limit=limit)
+
+
+def compare_ich_batch(args, kw):
+    """Every set's face slots, face_valid, normals and inner bit for bit
+    equal to the plain batched hull's on the card."""
+    pts, mask = args[:2]
+    limit = kw["limit"]
+    got = hull_cuda.ich_batch(pts, mask, limit=limit)
+    want = hull_cuda.ich_batch_reference(pts, mask, limit=limit)
+    what = f"ich_batch ({tuple(pts.shape)}, limit {limit})"
+    for k in ("faces", "face_valid"):
+        if not torch.equal(got[k], want[k]):
+            bad = torch.nonzero((got[k] != want[k]).flatten(1).any(1)).flatten().tolist()
+            fail(f"{what}: {k} differ from the plain hull in sets {bad[:10]} ({len(bad)} in all)")
+    _same_bits(what, "normals", got["normals"], want["normals"])
+    _same_bits(what, "inner", got["inner"], want["inner"])
+    return 0.0
+
+
+def ich_batch_cases(device, g):
+    """Degenerate batches: sets with 0 to 3 live points and one all masked,
+    tied extreme points (an integer grid), a coplanar set, every point
+    twice, P = 45 (not a multiple of 32); two sets of 13,000 points (above
+    what a block stages in shared memory: the scratch path); B = 1."""
+    P = 45
+    pts = torch.randn((9, P, 3), generator=g)
+    mask = torch.rand((9, P), generator=g) > 0.3
+    mask[0] = False
+    for b, live in ((1, [4]), (2, [4, 30]), (3, [4, 9, 30])):
+        mask[b] = False
+        mask[b, live] = True
+    grid = torch.stack(torch.meshgrid(*[torch.arange(3.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    pts[4, :27] = grid
+    mask[4] = torch.arange(P) < 27
+    pts[5, :, 2] = 0.25
+    pts[6, 20:] = pts[6, :25].clone()
+    big = torch.rand((2, 13_000, 3), generator=g)
+    big_m = torch.rand((2, 13_000), generator=g) > 0.1
+    cases = [((pts, mask), {"limit": 20}), ((pts, mask), {"limit": 8}),
+             ((big, big_m), {"limit": 20}), ((pts[7:8], mask[7:8]), {"limit": 62})]
+    return [(tuple(t.to(device) for t in a), kw) for a, kw in cases]
+
+
+def ich_batch_bound(calls):
+    """Each input byte read once and each output written once, against the
+    float operations: per insertion and live point, the volumes of the
+    added and removed faces (counted as F faces of 6 operations, as for
+    the one-set B2), for the sets' live points."""
+    b = ops = 0.0
+    for a, kw in calls:
+        out = hull_cuda.ich_batch(*a, **kw)
+        b += nbytes(a) + nbytes(out)
+        limit = kw["limit"]
+        ops += float(a[1].sum()) * limit * (2 * max(limit, 4) + 4) * 6.0
+    return bound(b, ops)
+
+
+def refit_kernel_phase(card):
+    """Phase 28 (a): the refit pools of the cube 1k event at limits 8 and
+    20 and of the torus config-1 event at limit 20, recorded on the card,
+    and ``ich_batch_cases``: the batched B2 against its plain version on
+    the card, bit for bit; the wrapper's and the device ms a call, the
+    device launches a call, the plain version's ms and the bound."""
+    calls = {}
+    for model, cfg, limits in (("cube", workload.BENCH_CFG, REFIT_LIMITS),
+                               (CONCAVE_MODEL, CONCAVE_CFG, (20,))):
+        for limit in limits:
+            rec, _ = capture("ich_batch", lambda: run_prepare("cuda", refit_cfg(cfg, limit), model))
+            if len(rec) != 1:
+                fail(f"refit pools of {model} at limit {limit}: {len(rec)} ich_batch calls")
+            calls[f"{model} limit {limit}"] = rec[0]
+    degen = ich_batch_cases("cuda", torch.Generator().manual_seed(28))
+    for a, kw in list(calls.values()) + degen:
+        compare_ich_batch(a, kw)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": 0.0, "calls": {}}
+    for what, (a, kw) in calls.items():
+        call = lambda a=a, kw=kw: hull_cuda.ich_batch(*a, **kw)  # noqa: E731
+        plain = lambda a=a, kw=kw: hull_cuda.ich_batch_reference(*a, **kw)  # noqa: E731
+        dev_ms, other_ms, entries = device_split(call, "ich_kernel", runs=10)
+        b_ms, b_by = ich_batch_bound([(a, kw)])
+        t = {"shape": list(a[0].shape), "limit": kw["limit"],
+             "live_points": int(a[1].sum()), "ms": event_ms(call),
+             "device_ms": dev_ms, "other_device_ms": other_ms, "device_launches": entries,
+             "plain_ms": event_ms(plain, reps=3, warmup=1), "bound_ms": b_ms, "bound_by": b_by}
+        res["calls"][what] = t
+        print(f"ich_batch call {what} (B, P, 3) {t['shape']}: wrapper {t['ms']:.4f} ms, kernel "
+              f"{dev_ms:.4f} ms on the device, {entries:.0f} device launches a call, plain "
+              f"{t['plain_ms']:.2f} ms, bound {b_ms:.5f} ms ({b_by}) ({card})", flush=True)
+    main = res["calls"]["cube limit 20"]
+    res.update({k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
+    print(f"ich_batch: bit for bit on {len(calls)} recorded refit calls and {len(degen)} "
+          f"degenerate batches ({card})", flush=True)
+    return res
+
+
+def refit_event(what, cfg, model, want):
+    """One prepare at an ICH refit limit on the card, launches counted
+    (``want``), against the CPU plain run: counts equal, total volume
+    within rtol 1e-5, pieces slot for slot. Returns (launches, metrics,
+    cpu seconds)."""
+    reset_all()
+    pieces, ctx, met = run_prepare("cuda", cfg, model)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check_launches(what, counts, want)
+    g = {k: float(v) for k, v in met.items()}
+    if not bool(torch.isfinite(pieces.convex.face_verts).all()) or g["piece_cnt"] <= 0:
+        fail(f"{what}: pieces are not finite or none")
+    t0 = time.perf_counter()
+    cpieces, _, cmet = run_prepare("cpu", cfg, model)
+    cpu_s = time.perf_counter() - t0
+    c = {k: float(v) for k, v in cmet.items()}
+    for k in ("piece_cnt", "ich_face_cnt", "mesh_tris_dropped"):
+        if g[k] != c[k]:
+            fail(f"{what}: {k} cuda {g[k]} != cpu {c[k]}")
+    if abs(g["total_volume"] - c["total_volume"]) > 1e-5 * abs(c["total_volume"]):
+        fail(f"{what}: total_volume cuda {g['total_volume']} vs cpu {c['total_volume']}")
+    err = _piece_compare(what, pieces, cpieces, float(ctx.max_axis_scale))
+    print(f"{what} (cuda): {json.dumps(g)} launches: {json.dumps(counts)}; cpu plain run in "
+          f"{cpu_s:.2f} s agrees (counts, volume, pieces slot for slot, largest vertex "
+          f"difference {err:.3e})", flush=True)
+    return counts, g, cpu_s
+
+
+def refit_paths_phase(prepared, card):
+    """Phase 28 (b)-(d): the cube 1k event and the torus config-1 event at
+    refitting_point_limit 20 (B2 twice: the model hull and one batched
+    refit; no B4), the cube32 impact at limit 20 from the cube prepared in
+    phase 12 (B2 once, the batched refit; no B4), and the sphere's 1k
+    prepare with mesh_pair_pool=False (no B10), each against its CPU plain
+    run; ms per event of the limit-20 cube event beside the limit-4 one."""
+    res = {}
+    cfg20 = refit_cfg(workload.BENCH_CFG, 20)
+    res["cube_limit20"] = refit_event("cube 1k, refit limit 20", cfg20, "cube",
+                                      REFIT_EVENT_LAUNCHES)
+    res["torus_limit20"] = refit_event("torus config 1, refit limit 20",
+                                       refit_cfg(CONCAVE_CFG, 20), CONCAVE_MODEL,
+                                       REFIT_TORUS_LAUNCHES)
+    icfg = refit_cfg(workload.CUBE32_CFG, 20)
+    reset_all()
+    _, (out, met) = workload.run_impact("cuda", icfg, prepared)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    check_launches("cube32 impact, refit limit 20", counts, REFIT_IMPACT_LAUNCHES)
+    t0 = time.perf_counter()
+    _, (cout, cmet) = workload.run_impact("cpu", icfg, prepared)
+    cpu_s = time.perf_counter() - t0
+    _impact_compare("refit limit 20", out, met, cout, cmet, strict=True)
+    g = {k: float(v) for k, v in met.items()}
+    print(f"cube32 impact, refit limit 20 (cuda): {json.dumps(g)} launches: "
+          f"{json.dumps(counts)}; cpu plain run in {cpu_s:.2f} s agrees", flush=True)
+    res["impact_limit20"] = (counts, g, cpu_s)
+    res["sphere_nopool"] = refit_event(
+        "sphere 1k, mesh_pair_pool=False", dataclasses.replace(workload.BENCH_CFG,
+                                                               mesh_pair_pool=False),
+        "sphere", NOPOOL_LAUNCHES)
+    ms20 = host_ms(lambda: run_prepare("cuda", cfg20), reps=5, warmup=1)
+    ms4 = host_ms(lambda: run_prepare("cuda"), reps=5, warmup=1)
+    print(f"prepare_fracture cube 1k: refit limit 20 {ms20:.3f} ms/event, limit 4 {ms4:.3f} "
+          f"ms/event ({card})", flush=True)
+    return {k: {"launches": v[0], "metrics": v[1], "cpu_s": v[2]} for k, v in res.items()} | {
+        "cube_ms_limit20": ms20, "cube_ms_limit4": ms4}
+
+
+def _simplex_sets(t, valid):
+    return {tuple(sorted(r)) for r, v in zip(t.cpu().tolist(), valid.cpu().tolist()) if v}
+
+
+def delaunay_phase(card):
+    """Phase 28 (e): ``delaunay3d`` and ``delaunay2d`` on the card against
+    the CPU run of the same points (simplices as sets; where the tables
+    agree slot for slot, the real simplices' circumcentres within 1e-4 of
+    max(r, 1)): at the JAX package's test
+    sizes (24 and 30 points), also against ``scipy.spatial.Delaunay``; at
+    256 (3-D) and 512 (2-D) points against the CPU only;
+    ``voronoi_dual_edges`` at 20 points. ms per call on the card."""
+    from scipy.spatial import Delaunay
+
+    from surtr_tpu_torch.ops.delaunay import delaunay3d, voronoi_dual_edges
+    from surtr_tpu_torch.ops.delaunay2d import delaunay2d
+
+    res = {}
+    # The small clouds are the JAX package's tests' (tests/test_delaunay_checkpoint.py,
+    # test_delaunay2d.py), on which its triangulations equal scipy's.
+    for name, fn, d, n, seed, key, scipy_ok in (("3d", delaunay3d, 3, 24, 3, "tets", True),
+                                                ("3d", delaunay3d, 3, 256, 256, "tets", False),
+                                                ("2d", delaunay2d, 2, 30, 2, "tris", True),
+                                                ("2d", delaunay2d, 2, 512, 512, "tris", False)):
+        pts = np.random.default_rng(seed).uniform(-1, 1, (n, d)).astype(np.float32)
+        mask = torch.ones(n, dtype=torch.bool)
+        t0 = time.perf_counter()
+        g = fn(torch.as_tensor(pts, device="cuda"), mask.cuda())
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = fn(torch.as_tensor(pts), mask)
+        cpu_s = time.perf_counter() - t0
+        valid = f"{key[:-1]}_valid"
+        what = f"delaunay{name} ({n} points)"
+        sets = _simplex_sets(g[key], g[valid])
+        if not sets or sets != _simplex_sets(c[key], c[valid]):
+            fail(f"{what}: no simplex, or the card's simplices differ from the cpu run's")
+        slots = torch.equal(g[key].cpu(), c[key]) and torch.equal(g[valid].cpu(), c[valid])
+        if scipy_ok and sets != {tuple(sorted(t)) for t in
+                                 Delaunay(pts.astype(np.float64)).simplices}:
+            fail(f"{what}: the simplices differ from scipy.spatial.Delaunay's")
+        live = c[valid] & g[valid].cpu() if slots else None
+        if slots:
+            r = torch.clamp(torch.sqrt(torch.clamp(c.get("r2", torch.ones(len(live))), min=0)),
+                            min=1)
+            dc = (g["circumcenters"].cpu() - c["circumcenters"]).abs().amax(-1)
+            if not bool((dc[live] <= 1e-4 * r[live]).all()):
+                fail(f"{what}: circumcentres part from the cpu run's by "
+                     f"{float(dc[live].max()):.3e}")
+        ms = host_ms(lambda: fn(torch.as_tensor(pts, device="cuda"), mask.cuda()), reps=3,
+                     warmup=0)
+        res[f"{name}_{n}"] = {"simplices": len(sets), "slot_for_slot": slots, "ms": ms,
+                              "cpu_s": cpu_s, "first_call_s": first_s}
+        print(f"{what}: {len(sets)} simplices, as the cpu run"
+              + (" slot for slot" if slots else " (as sets; the slots differ)")
+              + (" and scipy" if scipy_ok else "") + f"; {ms:.2f} ms on the card, cpu "
+              f"{cpu_s:.2f} s ({card})", flush=True)
+    pts = torch.as_tensor(np.random.default_rng(1).uniform(-1, 1, (20, 3)).astype(np.float32))
+    mask = torch.ones(20, dtype=torch.bool)
+    ge, gm = voronoi_dual_edges(delaunay3d(pts.cuda(), mask.cuda()))
+    ce, cm = voronoi_dual_edges(delaunay3d(pts, mask))
+    if not torch.equal(gm.cpu(), cm) or int(cm.sum()) <= 10:
+        fail(f"voronoi_dual_edges: masks differ or too few edges ({int(cm.sum())})")
+    de = float((ge.cpu() - ce).abs()[cm].max())
+    if not de <= 1e-4 * max(1.0, float(ce[cm].abs().max())):
+        fail(f"voronoi_dual_edges: edges part from the cpu run's by {de:.3e}")
+    res["voronoi_dual_edges_20"] = {"edges": int(cm.sum()), "max_diff": de}
+    print(f"voronoi_dual_edges (20 points): {int(cm.sum())} edges as the cpu run's (largest "
+          f"difference {de:.3e})", flush=True)
+    return res
+
+
+def sharded_phase(card):
+    """Phase 28 (f): ``sharded_batch_decompose`` of 4 cubes at
+    ``workload.BATCH_CFG`` and ``sharded_batch_step`` of 2 copies of the
+    10k lattice (8 steps) over every visible GPU and over [cuda:0,
+    cuda:0] (with more cards, as many of each as the least multiple of 4,
+    or 2, and the card count): each shard on its device, bit for bit equal
+    to ``batch_decompose`` / ``batch_step`` of the same meshes or scenes
+    there, each tally equal to the sum over the unsharded run."""
+    from surtr_tpu_torch.fracture.batch import batch_decompose, sharded_batch_decompose
+    from surtr_tpu_torch.physics.batch import (activity, batch_step, sharded_batch_step,
+                                               stack_scenes)
+    from surtr_tpu_torch.types import device_context
+
+    n_gpu = torch.cuda.device_count()
+    # Batches that split evenly over every layout below.
+    cfg, M = workload.BATCH_CFG, math.lcm(SHARD_MESHES, n_gpu)
+    n_lat = math.lcm(SHARD_LATTICES, n_gpu)
+    v, vm, tc, tm, cloud, seeds, pseeds, gseeds = workload.batch_inputs("cpu", M)
+    base = workload.physics_lattice(device="cpu")
+    scenes = stack_scenes([dataclasses.replace(base, bodies=dataclasses.replace(
+        base.bodies, x=base.bodies.x + torch.tensor([30.0 * i, 0.0, 0.0])))
+        for i in range(n_lat)])
+    layouts = {f"all {n_gpu} visible": [f"cuda:{i}" for i in range(n_gpu)],
+               "cuda:0 twice": ["cuda:0", "cuda:0"]}
+    res = {}
+    for name, devices in layouts.items():
+        t0 = time.perf_counter()
+        shards, total = sharded_batch_decompose(devices, v, vm, tc, tm, cloud, cfg, seeds=seeds,
+                                                partial_seeds=pseeds, general_seeds=gseeds)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        want_total = 0
+        for shard, dev, sl in zip(shards, devices, range(len(devices))):
+            m = M // len(devices)
+            part = slice(sl * m, (sl + 1) * m)
+            with device_context(dev):
+                one, met = batch_decompose(v[part].to(dev), vm[part].to(dev), tc[part].to(dev),
+                                           tm[part].to(dev), cloud.to(dev), cfg,
+                                           seeds=seeds[part], partial_seeds=pseeds[part],
+                                           general_seeds=gseeds[part])
+            if shard.valid.device != torch.device(dev) or not _pieces_bits_equal(shard, one):
+                fail(f"sharded_batch_decompose over {name}: a shard differs from "
+                     f"batch_decompose of its meshes")
+            want_total += int(met["piece_cnt"].sum())
+        if total.device != torch.device(devices[0]) or int(total) != want_total:
+            fail(f"sharded_batch_decompose over {name}: tally {int(total)} != {want_total}")
+        t0 = time.perf_counter()
+        sshards, act = sharded_batch_step(devices, scenes, workload.PHYSICS_CFG, SHARD_STEPS)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        outs = []
+        for i, (shard, dev) in enumerate(zip(sshards, devices)):
+            m = n_lat // len(devices)
+            with device_context(dev):
+                whole = batch_step(workload.to_device(
+                    index_tree(scenes, slice(i * m, (i + 1) * m)), dev), workload.PHYSICS_CFG,
+                    SHARD_STEPS)
+            for f in dataclasses.fields(shard.bodies):
+                a, b = getattr(shard.bodies, f.name), getattr(whole.bodies, f.name)
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                if not torch.equal(a, b):
+                    fail(f"sharded_batch_step over {name}: shard {i} {f.name} differs from "
+                         f"batch_step of its scenes")
+            outs.append(activity(whole).to(devices[0]))
+        want_act = functools.reduce(torch.add, outs).float()
+        if not torch.equal(act, want_act) or float(act) <= 0:
+            fail(f"sharded_batch_step over {name}: tally {float(act)} != {float(want_act)}")
+        res[name] = {"devices": devices, "piece_total": int(total), "decompose_ms": dec_ms,
+                     "activity": float(act), "step_ms": step_ms}
+        print(f"sharded over {name} ({devices}): {M} cubes, tally {int(total)} pieces, "
+              f"{dec_ms:.1f} ms; {n_lat} lattices x {SHARD_STEPS} steps, activity "
+              f"{float(act):.6g}, "
+              f"{step_ms:.1f} ms; every shard bit for bit as its unsharded run ({card})",
+              flush=True)
+    return res
+
+
 def main():
     # 1. Device.
     if not torch.cuda.is_available():
@@ -3631,7 +3985,14 @@ def main():
 
     # 27. PhaseTimer and the stage fences.
     stages = timed(27, stages_phase, before_last, prepared, card)
-    print(f"phases 23-27, s: {json.dumps(phase_s)}", flush=True)
+
+    # 28. The ICH refit on the batched B2, the per-cell mesh-clip fallback,
+    # Delaunay and the sharded batch variants.
+    ich_batch_res = timed("28a", refit_kernel_phase, card)
+    refit_paths = timed("28b-d", refit_paths_phase, prepared, card)
+    delaunay = timed("28e", delaunay_phase, card)
+    sharded = timed("28f", sharded_phase, card)
+    print(f"phases 23-28, s: {json.dumps(phase_s)}", flush=True)
 
     path_counts = {"broadphase_sorted": ("b_sorted", variants["b_sorted"][0]),
                    "solver_warm": ("d_warm", variants["d_warm"][0])}
@@ -3667,6 +4028,14 @@ def main():
         "library_ms": None,
         "render_512": {k: v for k, v in raster.items() if k.startswith("render_512")},
     })
+    kernels.append({
+        "name": "ich_batch", "route": "cuda", "source": ICH_BATCH_SRC,
+        "replaces": ICH_BATCH_REPLACES, "path": "cube 1k decomposition, refit limit 20",
+        "launches": refit_paths["cube_limit20"]["launches"]["ich_batch"],
+        **{k: ich_batch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                         "bound_ms", "bound_by", "calls")},
+        "library_ms": None,
+    })
     for k in kernels:
         if k["name"] in concave_kernels:
             k["torus_config1"] = {"launches": concave_counts[k["name"]],
@@ -3681,7 +4050,8 @@ def main():
                                                     "cpu_compare": concave_cmp},
                                   "scenes": concave_scenes, "timing": concave_times},
                       "routes": routes, "config2": config2, "batch_step": bstep, "cli": cli,
-                      "stages": stages, "card": card}), flush=True)
+                      "stages": stages, "refit_paths": refit_paths, "delaunay": delaunay,
+                      "sharded": sharded, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

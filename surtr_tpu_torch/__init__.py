@@ -12,7 +12,7 @@ The package never imports JAX.
 import torch
 
 from surtr_tpu_torch.config import FractureConfig, PhysicsConfig, RenderConfig, SceneConfig
-from surtr_tpu_torch.types import ConvexPoly
+from surtr_tpu_torch.types import ConvexPoly, RigidState, TriSoup
 
 # The reference pins precision=HIGHEST: one-hot selections and support maxima
 # rely on full-f32 products, so TF32 stays off everywhere.
@@ -25,4 +25,6 @@ __all__ = [
     "PhysicsConfig",
     "RenderConfig",
     "SceneConfig",
+    "TriSoup",
+    "RigidState",
 ]

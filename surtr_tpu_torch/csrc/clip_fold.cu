@@ -385,7 +385,10 @@ clip_fold_kernel(const float* __restrict__ fv_in, const int* __restrict__ nv_in,
   for (int f = lane; f < F; f += 32) nv_out[(size_t)b * F + f] = (cur ? nv1 : nv0)[f];
 }
 
-int smem_set = 48 * 1024;   // dynamic shared memory the kernel is cleared for
+// Dynamic shared memory the kernel is cleared for, per device (a function
+// attribute belongs to the current device).
+constexpr int MAX_DEVICES = 64;
+int smem_set[MAX_DEVICES] = {};
 
 }  // namespace
 
@@ -403,11 +406,14 @@ extern "C" int surtr_clip_fold(const float* fv, const int* nv, const float* pl,
   W = W < 1 ? 1 : (W > MAX_WARPS ? MAX_WARPS : W);
   if (W > N) W = N;
   const size_t smem = per * W;
-  if ((int)smem > smem_set) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if ((int)smem > 48 * 1024 && (int)smem > smem_set[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         clip_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    smem_set = (int)smem;
+    smem_set[dev] = (int)smem;
   }
   clip_fold_kernel<<<(N + W - 1) / W, 32 * W, smem, (cudaStream_t)stream>>>(
       fv, nv, pl, cuts, cmask, cs, ms, ofv, onv, opl, N, F, S, K, tol, W);

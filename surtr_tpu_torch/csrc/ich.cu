@@ -1,4 +1,5 @@
-// Greedy limited incremental convex hull of one point set (kernel B2).
+// Greedy limited incremental convex hull of one point set, or of a batch of
+// independent point sets, one block a set (kernel B2).
 //
 // Replaces: surtr_tpu/ops/hull_pallas.py `_ich_kernel` (wrapper
 // `ich_pallas`). Semantics of the plain `ich` in
@@ -32,6 +33,14 @@
 // the plain scatter does). The added and the removed
 // faces' corners go to two lists in slot order, from which every point's
 // priority update sums its terms in the plain version's order.
+//
+// The batched entry (`surtr_ich_batch`, the refit hull of every fracture
+// candidate at refitting_point_limit > 4) launches the same kernel on a
+// grid of B blocks: block b reads set b of a (B, N, 3) table and writes
+// its slice of each output, with its points staged in N * 16 bytes of
+// dynamic shared memory (a 608-point pool is 9.5 KiB, so several blocks
+// share an SM) or, above 12,288 points, in its own slice of the scratch.
+// Each block does exactly what the one-set launch does, with the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -111,6 +120,17 @@ ich_kernel(const float* __restrict__ pts, const unsigned char* __restrict__ mask
   __shared__ int red_i[2][MAXW];
   __shared__ int any_vis_s, n_new_s, n_vis_s;
 
+  // Set blockIdx.x of a batch (the one-set launch is block 0).
+  {
+    const size_t b = blockIdx.x;
+    pts += b * N * 3;
+    mask += b * N;
+    scratch += b * N;
+    normals += b * F * 3;
+    fvalid_out += b * F;
+    inner_out += b * 3;
+    faces_out += b * F * 3;
+  }
   float4* P = STAGED ? staged_pts : scratch;     // (x, y, z, priority)
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5, T = blockDim.x;
   const unsigned lt = (1u << lane) - 1u;
@@ -411,25 +431,47 @@ int ich_threads(int N) {
 
 }  // namespace
 
-// scratch: (N, 4) float32, used when N > STAGE_MAX.
-extern "C" int surtr_ich(const float* pts, const unsigned char* mask, void* scratch, int N,
-                         int F, int n_insert, float* normals, unsigned char* fvalid,
-                         float* inner, int* faces, void* stream) {
-  if (F > MAXF || F < 4 || N < 1) return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
+// The staged kernel's shared-memory limit, set once a device (a function
+// attribute belongs to the current device).
+static int set_smem_attr() {
+  constexpr int MAX_DEVICES = 64;
+  static bool attr_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(ich_kernel<true>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                STAGE_MAX * (int)sizeof(float4));
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[dev] = true;
   }
+  return 0;
+}
+
+// B sets of N points each, one block a set: pts (B, N, 3), mask (B, N),
+// outputs (B, F, 3), (B, F), (B, 3), (B, F, 3); scratch (B, N, 4) float32,
+// used when N > STAGE_MAX.
+extern "C" int surtr_ich_batch(const float* pts, const unsigned char* mask, void* scratch,
+                               int B, int N, int F, int n_insert, float* normals,
+                               unsigned char* fvalid, float* inner, int* faces, void* stream) {
+  if (F > MAXF || F < 4 || N < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const int rc = set_smem_attr();
+  if (rc != 0) return rc;
   cudaStream_t s = (cudaStream_t)stream;
   if (N <= STAGE_MAX)
-    ich_kernel<true><<<1, ich_threads(N), (size_t)N * sizeof(float4), s>>>(
+    ich_kernel<true><<<B, ich_threads(N), (size_t)N * sizeof(float4), s>>>(
         pts, mask, (float4*)scratch, N, F, n_insert, normals, fvalid, inner, faces);
   else
-    ich_kernel<false><<<1, ich_threads(N), 0, s>>>(
+    ich_kernel<false><<<B, ich_threads(N), 0, s>>>(
         pts, mask, (float4*)scratch, N, F, n_insert, normals, fvalid, inner, faces);
   return (int)cudaGetLastError();
+}
+
+// One set (the model hull): the batch of one.
+extern "C" int surtr_ich(const float* pts, const unsigned char* mask, void* scratch, int N,
+                         int F, int n_insert, float* normals, unsigned char* fvalid,
+                         float* inner, int* faces, void* stream) {
+  return surtr_ich_batch(pts, mask, scratch, 1, N, F, n_insert, normals, fvalid, inner, faces,
+                         stream);
 }

@@ -21,7 +21,8 @@ its inside-solid queries from a parity grid of the source mesh when
 ``island_grid_res`` > 0, C >= 64 and the mesh has >= 512 triangles.
 
 Five hand-written kernels carry it on the GPU: the clip fold B1 (ACH,
-pattern cells, the Voronoi and impact folds, the refit fold), the ICH B2,
+pattern cells, the Voronoi and impact folds, the refit fold), the ICH B2
+(the model hull, and the refit hulls above limit 4),
 the island labels B3, the refit planes B4 and the pooled soup clip B10;
 everything around them is plain PyTorch on the input tensors' device.
 
@@ -35,9 +36,12 @@ fold), 5 (+ mesh clip), 6 (+ islands), 45-49 (inside ``_finish_pieces``) or
 (+ mesh clip), 3 (+ islands), 41-49 (inside ``_finish_pieces``), 4 (+
 finish) or 5 (+ merge and pack).
 
-Two branches outside the port raise ``NotImplementedError`` naming their
-ROADMAP item: the per-cell ``mesh_pair_pool=False`` fallback of the culled
-mesh clip and ``refitting_point_limit > 4`` (both A15).
+The refit takes kernel B4's tetra hull at ``refitting_point_limit`` <= 4
+(the default) and above it the ICH of each candidate's pool, all
+candidates in one batched B2 launch (``refit_planes``), as the JAX package
+takes its vmapped ``ich``. With ``mesh_pair_pool=False`` the culled mesh
+clip folds each cell's own pool of ``cull_cap`` triangles (plain PyTorch,
+no B10), the JAX package's per-cell fallback.
 """
 
 from __future__ import annotations
@@ -48,9 +52,10 @@ from surtr_tpu_torch.config import FractureConfig
 from surtr_tpu_torch.fracture.pattern import pattern_cells, radial_seeds, uniform_seeds
 from surtr_tpu_torch.fracture.types import FractureContext, PieceSet
 from surtr_tpu_torch.ops.caps import cap_fans_batch, match_cut_faces
-from surtr_tpu_torch.ops.clip import contains_point, plane_basis
+from surtr_tpu_torch.ops.clip import clip_poly_planes, contains_point, plane_basis
 from surtr_tpu_torch.ops.clip_cuda import clip_planes_batch
-from surtr_tpu_torch.ops.hull_cuda import ich
+from surtr_tpu_torch.ops.hull import tetra_hull
+from surtr_tpu_torch.ops.hull_cuda import ich, ich_batch
 from surtr_tpu_torch.ops.kdop import kdop_planes
 from surtr_tpu_torch.ops.labels import adjacency_components
 from surtr_tpu_torch.ops.labels_cuda import tri_soup_components_batch
@@ -72,6 +77,34 @@ def _stable_front(flags: torch.Tensor, k: int) -> torch.Tensor:
     """Indices that put flagged entries first, each group in index order,
     truncated to k (the JAX package's top_k over -arange scores)."""
     return torch.sort((~flags).to(torch.int8), dim=-1, stable=True).indices[..., :k]
+
+
+def refit_planes(verts: torch.Tensor, vmask: torch.Tensor, limit: int):
+    """Refitting slab planes (Surtr.cpp:2405-2413): the ICH(limit) of each
+    piece's vertex pool, then the k-DOP along its face normals with no
+    outward gap. verts (..., P, 3), vmask (..., P), one pool or a batch of
+    them (all in one B2 launch on the card); limit <= 4 builds the seed
+    tetrahedron only (plain ``tetra_hull``). Planes are masked out of a pool
+    with fewer than 4 live points. Returns ((..., 2F, 4), (..., 2F))."""
+    if limit <= 4:
+        h = tetra_hull(verts, vmask)
+    else:
+        lead = verts.shape[:-2]
+        pts = verts.reshape((-1,) + verts.shape[-2:])
+        h = ich_batch(pts, vmask.reshape(pts.shape[:2]), limit=limit)
+        h = {k: v.reshape(lead + v.shape[1:]) for k, v in h.items()}
+    planes, pm = kdop_planes(verts, vmask, h["normals"], h["face_valid"], gap=0.0)
+    enough = torch.sum(vmask, dim=-1) >= 4
+    return planes, pm & enough[..., None]
+
+
+def refit_convex(convex: ConvexPoly, verts: torch.Tensor, vmask: torch.Tensor,
+                 limit: int) -> ConvexPoly:
+    """Single-piece refit (Kdop::ClipWithPolyhedron): slab planes, then the
+    plain clip of ``convex`` (F, S) by them."""
+    planes, pm = refit_planes(verts, vmask, limit)
+    out = clip_poly_planes(convex.map(lambda a: a[None]), planes[None], pm[None])
+    return out.map(lambda a: a[0])
 
 
 def convex_out_of_sphere(poly: ConvexPoly, cloud: torch.Tensor, center: torch.Tensor,
@@ -357,8 +390,9 @@ def _split_mesh_islands(conv, mtris, mmask, solid_t, solid_m, mas, cfg: Fracture
 def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, mas,
                    cfg: FractureConfig, solid_grid=None, profile_stage: int = 99):
     """Occupancy test against each candidate's source solid (N, Ts, 3, 3)
-    (or the shared ``solid_grid``), refit (kernel B4 planes + kernel B1
-    fold) and caps: exact closed-mesh caps (``cap_fans_batch``, their
+    (or the shared ``solid_grid``), refit (kernel B4 planes, or above limit
+    4 ``refit_planes`` with the batched B2, then the kernel B1 fold) and
+    caps: exact closed-mesh caps (``cap_fans_batch``, their
     boundary points in the refit pool) with ``exact_caps``, else the refit
     convex's cut faces. Returns (conv2, mtris2, mmask2, cand_valid,
     cap_dropped), or the fence after the occupancy test (``profile_stage``
@@ -374,10 +408,6 @@ def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, m
     if profile_stage == 45:
         return fence_sum(conv, mtris, mmask, cand_valid)
 
-    if cfg.refitting_point_limit > 4:
-        raise NotImplementedError(
-            "refitting_point_limit > 4 (ICH refit) is not ported yet (ROADMAP A15)"
-        )
     if cfg.exact_caps:
         cap_rows, cap_ok, cap_v, cap_m, cap_dropped = cap_fans_batch(
             conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, mas, cfg,
@@ -386,8 +416,16 @@ def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, m
         cut_sel = match_cut_faces(conv, cut_planes, cut_mask, mas)
         cap_v = conv.face_verts.reshape(N, -1, 3)
         cap_m = (conv.slot_mask() & cut_sel[..., None]).reshape(N, -1)
-    # The pool [mesh corners; cap points] is read from its parts.
-    slabs, slab_m = refit_planes_from_parts(mtris, mmask, cap_v, cap_m)
+    if cfg.refitting_point_limit <= 4:
+        # The pool [mesh corners; cap points] is read from its parts (B4).
+        slabs, slab_m = refit_planes_from_parts(mtris, mmask, cap_v, cap_m)
+    else:
+        # The ICH refit of every candidate, its pool concatenated in the JAX
+        # package's order (surface corners first: ties in the hull's
+        # argmaxes go to the lower index).
+        pool = torch.cat([mtris.reshape(N, -1, 3), cap_v], dim=1)
+        pool_m = torch.cat([mmask.repeat_interleave(3, dim=1), cap_m], dim=1)
+        slabs, slab_m = refit_planes(pool, pool_m, cfg.refitting_point_limit)
     if profile_stage == 46:
         return fence_sum(conv, mtris, mmask, cand_valid, slabs, slab_m)
     conv2 = clip_planes_batch(conv, slabs, slab_m)
@@ -471,15 +509,13 @@ def _culled_pair_pool_clip(tri_corners, tmask, cell_planes, cell_pmask, cull_cap
     separates are culled per cell (exact), the survivors of every cell are
     packed into one pool of (cell, triangle) lanes, and every lane is
     folded by its own cell's planes: kernel B10 for CUDA tensors,
-    ``clip_polys_by_rows`` (per-cell context) for CPU tensors. Returns
-    (mtris (C, Tp, 3, 3), mmask (C, Tp), dropped triangles), or with
-    ``profile_stage`` 42, 43 or 44 the fence (with the cells' convex
-    ``conv``) after the cull, the pair pack or the pooled fold."""
-    if cfg.mesh_pair_pool not in (True, "auto"):
-        raise NotImplementedError(
-            "mesh_pair_pool=False on the culled mesh clip (the per-cell uniform-pool "
-            "fallback) is not ported yet (ROADMAP A15)"
-        )
+    ``clip_polys_by_rows`` (per-cell context) for CPU tensors. With
+    ``mesh_pair_pool=False`` each cell's uniform pool of ``cull_cap``
+    triangles is clipped by its planes instead (``clip_trisoup``, plain on
+    both devices), and the drops come per cell. Returns (mtris (C, Tp, 3,
+    3), mmask (C, Tp), dropped triangles), or with ``profile_stage`` 42, 43
+    or 44 the fence (with the cells' convex ``conv``) after the cull, the
+    pair pack or the pooled fold."""
     C = cell_planes.shape[0]
     Tsrc = tri_corners.shape[0]
     dev = tri_corners.device
@@ -499,6 +535,10 @@ def _culled_pair_pool_clip(tri_corners, tmask, cell_planes, cell_pmask, cull_cap
     cull_over = torch.clamp(keep.sum(1) - cull_cap, min=0)
     if profile_stage == 42:
         return fence_sum(conv, cidx, csel)
+    if cfg.mesh_pair_pool not in (True, "auto"):   # per-cell uniform pools
+        mtris, mmask, mdrop = clip_trisoup(tri_corners[cidx], csel, cell_planes, cell_pmask,
+                                           max_out=Tp)
+        return mtris, mmask, mdrop + cull_over
 
     # Pool of the live (cell, triangle) pairs, grouped by cell.
     kept_cnt = csel.sum(1)
@@ -538,6 +578,25 @@ def density_sort(seeds: torch.Tensor) -> torch.Tensor:
     return seeds[torch.sort(dmin, stable=True).indices]
 
 
+def draw_seeds(cfg: FractureConfig, generator, seeds=None, partial_seeds=None,
+               general_seeds=None):
+    """The seeds of one decomposition: those given, and the missing ones
+    drawn from ``generator`` (seeded from ``cfg.seed`` when None) in the
+    order uniform, partial, general."""
+    if seeds is None or partial_seeds is None or general_seeds is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(cfg.seed)
+        if seeds is None:
+            seeds = uniform_seeds(generator, cfg.initial_decompose_cell_cnt)
+        if partial_seeds is None:
+            partial_seeds = radial_seeds(generator, cfg.partial_pattern_cell_cnt,
+                                         cfg.partial_pattern_dist)
+        if general_seeds is None:
+            general_seeds = radial_seeds(generator, cfg.general_pattern_cell_cnt,
+                                         cfg.general_pattern_dist)
+    return seeds, partial_seeds, general_seeds
+
+
 @torch.no_grad()
 def prepare_fracture(
     verts: torch.Tensor,
@@ -567,17 +626,8 @@ def prepare_fracture(
     P = cfg.max_pieces
     Tp = cfg.max_piece_tris
 
-    if seeds is None or partial_seeds is None or general_seeds is None:
-        if generator is None:
-            generator = torch.Generator().manual_seed(cfg.seed)
-        if seeds is None:
-            seeds = uniform_seeds(generator, C)
-        if partial_seeds is None:
-            partial_seeds = radial_seeds(generator, cfg.partial_pattern_cell_cnt,
-                                         cfg.partial_pattern_dist)
-        if general_seeds is None:
-            general_seeds = radial_seeds(generator, cfg.general_pattern_cell_cnt,
-                                         cfg.general_pattern_dist)
+    seeds, partial_seeds, general_seeds = draw_seeds(cfg, generator, seeds, partial_seeds,
+                                                     general_seeds)
     seeds = seeds.to(dev)
     partial_seeds = partial_seeds.to(dev)
     general_seeds = general_seeds.to(dev)
@@ -645,7 +695,9 @@ def prepare_fracture(
         if 42 <= profile_stage <= 44:
             return out, None, None
         mtris, mmask, mdrop = out
-        mdrop = mdrop + act_over
+        # Per cell on the per-cell fallback: the overflow count is added to
+        # every cell's, as the JAX package does there.
+        mdrop = (mdrop + act_over).sum()
     else:
         mtris, mmask, mdrop = clip_trisoup(tri_corners, tmask, cell_planes_a, cell_pmask_a,
                                            max_out=Tp)

@@ -2,8 +2,9 @@
 ``surtr_tpu/io/models.py``).
 
 Equivalent shapes to the reference's OBJ models, generated procedurally,
-plus the 42-point impact-sphere cloud. The reference-asset registry and the
-C++ OBJ fast path are not ported yet.
+the 42-point impact-sphere cloud and area-weighted vertex normals. The
+reference-asset registry and the C++ OBJ fast path are left out: they
+serve the reference's own OBJ files.
 """
 
 from __future__ import annotations
@@ -144,3 +145,18 @@ def _torus(R: float = 1.2, r: float = 0.5, nu: int = 24, nv: int = 12):
             tris += [[a, b, d], [a, d, c]]
     v, f = weld(np.asarray(verts, np.float64), np.asarray(tris, np.int64))
     return v.astype(np.float32), f.astype(np.int32)
+
+
+def smooth_vertex_normals(verts, tris):
+    """Area-weighted per-vertex normals as a per-corner (T, 3, 3) array, for
+    ``render_scene(..., normals=...)``: procedural and OBJ models carry no
+    authored normals (the reference imports them with Assimp)."""
+    v = np.asarray(verts, np.float32)
+    f = np.asarray(tris, np.int64)
+    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    vn = np.zeros_like(v)
+    for c in range(3):
+        np.add.at(vn, f[:, c], fn)
+    ln = np.linalg.norm(vn, axis=1, keepdims=True)
+    vn = vn / np.maximum(ln, 1e-12)
+    return vn[f]

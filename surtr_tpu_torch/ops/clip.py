@@ -160,3 +160,28 @@ def contains_point(poly: ConvexPoly, x: torch.Tensor,
     s = dot3(poly.planes[..., :3], x[..., None, :]) + poly.planes[..., 3]
     ok = (s <= tol) | ~poly.face_mask()
     return torch.all(ok, dim=-1) & ~poly.is_empty()
+
+
+def clip_poly_poly(poly: ConvexPoly, clipper: ConvexPoly,
+                   tol: float = DEFAULT_TOL) -> ConvexPoly:
+    """Clip ``poly`` by every face plane of ``clipper`` (Poly::ClipPolyhedron):
+    batches (N, F, S) or single polytopes (F, S). An empty clipper gives the
+    empty polytope."""
+    single = poly.face_verts.dim() == 3
+    if single:
+        poly, clipper = (p.map(lambda a: a[None]) for p in (poly, clipper))
+    out = clip_poly_planes(poly, clipper.planes, clipper.face_mask(), tol)
+    nv = torch.where(clipper.is_empty()[:, None], torch.zeros_like(out.n_verts), out.n_verts)
+    out = ConvexPoly(out.face_verts, nv, out.planes)
+    return out.map(lambda a: a[0]) if single else out
+
+
+def clip_batch_by_cells(pieces: ConvexPoly, cells: ConvexPoly,
+                        tol: float = DEFAULT_TOL) -> ConvexPoly:
+    """The (P pieces) × (C cells) grid clip of the fracture fan-out: pieces
+    (P, F, S), cells (C, Fc, Sc). Returns a ConvexPoly with batch (P, C)."""
+    P, C = pieces.batch_shape[0], cells.batch_shape[0]
+    rep = pieces.map(lambda a: a[:, None].expand((P, C) + a.shape[1:]).flatten(0, 1))
+    cl = cells.map(lambda a: a[None].expand((P, C) + a.shape[1:]).flatten(0, 1))
+    out = clip_poly_poly(rep, cl, tol)
+    return out.map(lambda a: a.reshape((P, C) + a.shape[1:]))

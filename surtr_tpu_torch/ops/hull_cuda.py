@@ -1,9 +1,13 @@
 """Limited incremental hull with device dispatch (kernel B2, ``csrc/ich.cu``).
 
-``ich`` runs the plain ``ich_reference`` (``ops/hull.py``) for CPU tensors
-and launches the hand-written kernel, or raises, for CUDA tensors.
-Replaces the JAX package's ``ich_pallas``. Returns normals, face_valid and
-inner (the contract of ``ich_pallas``) plus the face index table.
+``ich`` (one point set: the model hull) and ``ich_batch`` (B sets at once:
+the refit hull of every fracture candidate at ``refitting_point_limit`` >
+4) run their plain versions ``ich_reference`` and ``ich_batch_reference``
+(``ops/hull.py``) for CPU tensors and launch the hand-written kernel, or
+raise, for CUDA tensors: one block for ``ich``, one block a set for
+``ich_batch``. Replaces the JAX package's ``ich_pallas`` (and its vmapped
+XLA ``ich`` in the refit). Returns normals, face_valid and inner (the
+contract of ``ich_pallas``) plus the face index table.
 """
 
 from __future__ import annotations
@@ -14,45 +18,72 @@ import torch
 
 from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.hull import ich as ich_reference
+from surtr_tpu_torch.ops.hull import ich_batch as ich_batch_reference
 
-launches = 0  # kernel launches since the last reset (main-path proof)
+launches = 0        # B2 launches since the last reset, both entries (main-path proof)
+batch_launches = 0  # of which batched (``ich_batch``) launches
 
 
-def _kernel(points, mask, limit, F):
-    global launches
-    N = points.shape[0]
-    if points.dtype != torch.float32 or points.shape != (N, 3) or mask.shape != (N,):
-        raise ValueError("ich kernel takes (N, 3) float32 points and an (N,) mask")
-    if N < 1:
-        raise ValueError("ich kernel takes at least one point")
+def _kernel(points, mask, limit, F, batched):
+    global launches, batch_launches
+    B, N = points.shape[:2]
+    if points.dtype != torch.float32 or points.shape != (B, N, 3) or mask.shape != (B, N):
+        raise ValueError("ich kernel takes (B, N, 3) float32 points and a (B, N) mask")
+    if B < 1 or N < 1:
+        raise ValueError("ich kernel takes at least one set of at least one point")
     if F > 128:
         raise ValueError(f"ich kernel takes at most 128 faces, got {F}")
     dev = points.device
-    fn = _build.bind("surtr_ich", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p] * 5)
+    normals = torch.empty((B, F, 3), dtype=torch.float32, device=dev)
+    fvalid = torch.empty((B, F), dtype=torch.uint8, device=dev)
+    inner = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    faces = torch.empty((B, F, 3), dtype=torch.int32, device=dev)
     pts = points.contiguous()
     m = mask.to(torch.uint8).contiguous()
     # (x, y, z, priority) per point; the kernel stages them in shared memory
-    # up to 12,288 points and uses this scratch beyond.
-    scratch = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    normals = torch.empty((F, 3), dtype=torch.float32, device=dev)
-    fvalid = torch.empty((F,), dtype=torch.uint8, device=dev)
-    inner = torch.empty((3,), dtype=torch.float32, device=dev)
-    faces = torch.empty((F, 3), dtype=torch.int32, device=dev)
+    # up to 12,288 points a set and uses this scratch beyond.
+    scratch = torch.empty((B, N, 4) if N > 12288 else (1, 4), dtype=torch.float32, device=dev)
     n_insert = max(min(limit, N) - 4, 0)
-    rc = fn(pts.data_ptr(), m.data_ptr(), scratch.data_ptr(), N, F, n_insert,
-            normals.data_ptr(), fvalid.data_ptr(), inner.data_ptr(), faces.data_ptr(),
+    ptrs = (normals.data_ptr(), fvalid.data_ptr(), inner.data_ptr(), faces.data_ptr(),
             _build.stream_ptr(dev))
-    _build.check(rc, "surtr_ich")
+    if batched:
+        fn = _build.bind("surtr_ich_batch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p] * 5)
+        rc = fn(pts.data_ptr(), m.data_ptr(), scratch.data_ptr(), B, N, F, n_insert, *ptrs)
+        _build.check(rc, "surtr_ich_batch")
+        batch_launches += 1
+    else:
+        fn = _build.bind("surtr_ich", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p] * 5)
+        rc = fn(pts.data_ptr(), m.data_ptr(), scratch.data_ptr(), N, F, n_insert, *ptrs)
+        _build.check(rc, "surtr_ich")
     launches += 1
     return {"faces": faces, "face_valid": fvalid.bool(), "normals": normals, "inner": inner}
 
 
+def _faces(limit, max_faces):
+    return max_faces if max_faces is not None else 2 * max(limit, 4) + 4
+
+
+def _check_cpu(points, name):
+    if points.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {points.device}")
+
+
 def ich(points: torch.Tensor, mask: torch.Tensor, limit: int, max_faces: int | None = None):
     """Greedy limited hull of one point set (N, 3) with mask (N,)."""
-    F = max_faces if max_faces is not None else 2 * max(limit, 4) + 4
     if points.is_cuda:
-        return _kernel(points, mask, limit, F)
-    if points.device.type != "cpu":
-        raise ValueError(f"ich: unsupported device {points.device}")
+        out = _kernel(points[None], mask[None], limit, _faces(limit, max_faces), False)
+        return {k: v[0] for k, v in out.items()}
+    _check_cpu(points, "ich")
     return ich_reference(points, mask, limit, max_faces)
+
+
+def ich_batch(points: torch.Tensor, mask: torch.Tensor, limit: int,
+              max_faces: int | None = None):
+    """Greedy limited hulls of B point sets (B, N, 3) with masks (B, N), in
+    one launch; every output gains a leading (B,) axis."""
+    if points.is_cuda:
+        return _kernel(points, mask, limit, _faces(limit, max_faces), True)
+    _check_cpu(points, "ich_batch")
+    return ich_batch_reference(points, mask, limit, max_faces)

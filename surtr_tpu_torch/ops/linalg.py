@@ -21,6 +21,15 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def dotn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b, -1) over an axis of any length, added in index order (a
+    length-3 axis gives ``dot3``'s bits)."""
+    s = a[..., 0] * b[..., 0]
+    for j in range(1, a.shape[-1]):
+        s = s + a[..., j] * b[..., j]
+    return s
+
+
 def supports(verts: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """(..., N, 3) · (..., K, 3) → (..., N, K) as a broadcast multiply-add
     (full f32, no matmul precision question)."""
@@ -82,3 +91,13 @@ def pack_rows(vals: torch.Tensor, counts: torch.Tensor, S_out: int):
     ok = torch.arange(S, device=vals.device)[None, :] < counts[:, None]
     out, n = compact(vals.reshape(T * S, D), ok.reshape(T * S), S_out)
     return out, n
+
+
+def compact_big(vals: torch.Tensor, flags: torch.Tensor, S_out: int, chunk: int = 128):
+    """Compaction of a large unbatched pool: vals (E, D), flags (E,) →
+    ((S_out, D) the first S_out flagged rows front-aligned, zeros after;
+    count min(#flags, S_out)). The JAX package packs chunks of ``chunk``
+    rows in a scan to stay off a large one-hot on the TPU; the scatter of
+    ``compact`` has no such cost, so it serves here and ``chunk`` is
+    accepted for the same signature."""
+    return compact(vals, flags, S_out)

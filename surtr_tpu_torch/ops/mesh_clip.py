@@ -291,3 +291,10 @@ def parity_grid_inside(grid: dict, points):
     flat = (torch.clamp(ix, 0, R - 1) * (R * R) + torch.clamp(iy, 0, R - 1) * R
             + torch.clamp(iz, 0, R - 1))
     return grid["inside"][flat] & inb
+
+
+def unique_corner_verts(corners: torch.Tensor, tri_valid: torch.Tensor):
+    """Flattened (possibly duplicated) corner pool: ((3T, 3), (3T,) mask).
+    Duplicates are harmless for supports and hull seeding."""
+    T = corners.shape[0]
+    return corners.reshape(3 * T, 3), tri_valid.repeat_interleave(3)

@@ -86,3 +86,19 @@ def inertia(poly: ConvexPoly, density: float = 10.0):
     trace = (C_c[..., 0, 0] + C_c[..., 1, 1]) + C_c[..., 2, 2]
     I_com = density * (trace[..., None, None] * eye - C_c)
     return density * vol, com, I_com
+
+
+def aabb(poly: ConvexPoly):
+    """Masked axis-aligned bounds: (min, max), each (..., 3)."""
+    sm = poly.slot_mask()[..., None]
+    fv = poly.face_verts
+    lo = torch.amin(torch.where(sm, fv, 3.4e38).flatten(-3, -2), dim=-2)
+    hi = torch.amax(torch.where(sm, fv, -3.4e38).flatten(-3, -2), dim=-2)
+    return lo, hi
+
+
+def all_verts(poly: ConvexPoly):
+    """Flattened (possibly duplicated) vertex pool: ((..., F·S, 3), mask)."""
+    fv = poly.face_verts.reshape(poly.batch_shape + (poly.F * poly.S, 3))
+    m = poly.slot_mask().reshape(poly.batch_shape + (poly.F * poly.S,))
+    return fv, m

@@ -8,6 +8,7 @@ side is negative, face loops wind CCW seen from outside.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -58,6 +59,33 @@ class ConvexPoly:
     def map(self, fn) -> "ConvexPoly":
         """Apply ``fn`` to every field (the pytree map of the JAX package)."""
         return ConvexPoly(fn(self.face_verts), fn(self.n_verts), fn(self.planes))
+
+
+@dataclasses.dataclass
+class TriSoup:
+    """Padded indexed triangle mesh (visual geometry): verts (..., V, 3)
+    f32, tris (..., T, 3) i32, tri_valid (..., T) bool. Vertices are welded
+    (shared indices), so components over shared vertices are the
+    reference's mesh islands."""
+
+    verts: torch.Tensor
+    tris: torch.Tensor
+    tri_valid: torch.Tensor
+
+    @property
+    def V(self) -> int:
+        return self.verts.shape[-2]
+
+    @property
+    def T(self) -> int:
+        return self.tris.shape[-2]
+
+    def corners(self) -> torch.Tensor:
+        """(..., T, 3, 3) gathered corner positions (negative indices read
+        vertex 0)."""
+        idx = torch.clamp(self.tris.long(), min=0)
+        src = self.verts[..., None, :, :].expand(idx.shape[:-1] + self.verts.shape[-2:])
+        return torch.gather(src, -2, idx[..., None].expand(idx.shape + (3,)))
 
 
 @dataclasses.dataclass
@@ -148,6 +176,30 @@ def translate_poly(p: ConvexPoly, t) -> ConvexPoly:
     return ConvexPoly(fv, p.n_verts, torch.cat([n, d], dim=-1))
 
 
+def transform_poly(p: ConvexPoly, R: torch.Tensor, t) -> ConvexPoly:
+    """Rigid transform x -> R x + t (reference: Poly::Transform); R (3, 3),
+    each row's product in ``dot3`` order."""
+    t = torch.as_tensor(t, dtype=p.face_verts.dtype, device=p.device)
+    R = torch.as_tensor(R, dtype=p.face_verts.dtype, device=p.device)
+    fv = dot3(R, p.face_verts[..., None, :]) + t
+    n = dot3(R, p.planes[..., None, :3])
+    d = p.planes[..., 3:4] - dot3(n, t)[..., None]
+    return ConvexPoly(fv, p.n_verts, torch.cat([n, d], dim=-1))
+
+
+def map_tree(tree, fn):
+    """``fn`` applied to every tensor of nested dataclasses, dicts, tuples,
+    lists or tensors (the pytree map of the JAX package)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tree(v, fn) for v in tree)
+    return dataclasses.replace(tree, **{f.name: map_tree(getattr(tree, f.name), fn)
+                                        for f in dataclasses.fields(tree)})
+
+
 def stack_tree(trees: list):
     """Stack a list of like-shaped containers (nested dataclasses, dicts or
     tensors) field by field along a new leading axis (the counterpart of
@@ -162,11 +214,23 @@ def stack_tree(trees: list):
 
 
 def index_tree(tree, i: int):
-    """Element ``i`` of the leading axis of every field of a stacked
-    container (the inverse of ``stack_tree``)."""
-    if isinstance(tree, torch.Tensor):
-        return tree[i]
-    if isinstance(tree, dict):
-        return {k: index_tree(v, i) for k, v in tree.items()}
-    return dataclasses.replace(tree, **{f.name: index_tree(getattr(tree, f.name), i)
-                                        for f in dataclasses.fields(tree)})
+    """Element (or slice) ``i`` of the leading axis of every field of a
+    stacked container (the inverse of ``stack_tree``)."""
+    return map_tree(tree, lambda a: a[i])
+
+
+def shard_bounds(M: int, devices) -> list[slice]:
+    """Even split of a leading axis of M over the devices; raises when it
+    does not divide (as ``shard_map`` does)."""
+    n = len(devices)
+    if n < 1 or M % n:
+        raise ValueError(f"a batch of {M} does not split evenly over {n} devices")
+    m = M // n
+    return [slice(i * m, (i + 1) * m) for i in range(n)]
+
+
+def device_context(device):
+    """The CUDA device guard of ``device`` (the hand-written kernels launch
+    on the current device), or a no-op for the CPU."""
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

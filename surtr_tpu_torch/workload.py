@@ -47,7 +47,7 @@ from surtr_tpu_torch.fracture.types import PieceSet
 from surtr_tpu_torch.io.models import get_model, sphere_point_cloud
 from surtr_tpu_torch.physics.scene import build_scene
 from surtr_tpu_torch.physics.step import physics_step
-from surtr_tpu_torch.types import ConvexPoly, unit_cube
+from surtr_tpu_torch.types import ConvexPoly, map_tree, unit_cube
 
 SEED = 46354
 BENCH_CFG = FractureConfig(
@@ -151,10 +151,7 @@ def run_prepare(device="cuda", cfg: FractureConfig = BENCH_CFG, model: str = "cu
 def to_device(obj, device):
     """A copy of nested dataclasses of tensors (pieces, contexts, scenes)
     on ``device``."""
-    if isinstance(obj, torch.Tensor):
-        return obj.to(device)
-    return dataclasses.replace(obj, **{f.name: to_device(getattr(obj, f.name), device)
-                                       for f in dataclasses.fields(obj)})
+    return map_tree(obj, lambda a: a.to(device))
 
 
 def run_impact(device="cuda", cfg: FractureConfig = CUBE32_CFG, prepared=None):

@@ -3,7 +3,10 @@
 boxes, with each mesh's seeds drawn as the JAX package draws them from its
 key (``split(key, 3)``, as tests/test_torch_prepare.py does), and
 ``batch_step`` on tests/test_physics_batch.py's four scenes; and each batch
-element bit for bit equal to its own single-mesh or single-scene run.
+element bit for bit equal to its own single-mesh or single-scene run. The
+sharded variants split the batch over two CPU "devices": each shard bit
+for bit equal to its slice of the unsharded run, the tallies against the
+JAX package's.
 
 The JAX decomposition runs compiled in a child process with
 ``--xla_cpu_max_isa=AVX`` (no FMA contraction, as in the port; see
@@ -184,6 +187,88 @@ def test_batch_step_matches_jax_and_single_runs():
     for f in dataclasses.fields(batch):
         if f.name != "bodies":
             assert torch.equal(getattr(restacked, f.name), getattr(batch, f.name)), f.name
+
+
+def _assert_same_tree(got, want):
+    """Every tensor of two like containers bit for bit equal."""
+    from surtr_tpu_torch.types import map_tree
+
+    flat_g, flat_w = [], []
+    map_tree(got, flat_g.append)
+    map_tree(want, flat_w.append)
+    assert len(flat_g) == len(flat_w)
+    for i, (g, w) in enumerate(zip(flat_g, flat_w)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+
+
+def test_sharded_batch_decompose_matches_batch_decompose_and_tally(jax_ref, decomposed):
+    """Two CPU "devices" (the JAX suite's virtual devices' counterpart):
+    each shard bit for bit equal to its meshes' slice of ``batch_decompose``
+    (which the test above holds against the JAX package), the tally equal
+    to the JAX package's Σ piece_cnt; seeds drawn from a generator as
+    ``batch_decompose`` draws them; an uneven split raises."""
+    from surtr_tpu_torch.fracture.batch import batch_decompose, sharded_batch_decompose
+    from surtr_tpu_torch.types import index_tree
+
+    (pieces, _), seeds = decomposed
+    cfg = FractureConfig(**CFG)
+    shards, total = sharded_batch_decompose(["cpu", "cpu"], *_inputs(), cfg,
+                                            seeds=seeds["seeds"], partial_seeds=seeds["pseeds"],
+                                            general_seeds=seeds["gseeds"])
+    assert len(shards) == 2
+    for i, shard in enumerate(shards):
+        _assert_same_tree(shard, index_tree(pieces, slice(2 * i, 2 * i + 2)))
+    assert total.shape == () and total.device.type == "cpu"
+    assert int(total) == int(jax_ref["m/piece_cnt"].sum()) > 0
+    drawn, _ = sharded_batch_decompose(["cpu", "cpu"], *_inputs(), cfg,
+                                       generator=torch.Generator().manual_seed(3))
+    whole, _ = batch_decompose(*_inputs(), cfg, generator=torch.Generator().manual_seed(3))
+    for i, shard in enumerate(drawn):
+        _assert_same_tree(shard, index_tree(whole, slice(2 * i, 2 * i + 2)))
+    with pytest.raises(ValueError, match="evenly"):
+        sharded_batch_decompose(["cpu"] * 3, *_inputs(), cfg, seeds=seeds["seeds"])
+
+
+def test_sharded_batch_step_matches_jax_and_batch_step():
+    """``__graft_entry__._tiny_scene``'s 16 cubes, four copies moving apart
+    at different speeds, stepped 8 times over two devices: against the JAX
+    package's ``sharded_batch_step`` on a 2-device CPU mesh (states within
+    the JAX suite's batch bound, atol 1e-6; the activity within rtol 1e-5,
+    f32 sums in other orders), each shard bit for bit equal to
+    ``batch_step`` of its scenes, and the tally equal to the activity of
+    the unsharded run."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    import __graft_entry__ as ge
+    from surtr_tpu.physics.batch import sharded_batch_step as j_sharded_batch_step
+    from surtr_tpu_torch.physics.batch import activity, batch_step, sharded_batch_step
+    from surtr_tpu_torch.types import index_tree
+
+    scene, pcfg = ge._tiny_scene(16)
+    n = 4
+    jbatch = jax.tree_util.tree_map(lambda a: jnp.stack([a] * n), scene)
+    kick = jnp.arange(n, dtype=jnp.float32)[:, None, None] * jnp.asarray([0.2, 0.0, 0.1])
+    bodies = dataclasses.replace(jbatch.bodies, v=jbatch.bodies.v + kick)
+    jbatch = dataclasses.replace(jbatch, bodies=bodies)
+    mesh = Mesh(np.asarray(jax.devices("cpu")[:2]), ("data",))
+    want, want_act = j_sharded_batch_step("data", mesh, jbatch, pcfg, n_steps=8)
+
+    batch = convert.scene_from(jbatch)
+    cfg = convert.physics_config_from(pcfg)
+    shards, act = sharded_batch_step(["cpu", "cpu"], batch, cfg, n_steps=8)
+    assert len(shards) == 2
+    x = torch.cat([s.bodies.x for s in shards])
+    v = torch.cat([s.bodies.v for s in shards])
+    np.testing.assert_allclose(x.numpy(), np.asarray(want.bodies.x), atol=1e-6)
+    np.testing.assert_allclose(v.numpy(), np.asarray(want.bodies.v), atol=1e-6)
+    assert act.shape == () and act.dtype == torch.float32
+    np.testing.assert_allclose(float(act), float(want_act), rtol=1e-5)
+    whole = batch_step(batch, cfg, n_steps=8)
+    for i, shard in enumerate(shards):
+        _assert_same_tree(shard, index_tree(whole, slice(2 * i, 2 * i + 2)))
+    assert torch.equal(act, activity(whole).float()) and float(act) > 0
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ The events: ``tests/test_fracture.py``'s configuration with
 ``exact_caps=False`` and a 64-cell partial pattern (A×C = 512 > JPOOL =
 256, so the pre-fold job cull runs; JCAP × Tp = 16,384), three events from
 one prepared cube: partial at (1.5, 1.5, 1.5), general at the origin (with
-A = 16, so that every overflow counter reads 0), and partial with
-``mesh_pair_pool=True`` (the pooled job mesh clip). The JAX
+A = 16, so that every overflow counter reads 0), partial with
+``mesh_pair_pool=True`` (the pooled job mesh clip) and partial with
+``refitting_point_limit=8`` (the ICH refit). The JAX
 reference runs compiled in a child process with ``--xla_cpu_max_isa=AVX``
 (no FMA contraction, as in the port; see ``test_torch_prepare.py``), and
 the port starts from the JAX package's own prepared pieces and context, so
@@ -40,6 +41,8 @@ EVENTS = {
     # All 16 pieces are active in general mode: A = 16 keeps every overflow 0.
     "general": ((0.0, 0.0, 0.0), False, {"max_active_pieces": 16}),
     "pooled": ((1.5, 1.5, 1.5), True, {"mesh_pair_pool": True}),
+    # The ICH refit of the impact's pieces (refitting_point_limit 8 > 4).
+    "refit8": ((1.5, 1.5, 1.5), True, {"refitting_point_limit": 8}),
 }
 OVERFLOWS = ("active_overflow", "job_overflow", "piece_overflow", "split_face_overflow")
 COUNTS = ("new_pieces", "active_pieces", "merged_out", "num_groups", "mesh_tris_dropped")
@@ -71,7 +74,7 @@ def _unflatten(ref, prefix):
 
 
 def _jax_reference(out_path):
-    """Child-process side: prepare the cube and run the three events."""
+    """Child-process side: prepare the cube and run the events."""
     from surtr_tpu.config import FractureConfig
     from surtr_tpu.fracture.pipeline import do_fracture, prepare_fracture
     from surtr_tpu.io.models import get_model, sphere_point_cloud

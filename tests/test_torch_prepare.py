@@ -41,6 +41,19 @@ CONFIGS = {
     # triangles (no parity grid below 512); clip_polys_by_rows on the CPU.
     "sphere64": ("sphere", dict(BASE, initial_decompose_cell_cnt=64, max_pieces=64,
                                 max_piece_tris=64, voronoi_neighbors=31)),
+    # The ICH refit (refitting_point_limit 8 > 4: the batched B2's plain
+    # version, then the k-DOP of its normals) on the legacy pool, and on
+    # the exact caps' pool of a concave model.
+    "cube16_refit8": ("cube", dict(BASE, initial_decompose_cell_cnt=16, max_pieces=16,
+                                   voronoi_neighbors=15, refitting_point_limit=8)),
+    "torus16_refit8": ("torus", dict(BASE, initial_decompose_cell_cnt=16, max_pieces=16,
+                                     voronoi_neighbors=15, max_piece_tris=128,
+                                     exact_caps=True, refitting_point_limit=8)),
+    # The per-cell uniform-pool fallback of the culled mesh clip (320 >
+    # cull_cap 256): clip_trisoup over each cell's own pool.
+    "sphere16_nopool": ("sphere", dict(BASE, initial_decompose_cell_cnt=16, max_pieces=16,
+                                       voronoi_neighbors=15, max_piece_tris=64,
+                                       mesh_pair_pool=False)),
 }
 KEY = 46354
 
@@ -181,7 +194,11 @@ def test_prepare_context_matches(jax_ref, port_runs, name):
         np.testing.assert_allclose(moments(p)[0].numpy(), jax_ref[f"{name}/{pat}/vol"], atol=1e-6)
 
 
-def test_prepare_out_of_slice_branches_raise():
+def test_prepare_out_of_slice_branches_raise(jax_ref, port_runs):
+    """The branches that once raised (the ICH refit above limit 4 and the
+    per-cell mesh-clip fallback) return, with the JAX package's piece count
+    and a volume within rtol 1e-4 of its run; the fallback gives the pooled
+    route's counts and volume."""
     from surtr_tpu_torch.config import FractureConfig
     from surtr_tpu_torch.fracture.pipeline import prepare_fracture
     from surtr_tpu_torch.io.models import get_model, sphere_point_cloud
@@ -206,11 +223,25 @@ def test_prepare_out_of_slice_branches_raise():
     _, _, met = run("cube", tile=43, initial_decompose_cell_cnt=64, max_pieces=64,
                     voronoi_neighbors=15, max_piece_tris=256, max_islands=1)
     assert int(met["piece_cnt"]) == 64
-    # The per-cell uniform-pool fallback stays out of the port.
-    with pytest.raises(NotImplementedError, match="per-cell"):  # 320 > cull_cap 256
-        run("sphere", **dict(small, max_piece_tris=64, mesh_pair_pool=False))
-    with pytest.raises(NotImplementedError, match="A15"):
-        run("cube", **dict(small, refitting_point_limit=8))
+    # The per-cell uniform-pool fallback (320 > cull_cap 256) and the ICH
+    # refit at limit 8 return what the JAX package returns.
+    for name in ("sphere16_nopool", "cube16_refit8"):
+        _, _, met, _ = port_runs[name]
+        assert int(met["piece_cnt"]) == int(jax_ref[f"{name}/m/piece_cnt"]) > 0
+        np.testing.assert_allclose(float(met["total_volume"]),
+                                   float(jax_ref[f"{name}/m/total_volume"]), rtol=1e-4)
+    model, kw = CONFIGS["sphere16_nopool"]
+    v, f = get_model(model)
+    pooled = prepare_fracture(
+        torch.as_tensor(v), torch.ones(len(v), dtype=torch.bool), torch.as_tensor(v[f]),
+        torch.ones(len(f), dtype=torch.bool), torch.as_tensor(sphere_point_cloud()),
+        FractureConfig(**dict(kw, mesh_pair_pool=True)),
+        *(torch.as_tensor(jax_ref[f"sphere16_nopool/{k}"]) for k in ("seeds", "pseeds", "gseeds")))
+    _, _, met, _ = port_runs["sphere16_nopool"]
+    for k in ("piece_cnt", "mesh_tris_dropped"):
+        assert int(met[k]) == int(pooled[2][k]), k
+    np.testing.assert_allclose(float(met["total_volume"]), float(pooled[2]["total_volume"]),
+                               rtol=1e-6)
 
 
 def test_prepare_generator_seeds_are_deterministic():
