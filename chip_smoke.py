@@ -169,6 +169,15 @@ Phases (any failure exits non-zero):
      ``sharded_batch_step`` (2 copies of the 10k lattice, 8 steps) over
      every visible GPU and over [cuda:0, cuda:0], each shard bit for bit
      equal to its unsharded run, each tally to the unsharded sum.
+ 29. BASELINE config 1 at its model's scale: a torus of 5,000 vertices and
+     10,000 triangles (the pumpkin's size, bench.py:138) written as OBJ
+     text and read back by ``io.obj.load_obj`` (``workload.model_scale_mesh``),
+     decomposed at ``workload.MODEL_1K_CFG`` with no cut: phase 19's checks
+     on its calls (B1's six at F = 96, S = 32, B2 on 5,000 points, B3, B4,
+     B10 on 40,000 lanes), phase 20's launch counts (B1 6, B2 1, B3 1, B4
+     1, B10 1) and slot-for-slot comparison with the CPU plain run, then ms
+     per event (median of 5), the stage split, the idle share and the peak
+     device memory of one event, beside the card's name and power limit.
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
@@ -1915,8 +1924,9 @@ def soup_kernel_phase(calls, card):
 
 
 def _mesh_volume(model):
-    """A procedural model's mesh volume (float64)."""
-    v, f = get_model(model)
+    """The mesh volume (float64) of a procedural model or a (verts, tris)
+    pair."""
+    v, f = get_model(model) if isinstance(model, str) else model
     v = v.astype(np.float64)
     return float(np.einsum("ij,ij->i", v[f[:, 0]], np.cross(v[f[:, 1]], v[f[:, 2]])).sum() / 6)
 
@@ -2732,22 +2742,25 @@ def concave_shape(name, a):
     return list(a[0].shape[:2])
 
 
-def concave_kernel_phase(card):
-    """Phase 19: the torus config-1 event on the card with recording
-    wrappers, then each of its kernels (B1 at F = 96, S = 32, B2, B3, B4,
-    B10) against its plain version on those calls, bit for bit, and on its
-    degenerate cases (B1's at F = 96, S = 32); per kernel the wrapper's ms
-    and the kernel's device ms a call, the plain version's ms and the
-    bound. Returns the per-kernel results."""
-    calls = capture_main_path_inputs(lambda: run_prepare("cuda", CONCAVE_CFG, CONCAVE_MODEL))
-    degen = degenerate_cases("cuda")
-    degen["clip_fold"] = [degenerate_clip_cases("cuda", F=CONCAVE_CFG.max_faces,
-                                                S=CONCAVE_CFG.max_face_verts)]
-    degen["soup_clip"] = list(soup_cases("cuda").values())
+def concave_kernel_phase(card, model=CONCAVE_MODEL, what="torus config 1", degenerate=True):
+    """Phase 19 (and 29's first part): the config-1 event of ``model`` (a
+    name or a (verts, tris) pair) on the card with recording wrappers, then
+    each of its kernels (B1 at F = 96, S = 32, B2, B3, B4, B10) against its
+    plain version on those calls, bit for bit, and, where ``degenerate``,
+    on its degenerate cases (B1's at F = 96, S = 32); per kernel the
+    wrapper's ms and the kernel's device ms a call, the plain version's ms
+    and the bound. Returns the per-kernel results."""
+    calls = capture_main_path_inputs(lambda: run_prepare("cuda", CONCAVE_CFG, model))
+    degen = {name: [] for name in CONCAVE_KERNELS}
+    if degenerate:
+        degen = degenerate_cases("cuda")
+        degen["clip_fold"] = [degenerate_clip_cases("cuda", F=CONCAVE_CFG.max_faces,
+                                                    S=CONCAVE_CFG.max_face_verts)]
+        degen["soup_clip"] = list(soup_cases("cuda").values())
     out = {}
     for name in CONCAVE_KERNELS:
         if not calls[name]:
-            fail(f"torus config 1: no {name} call was recorded")
+            fail(f"{what}: no {name} call was recorded")
         err = max(CONCAVE_COMPARE[name](a, kw) for a, kw in calls[name] + degen[name])
         torch.cuda.synchronize()
         fn = KERNEL_FN[name]
@@ -2779,10 +2792,12 @@ def concave_kernel_phase(card):
         out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "calls": per_call,
                      "degenerate_cases": len(degen[name])}
+        if name == "soup_clip":
+            out[name]["live_lanes"] = [x[0] for x in live]
         for t in per_call:
-            print(f"{name} call {t['shape']} (torus config 1): wrapper {t['ms']:.4f} ms, kernel "
+            print(f"{name} call {t['shape']} ({what}): wrapper {t['ms']:.4f} ms, kernel "
                   f"{t['device_ms']:.4f} ms on the device ({card})", flush=True)
-        print(f"{name} (torus config 1): bit for bit on {len(calls[name])} calls and "
+        print(f"{name} ({what}): bit for bit on {len(calls[name])} calls and "
               f"{len(degen[name])} degenerate cases; kernel {ms:.4f} ms (on the device "
               f"{dev:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra} "
               f"({card})", flush=True)
@@ -2809,41 +2824,40 @@ def _piece_compare(what, g, c, mas):
     return max(dv, dm)
 
 
-def concave_main_path(card):
-    """Phase 20: ``prepare_fracture`` of the torus at config 1 on the card,
-    launch counts proving every kernel ran (and the parity grid built),
-    then the same event through the plain path on the CPU: counts equal,
-    total volume within rtol 1e-5, pieces slot for slot. Returns
-    (launches, metrics, comparison)."""
+def concave_main_path(card, model=CONCAVE_MODEL, what="torus config 1"):
+    """Phase 20 (and 29's second part): ``prepare_fracture`` of ``model`` at
+    config 1 on the card, launch counts proving every kernel ran (and the
+    parity grid built), then the same event through the plain path on the
+    CPU: counts equal, total volume within rtol 1e-5, pieces slot for slot.
+    Returns (launches, metrics, comparison)."""
     grids = []
     build = pipeline.build_parity_grid
     pipeline.build_parity_grid = lambda *a, **k: grids.append(build(*a, **k)) or grids[-1]
     try:
         reset_all()
-        pieces, ctx, met = run_prepare("cuda", CONCAVE_CFG, CONCAVE_MODEL)
+        pieces, ctx, met = run_prepare("cuda", CONCAVE_CFG, model)
         torch.cuda.synchronize()
         counts = all_counts()
     finally:
         pipeline.build_parity_grid = build
     gpu = {k: float(v) for k, v in met.items()}
-    print(f"torus config 1 (cuda): {json.dumps(gpu)} launches: {json.dumps(counts)}; parity "
+    print(f"{what} (cuda): {json.dumps(gpu)} launches: {json.dumps(counts)}; parity "
           f"grids built {len(grids)}", flush=True)
-    check_launches("torus config 1", counts, CONCAVE_LAUNCHES)
+    check_launches(what, counts, CONCAVE_LAUNCHES)
     if len(grids) != 1:
-        fail(f"torus config 1: {len(grids)} parity grids built, expected 1")
+        fail(f"{what}: {len(grids)} parity grids built, expected 1")
     P, F, S = CONCAVE_CFG.max_pieces, CONCAVE_CFG.max_faces, CONCAVE_CFG.max_face_verts
     fv = pieces.convex.face_verts
     if fv.shape != (P, F, S, 3) or not bool(torch.isfinite(fv).all()) or gpu["piece_cnt"] <= 0:
-        fail("torus config 1: pieces are not finite, not of the expected shape or none")
-    mesh_vol = _mesh_volume(CONCAVE_MODEL)
+        fail(f"{what}: pieces are not finite, not of the expected shape or none")
+    mesh_vol = _mesh_volume(model)
     if not 0.0 < gpu["total_volume"] <= 1.6 * mesh_vol:
-        fail(f"torus config 1: total_volume {gpu['total_volume']} against the mesh's {mesh_vol}")
+        fail(f"{what}: total_volume {gpu['total_volume']} against the mesh's {mesh_vol}")
     t0 = time.perf_counter()
-    cpieces, _, cmet = run_prepare("cpu", CONCAVE_CFG, CONCAVE_MODEL)
+    cpieces, _, cmet = run_prepare("cpu", CONCAVE_CFG, model)
     cpu_s = time.perf_counter() - t0
     g = gpu
     c = {k: float(v) for k, v in cmet.items()}
-    what = "torus config 1"
     print(f"{what} (cpu, plain): {json.dumps(c)} in {cpu_s:.2f} s", flush=True)
     for k in ("piece_cnt", "ich_face_cnt", "mesh_tris_dropped"):
         if g[k] != c[k]:
@@ -3059,28 +3073,44 @@ def prepare_stage_split(cfg, model, reps: int = 5) -> dict:
                       lambda: run_prepare("cuda", cfg, model), reps, warmup=1)
 
 
-def concave_timing(starts, card, reps: int = 5) -> dict:
-    """Phase 22: ms per event on the card (host clock, synchronize at the
-    end, median of ``reps``) of the torus config-1 decomposition, its stage
-    split and device idle share; ms per ``fire_impact`` of each concave
-    Scene (each run from a fresh copy of the CPU-built Scene), its stage
-    split and idle share."""
-    out = {"torus_config1_ms": host_ms(lambda: run_prepare("cuda", CONCAVE_CFG, CONCAVE_MODEL),
-                                       reps=reps, warmup=1)}
-    split = prepare_stage_split(CONCAVE_CFG, CONCAVE_MODEL)
-    busy, wall, idle, entries = profile_busy(
-        lambda: run_prepare("cuda", CONCAVE_CFG, CONCAVE_MODEL), 3)
-    out["torus_config1"] = {"stages_ms": split, "busy_ms": busy, "profiled_wall_ms": wall,
-                            "idle_share": idle, "device_entries": entries}
-    print(f"prepare_fracture torus config 1: median {out['torus_config1_ms']:.3f} ms/event of "
-          f"{reps} ({card})", flush=True)
-    print("torus config 1 stage split, median of 5 events (CUDA events, ms): "
+def concave_event_timing(model, what, card, reps: int = 5) -> dict:
+    """ms per config-1 event of ``model`` on the card (host clock,
+    synchronize at the end, median of ``reps``), its stage split, device
+    idle share and peak device memory (``max_memory_allocated`` over one
+    event, beside what was allocated before it)."""
+    run = lambda: run_prepare("cuda", CONCAVE_CFG, model)  # noqa: E731
+    event = host_ms(run, reps=reps, warmup=1)
+    split = prepare_stage_split(CONCAVE_CFG, model, reps)
+    busy, wall, idle, entries = profile_busy(run, 3)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"event_ms": event, "stages_ms": split, "busy_ms": busy, "profiled_wall_ms": wall,
+           "idle_share": idle, "device_entries": entries, "peak_bytes": peak,
+           "allocated_before_bytes": before}
+    print(f"prepare_fracture {what}: median {event:.3f} ms/event of {reps}; peak device memory "
+          f"{peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB allocated before it) ({card})",
+          flush=True)
+    print(f"{what} stage split, median of {reps} events (CUDA events, ms): "
           + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
-    print("torus config 1 idle share "
+    print(f"{what} idle share "
           + (f"{idle:.3f}: device busy {busy:.3f} ms of {wall:.3f} ms per event under the "
              f"profiler, {entries:.0f} device entries per event" if idle is not None
              else "not measured: the profiler reported no device time") + f" ({card})",
           flush=True)
+    return out
+
+
+def concave_timing(starts, card, reps: int = 5) -> dict:
+    """Phase 22: ``concave_event_timing`` of the torus config-1
+    decomposition; ms per ``fire_impact`` of each concave Scene (each run
+    from a fresh copy of the CPU-built Scene), its stage split and idle
+    share."""
+    ev = concave_event_timing(CONCAVE_MODEL, "torus config 1", card, reps)
+    out = {"torus_config1_ms": ev.pop("event_ms"), "torus_config1": ev}
     for model, start in starts.items():
         ray = workload.CONCAVE_RAYS[model]
         copies = [workload.scene_to(start, "cuda") for _ in range(reps + 1)]
@@ -3813,6 +3843,31 @@ def sharded_phase(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: BASELINE config 1 at its model's scale (the pumpkin's 10,000
+# triangles, bench.py:138), on a torus read back from OBJ text.
+# ---------------------------------------------------------------------------
+
+MODEL_SCALE = "config 1 at model scale (10,000-triangle torus)"
+
+
+def model_scale_phase(card):
+    """Phase 29: ``workload.model_scale_mesh()`` (the 10,000-triangle torus
+    through ``io.obj.load_obj``) at config 1: phase 19's kernel checks on
+    its calls (no degenerate cases: phase 19 ran them), phase 20's launch
+    counts and CPU comparison, then ms per event, the stage split, the idle
+    share and the peak device memory."""
+    t0 = time.perf_counter()
+    mesh = workload.model_scale_mesh()
+    print(f"{MODEL_SCALE}: {len(mesh[0])} vertices, {len(mesh[1])} triangles, read back from "
+          f"OBJ text in {time.perf_counter() - t0:.2f} s", flush=True)
+    kernels = concave_kernel_phase(card, mesh, MODEL_SCALE, degenerate=False)
+    counts, met, cmp = concave_main_path(card, mesh, MODEL_SCALE)
+    timing = concave_event_timing(mesh, MODEL_SCALE, card)
+    return {"kernels": kernels, "launches": counts, "metrics": met, "cpu_compare": cmp,
+            "timing": timing}
+
+
 def main():
     # 1. Device.
     if not torch.cuda.is_available():
@@ -3992,7 +4047,10 @@ def main():
     refit_paths = timed("28b-d", refit_paths_phase, prepared, card)
     delaunay = timed("28e", delaunay_phase, card)
     sharded = timed("28f", sharded_phase, card)
-    print(f"phases 23-28, s: {json.dumps(phase_s)}", flush=True)
+
+    # 29. BASELINE config 1 at its model's scale.
+    model_scale = timed(29, model_scale_phase, card)
+    print(f"phases 23-29, s: {json.dumps(phase_s)}", flush=True)
 
     path_counts = {"broadphase_sorted": ("b_sorted", variants["b_sorted"][0]),
                    "solver_warm": ("d_warm", variants["d_warm"][0])}
@@ -4040,6 +4098,8 @@ def main():
         if k["name"] in concave_kernels:
             k["torus_config1"] = {"launches": concave_counts[k["name"]],
                                   **concave_kernels[k["name"]]}
+            k["model_scale"] = {"launches": model_scale["launches"][k["name"]],
+                                **model_scale["kernels"][k["name"]]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels, "event_ms": ms_event, "physics": timing,
                       "sphere": {"metrics": sphere_met, "launches": sphere_counts},
@@ -4051,7 +4111,10 @@ def main():
                                   "scenes": concave_scenes, "timing": concave_times},
                       "routes": routes, "config2": config2, "batch_step": bstep, "cli": cli,
                       "stages": stages, "refit_paths": refit_paths, "delaunay": delaunay,
-                      "sharded": sharded, "card": card}), flush=True)
+                      "sharded": sharded,
+                      "model_scale": {k: model_scale[k] for k in ("metrics", "launches",
+                                                                  "cpu_compare", "timing")},
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

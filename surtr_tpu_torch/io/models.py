@@ -1,17 +1,52 @@
-"""Built-in procedural models (numpy only; counterpart of
-``surtr_tpu/io/models.py``).
+"""Built-in procedural models and the reference model registry (numpy
+only; counterpart of ``surtr_tpu/io/models.py``).
 
 Equivalent shapes to the reference's OBJ models, generated procedurally,
-the 42-point impact-sphere cloud and area-weighted vertex normals. The
-reference-asset registry and the C++ OBJ fast path are left out: they
-serve the reference's own OBJ files.
+the 42-point impact-sphere cloud and area-weighted vertex normals. When the
+reference's resource tree is mounted under ``REFERENCE_ROOT`` (the
+``SURTR_REFERENCE_ROOT`` environment variable), its OBJs load by name
+(``load_reference_model``, and ``get_model`` for a name that is not
+procedural).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from surtr_tpu_torch.io.obj import weld
+from surtr_tpu_torch.io.obj import load_obj, weld
+
+REFERENCE_MODELS = {
+    # name: (relative path, scale, offset) — the model table of
+    # Surtr.cpp:1397-1421 (model indices 0-6) plus the sphere point cloud
+    # (Surtr.cpp:1508, scale 0.5) and the ground (Surtr.cpp:1523, 0.015).
+    "bunny": ("Resources/Models/lowpoly-bunny-closed.obj", (70, 70, 70), (0, 0, 0)),
+    "cube": ("Resources/Models/cube.obj", (3, 3, 3), (0, 0, 0)),
+    "pumpkin": ("Resources/Models/pumpkin.obj", (0.15, 0.15, 0.15), (0, 0, 0)),
+    "cylinder": ("Resources/Models/cylinder.obj", (3, 3, 3), (0, 0, 0)),
+    "highpoly-sphere": ("Resources/Models/highpoly-sphere.obj", (5, 5, 5), (0, 0, 0)),
+    "cessna": ("Resources/Models/cessna.obj", (0.6, 0.6, 0.6), (0, 0, 0)),
+    "shuttle": ("Resources/Models/shuttle.obj", (1, 1, 1), (0, 0, 0)),
+    "sphere": ("Resources/Models/sphere.obj", (0.5, 0.5, 0.5), (0, 0, 0)),
+    "ground": ("Resources/Models/ground.obj", (0.015, 0.015, 0.015), (0, -2, 0)),
+}
+
+# The root of a checkout of the reference (the directory that holds
+# ``Resources/Models``): ``SURTR_REFERENCE_ROOT``, else ``reference/`` at
+# the root of this repository.
+REFERENCE_ROOT = os.environ.get(
+    "SURTR_REFERENCE_ROOT",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                 "reference"),
+)
+
+
+def load_reference_model(name: str):
+    """The registry model ``name`` read from its OBJ under ``REFERENCE_ROOT``
+    at its scale and offset → (verts (V, 3) f32, tris (T, 3) i32)."""
+    rel, scale, offset = REFERENCE_MODELS[name]
+    return load_obj(os.path.join(REFERENCE_ROOT, rel), scale, offset)
 
 
 def box(extent=(1.0, 1.0, 1.0), center=(0.0, 0.0, 0.0)):
@@ -94,8 +129,8 @@ def sphere_point_cloud(radius: float = 0.5):
 
 
 def get_model(name: str):
-    """Procedural model by name (the reference-asset registry is not
-    ported yet)."""
+    """Model by name: procedural first, then a registry model whose OBJ is
+    mounted under ``REFERENCE_ROOT``; ``KeyError`` otherwise."""
     procedural = {
         "cube": lambda: box((3.0, 3.0, 3.0)),
         "box": lambda: box(),
@@ -105,7 +140,11 @@ def get_model(name: str):
     }
     if name in procedural:
         return procedural[name]()
-    raise KeyError(f"unknown procedural model {name!r}")
+    if name in REFERENCE_MODELS and os.path.exists(
+        os.path.join(REFERENCE_ROOT, REFERENCE_MODELS[name][0])
+    ):
+        return load_reference_model(name)
+    raise KeyError(f"unknown model {name!r}")
 
 
 def _blob(n: int = 2, seed: int = 0):

@@ -12,7 +12,10 @@ and inputs that ``chip_smoke.py``, the tools and the tests drive:
 * the 1k-seed decomposition of a concave model at BASELINE config 1's
   configuration (``bench_decomposition_1k_model``, bench.py:136-188, its
   pumpkin absent here, so the procedural torus stands in): exact caps, the
-  prepare-time parity grid and the culled pair-pool mesh clip;
+  prepare-time parity grid and the culled pair-pool mesh clip; on the
+  default torus (576 triangles) and at the pumpkin's scale, a torus of
+  10,000 triangles read back from OBJ text as a user's model is
+  (``MODEL_SCALE_MESH``, ``model_scale_mesh``);
 * ``Scene`` of a concave model (the torus, the blob) at the default
   ``SceneConfig``, which keeps exact caps, and one impact on a fixed ray
   through the model;
@@ -35,7 +38,9 @@ and inputs that ``chip_smoke.py``, the tools and the tests drive:
 from __future__ import annotations
 
 import dataclasses
+import os
 import subprocess
+import tempfile
 
 import numpy as np
 import torch
@@ -44,7 +49,8 @@ from surtr_tpu_torch.config import FractureConfig, PhysicsConfig, RenderConfig, 
 from surtr_tpu_torch.fracture import pipeline
 from surtr_tpu_torch.fracture.pattern import radial_seeds, uniform_seeds
 from surtr_tpu_torch.fracture.types import PieceSet
-from surtr_tpu_torch.io.models import get_model, sphere_point_cloud
+from surtr_tpu_torch.io.models import _torus, get_model, sphere_point_cloud
+from surtr_tpu_torch.io.obj import load_obj
 from surtr_tpu_torch.physics.scene import build_scene
 from surtr_tpu_torch.physics.step import physics_step
 from surtr_tpu_torch.types import ConvexPoly, map_tree, unit_cube
@@ -90,6 +96,7 @@ MODEL_1K_CFG = FractureConfig(    # bench.py:152-161; every other field at its d
     general_pattern_cell_cnt=8,
 )
 CONCAVE_MODEL = "torus"           # the stand-in for config 1's pumpkin
+MODEL_SCALE_MESH = dict(nu=100, nv=50)   # 5,000 v / 10,000 f: the pumpkin's size, bench.py:138
 
 
 CUBE32_CFG = FractureConfig(      # bench.py:301-310
@@ -105,10 +112,30 @@ CUBE32_CFG = FractureConfig(      # bench.py:301-310
 IMPACT = (1.5, 1.5, 1.5)          # bench.py:317
 
 
-def model_inputs(name, device):
-    """``prepare_fracture``'s model arguments for a procedural model
-    (``io.models.get_model``) on ``device``."""
-    v, f = get_model(name)
+def model_scale_obj_text() -> str:
+    """The model-scale torus, ``_torus(**MODEL_SCALE_MESH)``, as OBJ text;
+    each coordinate reads back to the same float32."""
+    v, f = _torus(**MODEL_SCALE_MESH)
+    lines = [f"v {x!r} {y!r} {z!r}" for x, y, z in v.astype(np.float64).tolist()]
+    lines += [f"f {a} {b} {c}" for a, b, c in (f.astype(np.int64) + 1).tolist()]
+    return "\n".join(lines) + "\n"
+
+
+def model_scale_mesh():
+    """Config 1's mesh at its model's scale, loaded as a user's OBJ is: the
+    model-scale torus written to a temporary file and read back by
+    ``io.obj.load_obj`` at scale 1 (parse, mirror, weld) → (verts, tris)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "torus10k.obj")
+        with open(path, "w") as fh:
+            fh.write(model_scale_obj_text())
+        return load_obj(path)
+
+
+def model_inputs(model, device):
+    """``prepare_fracture``'s model arguments on ``device`` for ``model``, a
+    name (``io.models.get_model``) or a (verts, tris) pair."""
+    v, f = get_model(model) if isinstance(model, str) else model
     return (
         torch.as_tensor(v, device=device),
         torch.ones(len(v), dtype=torch.bool, device=device),
@@ -141,10 +168,12 @@ def batch_inputs(device="cuda", M: int = BATCH_M, cfg: FractureConfig = BATCH_CF
             tm.expand(M, -1), cloud, stack(0), stack(1), stack(2))
 
 
-def run_prepare(device="cuda", cfg: FractureConfig = BENCH_CFG, model: str = "cube"):
-    """One ``prepare_fracture`` event of ``model`` on ``device``, seeded from
-    ``manual_seed(SEED)`` (``bench_seeds``); config 1's stand-in is
-    ``run_prepare(device, MODEL_1K_CFG, CONCAVE_MODEL)``."""
+def run_prepare(device="cuda", cfg: FractureConfig = BENCH_CFG, model="cube"):
+    """One ``prepare_fracture`` event of ``model`` (a name or a (verts, tris)
+    pair) on ``device``, seeded from ``manual_seed(SEED)`` (``bench_seeds``);
+    config 1's stand-in is ``run_prepare(device, MODEL_1K_CFG,
+    CONCAVE_MODEL)``, at its model's scale ``run_prepare(device,
+    MODEL_1K_CFG, model_scale_mesh())``."""
     return pipeline.prepare_fracture(*model_inputs(model, device), cfg, *bench_seeds(cfg))
 
 

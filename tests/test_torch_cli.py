@@ -2,7 +2,8 @@
 package's (tests/test_cli.py): the same impact and camera parsing, the
 tiny end-to-end run with ``--device cpu`` (pieces, bodies, volume 27 ±
 0.1, frames, snapshot, trajectory), and the snapshot read by the JAX
-package's own ``load_scene``.
+package's own ``load_scene``; a reference model that is not mounted fails
+with ``get_model``'s ``KeyError``, as in the JAX CLI.
 """
 
 import json
@@ -101,7 +102,11 @@ def test_cli_snapshot_loads_in_the_jax_package(tiny_run):
     np.testing.assert_array_equal(np.asarray(sc.phys.bodies.x), mine.phys.bodies.x.numpy())
 
 
-def test_cli_rejects_a_reference_model():
-    with pytest.raises(SystemExit) as e:
+def test_cli_rejects_a_reference_model(tmp_path, monkeypatch):
+    # A registry name whose OBJ is not mounted fails as in the JAX CLI:
+    # get_model's KeyError (tests/test_torch_models.py holds the two).
+    from surtr_tpu_torch.io import models
+
+    monkeypatch.setattr(models, "REFERENCE_ROOT", str(tmp_path))
+    with pytest.raises(KeyError, match="unknown model 'pumpkin'"):
         main(["--device", "cpu", "--model", "pumpkin", "--steps", "1"])
-    assert e.value.code == 2

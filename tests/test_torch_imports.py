@@ -50,6 +50,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import surtr_tpu_torch.fracture.batch, surtr_tpu_torch.physics.batch\n"
         "import surtr_tpu_torch.ops.delaunay, surtr_tpu_torch.ops.delaunay2d\n"
         "import surtr_tpu_torch.ops.hull, surtr_tpu_torch.ops.moments, surtr_tpu_torch.io.models\n"
+        "import surtr_tpu_torch.io.obj\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

@@ -21,15 +21,20 @@ The cases: the sphere at the 64-cell configuration of
 ``tests/test_torch_prepare.py`` and at the 1k bench configuration (F = 26,
 S = 16, Tp = 64), each again with Tp = 256 and with F = 96, S = 32, and
 the torus at BASELINE config 1 (``workload.MODEL_1K_CFG``, F = 96, S = 32,
-Tp = 128) and at Tp = 512.
+Tp = 128) and at Tp = 512, and config 1 at its model's scale
+(``torus10k_tp128``): the 10,000-triangle torus of ``chip_smoke.py``'s
+phase 29, which the tool writes once as OBJ text
+(``workload.model_scale_obj_text``) and each package reads back with its
+own ``io.obj.load_obj``.
 
 With ``--jax``, each chosen case in ``JAX_CASES`` also runs through the JAX
 package, compiled on the CPU in a child process with
 ``--xla_cpu_max_isa=AVX`` (no FMA contraction, as in the parity tests),
 all children in parallel. Both packages then start from the JAX package's
 seeds (``PRNGKey(46354)``), and the tool prints each package's
-``piece_cnt``, ``mesh_tris_dropped``, ``total_volume`` and capped-mesh
-volume, and the slots whose ``valid`` differs.
+``piece_cnt``, ``mesh_tris_dropped`` (and the caps' share of it),
+``total_volume`` and capped-mesh volume, and the slots whose ``valid``
+differs.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -52,6 +58,7 @@ from surtr_tpu_torch import workload  # noqa: E402
 from surtr_tpu_torch.config import FractureConfig  # noqa: E402
 from surtr_tpu_torch.fracture import pipeline  # noqa: E402
 from surtr_tpu_torch.io.models import get_model  # noqa: E402
+from surtr_tpu_torch.io.obj import load_obj  # noqa: E402
 from surtr_tpu_torch.ops.moments import moments  # noqa: E402
 
 SPHERE64 = FractureConfig(initial_decompose_cell_cnt=64, max_pieces=64, max_faces=26,
@@ -68,11 +75,29 @@ CASES = {
                                                    max_face_verts=32)),
     "torus1k_tp128": ("torus", workload.MODEL_1K_CFG),
     "torus1k_tp512": ("torus", dataclasses.replace(workload.MODEL_1K_CFG, max_piece_tris=512)),
+    "torus10k_tp128": ("torus10k", workload.MODEL_1K_CFG),
 }
 
 # Cases also run through the JAX package with ``--jax``.
-JAX_CASES = ("torus1k_tp128", "sphere1k_tp64")
+JAX_CASES = ("torus1k_tp128", "sphere1k_tp64", "torus10k_tp128")
 JAX_KEY = 46354
+
+# Models read from OBJ text that the tool writes once (``write_obj_models``).
+OBJ_MODELS = {"torus10k": workload.model_scale_obj_text}
+OBJ_PATHS: dict[str, str] = {}
+
+
+def write_obj_models(directory):
+    for name, text in OBJ_MODELS.items():
+        OBJ_PATHS[name] = os.path.join(directory, f"{name}.obj")
+        with open(OBJ_PATHS[name], "w") as fh:
+            fh.write(text())
+
+
+def load_model(model):
+    """(verts, tris) of a procedural model, or of an OBJ model read back
+    from the file the tool wrote."""
+    return load_obj(OBJ_PATHS[model]) if model in OBJ_PATHS else get_model(model)
 
 
 def mesh_volume(tris: np.ndarray) -> float:
@@ -85,7 +110,7 @@ def oracle_cell_volumes(model, planes, pmask) -> np.ndarray:
     """Float64 volume of the source mesh clipped by each cell's live planes."""
     from surtr_tpu.oracle import clip_polyhedron, moments as omoments, polyhedron_from_mesh
 
-    v, f = get_model(model)
+    v, f = load_model(model)
     poly = polyhedron_from_mesh(v.astype(np.float64), f)
     out = np.zeros(planes.shape[0])
     for c in range(planes.shape[0]):
@@ -97,6 +122,7 @@ def oracle_cell_volumes(model, planes, pmask) -> np.ndarray:
 def run_case(model, cfg):
     """One port decomposition with its cell planes and drop split captured."""
     got = {}
+    mesh = load_model(model)
     cells, finish, clip = (pipeline._cell_plane_sets, pipeline._finish_pieces,
                            pipeline.clip_planes_batch)
 
@@ -121,7 +147,7 @@ def run_case(model, cfg):
     pipeline.clip_planes_batch = rec_clip
     try:
         t0 = time.perf_counter()
-        pieces, _, met = workload.run_prepare("cpu", cfg, model)
+        pieces, _, met = workload.run_prepare("cpu", cfg, mesh)
         secs = time.perf_counter() - t0
     finally:
         pipeline._cell_plane_sets, pipeline._finish_pieces = cells, finish
@@ -130,7 +156,7 @@ def run_case(model, cfg):
     conv_vol = float(torch.where(valid, moments(pieces.convex)[0], 0.0).double().sum())
     tris = pieces.mesh[pieces.mesh_valid & valid[:, None]].numpy()
     planes, pmask = (t.numpy() for t in got["cells"])
-    v, f = get_model(model)
+    v, f = mesh
     src = mesh_volume(v[f])
     t0 = time.perf_counter()
     ocells = oracle_cell_volumes(model, planes, pmask)
@@ -164,21 +190,33 @@ def _stats(valid, mesh, mesh_valid, met) -> dict:
 
 def jax_child(model, cfg_json, out):
     """Child-process side of ``--jax``: the JAX package's decomposition of
-    ``model`` at the configuration ``cfg_json`` (FractureConfig fields),
-    its seeds and its results, saved to ``out`` (.npz)."""
+    ``model`` (a procedural name, or an .obj path read with its own
+    ``load_obj``) at the configuration ``cfg_json`` (FractureConfig
+    fields), its seeds and its results, saved to ``out`` (.npz)."""
     import jax
     import jax.numpy as jnp
 
     from surtr_tpu.config import FractureConfig as JaxFractureConfig
+    from surtr_tpu.fracture import pipeline as jax_pipeline
     from surtr_tpu.fracture.pattern import radial_seeds, uniform_seeds
-    from surtr_tpu.fracture.pipeline import prepare_fracture
     from surtr_tpu.io.models import get_model as jax_get_model, sphere_point_cloud
+    from surtr_tpu.io.obj import load_obj as jax_load_obj
 
     cfg = JaxFractureConfig(**json.loads(cfg_json))
-    v, f = jax_get_model(model)
+    v, f = jax_load_obj(model) if model.endswith(".obj") else jax_get_model(model)
     key = jax.random.PRNGKey(JAX_KEY)
+    # The caps' drops, read from _finish_pieces inside the compiled event.
+    got = {}
+    finish = jax_pipeline._finish_pieces
+
+    def rec_finish(*a, **k):
+        out = finish(*a, **k)
+        jax.debug.callback(lambda x: got.__setitem__("cap_drop", int(x)), out[4])
+        return out
+
+    jax_pipeline._finish_pieces = rec_finish
     t0 = time.perf_counter()
-    pieces, _, met = prepare_fracture(
+    pieces, _, met = jax_pipeline.prepare_fracture(
         jnp.asarray(v), jnp.ones(len(v), bool), jnp.asarray(v[f]), jnp.ones(len(f), bool),
         jnp.asarray(sphere_point_cloud()), key, cfg)
     valid = np.asarray(pieces.valid)
@@ -189,9 +227,10 @@ def jax_child(model, cfg_json, out):
                                             cfg.partial_pattern_dist)),
              gseeds=np.asarray(radial_seeds(k2, cfg.general_pattern_cell_cnt,
                                             cfg.general_pattern_dist)),
-             valid=valid, stats=json.dumps({**_stats(valid, np.asarray(pieces.mesh),
-                                                     np.asarray(pieces.mesh_valid), met),
-                                            "seconds": secs}))
+             valid=valid, verts=v, tris=f,
+             stats=json.dumps({**_stats(valid, np.asarray(pieces.mesh),
+                                        np.asarray(pieces.mesh_valid), met),
+                               "dropped_by_caps": got["cap_drop"], "seconds": secs}))
 
 
 def jax_compare(names) -> dict:
@@ -203,7 +242,7 @@ def jax_compare(names) -> dict:
     for name in names:
         model, cfg = CASES[name]
         procs[name] = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--jax-child", model,
+            [sys.executable, os.path.abspath(__file__), "--jax-child", OBJ_PATHS.get(model, model),
              json.dumps(dataclasses.asdict(cfg)), os.path.join(tmp, f"{name}.npz")],
             env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     res = {}
@@ -214,14 +253,31 @@ def jax_compare(names) -> dict:
                 raise RuntimeError(f"{name}: the JAX child failed\n{err[-4000:]}")
             ref = np.load(os.path.join(tmp, f"{name}.npz"))
             model, cfg = CASES[name]
-            t0 = time.perf_counter()
-            pieces, _, met = pipeline.prepare_fracture(
-                *workload.model_inputs(model, "cpu"), cfg,
-                *(torch.as_tensor(ref[k]) for k in ("seeds", "pseeds", "gseeds")))
+            v, f = load_model(model)
+            same_mesh = (np.array_equal(v.view(np.uint32), ref["verts"].view(np.uint32))
+                         and np.array_equal(f, ref["tris"]))
+            got = {}
+            finish = pipeline._finish_pieces
+
+            def rec_finish(*a, **k):
+                out = finish(*a, **k)
+                got["cap_drop"] = int(out[4])
+                return out
+
+            pipeline._finish_pieces = rec_finish
+            try:
+                t0 = time.perf_counter()
+                pieces, _, met = pipeline.prepare_fracture(
+                    *workload.model_inputs((v, f), "cpu"), cfg,
+                    *(torch.as_tensor(ref[k]) for k in ("seeds", "pseeds", "gseeds")))
+                secs = time.perf_counter() - t0
+            finally:
+                pipeline._finish_pieces = finish
             port = {**_stats(pieces.valid.numpy(), pieces.mesh.numpy(),
                              pieces.mesh_valid.numpy(), met),
-                    "seconds": time.perf_counter() - t0}
+                    "dropped_by_caps": got["cap_drop"], "seconds": secs}
             res[name] = {"jax": json.loads(str(ref["stats"])), "port": port,
+                         "same_mesh_bits": same_mesh,
                          "valid_slots_differ": int((pieces.valid.numpy() != ref["valid"]).sum())}
             print(f"{name} (JAX seeds)", json.dumps(res[name]), flush=True)
     finally:
@@ -229,6 +285,7 @@ def jax_compare(names) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     return res
 
 
@@ -243,11 +300,13 @@ def main():
                     help="also run the chosen JAX_CASES through the JAX package")
     args = ap.parse_args()
     res = {}
-    if args.jax:
-        res["jax"] = jax_compare([n for n in args.cases if n in JAX_CASES])
-    for name in args.cases:
-        res[name] = run_case(*CASES[name])
-        print(name, json.dumps(res[name]), flush=True)
+    with tempfile.TemporaryDirectory(prefix="c11_obj_") as obj_dir:
+        write_obj_models(obj_dir)
+        if args.jax:
+            res["jax"] = jax_compare([n for n in args.cases if n in JAX_CASES])
+        for name in args.cases:
+            res[name] = run_case(*CASES[name])
+            print(name, json.dumps(res[name]), flush=True)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(res, fh, indent=1)
