@@ -178,6 +178,23 @@ Phases (any failure exits non-zero):
      1, B10 1) and slot-for-slot comparison with the CPU plain run, then ms
      per event (median of 5), the stage split, the idle share and the peak
      device memory of one event, beside the card's name and power limit.
+ 30. past the old limits (ROADMAP C14): each kernel with a limit at a
+     shape past it (B1 at F = 256, S = 32, and at F = 1,025 over two
+     batches; the batched B2 at limit 64, F = 132; B3 at T = 2048, also
+     over more soups than its CTAs; B5 at Vh = 768; B6, B9 and B12 at K =
+     32, B9 also over more rows than its grid, B12 at W = 256 and 1,024
+     too; B7 at Vh = 12 and 768 and with M = 64; B8 at K = 32, M = 64; B10
+     at S = 16; B11 at 32,768 tiles), bit for bit against its plain version
+     on the card, its general variant's counter showing that it ran, with
+     the wrapper's ms, the device ms and launches (torch.profiler, in one
+     fresh process), the plain version's ms and the bound; the Python byte
+     counts behind each choice of variant against the kernels' C layouts;
+     then three configurations end to end: the 1,000-cube lattice under
+     max_neighbors 32 and max_hull_verts 12 against the CPU plain run in
+     lockstep from one CPU-built scene (phase 9's bounds), the cube under
+     max_piece_tris 2048 and refitting_point_limit 64 against its CPU plain
+     run slot for slot, and render_scene at a shadow map of 8192² against
+     the plain versions on the card, bit for bit.
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
@@ -654,7 +671,7 @@ def per_call_times(name, calls, fn=None, required=True):
     fn = fn or KERNEL_FN[name]
     out = []
     for a, kw in calls:
-        call = lambda a=a, kw=kw: fn(*a, **kw)  # noqa: E731
+        call = functools.partial(fn, *a, **kw)
         out.append({"ms": event_ms(call),
                     "device_ms": device_split(call, DEVICE_NAME[name], required=required)[0]})
     return out
@@ -1342,8 +1359,8 @@ def physics_kernel_phase(card):
                          "bound_ms": b_ms, "bound_by": b_by}
         extra = ""
         if name in ("solver", "solver_warm"):
-            dev_ms, other_ms, entries = device_split(lambda: PHYS_KERNEL_FN[name](*a, **kw),
-                                                     "solver_kernel")
+            dev_ms, other_ms, entries = device_split(
+                functools.partial(PHYS_KERNEL_FN[name], *a, **kw), "solver_kernel")
             S = max(1, kw["substeps"])
             outer = (kw["iters"] + S - 1) // S
             results[name].update(device_ms=dev_ms, other_device_ms=other_ms,
@@ -1353,8 +1370,8 @@ def physics_kernel_phase(card):
                      f"{entries:.0f} device launches a solve, {other_ms:.4f} ms beside the "
                      f"kernel)")
         if name in DEVICE_NAME:
-            dev_ms, other_ms, entries = device_split(lambda: PHYS_KERNEL_FN[name](*a, **kw),
-                                                     DEVICE_NAME[name])
+            dev_ms, other_ms, entries = device_split(
+                functools.partial(PHYS_KERNEL_FN[name], *a, **kw), DEVICE_NAME[name])
             results[name].update(device_ms=dev_ms, other_device_ms=other_ms,
                                  device_launches=entries)
             extra = (f" (on the device: {dev_ms:.4f} ms, {other_ms:.4f} ms beside the kernel, "
@@ -1373,10 +1390,10 @@ def physics_kernel_phase(card):
                   f"frame 1's step): wrapper {t['ms']:.4f} ms, kernel {t['device_ms']:.4f} ms on "
                   f"the device ({card})", flush=True)
         if name == "broadphase_exact":
-            dev_ms, glue_ms, entries = device_split(lambda: PHYS_KERNEL_FN[name](*a, **kw),
-                                                    "bp_exact_kernel")
-            _, _, stage = device_split(lambda: phys_step._broadphase(
-                "exact_pallas", cfg, *a[:5]), "bp_exact_kernel")
+            dev_ms, glue_ms, entries = device_split(
+                functools.partial(PHYS_KERNEL_FN[name], *a, **kw), "bp_exact_kernel")
+            _, _, stage = device_split(functools.partial(
+                phys_step._broadphase, "exact_pallas", cfg, *a[:5]), "bp_exact_kernel")
             tests, first = sweep_tests(a)
             pairs = overlap_pairs(a)
             results[name].update(device_ms=dev_ms, glue_device_ms=glue_ms,
@@ -1684,6 +1701,7 @@ def all_counts() -> dict:
     counts["raster"] = raster_cuda.launches
     counts["raster_glue"] = raster_cuda.glue_launches
     counts.update(launch_counts())
+    counts.update(general_counts())
     return counts
 
 
@@ -1695,6 +1713,7 @@ def reset_all():
     raster_cuda.launches = 0
     raster_cuda.glue_launches = 0
     reset_counts()
+    reset_general()
 
 
 def check_launches(what, counts, want):
@@ -1868,16 +1887,16 @@ def soup_live(a) -> tuple[int, int]:
     return int((steps > 0).sum()), int(steps.sum())
 
 
-def soup_ops(a) -> float:
+def soup_ops(a, S: int = 8) -> float:
     """Float operations the pooled fold needs on these inputs: per valid
     lane with a cell, per live plane of its cell, the context test of its
-    three corners (18); per fold step (``soup_live``) the fold of its S = 8
+    three corners (18); per fold step (``soup_live``) the fold of its S
     slots (36 each)."""
     tri, valid, cell, planes, pmask = a[:5]
     C = planes.shape[0]
     inside = (cell >= 0) & (cell < C)
     live = pmask[cell.long().clamp(0, C - 1)].sum(1) * (valid & inside)
-    return float(live.sum()) * 18 + soup_live(a)[1] * 8 * 36.0
+    return float(live.sum()) * 18 + soup_live(a)[1] * S * 36.0
 
 
 def soup_kernel_phase(calls, card):
@@ -1899,7 +1918,7 @@ def soup_kernel_phase(calls, card):
                  for a, kw in pc)
         # The two kernels alone, as the profiler sees them on the device
         # (``ms`` is the wrapper's whole call); the memset is the rest.
-        split = [device_split(lambda a=a, kw=kw: soup_clip_cuda.soup_clip_pooled(*a, **kw),
+        split = [device_split(functools.partial(soup_clip_cuda.soup_clip_pooled, *a, **kw),
                               "soup_") for a, kw in pc]
         device_ms = sum(x[0] for x in split)
         ops = sum(x[2] for x in split)
@@ -2069,32 +2088,20 @@ def profile_busy(fn, runs: int):
     return busy, wall, ((1.0 - busy / wall) if busy > 0 else None), entries / runs
 
 
-def device_split(fn, kernel: str, runs: int = 20, required: bool = True, sessions: int = 8):
+def _profile_split(call, kernel: str, runs: int, sessions: int):
     """(kernel device ms, other device ms, device entries) per run of
-    ``fn`` under torch.profiler, after one warm-up run: the entries whose
-    names contain ``kernel``, and everything else ``fn`` runs on the
-    device.
-
-    The profiler drops device records once the process has launched many
-    kernels (on the H100 most sessions of phases 13 to 15 keep only part
-    of the runs' records); the records it keeps are whole launches. So a
-    session is used as it stands only when it holds the kernel's records
-    whole (a multiple of ``runs``) and no fewer device records than any
-    session before it. Up to ``sessions`` are taken; if none holds the
-    kernel whole, its time is the mean of the records of the fullest
-    session times its launches a run (that session's records ÷ ``runs``,
-    rounded up), the rest scaled alike, and a line says so. A kernel that
-    no session shows fails, or with ``required=False`` gives None."""
+    ``call`` under torch.profiler, after one warm-up run; the kernel's ms
+    is None where no session holds it (see ``device_split``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    call()
     torch.cuda.synchronize()
     seen = []   # (kernel us, kernel records, other us, records) of each session
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
-                fn()
+                call()
             torch.cuda.synchronize()
         k_us = o_us = 0.0
         k_n = n = 0
@@ -2120,9 +2127,83 @@ def device_split(fn, kernel: str, runs: int = 20, required: bool = True, session
               f"{len(seen)} profiler sessions; its time is their mean times {per_run} a run",
               flush=True)
         return k_us * scale / runs / 1e3, o_us * scale / runs / 1e3, n * scale / runs
-    if required:
-        fail(f"the profiler shows no device kernel named *{kernel}*")
     return None, o_us / runs / 1e3, n / runs
+
+
+def device_split(call, kernel: str, runs: int = 20, required: bool = True, sessions: int = 8):
+    """(kernel device ms, other device ms, device entries) per run of
+    ``call`` under torch.profiler, after one warm-up run: the entries whose
+    names contain ``kernel``, and everything else ``call`` runs on the
+    device. ``call`` is a ``functools.partial`` of a module-level function,
+    so that another process can make the same call.
+
+    The profiler drops device records once the process has launched many
+    kernels (on the H100 most sessions of phases 13 to 15 keep only part
+    of the runs' records, and late in the run a session may keep none of
+    a kernel); the records it keeps are whole launches. So a session is
+    used as it stands only when it holds the kernel's records whole (a
+    multiple of ``runs``) and no fewer device records than any session
+    before it. Up to ``sessions`` are taken; if none holds the kernel
+    whole, its time is the mean of the records of the fullest session
+    times its launches a run (that session's records ÷ ``runs``, rounded
+    up), the rest scaled alike, and a line says so. A kernel that no
+    session shows is measured the same way in a fresh process
+    (``fresh_device_split``), which fails if none of its sessions shows
+    it either; with ``required=False`` it gives None instead."""
+    split = _profile_split(call, kernel, runs, sessions)
+    if split[0] is not None or not required:
+        return split
+    print(f"device_split: *{kernel}*: no profiler session of {sessions} in this process holds "
+          "it; profiled in a fresh process instead", flush=True)
+    return fresh_device_split([(call, kernel, runs, sessions)])[0]
+
+
+FRESH_DIR = "build/device_split"
+
+
+def fresh_device_split(jobs):
+    """``device_split`` of each (call, kernel, runs, sessions) of ``jobs``
+    in one fresh process (``python chip_smoke.py --device-split DIR``): the
+    calls are saved with torch.save, their tensors on the card, and made
+    there in the same way. Fails if that process fails, or if its profiler
+    shows one of the kernels in no session."""
+    import os
+    import subprocess
+    import tempfile
+
+    os.makedirs(FRESH_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=FRESH_DIR) as d:
+        torch.save(jobs, os.path.join(d, "jobs.pt"))
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-split", d],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"device_split in a fresh process exited {proc.returncode}: "
+                 f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+        with open(os.path.join(d, "splits.json")) as fh:
+            out = [tuple(x) for x in json.load(fh)]
+    for line in proc.stdout.splitlines():
+        print(f"  (fresh process) {line}", flush=True)
+    print(f"device_split: {len(jobs)} call(s) profiled in a fresh process in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def device_split_main(d):
+    """The fresh process of ``fresh_device_split``: each saved call's split
+    into ``d``/splits.json."""
+    import os
+
+    _build.library()
+    jobs = torch.load(os.path.join(d, "jobs.pt"), weights_only=False)
+    out = []
+    for call, kernel, runs, sessions in jobs:
+        split = _profile_split(call, kernel, runs, sessions)
+        if split[0] is None:
+            fail(f"the profiler shows no device kernel named *{kernel}*, in a fresh process too")
+        out.append(split)
+    with open(os.path.join(d, "splits.json"), "w") as fh:
+        json.dump(out, fh)
 
 
 def span_split(stages, run, reps: int, warmup: int = 0, total: str = "event") -> dict:
@@ -2379,8 +2460,10 @@ def raster_call_times(g, a):
     glue's device ms and device launches (torch.profiler), the live pairs
     and the most in one tile."""
     wrapper = event_ms(lambda: raster_cuda.rasterize_ids_tiled(*g))
-    kernel, memset, _ = device_split(lambda: raster_cuda.tile_raster(*a), "raster_kernel")
-    pack, rest, entries = device_split(lambda: raster_cuda.tile_table(*g), "raster_pack")
+    kernel, memset, _ = device_split(functools.partial(raster_cuda.tile_raster, *a),
+                                     "raster_kernel")
+    pack, rest, entries = device_split(functools.partial(raster_cuda.tile_table, *g),
+                                       "raster_pack")
     pairs, most = live_pairs(a)
     return {"wrapper_ms": wrapper, "device_ms": kernel, "memset_device_ms": memset,
             "glue_device_ms": pack + rest, "glue_device_launches": entries, "live_pairs": pairs,
@@ -2766,7 +2849,7 @@ def concave_kernel_phase(card, model=CONCAVE_MODEL, what="torus config 1", degen
         fn = KERNEL_FN[name]
         shapes = [concave_shape(name, a) for a, _ in calls[name]]
         if name == "soup_clip":
-            split = [device_split(lambda a=a, kw=kw: fn(*a, **kw), "soup_")
+            split = [device_split(functools.partial(fn, *a, **kw), "soup_")
                      for a, kw in calls[name]]
             per_call = [{"ms": event_ms(lambda a=a, kw=kw: fn(*a, **kw)), "device_ms": x[0]}
                         for (a, kw), x in zip(calls[name], split)]
@@ -3604,8 +3687,8 @@ def refit_kernel_phase(card):
     torch.cuda.synchronize()
     res = {"max_abs_err": 0.0, "calls": {}}
     for what, (a, kw) in calls.items():
-        call = lambda a=a, kw=kw: hull_cuda.ich_batch(*a, **kw)  # noqa: E731
-        plain = lambda a=a, kw=kw: hull_cuda.ich_batch_reference(*a, **kw)  # noqa: E731
+        call = functools.partial(hull_cuda.ich_batch, *a, **kw)
+        plain = functools.partial(hull_cuda.ich_batch_reference, *a, **kw)
         dev_ms, other_ms, entries = device_split(call, "ich_kernel", runs=10)
         b_ms, b_by = ich_batch_bound([(a, kw)])
         t = {"shape": list(a[0].shape), "limit": kw["limit"],
@@ -3868,6 +3951,417 @@ def model_scale_phase(card):
             "timing": timing}
 
 
+# ---------------------------------------------------------------------------
+# 30. Past the old limits: every kernel's general variant.
+# ---------------------------------------------------------------------------
+
+# kernel: (module, its general variant's counter, source, TPU kernel, a name
+# fragment of the general variant's device function)
+GENERAL = {
+    "clip_fold": (clip_cuda, "general_launches", "surtr_tpu_torch/csrc/clip_fold.cu",
+                  "surtr_tpu/ops/clip_pallas.py:52", "clip_fold_kernel"),
+    "ich": (hull_cuda, "general_launches", "surtr_tpu_torch/csrc/ich.cu",
+            "surtr_tpu/ops/hull_pallas.py:51", "ich_general"),
+    "labels": (labels_cuda, "general_launches", "surtr_tpu_torch/csrc/labels.cu",
+               "surtr_tpu/ops/labels_pallas.py:25", "labels_general"),
+    "pack": (pack_cuda, "general_launches", "surtr_tpu_torch/csrc/pack.cu",
+             "surtr_tpu/physics/pack_pallas.py:31", "pack_kernel"),
+    "broadphase_exact": (broadphase_cuda, "exact_general_launches",
+                         "surtr_tpu_torch/csrc/broadphase_exact.cu",
+                         "surtr_tpu/physics/broadphase_pallas.py:221", "bp_exact_general"),
+    "narrowphase": (narrowphase_cuda, "general_launches", "surtr_tpu_torch/csrc/narrowphase.cu",
+                    "surtr_tpu/physics/narrowphase_pallas.py:103", "narrow_general"),
+    "prep": (prep_cuda, "general_launches", "surtr_tpu_torch/csrc/prep.cu",
+             "surtr_tpu/physics/prep_pallas.py:42", "prep_kernel"),
+    "solver": (solver_cuda, "general_launches", "surtr_tpu_torch/csrc/solver.cu",
+               "surtr_tpu/physics/solver_pallas.py:53", "solver_general"),
+    "soup_clip": (soup_clip_cuda, "general_launches", "surtr_tpu_torch/csrc/soup_clip.cu",
+                  "surtr_tpu/ops/soup_clip_pallas.py:43", "soup_fold_general"),
+    "raster": (raster_cuda, "general_launches", "surtr_tpu_torch/csrc/raster.cu",
+               "surtr_tpu/render/raster_pallas.py:37", "raster_kernel"),
+    "broadphase_sorted": (broadphase_cuda, "sorted_general_launches",
+                          "surtr_tpu_torch/csrc/broadphase_sorted.cu",
+                          "surtr_tpu/physics/broadphase_pallas.py:55", "bp_sorted_general"),
+}
+LIMIT_LATTICE = 1000           # pieces of phase 30's lattices: past broadphase_block, so B6 runs
+LIMIT_PHYSICS_CFG = dataclasses.replace(workload.PHYSICS_CFG, max_neighbors=32,
+                                        max_hull_verts=12)
+LIMIT_PHYSICS_STEPS = 30
+LIMIT_PREPARE_CFG = dataclasses.replace(workload.BENCH_CFG, initial_decompose_cell_cnt=64,
+                                        max_pieces=64, max_piece_tris=2048,
+                                        refitting_point_limit=64)
+LIMIT_FACES_CFG = dataclasses.replace(workload.BENCH_CFG, initial_decompose_cell_cnt=64,
+                                      max_pieces=64, max_faces=256, max_face_verts=32)
+LIMIT_PREPARE_LAUNCHES = {"clip_fold": 6, "ich": 2, "ich_batch": 1, "labels": 1,
+                          "ich_general": 1, "labels_general": 1}
+LIMIT_RENDER_TRIS = 512
+LIMIT_SHADOW = 8192
+
+
+def general_counts() -> dict:
+    return {f"{name}_general": getattr(mod, attr) for name, (mod, attr, *_) in GENERAL.items()}
+
+
+def reset_general():
+    for mod, attr, *_ in GENERAL.values():
+        setattr(mod, attr, 0)
+
+
+def capture_many(attrs, fn):
+    """``capture`` of several ``pipeline`` attributes at once: {attr: the
+    (args, kwargs) of each call}, and ``fn``'s result."""
+    calls = {a: [] for a in attrs}
+    saved = [(a, getattr(pipeline, a)) for a in attrs]
+    for attr, orig in saved:
+        def rec(*a, _orig=orig, _attr=attr, **kw):
+            calls[_attr].append((a, kw))
+            return _orig(*a, **kw)
+        setattr(pipeline, attr, rec)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for attr, orig in saved:
+            setattr(pipeline, attr, orig)
+    return calls, out
+
+
+def one_step(cfg, n: int = LIMIT_LATTICE):
+    """The calls of one physics step of an ``n``-cube lattice under
+    ``cfg`` on the card (StepRecorder's (args, kwargs, result) by kernel)."""
+    scene = workload.physics_lattice(n, "cuda", cfg)
+    with StepRecorder() as rec:
+        phys_step.physics_step(scene, cfg)
+        torch.cuda.synchronize()
+    return dict(rec.last)
+
+
+def limits_physics(card):
+    """30 (e1): the lattice under max_neighbors 32 and max_hull_verts 12 on
+    the card and through the plain path on the CPU, in lockstep from one
+    CPU-built scene (C7), phase 9's bounds; every step B6, B7 and B9 by
+    their general variants, B5 and B8 by today's. Returns the launches of
+    the card's run and the last step's calls."""
+    cfg = LIMIT_PHYSICS_CFG
+    sc = workload.physics_lattice(LIMIT_LATTICE, "cpu", cfg)
+    sg = workload.to_device(sc, "cuda")
+    reset_all()
+    want = {"pack": 1, "broadphase_exact": 1, "broadphase_exact_general": 1, "narrowphase": 1,
+            "narrowphase_general": 1, "prep": 1, "solver": 1, "solver_general": 1}
+    hits = (0, 0)
+    with StepRecorder() as rec:
+        for i in range(LIMIT_PHYSICS_STEPS):
+            before = all_counts()
+            rec.last = {}
+            sg = phys_step.physics_step(sg, cfg)
+            torch.cuda.synchronize()
+            last = dict(rec.last)
+            now = all_counts()
+            delta = {k: now[k] - before[k] for k in now}
+            if any(delta.values()):
+                check_launches(f"phase 30 lattice step {i}", delta, want)
+            sc = phys_step.physics_step(sc, cfg)
+            if last:
+                hits = hit_counts(last["prep"])
+    counts = all_counts()
+    dx = float((sg.bodies.x.cpu() - sc.bodies.x).abs().max())
+    dv = float((sg.bodies.v.cpu() - sc.bodies.v).abs().max())
+    print(f"phase 30 lattice ({LIMIT_LATTICE} cubes, max_neighbors 32, max_hull_verts 12): cuda "
+          f"vs cpu plain after {LIMIT_PHYSICS_STEPS} steps: max |dx| {dx:.3e}, max |dv| "
+          f"{dv:.3e}; last step's pair and ground hit slots {hits}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    if not (dx <= 2e-4 and dv <= 2e-3):
+        fail("phase 30 lattice: cuda and cpu runs differ beyond x 2e-4 or v 2e-3")
+    if counts["broadphase_exact_general"] < 1:
+        fail("phase 30 lattice: no step ran")
+    return counts, last, {"dx": dx, "dv": dv, "hits": list(hits)}
+
+
+def limits_prepare(card):
+    """30 (e2): the cube under max_piece_tris 2048 and refitting_point_limit
+    64 on the card (B3 and the batched B2 by their general variants) and
+    through the plain path on the CPU, compared slot for slot. Returns the
+    launches and the recorded B2 and B3 calls."""
+    reset_all()
+    calls, (pieces, ctx, met) = capture_many(
+        ("ich_batch", "tri_soup_components_batch"),
+        lambda: run_prepare("cuda", LIMIT_PREPARE_CFG))
+    counts = all_counts()
+    check_launches("phase 30 prepare", counts, LIMIT_PREPARE_LAUNCHES)
+    g = {k: float(v) for k, v in met.items()}
+    t0 = time.perf_counter()
+    cpieces, _, cmet = run_prepare("cpu", LIMIT_PREPARE_CFG)
+    c = {k: float(v) for k, v in cmet.items()}
+    cpu_s = time.perf_counter() - t0
+    for k in ("piece_cnt", "ich_face_cnt", "mesh_tris_dropped"):
+        if g[k] != c[k]:
+            fail(f"phase 30 prepare: {k} cuda {g[k]} != cpu {c[k]}")
+    if g["piece_cnt"] <= 0 or abs(g["total_volume"] - c["total_volume"]) > 1e-5 * abs(
+            c["total_volume"]):
+        fail(f"phase 30 prepare: total_volume cuda {g['total_volume']} vs cpu "
+             f"{c['total_volume']}")
+    err = _piece_compare("phase 30 prepare", pieces, cpieces, float(ctx.max_axis_scale))
+    print(f"phase 30 prepare (cube, 64 cells, max_piece_tris 2048, refit limit 64): "
+          f"{json.dumps(g)}; the cpu plain run agrees slot for slot (largest vertex difference "
+          f"{err:.3e}, {cpu_s:.1f} s); launches {json.dumps({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    return counts, calls, {"cuda": g, "cpu": c, "cpu_s": cpu_s, "max_vertex_diff": err}
+
+
+def limits_render(card):
+    """30 (e3): render_scene at a shadow map of 8192² (32,768 tiles: B11's
+    batched variant) of bench_render's first 512 triangles, the kernels
+    against the plain versions on the card: each raster call and its glue
+    bit for bit, then the frame with every raster call on the plain
+    versions, image and depth bit for bit."""
+    full = workload.render_512_inputs("cuda")
+    inputs = (full[0][:LIMIT_RENDER_TRIS], full[1][:LIMIT_RENDER_TRIS],
+              full[2][:LIMIT_RENDER_TRIS], *full[3:])
+    reset_all()
+    img, depth = workload.run_render_512("cuda", LIMIT_SHADOW, inputs)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    tiles = -(-LIMIT_SHADOW // raster_cuda.TH) * -(-LIMIT_SHADOW // raster_cuda.TW)
+    batches = -(-tiles // raster_cuda.TILE_BATCH)   # the shadow map's launches
+    check_launches("phase 30 render", counts, {"raster": 1 + batches, "raster_glue": 2,
+                                               "raster_general": batches})
+    calls = capture_raster(lambda: workload.run_render_512("cuda", LIMIT_SHADOW, inputs))
+    for g, a in calls:
+        compare_raster_glue(g)
+        compare_raster(a)
+    orig = raster_cuda.tile_table, raster_cuda.tile_raster
+
+    def plain_raster(*a):
+        out = raster_cuda.tile_raster_reference(*a[:8])
+        return out if len(a) < 9 or a[8] is None else raster_cuda._finish(a[8], *out)
+
+    raster_cuda.tile_table, raster_cuda.tile_raster = raster_cuda._tile_table, plain_raster
+    try:
+        pimg, pdepth = workload.run_render_512("cuda", LIMIT_SHADOW, inputs)
+        torch.cuda.synchronize()
+    finally:
+        raster_cuda.tile_table, raster_cuda.tile_raster = orig
+    for what, x, y in (("image", img, pimg), ("depth", depth, pdepth)):
+        if not torch.equal(_bits(x), _bits(y)):
+            fail(f"phase 30 render: the frame's {what} differs from the plain versions' "
+                 f"({int((_bits(x) != _bits(y)).sum())} entries)")
+    shadow = next(a for _, a in calls if a[3] * a[4] > raster_cuda.RESIDENT_TILES)
+    print(f"phase 30 render ({LIMIT_RENDER_TRIS} triangles, 512², shadow {LIMIT_SHADOW}²: "
+          f"{shadow[3] * shadow[4]} tiles): frame, raster calls and glue bit for bit against "
+          f"the plain versions on the card; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    return counts, shadow
+
+
+def limits_phase(card):
+    """Phase 30."""
+    # (e1)-(e3): the three configurations end to end.
+    phys_counts, last, phys_cmp = limits_physics(card)
+    prep_counts, pcalls, prep_cmp = limits_prepare(card)
+    render_counts, shadow = limits_render(card)
+
+    # One call of each kernel at a shape past its old limit; the general
+    # launches of the runs that record them.
+    launches = {name: 0 for name in GENERAL}
+    for counts in (phys_counts, prep_counts, render_counts):
+        for name in GENERAL:
+            launches[name] += counts[f"{name}_general"]
+    reset_all()
+    faces = capture_main_path_inputs(lambda: run_prepare("cuda", LIMIT_FACES_CFG))["clip_fold"]
+    launches["clip_fold"] = general_counts()["clip_fold_general"]
+    if not clip_cuda.launches == launches["clip_fold"] >= len(faces):
+        fail(f"phase 30: of the F = 256, S = 32 event's {clip_cuda.launches} B1 launches in "
+             f"{len(faces)} calls, {launches['clip_fold']} were of the global variant")
+    b1 = max(faces, key=lambda c: c[0][0].face_verts.shape[0] * c[0][1].shape[1])
+    for a, kw in faces + [degenerate_clip_cases("cuda", F=256, S=32)]:
+        compare_clip(a, kw)
+    f1025 = clip_past_f1024()
+    reset_general()
+    step768 = one_step(dataclasses.replace(workload.PHYSICS_CFG, max_hull_verts=768))
+    step_m64 = one_step(dataclasses.replace(workload.PHYSICS_CFG, max_neighbors=32,
+                                            manifold_points=64))
+    launches["pack"] = general_counts()["pack_general"]
+    launches["prep"] = general_counts()["prep_general"]
+    soup_calls, _ = capture("soup_clip_pooled", lambda: run_prepare("cuda", model="sphere"))
+    sa = soup_calls[0][0][:5]
+    bp = last["broadphase_exact"][0][:5]
+    W = LIMIT_PHYSICS_CFG.broadphase_window
+    sphere_pts = sphere_ich_call("cuda")[0]
+    cases = {
+        # name: (shape, call (args, kwargs), comparison, kernel, plain, ops)
+        "clip_fold": ("(N, F, S, K) " + str([*b1[0][0].face_verts.shape[:3], b1[0][1].shape[1]]),
+                      b1, compare_clip, clip_cuda.clip_planes_batch,
+                      clip_cuda.clip_planes_batch_reference,
+                      decomposition_ops("clip_fold", *b1)),
+        "ich": (f"(B, P) {list(pcalls['ich_batch'][0][0][0].shape[:2])}, limit 64: F = 132",
+                pcalls["ich_batch"][0], compare_ich_batch, hull_cuda.ich_batch,
+                hull_cuda.ich_batch_reference, None),
+        "labels": (f"(N, T) {list(pcalls['tri_soup_components_batch'][0][0][0].shape[:2])}",
+                   pcalls["tri_soup_components_batch"][0], compare_labels,
+                   labels_cuda.tri_soup_components_batch,
+                   labels_cuda.tri_soup_components_batch_reference,
+                   decomposition_ops("labels", *pcalls["tri_soup_components_batch"][0])),
+        "pack": (f"Np {LIMIT_LATTICE}, Vh 768", step768["pack"][:2], compare_pack,
+                 pack_cuda.transform_pack_owned, pack_cuda.transform_pack_owned_reference,
+                 physics_ops("pack", *step768["pack"][:2])),
+        "broadphase_exact": (f"Np {LIMIT_LATTICE}, K 32", (bp + (32,), {}),
+                             compare_broadphase_exact, broadphase_cuda.broadphase_exact,
+                             broadphase_cuda.broadphase_exact_reference,
+                             physics_ops("broadphase_exact", bp + (32,), {})),
+        "narrowphase": (f"(Np, K) ({LIMIT_LATTICE}, 32), Vh 12", last["narrowphase"][:2],
+                        compare_narrowphase, narrowphase_cuda.narrowphase,
+                        narrowphase_cuda.narrowphase_reference,
+                        physics_ops("narrowphase", *last["narrowphase"][:2])),
+        "prep": (f"Np {LIMIT_LATTICE}, K 32, M 64: a row of "
+                 f"{prep_cuda.row_bytes(32, 64, workload.PHYSICS_CFG.max_ground_contacts)} B",
+                 step_m64["prep"][:2], compare_prep, prep_cuda.prep_from_records,
+                 prep_cuda.prep_from_records_reference, physics_ops("prep", *step_m64["prep"][:2])),
+        "solver": (f"Np {LIMIT_LATTICE}, K 32, C {32 * 4 + 4}", last["solver"][:2],
+                   compare_solver, solver_cuda.solve, solver_cuda.solve_reference,
+                   physics_ops("solver", *last["solver"][:2])),
+        "soup_clip": (f"{sa[0].shape[0]} lanes by {tuple(sa[3].shape)}, S 16",
+                      (sa, {"poly_slots": 16}), compare_soup, soup_clip_cuda.soup_clip_pooled,
+                      soup_clip_cuda.soup_clip_pooled_reference, soup_ops(sa, 16)),
+        "raster": (f"shadow {LIMIT_SHADOW}²: {shadow[3] * shadow[4]} tiles, T_pad "
+                   f"{shadow[0].shape[0]}", (shadow[:8], {}), lambda a, kw: compare_raster(shadow),
+                   raster_cuda.tile_raster, raster_cuda.tile_raster_reference,
+                   raster_ops(shadow)),
+        "broadphase_sorted": (f"Np {LIMIT_LATTICE}, K 32, W {W}", (bp + (32, W), {}),
+                              compare_broadphase_sorted, broadphase_cuda.broadphase_sorted,
+                              broadphase_cuda.broadphase_sorted_reference,
+                              physics_ops("broadphase_sorted", bp + (32, W), {})),
+    }
+    extra = {   # further calls past the limits, compared only
+        "ich": [((sphere_pts[0], sphere_pts[1]), {"limit": 64})],
+        "labels": [tile_labels(*pcalls["tri_soup_components_batch"][0])],
+        "solver": [step_m64["solver"][:2], tile_solver(*last["solver"][:2])],
+        "narrowphase": [step768["narrowphase"][:2], step_m64["narrowphase"][:2]],
+        "broadphase_sorted": [(bp + (8, 256), {}), (bp + (32, 1024), {})],
+    }
+    compare_one = {"ich": compare_ich}
+    results, jobs = {}, []
+    for name, (shape, (a, kw), cmp, fn, plain, ops) in cases.items():
+        call = functools.partial(fn, *a, **kw)
+        pcall = functools.partial(plain, *a, **kw)
+        reset_general()
+        out = call()
+        torch.cuda.synchronize()
+        n_general = general_counts()[f"{name}_general"]
+        if n_general < 1:
+            fail(f"phase 30 {name} at {shape}: its general variant did not launch")
+        cmp(a, kw)
+        for ea, ekw in extra.get(name, []):
+            compare_one.get(name, cmp)(ea, ekw)
+        torch.cuda.synchronize()
+        ms = event_ms(call, reps=5, warmup=1)
+        plain_ms = event_ms(pcall, reps=3, warmup=1)
+        jobs.append((call, GENERAL[name][4], 5, 2))
+        if name == "ich":
+            b_ms, b_by = ich_batch_bound([(a, kw)])
+        else:
+            b_ms, b_by = bound(nbytes(a) + nbytes(kw) + nbytes(out), ops)
+        launches[name] = launches[name] or n_general
+        results[name] = {"shape": shape, "general_launches": n_general, "max_abs_err": 0.0,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    # The device split of every call in one fresh process: late in this
+    # long process the profiler may keep no record of a kernel.
+    for (name, res), (dev_ms, other_ms, entries) in zip(results.items(),
+                                                        fresh_device_split(jobs)):
+        res.update(device_ms=dev_ms, other_device_ms=other_ms, device_launches=entries)
+        print(f"phase 30 {name} (general variant) at {res['shape']}: bit for bit against the "
+              f"plain version; {res['general_launches']} general launch(es) a call; wrapper "
+              f"{res['ms']:.4f} ms, kernel {dev_ms:.4f} ms on the device in {entries:.0f} "
+              f"device launches a call ({other_ms:.4f} ms beside it), plain "
+              f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}) "
+              f"({card})", flush=True)
+    layouts = check_layouts()
+    return {"kernels": results, "launches": launches, "physics": phys_cmp,
+            "prepare": prep_cmp, "clip_f1025": f1025, "layouts": layouts}
+
+
+def clip_past_f1024():
+    """B1 at F = 1,025 (past the old explicit F <= 1,024), S = 8: phase 3's
+    degenerate cases 100 times over, 800 polytopes, more than the global
+    variant's scratch holds, so it runs two batches. Bit for bit against
+    the plain version; the launches its C entry counts must be the
+    batches. Returns the call's launches."""
+    (poly, planes, mask), kw = degenerate_clip_cases("cuda", F=1025, S=8)
+    reps = 100
+    poly = poly.map(lambda t: t.repeat((reps,) + (1,) * (t.dim() - 1)))
+    a = (poly, planes.repeat(reps, 1, 1), mask.repeat(reps, 1))
+    N = poly.face_verts.shape[0]
+    slots = min(-(-N // 4), clip_cuda.SCRATCH_BYTES // clip_cuda.poly_bytes(1025, 8) // 4) * 4
+    want = -(-N // slots)
+    reset_all()
+    clip_cuda.clip_planes_batch(*a, **kw)
+    torch.cuda.synchronize()
+    n, g = clip_cuda.launches, clip_cuda.general_launches
+    if not n == g == want:
+        fail(f"phase 30 clip_fold at (N, F, S) ({N}, 1025, 8): {n} launches, {g} of the global "
+             f"variant; its {want} batches of {slots} want {want} each")
+    compare_clip(a, kw)
+    print(f"phase 30 clip_fold at (N, F, S) ({N}, 1025, 8): bit for bit against the plain "
+          f"version; {n} launches of the global variant ({slots} polytopes a batch)", flush=True)
+    return {"shape": [N, 1025, 8], "launches": n, "slots": slots}
+
+
+def tile_labels(a, kw):
+    """B3's general call repeated over the soups to 300 or more, more soups
+    than the general variant's CTAs (``labels_cuda.GENERAL_BLOCKS``): its
+    CTAs walk the soups."""
+    corners, valid = a[:2]
+    reps = -(-300 // corners.shape[0])
+    return (corners.repeat(reps, 1, 1, 1), valid.repeat(reps, 1)), kw
+
+
+def tile_solver(a, kw, reps: int = 24):
+    """B9's general call on ``reps`` copies of its lattice (24,000 rows):
+    more rows than its cooperative grid (at most ``GENERAL_BLOCKS`` CTAs of
+    8 rows), so the grid walks them."""
+    vw0, pb, tables = a[:3]
+    Np = vw0.shape[0]
+    pbs = torch.cat([pb + i * Np for i in range(reps)])
+    return (vw0.repeat(reps, 1), pbs, tuple(t.repeat(reps, 1) for t in tables)), kw
+
+
+def check_layouts():
+    """The byte counts behind each wrapper's choice of variant (Python)
+    against the C functions the kernels size their memory with, over the
+    shapes where the choice flips and around them. Returns the number of
+    shapes compared."""
+    import ctypes
+
+    def q(name, n):
+        return _build.bind(name, [ctypes.c_int] * n, ctypes.c_longlong)
+
+    grids = [
+        ("surtr_clip_fold_poly_bytes", clip_cuda.poly_bytes,
+         [(F, S) for F in (4, 26, 96, 249, 250, 256, 984, 985, 1024, 1025, 4096)
+          for S in (3, 8, 16, 32, 64)]),
+        ("surtr_pack_stage_bytes", pack_cuda.stage_bytes,
+         [(Vh, F, Ne) for Vh in (8, 16, 17, 64, 723, 724, 768) for F in (8, 16, 17, 26, 32)
+          for Ne in (0, 3, 16, 17)]),
+        ("surtr_prep_row_bytes", prep_cuda.row_bytes,
+         [(K, M, G) for K in (1, 8, 16, 32, 64) for M in (1, 4, 25, 26, 64) for G in (0, 4)]),
+        ("surtr_labels_general_words", labels_cuda.general_words,
+         [(T,) for T in (1, 31, 32, 33, 1024, 1025, 2048, 2600, 8192)]),
+        ("surtr_narrowphase_staged_bytes", narrowphase_cuda.staged_bytes,
+         [(Vh, K, F, Ne, M) for Vh in (8, 12, 16, 32, 64, 128) for K in (1, 8, 32)
+          for F in (8, 26, 32) for Ne in (3, 16) for M in (1, 4, 20, 64)]),
+    ]
+    n = 0
+    for cname, pyfn, shapes in grids:
+        cfn = q(cname, len(shapes[0]))
+        for shape in shapes:
+            c, py = cfn(*shape), pyfn(*shape)
+            if c != py:
+                fail(f"phase 30 layouts: {cname}{shape} is {c} in C, {py} in Python")
+            n += 1
+    print(f"phase 30 layouts: the Python byte counts equal the kernels' C layouts at {n} shapes "
+          f"({', '.join(g[0] for g in grids)})", flush=True)
+    return n
+
+
 def main():
     # 1. Device.
     if not torch.cuda.is_available():
@@ -4050,7 +4544,10 @@ def main():
 
     # 29. BASELINE config 1 at its model's scale.
     model_scale = timed(29, model_scale_phase, card)
-    print(f"phases 23-29, s: {json.dumps(phase_s)}", flush=True)
+
+    # 30. Past the old limits: each kernel's general variant.
+    limits = timed(30, limits_phase, card)
+    print(f"phases 23-30, s: {json.dumps(phase_s)}", flush=True)
 
     path_counts = {"broadphase_sorted": ("b_sorted", variants["b_sorted"][0]),
                    "solver_warm": ("d_warm", variants["d_warm"][0])}
@@ -4100,6 +4597,11 @@ def main():
                                   **concave_kernels[k["name"]]}
             k["model_scale"] = {"launches": model_scale["launches"][k["name"]],
                                 **model_scale["kernels"][k["name"]]}
+    for name, res in limits["kernels"].items():
+        _, _, src, rep, _ = GENERAL[name]
+        kernels.append({"name": f"{name}_general", "route": "cuda", "source": src,
+                        "replaces": rep, "path": "phase 30, past the old limits",
+                        "launches": limits["launches"][name], "library_ms": None, **res})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels, "event_ms": ms_event, "physics": timing,
                       "sphere": {"metrics": sphere_met, "launches": sphere_counts},
@@ -4114,6 +4616,8 @@ def main():
                       "sharded": sharded,
                       "model_scale": {k: model_scale[k] for k in ("metrics", "launches",
                                                                   "cpu_compare", "timing")},
+                      "limits": {k: limits[k] for k in ("physics", "prepare", "clip_f1025",
+                                                        "layouts")},
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -4123,4 +4627,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--device-split"]:
+        device_split_main(sys.argv[2])
+    else:
+        main()

@@ -337,6 +337,67 @@ bp_exact_kernel(const float* __restrict__ table, const float* __restrict__ tiles
   theta[i] = kth;
 }
 
+// ---------------------------------------------------------------------------
+// 4'. The general variant, for K > MAXK: one thread a sorted piece, its K
+// best keys kept sorted in a device scratch (slot s of rank r at
+// best[s * Np_pad + r]), every 128-row chunk whose sweep-axis interval
+// meets the piece's own walked row by row. The keys and the insertion are
+// those of the sweep above (unique keys: the same K smallest).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(128)
+bp_exact_general_kernel(const float* __restrict__ table, const float* __restrict__ chunks,
+                        const int* __restrict__ axis_in, int Np, int NCH, int K, int id_bits,
+                        float qs, float qmax, int* __restrict__ best, int* __restrict__ pidx,
+                        unsigned char* __restrict__ pok, int* __restrict__ key_ji,
+                        int* __restrict__ theta) {
+  const int rank = blockIdx.x * blockDim.x + threadIdx.x;
+  if (rank >= Np) return;
+  const int Np_pad = NCH * CHUNK;
+  const float4* me = reinterpret_cast<const float4*>(table + (size_t)rank * ROW);
+  const float4 m0 = me[0], m1 = me[1], m2 = me[2];
+  const bool val = m1.w > 0.5f;
+  const int ax = *axis_in;
+  const float alo = ax == 0 ? m1.x : (ax == 1 ? m1.y : m1.z);
+  const float ahi = ax == 0 ? m2.x : (ax == 1 ? m2.y : m2.z);
+  const int mask = (1 << id_bits) - 1;
+  int* mb = best + rank;
+  for (int s = 0; s < K; ++s) mb[(size_t)s * Np_pad] = IMAX;
+  int kth = IMAX;
+  for (int ch = 0; val && ch < NCH; ++ch) {
+    if (chunks[2 * ch] > ahi || chunks[2 * ch + 1] < alo) continue;   // no row of it can meet
+    const int r1 = min((ch + 1) * CHUNK, Np);
+    for (int r = ch * CHUNK; r < r1; ++r) {
+      const float4* o = reinterpret_cast<const float4*>(table + (size_t)r * ROW);
+      const float4 o0 = o[0], o1 = o[1], o2 = o[2];
+      if (!(o1.w > 0.5f)) continue;
+      const bool over = o1.x <= m2.x && m1.x <= o2.x && o1.y <= m2.y && m1.y <= o2.y &&
+                        o1.z <= m2.z && m1.z <= o2.z;
+      if (!over || o0.w == m0.w || o2.w == m2.w) continue;
+      const float dx = o0.x - m0.x, dy = o0.y - m0.y, dz = o0.z - m0.z;
+      float d2 = dx * dx;
+      d2 = d2 + dy * dy;
+      d2 = d2 + dz * dz;
+      const int q = (int)fminf(d2 * qs, qmax);
+      int v = (q << id_bits) | ((int)o2.w & mask);
+      if (v >= kth) continue;
+      for (int s = 0; s < K; ++s) {
+        const int b = mb[(size_t)s * Np_pad];
+        mb[(size_t)s * Np_pad] = min(b, v);
+        v = max(b, v);
+      }
+      kth = mb[(size_t)(K - 1) * Np_pad];
+    }
+  }
+  const int i = (int)m2.w;
+  for (int s = 0; s < K; ++s) {
+    const int key = mb[(size_t)s * Np_pad];
+    pidx[(size_t)i * K + s] = key & mask;
+    pok[(size_t)i * K + s] = key != IMAX;
+    key_ji[(size_t)i * K + s] = (key & ~mask) | i;
+  }
+  theta[i] = kth;
+}
+
 }  // namespace
 
 extern "C" int surtr_broadphase_exact_key(const float* c, int cs, const unsigned char* valid,
@@ -360,13 +421,21 @@ extern "C" int surtr_broadphase_exact_pack(const float* c, int cs, const float* 
   return (int)cudaGetLastError();
 }
 
+// K <= MAXK takes the tiled sweep; a larger K the general variant, with
+// `best` a (K, NCH * CHUNK) int scratch and `axis` the key launch's axis.
 extern "C" int surtr_broadphase_exact(const float* table, const float* tiles, const float* chunks,
                                       int Np, int NCH, int K, int id_bits, float qs, float qmax,
                                       int* pidx, unsigned char* pok, int* key_ji, int* theta,
-                                      void* stream) {
+                                      const int* axis, int* best, void* stream) {
   const int NT = NCH * (CHUNK / TILE);
-  if (K < 1 || K > MAXK || id_bits < 1 || id_bits > 30 || NT > MAX_TILES)
-    return (int)cudaErrorInvalidValue;
+  if (K < 1 || id_bits < 1 || id_bits > 30 || NT > MAX_TILES) return (int)cudaErrorInvalidValue;
+  if (K > MAXK) {
+    if (best == nullptr) return (int)cudaErrorInvalidValue;
+    if (Np > 0)
+      bp_exact_general_kernel<<<(Np + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+          table, chunks, axis, Np, NCH, K, id_bits, qs, qmax, best, pidx, pok, key_ji, theta);
+    return (int)cudaGetLastError();
+  }
   if (Np > 0)
     bp_exact_kernel<<<NT, GROUPS * 32, 0, (cudaStream_t)stream>>>(
         table, tiles, chunks, Np, NT, NCH, K, id_bits, qs, qmax, pidx, pok, key_ji, theta);

@@ -49,7 +49,7 @@
 // launch, since blocks run in no order. The selection issues instructions
 // faster than its loads arrive, so its code is sized to the window: a
 // template on the candidates a thread (2 for the paths' W <= 32, 8 up to
-// the wrapper's W <= 128), each read straight from the table (staging the
+// W <= 128; the general variant beyond), each read straight from the table (staging the
 // CTA's rows in shared memory measured no faster). Measured by tools/time_b10_b12.py on an NVIDIA H100 80GB
 // HBM3 at 700 W, the first design in the same call: at the 10k lattice the
 // sweep 0.0100 ms (the selection 0.0083) against 0.134, the glue 0.051
@@ -271,19 +271,77 @@ bp_sorted_sweep_select_kernel(const float4* __restrict__ table, int Np, int K, i
 }
 
 // 5. The mutual mask: one thread a (sorted lane, slot).
+// The general variant's selection, for K > MAXK or W > MAXW: one thread a
+// sorted lane, each of the K rounds a walk over the 2W candidates in delta
+// order that takes the largest key not yet selected, the lowest candidate
+// index on ties (the warp rounds' order); the selection mask is the
+// lane's words of `masks`, and the picks are 32-bit (candidate | 1 << 31
+// when real).
 __global__ void __launch_bounds__(256)
-bp_sorted_sweep_mutual_kernel(const float* __restrict__ table,
-                              const unsigned short* __restrict__ picks,
+bp_sorted_general_select_kernel(const float4* __restrict__ table, int Np, int K, int W,
+                                int* __restrict__ pidx, unsigned* __restrict__ picks,
+                                unsigned* __restrict__ masks) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= Np) return;
+  const float4 m0 = table[(size_t)r * ROW4];
+  const float4 m1 = table[(size_t)r * ROW4 + 1];
+  const float4 m2 = table[(size_t)r * ROW4 + 2];
+  const bool mval = m1.w > 0.5f;
+  const int nc = 2 * W, nw = (nc + 31) >> 5;
+  unsigned* sel = masks + (size_t)r * nw;
+  for (int j = 0; j < nw; ++j) sel[j] = 0u;
+  const int o = __float_as_int(m2.w);
+  for (int k = 0; k < K; ++k) {
+    unsigned bk = 0u;
+    int bc = 0, bid = 0;
+    for (int c = 0; c < nc; ++c) {
+      if ((sel[c >> 5] >> (c & 31)) & 1u) continue;
+      const int rk = r + delta_of(c, W);
+      const int rc = min(max(rk, 0), Np - 1);
+      const float4 o0 = table[(size_t)rc * ROW4];
+      const float4 o1 = table[(size_t)rc * ROW4 + 1];
+      const float4 o2 = table[(size_t)rc * ROW4 + 2];
+      float score = -BIG;
+      const bool ok = rk >= 0 && rk < Np && mval && o1.w > 0.5f && o0.w != m0.w &&
+                      m1.x <= o2.x && o1.x <= m2.x && m1.y <= o2.y && o1.y <= m2.y &&
+                      m1.z <= o2.z && o1.z <= m2.z;
+      if (ok) {
+        const float dx = m0.x - o0.x, dy = m0.y - o0.y, dz = m0.z - o0.z;
+        float d2 = dx * dx;
+        d2 = d2 + dy * dy;
+        d2 = d2 + dz * dz;
+        score = -d2;
+      }
+      const unsigned key = order_key(score);
+      if (key > bk) {
+        bk = key;
+        bc = c;
+        bid = __float_as_int(o2.w);
+      }
+    }
+    sel[bc >> 5] |= 1u << (bc & 31);
+    const bool real = key_float(bk) > -BIG * 0.5f;
+    pidx[(size_t)o * K + k] = bid;
+    picks[(size_t)r * K + k] = (unsigned)bc | (real ? 0x80000000u : 0u);
+  }
+}
+
+// PT: the picks' type (16 bits with the warp selection, 32 with the
+// general one), its top bit the real flag.
+template <typename PT>
+__global__ void __launch_bounds__(256)
+bp_sorted_sweep_mutual_kernel(const float* __restrict__ table, const PT* __restrict__ picks,
                               const unsigned* __restrict__ masks, int Np, int K, int W,
                               unsigned char* __restrict__ pok) {
+  constexpr PT REAL = (PT)1 << (8 * sizeof(PT) - 1);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= Np * K) return;
   const int r = t / K;
   const int k = t - r * K;
-  const unsigned p = picks[t];
+  const PT p = picks[t];
   bool live = false;
-  if (p & 0x8000u) {
-    const int d = delta_of((int)(p & 0x7FFFu), W);
+  if (p & REAL) {
+    const int d = delta_of((int)(p & (PT)(REAL - 1)), W);
     const int back = d > 0 ? W + d - 1 : -d - 1;   // -d in the partner's delta order
     const int nw = (2 * W + 31) >> 5;
     live = (masks[(size_t)(r + d) * nw + (back >> 5)] >> (back & 31)) & 1u;
@@ -328,22 +386,35 @@ extern "C" int surtr_broadphase_sorted_pack(const float* c, int cs, const float*
 }
 
 // picks: Np * K u16 scratch; masks: Np * ceil(2W / 32) u32 scratch.
+// picks: (Np, K) 16-bit for the warp selection (K <= MAXK, W <= MAXW),
+// 32-bit for the general one; masks (Np, ceil(2W / 32)) words.
 extern "C" int surtr_broadphase_sorted(const float* table, int Np, int K, int W, int* pidx,
-                                       unsigned char* pok, unsigned short* picks,
-                                       unsigned* masks, void* stream) {
-  if (K < 1 || K > MAXK || K > 2 * W || W > MAXW || Np < 1) return (int)cudaErrorInvalidValue;
+                                       unsigned char* pok, void* picks, unsigned* masks,
+                                       void* stream) {
+  if (K < 1 || K > 2 * W || Np < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((Np + WARPS - 1) / WARPS), block(WARPS * 32);
   const float4* t4 = reinterpret_cast<const float4*>(table);
-  if (W <= 32)
-    bp_sorted_sweep_select_kernel<2><<<grid, block, 0, st>>>(t4, Np, K, W, pidx, picks, masks);
-  else
-    bp_sorted_sweep_select_kernel<8><<<grid, block, 0, st>>>(t4, Np, K, W, pidx, picks, masks);
+  const bool general = K > MAXK || W > MAXW;
+  if (general) {
+    bp_sorted_general_select_kernel<<<(Np + 255) / 256, 256, 0, st>>>(
+        t4, Np, K, W, pidx, static_cast<unsigned*>(picks), masks);
+  } else {
+    const dim3 grid((Np + WARPS - 1) / WARPS), block(WARPS * 32);
+    unsigned short* p16 = static_cast<unsigned short*>(picks);
+    if (W <= 32)
+      bp_sorted_sweep_select_kernel<2><<<grid, block, 0, st>>>(t4, Np, K, W, pidx, p16, masks);
+    else
+      bp_sorted_sweep_select_kernel<8><<<grid, block, 0, st>>>(t4, Np, K, W, pidx, p16, masks);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long n = (long long)Np * K;
-  bp_sorted_sweep_mutual_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(table, picks,
-                                                                              masks, Np, K, W,
-                                                                              pok);
+  const unsigned blocks = (unsigned)((n + 255) / 256);
+  if (general)
+    bp_sorted_sweep_mutual_kernel<unsigned><<<blocks, 256, 0, st>>>(
+        table, static_cast<const unsigned*>(picks), masks, Np, K, W, pok);
+  else
+    bp_sorted_sweep_mutual_kernel<unsigned short><<<blocks, 256, 0, st>>>(
+        table, static_cast<const unsigned short*>(picks), masks, Np, K, W, pok);
   return (int)cudaGetLastError();
 }

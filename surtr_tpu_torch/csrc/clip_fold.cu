@@ -71,18 +71,26 @@ __device__ __forceinline__ float sdist(float x, float y, float z, float nx, floa
   return ((x * nx + y * ny) + z * nz) + d;
 }
 
+// GLOBAL (the general variant, for a polytope whose state passes the shared
+// memory of a CTA): the same fold with warp w's state in slice
+// blockIdx.x * W + w of a device scratch instead of shared memory, the
+// launch taking polytopes b_base, b_base + 1, ... (the entry point launches
+// as many batches as its scratch needs).
+template <bool GLOBAL>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 clip_fold_kernel(const float* __restrict__ fv_in, const int* __restrict__ nv_in,
                  const float* __restrict__ pl_in, const float* __restrict__ cuts,
                  const unsigned char* __restrict__ cmask, int cs, int ms,
                  float* __restrict__ fv_out, int* __restrict__ nv_out, float* __restrict__ pl_out,
-                 int N, int F, int S, int K, float tol, int W) {
+                 int N, int F, int S, int K, float tol, int W, float* __restrict__ scratch,
+                 int b_base) {
   extern __shared__ float sm[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * W + w;
+  const int b = (GLOBAL ? b_base : 0) + blockIdx.x * W + w;
   if (b >= N) return;                       // no block barrier below: warps are independent
   const int FS3 = F * S * 3, P = F * CAPS;
-  float* const fv0 = sm + (size_t)w * poly_words(F, S);
+  float* const fv0 = (GLOBAL ? scratch + (size_t)blockIdx.x * W * poly_words(F, S) : sm) +
+                     (size_t)w * poly_words(F, S);
   float* const fv1 = fv0 + FS3;
   float* pl = fv1 + FS3;
   float* cand = pl + 4 * F;                 // [(q*3 + a)*F + f]
@@ -392,9 +400,6 @@ int smem_set[MAX_DEVICES] = {};
 
 }  // namespace
 
-// Bytes of shared memory one polytope takes (a CTA holds 1-4 of them).
-extern "C" size_t surtr_clip_fold_smem(int F, int S) { return (size_t)poly_words(F, S) * 4; }
-
 // cuts (N, K, 4) and cmask (N, K) may have any row stride (cs, ms elements).
 extern "C" int surtr_clip_fold(const float* fv, const int* nv, const float* pl,
                                const float* cuts, const unsigned char* cmask, int cs, int ms,
@@ -411,11 +416,40 @@ extern "C" int surtr_clip_fold(const float* fv, const int* nv, const float* pl,
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if ((int)smem > 48 * 1024 && (int)smem > smem_set[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
-        clip_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        clip_fold_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set[dev] = (int)smem;
   }
-  clip_fold_kernel<<<(N + W - 1) / W, 32 * W, smem, (cudaStream_t)stream>>>(
-      fv, nv, pl, cuts, cmask, cs, ms, ofv, onv, opl, N, F, S, K, tol, W);
+  clip_fold_kernel<false><<<(N + W - 1) / W, 32 * W, smem, (cudaStream_t)stream>>>(
+      fv, nv, pl, cuts, cmask, cs, ms, ofv, onv, opl, N, F, S, K, tol, W, nullptr, 0);
   return (int)cudaGetLastError();
+}
+
+// Bytes of one polytope's fold state (clip_cuda.poly_bytes mirrors it).
+extern "C" long long surtr_clip_fold_poly_bytes(int F, int S) {
+  return (long long)poly_words(F, S) * 4;
+}
+
+// The global variant (any F and S): scratch holds `slots` * poly_words(F, S)
+// floats (clip_cuda.poly_bytes), slots a multiple of MAX_WARPS; a launch a
+// batch of `slots` polytopes, counted in *launched.
+extern "C" int surtr_clip_fold_global(const float* fv, const int* nv, const float* pl,
+                                      const float* cuts, const unsigned char* cmask, int cs,
+                                      int ms, float* ofv, int* onv, float* opl, int N, int F,
+                                      int S, int K, float tol, float* scratch, int slots,
+                                      int* launched, void* stream) {
+  *launched = 0;
+  if (N <= 0) return (int)cudaGetLastError();
+  if (slots < MAX_WARPS || slots % MAX_WARPS) return (int)cudaErrorInvalidValue;
+  for (int b0 = 0; b0 < N; b0 += slots) {
+    const int n = N - b0 < slots ? N - b0 : slots;
+    clip_fold_kernel<true><<<(n + MAX_WARPS - 1) / MAX_WARPS, 32 * MAX_WARPS, 0,
+                             (cudaStream_t)stream>>>(fv, nv, pl, cuts, cmask, cs, ms, ofv, onv,
+                                                     opl, N, F, S, K, tol, MAX_WARPS, scratch,
+                                                     b0);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    ++*launched;
+  }
+  return 0;
 }

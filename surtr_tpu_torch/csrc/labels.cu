@@ -26,7 +26,8 @@
 // bits (four labels at a time), then the jump, reads before writes; the
 // candidate stops at the first round that changes no label (a round is a
 // function of the labels alone, so the remaining rounds are the identity).
-// One block a candidate, a warp per 32 triangles (1 <= T <= 1024), the
+// One block a candidate, a warp per 32 triangles (1 <= T <= 1024; the
+// general variant below beyond), the
 // words in shared memory, block barriers. (At T = 64 the block of two warps
 // measured faster than one warp owning two triangles a lane: PERF.md.)
 
@@ -253,16 +254,122 @@ labels_block_kernel(const float* __restrict__ corners, const unsigned char* __re
   if (t < T) ob[t] = vt ? lab[t] : T;
 }
 
+// Words of one soup's state in the general variant: keys (3T 64-bit), the
+// quantized corners (9T), two label buffers (2T), the valid words (NW) and
+// the adjacency rows (T x NW words), rounded up to an even count.
+__host__ __device__ inline long long general_words(int T) {
+  const long long NW = (T + 31) / 32;
+  return (17LL * T + NW + (long long)T * NW + 1) / 2 * 2;
+}
+
+// The general variant, for T > 1024: a block of 1024 threads a soup, each
+// thread taking triangles t, t + 1024, ...; the soup's state in the block's
+// slice of a device scratch (general_words(T) words), the block walking
+// soups b, b + gridDim.x, ... Adjacency words by ballot as above (a warp a
+// (valid row, word) pair); each round relaxes into the second label buffer,
+// then jumps back into the first from it, and the soup stops at the first
+// round that changes no label.
+__global__ void __launch_bounds__(1024)
+labels_general_kernel(const float* __restrict__ corners, const unsigned char* __restrict__ valid,
+                      int* __restrict__ labels_out, int N, int T, long long cstride, int rounds,
+                      float tol, int* __restrict__ scratch) {
+  const int NW = (T + 31) >> 5;
+  int* const base = scratch + (size_t)blockIdx.x * general_words(T);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(base);   // 3T
+  int* q = base + 6 * T;                                                   // 9T
+  int* lab = q + 9 * T;                                                    // T
+  int* lab2 = lab + T;                                                     // T
+  unsigned* vws = reinterpret_cast<unsigned*>(lab2 + T);                   // NW
+  unsigned* adj = vws + NW;                                                // T * NW
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  auto vbit = [&](int t) { return ((vws[t >> 5] >> (t & 31)) & 1u) != 0u; };
+  for (int b = blockIdx.x; b < N; b += gridDim.x) {
+    const float* cb = corners + (size_t)b * cstride;
+    const unsigned char* vb = valid + (size_t)b * T;
+    int* ob = labels_out + (size_t)b * T;
+    bool any = false;
+    for (int w = warp; w < NW; w += nwarps) {
+      const int t = 32 * w + lane;
+      const unsigned word = __ballot_sync(FULL, t < T && vb[t] != 0);
+      if (lane == 0) vws[w] = word;
+      any |= word != 0u;
+    }
+    for (int i = tid; i < 9 * T; i += nt) q[i] = quantize(cb[i], tol);
+    if (!__syncthreads_or(any)) {
+      for (int t = tid; t < T; t += nt) ob[t] = T;
+      __syncthreads();
+      continue;
+    }
+    bool in_range = true;
+    for (int t = tid; t < T; t += nt) {
+      int my[9];
+      unsigned long long mk[3];
+      in_range &= own_corners(q, keys, t, my, mk);
+      lab[t] = vbit(t) ? t : T;
+      lab2[t] = lab[t];
+    }
+    const bool exact = __syncthreads_and(in_range);
+    for (long long x = warp; x < (long long)T * NW; x += nwarps) {
+      const int i = (int)(x / NW), w = (int)(x - (long long)i * NW);
+      if (!vbit(i)) continue;                     // the warp's row: uniform
+      const int j = 32 * w + lane;
+      bool hit = false;
+      if (j < T && vbit(j)) {
+        int my[9];
+#pragma unroll
+        for (int e = 0; e < 9; ++e) my[e] = q[j * 9 + e];
+        const unsigned long long mk[3] = {keys[3 * j], keys[3 * j + 1], keys[3 * j + 2]};
+        const unsigned long long rk[3] = {keys[3 * i], keys[3 * i + 1], keys[3 * i + 2]};
+        hit = exact ? keys_meet(mk, rk) : corners_meet(my, mk, q + i * 9, rk);
+      }
+      const unsigned word = __ballot_sync(FULL, hit);
+      if (lane == 0) adj[(size_t)i * NW + w] = word;
+    }
+    __syncthreads();
+    for (int r = 0; r < rounds; ++r) {
+      bool changed = false;
+      for (int t = tid; t < T; t += nt) {
+        if (!vbit(t)) continue;
+        int nl = lab[t];
+        for (int wj = 0; wj < NW; ++wj) nl = relax_word(nl, adj[(size_t)t * NW + wj], lab + 32 * wj);
+        lab2[t] = nl;
+      }
+      __syncthreads();
+      for (int t = tid; t < T; t += nt) {
+        if (!vbit(t)) continue;
+        const int l = lab2[t];
+        const int nl = min(l, lab2[l]);          // jump: lab <- min(lab, lab[lab])
+        changed |= nl != lab[t];
+        lab[t] = nl;
+      }
+      if (!__syncthreads_or(changed)) break;
+    }
+    for (int t = tid; t < T; t += nt) ob[t] = vbit(t) ? lab[t] : T;
+    __syncthreads();                              // the slice is read before the next soup
+  }
+}
+
 }  // namespace
 
+extern "C" long long surtr_labels_general_words(int T) { return general_words(T); }
+
 // corners: candidate b's (T, 3, 3) floats are contiguous from
-// corners + b * cstride.
+// corners + b * cstride. T <= 1024 takes the block kernel; T > 1024 the
+// general one on `blocks` CTAs, with `scratch` holding blocks *
+// general_words(T) ints (labels_cuda.general_words).
 extern "C" int surtr_labels(const float* corners, long long cstride, const unsigned char* valid,
-                            int* labels, int N, int T, int rounds, float tol,
-                            void* stream) {
-  if (T < 1 || T > 1024) return (int)cudaErrorInvalidValue;
+                            int* labels, int N, int T, int rounds, float tol, int* scratch,
+                            int blocks, void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (T > 1024) {
+    if (scratch == nullptr || blocks < 1) return (int)cudaErrorInvalidValue;
+    labels_general_kernel<<<blocks, 1024, 0, s>>>(corners, valid, labels, N, T, cstride, rounds,
+                                                  tol, scratch);
+    return (int)cudaGetLastError();
+  }
   const int NW = (T + 31) / 32;
   const size_t smem = ((size_t)16 * T + (size_t)T * NW + NW) * sizeof(int);
   if (smem > 48 * 1024) {

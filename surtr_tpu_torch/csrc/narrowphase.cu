@@ -419,16 +419,30 @@ narrow_kernel(const float* __restrict__ packed, const int* __restrict__ pidx,
   for (int k = tid; k < npairs * R; k += THREADS) dst[k] = part[k];
 }
 
+// A run of PB pairs spans at most (PB - 1) / K + 2 pieces: the floats of
+// their rows, 16-byte aligned.
+int own_floats(int PB, int K, int D) { return (((PB - 1) / K + 2) * D + 6 + 3) / 4 * 4; }
+
+// Shared bytes of the staged kernel at this shape (narrowphase_cuda.staged_bytes
+// mirrors it), 0 where it does not take the shape: Vh not 8, 16, 32 or 64, or a
+// record (5 + 6M floats) wider than the staged row whose place it takes.
+long long staged_smem(int vh, int K, int F, int NE, int M) {
+  if (vh != 8 && vh != 16 && vh != 32 && vh != 64) return 0;
+  const int PB = THREADS / (vh / 4);
+  const int D = 4 * vh + 5 * F + 26 + 4 * NE;
+  const int slot = row_slot(D);
+  if (slot < 5 + 6 * M) return 0;
+  return (long long)sizeof(float) * ((long long)own_floats(PB, K, D) + (long long)PB * slot);
+}
+
 template <int VH, int G>
 int launch(const float* packed, const int* pidx, const uint8_t* pok, const float* dop, int Np,
            int K, int F, int NE, int M, float slop, float* out, cudaStream_t stream) {
+  static_assert(G == VH / 4, "a group of Vh / 4 lanes a pair");
   constexpr int PB = THREADS / G;
   const int D = 4 * VH + 5 * F + 26 + 4 * NE;
-  // A run of PB pairs spans at most (PB - 1) / K + 2 pieces.
-  const int own_cap = (((PB - 1) / K + 2) * D + 6 + 3) / 4 * 4;
-  const int slot = row_slot(D), R = 5 + 6 * M;
-  const size_t smem = sizeof(float) * ((size_t)own_cap + (size_t)PB * (slot > R ? slot : R));
-  if (slot < R) return (int)cudaErrorInvalidValue;   // records must fit the rows' place
+  const size_t smem = (size_t)staged_smem(VH, K, F, NE, M);
+  if (smem == 0) return (int)cudaErrorInvalidValue;   // records must fit the rows' place
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(narrow_kernel<VH, G>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -437,29 +451,247 @@ int launch(const float* packed, const int* pidx, const uint8_t* pok, const float
   }
   const int pairs = Np * K;
   narrow_kernel<VH, G><<<(pairs + PB - 1) / PB, THREADS, smem, stream>>>(
-      packed, pidx, pok, dop, Np, K, F, NE, M, slop, own_cap, out);
+      packed, pidx, pok, dop, Np, K, F, NE, M, slop, own_floats(PB, K, D), out);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The general variant: one thread a pair, the rows read in place from the
+// packed table, any Vh, F, Ne and M. It takes what the staged kernel does
+// not (a Vh other than 8, 16, 32 or 64, records wider than a staged row,
+// rows past the shared memory of a block) and follows the plain version
+// step for step: the folds propagate NaN as torch.amin / amax do, each
+// corner's containment is a fold over the other hull's live planes, and
+// the M picks walk the 2·Vh candidates in order (a pick already taken
+// counts -BIG, as the plain scatter leaves it; the taken indices are read
+// back from the record's feature ids). Feature ids use the real Vh.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float nmin(float a, float b) { return (a != a || b != b) ? NAN : fminf(a, b); }
+__device__ __forceinline__ float nmax(float a, float b) { return (a != a || b != b) ? NAN : fmaxf(a, b); }
+__device__ __forceinline__ float dot3f(float x, float y, float z, float a, float b, float c) {
+  return (x * a + y * b) + z * c;
+}
+
+// torch.nan_to_num(nan=BIG) as the argmin over the axes sees a value.
+__device__ __forceinline__ float axis_key(float v) {
+  if (v != v) return BIG;
+  if (isinf(v)) return v > 0.f ? 3.4028234663852886e38f : -3.4028234663852886e38f;
+  return v;
+}
+
+struct GRows {
+  const float* I;
+  const float* J;
+  int Vh, F, NE;
+  __device__ float ix(int v) const { return I[v]; }
+  __device__ float iy(int v) const { return I[Vh + v]; }
+  __device__ float iz(int v) const { return I[2 * Vh + v]; }
+  __device__ bool im(int v) const { return I[3 * Vh + v] > 0.5f; }
+  __device__ float jx(int v) const { return J[v]; }
+  __device__ float jy(int v) const { return J[Vh + v]; }
+  __device__ float jz(int v) const { return J[2 * Vh + v]; }
+  __device__ bool jm(int v) const { return J[3 * Vh + v] > 0.5f; }
+};
+
+// Max over the live planes of `P` (a row) of corner (x, y, z)'s distance,
+// -BIG where no plane is live: the containment fold of one corner.
+__device__ inline float contain(const float* P, int Vh, int F, float x, float y, float z) {
+  const int PN = 4 * Vh, PD = PN + 3 * F, PM = PN + 4 * F;
+  float m = -BIG;
+  for (int f = 0; f < F; ++f) {
+    const float d = dot3f(x, y, z, P[PN + f], P[PN + F + f], P[PN + 2 * F + f]) + P[PD + f];
+    m = nmax(m, P[PM + f] > 0.5f ? d : -BIG);
+  }
+  return m;
+}
+
+__global__ void __launch_bounds__(THREADS)
+narrow_general_kernel(const float* __restrict__ packed, const int* __restrict__ pidx,
+                      const uint8_t* __restrict__ pok, const float* __restrict__ dop, int Np,
+                      int K, int Vh, int F, int NE, int M, float slop, float* __restrict__ out) {
+  const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (p >= (long long)Np * K) return;
+  const int i = (int)(p / K);
+  int j = pidx[p];
+  j = j < 0 ? 0 : (j >= Np ? Np - 1 : j);
+  const long long D = 4LL * Vh + 5LL * F + 26 + 4LL * NE;
+  const GRows g{packed + (size_t)i * D, packed + (size_t)j * D, Vh, F, NE};
+  const float* I = g.I;
+  const float* J = g.J;
+  const int PN = 4 * Vh, PD = PN + 3 * F, PM = PN + 4 * F;
+  const int LOD = PN + 5 * F, HID = LOD + 13, EX = HID + 13, EM = EX + 3 * NE;
+
+  // Least penetration over the axes in family order, first of ties.
+  float bkey = 0.f, bpen = 0.f, bnx = 0.f, bny = 0.f, bnz = 0.f;
+  int bidx = -1;
+  bool undefined = false;
+  auto axis = [&](int t, bool live, float pen, float dx, float dy, float dz) {
+    const float v = live ? pen : (isfinite(pen) ? BIG : NAN);
+    undefined |= v != v;
+    const float k = axis_key(v);
+    if (bidx < 0 || k < bkey) { bkey = k; bpen = v; bidx = t; bnx = dx; bny = dy; bnz = dz; }
+  };
+  for (int t = 0; t < 13; ++t) {
+    const float ilo = I[LOD + t], ihi = I[HID + t], jlo = J[LOD + t], jhi = J[HID + t];
+    const float s = (ihi + ilo) < (jhi + jlo) ? -1.0f : 1.0f;
+    axis(t, true, nmin(ihi, jhi) - nmax(ilo, jlo), s * dop[t * 3], s * dop[t * 3 + 1],
+         s * dop[t * 3 + 2]);
+  }
+  for (int f = 0; f < F; ++f) {
+    const float px = J[PN + f], py = J[PN + F + f], pz = J[PN + 2 * F + f], pd = J[PD + f];
+    float mn = BIG;
+    for (int v = 0; v < Vh; ++v)
+      mn = nmin(mn, g.im(v) ? dot3f(g.ix(v), g.iy(v), g.iz(v), px, py, pz) + pd : BIG);
+    axis(13 + f, J[PM + f] > 0.5f, -mn, px, py, pz);
+  }
+  for (int f = 0; f < F; ++f) {
+    const float px = I[PN + f], py = I[PN + F + f], pz = I[PN + 2 * F + f], pd = I[PD + f];
+    float mn = BIG;
+    for (int v = 0; v < Vh; ++v)
+      mn = nmin(mn, g.jm(v) ? dot3f(g.jx(v), g.jy(v), g.jz(v), px, py, pz) + pd : BIG);
+    axis(13 + F + f, I[PM + f] > 0.5f, -mn, -px, -py, -pz);
+  }
+  for (int a = 0; a < NE; ++a) {
+    for (int b = 0; b < NE; ++b) {
+      const float ax = I[EX + a], ay = I[EX + NE + a], az = I[EX + 2 * NE + a];
+      const float bx = J[EX + b], by = J[EX + NE + b], bz = J[EX + 2 * NE + b];
+      float cx = ay * bz - az * by, cy = az * bx - ax * bz, cz = ax * by - ay * bx;
+      const float nl = sqrtf((cx * cx + cy * cy) + cz * cz);
+      const float inv = 1.0f / (nl != nl ? nl : fmaxf(nl, 1e-30f));
+      cx = cx * inv; cy = cy * inv; cz = cz * inv;
+      const bool live = (I[EM + a] > 0.5f) && (J[EM + b] > 0.5f) && (nl > 1e-6f);
+      float ilo = BIG, ihi = -BIG, jlo = BIG, jhi = -BIG;
+      for (int v = 0; v < Vh; ++v) {
+        const float ti = dot3f(g.ix(v), g.iy(v), g.iz(v), cx, cy, cz);
+        const float tj = dot3f(g.jx(v), g.jy(v), g.jz(v), cx, cy, cz);
+        const bool mi = g.im(v), mj = g.jm(v);
+        ilo = nmin(ilo, mi ? ti : BIG); ihi = nmax(ihi, mi ? ti : -BIG);
+        jlo = nmin(jlo, mj ? tj : BIG); jhi = nmax(jhi, mj ? tj : -BIG);
+      }
+      const float s = (ihi + ilo) < (jhi + jlo) ? -1.0f : 1.0f;
+      axis(13 + 2 * F + a * NE + b, live, nmin(ihi, jhi) - nmax(ilo, jlo), cx * s, cy * s,
+           cz * s);
+    }
+  }
+  const float depth = undefined ? NAN : bpen;
+  const float nx = undefined ? 0.f : bnx, ny = undefined ? 0.f : bny, nz = undefined ? 0.f : bnz;
+  const bool hit = (pok[p] != 0) && (depth > -slop) && (depth < HALF_BIG);
+
+  // The containment manifold: candidate c < Vh is i's corner c, else j's
+  // corner c - Vh; its score and contact point are computed where needed.
+  float si_min = BIG, sj_max = -BIG;
+  for (int v = 0; v < Vh; ++v) {
+    si_min = nmin(si_min, g.im(v) ? dot3f(g.ix(v), g.iy(v), g.iz(v), nx, ny, nz) : BIG);
+    sj_max = nmax(sj_max, g.jm(v) ? dot3f(g.jx(v), g.jy(v), g.jz(v), nx, ny, nz) : -BIG);
+  }
+  auto score = [&](int c) -> float {
+    if (c < Vh) {
+      if (!g.im(c)) return -BIG;
+      const float x = g.ix(c), y = g.iy(c), z = g.iz(c);
+      return contain(J, Vh, F, x, y, z) <= slop ? sj_max - dot3f(x, y, z, nx, ny, nz) : -BIG;
+    }
+    const int v = c - Vh;
+    if (!g.jm(v)) return -BIG;
+    const float x = g.jx(v), y = g.jy(v), z = g.jz(v);
+    return contain(I, Vh, F, x, y, z) <= slop ? dot3f(x, y, z, nx, ny, nz) - si_min : -BIG;
+  };
+  const int R = 5 + 6 * M;
+  float* o = out + (size_t)p * R;
+  bool any_h = false;
+  float v0 = 0.f, x0 = 0.f, y0 = 0.f, z0 = 0.f, f0 = 0.f;
+  bool h0 = false;
+  for (int m = 0; m < M; ++m) {
+    // Sequential walk from candidate 0: a candidate replaces the best only
+    // when strictly larger (NaN never does, a NaN candidate 0 stays).
+    auto taken = [&](int c) {
+      for (int q = 0; q < m; ++q)
+        if ((int)(q == 0 ? f0 : o[5 + 6 * q + 5]) - 1 == c) return true;
+      return false;
+    };
+    int b = 0;
+    float best = taken(0) ? -BIG : score(0);
+    for (int c = 1; c < 2 * Vh; ++c) {
+      const float x = taken(c) ? -BIG : score(c);
+      if (x > best) { best = x; b = c; }
+    }
+    float px, py, pz;
+    if (b < Vh) {
+      const float h = (sj_max - dot3f(g.ix(b), g.iy(b), g.iz(b), nx, ny, nz)) * 0.5f;
+      px = g.ix(b) + nx * h; py = g.iy(b) + ny * h; pz = g.iz(b) + nz * h;
+    } else {
+      const int v = b - Vh;
+      const float h = (dot3f(g.jx(v), g.jy(v), g.jz(v), nx, ny, nz) - si_min) * 0.5f;
+      px = g.jx(v) - nx * h; py = g.jy(v) - ny * h; pz = g.jz(v) - nz * h;
+    }
+    const bool h = hit && (best > -slop) && (best < HALF_BIG);
+    any_h = any_h || h;
+    if (m == 0) {
+      v0 = best; h0 = h; x0 = px; y0 = py; z0 = pz; f0 = (float)(b + 1);
+    } else {
+      float* om = o + 5 + 6 * m;
+      om[0] = best; om[1] = h ? 1.0f : 0.0f; om[2] = px; om[3] = py; om[4] = pz;
+      om[5] = (float)(b + 1);
+    }
+  }
+
+  // Fallback when no corner is contained: the deepest support corners
+  // (argmax of where(mask, -si, -BIG) and of where(mask, sj, -BIG)).
+  if (hit && !any_h) {
+    int fi = 0, fj = 0;
+    bool has_i = false, has_j = false;
+    float bi = -BIG, bj = -BIG;
+    for (int v = 0; v < Vh; ++v) {
+      const bool mi = g.im(v), mj = g.jm(v);
+      has_i |= mi;
+      has_j |= mj;
+      const float ci = mi ? -dot3f(g.ix(v), g.iy(v), g.iz(v), nx, ny, nz) : -BIG;
+      const float cj = mj ? dot3f(g.jx(v), g.jy(v), g.jz(v), nx, ny, nz) : -BIG;
+      if (v == 0) { bi = ci; bj = cj; }
+      if (ci > bi) { bi = ci; fi = v; }
+      if (cj > bj) { bj = cj; fj = v; }
+    }
+    const float pix = has_i ? g.ix(fi) : 0.f, piy = has_i ? g.iy(fi) : 0.f,
+                piz = has_i ? g.iz(fi) : 0.f;
+    const float pjx = has_j ? g.jx(fj) : 0.f, pjy = has_j ? g.jy(fj) : 0.f,
+                pjz = has_j ? g.jz(fj) : 0.f;
+    x0 = 0.5f * (pix + pjx);
+    y0 = 0.5f * (piy + pjy);
+    z0 = 0.5f * (piz + pjz);
+    v0 = depth;
+    h0 = true;
+    f0 = (2.0f * (float)Vh + (float)(has_i ? fi : 0) * (float)Vh) + (float)(has_j ? fj + 1 : 0);
+  }
+  o[0] = nx; o[1] = ny; o[2] = nz; o[3] = depth; o[4] = hit ? 1.0f : 0.0f;
+  o[5] = v0; o[6] = h0 ? 1.0f : 0.0f; o[7] = x0; o[8] = y0; o[9] = z0; o[10] = f0;
 }
 
 }  // namespace
 
-// Corner-pool sizes the kernel is built for (the wrapper checks first).
-extern "C" int surtr_narrowphase_supports(int Vh) {
-  return Vh == 8 || Vh == 16 || Vh == 32 || Vh == 64;
+extern "C" long long surtr_narrowphase_staged_bytes(int Vh, int K, int F, int Ne, int M) {
+  return staged_smem(Vh, K, F, Ne, M);
 }
 
-// packed must start 16-byte aligned (the wrapper checks).
+// packed must start 16-byte aligned for the staged variant (the wrapper
+// checks); `general` takes the one-thread-a-pair variant (the wrapper's
+// narrowphase_cuda._variant mirrors launch()'s shared-memory sizes).
 extern "C" int surtr_narrowphase(const float* packed, const int* pidx, const uint8_t* pok,
                                  const float* dop, int Np, int K, int Vh, int F, int Ne, int M,
-                                 float slop, float* out, void* stream) {
+                                 float slop, int general, float* out, void* stream) {
   if (Np * K == 0) return 0;
   if (M < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (general) {
+    const long long pairs = (long long)Np * K;
+    narrow_general_kernel<<<(unsigned)((pairs + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+        packed, pidx, pok, dop, Np, K, Vh, F, Ne, M, slop, out);
+    return (int)cudaGetLastError();
+  }
   switch (Vh) {
     case 8: return launch<8, 2>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
     case 16: return launch<16, 4>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
     case 32: return launch<32, 8>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
     case 64: return launch<64, 16>(packed, pidx, pok, dop, Np, K, F, Ne, M, slop, out, s);
-    default: return -1;
+    default: return (int)cudaErrorInvalidValue;
   }
 }

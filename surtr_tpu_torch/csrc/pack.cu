@@ -33,7 +33,10 @@ namespace {
 constexpr float BIG = 3.4e38f;
 constexpr int THREADS = 128;
 
-template <int L>
+// DIRECT (the general variant, for hulls whose rows pass the shared memory
+// a block may take): each group builds its piece's row in place in `packed`
+// and its AABB row in `aabb`, with no staging and no block copy.
+template <int L, bool DIRECT>
 __global__ void __launch_bounds__(THREADS) pack_kernel(
     const float* __restrict__ verts, const uint8_t* __restrict__ vmask,
     const float* __restrict__ planes, const uint8_t* __restrict__ pmask,
@@ -50,7 +53,8 @@ __global__ void __launch_bounds__(THREADS) pack_kernel(
   const int base = blockIdx.x * PPB;
   const int n = min(PPB, Np - base);
   const int i = base + grp;
-  float* row = srow + grp * RS;
+  float* row = DIRECT ? packed + (size_t)i * D : srow + grp * RS;
+  float* arow = DIRECT ? aabb + (size_t)i * 9 : row + D;
   const bool live = grp < n;
 
   int own = 0;
@@ -130,12 +134,13 @@ __global__ void __launch_bounds__(THREADS) pack_kernel(
         lo = lo - margin;
         hi = hi + margin;
         const bool pv = valid[i] != 0 && own >= 0;
-        row[D + c] = lo;
-        row[D + 3 + c] = hi;
-        row[D + 6 + c] = pv ? (lo + hi) * 0.5f : BIG;
+        arow[c] = lo;
+        arow[3 + c] = hi;
+        arow[6 + c] = pv ? (lo + hi) * 0.5f : BIG;
       }
     }
   }
+  if (DIRECT) return;
   __syncthreads();
 
   float* pout = packed + (size_t)base * D;
@@ -152,31 +157,39 @@ __global__ void __launch_bounds__(THREADS) pack_kernel(
 
 }  // namespace
 
-// Shared bytes a block stages for hulls of this size (the wrapper checks
-// them against the 48 KB a launch may take without opting in).
-extern "C" int surtr_pack_smem(int Vh, int F, int Ne) {
+// Shared bytes a block stages for hulls of this size (the wrapper takes the
+// staged variant up to the 48 KB a launch may take without opting in, and
+// the direct one beyond: pack_cuda.stage_bytes and _variant).
+static long long pack_smem(int Vh, int F, int Ne) {
   const int L = (Vh <= 16 && F <= 16 && Ne <= 16) ? 16 : 32;
-  return (THREADS / L) * (4 * Vh + 5 * F + 26 + 4 * Ne + 9) * (int)sizeof(float);
+  return (long long)(THREADS / L) * (4LL * Vh + 5LL * F + 26 + 4LL * Ne + 9) * (long long)sizeof(float);
+}
+
+extern "C" long long surtr_pack_stage_bytes(int Vh, int F, int Ne) {
+  return pack_smem(Vh, F, Ne);
 }
 
 extern "C" int surtr_pack(const float* verts, const uint8_t* vmask, const float* planes,
                           const uint8_t* pmask, const float* edges, const uint8_t* emask,
                           const int* owner, const uint8_t* valid, const float* q,
                           const float* x, const float* dop, int Np, int B, int Vh, int F,
-                          int Ne, float margin, float* packed, float* aabb, void* stream) {
+                          int Ne, float margin, float* packed, float* aabb, int direct,
+                          void* stream) {
   if (Np <= 0) return 0;
-  const size_t smem = (size_t)surtr_pack_smem(Vh, F, Ne);
   cudaStream_t s = (cudaStream_t)stream;
-  if (Vh <= 16 && F <= 16 && Ne <= 16) {
-    const int ppb = THREADS / 16;
-    pack_kernel<16><<<(Np + ppb - 1) / ppb, THREADS, smem, s>>>(
-        verts, vmask, planes, pmask, edges, emask, owner, valid, q, x, dop, Np, B, Vh, F, Ne,
-        margin, packed, aabb);
+  const bool narrow = Vh <= 16 && F <= 16 && Ne <= 16;
+  const int ppb = THREADS / (narrow ? 16 : 32);
+  const unsigned grid = (unsigned)((Np + ppb - 1) / ppb);
+#define SURTR_PACK_ARGS verts, vmask, planes, pmask, edges, emask, owner, valid, q, x, dop, Np, B, \
+                        Vh, F, Ne, margin, packed, aabb
+  if (direct) {
+    if (narrow) pack_kernel<16, true><<<grid, THREADS, 0, s>>>(SURTR_PACK_ARGS);
+    else pack_kernel<32, true><<<grid, THREADS, 0, s>>>(SURTR_PACK_ARGS);
   } else {
-    const int ppb = THREADS / 32;
-    pack_kernel<32><<<(Np + ppb - 1) / ppb, THREADS, smem, s>>>(
-        verts, vmask, planes, pmask, edges, emask, owner, valid, q, x, dop, Np, B, Vh, F, Ne,
-        margin, packed, aabb);
+    const size_t smem = (size_t)pack_smem(Vh, F, Ne);
+    if (narrow) pack_kernel<16, false><<<grid, THREADS, smem, s>>>(SURTR_PACK_ARGS);
+    else pack_kernel<32, false><<<grid, THREADS, smem, s>>>(SURTR_PACK_ARGS);
   }
+#undef SURTR_PACK_ARGS
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,12 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int PS = 21;  // shared stride of a partner's 20 fields
 
+// Floats one row stages: its K records, K partners' fields, own 19 fields,
+// G ground slots (5 floats) and C slot hits (prep_cuda.row_bytes mirrors it).
+__host__ __device__ inline int row_floats(int K, int M, int G) {
+  return K * (5 + 6 * M) + K * PS + 19 + 5 * G + K * M + G;
+}
+
 // PyTorch's clamp and maximum as its CUDA kernels compute them: NaN in, NaN
 // out (fmaxf/fminf alone would drop it), else fmaxf/fminf.
 __device__ __forceinline__ float clamp_min(float v, float lo) { return v != v ? v : fmaxf(v, lo); }
@@ -45,6 +51,10 @@ __device__ __forceinline__ float maximum(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
+// GLOBAL (the general variant, for rows past the shared memory a block may
+// take): one row a block, block b of a launch staging row rbase + b in its
+// slice of a device scratch instead of shared memory; the same steps.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(THREADS) prep_kernel(
     const float* __restrict__ raw, const int* __restrict__ pidx, const float* __restrict__ gpts,
     const float* __restrict__ gd, int gd_stride, const uint8_t* __restrict__ ghit,
@@ -54,10 +64,11 @@ __global__ void __launch_bounds__(THREADS) prep_kernel(
     float* __restrict__ nrm, float* __restrict__ mt, float* __restrict__ hs,
     float* __restrict__ scale, float* __restrict__ iAI, float* __restrict__ vn0_out, int Np,
     int K, int M, int G, int RB, float slop, float bias_coef, float neg_rest,
-    float bounce_thr) {
-  extern __shared__ float sm[];
+    float bounce_thr, float* __restrict__ scratch, int rbase) {
+  extern __shared__ float smem_rows[];
   const int C = K * M + G, KM = K * M, R = 5 + 6 * M;
-  const int row0 = blockIdx.x * RB;
+  float* const sm = GLOBAL ? scratch + (size_t)blockIdx.x * row_floats(K, M, G) : smem_rows;
+  const int row0 = (GLOBAL ? rbase : 0) + blockIdx.x * RB;
   const int nr = min(RB, Np - row0);
   float* srec = sm;                   // RB x K x R   the rows' records
   float* spart = srec + RB * K * R;   // RB x K x PS  partner fields
@@ -190,10 +201,10 @@ __global__ void __launch_bounds__(THREADS) prep_kernel(
 
 // Rows a block takes and the shared bytes they need: RB·C close to the
 // block's 256 threads, within the 48 KB a launch may take without opting in;
-// 0 rows if one row does not fit.
+// 0 rows if one row does not fit (the general variant takes those shapes).
 int rows_per_block(int K, int M, int G, size_t* smem) {
   const int C = K * M + G;
-  const size_t per_row = (size_t)(K * (5 + 6 * M) + K * PS + 19 + 5 * G + C) * sizeof(float);
+  const size_t per_row = (size_t)row_floats(K, M, G) * sizeof(float);
   int rb = C > 0 ? THREADS / C : THREADS;
   if (rb < 1) rb = 1;
   while (rb > 0 && (size_t)rb * per_row > 48 * 1024) --rb;
@@ -203,24 +214,44 @@ int rows_per_block(int K, int M, int G, size_t* smem) {
 
 }  // namespace
 
-extern "C" int surtr_prep_fits(int K, int M, int G) {
-  size_t smem;
-  return rows_per_block(K, M, G, &smem) > 0;
+extern "C" long long surtr_prep_row_bytes(int K, int M, int G) {
+  return (long long)row_floats(K, M, G) * sizeof(float);
 }
 
+// scratch: `chunk` rows of the general variant's staging (null for the
+// shared variant); the general variant runs ceil(Np / chunk) launches.
+// *launched counts the launches.
 extern "C" int surtr_prep(const float* raw, const int* pidx, const float* gpts, const float* gd,
                           int gd_stride, const uint8_t* ghit, const float* x, const float* v0,
                           const float* w0, const float* invm, const float* invI,
                           const uint8_t* asleep, float* rA, float* rB, float* nrm, float* mt,
                           float* hs, float* scale, float* iAI, float* vn0, int Np, int K, int M,
                           int G, float slop, float bias_coef, float neg_rest, float bounce_thr,
-                          void* stream) {
+                          float* scratch, int chunk, int* launched, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  *launched = 0;
+  if (scratch != nullptr) {
+    if (chunk < 1) return (int)cudaErrorInvalidValue;
+    for (int r0 = 0; r0 < Np; r0 += chunk) {
+      const int n = Np - r0 < chunk ? Np - r0 : chunk;
+      prep_kernel<true><<<n, THREADS, 0, st>>>(
+          raw, pidx, gpts, gd, gd_stride, ghit, x, v0, w0, invm, invI, asleep, rA, rB, nrm, mt,
+          hs, scale, iAI, vn0, Np, K, M, G, 1, slop, bias_coef, neg_rest, bounce_thr, scratch,
+          r0);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+      ++*launched;
+    }
+    return 0;
+  }
   size_t smem;
   const int rb = rows_per_block(K, M, G, &smem);
   if (rb <= 0) return (int)cudaErrorInvalidValue;
-  if (Np > 0)
-    prep_kernel<<<(Np + rb - 1) / rb, THREADS, smem, (cudaStream_t)stream>>>(
+  if (Np > 0) {
+    prep_kernel<false><<<(Np + rb - 1) / rb, THREADS, smem, st>>>(
         raw, pidx, gpts, gd, gd_stride, ghit, x, v0, w0, invm, invI, asleep, rA, rB, nrm, mt,
-        hs, scale, iAI, vn0, Np, K, M, G, rb, slop, bias_coef, neg_rest, bounce_thr);
+        hs, scale, iAI, vn0, Np, K, M, G, rb, slop, bias_coef, neg_rest, bounce_thr, nullptr, 0);
+    *launched = 1;
+  }
   return (int)cudaGetLastError();
 }

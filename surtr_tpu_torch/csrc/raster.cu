@@ -211,6 +211,7 @@ struct Args {
   unsigned long long* keys;  // (ntiles, 2048) inverted keys, 0 = untouched
   unsigned* count;           // (ntiles,) pairs merged into keys
   int H, W, ntx, nty, A;
+  int t_base, nt;            // the batched variant: tiles t_base .. t_base + nt - 1
 };
 
 // Exclusive prefix sum of a[0..n) in shared memory, in place.
@@ -267,11 +268,18 @@ __device__ inline void write_pixel(const Args& g, int t, int k, float z, int id)
   for (int a = 0; a < g.A; ++a) g.gbuf[p * g.A + a] = hit ? src[a] : 0.0f;
 }
 
+// BATCHED (the general variant, for screens of more tiles than the offsets
+// of shared memory hold): a launch takes the tiles t_base .. t_base + nt - 1
+// alone, with their offsets in shared memory and their key images and
+// counts in a scratch of nt tiles; the launches run in stream order. The
+// batch-local tile t is screen tile t + tb.
+template <bool BATCHED>
 __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
   extern __shared__ int start[];  // (ntiles + 1): tile-major live-pair offsets
   __shared__ Tri tri[2][CHUNK];
   __shared__ int s_last;
-  const int ntiles = g.ntx * g.nty;
+  const int tb = BATCHED ? g.t_base : 0;
+  const int ntiles = BATCHED ? g.nt : g.ntx * g.nty;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int row0 = (warp / 4) * 8 + (lane / 8) * RPT;   // the thread's first tile row
   const int col0 = (warp % 4) * 32 + (lane % 8) * CPT;  // and first tile column
@@ -279,9 +287,10 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
   // 1. Live pairs per tile (a warp per tile, lanes over its chunk range),
   //    then the offsets of the tile-major list.
   for (int t = warp; t < ntiles; t += THREADS / 32) {
-    const int hi = g.rng[2 * t + 1];
+    const int hi = g.rng[2 * (t + tb) + 1];
     int n = 0;
-    for (int b = g.rng[2 * t] + lane; b < hi; b += 32) n += pair_live(g.bbox, b, t, g.ntx);
+    for (int b = g.rng[2 * (t + tb)] + lane; b < hi; b += 32)
+      n += pair_live(g.bbox, b, t + tb, g.ntx);
     n = __reduce_add_sync(FULL, n);
     if (lane == 0) start[t] = n;
   }
@@ -293,7 +302,7 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
   // 2. Tiles with no live pair are background; CTA c takes tiles c, c + G, ...
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x)
     if (start[t + 1] == start[t])
-      for (int k = threadIdx.x; k < TH * TW; k += THREADS) write_pixel(g, t, k, BIG, -1);
+      for (int k = threadIdx.x; k < TH * TW; k += THREADS) write_pixel(g, t + tb, k, BIG, -1);
 
   // 3. This CTA's slice of the list.
   const int s0 = (int)((long long)L * blockIdx.x / gridDim.x);
@@ -310,7 +319,7 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
     const int cnt = start[t + 1] - start[t];
     const int n_here = min(cnt - skip, s1 - p);
     const bool whole = skip == 0 && n_here == cnt;
-    const int ti = t / g.ntx, tj = t % g.ntx;
+    const int ti = (t + tb) / g.ntx, tj = (t + tb) % g.ntx;
     float px[CPT], py[RPT], thr[RPT][CPT];
     int id[RPT][CPT];
 #pragma unroll
@@ -326,11 +335,11 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
     }
     // The tile's live chunks 32 at a time: each warp ballots the same 32
     // tests, so the walk below is uniform over the block.
-    const int hi = g.rng[2 * t + 1];
+    const int hi = g.rng[2 * (t + tb) + 1];
     int seen = 0, done = 0;
-    for (int b0 = g.rng[2 * t]; b0 < hi && done < n_here; b0 += 32) {
+    for (int b0 = g.rng[2 * (t + tb)]; b0 < hi && done < n_here; b0 += 32) {
       unsigned live =
-          __ballot_sync(FULL, b0 + lane < hi && pair_live(g.bbox, b0 + lane, t, g.ntx));
+          __ballot_sync(FULL, b0 + lane < hi && pair_live(g.bbox, b0 + lane, t + tb, g.ntx));
       if (seen + __popc(live) <= skip) {
         seen += __popc(live);
         continue;
@@ -409,7 +418,7 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
       for (int j = 0; j < RPT; ++j)
 #pragma unroll
         for (int k = 0; k < CPT; ++k)
-          write_pixel(g, t, (row0 + j) * TW + col0 + k, thr[j][k], id[j][k]);
+          write_pixel(g, t + tb, (row0 + j) * TW + col0 + k, thr[j][k], id[j][k]);
     } else {
       unsigned long long* kt = g.keys + (size_t)t * TH * TW;
 #pragma unroll
@@ -429,7 +438,7 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
         for (int k = threadIdx.x; k < TH * TW; k += THREADS) {
           const unsigned long long v = ~__ldcg(&kt[k]);
           const bool hit = v != ~0ull;
-          write_pixel(g, t, k, hit ? __uint_as_float((unsigned)(v >> 32)) : BIG,
+          write_pixel(g, t + tb, k, hit ? __uint_as_float((unsigned)(v >> 32)) : BIG,
                       hit ? (int)(v & 0xffffffffu) : -1);
         }
       }
@@ -463,29 +472,48 @@ extern "C" int surtr_raster_pack(const float* sx, const float* sy, const float* 
   return (int)cudaGetLastError();
 }
 
-// scratch: (ntiles, 2048) 64-bit keys then (ntiles,) 32-bit counts; set to 0 here.
+// scratch: (n, 2048) 64-bit keys then (n,) 32-bit counts, n = ntiles, or
+// n = `batch` for the batched variant (batch > 0: the tiles `batch` at a
+// time, one launch a batch); set to 0 here. *launched counts the kernel's
+// launches.
 extern "C" int surtr_raster(const float* attrs, const float* bbox, const int* rng,
                             const int64_t* order, int T, float* depth, int* tid, float* gbuf,
-                            void* scratch, int H, int W, int ntx, int nty, int A, void* stream) {
+                            void* scratch, int H, int W, int ntx, int nty, int A, int batch,
+                            int* launched, void* stream) {
+  *launched = 0;
   if (A < 0 || (A > 0 && gbuf == nullptr)) return (int)cudaErrorInvalidValue;
   const int ntiles = ntx * nty;
   if (ntiles <= 0) return 0;
-  const size_t smem = (size_t)(ntiles + 1) * sizeof(int);
-  if (smem > 40 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   if (g_sms == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  const int nb = batch > 0 ? batch : ntiles;
+  const size_t smem = (size_t)(nb + 1) * sizeof(int);
+  if (smem > 40 * 1024) return (int)cudaErrorInvalidValue;
   int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster_kernel, THREADS, smem);
+  if (batch > 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster_kernel<true>, THREADS, smem);
+  else
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster_kernel<false>, THREADS, smem);
   const int grid = (per_sm > 0 ? per_sm : 1) * g_sms;
   unsigned long long* keys = (unsigned long long*)scratch;
-  unsigned* count = (unsigned*)(keys + (size_t)ntiles * TH * TW);
-  const cudaError_t e =
-      cudaMemsetAsync(scratch, 0, (size_t)ntiles * (TH * TW * 8 + 4), (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  const Args g{attrs, bbox, rng, order, T, depth, tid, gbuf, keys, count, H, W, ntx, nty, A};
-  raster_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(g);
-  return (int)cudaGetLastError();
+  unsigned* count = (unsigned*)(keys + (size_t)nb * TH * TW);
+  for (int t0 = 0; t0 < ntiles; t0 += nb) {
+    const int nt = ntiles - t0 < nb ? ntiles - t0 : nb;
+    cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)nb * (TH * TW * 8 + 4), st);
+    if (e != cudaSuccess) return (int)e;
+    const Args g{attrs, bbox, rng, order, T, depth, tid, gbuf, keys, count, H, W, ntx, nty, A,
+                 t0, nt};
+    if (batch > 0)
+      raster_kernel<true><<<grid, THREADS, (size_t)(nt + 1) * sizeof(int), st>>>(g);
+    else
+      raster_kernel<false><<<grid, THREADS, smem, st>>>(g);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    ++*launched;
+  }
+  return 0;
 }

@@ -277,6 +277,190 @@ __global__ void __launch_bounds__(THREADS) solver_kernel(Params p) {
   }
 }
 
+// The general variant, for any K and C (the kernel above keeps a row's
+// slots in registers, at most 8 on each of 16 lanes, and gathers the K <= 16
+// partner states on lanes 0..K-1): the same groups of 16 lanes a row, each
+// lane walking slots c = lane, lane + 16, ... of the row and re-reading its
+// tables and its partner's state from device memory on every substep (the
+// same values, so the same bits), the accumulated totals and the six
+// staged components of each slot in the group's slice of a device scratch
+// (9C floats), summed in slot order from 0 by six lanes as above.
+template <bool WARM>
+__device__ void solve_row_general(const Params& p, int row, bool store, int lane, float* st,
+                                  float* acc, const float* vin, float* vout, const float* lin,
+                                  float* lout) {
+  const int C = p.K * p.M + p.G, KM = p.K * p.M;
+  const size_t r3 = (size_t)row * 3 * C, r2 = (size_t)row * 2 * C;
+  const float* own = vin + (size_t)row * 8;
+  float v0 = own[0], v1 = own[1], v2 = own[2];
+  float w0 = own[3], w1 = own[4], w2 = own[5];
+  const float wake_own = own[6];
+  const float m_s = p.scale[(size_t)row * 2 + 0], s_s = p.scale[(size_t)row * 2 + 1];
+  float II[9];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) II[q] = p.iAI[(size_t)row * 9 + q];
+  // Slot c's partner state: pair k = c % K's, zero for ground slots.
+  auto partner = [&](int c, float (&pv)[7]) {
+    const bool pair = c < KM;
+    const float* q = pair ? vin + (size_t)p.pb[(size_t)row * p.K + c % p.K] * 8 : nullptr;
+#pragma unroll
+    for (int r = 0; r < 7; ++r) pv[r] = pair ? q[r] : 0.0f;
+  };
+  float wmax = 0.0f;
+  for (int c = lane; c < C; c += GS) {
+    if (c < KM) {
+      float pv[7];
+      partner(c, pv);
+      const float live = 1.0f - p.hs[r2 + C + c];
+      wmax = fmaxf(wmax, p.hs[r2 + c] * live * pv[6]);
+    }
+    if (WARM) {
+      acc[c] = lin[r3 + c];
+      acc[C + c] = lin[r3 + C + c];
+      acc[2 * C + c] = lin[r3 + 2 * C + c];
+    }
+  }
+
+  for (int s = 0; s < p.S; ++s) {
+    for (int c = lane; c < C; c += GS) {
+      float pv[7];
+      partner(c, pv);
+      const float rAx = p.rA[r3 + c], rAy = p.rA[r3 + C + c], rAz = p.rA[r3 + 2 * C + c];
+      const float rBx = p.rB[r3 + c], rBy = p.rB[r3 + C + c], rBz = p.rB[r3 + 2 * C + c];
+      const float nx = p.nrm[r3 + c], ny = p.nrm[r3 + C + c], nz = p.nrm[r3 + 2 * C + c];
+      const float meff = p.mt[r2 + c], targ = p.mt[r2 + C + c], hit = p.hs[r2 + c];
+      const float live = 1.0f - p.hs[r2 + C + c];
+      const float vBx = live * (pv[0] + (pv[4] * rBz - pv[5] * rBy));
+      const float vBy = live * (pv[1] + (pv[5] * rBx - pv[3] * rBz));
+      const float vBz = live * (pv[2] + (pv[3] * rBy - pv[4] * rBx));
+      const float vrx = (v0 + (w1 * rAz - w2 * rAy)) - vBx;
+      const float vry = (v1 + (w2 * rAx - w0 * rAz)) - vBy;
+      const float vrz = (v2 + (w0 * rAy - w1 * rAx)) - vBz;
+      const float vn = (vrx * nx + vry * ny) + vrz * nz;
+      float ix, iy, iz;
+      if (WARM) {
+        float ux, uy, uz, tx, ty, tz;
+        tangent_basis(nx, ny, nz, ux, uy, uz, tx, ty, tz);
+        const float an = acc[c], au = acc[C + c], av = acc[2 * C + c];
+        const float dlam = -(vn - targ) * meff;
+        const float lam_new = fmaxf(an + dlam, 0.0f) * hit;
+        const float lam_n = lam_new - an;
+        const float vtu = (vrx * ux + vry * uy) + vrz * uz;
+        const float vtv = (vrx * tx + vry * ty) + vrz * tz;
+        float lu = (au - vtu * meff) * hit;
+        float lv = (av - vtv * meff) * hit;
+        const float tl = sqrtf(lu * lu + lv * lv);
+        const float cone = p.mu * lam_new;
+        const float scl = tl > cone ? cone / fmaxf(tl, 1e-12f) : 1.0f;
+        lu = lu * scl;
+        lv = lv * scl;
+        const float imp_u = lu - au, imp_v = lv - av;
+        acc[c] = lam_new;
+        acc[C + c] = lu;
+        acc[2 * C + c] = lv;
+        ix = hit * ((lam_n * nx + imp_u * ux) + imp_v * tx);
+        iy = hit * ((lam_n * ny + imp_u * uy) + imp_v * ty);
+        iz = hit * ((lam_n * nz + imp_u * uz) + imp_v * tz);
+      } else {
+        const float vtx = vrx - vn * nx;
+        const float vty = vry - vn * ny;
+        const float vtz = vrz - vn * nz;
+        const float vt_len = sqrtf((vtx * vtx + vty * vty) + vtz * vtz);
+        const float inv_vt = 1.0f / fmaxf(vt_len, 1e-9f);
+        const float lam_n = fmaxf(-(vn - targ) * meff, 0.0f);
+        const float lam_t = fminf(vt_len * meff, p.mu * lam_n);
+        ix = hit * (lam_n * nx - lam_t * vtx * inv_vt);
+        iy = hit * (lam_n * ny - lam_t * vty * inv_vt);
+        iz = hit * (lam_n * nz - lam_t * vtz * inv_vt);
+      }
+      st[0 * C + c] = ix;
+      st[1 * C + c] = iy;
+      st[2 * C + c] = iz;
+      st[3 * C + c] = rAy * iz - rAz * iy;
+      st[4 * C + c] = rAz * ix - rAx * iz;
+      st[5 * C + c] = rAx * iy - rAy * ix;
+    }
+    __syncwarp();
+    float sum = 0.0f;
+    if (lane < 6)
+      for (int c = 0; c < C; ++c) sum = sum + st[lane * C + c];
+    __syncwarp();  // the next substep overwrites the staged values
+    const float sx = gshfl(sum, 0), sy = gshfl(sum, 1), sz = gshfl(sum, 2);
+    const float tqx = gshfl(sum, 3), tqy = gshfl(sum, 4), tqz = gshfl(sum, 5);
+    const float dwx = s_s * ((II[0] * tqx + II[1] * tqy) + II[2] * tqz);
+    const float dwy = s_s * ((II[3] * tqx + II[4] * tqy) + II[5] * tqz);
+    const float dwz = s_s * ((II[6] * tqx + II[7] * tqy) + II[8] * tqz);
+    v0 = v0 + m_s * sx; v1 = v1 + m_s * sy; v2 = v2 + m_s * sz;
+    w0 = w0 + dwx; w1 = w1 + dwy; w2 = w2 + dwz;
+  }
+
+#pragma unroll
+  for (int off = GS / 2; off > 0; off >>= 1)
+    wmax = fmaxf(wmax, __shfl_xor_sync(0xffffffffu, wmax, off, GS));
+  if (!store) return;
+  if (lane < 8) {
+    const float o[8] = {v0, v1, v2, w0, w1, w2, fmaxf(wake_own, wmax), 0.0f};
+    float val = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) val = lane == r ? o[r] : val;
+    vout[(size_t)row * 8 + lane] = val;
+  }
+  if (WARM)
+    for (int c = lane; c < C; c += GS) {
+      lout[r3 + c] = acc[c];
+      lout[r3 + C + c] = acc[C + c];
+      lout[r3 + 2 * C + c] = acc[2 * C + c];
+    }
+}
+
+template <bool WARM>
+__global__ void __launch_bounds__(THREADS) solver_general_kernel(Params p, float* scratch) {
+  const int lane = threadIdx.x % GS, grp = threadIdx.x / GS;
+  const int C = p.K * p.M + p.G;
+  float* st = scratch + ((size_t)blockIdx.x * ROWS + grp) * 9 * C;   // 6C staged, 3C totals
+  cg::grid_group grid = cg::this_grid();
+  for (int it = 0; it < p.outer; ++it) {
+    const float* vin = it == 0 ? p.vw0 : p.vw_buf + (size_t)((it - 1) & 1) * p.Np * 8;
+    float* vout = p.vw_buf + (size_t)(it & 1) * p.Np * 8;
+    const float* lin = nullptr;
+    float* lout = nullptr;
+    if (WARM) {
+      lin = it == 0 ? p.lam0 : p.lam_buf + (size_t)((it - 1) & 1) * p.Np * 3 * C;
+      lout = p.lam_buf + (size_t)(it & 1) * p.Np * 3 * C;
+    }
+    const int per_warp = 32 / GS;
+    const int wbase = (blockIdx.x * THREADS + threadIdx.x) / 32 * per_warp;
+    const int wstep = gridDim.x * THREADS / 32 * per_warp;
+    for (int base = wbase; base < p.Np; base += wstep) {
+      const int row = base + grp % per_warp;
+      solve_row_general<WARM>(p, min(row, p.Np - 1), row < p.Np, lane, st, st + 6 * C, vin,
+                              vout, lin, lout);
+    }
+    if (it + 1 < p.outer) grid.sync();
+  }
+}
+
+template <bool WARM>
+int launch_general(Params p, float* scratch, int max_blocks, cudaStream_t stream) {
+  static int per_sm = -1;
+  static int sms = 0;
+  if (per_sm < 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, solver_general_kernel<WARM>, THREADS,
+                                                  0);
+    if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  int blocks = (p.Np + ROWS - 1) / ROWS;
+  if (blocks > per_sm * sms) blocks = per_sm * sms;
+  if (blocks > max_blocks) blocks = max_blocks;
+  void* args[] = {&p, &scratch};
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)solver_general_kernel<WARM>,
+                                                    dim3(blocks), dim3(THREADS), args, 0, stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 template <int SPL, bool WARM>
 int launch(Params p, cudaStream_t stream) {
   static int per_sm = -1;
@@ -312,18 +496,26 @@ int dispatch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // `outer` iterations of S substeps from state vw0 (and totals lam0 in warm
-// mode); iteration i writes vw_buf[i % 2] (and lam_buf[i % 2]). C = K·M + G
-// must be at most 8·16 = 128.
+// mode); iteration i writes vw_buf[i % 2] (and lam_buf[i % 2]). With a null
+// scratch, C = K·M + G must be at most 8·16 = 128 and K at most 16 (the
+// register variant); with one, the general variant runs on at most
+// `max_blocks` CTAs, the scratch holding max_blocks · 8 · 9C floats.
 extern "C" int surtr_solver_solve(const float* vw0, const int* pb, const float* rA,
                                   const float* rB, const float* nrm, const float* mt,
                                   const float* hs, const float* scale, const float* iAI,
                                   const float* lam0, float* vw_buf, float* lam_buf, int Np, int K,
-                                  int M, int G, int S, int outer, float mu, void* stream) {
+                                  int M, int G, int S, int outer, float mu, float* scratch,
+                                  int max_blocks, void* stream) {
   if (Np <= 0 || outer <= 0) return 0;
-  if (K <= 0 || K > GS || (lam0 == nullptr) != (lam_buf == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (K < 0 || (lam0 == nullptr) != (lam_buf == nullptr)) return (int)cudaErrorInvalidValue;
   const Params p{vw0, pb, rA, rB, nrm, mt, hs, scale, iAI, lam0, vw_buf, lam_buf,
                  Np, K, M, G, S, outer, mu};
-  return lam0 ? dispatch<true>(p, (cudaStream_t)stream)
-              : dispatch<false>(p, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (scratch != nullptr) {
+    if (max_blocks < 1) return (int)cudaErrorInvalidValue;
+    return lam0 ? launch_general<true>(p, scratch, max_blocks, st)
+                : launch_general<false>(p, scratch, max_blocks, st);
+  }
+  if (K < 1 || K > GS) return (int)cudaErrorInvalidValue;
+  return lam0 ? dispatch<true>(p, st) : dispatch<false>(p, st);
 }

@@ -4,7 +4,8 @@
 // `soup_clip_pooled_pallas`). Semantics of the plain
 // surtr_tpu_torch/ops/soup_clip_cuda.py `soup_clip_pooled_reference`: every
 // pooled lane is one triangle with its cell id, turned into a polygon of
-// S = 8 slots and folded by each live plane of its cell (Sutherland-Hodgman
+// S slots (8 here, any S >= 3 in the general variant below) and folded by
+// each live plane of its cell (Sutherland-Hodgman
 // with cyclic-run emission [rotated kept run, exit, enter]; exit and enter
 // are sums over the slots in slot order from +0; n_out = min(mcnt + ex +
 // en, S); the in-plane drop rule; the multirun guard, counted; n_out < 3
@@ -256,17 +257,113 @@ soup_fold_kernel(const float* __restrict__ tri, const unsigned char* __restrict_
   if (lane == 0 && md) atomicAdd(drops, (unsigned long long)md);
 }
 
+// 2'. The general variant's fold, for a polygon of S != 8 slots: one
+// thread a lane, the plain step written out slot by slot (distances, cut
+// points, the exit and enter sums in slot order from +0, the run count and
+// start, the rotated emission), the polygon ping-ponging between its rows
+// of poly_out and of `tmp` (both (P, S, 3)). Any S >= 3.
+__device__ __forceinline__ float plane_dist(const float* v, float4 pl) {
+  return ((v[0] * pl.x + v[1] * pl.y) + v[2] * pl.z) + pl.w;
+}
+
+__global__ void __launch_bounds__(THREADS)
+soup_fold_general_kernel(const float* __restrict__ tri, const unsigned char* __restrict__ valid,
+                         const void* __restrict__ cell, int ids64,
+                         const float* __restrict__ planes, const unsigned char* __restrict__ pmask,
+                         const unsigned* __restrict__ ctx, float* __restrict__ poly_out,
+                         int* __restrict__ nv_out, unsigned long long* __restrict__ drops,
+                         float* __restrict__ tmp, int P, int C, int K, int BN, int W, int S,
+                         float tol) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= P) return;
+  int c = 0;
+  const bool inside = lane_cell(cell, ids64, i, C, &c);
+  float* cur = poly_out + (size_t)i * S * 3;
+  float* nxt = tmp + (size_t)i * S * 3;
+  for (int q = 0; q < 3 * S; ++q) cur[q] = q < 9 ? tri[(size_t)i * 9 + q] : 0.0f;
+  int nv = valid[i] ? 3 : 0;
+  unsigned long long mrun = 0;
+  const unsigned* crow = ctx + ((size_t)(i / BN) * C + c) * W;
+  for (int k = 0; inside && k < K; ++k) {
+    if (!pmask[(size_t)c * K + k]) continue;        // masked plane: no-op
+    const float* pp = planes + ((size_t)c * K + k) * 4;
+    const float4 pl = make_float4(pp[0], pp[1], pp[2], pp[3]);
+    const bool rm = (crow[k >> 5] >> (k & 31)) & 1u;
+    // Pass 1: the kept run, the crossings and their sums, the in-plane test.
+    int mcnt = 0, nstarts = 0, a = 0;
+    bool ex = false, en = false, inplane = true;
+    float exx = 0.0f, exy = 0.0f, exz = 0.0f, enx = 0.0f, eny = 0.0f, enz = 0.0f;
+    const bool klast = nv > 0 && nv <= S && plane_dist(cur + 3 * (nv - 1), pl) <= tol;
+    bool kprev = klast;
+    for (int q = 0; q < S; ++q) {
+      const float* v = cur + 3 * q;
+      const float* w = (q == nv - 1) ? cur : cur + 3 * ((q + 1) % S);
+      const float ds = plane_dist(v, pl), dn = plane_dist(w, pl);
+      const bool m = q < nv;
+      const bool kept = m && ds <= tol;
+      if (m && !(fabsf(ds) <= tol)) inplane = false;
+      const float denom = dn - ds;
+      const float safe = fabsf(denom) > 1e-30f ? denom : 1.0f;
+      const float cx = (v[0] * dn - w[0] * ds) / safe, cy = (v[1] * dn - w[1] * ds) / safe,
+                  cz = (v[2] * dn - w[2] * ds) / safe;
+      const bool cex = m && ds < -tol && dn > tol;
+      const bool cen = m && ds > tol && dn < -tol;
+      const float fe = cex ? 1.0f : 0.0f, fn = cen ? 1.0f : 0.0f;
+      exx = exx + fe * cx; exy = exy + fe * cy; exz = exz + fe * cz;
+      enx = enx + fn * cx; eny = eny + fn * cy; enz = enz + fn * cz;
+      ex |= cex;
+      en |= cen;
+      if (kept && !(q == 0 ? klast : kprev)) {
+        ++nstarts;
+        a += q;
+      }
+      kprev = kept;
+      mcnt += kept;
+    }
+    // Pass 2: emit [rotated kept run, exit, enter], zeros beyond.
+    const int nvc = nv > 0 ? nv : 1;
+    for (int q = 0; q < S; ++q) {
+      float x = 0.0f, y = 0.0f, z = 0.0f;
+      if (q < mcnt) {
+        const float* r = cur + 3 * ((a + q) % nvc);
+        x = r[0]; y = r[1]; z = r[2];
+      } else if (q == mcnt && ex) {
+        x = exx; y = exy; z = exz;
+      } else if (q == mcnt + (int)ex && en) {
+        x = enx; y = eny; z = enz;
+      }
+      nxt[3 * q] = x; nxt[3 * q + 1] = y; nxt[3 * q + 2] = z;
+    }
+    int n_out = min(mcnt + (int)ex + (int)en, S);
+    if (inplane && nv > 0 && rm) n_out = 0;        // in-plane, material removed
+    if (nstarts > 1) {
+      n_out = 0;                                   // multirun: dropped, counted
+      ++mrun;
+    }
+    nv = n_out >= 3 ? n_out : 0;
+    float* t = cur; cur = nxt; nxt = t;
+  }
+  float* o = poly_out + (size_t)i * S * 3;
+  if (cur != o)
+    for (int q = 0; q < 3 * S; ++q) o[q] = cur[q];
+  nv_out[i] = nv;
+  if (mrun) atomicAdd(drops, mrun);
+}
+
 }  // namespace
 
 // scratch: 8 bytes of drop counter, then ceil(P / BN) * max(C, 1) * W
 // context words; zeroed here. Launches the context pass then the fold on
-// `stream`; returns the first CUDA error.
+// `stream`; returns the first CUDA error. S = 8 takes the warp fold; any
+// other S the general fold, with `tmp` a (P, S, 3) float scratch.
 extern "C" int surtr_soup_clip(const float* tri, const unsigned char* valid, const void* cell,
                                int ids64, const float* planes, const unsigned char* pmask,
                                unsigned long long* scratch, float* poly, int* nv, int P, int C,
-                               int K, int BN, int W, float tol, void* stream) {
+                               int K, int BN, int W, float tol, int slots, float* tmp,
+                               void* stream) {
   if (P <= 0) return 0;
   if (BN <= 0 || W < (K + 31) / 32 || W < 1) return (int)cudaErrorInvalidValue;
+  if (slots != S && (slots < 3 || tmp == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t words = (size_t)((P + BN - 1) / BN) * (size_t)(C > 0 ? C : 1) * W;
   cudaError_t e = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) + words * 4, st);
@@ -277,6 +374,12 @@ extern "C" int surtr_soup_clip(const float* tri, const unsigned char* valid, con
                                             K, BN, W, tol);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (slots != S) {
+    soup_fold_general_kernel<<<(unsigned)((P + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+        tri, valid, cell, ids64, planes, pmask, ctx, poly, nv, scratch, tmp, P, C, K, BN, W,
+        slots, tol);
+    return (int)cudaGetLastError();
+  }
   soup_fold_kernel<<<grid, THREADS, 0, st>>>(tri, valid, cell, ids64, planes, pmask, ctx, poly,
                                              nv, scratch, P, C, K, BN, W, tol);
   return (int)cudaGetLastError();

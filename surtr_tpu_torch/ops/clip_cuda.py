@@ -18,8 +18,25 @@ from surtr_tpu_torch.ops.clip import DEFAULT_TOL, clip_poly_planes
 from surtr_tpu_torch.types import ConvexPoly
 
 MAX_SMEM = 232448  # bytes of shared memory a Hopper block can use
+SCRATCH_BYTES = 256 << 20  # the global variant's state scratch at most (4 slices at least)
 
-launches = 0  # kernel launches since the last reset (main-path proof)
+launches = 0          # kernel launches since the last reset (main-path proof), both variants
+general_launches = 0  # of which the global variant's (one a batch of polytopes)
+
+
+def _variant(N: int, F: int, S: int) -> str:
+    """The kernel variant for an (N, F, S) polytope batch: "shared" (a
+    warp's state in shared memory, up to 4 a CTA) where one polytope's
+    state fits a CTA's shared memory, else "global" (the same fold with
+    the state in a device scratch). Every shape the plain fold takes has a
+    variant."""
+    return "shared" if F <= 1024 and poly_bytes(F, S) <= MAX_SMEM else "global"
+
+
+def poly_bytes(F: int, S: int) -> int:
+    """Bytes of one polytope's fold state (``poly_words`` in the kernel):
+    two vertex buffers, planes, cap candidates and pool, per-face counts."""
+    return (6 * S + 41) * F * 4
 
 
 def clip_planes_batch_reference(poly: ConvexPoly, planes: torch.Tensor,
@@ -37,21 +54,18 @@ def _fold_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _smem(F: int, S: int) -> int:
-    """Bytes of shared memory one polytope takes in the kernel."""
-    return _build.bind("surtr_clip_fold_smem", [ctypes.c_int] * 2, ctypes.c_size_t)(F, S)
+def _global_fn():
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("surtr_clip_fold_global", [P] * 5 + [I] * 2 + [P] * 3 + [I] * 4
+                       + [ctypes.c_float, P, I, P, P])
 
 
 def _kernel(poly, planes, plane_mask, tol):
-    global launches
+    global launches, general_launches
     N, F, S = poly.face_verts.shape[:3]
     K = planes.shape[1]
     dev = poly.face_verts.device
-    if F > 1024:
-        raise ValueError(f"clip fold kernel takes F <= 1024, got {F}")
-    smem = _smem(F, S)
-    if smem > MAX_SMEM:
-        raise ValueError(f"clip fold kernel: F={F}, S={S} needs {smem} B of shared memory")
+    variant = _variant(N, F, S)
     fv = poly.face_verts.contiguous()
     nv = poly.n_verts.to(torch.int32).contiguous()
     pl = poly.planes.contiguous()
@@ -72,11 +86,21 @@ def _kernel(poly, planes, plane_mask, tol):
     opl = torch.empty_like(pl)
     if N == 0:
         return ConvexPoly(ofv, onv, opl)
-    rc = _fold_fn()(fv.data_ptr(), nv.data_ptr(), pl.data_ptr(), cuts.data_ptr(), cm.data_ptr(),
-                    cuts.stride(0), cm.stride(0), ofv.data_ptr(), onv.data_ptr(), opl.data_ptr(),
-                    N, F, S, K, float(tol), _build.stream_ptr(dev))
-    _build.check(rc, "surtr_clip_fold")
-    launches += 1
+    args = (fv.data_ptr(), nv.data_ptr(), pl.data_ptr(), cuts.data_ptr(), cm.data_ptr(),
+            cuts.stride(0), cm.stride(0), ofv.data_ptr(), onv.data_ptr(), opl.data_ptr(),
+            N, F, S, K, float(tol))
+    if variant == "shared":
+        _build.check(_fold_fn()(*args, _build.stream_ptr(dev)), "surtr_clip_fold")
+        launches += 1
+    else:
+        per = poly_bytes(F, S)   # a batch of `slots` polytopes a launch, 4 to a CTA
+        slots = max(4, min(-(-N // 4), SCRATCH_BYTES // per // 4) * 4)
+        scratch = torch.empty((slots * per // 4,), dtype=torch.float32, device=dev)
+        n = ctypes.c_int(0)
+        _build.check(_global_fn()(*args, scratch.data_ptr(), slots, ctypes.byref(n),
+                                  _build.stream_ptr(dev)), "surtr_clip_fold_global")
+        launches += n.value
+        general_launches += n.value
     return ConvexPoly(ofv, onv, opl)
 
 

@@ -20,44 +20,63 @@ from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.hull import ich as ich_reference
 from surtr_tpu_torch.ops.hull import ich_batch as ich_batch_reference
 
-launches = 0        # B2 launches since the last reset, both entries (main-path proof)
-batch_launches = 0  # of which batched (``ich_batch``) launches
+launches = 0          # B2 launches since the last reset, both entries and variants (main-path proof)
+batch_launches = 0    # of which batched (``ich_batch``) launches
+general_launches = 0  # of which the general variant's
+
+MAX_FACES = 128      # face slots of the warp variant (MAXF in the kernel)
+STAGE_POINTS = 12288  # points the warp variant stages in shared memory a set
+
+
+def _variant(F: int) -> str:
+    """"warp" (warp 0 does the face work on 32-slot words in registers,
+    the face table in shared memory: today's kernel) for F <= 128 face
+    slots, else "general" (the face table in a device scratch, one thread
+    doing the face work): every F the plain version takes has a variant."""
+    return "warp" if F <= MAX_FACES else "general"
 
 
 def _kernel(points, mask, limit, F, batched):
-    global launches, batch_launches
+    global launches, batch_launches, general_launches
     B, N = points.shape[:2]
     if points.dtype != torch.float32 or points.shape != (B, N, 3) or mask.shape != (B, N):
         raise ValueError("ich kernel takes (B, N, 3) float32 points and a (B, N) mask")
-    if B < 1 or N < 1:
-        raise ValueError("ich kernel takes at least one set of at least one point")
-    if F > 128:
-        raise ValueError(f"ich kernel takes at most 128 faces, got {F}")
+    if N < 1:
+        raise ValueError("ich kernel takes sets of at least one point")
+    general = _variant(F) == "general"
     dev = points.device
     normals = torch.empty((B, F, 3), dtype=torch.float32, device=dev)
     fvalid = torch.empty((B, F), dtype=torch.uint8, device=dev)
     inner = torch.empty((B, 3), dtype=torch.float32, device=dev)
     faces = torch.empty((B, F, 3), dtype=torch.int32, device=dev)
+    if B == 0:
+        return {"faces": faces, "face_valid": fvalid.bool(), "normals": normals, "inner": inner}
     pts = points.contiguous()
     m = mask.to(torch.uint8).contiguous()
-    # (x, y, z, priority) per point; the kernel stages them in shared memory
-    # up to 12,288 points a set and uses this scratch beyond.
-    scratch = torch.empty((B, N, 4) if N > 12288 else (1, 4), dtype=torch.float32, device=dev)
+    # (x, y, z, priority) per point; the warp variant stages them in shared
+    # memory up to 12,288 points a set and uses this scratch beyond; the
+    # general variant keeps them here, and its face tables (50F ints a set)
+    # in `table`.
+    scratch = torch.empty((B, N, 4) if N > STAGE_POINTS or general else (1, 4),
+                          dtype=torch.float32, device=dev)
+    table = torch.empty((B, 50 * F), dtype=torch.int32, device=dev) if general else None
     n_insert = max(min(limit, N) - 4, 0)
     ptrs = (normals.data_ptr(), fvalid.data_ptr(), inner.data_ptr(), faces.data_ptr(),
             _build.stream_ptr(dev))
+    tab = None if table is None else table.data_ptr()
     if batched:
-        fn = _build.bind("surtr_ich_batch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        fn = _build.bind("surtr_ich_batch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                          + [ctypes.c_void_p] * 5)
-        rc = fn(pts.data_ptr(), m.data_ptr(), scratch.data_ptr(), B, N, F, n_insert, *ptrs)
+        rc = fn(pts.data_ptr(), m.data_ptr(), scratch.data_ptr(), tab, B, N, F, n_insert, *ptrs)
         _build.check(rc, "surtr_ich_batch")
         batch_launches += 1
     else:
-        fn = _build.bind("surtr_ich", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        fn = _build.bind("surtr_ich", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                          + [ctypes.c_void_p] * 5)
-        rc = fn(pts.data_ptr(), m.data_ptr(), scratch.data_ptr(), N, F, n_insert, *ptrs)
+        rc = fn(pts.data_ptr(), m.data_ptr(), scratch.data_ptr(), tab, N, F, n_insert, *ptrs)
         _build.check(rc, "surtr_ich")
     launches += 1
+    general_launches += general
     return {"faces": faces, "face_valid": fvalid.bool(), "normals": normals, "inner": inner}
 
 

@@ -27,7 +27,15 @@ from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.linalg import dot3
 from surtr_tpu_torch.ops.mesh_clip import _clip_polys_plane
 
-launches = 0  # kernel launches since the last reset (main-path proof)
+launches = 0          # kernel launches since the last reset (main-path proof), both variants
+general_launches = 0  # of which the general variant's
+
+
+def _variant(S: int) -> str:
+    """"warp" (8 threads a lane, a slot each: today's kernel) for S = 8
+    slots, else "general" (a thread a lane, the polygon in device memory):
+    every S the plain version takes (S >= 3) has a variant."""
+    return "warp" if S == 8 else "general"
 
 
 def block_lanes(P: int) -> int:
@@ -92,7 +100,7 @@ def soup_clip_pooled_reference(tri_corners, valid, cell_id, cell_planes, cell_pm
 def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
     """Three device operations, none a cast: the memset of the scratch
     (drop counter and context table), the context launch, the fold."""
-    global launches
+    global launches, general_launches
     P = tri_corners.shape[0]
     C, K = cell_pmask.shape
     dev = tri_corners.device
@@ -104,8 +112,8 @@ def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
         raise TypeError(f"soup clip kernel takes int32 or int64 cell ids, got {cell_id.dtype}")
     if tri_corners.shape[1:] != (3, 3) or valid.shape != (P,) or cell_id.shape != (P,):
         raise ValueError("soup clip kernel takes (P, 3, 3) triangles, (P,) valid and cell ids")
-    if cell_planes.shape != (C, K, 4) or S != 8:
-        raise ValueError(f"soup clip kernel takes (C, K, 4) planes and S = 8, got S = {S}")
+    if cell_planes.shape != (C, K, 4):
+        raise ValueError("soup clip kernel takes (C, K, 4) planes")
     for t in (valid, cell_id, cell_planes, cell_pmask):
         if t.device != dev:
             raise TypeError("soup clip kernel takes tensors on one device")
@@ -115,7 +123,7 @@ def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
         return poly, nv, torch.zeros((), dtype=torch.int64, device=dev)
     fn = _build.bind("surtr_soup_clip", [ctypes.c_void_p] * 3 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_void_p])
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     # Bool tensors are read as bytes in place; contiguous() copies nothing
     # for the pipeline's contiguous inputs.
     tri, v, cid, pl, pm = (t.contiguous() for t in (tri_corners, valid, cell_id, cell_planes,
@@ -125,11 +133,15 @@ def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
     words = (P + BN - 1) // BN * max(C, 1) * W
     # One int64 scratch: the drop counter, then the context table's words.
     scratch = torch.empty((1 + (words + 1) // 2,), dtype=torch.int64, device=dev)
+    general = _variant(S) == "general"
+    tmp = torch.empty((P, S, 3), dtype=torch.float32, device=dev) if general else None
     rc = fn(tri.data_ptr(), v.data_ptr(), cid.data_ptr(), int(cid.dtype == torch.int64),
             pl.data_ptr(), pm.data_ptr(), scratch.data_ptr(), poly.data_ptr(), nv.data_ptr(),
-            P, C, K, BN, W, float(tol), _build.stream_ptr(dev))
+            P, C, K, BN, W, float(tol), S, None if tmp is None else tmp.data_ptr(),
+            _build.stream_ptr(dev))
     _build.check(rc, "surtr_soup_clip")
     launches += 1
+    general_launches += general
     return poly, nv, scratch[0]
 
 

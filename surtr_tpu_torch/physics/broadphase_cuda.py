@@ -42,15 +42,35 @@ IMAX = 0x7FFFFFFF
 # keys' id field (ID_BITS) would leave the quantized d² fewer than 14 bits,
 # and "auto" degrades to the Morton window with a RecallDegradedWarning.
 MAX_EXACT_NP = 65536
-MAX_K = 16          # the kernels keep their K best in registers
+MAX_K = 16          # the fast variants keep their K best in registers
+MAX_W = 128         # B12: windows its warp variant holds (8 candidates a lane)
 CHUNK = 128         # B6: rows per sweep chunk (the JAX kernel's block; CHUNK in the kernel)
 TILE = 32           # B6: pieces per query tile and rows per row tile (a warp)
 ROW = 12            # B6: floats per row of the sorted table
 SROW = 12           # B12: floats per row of its sorted table
 KEY_PARTS = 256     # B12: CTAs of its key launch at most (MAX_KEY_BLOCKS in the kernel)
 
-exact_launches = 0   # kernel launches since the last reset (main-path proof)
+exact_launches = 0   # kernel launches since the last reset (main-path proof), both variants
 sorted_launches = 0
+exact_general_launches = 0    # of which B6's general variant's
+sorted_general_launches = 0   # of which B12's general variant's
+
+
+def _exact_variant(K: int) -> str:
+    """B6: "tiled" (a CTA of 4 warps a 32-piece tile, the K best in
+    registers: today's sweep) for K <= 16, else "general" (a thread a
+    piece over the chunks that can meet it, the K best in a device
+    scratch). Np > MAX_EXACT_NP stays refused, as in the JAX package."""
+    return "tiled" if K <= MAX_K else "general"
+
+
+def _sorted_variant(K: int, window: int) -> str:
+    """B12: "warp" (a warp a sorted lane, K rounds of warp maxima over its
+    2W candidates in registers: today's sweep) for K <= 16 and W <= 128,
+    else "general" (a thread a lane, each round a walk over the candidates,
+    32-bit picks). K > 2·window stays refused: the JAX dispatch sends it to
+    the XLA route."""
+    return "warp" if K <= MAX_K and window <= MAX_W else "general"
 
 
 def id_bits(Np: int) -> int:
@@ -186,8 +206,8 @@ def _check_inputs(name, centers, lo, hi, owner, valid, K):
         raise ValueError(f"{name}: owner (Np,) and valid (Np,) bool")
     if any(t.device != centers.device for t in (lo, hi, owner, valid)):
         raise TypeError(f"{name} takes tensors on one device")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"{name}: the kernel keeps K ≤ {MAX_K} best, got K={K}")
+    if K < 1:
+        raise ValueError(f"{name}: K >= 1, got K={K}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,11 +217,11 @@ def _exact_fns():
     return (_build.bind("surtr_broadphase_exact_key", [P, I, P, I, P, P, P, P]),
             _build.bind("surtr_broadphase_exact_pack", [P, I, P, I, P, I] + [P] * 5 + [I, I]
                         + [P] * 4),
-            _build.bind("surtr_broadphase_exact", [P] * 3 + [I] * 4 + [F] * 2 + [P] * 5))
+            _build.bind("surtr_broadphase_exact", [P] * 3 + [I] * 4 + [F] * 2 + [P] * 7))
 
 
 def _exact_kernel(centers, lo, hi, owner, valid, K):
-    global exact_launches
+    global exact_launches, exact_general_launches
     Np = centers.shape[0]
     dev = centers.device
     _check_inputs("broadphase_exact kernel", centers, lo, hi, owner, valid, K)
@@ -236,10 +256,14 @@ def _exact_kernel(centers, lo, hi, owner, valid, K):
                          hi.stride(0), own.data_ptr(), val.data_ptr(), order.data_ptr(),
                          o_par, o_ax, Np, NCH, o_tab, o_til, o_chk, stream),
                  "surtr_broadphase_exact_pack")
+    general = _exact_variant(K) == "general"
+    best = torch.empty((K, NCH * CHUNK), dtype=torch.int32, device=dev) if general else None
     rc = sweep_fn(o_tab, o_til, o_chk, Np, NCH, K, bits, qs, qmax,
-                  pidx.data_ptr(), pok.data_ptr(), key_ji.data_ptr(), theta.data_ptr(), stream)
+                  pidx.data_ptr(), pok.data_ptr(), key_ji.data_ptr(), theta.data_ptr(), o_ax,
+                  None if best is None else best.data_ptr(), stream)
     _build.check(rc, "surtr_broadphase_exact")
     exact_launches += 1
+    exact_general_launches += general
     return pidx, pok, (key_ji, theta)
 
 
@@ -345,14 +369,12 @@ def _sorted_launch(centers, lo, hi, owner, valid, K, window):
     """B12 on the card: (pidx, pok, glue), glue = (codes, order, table) as
     ``sorted_glue`` gives them. Four launches and one ``torch.sort``; no
     other PyTorch op on the device, no host sync."""
-    global sorted_launches
+    global sorted_launches, sorted_general_launches
     Np = centers.shape[0]
     dev = centers.device
     _check_inputs("broadphase_sorted kernel", centers, lo, hi, owner, valid, K)
     if K > 2 * window:
         raise ValueError(f"broadphase_sorted: K={K} > 2·window={2 * window}")
-    if window > 128:
-        raise ValueError(f"broadphase_sorted kernel takes window <= 128, got {window}")
     if owner.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"broadphase_sorted kernel takes int32 or int64 owners, got {owner.dtype}")
     pidx = torch.empty((Np, K), dtype=torch.int32, device=dev)
@@ -367,7 +389,8 @@ def _sorted_launch(centers, lo, hi, owner, valid, K, window):
     own, val = owner.contiguous(), valid.contiguous()
     NW = (2 * window + 31) // 32
     table = torch.empty((Np, SROW), dtype=torch.float32, device=dev)
-    picks = torch.empty((Np * K,), dtype=torch.int16, device=dev)
+    general = _sorted_variant(K, window) == "general"
+    picks = torch.empty((Np * K,), dtype=torch.int32 if general else torch.int16, device=dev)
     masks = torch.empty((Np * NW,), dtype=torch.int32, device=dev)
     parts = torch.empty((6 * KEY_PARTS,), dtype=torch.float32, device=dev)
     stream = _build.stream_ptr(dev)
@@ -382,6 +405,7 @@ def _sorted_launch(centers, lo, hi, owner, valid, K, window):
     _build.check(sweep_fn(table.data_ptr(), Np, K, window, pidx.data_ptr(), pok.data_ptr(),
                           picks.data_ptr(), masks.data_ptr(), stream), "surtr_broadphase_sorted")
     sorted_launches += 1
+    sorted_general_launches += general
     return pidx, pok, (codes, order, table)
 
 

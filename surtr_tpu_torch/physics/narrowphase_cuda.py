@@ -33,7 +33,35 @@ from surtr_tpu_torch.physics.pack_cuda import pack_layout
 
 BIG = 3.4e38
 
-launches = 0  # kernel launches since the last reset (main-path proof)
+launches = 0          # kernel launches since the last reset (main-path proof), both variants
+general_launches = 0  # of which the general variant's
+
+MAX_SMEM = 232448  # bytes of shared memory a Hopper block can use
+
+
+def staged_bytes(Vh: int, K: int, F: int, Ne: int, M: int) -> int:
+    """Shared bytes of the staged kernel at this shape (``launch`` in
+    csrc/narrowphase.cu), 0 where it does not take it: Vh not in (8, 16,
+    32, 64), or a pair's record (5 + 6M floats) wider than the staged row
+    it replaces."""
+    if Vh not in (8, 16, 32, 64):
+        return 0
+    PB = 128 // (Vh // 4)
+    D = 4 * Vh + 5 * F + 26 + 4 * Ne
+    own_cap = (((PB - 1) // K + 2) * D + 9) // 4 * 4
+    slot = (D + 9) // 4 * 4
+    if slot < 5 + 6 * M:
+        return 0
+    return 4 * (own_cap + PB * slot)
+
+
+def _variant(Vh: int, K: int, F: int, Ne: int, M: int) -> str:
+    """"staged" (a group of Vh / 4 lanes a pair, rows staged in shared
+    memory) where that kernel takes the shape and its rows fit a block's
+    shared memory, else "general" (one thread a pair, rows read in place):
+    every shape the plain version takes has a variant."""
+    smem = staged_bytes(Vh, K, F, Ne, M)
+    return "staged" if 0 < smem <= MAX_SMEM - 39 * 4 else "general"   # beside its DOP table
 
 
 def out_rows(M: int) -> int:
@@ -197,16 +225,15 @@ def narrowphase_reference(packed, pidx, pok, Vh: int, F: int, Ne: int, M: int, s
 
 
 def _kernel(packed, pidx, pok, Vh, F, Ne, M, slop):
-    global launches
+    global launches, general_launches
     Np, K = pidx.shape
     dev = packed.device
     _, D = pack_layout(Vh, F, Ne)
     if packed.dtype != torch.float32 or packed.shape != (Np, D) or pok.shape != (Np, K):
         raise ValueError("narrowphase kernel: packed must be (Np, D) float32, pok (Np, K)")
-    if not _build.bind("surtr_narrowphase_supports", [ctypes.c_int])(Vh):
-        raise ValueError(f"narrowphase kernel is built for Vh in (8, 16, 32, 64), got {Vh}")
+    general = _variant(Vh, K, F, Ne, M) == "general"
     pk = packed.contiguous()
-    if pk.data_ptr() % 16:        # the kernel stages rows with 16-byte copies
+    if pk.data_ptr() % 16 and not general:   # the staged kernel copies rows 16 bytes at a time
         pk = pk.clone()
     pi = pidx.to(torch.int32).contiguous()
     po = pok.to(torch.uint8).contiguous()
@@ -218,11 +245,12 @@ def _kernel(packed, pidx, pok, Vh, F, Ne, M, slop):
     if Np * K == 0:
         return out
     fn = _build.bind("surtr_narrowphase", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                     + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     rc = fn(pk.data_ptr(), pi.data_ptr(), po.data_ptr(), dop.data_ptr(), Np, K, Vh, F, Ne, M,
-            float(slop), out.data_ptr(), _build.stream_ptr(dev))
+            float(slop), int(general), out.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, "surtr_narrowphase")
     launches += 1
+    general_launches += general
     return out
 
 

@@ -24,7 +24,25 @@ from surtr_tpu_torch.ops.kdop import dop26_directions
 
 BIG = 3.4e38
 
-launches = 0  # kernel launches since the last reset (main-path proof)
+launches = 0          # kernel launches since the last reset (main-path proof), both variants
+general_launches = 0  # of which the direct variant's
+
+STAGE_BYTES = 48 * 1024  # shared memory the staged variant takes a block at most
+
+
+def stage_bytes(Vh: int, F: int, Ne: int) -> int:
+    """Shared bytes a block of the staged variant takes: 128 / L pieces'
+    packed and AABB rows, L = 16 lanes a piece for hulls of at most 16
+    corners, faces and edges, else 32 (``pack_smem`` in csrc/pack.cu)."""
+    L = 16 if Vh <= 16 and F <= 16 and Ne <= 16 else 32
+    return (128 // L) * (4 * Vh + 5 * F + 26 + 4 * Ne + 9) * 4
+
+
+def _variant(Vh: int, F: int, Ne: int) -> str:
+    """"staged" (a block's rows built in shared memory, written as one
+    span) where they fit 48 KB, else "direct" (each row built in place in
+    the output): any hull size has a variant."""
+    return "staged" if stage_bytes(Vh, F, Ne) <= STAGE_BYTES else "direct"
 
 
 def pack_layout(Vh: int, F: int, Ne: int):
@@ -105,7 +123,7 @@ def transform_pack_owned_reference(piece_verts, piece_vmask, piece_planes, piece
 
 def _kernel(piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges, piece_emask,
             piece_owner, piece_valid, q, x, margin):
-    global launches
+    global launches, general_launches
     Np, Vh = piece_verts.shape[:2]
     F, Ne = piece_planes.shape[1], piece_edges.shape[1]
     B = q.shape[0]
@@ -130,18 +148,16 @@ def _kernel(piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges, pi
     aabb = torch.empty((Np, 9), dtype=torch.float32, device=dev)
     if Np == 0:
         return packed, aabb
-    smem = _build.bind("surtr_pack_smem", [ctypes.c_int] * 3)(Vh, F, Ne)
-    if smem > 48 * 1024:
-        raise ValueError(f"pack kernel: a block's rows take {smem} B of shared memory, "
-                         "more than 48 KB (hulls too large)")
+    direct = _variant(Vh, F, Ne) == "direct"
     fn = _build.bind("surtr_pack", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-                     + [ctypes.c_float] + [ctypes.c_void_p] * 3)
+                     + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
     rc = fn(f[0].data_ptr(), masks[0].data_ptr(), f[1].data_ptr(), masks[1].data_ptr(),
             f[2].data_ptr(), masks[2].data_ptr(), own.data_ptr(), masks[3].data_ptr(),
             f[3].data_ptr(), f[4].data_ptr(), dop.data_ptr(), Np, B, Vh, F, Ne, float(margin),
-            packed.data_ptr(), aabb.data_ptr(), _build.stream_ptr(dev))
+            packed.data_ptr(), aabb.data_ptr(), int(direct), _build.stream_ptr(dev))
     _build.check(rc, "surtr_pack")
     launches += 1
+    general_launches += direct
     return packed, aabb
 
 

@@ -41,7 +41,24 @@ import torch
 from surtr_tpu_torch import _build
 from surtr_tpu_torch.physics.slots import expand_slots, slot_rows, slot_sum, tangent_basis
 
-launches = 0  # kernel launches since the last reset (main-path proof)
+launches = 0          # kernel launches since the last reset (main-path proof), both variants
+general_launches = 0  # of which the global variant's (one a chunk of rows)
+
+STAGE_BYTES = 48 * 1024    # shared memory the shared variant takes a block at most
+SCRATCH_BYTES = 64 << 20   # the global variant's staging at most (one row at least)
+
+
+def row_bytes(K: int, M: int, G: int) -> int:
+    """Bytes one row stages: its K records, K partners' fields (stride 21),
+    own 19 fields, G ground slots (5 floats) and C slot hits."""
+    return 4 * (K * (5 + 6 * M) + K * 21 + 19 + 5 * G + K * M + G)
+
+
+def _variant(K: int, M: int, G: int) -> str:
+    """"shared" (rows staged in shared memory, ~256 / C rows a block) where
+    one row fits 48 KB, else "global" (a block a row, staged in a device
+    scratch): every shape the plain version takes has a variant."""
+    return "shared" if row_bytes(K, M, G) <= STAGE_BYTES else "global"
 
 
 def prep_contacts_reference(pt3, dh, pn3, btf, own, *, K: int, M: int, G: int, dt: float,
@@ -141,7 +158,7 @@ def prep_from_records_reference(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, i
 
 def _kernel(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in, K, M, G, dt, slop,
             baumgarte, restitution, bounce_thr):
-    global launches
+    global launches, general_launches
     Np = pidx.shape[0]
     C = K * M + G
     dev = raw.device
@@ -168,19 +185,26 @@ def _kernel(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in, K, 
     outs = [e(3 * C), e(3 * C), e(3 * C), e(2 * C), e(2 * C), e(2), e(9), e(C)]
     if Np == 0:
         return tuple(outs)
-    if not _build.bind("surtr_prep_fits", [ctypes.c_int] * 3)(K, M, G):
-        raise ValueError(f"prep kernel: one row at K={K}, M={M}, G={G} needs more than 48 KB "
-                         "of shared memory")
+    general = _variant(K, M, G) == "global"
+    scratch, chunk = None, 0
+    if general:   # the staging of `chunk` rows at a time, a block a row
+        per = row_bytes(K, M, G)
+        chunk = max(1, min(Np, SCRATCH_BYTES // per))
+        scratch = torch.empty((chunk * per // 4,), dtype=torch.float32, device=dev)
     fn = _build.bind("surtr_prep", [ctypes.c_void_p] * 4 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-                     + [ctypes.c_void_p])
+                     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    n = ctypes.c_int(0)
     rc = fn(f[0].data_ptr(), pi.data_ptr(), f[1].data_ptr(), gd.data_ptr(),
             gd.stride(0) if G else 0, flags[0].data_ptr(), *[t.data_ptr() for t in f[2:]],
             flags[1].data_ptr(), *[t.data_ptr() for t in outs], Np, K, M, G, float(slop),
             float(baumgarte / dt), float(-restitution), float(bounce_thr),
+            None if scratch is None else scratch.data_ptr(), chunk, ctypes.byref(n),
             _build.stream_ptr(dev))
     _build.check(rc, "surtr_prep")
-    launches += 1
+    launches += n.value
+    if general:
+        general_launches += n.value
     return tuple(outs)
 
 

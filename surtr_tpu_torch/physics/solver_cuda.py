@@ -31,8 +31,9 @@ from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.linalg import sqrt_rn
 from surtr_tpu_torch.physics.slots import expand_slots, slot_sum, tangent_basis
 
-launches = 0       # kernel launches since the last reset (main-path proof)
-warm_launches = 0  # launches of the accumulated (warm-start) mode
+launches = 0          # kernel launches since the last reset (main-path proof)
+warm_launches = 0     # launches of the accumulated (warm-start) mode
+general_launches = 0  # launches of the general variant, either mode
 
 
 def solver_iteration_reference(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: int, M: int,
@@ -143,24 +144,32 @@ def solver_iteration_warm_reference(vw, lam, pb, rA, rB, nrm, mt, hs, scale, iAI
             torch.cat([acc_n, acc_u, acc_v], dim=1))
 
 
-# The kernel keeps a row's slots in registers, up to 8 on each of 16 lanes.
+# The register variant keeps a row's slots in registers, up to 8 on each of
+# 16 lanes, and gathers its K <= 16 partner states on lanes 0..K-1.
 MAX_SLOTS = 128
+MAX_K = 16
+GENERAL_BLOCKS = 2048   # CTAs of the general variant at most (its scratch: 8 · 9C floats each)
+
+
+def _variant(K: int, C: int) -> str:
+    """"registers" (today's kernel) for 1 <= K <= 16 and C = K·M + G <= 128,
+    else "general" (slots re-read from device memory, totals and staged
+    sums in a scratch): every shape the plain version takes has a variant."""
+    return "registers" if 1 <= K <= MAX_K and C <= MAX_SLOTS else "general"
 
 
 def _solve_kernel(vw0, lam0, pb, tables, K, M, G, iters, substeps, mu):
     """All outer iterations in one launch (warm mode when ``lam0`` is
     given): the tables, the state and ``pb`` are checked and converted once
     a solve. Returns the final state (and totals)."""
-    global launches, warm_launches
+    global launches, warm_launches, general_launches
     warm = lam0 is not None
     Np = vw0.shape[0]
     C = K * M + G
     dev = vw0.device
     S = max(1, substeps)
     outer = (iters + S - 1) // S
-    if not 1 <= K <= 16 or C > MAX_SLOTS:
-        raise ValueError(f"solver kernel takes 1 <= K <= 16 and K*M + G <= {MAX_SLOTS}, "
-                         f"got K={K}, C={C}")
+    general = _variant(K, C) == "general"
     widths = (3 * C, 3 * C, 3 * C, 2 * C, 2 * C, 2, 9)
     tabs = [t.contiguous() for t in tables]
     for t, wd in zip(tabs, widths):
@@ -182,13 +191,18 @@ def _solve_kernel(vw0, lam0, pb, tables, K, M, G, iters, substeps, mu):
     buf = torch.empty((2, Np, 8), dtype=torch.float32, device=dev)
     if warm:
         lbuf = torch.empty((2, Np, 3 * C), dtype=torch.float32, device=dev)
+    scratch, blocks = None, 0
+    if general:
+        blocks = min(-(-Np // 8), GENERAL_BLOCKS)
+        scratch = torch.empty((blocks * 8 * 9 * C,), dtype=torch.float32, device=dev)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _build.bind("surtr_solver_solve", [P] * 12 + [I] * 6 + [ctypes.c_float, P])
+    fn = _build.bind("surtr_solver_solve", [P] * 12 + [I] * 6 + [ctypes.c_float, P, I, P])
     rc = fn(v_in.data_ptr(), pbi.data_ptr(), *[t.data_ptr() for t in tabs],
             l_in.data_ptr() if warm else None, buf.data_ptr(),
             lbuf.data_ptr() if warm else None, Np, K, M, G, S, outer, float(mu),
-            _build.stream_ptr(dev))
+            None if scratch is None else scratch.data_ptr(), blocks, _build.stream_ptr(dev))
     _build.check(rc, "surtr_solver_solve")
+    general_launches += general
     last = (outer - 1) % 2
     if warm:
         warm_launches += 1

@@ -40,8 +40,21 @@ CHUNK = 64            # triangles per chunk
 
 KEY_NONE = (1 << 63) - 1   # packed key of an untouched pixel, above every (z, id) key
 
-launches = 0       # raster kernel launches since the last reset (main-path proof)
-glue_launches = 0  # glue calls (two launches each) since the last reset
+launches = 0          # raster kernel launches since the last reset (main-path proof), both variants
+general_launches = 0  # of which the batched variant's (one a batch of tiles)
+glue_launches = 0     # glue calls (two launches each) since the last reset
+
+RESIDENT_TILES = 10239   # tiles whose (tiles + 1) offsets fit the kernel's 40 KB of shared memory
+TILE_BATCH = 4096        # tiles a launch of the batched variant takes (its key scratch: 64 MiB)
+
+
+def _variant(ntiles: int) -> str:
+    """"resident" (one launch, every tile's offsets in shared memory:
+    today's kernel) up to 10,239 tiles of 16 x 128, else "batched" (the
+    same kernel over batches of 4,096 tiles, a launch each, with a key
+    scratch of one batch): every screen size has a variant. Any number of
+    G-buffer columns A is taken by both."""
+    return "resident" if ntiles <= RESIDENT_TILES else "batched"
 
 
 def _tile_table(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
@@ -234,7 +247,7 @@ def _fns():
     P, I = ctypes.c_void_p, ctypes.c_int
     return (_build.bind("surtr_raster_key", [P, P, P] + [I] * 4 + [P, P, P, P]),
             _build.bind("surtr_raster_pack", [P] * 5 + [I, P] + [I] * 4 + [P] * 5),
-            _build.bind("surtr_raster", [P] * 4 + [I] + [P] * 4 + [I] * 5 + [P]))
+            _build.bind("surtr_raster", [P] * 4 + [I] + [P] * 4 + [I] * 6 + [P, P]))
 
 
 def _glue_kernel(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
@@ -250,8 +263,6 @@ def _glue_kernel(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
             raise ValueError("raster glue takes (T, 3) screen x, y and z on one device")
     if ok.shape != (T,) or ok.dtype != torch.bool or T == 0:
         raise ValueError("raster glue takes T >= 1 triangles and an (T,) bool mask")
-    if not 0 <= A <= 16:
-        raise ValueError(f"raster glue takes 0 <= A <= 16 G-buffer columns, got {A}")
     nty, ntx = -(-H // TH), -(-W // TW)
     ntiles = nty * ntx
     nblk = -(-T // CHUNK)
@@ -291,17 +302,14 @@ def tile_table(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
 
 
 def _kernel(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int, order=None):
-    global launches
+    global launches, general_launches
     if attrs.dtype != torch.float32 or attrs.dim() != 2 or attrs.shape[1] != 10 + A \
             or attrs.shape[0] % CHUNK or bbox.shape != (attrs.shape[0] // CHUNK, 4) \
             or rng.shape != (nty * ntx, 2) or rng.dtype != torch.int32 \
             or not (attrs.is_contiguous() and bbox.is_contiguous() and rng.is_contiguous()):
         raise ValueError("raster kernel takes a contiguous (T_pad, 10 + A) float32 table, "
                          "(T_pad / 64, 4) chunk boxes and (tiles, 2) int32 ranges")
-    if not 0 <= A <= 16:
-        raise ValueError(f"raster kernel takes 0 <= A <= 16 G-buffer columns, got {A}")
-    if (nty * ntx + 1) * 4 > 40 * 1024:
-        raise ValueError(f"raster kernel takes at most 10,239 tiles, got {nty * ntx}")
+    batch = TILE_BATCH if _variant(nty * ntx) == "batched" else 0
     if bbox.data_ptr() % 16:
         bbox = bbox.clone()
     dev = attrs.device
@@ -310,14 +318,18 @@ def _kernel(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int, order=
     depth = torch.empty((H, W), dtype=torch.float32, device=dev)
     tid = torch.empty((H, W), dtype=torch.int32, device=dev)
     gbuf = torch.empty((H, W, A), dtype=torch.float32, device=dev) if A else None
-    scratch = torch.empty((nty * ntx * (TH * TW * 8 + 4),), dtype=torch.uint8, device=dev)
+    scratch = torch.empty(((batch or nty * ntx) * (TH * TW * 8 + 4),), dtype=torch.uint8,
+                          device=dev)
+    n = ctypes.c_int(0)
     rc = _fns()[2](attrs.data_ptr(), bbox.data_ptr(), rng.data_ptr(),
                    None if order is None else order.data_ptr(),
                    0 if order is None else order.shape[0], depth.data_ptr(), tid.data_ptr(),
-                   gbuf.data_ptr() if A else None, scratch.data_ptr(), H, W, ntx, nty, A,
-                   _build.stream_ptr(dev))
+                   gbuf.data_ptr() if A else None, scratch.data_ptr(), H, W, ntx, nty, A, batch,
+                   ctypes.byref(n), _build.stream_ptr(dev))
     _build.check(rc, "surtr_raster")
-    launches += 1
+    launches += n.value
+    if batch:
+        general_launches += n.value
     return depth, tid, gbuf
 
 

@@ -1,0 +1,381 @@
+"""Shapes past the kernels' old limits.
+
+Each kernel wrapper picks its variant with a pure function of shapes
+(``_variant``, ``_exact_variant``, ``_sorted_variant``): today's variant for
+every shape the main path gives it (PERF.md §6, "Shapes on its path"), a
+general one past the old limits, and no shape the plain version takes is
+refused; the two limits the JAX package keeps (B6's ``MAX_EXACT_NP``, B12's
+``K > 2·window``) stay in the wrappers.
+
+Then the configurations that once raised on the card run through the
+port's plain route on the CPU against the JAX package on the CPU:
+``physics_step`` of the 27-cube lattice for 8 steps under
+``max_neighbors=32`` (B6, B9 and B12 past K = 16), ``max_hull_verts=12``
+and ``24`` (B7 at a Vh it had no template for), and ``prepare_fracture``
+of the cube at C = 8 under ``max_piece_tris=2048`` (B3 past T = 1024),
+``refitting_point_limit=64`` (B2 past 128 faces) and ``max_faces=256,
+max_face_verts=32`` (B1 past a CTA's shared memory). The tolerances are
+those of tests/test_torch_physics_step.py and tests/test_torch_prepare.py
+for the same functions (their docstrings give the reasons); the JAX
+prepare runs in an AVX-only child process, as there.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surtr_tpu_torch.ops import clip_cuda, hull_cuda, labels_cuda, soup_clip_cuda
+from surtr_tpu_torch.physics import (broadphase_cuda, narrowphase_cuda, pack_cuda, prep_cuda,
+                                     solver_cuda)
+from surtr_tpu_torch.render import raster_cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _variants():
+    """name: (variant function of a shape tuple, today's variant name)."""
+    return {
+        "B1": (lambda s: clip_cuda._variant(*s), "shared"),
+        "B2": (lambda s: hull_cuda._variant(*s), "warp"),
+        "B3": (lambda s: labels_cuda._variant(*s), "block"),
+        "B5": (lambda s: pack_cuda._variant(*s), "staged"),
+        "B6": (lambda s: broadphase_cuda._exact_variant(*s), "tiled"),
+        "B7": (lambda s: narrowphase_cuda._variant(*s), "staged"),
+        "B8": (lambda s: prep_cuda._variant(*s), "shared"),
+        "B9": (lambda s: solver_cuda._variant(*s), "registers"),
+        "B10": (lambda s: soup_clip_cuda._variant(*s), "warp"),
+        "B11": (lambda s: raster_cuda._variant(*s), "resident"),
+        "B12": (lambda s: broadphase_cuda._sorted_variant(*s), "warp"),
+    }
+
+
+# The main path's shapes (PERF.md §6) in each function's argument order:
+# B1 (N, F, S); B2 F; B3 T; B5 (Vh, F, Ne); B6 K; B7 (Vh, K, F, Ne, M);
+# B8 (K, M, G); B9 (K, C); B10 S; B11 tiles; B12 (K, W).
+MAIN_PATH = {
+    "B1": [(1024, 26, 16), (1, 26, 16), (512, 32, 16), (1024, 96, 32), (1088, 96, 32),
+           (1024, 32, 16)],
+    "B2": [(20,), (44,), (2 * 62 + 4,)],
+    "B3": [(64,), (128,), (512,), (1,), (1024,)],
+    "B5": [(8, 26, 3), (8, 8, 3), (64, 32, 3), (64, 26, 3)],
+    "B6": [(8,), (1,), (16,)],
+    "B7": [(8, 8, 26, 3, 4), (8, 8, 8, 3, 4), (64, 8, 32, 3, 4), (64, 8, 26, 3, 4)],
+    "B8": [(8, 4, 4), (8, 1, 4)],
+    "B9": [(8, 36), (16, 128)],
+    "B10": [(8,)],
+    "B11": [(128,), (8 * 64,), (16 * 128,), (10239,)],
+    "B12": [(8, 32), (16, 128), (16, 8), (2, 1)],
+}
+# A shape past each old limit (a configuration that reaches it, or the
+# first value that does where no configuration field names it).
+PAST = {
+    "B1": [(1024, 256, 32), (16, 1025, 3)],
+    "B2": [(2 * 64 + 4,), (129,)],
+    "B3": [(2048,), (1025,)],
+    "B5": [(724, 26, 3), (768, 32, 3)],
+    "B6": [(32,), (17,)],
+    "B7": [(12, 8, 26, 3, 4), (24, 8, 26, 3, 4), (48, 32, 26, 3, 4), (128, 8, 26, 3, 4),
+           (8, 8, 8, 3, 20)],
+    "B8": [(64, 32, 4), (32, 64, 4)],
+    "B9": [(32, 132), (17, 17), (8, 136)],
+    "B10": [(16,), (3,), (40,)],
+    "B11": [(32768,), (10240,)],
+    "B12": [(32, 32), (8, 256), (17, 128)],
+}
+
+
+@pytest.mark.parametrize("kernel", list(MAIN_PATH))
+def test_variant_names_todays_kernel_on_the_main_path(kernel):
+    fn, today = _variants()[kernel]
+    for shape in MAIN_PATH[kernel]:
+        assert fn(shape) == today, (kernel, shape)
+
+
+@pytest.mark.parametrize("kernel", list(PAST))
+def test_variant_takes_shapes_past_the_old_limits(kernel):
+    fn, today = _variants()[kernel]
+    for shape in PAST[kernel]:
+        v = fn(shape)
+        assert v != today and isinstance(v, str), (kernel, shape, v)
+
+
+# Each kernel's general variant, and the shapes its old variant took, as the
+# old wrappers checked them (byte counts from the old kernels' layouts):
+# (general variant, old limit held).
+OLD_LIMITS = {
+    "B1": ("global", lambda N, F, S: F <= 1024 and F * (6 * S + 41) * 4 <= 232448),
+    "B2": ("general", lambda F: F <= 128),
+    "B3": ("general", lambda T: 1 <= T <= 1024),
+    "B5": ("direct", lambda Vh, F, Ne: (128 // (16 if max(Vh, F, Ne) <= 16 else 32))
+           * (4 * Vh + 5 * F + 26 + 4 * Ne + 9) * 4 <= 48 * 1024),
+    "B6": ("general", lambda K: K <= 16),
+    "B7": ("general", lambda Vh, K, F, Ne, M: Vh in (8, 16, 32, 64)),
+    "B8": ("global", lambda K, M, G: 4 * (K * (5 + 6 * M) + 21 * K + 19 + 5 * G + K * M + G)
+           <= 48 * 1024),
+    "B9": ("general", lambda K, C: 1 <= K <= 16 and C <= 128),
+    "B10": ("general", lambda S: S == 8),
+    "B11": ("batched", lambda tiles: (tiles + 1) * 4 <= 40 * 1024),
+    "B12": ("general", lambda K, W: K <= 16 and W <= 128),
+}
+
+
+def test_variant_refuses_no_shape():
+    """Over a grid of shapes around each old limit, every variant function
+    names today's variant or its kernel's general one, never anything else:
+    today's wherever the old limit held (B7: only at the Vh it had a
+    template for, as records wider than a staged row or rows past a block's
+    shared memory go to the general variant too), the general one wherever
+    it did not. The wrappers refuse only what the JAX package refuses."""
+    fns = _variants()
+    grids = {
+        "B1": [(n, f, s) for n in (1, 7, 4096) for f in (4, 26, 249, 250, 984, 985, 1024, 1025,
+                                                          4096) for s in (3, 8, 32, 64)],
+        "B2": [(f,) for f in range(4, 1100, 37)] + [(128,), (129,)],
+        "B3": [(t,) for t in range(1, 5000, 97)] + [(1024,), (1025,)],
+        "B5": [(v, f, e) for v in (1, 8, 16, 17, 100, 723, 724, 1000, 4000) for f in (1, 16, 26,
+                                                                                      2000)
+               for e in (0, 3, 16, 40)],
+        "B6": [(k,) for k in range(1, 200, 7)] + [(16,), (17,)],
+        "B7": [(v, k, f, e, m) for v in (1, 3, 8, 12, 16, 32, 64, 65, 300) for k in (1, 8, 40)
+               for f in (1, 26, 400) for e in (0, 3) for m in (1, 4, 30)],
+        "B8": [(k, m, g) for k in (1, 8, 16, 32, 200) for m in (1, 4, 50) for g in (0, 4, 64)],
+        "B9": [(k, c) for k in (0, 1, 16, 17, 200) for c in (1, 128, 129, 5000)],
+        "B10": [(s,) for s in range(3, 70)],
+        "B11": [(t,) for t in (1, 10239, 10240, 32768, 10 ** 6)],
+        "B12": [(k, w) for w in (1, 8, 128, 129, 1000) for k in range(1, 2 * w + 1, 13)]
+        + [(16, 128), (17, 128), (16, 129)],
+    }
+    for kernel, shapes in grids.items():
+        fn, today = fns[kernel]
+        general, held = OLD_LIMITS[kernel]
+        for shape in shapes:
+            v = fn(shape)
+            assert v in (today, general), (kernel, shape, v)
+            if kernel == "B7":
+                assert v == general or held(*shape), (kernel, shape, v)
+            else:
+                assert (v == today) == held(*shape), (kernel, shape, v)
+    args = [torch.zeros((4, 3)), torch.zeros((4, 3)), torch.ones((4, 3)),
+            torch.arange(4), torch.ones(4, dtype=torch.bool)]
+    with pytest.raises(ValueError, match="2·window"):
+        broadphase_cuda.broadphase_sorted(*args, 5, 2)
+    big = broadphase_cuda.MAX_EXACT_NP + 1
+    with pytest.raises(ValueError, match="MAX_EXACT_NP|<="):
+        broadphase_cuda.broadphase_exact(torch.zeros((big, 3)), torch.zeros((big, 3)),
+                                         torch.zeros((big, 3)), torch.zeros(big, dtype=torch.long),
+                                         torch.zeros(big, dtype=torch.bool), 8)
+
+
+def test_variant_byte_counts_match_the_kernels_layouts():
+    """The Python byte counts behind the choices, at the shapes where the
+    choice flips."""
+    assert clip_cuda.poly_bytes(256, 32) == 238592 > clip_cuda.MAX_SMEM
+    assert clip_cuda.poly_bytes(96, 32) <= clip_cuda.MAX_SMEM
+    assert pack_cuda.stage_bytes(723, 26, 3) <= pack_cuda.STAGE_BYTES
+    assert pack_cuda.stage_bytes(724, 26, 3) > pack_cuda.STAGE_BYTES
+    assert prep_cuda.row_bytes(32, 4, 4) <= prep_cuda.STAGE_BYTES   # K = 32 stays shared
+    assert labels_cuda.general_words(2048) == (17 * 2048 + 64 + 2048 * 64 + 1) // 2 * 2
+    # B7's staged rows: records wider than the row slot go to the general variant.
+    assert narrowphase_cuda.staged_bytes(8, 8, 8, 3, 20) == 0
+    assert narrowphase_cuda.staged_bytes(8, 8, 8, 3, 4) > 0
+
+
+# ---------------------------------------------------------------------------
+# The configurations past the old limits against the JAX package.
+# ---------------------------------------------------------------------------
+
+BASE = dict(max_faces=26, max_face_verts=16, voronoi_prefix=8, partial_pattern_cell_cnt=8,
+            general_pattern_cell_cnt=8, exact_caps=False, initial_decompose_cell_cnt=8,
+            max_pieces=8, voronoi_neighbors=7)
+PREPARE = {
+    "prepare_piece_tris_2048": dict(BASE, max_piece_tris=2048),
+    "prepare_refit_limit_64": dict(BASE, refitting_point_limit=64),
+    "prepare_faces_256_verts_32": dict(BASE, max_faces=256, max_face_verts=32),
+}
+# The lattice with the sweep-and-prune B6 (broadphase_block 16 < 27 pieces)
+# and every kernel route forced on the JAX side.
+FORCED = dict(pallas_narrowphase=True, force_pallas_narrowphase=True, force_pallas_solver=True,
+              fused_prep=True, broadphase_block=16, force_pallas_broadphase=True,
+              single_piece_bodies=True)
+PHYSICS = {
+    "physics_neighbors_32": dict(FORCED, max_neighbors=32, max_hull_verts=8),
+    "physics_hull_verts_12": dict(FORCED, max_hull_verts=12),
+    "physics_hull_verts_24": dict(FORCED, max_hull_verts=24),
+}
+KEY = 46354
+STEPS = 8
+
+
+def _jax_prepare(out_dir, *names):
+    """Child-process side: the JAX package's prepare_fracture of the cube
+    on the named PREPARE configurations, each saved with its seeds."""
+    for name in names:
+        _jax_prepare_one(name, os.path.join(out_dir, f"{name}.npz"))
+
+
+def _jax_prepare_one(name, out_path):
+    from surtr_tpu.config import FractureConfig
+    from surtr_tpu.fracture.pattern import radial_seeds, uniform_seeds
+    from surtr_tpu.fracture.pipeline import prepare_fracture
+    from surtr_tpu.io.models import get_model, sphere_point_cloud
+    from surtr_tpu.ops.moments import moments
+
+    res = {}
+    v, f = get_model("cube")
+    cfg = FractureConfig(**PREPARE[name])
+    key = jax.random.PRNGKey(KEY)
+    pieces, _, met = prepare_fracture(
+        jnp.asarray(v), jnp.ones(len(v), bool), jnp.asarray(v[f]), jnp.ones(len(f), bool),
+        jnp.asarray(sphere_point_cloud()), key, cfg)
+    k0, k1, k2 = jax.random.split(key, 3)
+    res["seeds"] = np.asarray(uniform_seeds(k0, cfg.initial_decompose_cell_cnt))
+    res["pseeds"] = np.asarray(
+        radial_seeds(k1, cfg.partial_pattern_cell_cnt, cfg.partial_pattern_dist))
+    res["gseeds"] = np.asarray(
+        radial_seeds(k2, cfg.general_pattern_cell_cnt, cfg.general_pattern_dist))
+    for k, val in met.items():
+        res[f"m/{k}"] = np.asarray(val)
+    res["vol"] = np.asarray(moments(pieces.convex)[0])
+    for f_ in ("face_verts", "n_verts", "planes"):
+        res[f_] = np.asarray(getattr(pieces.convex, f_))
+    for f_ in ("mesh", "mesh_valid", "valid", "group", "tag"):
+        res[f_] = np.asarray(getattr(pieces, f_))
+    np.savez(out_path, **res)
+
+
+def _jax_physics(out_dir, *names):
+    """Child-process side: per named PHYSICS configuration, the lattice
+    built by the JAX package and carried into the port (saved as the
+    port's scene), and the JAX state after STEPS steps of
+    ``physics_step``."""
+    from surtr_tpu.config import PhysicsConfig as JPhysicsConfig
+    from surtr_tpu.fracture.types import PieceSet as JPieceSet
+    from surtr_tpu.physics.scene import build_scene as j_build_scene
+    from surtr_tpu.physics.step import physics_step as j_physics_step
+    from surtr_tpu.types import ConvexPoly as JConvexPoly
+    from surtr_tpu_torch import convert, workload
+
+    tp = workload.cube_pieces(np.asarray(workload.lattice_offsets(27), np.float32))
+    jp = JPieceSet(
+        convex=JConvexPoly(*(jnp.asarray(getattr(tp.convex, f).numpy())
+                             for f in ("face_verts", "n_verts", "planes"))),
+        **{f: jnp.asarray(getattr(tp, f).numpy())
+           for f in ("mesh", "mesh_valid", "valid", "group", "tag")})
+    for name in names:
+        jcfg = JPhysicsConfig(**PHYSICS[name])
+        js = j_build_scene(jp, jcfg, max_bodies=27)
+        torch.save(convert.scene_from(js), os.path.join(out_dir, f"{name}.start.pt"))
+        step = jax.jit(lambda s, jcfg=jcfg: j_physics_step(s, jcfg))
+        for _ in range(STEPS):
+            js = step(js)
+        np.savez(os.path.join(out_dir, f"{name}.npz"), x=np.asarray(js.bodies.x),
+                 v=np.asarray(js.bodies.v), q=np.asarray(js.bodies.q),
+                 sleep_frames=np.asarray(js.sleep_frames),
+                 push_frames=np.asarray(js.push_frames))
+
+
+@pytest.fixture(scope="module")
+def jax_ref(tmp_path_factory):
+    """The JAX runs in four child processes, two cases each at most (a
+    case costs a compile, a process its imports), all started at the
+    file's first case and read when a case needs its result."""
+    tmp = tmp_path_factory.mktemp("shape_limits")
+    env = dict(os.environ, XLA_FLAGS="--xla_cpu_max_isa=AVX", JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    phys, prep = list(PHYSICS), list(PREPARE)
+    jobs = {"physics_a": phys[:1], "physics_b": phys[1:], "prepare_a": prep[:1],
+            "prepare_b": prep[1:]}
+    procs = {job: subprocess.Popen([sys.executable, os.path.abspath(__file__), job, str(tmp),
+                                    *names], env=env, stdout=subprocess.DEVNULL,
+                                   stderr=subprocess.PIPE, text=True)
+             for job, names in jobs.items()}
+    done = {}
+
+    def result(name):
+        job = next(j for j, names in jobs.items() if name in names)
+        if procs[job].returncode is None:
+            _, err = procs[job].communicate(timeout=600)
+            assert procs[job].returncode == 0, err[-4000:]
+        if name not in done:
+            done[name] = dict(np.load(tmp / f"{name}.npz"))
+            if name in PHYSICS:
+                done[name]["start"] = torch.load(tmp / f"{name}.start.pt", weights_only=False)
+        return done[name]
+
+    yield result
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _check_prepare(name, ref):
+    from surtr_tpu_torch.config import FractureConfig
+    from surtr_tpu_torch.fracture.pipeline import prepare_fracture
+    from surtr_tpu_torch.io.models import get_model, sphere_point_cloud
+    from surtr_tpu_torch.ops.moments import moments
+
+    r = lambda k: ref[k]  # noqa: E731
+    v, f = get_model("cube")
+    t = torch.as_tensor
+    pieces, ctx, met = prepare_fracture(
+        t(v), torch.ones(len(v), dtype=torch.bool), t(v[f]), torch.ones(len(f), dtype=torch.bool),
+        t(sphere_point_cloud()), FractureConfig(**PREPARE[name]), t(r("seeds")), t(r("pseeds")),
+        t(r("gseeds")))
+    for k in ("piece_cnt", "ich_face_cnt", "mesh_tris_dropped"):
+        assert int(met[k]) == int(r(f"m/{k}")), k
+    assert int(met["piece_cnt"]) > 0
+    np.testing.assert_allclose(float(met["total_volume"]), float(r("m/total_volume")), rtol=1e-5)
+    mas = float(ctx.max_axis_scale)
+    np.testing.assert_array_equal(pieces.valid.numpy(), r("valid"))
+    np.testing.assert_array_equal(pieces.group.numpy(), r("group"))
+    np.testing.assert_allclose(moments(pieces.convex)[0].numpy(), r("vol"), atol=1e-6 * mas ** 3)
+    np.testing.assert_array_equal(pieces.convex.n_verts.numpy(), r("n_verts"))
+    sm = pieces.convex.slot_mask().numpy()[..., None]
+    np.testing.assert_allclose(np.where(sm, pieces.convex.face_verts.numpy(), 0),
+                               np.where(sm, r("face_verts"), 0), atol=1e-5 * mas)
+    fm = pieces.convex.face_mask().numpy()[..., None]
+    np.testing.assert_allclose(np.where(fm, pieces.convex.planes.numpy(), 0),
+                               np.where(fm, r("planes"), 0), atol=1e-5 * mas)
+    np.testing.assert_array_equal(pieces.mesh_valid.numpy(), r("mesh_valid"))
+    mv = pieces.mesh_valid.numpy()[..., None, None]
+    np.testing.assert_allclose(np.where(mv, pieces.mesh.numpy(), 0),
+                               np.where(mv, r("mesh"), 0), atol=1e-5 * mas)
+
+
+def _check_physics(name, ref):
+    from surtr_tpu_torch import convert
+    from surtr_tpu_torch.config import PhysicsConfig
+    from surtr_tpu_torch.physics.step import physics_step
+
+    ts = ref["start"]
+    tcfg = convert.physics_config_from(PhysicsConfig(**PHYSICS[name]))
+    for _ in range(STEPS):
+        ts = physics_step(ts, tcfg)
+    np.testing.assert_allclose(ts.bodies.x.numpy(), ref["x"], atol=2e-4)
+    np.testing.assert_allclose(ts.bodies.v.numpy(), ref["v"], atol=2e-3)
+    np.testing.assert_allclose(ts.bodies.q.numpy(), ref["q"], atol=2e-4)
+    np.testing.assert_array_equal(ts.sleep_frames.numpy(), ref["sleep_frames"])
+    np.testing.assert_array_equal(ts.push_frames.numpy(), ref["push_frames"])
+    assert torch.isfinite(ts.bodies.w).all()
+
+
+@pytest.mark.parametrize("case", list(PHYSICS) + list(PREPARE))
+def test_past_the_old_limits_matches_jax(case, jax_ref):
+    if case in PREPARE:
+        _check_prepare(case, jax_ref(case))
+    else:
+        _check_physics(case, jax_ref(case))
+
+
+if __name__ == "__main__":
+    if sys.argv[1].startswith("physics"):
+        _jax_physics(sys.argv[2], *sys.argv[3:])
+    else:
+        _jax_prepare(sys.argv[2], *sys.argv[3:])
