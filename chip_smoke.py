@@ -152,15 +152,19 @@ Phases (any failure exits non-zero):
      step, and of each ``prepare_fracture`` (1-7) and ``physics_step``
      (1, 2, 3, 35, 4) stage on the card, each stage's fence within rtol
      1e-5 of the CPU plain run's; ``profiling.trace`` of one 10k step.
- 28. the last module slice: (a) B2's batched entry (``hull_cuda.ich_batch``,
-     one block a point set) against its plain version on the card, bit for
-     bit, on the refit pools of the cube 1k event at refitting_point_limit
-     8 and 20 and of the torus config-1 event at 20 and on degenerate
-     batches (0-3 live points, all masked, ties, coplanar, P = 45, 13,000
-     points a set, B = 1), with its wrapper, device and plain ms and its
-     bound; (b) the cube 1k event at limit 20 (B1 6, B2 2 of which one
-     batched, B3 1, no B4) and (c) the torus config-1 event at limit 20 and
-     the cube32 impact at limit 20 (B2 once, batched; no B4), and (d) the
+ 28. the last module slice: (a) B2's batched entry (``hull_cuda.ich_batch``:
+     a warp a point set for the refit pools, else a block a set) against
+     its plain version on the card, bit for bit, on the refit pools of the
+     cube 1k event at refitting_point_limit 8 and 20 and of the torus
+     config-1 event at 20 and on degenerate batches (0-3 live points, all
+     masked, ties, coplanar, P = 45, 13,000 points a set, B = 1 at limits
+     62 and 20, live points only at a pool's end, exactly 4 live, about 160
+     live in a set), each call's variant shown by its counter (the refit
+     pools on the warp-a-set variant), with its wrapper, device and plain
+     ms, device launches a call and its bound; (b) the cube 1k event at
+     limit 20 (B1 6, B2 2 of which one batched on the warp-a-set variant,
+     B3 1, no B4) and (c) the torus config-1 event at limit 20 and the
+     cube32 impact at limit 20 (B2 once, batched; no B4), and (d) the
      sphere's 1k prepare with mesh_pair_pool=False (no B10), each against
      its CPU plain run; (e) ``delaunay3d`` (24 and 256 points),
      ``delaunay2d`` (30 and 512) and ``voronoi_dual_edges`` (20) on the
@@ -184,7 +188,9 @@ Phases (any failure exits non-zero):
      over more soups than its CTAs; B5 at Vh = 768; B6, B9 and B12 at K =
      32, B9 also over more rows than its grid, B12 at W = 256 and 1,024
      too; B7 at Vh = 12 and 768 and with M = 64; B8 at K = 32, M = 64; B10
-     at S = 16; B11 at 32,768 tiles), bit for bit against its plain version
+     at S = 16; B11 at 32,768 tiles; the general B2 also on the sphere's
+     hull and on sets of 0-4 live points at F = 132), bit for bit against
+     its plain version
      on the card, its general variant's counter showing that it ran, with
      the wrapper's ms, the device ms and launches (torch.profiler, in one
      fresh process), the plain version's ms and the bound; the Python byte
@@ -1697,6 +1703,7 @@ def all_counts() -> dict:
     """Launches of every kernel since the counts were last set to 0."""
     counts = {name: mod.launches for name, (mod, *_) in KERNELS.items()}
     counts["ich_batch"] = hull_cuda.batch_launches
+    counts["ich_warp_set"] = hull_cuda.warp_set_launches
     counts["soup_clip"] = soup_clip_cuda.launches
     counts["raster"] = raster_cuda.launches
     counts["raster_glue"] = raster_cuda.glue_launches
@@ -1709,6 +1716,7 @@ def reset_all():
     for mod, *_ in KERNELS.values():
         mod.launches = 0
     hull_cuda.batch_launches = 0
+    hull_cuda.warp_set_launches = 0
     soup_clip_cuda.launches = 0
     raster_cuda.launches = 0
     raster_cuda.glue_launches = 0
@@ -3599,9 +3607,10 @@ def stages_phase(state, prepared, card, reps: int = 3):
 ICH_BATCH_SRC = "surtr_tpu_torch/csrc/ich.cu"
 ICH_BATCH_REPLACES = "surtr_tpu/ops/hull_pallas.py:51"
 REFIT_LIMITS = (8, 20)
-REFIT_EVENT_LAUNCHES = {"clip_fold": 6, "ich": 2, "ich_batch": 1, "labels": 1}
+REFIT_EVENT_LAUNCHES = {"clip_fold": 6, "ich": 2, "ich_batch": 1, "ich_warp_set": 1, "labels": 1}
 REFIT_TORUS_LAUNCHES = {**REFIT_EVENT_LAUNCHES, "soup_clip": 1}
-REFIT_IMPACT_LAUNCHES = {"clip_fold": "> 0", "ich": 1, "ich_batch": 1, "labels": "> 0"}
+REFIT_IMPACT_LAUNCHES = {"clip_fold": "> 0", "ich": 1, "ich_batch": 1, "ich_warp_set": 1,
+                         "labels": "> 0"}
 NOPOOL_LAUNCHES = {"clip_fold": 6, "ich": 1, "labels": 1, "refit": 1}
 SHARD_MESHES = 4
 SHARD_LATTICES = 2
@@ -3632,8 +3641,10 @@ def compare_ich_batch(args, kw):
 def ich_batch_cases(device, g):
     """Degenerate batches: sets with 0 to 3 live points and one all masked,
     tied extreme points (an integer grid), a coplanar set, every point
-    twice, P = 45 (not a multiple of 32); two sets of 13,000 points (above
-    what a block stages in shared memory: the scratch path); B = 1."""
+    twice, P = 45 (not a multiple of 32); ``tail_sets``; two sets of 13,000
+    points (above what a block stages in shared memory: the scratch path,
+    and too large for a warp); B = 1 at limits 62 and 20 (the block
+    variant through the batched entry)."""
     P = 45
     pts = torch.randn((9, P, 3), generator=g)
     mask = torch.rand((9, P), generator=g) > 0.3
@@ -3648,9 +3659,36 @@ def ich_batch_cases(device, g):
     pts[6, 20:] = pts[6, :25].clone()
     big = torch.rand((2, 13_000, 3), generator=g)
     big_m = torch.rand((2, 13_000), generator=g) > 0.1
+    tail = tail_sets(g)
     cases = [((pts, mask), {"limit": 20}), ((pts, mask), {"limit": 8}),
-             ((big, big_m), {"limit": 20}), ((pts[7:8], mask[7:8]), {"limit": 62})]
+             ((big, big_m), {"limit": 20}), ((pts[7:8], mask[7:8]), {"limit": 62}),
+             (tail, {"limit": 20}), (tail, {"limit": 8}), ((tail[0][5:6], tail[1][5:6]), {"limit": 20})]
     return [(tuple(t.to(device) for t in a), kw) for a, kw in cases]
+
+
+def tail_sets(g, P=200):
+    """Sets whose live points sit at the end of the pool, so that every
+    masked slot lies below them and wins the NEG ties once the live points
+    are used up: 1, 2, 3 and exactly 4 live points at the end, one all
+    masked, 80 live at the end and about 160 live at random (more than a
+    warp's lanes twice over), every seventh slot live."""
+    pts = torch.randn((8, P, 3), generator=g)
+    mask = torch.zeros((8, P), dtype=torch.bool)
+    for b, n in enumerate((1, 2, 3, 4)):
+        mask[b, P - n:] = True
+    mask[5, 120:] = True
+    mask[6] = torch.rand(P, generator=g) > 0.2
+    mask[7, ::7] = True
+    return pts, mask
+
+
+def ich_general_cases(device, g):
+    """The general variant's degenerate sets: ``tail_sets`` (0-4 live points
+    among them) and the 45-point sets with 0-3 live points of
+    ``ich_batch_cases`` at limit 64, F = 132."""
+    a, _ = ich_batch_cases("cpu", g)[0]
+    tail = tail_sets(g)
+    return [(tuple(t.to(device) for t in c), {"limit": 64}) for c in (tail, (a[0][:4], a[1][:4]))]
 
 
 def ich_batch_bound(calls):
@@ -3665,6 +3703,27 @@ def ich_batch_bound(calls):
         limit = kw["limit"]
         ops += float(a[1].sum()) * limit * (2 * max(limit, 4) + 4) * 6.0
     return bound(b, ops)
+
+
+VARIANT_COUNTER = {"block": "launches", "warp_set": "warp_set_launches",
+                   "general": "general_launches"}
+
+
+def variant_launches(a, kw):
+    """(the variant ``hull_cuda._variant`` names for the batched call, the
+    launches its own counter counts in one call); fails unless that counter
+    and ``launches`` both count exactly one."""
+    B, N = a[0].shape[:2]
+    variant = hull_cuda._variant(B, N, hull_cuda._faces(kw["limit"], kw.get("max_faces")))
+    counter = VARIANT_COUNTER[variant]
+    reset_all()
+    hull_cuda.ich_batch(*a, **kw)
+    torch.cuda.synchronize()
+    n = getattr(hull_cuda, counter)
+    if not n == hull_cuda.launches == 1:
+        fail(f"ich_batch {tuple(a[0].shape)} limit {kw['limit']}: {hull_cuda.launches} launches, "
+             f"{n} counted by {counter} ({variant} variant)")
+    return variant, n
 
 
 def refit_kernel_phase(card):
@@ -3682,25 +3741,39 @@ def refit_kernel_phase(card):
                 fail(f"refit pools of {model} at limit {limit}: {len(rec)} ich_batch calls")
             calls[f"{model} limit {limit}"] = rec[0]
     degen = ich_batch_cases("cuda", torch.Generator().manual_seed(28))
+    seen = {}
     for a, kw in list(calls.values()) + degen:
         compare_ich_batch(a, kw)
+        variant = variant_launches(a, kw)[0]
+        seen[variant] = seen.get(variant, 0) + 1
     torch.cuda.synchronize()
-    res = {"max_abs_err": 0.0, "calls": {}}
+    if set(seen) != {"block", "warp_set"}:
+        fail(f"phase 28a: the batched calls ran the variants {seen}, not both block and warp_set")
+    print(f"ich_batch variants over the recorded and degenerate calls: {json.dumps(seen)}",
+          flush=True)
+    res = {"max_abs_err": 0.0, "calls": {}, "variants": seen}
     for what, (a, kw) in calls.items():
         call = functools.partial(hull_cuda.ich_batch, *a, **kw)
         plain = functools.partial(hull_cuda.ich_batch_reference, *a, **kw)
-        dev_ms, other_ms, entries = device_split(call, "ich_kernel", runs=10)
+        variant, n_var = variant_launches(a, kw)
+        if variant != "warp_set":
+            fail(f"phase 28a: the refit pool {what} ran the {variant} variant, not warp_set")
+        dev_ms, other_ms, entries = device_split(call, hull_cuda.KERNEL_NAME[variant], runs=10)
         b_ms, b_by = ich_batch_bound([(a, kw)])
         t = {"shape": list(a[0].shape), "limit": kw["limit"],
-             "live_points": int(a[1].sum()), "ms": event_ms(call),
+             "live_points": int(a[1].sum()), "variant": variant, "variant_launches": n_var,
+             "ms": event_ms(call),
              "device_ms": dev_ms, "other_device_ms": other_ms, "device_launches": entries,
              "plain_ms": event_ms(plain, reps=3, warmup=1), "bound_ms": b_ms, "bound_by": b_by}
         res["calls"][what] = t
-        print(f"ich_batch call {what} (B, P, 3) {t['shape']}: wrapper {t['ms']:.4f} ms, kernel "
+        print(f"ich_batch call {what} (B, P, 3) {t['shape']}: {variant} variant, {n_var} "
+              f"{variant} launch(es) a call; wrapper {t['ms']:.4f} ms, kernel "
               f"{dev_ms:.4f} ms on the device, {entries:.0f} device launches a call, plain "
-              f"{t['plain_ms']:.2f} ms, bound {b_ms:.5f} ms ({b_by}) ({card})", flush=True)
+              f"{t['plain_ms']:.2f} ms, bound {b_ms:.5f} ms ({b_by}), "
+              f"{dev_ms / b_ms:.0f}x the bound ({card})", flush=True)
     main = res["calls"]["cube limit 20"]
-    res.update({k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
+    res.update({k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "variant")})
     print(f"ich_batch: bit for bit on {len(calls)} recorded refit calls and {len(degen)} "
           f"degenerate batches ({card})", flush=True)
     return res
@@ -4232,13 +4305,15 @@ def limits_phase(card):
                               physics_ops("broadphase_sorted", bp + (32, W), {})),
     }
     extra = {   # further calls past the limits, compared only
-        "ich": [((sphere_pts[0], sphere_pts[1]), {"limit": 64})],
+        "ich": [((sphere_pts[0], sphere_pts[1]), {"limit": 64})]
+        + ich_general_cases("cuda", torch.Generator().manual_seed(30)),
         "labels": [tile_labels(*pcalls["tri_soup_components_batch"][0])],
         "solver": [step_m64["solver"][:2], tile_solver(*last["solver"][:2])],
         "narrowphase": [step768["narrowphase"][:2], step_m64["narrowphase"][:2]],
         "broadphase_sorted": [(bp + (8, 256), {}), (bp + (32, 1024), {})],
     }
-    compare_one = {"ich": compare_ich}
+    compare_one = {"ich": lambda a, kw: (compare_ich_batch if a[0].dim() == 3 else compare_ich)(
+        a, kw)}
     results, jobs = {}, []
     for name, (shape, (a, kw), cmp, fn, plain, ops) in cases.items():
         call = functools.partial(fn, *a, **kw)
@@ -4345,6 +4420,13 @@ def check_layouts():
          [(K, M, G) for K in (1, 8, 16, 32, 64) for M in (1, 4, 25, 26, 64) for G in (0, 4)]),
         ("surtr_labels_general_words", labels_cuda.general_words,
          [(T,) for T in (1, 31, 32, 33, 1024, 1025, 2048, 2600, 8192)]),
+        ("surtr_ich_table_words", hull_cuda.table_words,
+         [(F,) for F in (4, 20, 32, 33, 44, 64, 65, 128, 129, 132, 2400, 2401, 4096)]),
+        ("surtr_ich_set_bytes", hull_cuda.set_bytes,
+         [(N, F) for N in (1, 45, 512, 608, 896, 1917, 1918, 2187, 2188) for F in (20, 44, 96, 128)]),
+        ("surtr_ich_general_stage", hull_cuda.general_stage,
+         [(N, F) for N in (1, 162, 5000, 6560, 11956, 11957, 20000)
+          for F in (129, 132, 260, 2400, 2401, 4096)]),
         ("surtr_narrowphase_staged_bytes", narrowphase_cuda.staged_bytes,
          [(Vh, K, F, Ne, M) for Vh in (8, 12, 16, 32, 64, 128) for K in (1, 8, 32)
           for F in (8, 26, 32) for Ne in (3, 16) for M in (1, 4, 20, 64)]),
@@ -4587,8 +4669,10 @@ def main():
         "name": "ich_batch", "route": "cuda", "source": ICH_BATCH_SRC,
         "replaces": ICH_BATCH_REPLACES, "path": "cube 1k decomposition, refit limit 20",
         "launches": refit_paths["cube_limit20"]["launches"]["ich_batch"],
+        "warp_set_launches": refit_paths["cube_limit20"]["launches"]["ich_warp_set"],
         **{k: ich_batch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
-                                         "bound_ms", "bound_by", "calls")},
+                                         "bound_ms", "bound_by", "variant", "calls",
+                                         "variants")},
         "library_ms": None,
     })
     for k in kernels:

@@ -1,6 +1,7 @@
 """The port's plain ICH and tetra hull (the CPU sides of kernels B2 and B4's
 extreme-point picks) against the JAX package: ``ich_pallas`` in interpret
-mode and the XLA ``ich`` / ``tetra_hull``.
+mode and the XLA ``ich`` / ``tetra_hull``; the plain batched hull
+``ich_batch`` against the vmapped XLA ``ich`` on degenerate sets.
 
 The hulls of ``test_ich_matches_reference`` are computed on the JAX side in
 a child process with ``--xla_cpu_max_isa=AVX`` (ROADMAP C5): on an
@@ -44,12 +45,34 @@ def _clouds():
     }
 
 
+def _tail_batch():
+    """A batch for the batched hull's degenerate sets: live points only at
+    the end of the pool (1, 2, 3 and exactly 4 of them), so the masked slots
+    below them win the NEG ties once the live points are used up; one set
+    all masked; 70 live points (more than a warp's lanes twice over); 70% at
+    random; a coplanar set."""
+    rng = np.random.RandomState(11)
+    P = 80
+    pts = rng.randn(8, P, 3).astype(np.float32)
+    mask = np.zeros((8, P), bool)
+    for b, n in enumerate((1, 2, 3, 4)):
+        mask[b, P - n:] = True
+    mask[5, 10:] = True
+    mask[6] = rng.rand(P) > 0.3
+    mask[7] = rng.rand(P) > 0.2
+    pts[7, :, 2] = 0.5
+    return pts, mask
+
+
+BATCH_LIMITS = (8, 20, 64)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFS = ("pallas", "xla")
 
 
 def _jax_hulls():
-    """``ich_pallas`` (interpret) and the XLA ``ich`` of every cloud, flat."""
+    """``ich_pallas`` (interpret) and the XLA ``ich`` of every cloud, and the
+    vmapped XLA ``ich`` of ``_tail_batch`` at each of ``BATCH_LIMITS``
+    (F = 20, 44 and 132), flat."""
     out = {}
     for name, pts in _clouds().items():
         m = jnp.ones(len(pts), bool)
@@ -57,6 +80,11 @@ def _jax_hulls():
                 j_ich(jnp.asarray(pts), m, limit=20))
         for ref, r in zip(REFS, refs):
             out.update({f"{name}/{ref}/{k}": np.asarray(v) for k, v in r.items()})
+    pts, mask = _tail_batch()
+    for limit in BATCH_LIMITS:
+        r = jax.vmap(lambda p, m, limit=limit: j_ich(p, m, limit=limit))(jnp.asarray(pts),
+                                                                         jnp.asarray(mask))
+        out.update({f"batch{limit}/xla/{k}": np.asarray(v) for k, v in r.items()})
     return out
 
 
@@ -78,6 +106,14 @@ def hulls(tmp_path_factory):
         want = [{k.rsplit("/", 1)[1]: data[k] for k in data.files if k.startswith(f"{name}/{ref}/")}
                 for ref in REFS]
         out[name] = (got, *want)
+    pts, mask = _tail_batch()
+    for limit in BATCH_LIMITS:
+        before = hull_cuda.launches
+        got = hull_cuda.ich_batch(torch.as_tensor(pts), torch.as_tensor(mask), limit=limit)
+        assert hull_cuda.launches == before
+        pre = f"batch{limit}/xla/"
+        out[f"batch{limit}"] = (got, {k[len(pre):]: data[k] for k in data.files
+                                      if k.startswith(pre)})
     return out
 
 
@@ -95,6 +131,25 @@ def test_ich_matches_reference(hulls, cloud, ref):
                                rtol=1e-5, atol=1e-6)
     if ref == "xla":
         np.testing.assert_array_equal(got["faces"].numpy()[fv], np.asarray(want["faces"])[fv])
+
+
+@pytest.mark.parametrize("limit", BATCH_LIMITS)
+def test_ich_batch_degenerate_sets_match_vmapped_xla(hulls, limit):
+    """The plain batched hull (kernel B2's batched entry on the CPU) against
+    the JAX package's vmapped XLA ``ich`` on ``_tail_batch``, with the
+    one-set test's tolerances: face slots, face_valid and the valid faces'
+    corners exactly, inner and the valid normals to float32 rounding."""
+    got, want = hulls[f"batch{limit}"]
+    assert got["faces"].shape == (8, 2 * limit + 4, 3)
+    np.testing.assert_array_equal(got["face_valid"].numpy(), want["face_valid"])
+    fv = got["face_valid"].numpy()
+    np.testing.assert_array_equal(got["faces"].numpy()[fv], want["faces"][fv])
+    np.testing.assert_allclose(got["inner"].numpy(), want["inner"], rtol=1e-6)
+    np.testing.assert_allclose(got["normals"].numpy()[fv], want["normals"][fv], rtol=1e-5,
+                               atol=1e-6)
+    # 1 or 2 live points and none span no area, 3 span the seed triangle
+    # (twice), exactly 4 the seed tetrahedron.
+    assert fv.sum(1)[:5].tolist() == [0, 0, 2, 4, 0] and fv[5].sum() > 4
 
 
 def test_ich_masked_points_are_ignored():

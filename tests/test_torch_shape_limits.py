@@ -42,7 +42,7 @@ def _variants():
     """name: (variant function of a shape tuple, today's variant name)."""
     return {
         "B1": (lambda s: clip_cuda._variant(*s), "shared"),
-        "B2": (lambda s: hull_cuda._variant(*s), "warp"),
+        "B2": (lambda s: hull_cuda._variant(*s), "block"),
         "B3": (lambda s: labels_cuda._variant(*s), "block"),
         "B5": (lambda s: pack_cuda._variant(*s), "staged"),
         "B6": (lambda s: broadphase_cuda._exact_variant(*s), "tiled"),
@@ -56,12 +56,14 @@ def _variants():
 
 
 # The main path's shapes (PERF.md §6) in each function's argument order:
-# B1 (N, F, S); B2 F; B3 T; B5 (Vh, F, Ne); B6 K; B7 (Vh, K, F, Ne, M);
+# B1 (N, F, S); B2 (B, N, F): the one-set hulls (the cube's 8 points, the
+# sphere's 162, the torus's 288, the model scale's 5,000, 13,000 points at
+# limit 62); B3 T; B5 (Vh, F, Ne); B6 K; B7 (Vh, K, F, Ne, M);
 # B8 (K, M, G); B9 (K, C); B10 S; B11 tiles; B12 (K, W).
 MAIN_PATH = {
     "B1": [(1024, 26, 16), (1, 26, 16), (512, 32, 16), (1024, 96, 32), (1088, 96, 32),
            (1024, 32, 16)],
-    "B2": [(20,), (44,), (2 * 62 + 4,)],
+    "B2": [(1, 8, 20), (1, 162, 20), (1, 288, 20), (1, 5000, 20), (1, 13000, 2 * 62 + 4)],
     "B3": [(64,), (128,), (512,), (1,), (1024,)],
     "B5": [(8, 26, 3), (8, 8, 3), (64, 32, 3), (64, 26, 3)],
     "B6": [(8,), (1,), (16,)],
@@ -76,7 +78,7 @@ MAIN_PATH = {
 # first value that does where no configuration field names it).
 PAST = {
     "B1": [(1024, 256, 32), (16, 1025, 3)],
-    "B2": [(2 * 64 + 4,), (129,)],
+    "B2": [(128, 6560, 2 * 64 + 4), (1, 162, 129), (2, 45, 132)],
     "B3": [(2048,), (1025,)],
     "B5": [(724, 26, 3), (768, 32, 3)],
     "B6": [(32,), (17,)],
@@ -110,7 +112,7 @@ def test_variant_takes_shapes_past_the_old_limits(kernel):
 # (general variant, old limit held).
 OLD_LIMITS = {
     "B1": ("global", lambda N, F, S: F <= 1024 and F * (6 * S + 41) * 4 <= 232448),
-    "B2": ("general", lambda F: F <= 128),
+    "B2": ("general", lambda B, N, F: F <= 128),
     "B3": ("general", lambda T: 1 <= T <= 1024),
     "B5": ("direct", lambda Vh, F, Ne: (128 // (16 if max(Vh, F, Ne) <= 16 else 32))
            * (4 * Vh + 5 * F + 26 + 4 * Ne + 9) * 4 <= 48 * 1024),
@@ -136,7 +138,9 @@ def test_variant_refuses_no_shape():
     grids = {
         "B1": [(n, f, s) for n in (1, 7, 4096) for f in (4, 26, 249, 250, 984, 985, 1024, 1025,
                                                           4096) for s in (3, 8, 32, 64)],
-        "B2": [(f,) for f in range(4, 1100, 37)] + [(128,), (129,)],
+        "B2": [(b, n, f) for b in (1, 2, 1088) for n in (1, 45, 608, 1917, 1918, 2187, 2188,
+                                                         13000)
+               for f in list(range(4, 1100, 37)) + [44, 128, 129]],
         "B3": [(t,) for t in range(1, 5000, 97)] + [(1024,), (1025,)],
         "B5": [(v, f, e) for v in (1, 8, 16, 17, 100, 723, 724, 1000, 4000) for f in (1, 16, 26,
                                                                                       2000)
@@ -156,9 +160,15 @@ def test_variant_refuses_no_shape():
         general, held = OLD_LIMITS[kernel]
         for shape in shapes:
             v = fn(shape)
-            assert v in (today, general), (kernel, shape, v)
+            if kernel != "B2":
+                assert v in (today, general), (kernel, shape, v)
             if kernel == "B7":
                 assert v == general or held(*shape), (kernel, shape, v)
+            elif kernel == "B2":   # up to 128 face slots a block a set or a warp a set
+                assert v in (today, "warp_set", general), (kernel, shape, v)
+                assert (v != general) == held(*shape), (kernel, shape, v)
+                assert (v == "warp_set") == (shape[0] > 1 and held(*shape) and hull_cuda.set_bytes(
+                    *shape[1:]) <= hull_cuda.WARP_SET_BYTES), (kernel, shape, v)
             else:
                 assert (v == today) == held(*shape), (kernel, shape, v)
     args = [torch.zeros((4, 3)), torch.zeros((4, 3)), torch.ones((4, 3)),
@@ -170,6 +180,20 @@ def test_variant_refuses_no_shape():
         broadphase_cuda.broadphase_exact(torch.zeros((big, 3)), torch.zeros((big, 3)),
                                          torch.zeros((big, 3)), torch.zeros(big, dtype=torch.long),
                                          torch.zeros(big, dtype=torch.bool), 8)
+
+
+def test_b2_variant_takes_the_refit_pools_a_warp_a_set():
+    """B2's batched entry: the refit pools (the cube 1k event at limits 8
+    and 20, the torus config-1 event and the cube32 impact at 20) on the
+    warp-a-set kernel; B = 1 and sets past a warp's shared memory (13,000
+    points) on the block kernel, F > 128 on the general one whatever B."""
+    for B, N, F in ((1088, 608, 20), (1088, 608, 44), (1088, 512, 44), (320, 896, 44),
+                    (9, 45, 44), (8, 200, 20), (2, 2187, 44), (2, 1917, 128)):
+        assert hull_cuda._variant(B, N, F) == "warp_set", (B, N, F)
+    for B, N, F in ((1, 45, 44), (1, 608, 44), (2, 13000, 44), (2, 2188, 44), (2, 1918, 128)):
+        assert hull_cuda._variant(B, N, F) == "block", (B, N, F)
+    for B, N, F in ((128, 6560, 132), (8, 200, 132), (1, 162, 132), (1, 5000, 260)):
+        assert hull_cuda._variant(B, N, F) == "general", (B, N, F)
 
 
 def test_variant_byte_counts_match_the_kernels_layouts():
@@ -184,6 +208,19 @@ def test_variant_byte_counts_match_the_kernels_layouts():
     # B7's staged rows: records wider than the row slot go to the general variant.
     assert narrowphase_cuda.staged_bytes(8, 8, 8, 3, 20) == 0
     assert narrowphase_cuda.staged_bytes(8, 8, 8, 3, 4) > 0
+    # B2: a face table is 21 words a slot over F rounded up to 32, and 3 bit
+    # words a 32 slots rounded up to 4; a warp-a-set set adds 20 B a point.
+    assert hull_cuda.table_words(44) == 21 * 64 + 8
+    assert hull_cuda.table_words(132) == 21 * 160 + 16
+    assert hull_cuda.set_bytes(608, 44) == 16 * 608 + 4 * 608 + 4 * 1352   # the cube's pool
+    assert hull_cuda.set_bytes(2187, 44) <= hull_cuda.WARP_SET_BYTES < hull_cuda.set_bytes(2188, 44)
+    # The general variant: bit 0 the points in shared memory, bit 1 the table.
+    assert hull_cuda.table_words(132) * 4 + 16 * 6560 <= hull_cuda.GENERAL_SMEM
+    assert hull_cuda.general_stage(6560, 132) == 3                # the limit-64 pool
+    assert hull_cuda.general_stage(11956, 132) == 3
+    assert hull_cuda.general_stage(11957, 132) == 2
+    assert hull_cuda.general_stage(1, 2400) == 3
+    assert hull_cuda.general_stage(1, 2401) == 0
 
 
 # ---------------------------------------------------------------------------
