@@ -189,9 +189,12 @@ Phases (any failure exits non-zero):
      32, B9 also over more rows than its grid, B12 at W = 256 and 1,024
      too; B7 at Vh = 12 and 768 and with M = 64; B8 at K = 32, M = 64; B10
      at S = 16; B11 at 32,768 tiles; the general B2 also on the sphere's
-     hull and on sets of 0-4 live points at F = 132), bit for bit against
-     its plain version
-     on the card, its general variant's counter showing that it ran, with
+     hull and on sets of 0-4 live points at F = 132), and, since the
+     redesigns of B11 past its resident kernel and of B6 past K = 16, B11
+     on render_512's 4,096 triangles at a shadow map of 8192² and B6 on
+     the 10k lattice's 64th step at K = 32 (B6 at K = 80 too, its
+     thread-a-piece variant), bit for bit against its plain version
+     on the card, the counter of the variant it takes showing that it ran, with
      the wrapper's ms, the device ms and launches (torch.profiler, in one
      fresh process), the plain version's ms and the bound; the Python byte
      counts behind each choice of variant against the kernels' C layouts;
@@ -199,8 +202,9 @@ Phases (any failure exits non-zero):
      max_neighbors 32 and max_hull_verts 12 against the CPU plain run in
      lockstep from one CPU-built scene (phase 9's bounds), the cube under
      max_piece_tris 2048 and refitting_point_limit 64 against its CPU plain
-     run slot for slot, and render_scene at a shadow map of 8192² against
-     the plain versions on the card, bit for bit.
+     run slot for slot, and render_scene at a shadow map of 8192² (bench_
+     render's first 512 triangles, then all 4,096) against the plain
+     versions on the card, bit for bit, one raster launch a call.
 The line before last is a JSON object of per-kernel results; the last line
 is the device JSON object.
 """
@@ -1707,6 +1711,7 @@ def all_counts() -> dict:
     counts["soup_clip"] = soup_clip_cuda.launches
     counts["raster"] = raster_cuda.launches
     counts["raster_glue"] = raster_cuda.glue_launches
+    counts["broadphase_exact_long"] = broadphase_cuda.exact_long_launches
     counts.update(launch_counts())
     counts.update(general_counts())
     return counts
@@ -1720,6 +1725,7 @@ def reset_all():
     soup_clip_cuda.launches = 0
     raster_cuda.launches = 0
     raster_cuda.glue_launches = 0
+    broadphase_cuda.exact_long_launches = 0
     reset_counts()
     reset_general()
 
@@ -4069,10 +4075,30 @@ LIMIT_PREPARE_LAUNCHES = {"clip_fold": 6, "ich": 2, "ich_batch": 1, "labels": 1,
                           "ich_general": 1, "labels_general": 1}
 LIMIT_RENDER_TRIS = 512
 LIMIT_SHADOW = 8192
+LIMIT_K = 32          # B6 past K = 16: the long variant
+LIMIT_K_GENERAL = 80  # B6 past LONG_K: the thread-a-piece general variant
+# Where phase 30's shape past a kernel's old limit takes another variant
+# than its general one: (the ``all_counts`` key of its launches, a name
+# fragment of its device function). B6 at K = 32 runs the tiled sweep's
+# long lists.
+PAST_VARIANT = {"broadphase_exact": ("broadphase_exact_long", "bp_exact_kernel")}
+# Phase 30's further cases: name -> the kernel (a GENERAL key) it runs.
+PAST_CASES = {"raster_render_512": "raster", "broadphase_exact_10k": "broadphase_exact"}
 
 
 def general_counts() -> dict:
     return {f"{name}_general": getattr(mod, attr) for name, (mod, attr, *_) in GENERAL.items()}
+
+
+def past_key(name: str) -> str:
+    """The ``all_counts`` key of the launches of ``name``'s variant at
+    phase 30's shape past its old limit."""
+    return PAST_VARIANT[name][0] if name in PAST_VARIANT else f"{name}_general"
+
+
+def past_kernel(name: str) -> str:
+    """A name fragment of that variant's device function."""
+    return PAST_VARIANT[name][1] if name in PAST_VARIANT else GENERAL[name][4]
 
 
 def reset_general():
@@ -4113,13 +4139,13 @@ def limits_physics(card):
     """30 (e1): the lattice under max_neighbors 32 and max_hull_verts 12 on
     the card and through the plain path on the CPU, in lockstep from one
     CPU-built scene (C7), phase 9's bounds; every step B6, B7 and B9 by
-    their general variants, B5 and B8 by today's. Returns the launches of
-    the card's run and the last step's calls."""
+    their variants past K = 16 (B6's long lists), B5 and B8 by today's.
+    Returns the launches of the card's run and the last step's calls."""
     cfg = LIMIT_PHYSICS_CFG
     sc = workload.physics_lattice(LIMIT_LATTICE, "cpu", cfg)
     sg = workload.to_device(sc, "cuda")
     reset_all()
-    want = {"pack": 1, "broadphase_exact": 1, "broadphase_exact_general": 1, "narrowphase": 1,
+    want = {"pack": 1, "broadphase_exact": 1, "broadphase_exact_long": 1, "narrowphase": 1,
             "narrowphase_general": 1, "prep": 1, "solver": 1, "solver_general": 1}
     hits = (0, 0)
     with StepRecorder() as rec:
@@ -4145,7 +4171,7 @@ def limits_physics(card):
           f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
     if not (dx <= 2e-4 and dv <= 2e-3):
         fail("phase 30 lattice: cuda and cpu runs differ beyond x 2e-4 or v 2e-3")
-    if counts["broadphase_exact_general"] < 1:
+    if counts["broadphase_exact_long"] < 1:
         fail("phase 30 lattice: no step ran")
     return counts, last, {"dx": dx, "dv": dv, "hits": list(hits)}
 
@@ -4181,24 +4207,31 @@ def limits_prepare(card):
     return counts, calls, {"cuda": g, "cpu": c, "cpu_s": cpu_s, "max_vertex_diff": err}
 
 
-def limits_render(card):
+def limits_render(card, tris: int = LIMIT_RENDER_TRIS):
     """30 (e3): render_scene at a shadow map of 8192² (32,768 tiles: B11's
-    batched variant) of bench_render's first 512 triangles, the kernels
-    against the plain versions on the card: each raster call and its glue
+    global variant) of bench_render's first ``tris`` triangles, the kernels
+    against the plain versions on the card: one raster launch a call (the
+    global variant's for the shadow map), each raster call and its glue
     bit for bit, then the frame with every raster call on the plain
-    versions, image and depth bit for bit."""
+    versions, image and depth bit for bit. Returns the launches and the
+    shadow map's packed table."""
     full = workload.render_512_inputs("cuda")
-    inputs = (full[0][:LIMIT_RENDER_TRIS], full[1][:LIMIT_RENDER_TRIS],
-              full[2][:LIMIT_RENDER_TRIS], *full[3:])
+    inputs = (full[0][:tris], full[1][:tris], full[2][:tris], *full[3:])
+    out = {}
+
+    def run():
+        out["frame"] = workload.run_render_512("cuda", LIMIT_SHADOW, inputs)
+
     reset_all()
-    img, depth = workload.run_render_512("cuda", LIMIT_SHADOW, inputs)
-    torch.cuda.synchronize()
+    calls = capture_raster(run)
+    img, depth = out["frame"]
     counts = all_counts()
-    tiles = -(-LIMIT_SHADOW // raster_cuda.TH) * -(-LIMIT_SHADOW // raster_cuda.TW)
-    batches = -(-tiles // raster_cuda.TILE_BATCH)   # the shadow map's launches
-    check_launches("phase 30 render", counts, {"raster": 1 + batches, "raster_glue": 2,
-                                               "raster_general": batches})
-    calls = capture_raster(lambda: workload.run_render_512("cuda", LIMIT_SHADOW, inputs))
+    past = sum(raster_cuda._variant(a[3] * a[4]) == "global" for _, a in calls)
+    check_launches(f"phase 30 render, {tris} triangles", counts,
+                   {"raster": len(calls), "raster_glue": len(calls), "raster_general": past})
+    if past < 1 or len(calls) != 2:
+        fail(f"phase 30 render, {tris} triangles: {len(calls)} raster calls, {past} past the "
+             f"resident kernel's threshold")
     for g, a in calls:
         compare_raster_glue(g)
         compare_raster(a)
@@ -4219,26 +4252,38 @@ def limits_render(card):
             fail(f"phase 30 render: the frame's {what} differs from the plain versions' "
                  f"({int((_bits(x) != _bits(y)).sum())} entries)")
     shadow = next(a for _, a in calls if a[3] * a[4] > raster_cuda.RESIDENT_TILES)
-    print(f"phase 30 render ({LIMIT_RENDER_TRIS} triangles, 512², shadow {LIMIT_SHADOW}²: "
-          f"{shadow[3] * shadow[4]} tiles): frame, raster calls and glue bit for bit against "
-          f"the plain versions on the card; launches "
-          f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    pairs, most = live_pairs(shadow)
+    print(f"phase 30 render ({tris} triangles, 512², shadow {LIMIT_SHADOW}²: "
+          f"{shadow[3] * shadow[4]} tiles, {pairs} live pairs, {most} in the densest tile): "
+          f"frame, raster calls and glue bit for bit against the plain versions on the card; "
+          f"launches {json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
     return counts, shadow
 
 
-def limits_phase(card):
-    """Phase 30."""
+def lattice_bp_args(state):
+    """B6's arguments (before K) in the step from ``state`` (the 10k
+    lattice's 63rd-step state: the 64th step's broadphase)."""
+    with StepRecorder() as rec:
+        phys_step.physics_step(state, workload.PHYSICS_CFG)
+        torch.cuda.synchronize()
+    return rec.last["broadphase_exact"][0][:5]
+
+
+def limits_phase(card, state):
+    """Phase 30; ``state`` is the 10k lattice's 63rd-step state (phase 8)."""
     # (e1)-(e3): the three configurations end to end.
     phys_counts, last, phys_cmp = limits_physics(card)
     prep_counts, pcalls, prep_cmp = limits_prepare(card)
     render_counts, shadow = limits_render(card)
+    render_full, shadow_full = limits_render(card, workload.RENDER_512_TRIS)
 
-    # One call of each kernel at a shape past its old limit; the general
-    # launches of the runs that record them.
+    # One call of each kernel at a shape past its old limit; the launches
+    # of the variant it takes there in the runs that record them.
     launches = {name: 0 for name in GENERAL}
     for counts in (phys_counts, prep_counts, render_counts):
         for name in GENERAL:
-            launches[name] += counts[f"{name}_general"]
+            launches[name] += counts[past_key(name)]
+    launches["raster_render_512"] = render_full["raster_general"]
     reset_all()
     faces = capture_main_path_inputs(lambda: run_prepare("cuda", LIMIT_FACES_CFG))["clip_fold"]
     launches["clip_fold"] = general_counts()["clip_fold_general"]
@@ -4258,6 +4303,7 @@ def limits_phase(card):
     soup_calls, _ = capture("soup_clip_pooled", lambda: run_prepare("cuda", model="sphere"))
     sa = soup_calls[0][0][:5]
     bp = last["broadphase_exact"][0][:5]
+    bp10k = lattice_bp_args(state)
     W = LIMIT_PHYSICS_CFG.broadphase_window
     sphere_pts = sphere_ich_call("cuda")[0]
     cases = {
@@ -4277,10 +4323,10 @@ def limits_phase(card):
         "pack": (f"Np {LIMIT_LATTICE}, Vh 768", step768["pack"][:2], compare_pack,
                  pack_cuda.transform_pack_owned, pack_cuda.transform_pack_owned_reference,
                  physics_ops("pack", *step768["pack"][:2])),
-        "broadphase_exact": (f"Np {LIMIT_LATTICE}, K 32", (bp + (32,), {}),
+        "broadphase_exact": (f"Np {LIMIT_LATTICE}, K {LIMIT_K}", (bp + (LIMIT_K,), {}),
                              compare_broadphase_exact, broadphase_cuda.broadphase_exact,
                              broadphase_cuda.broadphase_exact_reference,
-                             physics_ops("broadphase_exact", bp + (32,), {})),
+                             physics_ops("broadphase_exact", bp + (LIMIT_K,), {})),
         "narrowphase": (f"(Np, K) ({LIMIT_LATTICE}, 32), Vh 12", last["narrowphase"][:2],
                         compare_narrowphase, narrowphase_cuda.narrowphase,
                         narrowphase_cuda.narrowphase_reference,
@@ -4299,6 +4345,16 @@ def limits_phase(card):
                    f"{shadow[0].shape[0]}", (shadow[:8], {}), lambda a, kw: compare_raster(shadow),
                    raster_cuda.tile_raster, raster_cuda.tile_raster_reference,
                    raster_ops(shadow)),
+        "raster_render_512": (f"render_512's {workload.RENDER_512_TRIS} triangles, shadow "
+                              f"{LIMIT_SHADOW}²: {shadow_full[3] * shadow_full[4]} tiles, T_pad "
+                              f"{shadow_full[0].shape[0]}", (shadow_full[:8], {}),
+                              lambda a, kw: compare_raster(shadow_full), raster_cuda.tile_raster,
+                              raster_cuda.tile_raster_reference, raster_ops(shadow_full)),
+        "broadphase_exact_10k": (f"Np {bp10k[0].shape[0]} (the 10k lattice's 64th step), K "
+                                 f"{LIMIT_K}", (bp10k + (LIMIT_K,), {}), compare_broadphase_exact,
+                                 broadphase_cuda.broadphase_exact,
+                                 broadphase_cuda.broadphase_exact_reference,
+                                 physics_ops("broadphase_exact", bp10k + (LIMIT_K,), {})),
         "broadphase_sorted": (f"Np {LIMIT_LATTICE}, K 32, W {W}", (bp + (32, W), {}),
                               compare_broadphase_sorted, broadphase_cuda.broadphase_sorted,
                               broadphase_cuda.broadphase_sorted_reference,
@@ -4311,31 +4367,37 @@ def limits_phase(card):
         "solver": [step_m64["solver"][:2], tile_solver(*last["solver"][:2])],
         "narrowphase": [step768["narrowphase"][:2], step_m64["narrowphase"][:2]],
         "broadphase_sorted": [(bp + (8, 256), {}), (bp + (32, 1024), {})],
+        "broadphase_exact": [(bp + (LIMIT_K_GENERAL,), {}), (bp + (64,), {}),
+                             (bp10k + (LIMIT_K_GENERAL,), {})],
     }
     compare_one = {"ich": lambda a, kw: (compare_ich_batch if a[0].dim() == 3 else compare_ich)(
         a, kw)}
     results, jobs = {}, []
     for name, (shape, (a, kw), cmp, fn, plain, ops) in cases.items():
+        base = PAST_CASES.get(name, name)
         call = functools.partial(fn, *a, **kw)
         pcall = functools.partial(plain, *a, **kw)
-        reset_general()
+        reset_all()
         out = call()
         torch.cuda.synchronize()
-        n_general = general_counts()[f"{name}_general"]
+        n_general = all_counts()[past_key(base)]
         if n_general < 1:
-            fail(f"phase 30 {name} at {shape}: its general variant did not launch")
+            fail(f"phase 30 {name} at {shape}: its variant past the old limit did not launch")
         cmp(a, kw)
         for ea, ekw in extra.get(name, []):
             compare_one.get(name, cmp)(ea, ekw)
         torch.cuda.synchronize()
+        if name == "broadphase_exact" and broadphase_cuda.exact_general_launches < 2:
+            fail(f"phase 30 broadphase_exact: K = {LIMIT_K_GENERAL} launched the general "
+                 f"variant {broadphase_cuda.exact_general_launches} times, want 2")
         ms = event_ms(call, reps=5, warmup=1)
         plain_ms = event_ms(pcall, reps=3, warmup=1)
-        jobs.append((call, GENERAL[name][4], 5, 2))
+        jobs.append((call, past_kernel(base), 5, 2))
         if name == "ich":
             b_ms, b_by = ich_batch_bound([(a, kw)])
         else:
             b_ms, b_by = bound(nbytes(a) + nbytes(kw) + nbytes(out), ops)
-        launches[name] = launches[name] or n_general
+        launches[name] = launches.get(name) or n_general
         results[name] = {"shape": shape, "general_launches": n_general, "max_abs_err": 0.0,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
     # The device split of every call in one fresh process: late in this
@@ -4343,9 +4405,9 @@ def limits_phase(card):
     for (name, res), (dev_ms, other_ms, entries) in zip(results.items(),
                                                         fresh_device_split(jobs)):
         res.update(device_ms=dev_ms, other_device_ms=other_ms, device_launches=entries)
-        print(f"phase 30 {name} (general variant) at {res['shape']}: bit for bit against the "
-              f"plain version; {res['general_launches']} general launch(es) a call; wrapper "
-              f"{res['ms']:.4f} ms, kernel {dev_ms:.4f} ms on the device in {entries:.0f} "
+        print(f"phase 30 {name} (variant past the old limit) at {res['shape']}: bit for bit "
+              f"against the plain version; {res['general_launches']} launch(es) of it a call; "
+              f"wrapper {res['ms']:.4f} ms, kernel {dev_ms:.4f} ms on the device in {entries:.0f} "
               f"device launches a call ({other_ms:.4f} ms beside it), plain "
               f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}) "
               f"({card})", flush=True)
@@ -4427,6 +4489,9 @@ def check_layouts():
         ("surtr_ich_general_stage", hull_cuda.general_stage,
          [(N, F) for N in (1, 162, 5000, 6560, 11956, 11957, 20000)
           for F in (129, 132, 260, 2400, 2401, 4096)]),
+        ("surtr_raster_global_bytes", raster_cuda.global_bytes,
+         [(n, k) for n in (1, 128, 512, 8192, 10239, 10240, 32768, 10 ** 6)
+          for k in (1, 528, 1056)]),
         ("surtr_narrowphase_staged_bytes", narrowphase_cuda.staged_bytes,
          [(Vh, K, F, Ne, M) for Vh in (8, 12, 16, 32, 64, 128) for K in (1, 8, 32)
           for F in (8, 26, 32) for Ne in (3, 16) for M in (1, 4, 20, 64)]),
@@ -4628,7 +4693,7 @@ def main():
     model_scale = timed(29, model_scale_phase, card)
 
     # 30. Past the old limits: each kernel's general variant.
-    limits = timed(30, limits_phase, card)
+    limits = timed(30, limits_phase, card, before_last)
     print(f"phases 23-30, s: {json.dumps(phase_s)}", flush=True)
 
     path_counts = {"broadphase_sorted": ("b_sorted", variants["b_sorted"][0]),
@@ -4681,10 +4746,13 @@ def main():
                                   **concave_kernels[k["name"]]}
             k["model_scale"] = {"launches": model_scale["launches"][k["name"]],
                                 **model_scale["kernels"][k["name"]]}
+    labels = {"broadphase_exact": "broadphase_exact_long",
+              "broadphase_exact_10k": "broadphase_exact_long_10k",
+              "raster_render_512": "raster_general_render_512"}
     for name, res in limits["kernels"].items():
-        _, _, src, rep, _ = GENERAL[name]
-        kernels.append({"name": f"{name}_general", "route": "cuda", "source": src,
-                        "replaces": rep, "path": "phase 30, past the old limits",
+        _, _, src, rep, _ = GENERAL[PAST_CASES.get(name, name)]
+        kernels.append({"name": labels.get(name, f"{name}_general"), "route": "cuda",
+                        "source": src, "replaces": rep, "path": "phase 30, past the old limits",
                         "launches": limits["launches"][name], "library_ms": None, **res})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device check", flush=True)
     print(json.dumps({"kernels": kernels, "event_ms": ms_event, "physics": timing,

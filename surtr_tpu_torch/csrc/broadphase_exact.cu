@@ -46,14 +46,32 @@
 //  - staging: each warp double-buffers its row tiles (32 × 48 B) with
 //    cp.async, so the next tile loads while the current one is tested.
 // Each thread keeps its piece's K best keys sorted in registers (K ≤ 16,
-// indexed by unrolled constants only) and inserts only a key below its
-// K-th. The results are written in original piece order: pidx = key &
-// id_mask, pok = key != IMAX, key_ji = (key & ~id_mask) | i and θ.
+// indexed by unrolled constants only; 32 or 64 in the long variant) and
+// inserts only a key below its K-th. The results are written in original
+// piece order: pidx = key & id_mask, pok = key != IMAX, key_ji = (key &
+// ~id_mask) | i and θ.
 // Measured at the 10k lattice's 64th step on an NVIDIA H100 80GB HBM3 at
 // 700 W (tools/time_b1_b6.py, the first design in the same call): 0.34-0.36
 // ms a call against 2.24-2.73 ms; the sweep 0.064 ms and the glue 0.054 ms
 // on the device against 0.31 and 0.17 ms; 17 device launches against 74
 // (14 of them the sort); 7.43 M candidate tests against 15.06 M.
+// Past K = 16 the first design (bp_exact_general_kernel) ran a thread a
+// piece over every row of the chunks its interval meets, its list in
+// device memory (K loads and stores an insertion), in 8 CTAs at Np 1,000.
+// The long variant (bp_exact_kernel<32>, <64>; 16 < K <= 64) is the sweep
+// above with longer lists: 32 or 64 keys in registers (130 and 167 of
+// them, no spill), the merge buffer 12 or 24 KB (32.8 and 45.1 KB of
+// static shared memory). Its insertion takes the K-th key as the largest
+// of the first K: picked at s == K - 1, the list went into a stack frame
+// (0.104 ms at the 10k step against 0.069). What bounds it is the tiled
+// sweep's: the cull's candidate tests, about 20 operations each, and one
+// compare-exchange a list slot for each key inserted. Past K = 64 a list
+// would take more registers than a thread has and the merge buffer alone
+// 48 KB, so the general variant stays there. Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (tools/time_b1_b6.py --b6-only, device ms, the
+// general variant in the same call): K = 32 at the 10k lattice's 64th step
+// 0.069-0.070 against 0.602; on chip_smoke phase 30's 1,000-cube lattice
+// 0.0174-0.0175 against 0.109-0.110.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,7 +86,8 @@ constexpr int CHUNK = 128;      // rows per sweep chunk (4 tiles)
 constexpr int GROUPS = 4;       // warps per query tile
 constexpr int ROW = 12;         // floats per table row
 constexpr int MAX_TILES = 2048; // 65,536 pieces
-constexpr int MAXK = 16;
+constexpr int MAXK = 16;        // the tiled sweep's lists; the long variant's up to LONG_K
+constexpr int LONG_K = 64;
 constexpr int IMAX = 0x7FFFFFFF;
 constexpr float BIG = 3.4e38f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -213,6 +232,32 @@ __device__ inline void insert(int (&best)[MAXK], int& kth, int v, int K) {
     if (s == K - 1) kth = best[s];
 }
 
+// The long variant's insertion: the same compare-exchange steps, always
+// inlined, and the K-th key taken as the largest of the first K (the list
+// is ascending) rather than picked at s == K - 1, which the compiler may
+// turn into best[K - 1]: a run-time index that moves the list into a stack
+// frame, so that every step loads and stores it (the K <= 16 sweep's
+// `insert` keeps 64 bytes of it).
+template <int NK>
+__device__ __forceinline__ void insert_long(int (&best)[NK], int& kth, int v, int K) {
+  if (v >= kth) return;
+  int top = 0;                                     // keys are >= 0
+#pragma unroll
+  for (int s = 0; s < NK; ++s) {
+    if (s < K) {
+      const int lo = min(best[s], v);
+      v = max(best[s], v);
+      best[s] = lo;
+      top = max(top, lo);
+    }
+  }
+  kth = top;
+}
+
+// NK, the length of each thread's list: MAXK for K <= 16 (the tiled sweep),
+// 32 or LONG_K for the long variant (16 < K <= 64). Only the lists and the
+// merge buffer grow with it.
+template <int NK>
 __global__ void __launch_bounds__(GROUPS * 32)
 bp_exact_kernel(const float* __restrict__ table, const float* __restrict__ tiles,
                 const float* __restrict__ chunks, int Np, int NT, int NCH, int K, int id_bits,
@@ -220,7 +265,7 @@ bp_exact_kernel(const float* __restrict__ table, const float* __restrict__ tiles
                 int* __restrict__ key_ji, int* __restrict__ theta) {
   __shared__ __align__(16) float stage[GROUPS][2][TILE * ROW];
   __shared__ int list[MAX_TILES];
-  __shared__ int mrg[GROUPS - 1][MAXK][32];
+  __shared__ int mrg[GROUPS - 1][NK][32];
   __shared__ int nlist, s_lo, s_hi;
   const int tq = blockIdx.x, tid = threadIdx.x;
   const int w = tid >> 5, lane = tid & 31;
@@ -276,9 +321,9 @@ bp_exact_kernel(const float* __restrict__ table, const float* __restrict__ tiles
   const int n = nlist;
 
   const int mask = (1 << id_bits) - 1;
-  int best[MAXK];
+  int best[NK];
 #pragma unroll
-  for (int s = 0; s < MAXK; ++s) best[s] = IMAX;
+  for (int s = 0; s < NK; ++s) best[s] = IMAX;
   int kth = IMAX;
 
   // Warp w walks list entries w, w + GROUPS, ...; double-buffered staging.
@@ -308,7 +353,11 @@ bp_exact_kernel(const float* __restrict__ table, const float* __restrict__ tiles
       d2 = d2 + dy * dy;
       d2 = d2 + dz * dz;
       const int q = (int)fminf(d2 * qs, qmax);
-      insert(best, kth, (q << id_bits) | ((int)o2.w & mask), K);
+      const int key = (q << id_bits) | ((int)o2.w & mask);
+      if constexpr (NK == MAXK)
+        insert(best, kth, key, K);
+      else
+        insert_long(best, kth, key, K);
     }
     __syncwarp();                                  // the buffer is read before restaging
   }
@@ -316,17 +365,22 @@ bp_exact_kernel(const float* __restrict__ table, const float* __restrict__ tiles
   // Merge the groups' K-best lists (unique keys: exact in any order).
   if (w > 0) {
 #pragma unroll
-    for (int s = 0; s < MAXK; ++s)
+    for (int s = 0; s < NK; ++s)
       if (s < K) mrg[w - 1][s][lane] = best[s];
   }
   __syncthreads();
   if (w != 0) return;
   for (int g = 0; g < GROUPS - 1; ++g)
-    for (int s = 0; s < K; ++s) insert(best, kth, mrg[g][s][lane], K);
+    for (int s = 0; s < K; ++s) {
+      if constexpr (NK == MAXK)
+        insert(best, kth, mrg[g][s][lane], K);
+      else
+        insert_long(best, kth, mrg[g][s][lane], K);
+    }
   if (rank >= Np) return;
   const int i = (int)orig;
 #pragma unroll
-  for (int s = 0; s < MAXK; ++s) {
+  for (int s = 0; s < NK; ++s) {
     if (s < K) {
       const int key = best[s];
       pidx[(size_t)i * K + s] = key & mask;
@@ -338,7 +392,7 @@ bp_exact_kernel(const float* __restrict__ table, const float* __restrict__ tiles
 }
 
 // ---------------------------------------------------------------------------
-// 4'. The general variant, for K > MAXK: one thread a sorted piece, its K
+// 4'. The general variant, for K > LONG_K: one thread a sorted piece, its K
 // best keys kept sorted in a device scratch (slot s of rank r at
 // best[s * Np_pad + r]), every 128-row chunk whose sweep-axis interval
 // meets the piece's own walked row by row. The keys and the insertion are
@@ -421,23 +475,31 @@ extern "C" int surtr_broadphase_exact_pack(const float* c, int cs, const float* 
   return (int)cudaGetLastError();
 }
 
-// K <= MAXK takes the tiled sweep; a larger K the general variant, with
-// `best` a (K, NCH * CHUNK) int scratch and `axis` the key launch's axis.
+// variant 0, tiled: K <= MAXK; 1, long: the same sweep with lists of 32 or
+// LONG_K keys, K <= LONG_K; 2, general: any K, with `best` a (K, NCH *
+// CHUNK) int scratch and `axis` the key launch's axis.
 extern "C" int surtr_broadphase_exact(const float* table, const float* tiles, const float* chunks,
                                       int Np, int NCH, int K, int id_bits, float qs, float qmax,
                                       int* pidx, unsigned char* pok, int* key_ji, int* theta,
-                                      const int* axis, int* best, void* stream) {
+                                      const int* axis, int* best, int variant, void* stream) {
   const int NT = NCH * (CHUNK / TILE);
-  if (K < 1 || id_bits < 1 || id_bits > 30 || NT > MAX_TILES) return (int)cudaErrorInvalidValue;
-  if (K > MAXK) {
-    if (best == nullptr) return (int)cudaErrorInvalidValue;
-    if (Np > 0)
-      bp_exact_general_kernel<<<(Np + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-          table, chunks, axis, Np, NCH, K, id_bits, qs, qmax, best, pidx, pok, key_ji, theta);
-    return (int)cudaGetLastError();
-  }
-  if (Np > 0)
-    bp_exact_kernel<<<NT, GROUPS * 32, 0, (cudaStream_t)stream>>>(
+  if (K < 1 || id_bits < 1 || id_bits > 30 || NT > MAX_TILES || variant < 0 || variant > 2 ||
+      (variant == 0 && K > MAXK) || (variant == 1 && K > LONG_K) ||
+      (variant == 2 && best == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (Np == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (variant == 2)
+    bp_exact_general_kernel<<<(Np + 127) / 128, 128, 0, st>>>(
+        table, chunks, axis, Np, NCH, K, id_bits, qs, qmax, best, pidx, pok, key_ji, theta);
+  else if (K <= MAXK)
+    bp_exact_kernel<MAXK><<<NT, GROUPS * 32, 0, st>>>(
+        table, tiles, chunks, Np, NT, NCH, K, id_bits, qs, qmax, pidx, pok, key_ji, theta);
+  else if (K <= 32)
+    bp_exact_kernel<32><<<NT, GROUPS * 32, 0, st>>>(
+        table, tiles, chunks, Np, NT, NCH, K, id_bits, qs, qmax, pidx, pok, key_ji, theta);
+  else
+    bp_exact_kernel<LONG_K><<<NT, GROUPS * 32, 0, st>>>(
         table, tiles, chunks, Np, NT, NCH, K, id_bits, qs, qmax, pidx, pok, key_ji, theta);
   return (int)cudaGetLastError();
 }

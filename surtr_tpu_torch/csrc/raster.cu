@@ -58,6 +58,31 @@
 // the device against 3.39 ms, the glue 0.10 ms in 38 device launches
 // against 0.39 ms in 196. Of that, the depth skip took the kernel from 0.28
 // to 0.23 ms and the ballot walk of a tile's chunks to 0.195 ms.
+// The resident kernel's step 1 is paid in every CTA: each counts all the
+// screen's tiles (8,192 at a 4,096² shadow map: 1,024 a warp) and scans
+// their offsets in its shared memory, which also caps it at 10,239 tiles.
+// The global variant (raster_kernel<true>, the reference's shadow maps of
+// 4,096² and 8,192², SurtrArgument.h:36) computes them once: a count
+// launch on the raster's grid (a warp a tile; CTA c also zeroes key slot
+// c), a one-CTA scan into device memory, then one raster launch whose CTAs
+// find their slice by binary search in the global offsets and step to the
+// next live tile by ballots over 32 offsets. A tile that a slice boundary
+// splits merges in the key slot of the first boundary inside it, c =
+// ceil((start[t] + 1) G / L), so the key scratch holds one 16 KB image a
+// CTA (at most 8 an SM: 17 MB), whatever the screen, and is zeroed by the
+// count launch (no memset). Merge, completion count and write-out are the
+// resident kernel's. Bound: the same operations of the live pairs. Measured
+// on an NVIDIA H100 80GB HBM3 at 700 W (tools/time_b9_b11.py
+// --shadow-maps, device ms, the previous design in the same call): at
+// 8,192², bench_render's first 512 triangles (20,572 live pairs) 2.07 ms
+// in 1 raster launch against 3.92-3.94 in 8 (and 0.037 ms of count and
+// scan against 0.170 of memsets; bound 1.167), its 4,096 triangles
+// (110,352 pairs) 10.48-10.51 against 11.96-12.04; at 4,096² (29,129
+// pairs) 2.77 against the resident kernel's 3.12-3.17, at 2,048² 0.77
+// against 0.85, at 1,024² 0.234 against 0.248, at 640² (200 tiles) 0.128
+// against 0.130, at 512² (128 tiles) 0.1035 against 0.102, count and scan
+// included: the wrapper takes the resident kernel up to 157 tiles, the
+// interpolated crossover (raster_cuda.RESIDENT_TILES), this variant past it.
 // No per-triangle reject finer than the chunk box: a sliver with |area|
 // just above 1e-12 can cover far pixels through rounding, so a triangle
 // bounding-box skip could change bits. Every product and sum is rounded on
@@ -208,10 +233,10 @@ struct Args {
   float* depth;
   int* tid;
   float* gbuf;
-  unsigned long long* keys;  // (ntiles, 2048) inverted keys, 0 = untouched
-  unsigned* count;           // (ntiles,) pairs merged into keys
+  unsigned long long* keys;  // (tiles or key slots, 2048) inverted keys, 0 = untouched
+  unsigned* count;           // (tiles or key slots,) pairs merged into keys
   int H, W, ntx, nty, A;
-  int t_base, nt;            // the batched variant: tiles t_base .. t_base + nt - 1
+  const int* start;          // the global variant: (ntiles + 1) offsets in device memory
 };
 
 // Exclusive prefix sum of a[0..n) in shared memory, in place.
@@ -268,41 +293,130 @@ __device__ inline void write_pixel(const Args& g, int t, int k, float z, int id)
   for (int a = 0; a < g.A; ++a) g.gbuf[p * g.A + a] = hit ? src[a] : 0.0f;
 }
 
-// BATCHED (the general variant, for screens of more tiles than the offsets
-// of shared memory hold): a launch takes the tiles t_base .. t_base + nt - 1
-// alone, with their offsets in shared memory and their key images and
-// counts in a scratch of nt tiles; the launches run in stream order. The
-// batch-local tile t is screen tile t + tb.
-template <bool BATCHED>
-__global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
-  extern __shared__ int start[];  // (ntiles + 1): tile-major live-pair offsets
-  __shared__ Tri tri[2][CHUNK];
-  __shared__ int s_last;
-  const int tb = BATCHED ? g.t_base : 0;
-  const int ntiles = BATCHED ? g.nt : g.ntx * g.nty;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int row0 = (warp / 4) * 8 + (lane / 8) * RPT;   // the thread's first tile row
-  const int col0 = (warp % 4) * 32 + (lane % 8) * CPT;  // and first tile column
-
-  // 1. Live pairs per tile (a warp per tile, lanes over its chunk range),
-  //    then the offsets of the tile-major list.
-  for (int t = warp; t < ntiles; t += THREADS / 32) {
-    const int hi = g.rng[2 * (t + tb) + 1];
+// The global variant's offsets, first launch (a grid of the raster's size):
+// CTA c zeroes key slot c and its count; the warps count the live pairs of
+// the tiles, a warp a tile, into start[t].
+__global__ void __launch_bounds__(THREADS)
+raster_count_kernel(const float* __restrict__ bbox, const int* __restrict__ rng, int ntx,
+                    int ntiles, int* __restrict__ start, unsigned long long* __restrict__ keys,
+                    unsigned* __restrict__ count) {
+  const int lane = threadIdx.x % 32;
+  ulonglong2* kz = reinterpret_cast<ulonglong2*>(keys + (size_t)blockIdx.x * TH * TW);
+  for (int k = threadIdx.x; k < TH * TW / 2; k += THREADS) kz[k] = make_ulonglong2(0ull, 0ull);
+  if (threadIdx.x == 0) count[blockIdx.x] = 0u;
+  const int nw = gridDim.x * (THREADS / 32);
+  for (int t = blockIdx.x * (THREADS / 32) + threadIdx.x / 32; t < ntiles; t += nw) {
+    const int hi = rng[2 * t + 1];
     int n = 0;
-    for (int b = g.rng[2 * (t + tb)] + lane; b < hi; b += 32)
-      n += pair_live(g.bbox, b, t + tb, g.ntx);
+    for (int b = rng[2 * t] + lane; b < hi; b += 32) n += pair_live(bbox, b, t, ntx);
     n = __reduce_add_sync(FULL, n);
     if (lane == 0) start[t] = n;
   }
-  if (threadIdx.x == 0) start[ntiles] = 0;
-  __syncthreads();
-  block_scan(start, ntiles + 1);
+}
+
+// Second launch, one CTA: the exclusive prefix sum of start[0..n) in place,
+// SCAN_PER consecutive entries a thread a pass; start[n] = the total.
+constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_PER = 8;
+
+__global__ void __launch_bounds__(SCAN_THREADS) raster_scan_kernel(int* __restrict__ start, int n) {
+  __shared__ int wsum[SCAN_THREADS / 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int carry = 0;
+  for (int base = 0; base < n; base += SCAN_THREADS * SCAN_PER) {
+    const int i0 = base + threadIdx.x * SCAN_PER;
+    int v[SCAN_PER], s = 0;
+#pragma unroll
+    for (int j = 0; j < SCAN_PER; ++j) {
+      v[j] = i0 + j < n ? start[i0 + j] : 0;
+      s += v[j];
+    }
+    int x = s;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = wsum[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL, w, off);
+        if (lane >= off) w += y;
+      }
+      wsum[lane] = w;
+    }
+    __syncthreads();
+    int excl = carry + x - s + (warp ? wsum[warp - 1] : 0);
+#pragma unroll
+    for (int j = 0; j < SCAN_PER; ++j) {
+      if (i0 + j < n) start[i0 + j] = excl;
+      excl += v[j];
+    }
+    carry += wsum[SCAN_THREADS / 32 - 1];
+    __syncthreads();  // wsum is read above before the next pass writes it
+  }
+  if (threadIdx.x == 0) start[n] = carry;
+}
+
+// The first tile after t whose pairs reach past p (start[t' + 1] > p), 32
+// tiles a step by ballot; one exists while p < start[ntiles].
+__device__ inline int next_tile(const int* start, int t, int p, int ntiles) {
+  const int lane = threadIdx.x % 32;
+  for (int base = t + 1;; base += 32) {
+    const int u = base + lane;
+    const unsigned m = __ballot_sync(FULL, u < ntiles && start[u + 1] > p);
+    if (m) return base + __ffs(m) - 1;
+  }
+}
+
+// RESIDENT (GLOBAL false; up to RESIDENT_TILES tiles): each CTA computes the
+// offsets itself into shared memory (step 1) and a tile split between CTAs
+// merges in its own key image. GLOBAL (any screen): the offsets come from
+// raster_count_kernel and raster_scan_kernel in device memory, and a split
+// tile merges in the key slot of the first slice boundary inside it, so the
+// key scratch has one slot a CTA, whatever the screen.
+template <bool GLOBAL>
+__global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
+  extern __shared__ int s_start[];  // resident: (ntiles + 1) tile-major live-pair offsets
+  __shared__ Tri tri[2][CHUNK];
+  __shared__ int s_last;
+  const int ntiles = g.ntx * g.nty;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row0 = (warp / 4) * 8 + (lane / 8) * RPT;   // the thread's first tile row
+  const int col0 = (warp % 4) * 32 + (lane % 8) * CPT;  // and first tile column
+  const int* start = GLOBAL ? g.start : s_start;
+
+  // 1. Live pairs per tile (a warp per tile, lanes over its chunk range),
+  //    then the offsets of the tile-major list.
+  if (!GLOBAL) {
+    for (int t = warp; t < ntiles; t += THREADS / 32) {
+      const int hi = g.rng[2 * t + 1];
+      int n = 0;
+      for (int b = g.rng[2 * t] + lane; b < hi; b += 32)
+        n += pair_live(g.bbox, b, t, g.ntx);
+      n = __reduce_add_sync(FULL, n);
+      if (lane == 0) s_start[t] = n;
+    }
+    if (threadIdx.x == 0) s_start[ntiles] = 0;
+    __syncthreads();
+    block_scan(s_start, ntiles + 1);
+  }
   const int L = start[ntiles];
 
-  // 2. Tiles with no live pair are background; CTA c takes tiles c, c + G, ...
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x)
-    if (start[t + 1] == start[t])
-      for (int k = threadIdx.x; k < TH * TW; k += THREADS) write_pixel(g, t + tb, k, BIG, -1);
+  // 2. Tiles with no live pair are background; CTA c takes tiles c, c + G,
+  //    ... (global: warp w of CTA c tiles 8c + w, 8c + w + 8G, ...).
+  if (GLOBAL) {
+    for (int t = blockIdx.x * (THREADS / 32) + warp; t < ntiles; t += gridDim.x * (THREADS / 32))
+      if (start[t + 1] == start[t])
+        for (int k = lane; k < TH * TW; k += 32) write_pixel(g, t, k, BIG, -1);
+  } else {
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x)
+      if (start[t + 1] == start[t])
+        for (int k = threadIdx.x; k < TH * TW; k += THREADS) write_pixel(g, t, k, BIG, -1);
+  }
 
   // 3. This CTA's slice of the list.
   const int s0 = (int)((long long)L * blockIdx.x / gridDim.x);
@@ -319,7 +433,7 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
     const int cnt = start[t + 1] - start[t];
     const int n_here = min(cnt - skip, s1 - p);
     const bool whole = skip == 0 && n_here == cnt;
-    const int ti = (t + tb) / g.ntx, tj = (t + tb) % g.ntx;
+    const int ti = t / g.ntx, tj = t % g.ntx;
     float px[CPT], py[RPT], thr[RPT][CPT];
     int id[RPT][CPT];
 #pragma unroll
@@ -335,11 +449,11 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
     }
     // The tile's live chunks 32 at a time: each warp ballots the same 32
     // tests, so the walk below is uniform over the block.
-    const int hi = g.rng[2 * (t + tb) + 1];
+    const int hi = g.rng[2 * t + 1];
     int seen = 0, done = 0;
-    for (int b0 = g.rng[2 * (t + tb)]; b0 < hi && done < n_here; b0 += 32) {
+    for (int b0 = g.rng[2 * t]; b0 < hi && done < n_here; b0 += 32) {
       unsigned live =
-          __ballot_sync(FULL, b0 + lane < hi && pair_live(g.bbox, b0 + lane, t + tb, g.ntx));
+          __ballot_sync(FULL, b0 + lane < hi && pair_live(g.bbox, b0 + lane, t, g.ntx));
       if (seen + __popc(live) <= skip) {
         seen += __popc(live);
         continue;
@@ -418,9 +532,13 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
       for (int j = 0; j < RPT; ++j)
 #pragma unroll
         for (int k = 0; k < CPT; ++k)
-          write_pixel(g, t + tb, (row0 + j) * TW + col0 + k, thr[j][k], id[j][k]);
+          write_pixel(g, t, (row0 + j) * TW + col0 + k, thr[j][k], id[j][k]);
     } else {
-      unsigned long long* kt = g.keys + (size_t)t * TH * TW;
+      // A split tile's key image: its own (resident), or the slot of the
+      // first slice boundary c inside it, c = ceil((start[t] + 1) G / L).
+      const int slot =
+          GLOBAL ? (int)((((long long)start[t] + 1) * gridDim.x + L - 1) / L) : t;
+      unsigned long long* kt = g.keys + (size_t)slot * TH * TW;
 #pragma unroll
       for (int j = 0; j < RPT; ++j)
 #pragma unroll
@@ -431,25 +549,37 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(Args g) {
                         (unsigned)id[j][k]));
       __threadfence();
       __syncthreads();
-      if (threadIdx.x == 0) s_last = atomicAdd(&g.count[t], (unsigned)n_here) + n_here == cnt;
+      if (threadIdx.x == 0) s_last = atomicAdd(&g.count[slot], (unsigned)n_here) + n_here == cnt;
       __syncthreads();
       if (s_last) {
         __threadfence();
         for (int k = threadIdx.x; k < TH * TW; k += THREADS) {
           const unsigned long long v = ~__ldcg(&kt[k]);
           const bool hit = v != ~0ull;
-          write_pixel(g, t + tb, k, hit ? __uint_as_float((unsigned)(v >> 32)) : BIG,
+          write_pixel(g, t, k, hit ? __uint_as_float((unsigned)(v >> 32)) : BIG,
                       hit ? (int)(v & 0xffffffffu) : -1);
         }
       }
     }
     p += n_here;
     skip = 0;
-    do { ++t; } while (p < s1 && start[t + 1] == start[t]);
+    if (GLOBAL) {
+      if (p < s1) t = next_tile(start, t, p, ntiles);
+    } else {
+      do { ++t; } while (p < s1 && start[t + 1] == start[t]);
+    }
   }
 }
 
 int g_sms = 0;
+
+// Bytes of the global variant's scratch: the (ntiles + 1) offsets, rounded
+// up to 16 bytes, then `slots` key images of 2,048 64-bit keys and `slots`
+// 32-bit counts.
+long long global_bytes(int ntiles, int slots) {
+  const long long off = ((long long)(ntiles + 1) * 4 + 15) / 16 * 16;
+  return off + (long long)slots * (TH * TW * 8 + 4);
+}
 
 }  // namespace
 
@@ -472,16 +602,24 @@ extern "C" int surtr_raster_pack(const float* sx, const float* sy, const float* 
   return (int)cudaGetLastError();
 }
 
-// scratch: (n, 2048) 64-bit keys then (n,) 32-bit counts, n = ntiles, or
-// n = `batch` for the batched variant (batch > 0: the tiles `batch` at a
-// time, one launch a batch); set to 0 here. *launched counts the kernel's
-// launches.
+
+extern "C" long long surtr_raster_global_bytes(int ntiles, int slots) {
+  return global_bytes(ntiles, slots);
+}
+
+// variant 0, resident: scratch is (ntiles, 2048) 64-bit keys then (ntiles,)
+// 32-bit counts, set to 0 here by one memset; the offsets live in each CTA's
+// shared memory (at most 40 KB: 10,239 tiles). variant 1, global: scratch
+// is `global_bytes(ntiles, slots)` bytes, slots >= the grid (the key slots
+// and counts are zeroed by the count launch, no memset); three launches:
+// count, scan, raster. *launched counts the raster kernel's launches.
 extern "C" int surtr_raster(const float* attrs, const float* bbox, const int* rng,
                             const int64_t* order, int T, float* depth, int* tid, float* gbuf,
-                            void* scratch, int H, int W, int ntx, int nty, int A, int batch,
-                            int* launched, void* stream) {
+                            void* scratch, int H, int W, int ntx, int nty, int A, int variant,
+                            int slots, int* launched, void* stream) {
   *launched = 0;
-  if (A < 0 || (A > 0 && gbuf == nullptr)) return (int)cudaErrorInvalidValue;
+  if (A < 0 || (A > 0 && gbuf == nullptr) || variant < 0 || variant > 1)
+    return (int)cudaErrorInvalidValue;
   const int ntiles = ntx * nty;
   if (ntiles <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -490,30 +628,42 @@ extern "C" int surtr_raster(const float* attrs, const float* bbox, const int* rn
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  const int nb = batch > 0 ? batch : ntiles;
-  const size_t smem = (size_t)(nb + 1) * sizeof(int);
-  if (smem > 40 * 1024) return (int)cudaErrorInvalidValue;
   int per_sm = 0;
-  if (batch > 0)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster_kernel<true>, THREADS, smem);
-  else
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster_kernel<false>, THREADS, smem);
-  const int grid = (per_sm > 0 ? per_sm : 1) * g_sms;
-  unsigned long long* keys = (unsigned long long*)scratch;
-  unsigned* count = (unsigned*)(keys + (size_t)nb * TH * TW);
-  for (int t0 = 0; t0 < ntiles; t0 += nb) {
-    const int nt = ntiles - t0 < nb ? ntiles - t0 : nb;
-    cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)nb * (TH * TW * 8 + 4), st);
+  if (variant == 1) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster_kernel<true>, THREADS, 0);
+    const int grid = (per_sm > 0 ? per_sm : 1) * g_sms;
+    if (grid > slots) return (int)cudaErrorInvalidValue;
+    int* start = (int*)scratch;
+    const long long off = global_bytes(ntiles, 0);
+    unsigned long long* keys = (unsigned long long*)((char*)scratch + off);
+    unsigned* count = (unsigned*)(keys + (size_t)slots * TH * TW);
+    raster_count_kernel<<<grid, THREADS, 0, st>>>(bbox, rng, ntx, ntiles, start, keys, count);
+    cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    const Args g{attrs, bbox, rng, order, T, depth, tid, gbuf, keys, count, H, W, ntx, nty, A,
-                 t0, nt};
-    if (batch > 0)
-      raster_kernel<true><<<grid, THREADS, (size_t)(nt + 1) * sizeof(int), st>>>(g);
-    else
-      raster_kernel<false><<<grid, THREADS, smem, st>>>(g);
+    raster_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(start, ntiles);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    ++*launched;
+    const Args g{attrs, bbox, rng, order, T, depth, tid, gbuf, keys, count, H, W, ntx, nty, A,
+                 start};
+    raster_kernel<true><<<grid, THREADS, 0, st>>>(g);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    *launched = 1;
+    return 0;
   }
+  const size_t smem = (size_t)(ntiles + 1) * sizeof(int);
+  if (smem > 40 * 1024) return (int)cudaErrorInvalidValue;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster_kernel<false>, THREADS, smem);
+  const int grid = (per_sm > 0 ? per_sm : 1) * g_sms;
+  unsigned long long* keys = (unsigned long long*)scratch;
+  unsigned* count = (unsigned*)(keys + (size_t)ntiles * TH * TW);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)ntiles * (TH * TW * 8 + 4), st);
+  if (e != cudaSuccess) return (int)e;
+  const Args g{attrs, bbox, rng, order, T, depth, tid, gbuf, keys, count, H, W, ntx, nty, A,
+               nullptr};
+  raster_kernel<false><<<grid, THREADS, smem, st>>>(g);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  *launched = 1;
   return 0;
 }

@@ -43,6 +43,7 @@ IMAX = 0x7FFFFFFF
 # and "auto" degrades to the Morton window with a RecallDegradedWarning.
 MAX_EXACT_NP = 65536
 MAX_K = 16          # the fast variants keep their K best in registers
+LONG_K = 64         # B6: K its long variant keeps in registers (lists of 32 or 64 keys)
 MAX_W = 128         # B12: windows its warp variant holds (8 candidates a lane)
 CHUNK = 128         # B6: rows per sweep chunk (the JAX kernel's block; CHUNK in the kernel)
 TILE = 32           # B6: pieces per query tile and rows per row tile (a warp)
@@ -50,18 +51,26 @@ ROW = 12            # B6: floats per row of the sorted table
 SROW = 12           # B12: floats per row of its sorted table
 KEY_PARTS = 256     # B12: CTAs of its key launch at most (MAX_KEY_BLOCKS in the kernel)
 
-exact_launches = 0   # kernel launches since the last reset (main-path proof), both variants
+exact_launches = 0   # kernel launches since the last reset (main-path proof), every variant
 sorted_launches = 0
+exact_long_launches = 0       # of which B6's long variant's
 exact_general_launches = 0    # of which B6's general variant's
 sorted_general_launches = 0   # of which B12's general variant's
 
 
+EXACT_VARIANTS = ("tiled", "long", "general")   # the C entry's variant codes 0, 1, 2
+
+
 def _exact_variant(K: int) -> str:
     """B6: "tiled" (a CTA of 4 warps a 32-piece tile, the K best in
-    registers: today's sweep) for K <= 16, else "general" (a thread a
-    piece over the chunks that can meet it, the K best in a device
-    scratch). Np > MAX_EXACT_NP stays refused, as in the JAX package."""
-    return "tiled" if K <= MAX_K else "general"
+    registers: today's sweep) for K <= 16; "long" (the same sweep, its
+    lists 32 or 64 keys long, still in registers indexed by unrolled
+    constants) for K <= 64; else "general" (a thread a piece over the
+    chunks that can meet it, the K best in a device scratch): past 64 a
+    register list would spill and the warps' merge buffer would pass a
+    CTA's 48 KB of static shared memory. Np > MAX_EXACT_NP stays refused,
+    as in the JAX package."""
+    return "tiled" if K <= MAX_K else ("long" if K <= LONG_K else "general")
 
 
 def _sorted_variant(K: int, window: int) -> str:
@@ -217,11 +226,11 @@ def _exact_fns():
     return (_build.bind("surtr_broadphase_exact_key", [P, I, P, I, P, P, P, P]),
             _build.bind("surtr_broadphase_exact_pack", [P, I, P, I, P, I] + [P] * 5 + [I, I]
                         + [P] * 4),
-            _build.bind("surtr_broadphase_exact", [P] * 3 + [I] * 4 + [F] * 2 + [P] * 7))
+            _build.bind("surtr_broadphase_exact", [P] * 3 + [I] * 4 + [F] * 2 + [P] * 6 + [I, P]))
 
 
 def _exact_kernel(centers, lo, hi, owner, valid, K):
-    global exact_launches, exact_general_launches
+    global exact_launches, exact_long_launches, exact_general_launches
     Np = centers.shape[0]
     dev = centers.device
     _check_inputs("broadphase_exact kernel", centers, lo, hi, owner, valid, K)
@@ -256,13 +265,16 @@ def _exact_kernel(centers, lo, hi, owner, valid, K):
                          hi.stride(0), own.data_ptr(), val.data_ptr(), order.data_ptr(),
                          o_par, o_ax, Np, NCH, o_tab, o_til, o_chk, stream),
                  "surtr_broadphase_exact_pack")
-    general = _exact_variant(K) == "general"
+    variant = _exact_variant(K)
+    general = variant == "general"
     best = torch.empty((K, NCH * CHUNK), dtype=torch.int32, device=dev) if general else None
     rc = sweep_fn(o_tab, o_til, o_chk, Np, NCH, K, bits, qs, qmax,
                   pidx.data_ptr(), pok.data_ptr(), key_ji.data_ptr(), theta.data_ptr(), o_ax,
-                  None if best is None else best.data_ptr(), stream)
+                  None if best is None else best.data_ptr(), EXACT_VARIANTS.index(variant),
+                  stream)
     _build.check(rc, "surtr_broadphase_exact")
     exact_launches += 1
+    exact_long_launches += variant == "long"
     exact_general_launches += general
     return pidx, pok, (key_ji, theta)
 

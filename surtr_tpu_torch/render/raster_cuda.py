@@ -21,7 +21,8 @@ kernel for CUDA tensors (or raises) and runs the plain version,
 ``tile_raster_reference``, for CPU tensors. The kernel spreads each tile's
 live (tile, chunk) pairs over several CTAs and merges their partial results
 by the packed key ``pack_key``; ``split_raster_reference`` is the plain
-mirror of that split and merge.
+mirror of that split and merge, with ``tile_offsets`` and ``split_slots``
+for the global variant's offsets and key slots.
 """
 
 from __future__ import annotations
@@ -41,20 +42,41 @@ CHUNK = 64            # triangles per chunk
 KEY_NONE = (1 << 63) - 1   # packed key of an untouched pixel, above every (z, id) key
 
 launches = 0          # raster kernel launches since the last reset (main-path proof), both variants
-general_launches = 0  # of which the batched variant's (one a batch of tiles)
+general_launches = 0  # of which the global variant's (one a call)
 glue_launches = 0     # glue calls (two launches each) since the last reset
 
-RESIDENT_TILES = 10239   # tiles whose (tiles + 1) offsets fit the kernel's 40 KB of shared memory
-TILE_BATCH = 4096        # tiles a launch of the batched variant takes (its key scratch: 64 MiB)
+RESIDENT_LIMIT = 10239   # tiles whose (tiles + 1) offsets fit the resident kernel's 40 KB
+RESIDENT_TILES = 157     # the measured crossover: the resident kernel up to it
+SLOTS_PER_SM = 8         # the global variant's key slots an SM: its CTAs of 256 threads at most
 
 
 def _variant(ntiles: int) -> str:
-    """"resident" (one launch, every tile's offsets in shared memory:
-    today's kernel) up to 10,239 tiles of 16 x 128, else "batched" (the
-    same kernel over batches of 4,096 tiles, a launch each, with a key
-    scratch of one batch): every screen size has a variant. Any number of
+    """"resident" (one launch, each CTA computes every tile's offsets into
+    its shared memory: today's kernel) up to 157 tiles of 16 x 128, else
+    "global" (the offsets computed once into device memory by two small
+    launches, then one raster launch; a key slot a CTA for the tiles a
+    slice boundary splits): every screen size has a variant. The resident
+    kernel takes up to 10,239 tiles, but each of its CTAs counts every
+    tile, and on an NVIDIA H100 the global variant was the faster from 200
+    tiles on (render_512's shadow maps, tools/time_b9_b11.py
+    --shadow-maps: a loss of 1-2 µs at 128 tiles, gains of 2 µs at 200
+    and 0.4 ms at 8,192; 157 interpolates the crossover). Any number of
     G-buffer columns A is taken by both."""
-    return "resident" if ntiles <= RESIDENT_TILES else "batched"
+    return "resident" if ntiles <= RESIDENT_TILES else "global"
+
+
+def global_bytes(ntiles: int, slots: int) -> int:
+    """Bytes of the global variant's scratch (``global_bytes`` in the
+    kernel): the (ntiles + 1) int32 offsets rounded up to 16 bytes, then
+    ``slots`` key images of 2,048 int64 keys and ``slots`` int32 counts."""
+    return -(-(ntiles + 1) * 4 // 16) * 16 + slots * (TH * TW * 8 + 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(index: int) -> int:
+    """Key slots the global variant gets on CUDA device ``index``: one for
+    each CTA its grid can hold (the kernel checks its grid against it)."""
+    return SLOTS_PER_SM * torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _tile_table(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
@@ -208,24 +230,57 @@ def tile_raster_reference(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, 
     return _image(zt, tid, attrs, nty, ntx, H, W, A)
 
 
+def tile_offsets(bbox, rng, nty: int, ntx: int):
+    """The tile-major list's offsets, (tiles + 1) int64: tile t's live
+    pairs are [start[t], start[t + 1]) (the global variant's count and
+    scan launches; the resident kernel's step 1)."""
+    tile_of, _ = _chunk_pairs(bbox, rng, nty, ntx)
+    cnt = torch.bincount(tile_of, minlength=nty * ntx)
+    return torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)])
+
+
+def split_slots(start, slices: int):
+    """The global variant's key slot of each tile, (tiles,) int64: for a
+    tile that a slice boundary c·L // slices (0 < c < slices) splits, the
+    first such c, ceil((start[t] + 1)·slices / L); -1 for a tile that lies
+    whole in one slice (or has no pair)."""
+    L = int(start[-1])
+    if L == 0:
+        return torch.full_like(start[:-1], -1)
+    slot = ((start[:-1] + 1) * slices + L - 1) // L
+    bound = (slot * L) // slices          # that boundary's first pair
+    return torch.where((slot < slices) & (bound < start[1:]), slot, -1)
+
+
 def split_raster_reference(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int,
-                           slices: int):
+                           slices: int, slot_keys: bool = False):
     """Plain mirror of the kernel's split and merge: the tile-major list of
     live (tile, chunk) pairs cut into ``slices`` equal contiguous slices
     (slice c holds pairs [c·L // slices, (c + 1)·L // slices)); each slice
     walks its pairs in order, replacing a pixel only on a strictly smaller
-    z below 1, and each tile's partials merge by the smallest ``pack_key``.
-    Returns what ``tile_raster_reference`` returns."""
+    z below 1. A tile that lies whole in one slice is written directly; a
+    split tile's partials merge by the smallest ``pack_key`` in a key
+    image: the tile's own (the resident kernel) or, with ``slot_keys``, the
+    slot ``split_slots`` gives it, one of ``slices`` (the global variant,
+    whose scratch has a slot a CTA). Returns what ``tile_raster_reference``
+    returns."""
     dev = attrs.device
     PX = TH * TW
     tile_of, chunk_of = _chunk_pairs(bbox, rng, nty, ntx)
     zbest, ibest = _pair_bests(attrs, tile_of, chunk_of, ntx)
     L = tile_of.shape[0]
-    keys = torch.full((nty * ntx, PX), KEY_NONE, dtype=torch.int64, device=dev)
+    start = tile_offsets(bbox, rng, nty, ntx)
+    slot = split_slots(start, slices) if slot_keys else torch.arange(nty * ntx, device=dev)
+    keys = torch.full((slices if slot_keys else nty * ntx, PX), KEY_NONE, dtype=torch.int64,
+                      device=dev)
+    merged = torch.zeros(nty * ntx, dtype=torch.int64, device=dev)   # pairs merged a tile
+    zt = torch.full((nty * ntx, PX), BIG, dtype=torch.float32, device=dev)
+    tid = torch.full((nty * ntx, PX), -1, dtype=torch.int64, device=dev)
     for c in range(slices):
         p, s1 = c * L // slices, (c + 1) * L // slices
         while p < s1:
             t = int(tile_of[p])
+            p0 = p
             thr = torch.ones(PX, dtype=torch.float32, device=dev)
             ids = torch.full((PX,), -1, dtype=torch.int64, device=dev)
             while p < s1 and int(tile_of[p]) == t:
@@ -233,11 +288,21 @@ def split_raster_reference(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int,
                 thr = torch.where(take, zbest[p], thr)
                 ids = torch.where(take, ibest[p], ids)
                 p += 1
+            cnt = int(start[t + 1] - start[t])
+            if p - p0 == cnt:                       # whole: written directly
+                zt[t] = torch.where(ids >= 0, thr, BIG)
+                tid[t] = ids
+                continue
+            k = int(slot[t])
+            assert 0 <= k < keys.shape[0], (t, k)
             part = torch.where(ids >= 0, pack_key(thr, torch.clamp(ids, min=0)), KEY_NONE)
-            keys[t] = torch.minimum(keys[t], part)
-    hit = keys != KEY_NONE
-    zt = torch.where(hit, (keys >> 32).to(torch.int32).view(torch.float32), BIG)
-    tid = torch.where(hit, keys & 0xFFFFFFFF, -1)
+            keys[k] = torch.minimum(keys[k], part)
+            merged[t] += p - p0
+            if int(merged[t]) == cnt:               # the part that completes the tile
+                hit = keys[k] != KEY_NONE
+                zt[t] = torch.where(hit, (keys[k] >> 32).to(torch.int32).view(torch.float32),
+                                    BIG)
+                tid[t] = torch.where(hit, keys[k] & 0xFFFFFFFF, -1)
     return _image(zt, tid, attrs, nty, ntx, H, W, A)
 
 
@@ -247,7 +312,7 @@ def _fns():
     P, I = ctypes.c_void_p, ctypes.c_int
     return (_build.bind("surtr_raster_key", [P, P, P] + [I] * 4 + [P, P, P, P]),
             _build.bind("surtr_raster_pack", [P] * 5 + [I, P] + [I] * 4 + [P] * 5),
-            _build.bind("surtr_raster", [P] * 4 + [I] + [P] * 4 + [I] * 6 + [P, P]))
+            _build.bind("surtr_raster", [P] * 4 + [I] + [P] * 4 + [I] * 7 + [P, P]))
 
 
 def _glue_kernel(sx, sy, sz, ok, W: int, H: int, attr_tab=None):
@@ -309,7 +374,8 @@ def _kernel(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int, order=
             or not (attrs.is_contiguous() and bbox.is_contiguous() and rng.is_contiguous()):
         raise ValueError("raster kernel takes a contiguous (T_pad, 10 + A) float32 table, "
                          "(T_pad / 64, 4) chunk boxes and (tiles, 2) int32 ranges")
-    batch = TILE_BATCH if _variant(nty * ntx) == "batched" else 0
+    ntiles = nty * ntx
+    glob = _variant(ntiles) == "global"
     if bbox.data_ptr() % 16:
         bbox = bbox.clone()
     dev = attrs.device
@@ -318,17 +384,18 @@ def _kernel(attrs, bbox, rng, nty: int, ntx: int, H: int, W: int, A: int, order=
     depth = torch.empty((H, W), dtype=torch.float32, device=dev)
     tid = torch.empty((H, W), dtype=torch.int32, device=dev)
     gbuf = torch.empty((H, W, A), dtype=torch.float32, device=dev) if A else None
-    scratch = torch.empty(((batch or nty * ntx) * (TH * TW * 8 + 4),), dtype=torch.uint8,
-                          device=dev)
+    slots = _slots(torch.cuda.current_device() if dev.index is None else dev.index) if glob else 0
+    size = global_bytes(ntiles, slots) if glob else ntiles * (TH * TW * 8 + 4)
+    scratch = torch.empty((size,), dtype=torch.uint8, device=dev)
     n = ctypes.c_int(0)
     rc = _fns()[2](attrs.data_ptr(), bbox.data_ptr(), rng.data_ptr(),
                    None if order is None else order.data_ptr(),
                    0 if order is None else order.shape[0], depth.data_ptr(), tid.data_ptr(),
-                   gbuf.data_ptr() if A else None, scratch.data_ptr(), H, W, ntx, nty, A, batch,
-                   ctypes.byref(n), _build.stream_ptr(dev))
+                   gbuf.data_ptr() if A else None, scratch.data_ptr(), H, W, ntx, nty, A,
+                   int(glob), slots, ctypes.byref(n), _build.stream_ptr(dev))
     _build.check(rc, "surtr_raster")
     launches += n.value
-    if batch:
+    if glob:
         general_launches += n.value
     return depth, tid, gbuf
 

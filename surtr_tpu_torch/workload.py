@@ -356,6 +356,9 @@ def run_frames(scene, n: int = FRAMES, on_frame=None):
     return out
 
 
+RENDER_512_TRIS = 4096   # bench_render's triangles (bench.py:343-351)
+
+
 def render_512_inputs(device="cuda"):
     """bench_render's frame (bench.py:343-351): 4,096 triangles from
     ``np.random.default_rng(0)``, gray, seen from (8, 6, 8); returns the
@@ -363,7 +366,7 @@ def render_512_inputs(device="cuda"):
     from surtr_tpu_torch.render.camera import camera_view_proj, light_view_proj
 
     rng = np.random.default_rng(0)
-    T = 4096
+    T = RENDER_512_TRIS
     centers = rng.uniform(-4, 4, (T, 1, 3)).astype(np.float32)
     tris = torch.as_tensor(centers + rng.normal(0, 0.3, (T, 3, 3)).astype(np.float32),
                            device=device)

@@ -176,12 +176,20 @@ def _k_smallest(keys, K):
     return torch.topk(torch.cat([keys, pad], 1), K, 1, largest=False, sorted=True).values
 
 
-@pytest.mark.parametrize("groups", [1, 4])
-def test_group_kbest_merge_equals_one_pass(exact_case, groups):
-    """The kernel's split, emulated: per query tile, warp g takes the
-    visited row tiles g, g + groups, ..., keeps the K smallest keys of its
-    rows, and the lists merge; slot for slot the one-pass K best."""
-    args, K, got, _, _ = exact_case
+def _dense_boxes(n=500, seed=31):
+    """Boxes packed so densely that most pieces overlap more than 32 others
+    (3 pieces an owner, 5% invalid): K = 32 and 64 truncate."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    half = rng.uniform(0.4, 0.9, (n, 3)).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.05
+    return c, c - half, c + half, (np.arange(n) // 3).astype(np.int32), valid
+
+
+def _schedule_kbest(args, K, groups=4):
+    """The tiled sweep's walk emulated (``tile_schedule``, warp g of a query
+    tile taking the visited row tiles g, g + groups, ..., each warp's K
+    smallest keys merged): the K best keys in piece order."""
     table, tiles, rng = bp.exact_glue(*(torch.as_tensor(a) for a in args))
     pairs, rows = bp.tile_schedule(table, tiles, rng)
     n = len(args[0])
@@ -197,9 +205,41 @@ def test_group_kbest_merge_equals_one_pass(exact_case, groups):
         best[tq * bp.TILE:(tq + 1) * bp.TILE] = _k_smallest(torch.cat(lists, 1), K)
     merged = torch.empty((n, K), dtype=torch.int32)
     merged[table[:n, 11].long()] = best[:n]
+    return merged.numpy(), bits
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+def test_group_kbest_merge_equals_one_pass(exact_case, groups):
+    """The kernel's split, emulated: per query tile, warp g takes the
+    visited row tiles g, g + groups, ..., keeps the K smallest keys of its
+    rows, and the lists merge; slot for slot the one-pass K best."""
+    args, K, got, _, _ = exact_case
+    merged, bits = _schedule_kbest(args, K, groups)
     mask = (1 << bits) - 1
     one_pass = (got[2] & ~mask) | got[0]           # the keys from (key_ji, pidx)
-    np.testing.assert_array_equal(merged.numpy(), one_pass)
+    np.testing.assert_array_equal(merged, one_pass)
+
+
+@pytest.mark.parametrize("K", [32, 64])
+def test_long_list_schedule_equals_plain_and_pallas(K):
+    """B6 past K = 16 (the long variant: the tiled sweep with lists of 32 or
+    64 keys): its walk and merge give the plain version's K best slot for
+    slot on boxes where most lists truncate; at K = 32 the plain version
+    equals the JAX kernel (interpret mode) in every output."""
+    args = _dense_boxes()
+    assert bp._exact_variant(K) == "long"
+    got = bp.broadphase_exact(*(torch.as_tensor(a) for a in args), K)
+    pidx, pok, key_ji, theta = (t.numpy() for t in (got[0], got[1], *got[2]))
+    assert 0.5 < (pok.sum(1) == K).mean() < 1.0               # most lists full, some not
+    keys, bits = _schedule_kbest(args, K)
+    mask = (1 << bits) - 1
+    np.testing.assert_array_equal(keys, (key_ji & ~mask) | pidx)
+    np.testing.assert_array_equal(keys[:, -1], theta)
+    if K == 32:
+        want, _ = _jax_exact(args, K)
+        for name, g, w in zip(("pidx", "pok", "key_ji", "theta"), (pidx, pok, key_ji, theta),
+                              want):
+            np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 def _pairs(pidx, pok):

@@ -180,3 +180,64 @@ def test_glue_fold_matches_tile_table(name):
     box, want_rng = _glue_fold(attrs, nty, ntx)
     np.testing.assert_array_equal(bbox.numpy(), box)
     np.testing.assert_array_equal(rng.numpy(), want_rng)
+
+
+# The global variant (screens past ``RESIDENT_TILES``): its offsets in
+# device memory and one key slot a CTA for the tiles a slice boundary
+# splits. The "wide" screen has 48 tiles and is taken past a threshold
+# lowered to 16 tiles; 1,056 slices are the card's grid (8 CTAs on each of
+# 132 SMs), more slices than pairs.
+WIDE_W, WIDE_H = 1024, 96
+
+
+def _wide_table():
+    rng = np.random.default_rng(21)
+    T = 300
+    c = rng.uniform([-30.0, -10.0], [WIDE_W + 30.0, WIDE_H + 10.0], (T, 1, 2))
+    xy = (c + rng.normal(0, [60.0, 15.0], (T, 3, 2))).astype(np.float32)
+    sz = rng.uniform(-0.1, 1.1, (T, 3)).astype(np.float32)
+    ok = rng.uniform(size=T) > 0.05
+    for i in (17, 80, 150):                     # equal-depth copies across chunks
+        xy[i], sz[i], ok[i] = xy[3], sz[3], True
+    attr = torch.as_tensor(rng.normal(size=(T, 7)).astype(np.float32))
+    tab = rc._tile_table(torch.as_tensor(xy[..., 0]), torch.as_tensor(xy[..., 1]),
+                         torch.as_tensor(sz), torch.as_tensor(ok), WIDE_W, WIDE_H, attr)
+    return tab, WIDE_H, WIDE_W, 7
+
+
+def _any_table(name):
+    if name == "wide":
+        return _wide_table()
+    tab, A = _table(name)
+    return tab, RH, RW, A
+
+
+@pytest.mark.parametrize("slices", [2, 7, 1056])
+@pytest.mark.parametrize("name", ["random_gbuf", "dense_tile", "wide"])
+def test_global_slot_merge_matches_plain_raster(name, slices, monkeypatch):
+    """The global variant's schedule: offsets by ``tile_offsets``, split
+    tiles merged in the slots ``split_slots`` gives, bit for bit the plain
+    raster; the slots are distinct, within the grid, and each is the first
+    slice boundary strictly inside its tile."""
+    (attrs, bbox, rng, order, (nty, ntx)), H, W, A = _any_table(name)
+    if name == "wide":
+        monkeypatch.setattr(rc, "RESIDENT_TILES", 16)
+        assert rc._variant(nty * ntx) == "global"
+    want = rc.tile_raster_reference(attrs, bbox, rng, nty, ntx, H, W, A)
+    got = rc.split_raster_reference(attrs, bbox, rng, nty, ntx, H, W, A, slices, slot_keys=True)
+    for what, g, w in zip(("depth", "tid", "gbuf"), got, want):
+        assert torch.equal(_bits(g), _bits(w)), what
+    start = rc.tile_offsets(bbox, rng, nty, ntx)
+    tiles, _ = rc._chunk_pairs(bbox, rng, nty, ntx)
+    np.testing.assert_array_equal(start.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(tiles.numpy(), minlength=nty * ntx))]))
+    slot = rc.split_slots(start, slices).numpy()
+    L = int(start[-1])
+    bounds = np.array([c * L // slices for c in range(1, slices)])
+    for t in range(nty * ntx):
+        inside = np.nonzero((bounds > int(start[t])) & (bounds < int(start[t + 1])))[0]
+        assert slot[t] == (inside[0] + 1 if len(inside) else -1), t
+    split = slot[slot >= 0]
+    assert len(np.unique(split)) == len(split) and (split < slices).all()
+    if slices == 7:
+        assert len(split) > 0                   # a split tile merges through a slot

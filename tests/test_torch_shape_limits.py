@@ -59,7 +59,8 @@ def _variants():
 # B1 (N, F, S); B2 (B, N, F): the one-set hulls (the cube's 8 points, the
 # sphere's 162, the torus's 288, the model scale's 5,000, 13,000 points at
 # limit 62); B3 T; B5 (Vh, F, Ne); B6 K; B7 (Vh, K, F, Ne, M);
-# B8 (K, M, G); B9 (K, C); B10 S; B11 tiles; B12 (K, W).
+# B8 (K, M, G); B9 (K, C); B10 S; B11 tiles (the 512² screens: 1,024² and
+# more take the global variant past the measured crossover); B12 (K, W).
 MAIN_PATH = {
     "B1": [(1024, 26, 16), (1, 26, 16), (512, 32, 16), (1024, 96, 32), (1088, 96, 32),
            (1024, 32, 16)],
@@ -71,7 +72,7 @@ MAIN_PATH = {
     "B8": [(8, 4, 4), (8, 1, 4)],
     "B9": [(8, 36), (16, 128)],
     "B10": [(8,)],
-    "B11": [(128,), (8 * 64,), (16 * 128,), (10239,)],
+    "B11": [(128,), (1,), (32,)],
     "B12": [(8, 32), (16, 128), (16, 8), (2, 1)],
 }
 # A shape past each old limit (a configuration that reaches it, or the
@@ -87,7 +88,7 @@ PAST = {
     "B8": [(64, 32, 4), (32, 64, 4)],
     "B9": [(32, 132), (17, 17), (8, 136)],
     "B10": [(16,), (3,), (40,)],
-    "B11": [(32768,), (10240,)],
+    "B11": [(32768,), (10240,), (8192,), (512,)],
     "B12": [(32, 32), (8, 256), (17, 128)],
 }
 
@@ -122,7 +123,7 @@ OLD_LIMITS = {
            <= 48 * 1024),
     "B9": ("general", lambda K, C: 1 <= K <= 16 and C <= 128),
     "B10": ("general", lambda S: S == 8),
-    "B11": ("batched", lambda tiles: (tiles + 1) * 4 <= 40 * 1024),
+    "B11": ("global", lambda tiles: (tiles + 1) * 4 <= 40 * 1024),
     "B12": ("general", lambda K, W: K <= 16 and W <= 128),
 }
 
@@ -145,13 +146,14 @@ def test_variant_refuses_no_shape():
         "B5": [(v, f, e) for v in (1, 8, 16, 17, 100, 723, 724, 1000, 4000) for f in (1, 16, 26,
                                                                                       2000)
                for e in (0, 3, 16, 40)],
-        "B6": [(k,) for k in range(1, 200, 7)] + [(16,), (17,)],
+        "B6": [(k,) for k in range(1, 200, 7)] + [(16,), (17,), (32,), (33,), (64,), (65,)],
         "B7": [(v, k, f, e, m) for v in (1, 3, 8, 12, 16, 32, 64, 65, 300) for k in (1, 8, 40)
                for f in (1, 26, 400) for e in (0, 3) for m in (1, 4, 30)],
         "B8": [(k, m, g) for k in (1, 8, 16, 32, 200) for m in (1, 4, 50) for g in (0, 4, 64)],
         "B9": [(k, c) for k in (0, 1, 16, 17, 200) for c in (1, 128, 129, 5000)],
         "B10": [(s,) for s in range(3, 70)],
-        "B11": [(t,) for t in (1, 10239, 10240, 32768, 10 ** 6)],
+        "B11": [(t,) for t in (1, 128, 157, 158, 200, 512, 8192, 10239, 10240, 32768,
+                               10 ** 6)],
         "B12": [(k, w) for w in (1, 8, 128, 129, 1000) for k in range(1, 2 * w + 1, 13)]
         + [(16, 128), (17, 128), (16, 129)],
     }
@@ -160,10 +162,17 @@ def test_variant_refuses_no_shape():
         general, held = OLD_LIMITS[kernel]
         for shape in shapes:
             v = fn(shape)
-            if kernel != "B2":
+            if kernel not in ("B2", "B6"):
                 assert v in (today, general), (kernel, shape, v)
             if kernel == "B7":
                 assert v == general or held(*shape), (kernel, shape, v)
+            elif kernel == "B11":  # the resident kernel up to the measured crossover
+                assert (v == today) == (shape[0] <= raster_cuda.RESIDENT_TILES), (kernel, shape)
+                assert v != today or held(*shape), (kernel, shape, v)
+            elif kernel == "B6":   # past K = 16 the tiled sweep's long lists, up to 64
+                assert v in (today, "long", general), (kernel, shape, v)
+                assert (v == today) == held(*shape), (kernel, shape, v)
+                assert (v == "long") == (16 < shape[0] <= broadphase_cuda.LONG_K), (kernel, shape)
             elif kernel == "B2":   # up to 128 face slots a block a set or a warp a set
                 assert v in (today, "warp_set", general), (kernel, shape, v)
                 assert (v != general) == held(*shape), (kernel, shape, v)
@@ -194,6 +203,32 @@ def test_b2_variant_takes_the_refit_pools_a_warp_a_set():
         assert hull_cuda._variant(B, N, F) == "block", (B, N, F)
     for B, N, F in ((128, 6560, 132), (8, 200, 132), (1, 162, 132), (1, 5000, 260)):
         assert hull_cuda._variant(B, N, F) == "general", (B, N, F)
+
+
+def test_b6_and_b11_past_the_old_limits_take_the_redesigned_variants():
+    """B6 past K = 16 runs the tiled sweep with lists of 32 or 64 keys up to
+    K = 64, the thread-a-piece general variant only past that; B11 at the
+    reference's shadow clamps (4096² and 8192², surtr_tpu/config.py:337)
+    past the resident kernel's threshold runs the global variant, whose key
+    scratch grows with its grid, not with the screen."""
+    for K in (17, 24, 32, 33, 48, 64):
+        assert broadphase_cuda._exact_variant(K) == "long", K
+    for K in (65, 80, 128, 1000):
+        assert broadphase_cuda._exact_variant(K) == "general", K
+    tiles = lambda n: -(-n // raster_cuda.TH) * -(-n // raster_cuda.TW)   # noqa: E731
+    assert tiles(8192) == 32768 and raster_cuda._variant(32768) == "global"
+    assert tiles(4096) == 8192 and raster_cuda._variant(8192) == "global"
+    # The crossover measured on render_512's shadow maps: the resident kernel
+    # at 512² (128 tiles, the frame's screens), the global variant from 640²
+    # (200 tiles) on, 1,024² (512 tiles) among them.
+    assert raster_cuda._variant(tiles(512)) == "resident"
+    assert raster_cuda._variant(tiles(640)) == raster_cuda._variant(tiles(1024)) == "global"
+    assert tiles(512) <= raster_cuda.RESIDENT_TILES < tiles(640)
+    assert (raster_cuda.RESIDENT_LIMIT + 1) * 4 <= 40 * 1024 < (raster_cuda.RESIDENT_LIMIT + 2) * 4
+    slots = raster_cuda.SLOTS_PER_SM * 132
+    assert raster_cuda.global_bytes(32768, slots) == 32772 * 4 + slots * (2048 * 8 + 4)
+    assert raster_cuda.global_bytes(32768, slots) < 20 * 2 ** 20 < 4096 * (2048 * 8 + 4)
+    assert raster_cuda.global_bytes(1, 1) == 16 + 2048 * 8 + 4
 
 
 def test_variant_byte_counts_match_the_kernels_layouts():

@@ -3,8 +3,8 @@
 (tiled z-buffer raster, with its glue) on the card, held against their plain
 versions first.
 
-    python3 tools/time_b9_b11.py [--out FILE.json]
-    PYTHONPATH=<other checkout> python3 tools/time_b9_b11.py [--out FILE.json]
+    python3 tools/time_b9_b11.py [--shadow-maps] [--out FILE.json]
+    PYTHONPATH=<other checkout> python3 tools/time_b9_b11.py [--shadow-maps] [--out FILE.json]
 
 The second form measures another checkout's ``surtr_tpu_torch`` (and uses
 its ``chip_smoke.py`` helpers), so two trees can be compared in one session
@@ -22,8 +22,19 @@ of the kernel (*raster_kernel*) and of the rest of the call (the glue), the
 call's device launches, and the live (tile, chunk) pairs with the most in
 one tile. Before timing, both solves must match the plain version (bitwise
 equality is printed; the tool fails beyond 1e-5 x (1 + |v|)), and B11's
-kernel its plain version bitwise on every call's table. Needs one NVIDIA
-GPU.
+kernel its plain version bitwise on every call's table.
+
+``--shadow-maps`` (these alone): B11's raster (``tile_raster`` on the
+packed table, no glue) of the shadow map of render_512's 4,096 triangles
+at 512², 1,024², 2,048², 4,096² and 8,192² (128 to 32,768 tiles) and of
+its first 512 triangles at 8,192² (``--sizes`` names other sizes for the
+4,096 triangles), under each variant the tree has that
+takes the screen (the resident kernel up to 10,239 tiles; the variant past
+it at every size), each chosen by replacing ``raster_cuda._variant``: per
+variant bit for bit against the plain version, then the wrapper's time,
+the device time of the raster kernel (*raster_kernel*) and of the rest of
+the call (the key scratch's memsets or the offsets' launches), and its
+device launches. Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -93,6 +104,10 @@ def capture(mod, attr, fn):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--shadow-maps", action="store_true",
+                    help="time only B11's variants on render_512's shadow maps, 512² to 8,192²")
+    ap.add_argument("--sizes", default=",".join(map(str, SHADOW_SIZES)),
+                    help="with --shadow-maps: the shadow map sizes (comma-separated)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this tool needs an NVIDIA GPU")
@@ -108,6 +123,15 @@ def main():
     card = workload.card()
     print(f"package {pkg}; {card}", flush=True)
     out = {"package": pkg, "card": card}
+    if args.shadow_maps:
+        sizes = tuple(int(x) for x in args.sizes.split(","))
+        out["b11_shadow_maps"] = shadow_maps(cs, raster_cuda, render_raster, workload, card,
+                                             sizes)
+        print(json.dumps(out), flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(out, fh, indent=1)
+        return
 
     # B9: the main path's solve and the warm-start path's.
     solves = {
@@ -183,6 +207,59 @@ def main():
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
+
+
+SHADOW_SIZES = (512, 1024, 2048, 4096, 8192)
+RESIDENT_LIMIT = 10239    # the most tiles the resident kernel's offsets take (40 KB)
+
+
+def shadow_maps(cs, raster_cuda, render_raster, workload, card, sizes=SHADOW_SIZES):
+    """B11's variants on render_512's shadow-map tables (see the module
+    docstring) at ``sizes``, and of its first 512 triangles at 8192² when
+    ``sizes`` holds 8192: {"<tris> triangles, shadow <n>²": {variant:
+    times}}."""
+    past = raster_cuda._variant(10 ** 6)        # the variant past the resident kernel
+    full = workload.render_512_inputs("cuda")
+    scenes = [(full[0].shape[0], full, s) for s in sizes]
+    part = (full[0][:512], full[1][:512], full[2][:512], *full[3:])
+    if 8192 in sizes:
+        scenes.append((512, part, 8192))
+    res = {}
+    variant_fn = raster_cuda._variant
+    try:
+        for tris, inputs, size in scenes:
+            calls = capture(render_raster, "rasterize_ids_tiled",
+                            lambda i=inputs, s=size: workload.run_render_512("cuda", s, i))
+            a, kw = next((a, kw) for a, kw in calls    # the shadow map: no G-buffer
+                         if kw.get("attr_tab") is None and (len(a) < 7 or a[6] is None))
+            attrs, bbox, rng, _, (nty, ntx) = raster_cuda.tile_table(*a, **kw)
+            tab = (attrs, bbox, rng, nty, ntx, a[5], a[4], attrs.shape[1] - 10)
+            want = raster_cuda.tile_raster_reference(*tab)
+            tiles, _ = raster_cuda._chunk_pairs(bbox, rng, nty, ntx)
+            name = f"{tris} triangles, shadow {size}²"
+            res[name] = {"tiles": nty * ntx, "live_pairs": int(tiles.numel()),
+                         "max_tile_pairs": int(torch.bincount(tiles).max()), "variants": {}}
+            for v in (["resident"] if nty * ntx <= RESIDENT_LIMIT else []) + [past]:
+                raster_cuda._variant = lambda n, v=v: v
+                got = raster_cuda.tile_raster(*tab)
+                for g, w in zip(got, want):
+                    if (g is None) != (w is None) or (g is not None and not torch.equal(
+                            cs._bits(g), cs._bits(w))):
+                        fail(f"B11 {name}, variant {v}: differs from the plain version")
+                call = lambda: raster_cuda.tile_raster(*tab)  # noqa: E731
+                ms = cs.event_ms(call)
+                dev, rest, n, nk = device_split(call, "raster_kernel")
+                res[name]["variants"][v] = {"ms": ms, "kernel_device_ms": dev,
+                                            "rest_device_ms": rest, "device_launches": n,
+                                            "kernel_launches": nk}
+                print(f"B11 {name} ({nty * ntx} tiles, {int(tiles.numel())} live pairs), "
+                      f"variant {v}: wrapper {ms:.4f} ms; raster kernel {dev:.4f} ms in "
+                      f"{nk:.0f} launches and the rest {rest:.4f} ms on the device, {n:.0f} "
+                      f"device launches; bitwise ({card})", flush=True)
+                raster_cuda._variant = variant_fn
+    finally:
+        raster_cuda._variant = variant_fn
+    return res
 
 
 if __name__ == "__main__":
