@@ -183,9 +183,12 @@ Phases (any failure exits non-zero):
      per event (median of 5), the stage split, the idle share and the peak
      device memory of one event, beside the card's name and power limit.
  30. past the old limits (ROADMAP C14): each kernel with a limit at a
-     shape past it (B1 at F = 256, S = 32, and at F = 1,025 over two
-     batches; the batched B2 at limit 64, F = 132; B3 at T = 2048, also
-     over more soups than its CTAs; B5 at Vh = 768; B6, B9 and B12 at K =
+     shape past it (B1's CTA variant at F = 256, S = 32, each of that
+     prepare's six calls timed, with its vertex buffers in a scratch at F =
+     1,025 over more polytopes than its CTAs, the global fold at F = 2,304;
+     the batched B2 at limit 64, F = 132; B3's vertex variant at T = 2048,
+     also over more soups than its CTAs, and in a scratch at T = 4,096; B1
+     and B3's variants forced onto the degenerate cases; B5 at Vh = 768; B6, B9 and B12 at K =
      32, B9 also over more rows than its grid, B12 at W = 256 and 1,024
      too; B7 at Vh = 12 and 768 and with M = 64; B8 at K = 32, M = 64; B10
      at S = 16; B11 at 32,768 tiles; the general B2 also on the sphere's
@@ -240,6 +243,7 @@ from surtr_tpu_torch.fracture import pipeline
 from surtr_tpu_torch.io.models import get_model
 from surtr_tpu_torch.ops import (clip_cuda, hull_cuda, labels_cuda, mesh_clip, refit_cuda,
                                  soup_clip_cuda, voronoi)
+from surtr_tpu_torch.ops import labels as label_ops
 from surtr_tpu_torch.physics import (broadphase_cuda, narrowphase_cuda, pack_cuda, prep_cuda,
                                      solver_cuda)
 from surtr_tpu_torch.physics import step as phys_step
@@ -736,9 +740,16 @@ def decomposition_ops(name, a, kw) -> float:
         pts = a[0]
         limit = kw.get("limit", a[2] if len(a) > 2 else 20)
         return limit * pts.shape[0] * (2 * max(limit, 4) + 4) * 6.0
-    if name == "labels":          # the valid pairs' corner tests (invalid rows and columns skip)
+    if name == "labels":
+        T = a[0].shape[1]
         v = a[1].sum(-1).to(torch.float64)
-        return float((v * v).sum()) * 81.0
+        if labels_cuda._variant(T) == "block":   # the valid pairs' corner tests
+            return float((v * v).sum()) * 81.0
+        # The vertex variant: 9T quantizations, a hash and a triple compare
+        # a valid corner, then per round run 3 atomics, 3 gathers, 3 minima
+        # and a jump a valid triangle.
+        run = label_ops.label_rounds_run(a[0], a[1], iters=kw.get("iters")).to(torch.float64)
+        return float((18.0 * T + 36.0 * v + 10.0 * v * run).sum())
     N, Pv = refit_points(a)        # refit: 4 extreme-point passes + 4 slab passes
     return N * Pv * 8 * 8.0
 
@@ -1712,6 +1723,7 @@ def all_counts() -> dict:
     counts["raster"] = raster_cuda.launches
     counts["raster_glue"] = raster_cuda.glue_launches
     counts["broadphase_exact_long"] = broadphase_cuda.exact_long_launches
+    counts["clip_fold_global"] = clip_cuda.global_launches
     counts.update(launch_counts())
     counts.update(general_counts())
     return counts
@@ -1726,6 +1738,7 @@ def reset_all():
     raster_cuda.launches = 0
     raster_cuda.glue_launches = 0
     broadphase_cuda.exact_long_launches = 0
+    clip_cuda.global_launches = 0
     reset_counts()
     reset_general()
 
@@ -4038,11 +4051,11 @@ def model_scale_phase(card):
 # fragment of the general variant's device function)
 GENERAL = {
     "clip_fold": (clip_cuda, "general_launches", "surtr_tpu_torch/csrc/clip_fold.cu",
-                  "surtr_tpu/ops/clip_pallas.py:52", "clip_fold_kernel"),
+                  "surtr_tpu/ops/clip_pallas.py:52", "clip_cta_kernel"),
     "ich": (hull_cuda, "general_launches", "surtr_tpu_torch/csrc/ich.cu",
             "surtr_tpu/ops/hull_pallas.py:51", "ich_general"),
     "labels": (labels_cuda, "general_launches", "surtr_tpu_torch/csrc/labels.cu",
-               "surtr_tpu/ops/labels_pallas.py:25", "labels_general"),
+               "surtr_tpu/ops/labels_pallas.py:25", "labels_vertex"),
     "pack": (pack_cuda, "general_launches", "surtr_tpu_torch/csrc/pack.cu",
              "surtr_tpu/physics/pack_pallas.py:31", "pack_kernel"),
     "broadphase_exact": (broadphase_cuda, "exact_general_launches",
@@ -4080,25 +4093,39 @@ LIMIT_K_GENERAL = 80  # B6 past LONG_K: the thread-a-piece general variant
 # Where phase 30's shape past a kernel's old limit takes another variant
 # than its general one: (the ``all_counts`` key of its launches, a name
 # fragment of its device function). B6 at K = 32 runs the tiled sweep's
-# long lists.
-PAST_VARIANT = {"broadphase_exact": ("broadphase_exact_long", "bp_exact_kernel")}
+# long lists; B1 past the CTA variant's per-face state the global fold.
+PAST_VARIANT = {"broadphase_exact": ("broadphase_exact_long", "bp_exact_kernel"),
+                "clip_fold_global": ("clip_fold_global", "clip_fold_kernel")}
 # Phase 30's further cases: name -> the kernel (a GENERAL key) it runs.
-PAST_CASES = {"raster_render_512": "raster", "broadphase_exact_10k": "broadphase_exact"}
+PAST_CASES = {"raster_render_512": "raster", "broadphase_exact_10k": "broadphase_exact",
+              "clip_fold_f1025": "clip_fold", "clip_fold_global": "clip_fold",
+              "labels_scratch": "labels"}
+LIMIT_F_GLOBAL = 2304   # B1 past the CTA variant's per-face state (F > 2,131): the global fold
 
 
 def general_counts() -> dict:
     return {f"{name}_general": getattr(mod, attr) for name, (mod, attr, *_) in GENERAL.items()}
 
 
+def _past(name: str):
+    """(the ``all_counts`` key of its launches, a name fragment of its
+    device function) of the variant phase 30's case ``name`` runs."""
+    base = PAST_CASES.get(name, name)
+    for k in (name, base):
+        if k in PAST_VARIANT:
+            return PAST_VARIANT[k]
+    return f"{base}_general", GENERAL[base][4]
+
+
 def past_key(name: str) -> str:
     """The ``all_counts`` key of the launches of ``name``'s variant at
     phase 30's shape past its old limit."""
-    return PAST_VARIANT[name][0] if name in PAST_VARIANT else f"{name}_general"
+    return _past(name)[0]
 
 
 def past_kernel(name: str) -> str:
     """A name fragment of that variant's device function."""
-    return PAST_VARIANT[name][1] if name in PAST_VARIANT else GENERAL[name][4]
+    return _past(name)[1]
 
 
 def reset_general():
@@ -4287,13 +4314,17 @@ def limits_phase(card, state):
     reset_all()
     faces = capture_main_path_inputs(lambda: run_prepare("cuda", LIMIT_FACES_CFG))["clip_fold"]
     launches["clip_fold"] = general_counts()["clip_fold_general"]
-    if not clip_cuda.launches == launches["clip_fold"] >= len(faces):
+    if not clip_cuda.launches == launches["clip_fold"] == len(faces):
         fail(f"phase 30: of the F = 256, S = 32 event's {clip_cuda.launches} B1 launches in "
-             f"{len(faces)} calls, {launches['clip_fold']} were of the global variant")
+             f"{len(faces)} calls, {launches['clip_fold']} were of the CTA variant")
     b1 = max(faces, key=lambda c: c[0][0].face_verts.shape[0] * c[0][1].shape[1])
     for a, kw in faces + [degenerate_clip_cases("cuda", F=256, S=32)]:
         compare_clip(a, kw)
     f1025 = clip_past_f1024()
+    forced = forced_variant_checks(pcalls["tri_soup_components_batch"][0])
+    lt = pcalls["tri_soup_components_batch"][0][0]
+    l4096 = ((lt[0].reshape(-1, 4096, 3, 3), lt[1].reshape(-1, 4096)),
+             pcalls["tri_soup_components_batch"][0][1])
     reset_general()
     step768 = one_step(dataclasses.replace(workload.PHYSICS_CFG, max_hull_verts=768))
     step_m64 = one_step(dataclasses.replace(workload.PHYSICS_CFG, max_neighbors=32,
@@ -4359,6 +4390,20 @@ def limits_phase(card, state):
                               compare_broadphase_sorted, broadphase_cuda.broadphase_sorted,
                               broadphase_cuda.broadphase_sorted_reference,
                               physics_ops("broadphase_sorted", bp + (32, W), {})),
+        "clip_fold_f1025": (f"(N, F, S, K) {f1025['shape'] + [f1025['args'][0][1].shape[1]]}: "
+                            f"{clip_cuda._variant(*f1025['shape'])}", f1025["args"], compare_clip,
+                            clip_cuda.clip_planes_batch, clip_cuda.clip_planes_batch_reference,
+                            decomposition_ops("clip_fold", *f1025["args"])),
+        "clip_fold_global": (f"(N, F, S) (8, {LIMIT_F_GLOBAL}, 4): "
+                             f"{clip_cuda._variant(8, LIMIT_F_GLOBAL, 4)}", forced["global_args"],
+                             compare_clip, clip_cuda.clip_planes_batch,
+                             clip_cuda.clip_planes_batch_reference,
+                             decomposition_ops("clip_fold", *forced["global_args"])),
+        "labels_scratch": (f"(N, T) {list(l4096[0][0].shape[:2])}: "
+                           f"{labels_cuda._variant(l4096[0][0].shape[1])}", l4096, compare_labels,
+                           labels_cuda.tri_soup_components_batch,
+                           labels_cuda.tri_soup_components_batch_reference,
+                           decomposition_ops("labels", *l4096)),
     }
     extra = {   # further calls past the limits, compared only
         "ich": [((sphere_pts[0], sphere_pts[1]), {"limit": 64})]
@@ -4380,7 +4425,7 @@ def limits_phase(card, state):
         reset_all()
         out = call()
         torch.cuda.synchronize()
-        n_general = all_counts()[past_key(base)]
+        n_general = all_counts()[past_key(name)]
         if n_general < 1:
             fail(f"phase 30 {name} at {shape}: its variant past the old limit did not launch")
         cmp(a, kw)
@@ -4392,7 +4437,7 @@ def limits_phase(card, state):
                  f"variant {broadphase_cuda.exact_general_launches} times, want 2")
         ms = event_ms(call, reps=5, warmup=1)
         plain_ms = event_ms(pcall, reps=3, warmup=1)
-        jobs.append((call, past_kernel(base), 5, 2))
+        jobs.append((call, past_kernel(name), 5, 2))
         if name == "ich":
             b_ms, b_by = ich_batch_bound([(a, kw)])
         else:
@@ -4401,9 +4446,17 @@ def limits_phase(card, state):
         results[name] = {"shape": shape, "general_launches": n_general, "max_abs_err": 0.0,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
     # The device split of every call in one fresh process: late in this
-    # long process the profiler may keep no record of a kernel.
-    for (name, res), (dev_ms, other_ms, entries) in zip(results.items(),
-                                                        fresh_device_split(jobs)):
+    # long process the profiler may keep no record of a kernel; with them
+    # each of the F = 256, S = 32 event's six B1 calls.
+    six = [functools.partial(clip_cuda.clip_planes_batch, *a, **kw) for a, kw in faces]
+    splits = fresh_device_split(jobs + [(c, past_kernel("clip_fold"), 5, 2) for c in six])
+    results["clip_fold"]["calls"] = [
+        {"shape": [*a[0].face_verts.shape[:3], a[1].shape[1]], "device_ms": sp[0],
+         "device_launches": sp[2]} for (a, _), sp in zip(faces, splits[len(jobs):])]
+    for c in results["clip_fold"]["calls"]:
+        print(f"phase 30 clip_fold (the CTA variant), F = 256, S = 32 call (N, F, S, K) "
+              f"{c['shape']}: kernel {c['device_ms']:.4f} ms on the device ({card})", flush=True)
+    for (name, res), (dev_ms, other_ms, entries) in zip(results.items(), splits):
         res.update(device_ms=dev_ms, other_device_ms=other_ms, device_launches=entries)
         print(f"phase 30 {name} (variant past the old limit) at {res['shape']}: bit for bit "
               f"against the plain version; {res['general_launches']} launch(es) of it a call; "
@@ -4413,33 +4466,90 @@ def limits_phase(card, state):
               f"({card})", flush=True)
     layouts = check_layouts()
     return {"kernels": results, "launches": launches, "physics": phys_cmp,
-            "prepare": prep_cmp, "clip_f1025": f1025, "layouts": layouts}
+            "prepare": prep_cmp, "clip_f1025": {k: v for k, v in f1025.items() if k != "args"},
+            "forced": {k: v for k, v in forced.items() if k != "global_args"},
+            "layouts": layouts}
 
 
 def clip_past_f1024():
     """B1 at F = 1,025 (past the old explicit F <= 1,024), S = 8: phase 3's
-    degenerate cases 100 times over, 800 polytopes, more than the global
-    variant's scratch holds, so it runs two batches. Bit for bit against
-    the plain version; the launches its C entry counts must be the
-    batches. Returns the call's launches."""
+    degenerate cases 100 times over, 800 polytopes, more than the CTA
+    variant's scratch slots (``clip_cuda.CTA_SLOTS``), so its CTAs walk
+    them: one launch of the CTA variant with its vertex buffers in the
+    scratch, none of the global fold. Bit for bit against the plain
+    version. Returns the call's shape, launches and arguments."""
     (poly, planes, mask), kw = degenerate_clip_cases("cuda", F=1025, S=8)
     reps = 100
     poly = poly.map(lambda t: t.repeat((reps,) + (1,) * (t.dim() - 1)))
     a = (poly, planes.repeat(reps, 1, 1), mask.repeat(reps, 1))
     N = poly.face_verts.shape[0]
-    slots = min(-(-N // 4), clip_cuda.SCRATCH_BYTES // clip_cuda.poly_bytes(1025, 8) // 4) * 4
-    want = -(-N // slots)
+    variant = clip_cuda._variant(N, 1025, 8)
     reset_all()
     clip_cuda.clip_planes_batch(*a, **kw)
     torch.cuda.synchronize()
-    n, g = clip_cuda.launches, clip_cuda.general_launches
-    if not n == g == want:
-        fail(f"phase 30 clip_fold at (N, F, S) ({N}, 1025, 8): {n} launches, {g} of the global "
-             f"variant; its {want} batches of {slots} want {want} each")
+    n, g, old = clip_cuda.launches, clip_cuda.general_launches, clip_cuda.global_launches
+    if variant != "cta_scratch" or not n == g == 1 or old:
+        fail(f"phase 30 clip_fold at (N, F, S) ({N}, 1025, 8): variant {variant}, {n} launches, "
+             f"{g} of the CTA variant, {old} of the global fold; want cta_scratch, 1, 1, 0")
     compare_clip(a, kw)
     print(f"phase 30 clip_fold at (N, F, S) ({N}, 1025, 8): bit for bit against the plain "
-          f"version; {n} launches of the global variant ({slots} polytopes a batch)", flush=True)
-    return {"shape": [N, 1025, 8], "launches": n, "slots": slots}
+          f"version; 1 launch of the CTA variant, its vertex buffers in a scratch of "
+          f"{min(N, clip_cuda.CTA_SLOTS)} slots", flush=True)
+    return {"shape": [N, 1025, 8], "variant": variant, "launches": n, "args": (a, kw)}
+
+
+def forced_variant_checks(labels_call):
+    """Each variant of B1 and B3 past the old limits, held bit for bit
+    against its plain version on the degenerate cases, forced where the
+    shape would take another (``_variant`` replaced for the call): B1's
+    "cta" and "cta_scratch" on phase 3's cases (F = 26, S = 16) and at F =
+    256, S = 32, the global fold at F = ``LIMIT_F_GLOBAL`` (its own
+    variant there); B3's "vertex" and "vertex_scratch" on phase 3's label
+    edge cases (T = 1-1,024: strips in several orders, complete graphs,
+    corners a half tol apart, corner keys equal in their low 21 bits only,
+    all-invalid soups, iters 1 and 2) and on four T = 2,048 soups of the
+    same kinds, and on phase 30's prepare call. Each forced run must move
+    that variant's launch counter. Returns the counts of cases."""
+    clip_cases = [degenerate_clip_cases("cuda"), degenerate_clip_cases("cuda", F=256, S=32)]
+    g = torch.Generator().manual_seed(2048)
+    T = 2048
+    c = torch.stack([_strip(T, torch.randperm(T, generator=g), g), key_wrap_soup(T, g, 1e-5),
+                     torch.rand((T, 3, 3), generator=g), half_tol_soup(T, g, 1e-5)])
+    c[2, :, 1] = 0.5                                       # a complete graph
+    v = torch.ones((4, T), dtype=torch.bool)
+    v[0, ::9] = False
+    label_cases = [((x.to("cuda"), m.to("cuda")), kw) for x, m, kw in label_edge_cases(g)]
+    label_cases += [((c.to("cuda"), v.to("cuda")), {}), ((c.to("cuda"), v.to("cuda")),
+                                                          {"iters": 3}),
+                    ((c.to("cuda"), torch.zeros_like(v).to("cuda")), {}), labels_call]
+    counts = {}
+    for mod, cases, cmp, variants, counter in (
+            (clip_cuda, clip_cases, compare_clip, ("cta", "cta_scratch"), "general_launches"),
+            (labels_cuda, label_cases, compare_labels, ("vertex", "vertex_scratch"),
+             "general_launches")):
+        orig = mod._variant
+        for variant in variants:
+            mod._variant = lambda *shape, _v=variant: _v
+            try:
+                for a, kw in cases:
+                    before = getattr(mod, counter)
+                    cmp(a, kw)
+                    torch.cuda.synchronize()
+                    if getattr(mod, counter) <= before:
+                        fail(f"phase 30: {mod.__name__} forced to {variant} did not launch it")
+            finally:
+                mod._variant = orig
+            counts[f"{mod.__name__.rsplit('.', 1)[1]}:{variant}"] = len(cases)
+    ga = degenerate_clip_cases("cuda", F=LIMIT_F_GLOBAL, S=4)
+    before = clip_cuda.global_launches
+    compare_clip(*ga)
+    torch.cuda.synchronize()
+    if clip_cuda._variant(8, LIMIT_F_GLOBAL, 4) != "global" or clip_cuda.global_launches <= before:
+        fail(f"phase 30 clip_fold at F = {LIMIT_F_GLOBAL}: the global fold did not launch")
+    print(f"phase 30 forced variants: bit for bit against the plain versions on "
+          f"{json.dumps(counts)} cases; the global fold at F = {LIMIT_F_GLOBAL}, S = 4 too",
+          flush=True)
+    return {"cases": counts, "global_args": ga}
 
 
 def tile_labels(a, kw):
@@ -4480,8 +4590,12 @@ def check_layouts():
           for Ne in (0, 3, 16, 17)]),
         ("surtr_prep_row_bytes", prep_cuda.row_bytes,
          [(K, M, G) for K in (1, 8, 16, 32, 64) for M in (1, 4, 25, 26, 64) for G in (0, 4)]),
-        ("surtr_labels_general_words", labels_cuda.general_words,
-         [(T,) for T in (1, 31, 32, 33, 1024, 1025, 2048, 2600, 8192)]),
+        ("surtr_labels_vertex_bytes", labels_cuda.vertex_bytes,
+         [(T,) for T in (1, 31, 32, 33, 1024, 1025, 2048, 2049, 2454, 2455, 4096, 8192)]),
+        ("surtr_clip_fold_cta_bytes", clip_cuda.cta_bytes,
+         [(F, S) for F in (4, 26, 249, 250, 256, 264, 265, 1025, 2131, 2132) for S in (3, 8, 32)]),
+        ("surtr_clip_fold_cta_aux_bytes", lambda F, S: clip_cuda.cta_aux_bytes(F),
+         [(F, 8) for F in (4, 26, 256, 1025, 2131, 2132, 4096)]),
         ("surtr_ich_table_words", hull_cuda.table_words,
          [(F,) for F in (4, 20, 32, 33, 44, 64, 65, 128, 129, 132, 2400, 2401, 4096)]),
         ("surtr_ich_set_bytes", hull_cuda.set_bytes,
@@ -4748,7 +4862,10 @@ def main():
                                 **model_scale["kernels"][k["name"]]}
     labels = {"broadphase_exact": "broadphase_exact_long",
               "broadphase_exact_10k": "broadphase_exact_long_10k",
-              "raster_render_512": "raster_general_render_512"}
+              "raster_render_512": "raster_general_render_512",
+              "clip_fold": "clip_fold_cta", "clip_fold_f1025": "clip_fold_cta_scratch_f1025",
+              "clip_fold_global": "clip_fold_global", "labels": "labels_vertex",
+              "labels_scratch": "labels_vertex_scratch"}
     for name, res in limits["kernels"].items():
         _, _, src, rep, _ = GENERAL[PAST_CASES.get(name, name)]
         kernels.append({"name": labels.get(name, f"{name}_general"), "route": "cuda",
@@ -4769,7 +4886,7 @@ def main():
                       "model_scale": {k: model_scale[k] for k in ("metrics", "launches",
                                                                   "cpu_compare", "timing")},
                       "limits": {k: limits[k] for k in ("physics", "prepare", "clip_f1025",
-                                                        "layouts")},
+                                                        "forced", "layouts")},
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -27,7 +27,7 @@
 // candidate stops at the first round that changes no label (a round is a
 // function of the labels alone, so the remaining rounds are the identity).
 // One block a candidate, a warp per 32 triangles (1 <= T <= 1024; the
-// general variant below beyond), the
+// vertex variant below beyond), the
 // words in shared memory, block barriers. (At T = 64 the block of two warps
 // measured faster than one warp owning two triangles a lane: PERF.md.)
 
@@ -254,122 +254,151 @@ labels_block_kernel(const float* __restrict__ corners, const unsigned char* __re
   if (t < T) ob[t] = vt ? lab[t] : T;
 }
 
-// Words of one soup's state in the general variant: keys (3T 64-bit), the
-// quantized corners (9T), two label buffers (2T), the valid words (NW) and
-// the adjacency rows (T x NW words), rounded up to an even count.
-__host__ __device__ inline long long general_words(int T) {
-  const long long NW = (T + 31) / 32;
-  return (17LL * T + NW + (long long)T * NW + 1) / 2 * 2;
+// Hash-table slots of the vertex variant: a power of two of at least 4T,
+// so the table is at most three quarters full (3T corners).
+__host__ __device__ inline int hash_slots(int T) {
+  int h = 1;
+  while (h < 4 * T) h <<= 1;
+  return h;
 }
 
-// The general variant, for T > 1024: a block of 1024 threads a soup, each
-// thread taking triangles t, t + 1024, ...; the soup's state in the block's
-// slice of a device scratch (general_words(T) words), the block walking
-// soups b, b + gridDim.x, ... Adjacency words by ballot as above (a warp a
-// (valid row, word) pair); each round relaxes into the second label buffer,
-// then jumps back into the first from it, and the soup stops at the first
-// round that changes no label.
+// 4-byte words of one soup's state in the vertex variant: the quantized
+// corners (9T), each corner's vertex id (3T), the vertices' minimum labels
+// (3T, indexed by the vertex's first corner), two label buffers (2T) and
+// the hash table (hash_slots(T)).
+__host__ __device__ inline long long vertex_words(int T) {
+  return 17LL * T + hash_slots(T);
+}
+
+__device__ __forceinline__ unsigned vertex_hash(int x, int y, int z) {
+  unsigned long long k = (unsigned long long)(unsigned)x * 0x9E3779B97F4A7C15ull ^
+                         (unsigned long long)(unsigned)y * 0xC2B2AE3D27D4EB4Full ^
+                         (unsigned long long)(unsigned)z * 0x165667B19E3779F9ull;
+  k ^= k >> 33;
+  k *= 0xFF51AFD7ED558CCDull;
+  k ^= k >> 33;
+  return (unsigned)k;
+}
+
+// The vertex variant (T > 1024; any T): labels without the T x T
+// adjacency. Two triangles are adjacent when they share a quantized corner,
+// so one relax of the plain version is, per round: vmin[v] = the minimum of
+// the old labels of the valid triangles with a corner at vertex v (shared
+// atomicMin: min does not depend on order), then each valid triangle's
+// relaxed label = the minimum of its three vmin (its own label among
+// them), then the pointer jump lab <- min(lab, lab[lab]) over the relaxed
+// labels. Reads are Jacobi (the old labels; a block barrier between the
+// passes), the soup stops at the first round that changes no label, and
+// `rounds` caps them: the plain version's labels bit for bit, also when the
+// rounds stop before the labels close.
+// Vertex ids: each valid triangle's corners go into an open-addressing hash
+// table keyed by the quantized triple (linear probing, atomicCAS); a slot
+// holds the index of the first corner that claimed it, and a corner whose
+// triple equals that corner's (compared in full, so no key range applies)
+// takes it as its vertex. Invalid triangles neither insert nor write vmin;
+// a triangle's label doubles as its valid flag (T when invalid).
+// Work: the 9T floats read once, 3T insertions, then per round 3 passes
+// over the valid triangles (3 atomics, 3 gathers, 1 jump each): it grows
+// with the corners, not with T^2. What bounds it: the soup's bytes set a
+// floor of ~1.6 µs at (64, 2,048); the rounds' barriers and atomics run
+// it at 9x that on the card (PERF.md). One CTA a soup (up to 1024 threads,
+// triangles t, t + blockDim, ...), the state in shared memory where
+// vertex_words(T) fits a CTA (SHARED, 172,032 B at T = 2,048), else in
+// the block's slice of a device scratch, the block walking soups b,
+// b + gridDim.x, ...
+template <bool SHARED>
 __global__ void __launch_bounds__(1024)
-labels_general_kernel(const float* __restrict__ corners, const unsigned char* __restrict__ valid,
-                      int* __restrict__ labels_out, int N, int T, long long cstride, int rounds,
-                      float tol, int* __restrict__ scratch) {
-  const int NW = (T + 31) >> 5;
-  int* const base = scratch + (size_t)blockIdx.x * general_words(T);
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(base);   // 3T
-  int* q = base + 6 * T;                                                   // 9T
-  int* lab = q + 9 * T;                                                    // T
-  int* lab2 = lab + T;                                                     // T
-  unsigned* vws = reinterpret_cast<unsigned*>(lab2 + T);                   // NW
-  unsigned* adj = vws + NW;                                                // T * NW
-  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = nt >> 5;
-  auto vbit = [&](int t) { return ((vws[t >> 5] >> (t & 31)) & 1u) != 0u; };
+labels_vertex_kernel(const float* __restrict__ corners, const unsigned char* __restrict__ valid,
+                     int* __restrict__ labels_out, int N, int T, long long cstride, int rounds,
+                     float tol, int* __restrict__ scratch) {
+  extern __shared__ int smem[];
+  const int H = hash_slots(T);
+  int* const q = SHARED ? smem : scratch + (size_t)blockIdx.x * vertex_words(T);  // 9T
+  int* const vid = q + 9 * T;                                                    // 3T
+  int* const vmin = vid + 3 * T;                                                 // 3T
+  int* const lab = vmin + 3 * T;                                                 // T
+  int* const lab2 = lab + T;                                                     // T
+  int* const table = lab2 + T;                                                   // H
+  const int tid = threadIdx.x, nt = blockDim.x;
+  constexpr int NONE = 0x7fffffff;
   for (int b = blockIdx.x; b < N; b += gridDim.x) {
     const float* cb = corners + (size_t)b * cstride;
     const unsigned char* vb = valid + (size_t)b * T;
     int* ob = labels_out + (size_t)b * T;
     bool any = false;
-    for (int w = warp; w < NW; w += nwarps) {
-      const int t = 32 * w + lane;
-      const unsigned word = __ballot_sync(FULL, t < T && vb[t] != 0);
-      if (lane == 0) vws[w] = word;
-      any |= word != 0u;
+    for (int t = tid; t < T; t += nt) {
+      const bool v = vb[t] != 0;
+      lab[t] = v ? t : T;
+      any |= v;
     }
-    for (int i = tid; i < 9 * T; i += nt) q[i] = quantize(cb[i], tol);
-    if (!__syncthreads_or(any)) {
+    for (int i = tid; i < 9 * T; i += nt) q[i] = quantize(__ldg(cb + i), tol);
+    for (int h = tid; h < H; h += nt) table[h] = -1;
+    if (!__syncthreads_or(any)) {           // no thread reads the state after this
       for (int t = tid; t < T; t += nt) ob[t] = T;
-      __syncthreads();
       continue;
     }
-    bool in_range = true;
-    for (int t = tid; t < T; t += nt) {
-      int my[9];
-      unsigned long long mk[3];
-      in_range &= own_corners(q, keys, t, my, mk);
-      lab[t] = vbit(t) ? t : T;
-      lab2[t] = lab[t];
-    }
-    const bool exact = __syncthreads_and(in_range);
-    for (long long x = warp; x < (long long)T * NW; x += nwarps) {
-      const int i = (int)(x / NW), w = (int)(x - (long long)i * NW);
-      if (!vbit(i)) continue;                     // the warp's row: uniform
-      const int j = 32 * w + lane;
-      bool hit = false;
-      if (j < T && vbit(j)) {
-        int my[9];
-#pragma unroll
-        for (int e = 0; e < 9; ++e) my[e] = q[j * 9 + e];
-        const unsigned long long mk[3] = {keys[3 * j], keys[3 * j + 1], keys[3 * j + 2]};
-        const unsigned long long rk[3] = {keys[3 * i], keys[3 * i + 1], keys[3 * i + 2]};
-        hit = exact ? keys_meet(mk, rk) : corners_meet(my, mk, q + i * 9, rk);
+    for (int c = tid; c < 3 * T; c += nt) {
+      if (lab[c / 3] == T) continue;
+      const int x = q[3 * c], y = q[3 * c + 1], z = q[3 * c + 2];
+      unsigned h = vertex_hash(x, y, z) & (unsigned)(H - 1);
+      for (;;) {
+        const int first = atomicCAS(&table[h], -1, c);
+        if (first < 0) {
+          vid[c] = c;
+          break;
+        }
+        if (q[3 * first] == x && q[3 * first + 1] == y && q[3 * first + 2] == z) {
+          vid[c] = first;
+          break;
+        }
+        h = (h + 1) & (unsigned)(H - 1);
       }
-      const unsigned word = __ballot_sync(FULL, hit);
-      if (lane == 0) adj[(size_t)i * NW + w] = word;
+      vmin[c] = NONE;
     }
     __syncthreads();
     for (int r = 0; r < rounds; ++r) {
-      bool changed = false;
       for (int t = tid; t < T; t += nt) {
-        if (!vbit(t)) continue;
-        int nl = lab[t];
-        for (int wj = 0; wj < NW; ++wj) nl = relax_word(nl, adj[(size_t)t * NW + wj], lab + 32 * wj);
-        lab2[t] = nl;
+        const int l = lab[t];
+        if (l == T) continue;
+        atomicMin(&vmin[vid[3 * t]], l);
+        atomicMin(&vmin[vid[3 * t + 1]], l);
+        atomicMin(&vmin[vid[3 * t + 2]], l);
       }
       __syncthreads();
       for (int t = tid; t < T; t += nt) {
-        if (!vbit(t)) continue;
+        if (lab[t] == T) continue;
+        lab2[t] = min(min(vmin[vid[3 * t]], vmin[vid[3 * t + 1]]), vmin[vid[3 * t + 2]]);
+      }
+      __syncthreads();
+      bool changed = false;
+      for (int t = tid; t < T; t += nt) {
+        const int l0 = lab[t];
+        if (l0 == T) continue;
         const int l = lab2[t];
-        const int nl = min(l, lab2[l]);          // jump: lab <- min(lab, lab[lab])
-        changed |= nl != lab[t];
+        const int nl = min(l, lab2[l]);      // jump: lab <- min(lab, lab[lab])
+        changed |= nl != l0;
         lab[t] = nl;
+        vmin[vid[3 * t]] = NONE;             // vmin is next read after the vote below
+        vmin[vid[3 * t + 1]] = NONE;
+        vmin[vid[3 * t + 2]] = NONE;
       }
       if (!__syncthreads_or(changed)) break;
     }
-    for (int t = tid; t < T; t += nt) ob[t] = vbit(t) ? lab[t] : T;
-    __syncthreads();                              // the slice is read before the next soup
+    for (int t = tid; t < T; t += nt) ob[t] = lab[t];
+    __syncthreads();                         // the state is read before the next soup
   }
 }
 
 }  // namespace
 
-extern "C" long long surtr_labels_general_words(int T) { return general_words(T); }
+extern "C" long long surtr_labels_vertex_bytes(int T) { return vertex_words(T) * 4; }
 
 // corners: candidate b's (T, 3, 3) floats are contiguous from
-// corners + b * cstride. T <= 1024 takes the block kernel; T > 1024 the
-// general one on `blocks` CTAs, with `scratch` holding blocks *
-// general_words(T) ints (labels_cuda.general_words).
+// corners + b * cstride. The block kernel, 1 <= T <= 1024.
 extern "C" int surtr_labels(const float* corners, long long cstride, const unsigned char* valid,
-                            int* labels, int N, int T, int rounds, float tol, int* scratch,
-                            int blocks, void* stream) {
-  if (T < 1) return (int)cudaErrorInvalidValue;
+                            int* labels, int N, int T, int rounds, float tol, void* stream) {
+  if (T < 1 || T > 1024) return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (T > 1024) {
-    if (scratch == nullptr || blocks < 1) return (int)cudaErrorInvalidValue;
-    labels_general_kernel<<<blocks, 1024, 0, s>>>(corners, valid, labels, N, T, cstride, rounds,
-                                                  tol, scratch);
-    return (int)cudaGetLastError();
-  }
   const int NW = (T + 31) / 32;
   const size_t smem = ((size_t)16 * T + (size_t)T * NW + NW) * sizeof(int);
   if (smem > 48 * 1024) {
@@ -377,6 +406,36 @@ extern "C" int surtr_labels(const float* corners, long long cstride, const unsig
         labels_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  labels_block_kernel<<<N, NW * 32, smem, s>>>(corners, valid, labels, T, cstride, rounds, tol);
+  labels_block_kernel<<<N, NW * 32, smem, (cudaStream_t)stream>>>(corners, valid, labels, T,
+                                                                  cstride, rounds, tol);
+  return (int)cudaGetLastError();
+}
+
+// The vertex variant, any T >= 1: with scratch == nullptr one CTA a soup
+// with the state in shared memory (vertex_words(T) * 4 bytes must fit a
+// CTA); else `blocks` CTAs walking the soups, scratch holding blocks *
+// vertex_words(T) ints (labels_cuda.vertex_bytes).
+extern "C" int surtr_labels_vertex(const float* corners, long long cstride,
+                                   const unsigned char* valid, int* labels, int N, int T,
+                                   int rounds, float tol, int* scratch, int blocks, void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int threads = T >= 1024 ? 1024 : (T + 31) / 32 * 32;
+  if (scratch != nullptr) {
+    if (blocks < 1) return (int)cudaErrorInvalidValue;
+    labels_vertex_kernel<false><<<blocks, threads, 0, s>>>(corners, valid, labels, N, T, cstride,
+                                                          rounds, tol, scratch);
+    return (int)cudaGetLastError();
+  }
+  const long long smem = vertex_words(T) * 4;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        labels_vertex_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  labels_vertex_kernel<true><<<N, threads, (size_t)smem, s>>>(corners, valid, labels, N, T,
+                                                             cstride, rounds, tol, nullptr);
   return (int)cudaGetLastError();
 }

@@ -18,25 +18,51 @@ from surtr_tpu_torch.ops.clip import DEFAULT_TOL, clip_poly_planes
 from surtr_tpu_torch.types import ConvexPoly
 
 MAX_SMEM = 232448  # bytes of shared memory a Hopper block can use
-SCRATCH_BYTES = 256 << 20  # the global variant's state scratch at most (4 slices at least)
+SCRATCH_BYTES = 256 << 20  # a scratch variant's state at most (4 slices at least)
+CTA_SLOTS = 132            # CTAs of the CTA variant with its vertices in a scratch, at most
 
-launches = 0          # kernel launches since the last reset (main-path proof), both variants
-general_launches = 0  # of which the global variant's (one a batch of polytopes)
+launches = 0          # kernel launches since the last reset (main-path proof), every variant
+general_launches = 0  # of which the CTA variant's, either placement (one a call)
+global_launches = 0   # of which the global variant's (one a batch of polytopes)
 
 
 def _variant(N: int, F: int, S: int) -> str:
     """The kernel variant for an (N, F, S) polytope batch: "shared" (a
-    warp's state in shared memory, up to 4 a CTA) where one polytope's
-    state fits a CTA's shared memory, else "global" (the same fold with
-    the state in a device scratch). Every shape the plain fold takes has a
-    variant."""
-    return "shared" if F <= 1024 and poly_bytes(F, S) <= MAX_SMEM else "global"
+    warp's state in shared memory, up to 4 a CTA) where two polytopes'
+    states fit a CTA's shared memory (where only one does, the CTA variant
+    measured 1.5-2.7× faster on the same calls); past it "cta" (one CTA a
+    polytope, a warp a live face and a lane a slot, its whole state in
+    shared memory) where ``cta_bytes`` fits, "cta_scratch" (the same kernel
+    with its vertex buffers in a device scratch) where ``cta_aux_bytes``
+    fits, else "global" (the shared fold with the state in a device
+    scratch). Every shape the plain fold takes has a variant."""
+    if F <= 1024 and 2 * poly_bytes(F, S) <= MAX_SMEM:
+        return "shared"
+    if cta_bytes(F, S) <= MAX_SMEM:
+        return "cta"
+    return "cta_scratch" if cta_aux_bytes(F) <= MAX_SMEM else "global"
 
 
 def poly_bytes(F: int, S: int) -> int:
     """Bytes of one polytope's fold state (``poly_words`` in the kernel):
     two vertex buffers, planes, cap candidates and pool, per-face counts."""
     return (6 * S + 41) * F * 4
+
+
+CTA_RED = 160   # the CTA variant's vote words, chunk bitmask and flag (``RED``)
+
+
+def cta_aux_bytes(F: int) -> int:
+    """Bytes of the CTA variant's state without its vertex buffers
+    (``cta_aux_words``): per-face counts (each array skewed to F + F / 32 +
+    1 words), candidates, the dense pool."""
+    return (6 * (F + F // 32 + 1) + 21 * F + CTA_RED) * 4
+
+
+def cta_bytes(F: int, S: int) -> int:
+    """Bytes of the CTA variant's whole state: ``cta_aux_bytes`` and the two
+    face-major vertex buffers with room to align each (``cta_vert_words``)."""
+    return cta_aux_bytes(F) + (6 * S * F + 8) * 4
 
 
 def clip_planes_batch_reference(poly: ConvexPoly, planes: torch.Tensor,
@@ -54,6 +80,13 @@ def _fold_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def _cta_fn():
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("surtr_clip_fold_cta", [P] * 5 + [I] * 2 + [P] * 3 + [I] * 4
+                       + [ctypes.c_float, P, I, P])
+
+
+@functools.lru_cache(maxsize=None)
 def _global_fn():
     P, I = ctypes.c_void_p, ctypes.c_int
     return _build.bind("surtr_clip_fold_global", [P] * 5 + [I] * 2 + [P] * 3 + [I] * 4
@@ -61,7 +94,7 @@ def _global_fn():
 
 
 def _kernel(poly, planes, plane_mask, tol):
-    global launches, general_launches
+    global launches, general_launches, global_launches
     N, F, S = poly.face_verts.shape[:3]
     K = planes.shape[1]
     dev = poly.face_verts.device
@@ -89,18 +122,29 @@ def _kernel(poly, planes, plane_mask, tol):
     args = (fv.data_ptr(), nv.data_ptr(), pl.data_ptr(), cuts.data_ptr(), cm.data_ptr(),
             cuts.stride(0), cm.stride(0), ofv.data_ptr(), onv.data_ptr(), opl.data_ptr(),
             N, F, S, K, float(tol))
+    stream = _build.stream_ptr(dev)
     if variant == "shared":
-        _build.check(_fold_fn()(*args, _build.stream_ptr(dev)), "surtr_clip_fold")
+        _build.check(_fold_fn()(*args, stream), "surtr_clip_fold")
         launches += 1
+    elif variant in ("cta", "cta_scratch"):
+        scratch, slots = None, 0
+        if variant == "cta_scratch":   # the vertex buffers of `slots` polytopes at a time
+            per = cta_bytes(F, S) - cta_aux_bytes(F)
+            slots = max(1, min(N, CTA_SLOTS, SCRATCH_BYTES // per))
+            scratch = torch.empty((slots * per // 4,), dtype=torch.float32, device=dev)
+        _build.check(_cta_fn()(*args, None if scratch is None else scratch.data_ptr(), slots,
+                               stream), "surtr_clip_fold_cta")
+        launches += 1
+        general_launches += 1
     else:
         per = poly_bytes(F, S)   # a batch of `slots` polytopes a launch, 4 to a CTA
         slots = max(4, min(-(-N // 4), SCRATCH_BYTES // per // 4) * 4)
         scratch = torch.empty((slots * per // 4,), dtype=torch.float32, device=dev)
         n = ctypes.c_int(0)
-        _build.check(_global_fn()(*args, scratch.data_ptr(), slots, ctypes.byref(n),
-                                  _build.stream_ptr(dev)), "surtr_clip_fold_global")
+        _build.check(_global_fn()(*args, scratch.data_ptr(), slots, ctypes.byref(n), stream),
+                     "surtr_clip_fold_global")
         launches += n.value
-        general_launches += n.value
+        global_launches += n.value
     return ConvexPoly(ofv, onv, opl)
 
 

@@ -16,28 +16,37 @@ import torch
 from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.labels import label_rounds, tri_soup_components
 
-launches = 0          # kernel launches since the last reset (main-path proof), both variants
-general_launches = 0  # of which the general variant's
+launches = 0          # kernel launches since the last reset (main-path proof), every variant
+general_launches = 0  # of which the vertex variant's (past MAX_BLOCK_T), either placement
 
 MAX_BLOCK_T = 1024          # triangles the block variant takes a soup (a thread each)
-SCRATCH_BYTES = 256 << 20   # the general variant's soup states at most (one soup at least)
-GENERAL_BLOCKS = 264        # CTAs of the general variant at most (two an SM of an H100)
+MAX_SMEM = 232448           # bytes of shared memory a Hopper block can use
+SCRATCH_BYTES = 256 << 20   # the scratch placement's soup states at most (one soup at least)
+GENERAL_BLOCKS = 264        # CTAs of the scratch placement at most (two an SM of an H100)
 
 
 def _variant(T: int) -> str:
-    """"block" (one CTA a soup, a thread a triangle, the adjacency in
-    shared memory: today's kernel) for 1 <= T <= 1024, else "general" (a
-    CTA of 1024 threads a soup, its state in a device scratch): every T
-    the plain version takes has a variant."""
-    return "block" if T <= MAX_BLOCK_T else "general"
+    """"block" (one CTA a soup, a thread a triangle, the T x T adjacency
+    in shared memory) for 1 <= T <= 1024; past it "vertex" (one CTA a
+    soup, vertex ids by a hash of the quantized corners and a minimum
+    label a vertex, the state in shared memory) while ``vertex_bytes(T)``
+    fits a CTA, else "vertex_scratch" (the same kernel, its state in a
+    device scratch): every T the plain version takes has a variant."""
+    if T <= MAX_BLOCK_T:
+        return "block"
+    return "vertex" if vertex_bytes(T) <= MAX_SMEM else "vertex_scratch"
 
 
-def general_words(T: int) -> int:
-    """Int32 words of one soup's state in the general variant (keys,
-    quantized corners, two label buffers, valid words, adjacency rows), as
-    ``general_words`` in csrc/labels.cu lays them out."""
-    NW = (T + 31) // 32
-    return (17 * T + NW + T * NW + 1) // 2 * 2
+def hash_slots(T: int) -> int:
+    """Slots of the vertex variant's hash table: a power of two >= 4T."""
+    return 1 << max(0, (4 * T - 1).bit_length())
+
+
+def vertex_bytes(T: int) -> int:
+    """Bytes of one soup's state in the vertex variant (quantized corners,
+    vertex ids, vertex minima, two label buffers, the hash table), as
+    ``vertex_words`` in csrc/labels.cu lays them out."""
+    return 4 * (17 * T + hash_slots(T))
 
 
 def tri_soup_components_batch_reference(corners, tri_valid, tol: float = 1e-5,
@@ -53,9 +62,6 @@ def _kernel(corners, tri_valid, tol, iters):
             or tri_valid.shape != (N, T) or tri_valid.dtype != torch.bool):
         raise ValueError("labels kernel takes (N, T, 3, 3) float32 corners and an (N, T) bool mask")
     dev = corners.device
-    fn = _build.bind("surtr_labels", [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
-                     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
-                                             ctypes.c_void_p])
     # Each soup's (T, 3, 3) floats must be contiguous; the soups may lie at
     # any stride (the pipeline's are rows of a wider table): no copy then.
     c = corners if corners.stride()[1:] == (9, 3, 1) else corners.contiguous()
@@ -63,18 +69,24 @@ def _kernel(corners, tri_valid, tol, iters):
     out = torch.empty((N, T), dtype=torch.int32, device=dev)
     if N == 0 or T == 0:
         return out
-    general = _variant(T) == "general"
-    scratch, blocks = None, 0
-    if general:
-        words = general_words(T)
-        blocks = max(1, min(N, GENERAL_BLOCKS, SCRATCH_BYTES // (4 * words)))
-        scratch = torch.empty((blocks * words,), dtype=torch.int32, device=dev)
-    rc = fn(c.data_ptr(), c.stride()[0], v.data_ptr(), out.data_ptr(), N, T,
-            label_rounds(T, iters), float(tol), None if scratch is None else scratch.data_ptr(),
-            blocks, _build.stream_ptr(dev))
-    _build.check(rc, "surtr_labels")
+    variant = _variant(T)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    args = (c.data_ptr(), c.stride()[0], v.data_ptr(), out.data_ptr(), N, T,
+            label_rounds(T, iters), float(tol))
+    if variant == "block":
+        fn = _build.bind("surtr_labels", [P, ctypes.c_longlong, P, P, I, I, I, ctypes.c_float, P])
+        _build.check(fn(*args, _build.stream_ptr(dev)), "surtr_labels")
+    else:
+        fn = _build.bind("surtr_labels_vertex", [P, ctypes.c_longlong, P, P, I, I, I,
+                                                 ctypes.c_float, P, I, P])
+        scratch, blocks = None, 0
+        if variant == "vertex_scratch":
+            blocks = max(1, min(N, GENERAL_BLOCKS, SCRATCH_BYTES // vertex_bytes(T)))
+            scratch = torch.empty((blocks * vertex_bytes(T) // 4,), dtype=torch.int32, device=dev)
+        _build.check(fn(*args, None if scratch is None else scratch.data_ptr(), blocks,
+                        _build.stream_ptr(dev)), "surtr_labels_vertex")
+        general_launches += 1
     launches += 1
-    general_launches += general
     return out
 
 

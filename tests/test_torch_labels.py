@@ -134,3 +134,78 @@ def test_quantize_is_a_true_division_on_rounding_boundaries():
     got = labels.quantize(torch.as_tensor(xs), float(tol)).numpy()
     np.testing.assert_array_equal(got, want)
     assert (np.rint(xs * (np.float32(1) / tol)).astype(np.int32) != want).any()
+
+
+def _vertex_labels(corners, valid, iters=None, tol=1e-5):
+    """A plain emulation of B3's vertex variant (csrc/labels.cu
+    ``labels_vertex_kernel``): vertex ids from the quantized triples; per
+    round vmin[v] = the minimum old label of the valid triangles with a
+    corner at v, each valid triangle's relaxed label the minimum of its
+    three vmin, then the pointer jump on the relaxed labels; stop at the
+    first round that changes no label, at most ``label_rounds``. Returns
+    the labels and the rounds run a soup."""
+    corners, valid = torch.as_tensor(corners), torch.as_tensor(valid)
+    N, T = valid.shape
+    q = labels.quantize(corners, tol).reshape(N, 3 * T, 3)
+    out, runs = [], []
+    for n in range(N):
+        lab = torch.where(valid[n], torch.arange(T, dtype=torch.int32), T)
+        vid = torch.unique(q[n], dim=0, return_inverse=True)[1].reshape(T, 3)
+        run = 0
+        for _ in range(labels.label_rounds(T, iters) if bool(valid[n].any()) else 0):
+            run += 1
+            vmin = torch.full((3 * T,), T, dtype=torch.int32).scatter_reduce(
+                0, vid[valid[n]].reshape(-1), lab[valid[n]].repeat_interleave(3), "amin")
+            relaxed = torch.where(valid[n], vmin[vid].amin(dim=1), T)
+            nxt = torch.where(valid[n], torch.minimum(relaxed, relaxed[relaxed.clamp(max=T - 1)]), T)
+            changed = bool((nxt != lab).any())
+            lab = nxt
+            if not changed:
+                break
+        out.append(lab)
+        runs.append(run)
+    return torch.stack(out), runs
+
+
+def _vertex_soups(T=64, tol=1e-5):
+    """Strips (reversed, bit-reversed, random and index order) and a fan
+    whose triangles share corners (a vertex of all T triangles), invalid
+    triangles cutting strips, an all-invalid soup, a strip scaled past the
+    corner keys' 21-bit range (|x| / tol > 2^20), and two strips whose
+    corners lie 2^21 quanta apart in x: equal in their low 21 bits only."""
+    rng = np.random.RandomState(19)
+    strips = _strips(T)[0]
+    corners = np.concatenate([strips, rng.rand(4, T, 3, 3).astype(np.float32)])
+    corners[4, 1:, 0] = corners[4, :-1, 2]                   # a strip in index order
+    corners[5] = strips[0] * np.float32(64.0)                # quantized past 2^20
+    h = T // 2
+    base = rng.rand(h, 3, 3).astype(np.float32)
+    base[1:, 0] = base[:-1, 2]
+    corners[6, :h] = base
+    corners[6, h:] = base
+    corners[6, h:, :, 0] += np.float32((1 << 21) * tol)
+    valid = np.ones(corners.shape[:2], bool)
+    valid[0, ::7] = False
+    valid[4, T // 3:2 * T // 3] = False                       # cuts the strip in two
+    valid[7] = False
+    return corners, valid
+
+
+@pytest.mark.parametrize("iters", [None, 1, 2, 3])
+def test_vertex_rounds_match_pallas(iters):
+    # The vertex variant's reformulation gives the JAX kernel's labels bit
+    # for bit, also where the rounds stop before the labels close, and runs
+    # the rounds the block kernel's early exit runs.
+    corners, valid = _vertex_soups()
+    got, runs = _vertex_labels(corners, valid, iters=iters)
+    want = tri_soup_components_batch_pallas(jnp.asarray(corners), jnp.asarray(valid),
+                                            iters=iters, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    c, v = torch.as_tensor(corners), torch.as_tensor(valid)
+    assert runs == labels.label_rounds_run(c, v, iters=iters).tolist()
+    if iters is None:
+        lab = got.numpy()
+        assert (lab[3] == 0).all() and (lab[5] == 0).all()   # the fan; the scaled strip
+        assert (lab[4, :21] == 0).all() and (lab[4, 42:] == 42).all()   # the strip, cut
+        assert (lab[6, :32] == 0).all() and (lab[6, 32:] == 32).all()   # not joined
+        assert (lab[7] == 64).all()

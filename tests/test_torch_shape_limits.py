@@ -112,9 +112,9 @@ def test_variant_takes_shapes_past_the_old_limits(kernel):
 # old wrappers checked them (byte counts from the old kernels' layouts):
 # (general variant, old limit held).
 OLD_LIMITS = {
-    "B1": ("global", lambda N, F, S: F <= 1024 and F * (6 * S + 41) * 4 <= 232448),
+    "B1": ("cta", lambda N, F, S: F <= 1024 and F * (6 * S + 41) * 4 <= 232448),
     "B2": ("general", lambda B, N, F: F <= 128),
-    "B3": ("general", lambda T: 1 <= T <= 1024),
+    "B3": ("vertex", lambda T: 1 <= T <= 1024),
     "B5": ("direct", lambda Vh, F, Ne: (128 // (16 if max(Vh, F, Ne) <= 16 else 32))
            * (4 * Vh + 5 * F + 26 + 4 * Ne + 9) * 4 <= 48 * 1024),
     "B6": ("general", lambda K: K <= 16),
@@ -162,7 +162,7 @@ def test_variant_refuses_no_shape():
         general, held = OLD_LIMITS[kernel]
         for shape in shapes:
             v = fn(shape)
-            if kernel not in ("B2", "B6"):
+            if kernel not in ("B1", "B2", "B3", "B6"):
                 assert v in (today, general), (kernel, shape, v)
             if kernel == "B7":
                 assert v == general or held(*shape), (kernel, shape, v)
@@ -173,6 +173,20 @@ def test_variant_refuses_no_shape():
                 assert v in (today, "long", general), (kernel, shape, v)
                 assert (v == today) == held(*shape), (kernel, shape, v)
                 assert (v == "long") == (16 < shape[0] <= broadphase_cuda.LONG_K), (kernel, shape)
+            elif kernel == "B1":   # a CTA a polytope, its vertex buffers on chip or not
+                # the shared fold where it holds two polytopes a CTA (measured)
+                F, S = shape[1:]
+                two = 2 * clip_cuda.poly_bytes(F, S) <= clip_cuda.MAX_SMEM
+                assert (v == today) == (held(*shape) and two), (kernel, shape, v)
+                past = ("cta" if clip_cuda.cta_bytes(F, S) <= clip_cuda.MAX_SMEM else
+                        "cta_scratch" if clip_cuda.cta_aux_bytes(F) <= clip_cuda.MAX_SMEM else
+                        "global")
+                assert v == today or v == past, (kernel, shape, v)
+            elif kernel == "B3":   # vertex ids: the state on chip, or in a scratch
+                assert v in (today, general, "vertex_scratch"), (kernel, shape, v)
+                assert (v == today) == held(*shape), (kernel, shape, v)
+                assert (v == "vertex_scratch") == (
+                    labels_cuda.vertex_bytes(*shape) > labels_cuda.MAX_SMEM), (kernel, shape, v)
             elif kernel == "B2":   # up to 128 face slots a block a set or a warp a set
                 assert v in (today, "warp_set", general), (kernel, shape, v)
                 assert (v != general) == held(*shape), (kernel, shape, v)
@@ -231,6 +245,38 @@ def test_b6_and_b11_past_the_old_limits_take_the_redesigned_variants():
     assert raster_cuda.global_bytes(1, 1) == 16 + 2048 * 8 + 4
 
 
+def test_b1_and_b3_past_the_old_limits_take_the_redesigned_variants():
+    """B1 runs a CTA a polytope wherever the shared fold would hold one
+    polytope a CTA (measured faster there at S = 8, 16 and 32) and past it:
+    its whole state on chip up to 264 faces at S = 32 (phase 30's F = 256
+    prepare), its vertex buffers in a scratch past that (F = 1,025 at S =
+    8), the global fold only where even the per-face state passes a CTA (F
+    > 2,131). The shared fold keeps every shape of two or more polytopes a
+    CTA, the main path's among them (the cube's F = 26-32, the torus's F =
+    96 at S = 32). B3 past T = 1,024 runs the vertex variant, on chip up to
+    T = 2,454 (``max_mesh_tris``' 2,048 among them)."""
+    for N, F, S in ((1024, 26, 16), (1, 88, 16), (1088, 96, 32), (1, 124, 32), (4, 212, 16),
+                    (1, 492, 3)):
+        assert clip_cuda._variant(N, F, S) == "shared", (N, F, S)
+    for N, F, S in ((64, 125, 32), (4, 213, 16), (1, 493, 3), (1, 249, 32), (4, 424, 16),
+                    (64, 256, 32), (1, 250, 32), (64, 264, 32), (8, 425, 16), (1, 1024, 3),
+                    (800, 1025, 3)):
+        assert clip_cuda._variant(N, F, S) == "cta", (N, F, S)
+    for N, F, S in ((64, 265, 32), (800, 1025, 8), (1, 2131, 3)):
+        assert clip_cuda._variant(N, F, S) == "cta_scratch", (N, F, S)
+    for N, F, S in ((1, 2132, 3), (4, 4096, 8)):
+        assert clip_cuda._variant(N, F, S) == "global", (N, F, S)
+    assert clip_cuda.cta_bytes(264, 32) <= clip_cuda.MAX_SMEM < clip_cuda.cta_bytes(265, 32)
+    assert clip_cuda.cta_aux_bytes(2131) <= clip_cuda.MAX_SMEM < clip_cuda.cta_aux_bytes(2132)
+    for T in (64, 128, 512, 1024):
+        assert labels_cuda._variant(T) == "block", T
+    for T in (1025, 2048, 2049, 2454):
+        assert labels_cuda._variant(T) == "vertex", T
+    for T in (2455, 4096, 10000):
+        assert labels_cuda._variant(T) == "vertex_scratch", T
+    assert labels_cuda.vertex_bytes(2454) <= labels_cuda.MAX_SMEM < labels_cuda.vertex_bytes(2455)
+
+
 def test_variant_byte_counts_match_the_kernels_layouts():
     """The Python byte counts behind the choices, at the shapes where the
     choice flips."""
@@ -239,7 +285,15 @@ def test_variant_byte_counts_match_the_kernels_layouts():
     assert pack_cuda.stage_bytes(723, 26, 3) <= pack_cuda.STAGE_BYTES
     assert pack_cuda.stage_bytes(724, 26, 3) > pack_cuda.STAGE_BYTES
     assert prep_cuda.row_bytes(32, 4, 4) <= prep_cuda.STAGE_BYTES   # K = 32 stays shared
-    assert labels_cuda.general_words(2048) == (17 * 2048 + 64 + 2048 * 64 + 1) // 2 * 2
+    # B1's CTA variant: six per-face arrays of F + F / 32 + 1 words, 21 words
+    # a face of candidates and pool and 160 beside them in shared memory, and
+    # two face-major vertex buffers of 3·S floats a face with 8 words of room
+    # to align them; B3's vertex variant: 17 words a triangle and a hash
+    # table of a power of two >= 4T slots.
+    assert clip_cuda.cta_aux_bytes(256) == (6 * 265 + 21 * 256 + 160) * 4
+    assert clip_cuda.cta_bytes(256, 32) == clip_cuda.cta_aux_bytes(256) + (6 * 32 * 256 + 8) * 4
+    assert labels_cuda.hash_slots(2048) == 8192 and labels_cuda.hash_slots(2049) == 16384
+    assert labels_cuda.vertex_bytes(2048) == (17 * 2048 + 8192) * 4 == 172032
     # B7's staged rows: records wider than the row slot go to the general variant.
     assert narrowphase_cuda.staged_bytes(8, 8, 8, 3, 20) == 0
     assert narrowphase_cuda.staged_bytes(8, 8, 8, 3, 4) > 0

@@ -2,8 +2,8 @@
 """Per-call times of kernels B3 (island labels) and B4 (refit planes) on the
 card, held bitwise against their plain versions first.
 
-    python3 tools/time_b3_b4.py [--out FILE.json]
-    PYTHONPATH=<other checkout> python3 tools/time_b3_b4.py [--out FILE.json]
+    python3 tools/time_b3_b4.py [--limits] [--out FILE.json]
+    PYTHONPATH=<other checkout> python3 tools/time_b3_b4.py [--limits] [--out FILE.json]
 
 The second form measures another checkout's ``surtr_tpu_torch`` (and uses
 its ``chip_smoke.py`` helpers), so two trees can be compared in one session
@@ -24,7 +24,13 @@ soups, beside the cap), for B4 the live points. Then the refit step of
 ``_finish_pieces`` on the event's and the frame's inputs: from the pool
 glue (where the tree has one) to the planes, its CUDA-event ms and its
 device ms and launches; on a tree with ``refit_planes_from_parts`` also
-the built-pool route beside it. Needs one NVIDIA GPU.
+the built-pool route beside it. ``--limits`` times B3 alone past T = 1,024
+instead, with the variant each tree takes there: phase 30's (64, 2,048)
+call (chip_smoke's ``LIMIT_PREPARE_CFG``) and the same soups repeated to
+320 (more than 264 CTAs), every label bit for bit first; on a tree with
+the vertex variant also the cube event's (1,024, 64) soups as they are and
+padded with invalid triangles to T = 128, 256, 384, 512 and 1,024 under
+the block kernel and under the vertex variant (the crossover). Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ def device_split(fn, kernel, runs=20, sessions=8):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--limits", action="store_true", help="time only B3 past T = 1,024")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this tool needs an NVIDIA GPU")
@@ -104,6 +111,13 @@ def main():
     card = workload.card()
     print(f"package {pkg}; {card}", flush=True)
     out = {"package": pkg, "card": card, "calls": {}, "refit_step": {}}
+    if args.limits:
+        out = {"package": pkg, "card": card, "b3_limits": time_b3_limits(cs, labels_cuda, card)}
+        print(json.dumps(out), flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(out, fh, indent=1)
+        return
     parts_entry = hasattr(refit_cuda, "refit_planes_from_parts")
     refit_attr = "refit_planes_from_parts" if parts_entry else "refit_planes_batch"
 
@@ -235,6 +249,79 @@ def main():
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
+
+
+def time_b3_limits(cs, labels_cuda, card):
+    """B3 past T = 1,024 under each tree's own variant, and the crossover
+    of the block kernel and the vertex variant at T = 512 and 1,024."""
+    from surtr_tpu_torch import workload
+    from surtr_tpu_torch.fracture import pipeline
+
+    calls = []
+    fn0 = pipeline.tri_soup_components_batch
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return fn0(*a, **kw)
+
+    pipeline.tri_soup_components_batch = rec
+    try:
+        workload.run_prepare("cuda", cs.LIMIT_PREPARE_CFG)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.tri_soup_components_batch = fn0
+    (c, v), kw = calls[0]
+    reps = -(-320 // c.shape[0])
+    cases = [("phase 30 prepare", (c, v), kw),
+             (f"phase 30 prepare x {reps}", (c.repeat(reps, 1, 1, 1), v.repeat(reps, 1)), kw)]
+
+    def run(name, a, kw, forced=None):
+        orig = labels_cuda._variant
+        if forced:
+            labels_cuda._variant = lambda T, _v=forced: _v
+        try:
+            f = lambda: labels_cuda.tri_soup_components_batch(*a, **kw)  # noqa: E731
+            got = f()
+            want = labels_cuda.tri_soup_components_batch_reference(*a, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"B3 {name}: differs from the plain version")
+            ms = cs.event_ms(f)
+            dev, other, n = device_split(f, "labels_")
+            variant = labels_cuda._variant(a[0].shape[1])
+        finally:
+            labels_cuda._variant = orig
+        row = {"name": name, "shape": list(a[0].shape[:2]), "variant": variant, "ms": ms,
+               "device_ms": dev, "other_device_ms": other, "device_launches": n,
+               "valid_triangles": int(a[1].sum())}
+        print(f"B3 {name} {row['shape']}: variant {variant}; wrapper {ms:.4f} ms, kernel "
+              f"{dev:.4f} ms on the device in {n:.0f} device launches a call; "
+              f"{row['valid_triangles']} valid triangles; bit for bit ({card})", flush=True)
+        return row
+
+    rows = [run(name, a, kw) for name, a, kw in cases]
+    if hasattr(labels_cuda, "vertex_bytes"):
+        ev = []
+
+        def rec2(*a, **kw):
+            ev.append((a, kw))
+            return fn0(*a, **kw)
+
+        pipeline.tri_soup_components_batch = rec2
+        try:
+            workload.run_prepare("cuda")
+            torch.cuda.synchronize()
+        finally:
+            pipeline.tri_soup_components_batch = fn0
+        (c, v), kw = ev[0]
+        for T in (64, 128, 256, 384, 512, 1024):
+            pad = T - c.shape[1]
+            a = (torch.cat([c, torch.zeros((c.shape[0], pad, 3, 3), device=c.device)], 1),
+                 torch.cat([v, torch.zeros((v.shape[0], pad), dtype=torch.bool,
+                                           device=v.device)], 1))
+            for forced in ("block", "vertex", "vertex", "block"):
+                rows.append(run(f"cube event padded to T = {T}, {forced}", a, kw, forced))
+    return rows
 
 
 if __name__ == "__main__":
