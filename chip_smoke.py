@@ -190,7 +190,10 @@ Phases (any failure exits non-zero):
      also over more soups than its CTAs, and in a scratch at T = 4,096; B1
      and B3's variants forced onto the degenerate cases; B5 at Vh = 768; B6, B9 and B12 at K =
      32, B9 also over more rows than its grid, B12 at W = 256 and 1,024
-     too; B7 at Vh = 12 and 768 and with M = 64; B8 at K = 32, M = 64; B10
+     and at K = 48 too (its list selection); B7 at Vh = 12 and 768 and with
+     M = 64; B8 at K = 32, M = 64 (its wide variant) and at M = 3,300 (the
+     records read in place); B8's and B12's variants forced onto the
+     lattice's calls and the degenerate broadphase pools; B10
      at S = 16; B11 at 32,768 tiles; the general B2 also on the sphere's
      hull and on sets of 0-4 live points at F = 132), and, since the
      redesigns of B11 past its resident kernel and of B6 past K = 16, B11
@@ -4064,16 +4067,16 @@ GENERAL = {
     "narrowphase": (narrowphase_cuda, "general_launches", "surtr_tpu_torch/csrc/narrowphase.cu",
                     "surtr_tpu/physics/narrowphase_pallas.py:103", "narrow_general"),
     "prep": (prep_cuda, "general_launches", "surtr_tpu_torch/csrc/prep.cu",
-             "surtr_tpu/physics/prep_pallas.py:42", "prep_kernel"),
+             "surtr_tpu/physics/prep_pallas.py:42", "prep_wide"),
     "solver": (solver_cuda, "general_launches", "surtr_tpu_torch/csrc/solver.cu",
                "surtr_tpu/physics/solver_pallas.py:53", "solver_general"),
     "soup_clip": (soup_clip_cuda, "general_launches", "surtr_tpu_torch/csrc/soup_clip.cu",
                   "surtr_tpu/ops/soup_clip_pallas.py:43", "soup_fold_general"),
     "raster": (raster_cuda, "general_launches", "surtr_tpu_torch/csrc/raster.cu",
                "surtr_tpu/render/raster_pallas.py:37", "raster_kernel"),
-    "broadphase_sorted": (broadphase_cuda, "sorted_general_launches",
+    "broadphase_sorted": (broadphase_cuda, "sorted_list_launches",
                           "surtr_tpu_torch/csrc/broadphase_sorted.cu",
-                          "surtr_tpu/physics/broadphase_pallas.py:55", "bp_sorted_general"),
+                          "surtr_tpu/physics/broadphase_pallas.py:55", "bp_sorted_list"),
 }
 LIMIT_LATTICE = 1000           # pieces of phase 30's lattices: past broadphase_block, so B6 runs
 LIMIT_PHYSICS_CFG = dataclasses.replace(workload.PHYSICS_CFG, max_neighbors=32,
@@ -4099,7 +4102,12 @@ PAST_VARIANT = {"broadphase_exact": ("broadphase_exact_long", "bp_exact_kernel")
 # Phase 30's further cases: name -> the kernel (a GENERAL key) it runs.
 PAST_CASES = {"raster_render_512": "raster", "broadphase_exact_10k": "broadphase_exact",
               "clip_fold_f1025": "clip_fold", "clip_fold_global": "clip_fold",
-              "labels_scratch": "labels"}
+              "labels_scratch": "labels", "broadphase_sorted_k48": "broadphase_sorted",
+              "prep_inplace": "prep"}
+LIMIT_K_LIST = 48     # B12 past one slot a lane (K > 32)
+# B8 past the wide variant's staged records (one partner's record past a
+# third of the SM's shared memory: M > 3,223): (Np, K, M).
+PREP_INPLACE_SHAPE = (64, 2, 3300)
 LIMIT_F_GLOBAL = 2304   # B1 past the CTA variant's per-face state (F > 2,131): the global fold
 
 
@@ -4329,6 +4337,7 @@ def limits_phase(card, state):
     step768 = one_step(dataclasses.replace(workload.PHYSICS_CFG, max_hull_verts=768))
     step_m64 = one_step(dataclasses.replace(workload.PHYSICS_CFG, max_neighbors=32,
                                             manifold_points=64))
+    inplace = prep_inplace_case("cuda", step_m64["prep"][1])
     launches["pack"] = general_counts()["pack_general"]
     launches["prep"] = general_counts()["prep_general"]
     soup_calls, _ = capture("soup_clip_pooled", lambda: run_prepare("cuda", model="sphere"))
@@ -4390,6 +4399,17 @@ def limits_phase(card, state):
                               compare_broadphase_sorted, broadphase_cuda.broadphase_sorted,
                               broadphase_cuda.broadphase_sorted_reference,
                               physics_ops("broadphase_sorted", bp + (32, W), {})),
+        "broadphase_sorted_k48": (f"Np {LIMIT_LATTICE}, K {LIMIT_K_LIST}, W {W}",
+                                  (bp + (LIMIT_K_LIST, W), {}), compare_broadphase_sorted,
+                                  broadphase_cuda.broadphase_sorted,
+                                  broadphase_cuda.broadphase_sorted_reference,
+                                  physics_ops("broadphase_sorted", bp + (LIMIT_K_LIST, W), {})),
+        "prep_inplace": ("(Np, K, M) {}: {} B of a partner's record past the wide variant's "
+                         "room: {}".format(list(PREP_INPLACE_SHAPE),
+                                           4 * (5 + 6 * PREP_INPLACE_SHAPE[2]),
+                                           prep_cuda._variant(*PREP_INPLACE_SHAPE[1:], 4)),
+                         inplace, compare_prep, prep_cuda.prep_from_records,
+                         prep_cuda.prep_from_records_reference, physics_ops("prep", *inplace)),
         "clip_fold_f1025": (f"(N, F, S, K) {f1025['shape'] + [f1025['args'][0][1].shape[1]]}: "
                             f"{clip_cuda._variant(*f1025['shape'])}", f1025["args"], compare_clip,
                             clip_cuda.clip_planes_batch, clip_cuda.clip_planes_batch_reference,
@@ -4464,6 +4484,8 @@ def limits_phase(card, state):
               f"device launches a call ({other_ms:.4f} ms beside it), plain "
               f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}) "
               f"({card})", flush=True)
+    forced.update(forced_b8_b12_checks([last["prep"][:2], step_m64["prep"][:2], inplace],
+                                       bp, W))
     layouts = check_layouts()
     return {"kernels": results, "launches": launches, "physics": phys_cmp,
             "prepare": prep_cmp, "clip_f1025": {k: v for k, v in f1025.items() if k != "args"},
@@ -4552,6 +4574,88 @@ def forced_variant_checks(labels_call):
     return {"cases": counts, "global_args": ga}
 
 
+def prep_inplace_case(device, kw, shape=PREP_INPLACE_SHAPE, seed=20):
+    """B8's inputs at (Np, K, M) = ``shape`` under ``kw`` (a step's prep
+    keywords, K and M replaced): random pair records with hit and missed
+    points, a dead partner's slots (NaN depth, no hit), pidx = -1 slots,
+    sleeping and static bodies, ground contacts with and without hits."""
+    Np, K, M = shape
+    G = kw["G"]
+    g = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(s, generator=g)  # noqa: E731
+    x = u(-2.0, 2.0, Np, 3)
+    raw = torch.zeros((Np, K, 5 + 6 * M))
+    n = torch.randn((Np, K, 3), generator=g)
+    raw[..., 0:3] = n / n.norm(dim=-1, keepdim=True)
+    raw[..., 3] = u(-0.01, 0.05, Np, K)
+    raw[..., 5::6] = u(-0.01, 0.05, Np, K, M)
+    raw[..., 6::6] = (torch.rand((Np, K, M), generator=g) < 0.5).float()
+    for c in range(3):
+        raw[..., 7 + c::6] = x[:, None, None, c] + u(-0.6, 0.6, Np, K, M)
+    raw[..., 10::6] = torch.randint(1, 40, (Np, K, M), generator=g).float()
+    raw[..., 4] = raw[..., 6::6].amax(-1)
+    pidx = torch.randint(-1, Np, (Np, K), generator=g, dtype=torch.int32)
+    dead = torch.rand((Np, K), generator=g) < 0.2
+    raw[..., 3][dead] = float("nan")
+    raw[..., 5::6][dead] = float("nan")
+    raw[..., 6::6][dead] = 0.0
+    raw[..., 4][dead] = 0.0
+    a = torch.randn((Np, 3, 3), generator=g)
+    inv_I = (0.3 * a @ a.transpose(1, 2) + 0.2 * torch.eye(3)).reshape(Np, 9)
+    inv_m = u(0.05, 0.3, Np)
+    inv_m[::11] = 0.0
+    gd = u(-0.02, 0.05, Np, G)
+    args = (raw, pidx, x[:, None] + u(-0.6, 0.6, Np, G, 3), gd, gd > 0.0, x, torch.randn(
+        (Np, 3), generator=g), torch.randn((Np, 3), generator=g), inv_m, inv_I,
+        torch.rand(Np, generator=g) < 0.25)
+    return tuple(t.to(device) for t in args), dict(kw, K=K, M=M)
+
+
+def forced_b8_b12_checks(prep_calls, bp, W):
+    """Each variant of B8 and B12 past the old limits, held bit for bit
+    against its plain version, forced where the shape would take another
+    (``_variant`` / ``_sorted_variant`` replaced for the call): B8's "wide"
+    and "wide_inplace" on ``prep_calls`` (phase 30's lattice step at K =
+    32, M = 4, its K = 32, M = 64 step, where "wide" only where a partner's
+    record fits); B12's "list" on ``sorted_edge_cases`` at K = 8 and 48, W
+    = ``W`` (its register lists; K = 16, W = 128 and K = 2W among them) and
+    on ``bp`` at K 16, W 64, and "list_scratch" on ``bp`` and the lattice of
+    ties at W = 256 and 1,024. Each forced run must move that variant's
+    launch counter. Returns the counts of cases."""
+    bcases = broadphase_cases("cuda")
+    ties = bcases["lattice ties"]
+    lists = (sorted_edge_cases(bcases, 8, W) + sorted_edge_cases(bcases, LIMIT_K_LIST, W)
+             + [(bp + (16, 64), {}), (bp + (32, W), {})])
+    scratch = [(bp + (8, 256), {}), (bp + (32, 1024), {}), (tuple(ties) + (8, 256), {}),
+               (tuple(ties) + (48, 1024), {})]
+    runs = [(prep_cuda, "_variant", "wide",
+             [c for c in prep_calls if prep_cuda.wide_partners(c[1]["K"], c[1]["M"], True)],
+             compare_prep, "general_launches"),
+            (prep_cuda, "_variant", "wide_inplace", prep_calls, compare_prep,
+             "general_launches"),
+            (broadphase_cuda, "_sorted_variant", "list", lists, compare_broadphase_sorted,
+             "sorted_list_launches"),
+            (broadphase_cuda, "_sorted_variant", "list_scratch", scratch,
+             compare_broadphase_sorted, "sorted_list_launches")]
+    counts = {}
+    for mod, attr, variant, cases, cmp, counter in runs:
+        orig = getattr(mod, attr)
+        setattr(mod, attr, lambda *shape, _v=variant: _v)
+        try:
+            for a, kw in cases:
+                before = getattr(mod, counter)
+                cmp(a, kw)
+                torch.cuda.synchronize()
+                if getattr(mod, counter) <= before:
+                    fail(f"phase 30: {mod.__name__} forced to {variant} did not launch it")
+        finally:
+            setattr(mod, attr, orig)
+        counts[f"{mod.__name__.rsplit('.', 1)[1]}:{variant}"] = len(cases)
+    print(f"phase 30 forced B8 and B12 variants: bit for bit against the plain versions on "
+          f"{json.dumps(counts)} cases", flush=True)
+    return {"cases_b8_b12": counts}
+
+
 def tile_labels(a, kw):
     """B3's general call repeated over the soups to 300 or more, more soups
     than the general variant's CTAs (``labels_cuda.GENERAL_BLOCKS``): its
@@ -4590,6 +4694,11 @@ def check_layouts():
           for Ne in (0, 3, 16, 17)]),
         ("surtr_prep_row_bytes", prep_cuda.row_bytes,
          [(K, M, G) for K in (1, 8, 16, 32, 64) for M in (1, 4, 25, 26, 64) for G in (0, 4)]),
+        ("surtr_prep_wide_bytes", lambda K, M, s: prep_cuda.wide_bytes(K, M, bool(s)),
+         [(K, M, s) for K in (1, 8, 32, 47, 48, 922, 5000) for M in (1, 4, 64, 3223, 3224)
+          for s in (0, 1)]),
+        ("surtr_broadphase_sorted_list_bytes", broadphase_cuda.list_bytes,
+         [(K, W) for W in (129, 256, 1024, 14304, 14305, 20000) for K in (1, 8, 48, 893, 894)]),
         ("surtr_labels_vertex_bytes", labels_cuda.vertex_bytes,
          [(T,) for T in (1, 31, 32, 33, 1024, 1025, 2048, 2049, 2454, 2455, 4096, 8192)]),
         ("surtr_clip_fold_cta_bytes", clip_cuda.cta_bytes,
@@ -4865,7 +4974,9 @@ def main():
               "raster_render_512": "raster_general_render_512",
               "clip_fold": "clip_fold_cta", "clip_fold_f1025": "clip_fold_cta_scratch_f1025",
               "clip_fold_global": "clip_fold_global", "labels": "labels_vertex",
-              "labels_scratch": "labels_vertex_scratch"}
+              "labels_scratch": "labels_vertex_scratch", "prep": "prep_wide",
+              "prep_inplace": "prep_wide_inplace", "broadphase_sorted": "broadphase_sorted_list",
+              "broadphase_sorted_k48": "broadphase_sorted_list_k48"}
     for name, res in limits["kernels"].items():
         _, _, src, rep, _ = GENERAL[PAST_CASES.get(name, name)]
         kernels.append({"name": labels.get(name, f"{name}_general"), "route": "cuda",

@@ -31,6 +31,10 @@
 //     maxima: the plain version's stable descending sort. It writes pidx,
 //     each slot's candidate index and real flag, and the lane's 2W-bit
 //     selection mask (ballots);
+//     past its sizes (K > 16 or W > 128) bp_sorted_list_select_kernel: a
+//     warp a sorted lane too, each lane's candidates scored once and kept
+//     in order (registers up to W = 128, a list a lane in shared memory or
+//     a device scratch beyond), so a round costs the winning lane one step;
 //  5. bp_sorted_sweep_mutual_kernel: one thread a (lane, slot): live when
 //     real and the partner lane's mask holds -d.
 // The plain mirror of 1-3 is `broadphase_cuda.sorted_glue`, of 4 and 5
@@ -49,8 +53,8 @@
 // launch, since blocks run in no order. The selection issues instructions
 // faster than its loads arrive, so its code is sized to the window: a
 // template on the candidates a thread (2 for the paths' W <= 32, 8 up to
-// W <= 128; the general variant beyond), each read straight from the table (staging the
-// CTA's rows in shared memory measured no faster). Measured by tools/time_b10_b12.py on an NVIDIA H100 80GB
+// W <= 128), each read straight from the table (staging the CTA's rows in
+// shared memory measured no faster). Measured by tools/time_b10_b12.py on an NVIDIA H100 80GB
 // HBM3 at 700 W, the first design in the same call: at the 10k lattice the
 // sweep 0.0100 ms (the selection 0.0083) against 0.134, the glue 0.051
 // (codes 0.0055, table 0.0019, the rest the sort) against 0.146, 18 device
@@ -270,64 +274,130 @@ bp_sorted_sweep_select_kernel(const float4* __restrict__ table, int Np, int K, i
   }
 }
 
-// 5. The mutual mask: one thread a (sorted lane, slot).
-// The general variant's selection, for K > MAXK or W > MAXW: one thread a
-// sorted lane, each of the K rounds a walk over the 2W candidates in delta
-// order that takes the largest key not yet selected, the lowest candidate
-// index on ties (the warp rounds' order); the selection mask is the
-// lane's words of `masks`, and the picks are 32-bit (candidate | 1 << 31
-// when real).
-__global__ void __launch_bounds__(256)
-bp_sorted_general_select_kernel(const float4* __restrict__ table, int Np, int K, int W,
-                                int* __restrict__ pidx, unsigned* __restrict__ picks,
-                                unsigned* __restrict__ masks) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= Np) return;
+// Candidate cc's key for sorted lane r: the warp selection's test and score.
+__device__ __forceinline__ unsigned window_key(const float4* __restrict__ table, int Np, int W,
+                                               int r, int cc, float4 m0, float4 m1, float4 m2,
+                                               bool mval) {
+  const int rk = r + delta_of(cc, W);
+  const int rc = min(max(rk, 0), Np - 1);
+  const float4 o0 = table[(size_t)rc * ROW4];
+  const float4 o1 = table[(size_t)rc * ROW4 + 1];
+  const float4 o2 = table[(size_t)rc * ROW4 + 2];
+  float score = -BIG;
+  const bool ok = rk >= 0 && rk < Np && mval && o1.w > 0.5f && o0.w != m0.w &&
+                  m1.x <= o2.x && o1.x <= m2.x && m1.y <= o2.y && o1.y <= m2.y &&
+                  m1.z <= o2.z && o1.z <= m2.z;
+  if (ok) {
+    const float dx = m0.x - o0.x, dy = m0.y - o0.y, dz = m0.z - o0.z;
+    float d2 = dx * dx;
+    d2 = d2 + dy * dy;
+    d2 = d2 + dz * dz;
+    score = -d2;
+  }
+  return order_key(score);
+}
+
+// A lane's list entry: its key above, the complement of the lane's
+// candidate number j below, so a larger entry is a larger key or, on a tie,
+// the lower candidate (the plain version's stable descending order). 0 is
+// below every entry: no candidate.
+__device__ __forceinline__ unsigned long long list_entry(unsigned key, int j) {
+  return ((unsigned long long)key << 32) | (unsigned)~j;
+}
+
+// 4'. The list selection, past the warp selection's limits (K > MAXK or
+// W > MAXW): one warp a sorted lane; lane t scores its candidates t, t + 32,
+// ... once and orders them by entry, descending: NC > 0 all NC in registers
+// (NC * 32 >= 2W); NC == 0 its best L = min(K, ceil(2W / 32)) by insertion
+// into a column of the warp's region (wb 8-byte words: 32 x L entries, then
+// the selection words), in shared memory or, where `gbuf` is given, in that
+// device scratch. Each of the K rounds is a warp max of the lane heads' keys
+// and a warp min of the candidate index among the maxima; the winning lane
+// writes the slot's pick and its mask bit and moves to its next entry: no
+// lane rescans. Then the lanes read the picks back for pidx (the ids from
+// the table) and write the lane's mask words.
+template <int NC, typename PT>
+__global__ void __launch_bounds__(WARPS * 32)
+bp_sorted_list_select_kernel(const float4* __restrict__ table, int Np, int K, int W, int L,
+                             int wb, int* __restrict__ pidx, PT* __restrict__ picks,
+                             unsigned* __restrict__ masks, unsigned long long* __restrict__ gbuf) {
+  extern __shared__ unsigned long long list_smem[];
+  constexpr PT REAL = (PT)1 << (8 * sizeof(PT) - 1);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int r = blockIdx.x * (blockDim.x >> 5) + wid;
+  if (r >= Np) return;                              // whole warps
+  unsigned long long* const reg = gbuf ? gbuf + (size_t)r * wb : list_smem + (size_t)wid * wb;
+  const int nc = 2 * W, nw = (nc + 31) >> 5;
+  unsigned* const sel = reinterpret_cast<unsigned*>(NC > 0 ? reg : reg + 32 * L);
+  for (int j = lane; j < nw; j += 32) sel[j] = 0u;
   const float4 m0 = table[(size_t)r * ROW4];
   const float4 m1 = table[(size_t)r * ROW4 + 1];
   const float4 m2 = table[(size_t)r * ROW4 + 2];
   const bool mval = m1.w > 0.5f;
-  const int nc = 2 * W, nw = (nc + 31) >> 5;
-  unsigned* sel = masks + (size_t)r * nw;
-  for (int j = 0; j < nw; ++j) sel[j] = 0u;
-  const int o = __float_as_int(m2.w);
+  unsigned long long head, e[NC > 0 ? NC : 1];
+  int cnt = 0, h = 0;                               // NC == 0: entries listed, taken
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int cc = lane + 32 * j;
+      e[j] = cc < nc ? list_entry(window_key(table, Np, W, r, cc, m0, m1, m2, mval), j) : 0ull;
+    }
+#pragma unroll
+    for (int p = 0; p < NC; ++p)                    // odd-even transposition, descending
+#pragma unroll
+      for (int j = p & 1; j + 1 < NC; j += 2)
+        if (e[j] < e[j + 1]) {
+          const unsigned long long t = e[j];
+          e[j] = e[j + 1];
+          e[j + 1] = t;
+        }
+    head = e[0];
+  } else {
+    unsigned long long* const col = reg + lane;     // entry i at col[32 * i]
+    for (int j = 0; lane + 32 * j < nc; ++j) {
+      const unsigned long long v =
+          list_entry(window_key(table, Np, W, r, lane + 32 * j, m0, m1, m2, mval), j);
+      if (cnt == L && v < col[32 * (L - 1)]) continue;
+      int i = cnt < L ? cnt++ : L - 1;
+      for (; i > 0 && col[32 * (i - 1)] < v; --i) col[32 * i] = col[32 * (i - 1)];
+      col[32 * i] = v;
+    }
+    head = cnt > 0 ? col[0] : 0ull;
+  }
+  __syncwarp();
   for (int k = 0; k < K; ++k) {
-    unsigned bk = 0u;
-    int bc = 0, bid = 0;
-    for (int c = 0; c < nc; ++c) {
-      if ((sel[c >> 5] >> (c & 31)) & 1u) continue;
-      const int rk = r + delta_of(c, W);
-      const int rc = min(max(rk, 0), Np - 1);
-      const float4 o0 = table[(size_t)rc * ROW4];
-      const float4 o1 = table[(size_t)rc * ROW4 + 1];
-      const float4 o2 = table[(size_t)rc * ROW4 + 2];
-      float score = -BIG;
-      const bool ok = rk >= 0 && rk < Np && mval && o1.w > 0.5f && o0.w != m0.w &&
-                      m1.x <= o2.x && o1.x <= m2.x && m1.y <= o2.y && o1.y <= m2.y &&
-                      m1.z <= o2.z && o1.z <= m2.z;
-      if (ok) {
-        const float dx = m0.x - o0.x, dy = m0.y - o0.y, dz = m0.z - o0.z;
-        float d2 = dx * dx;
-        d2 = d2 + dy * dy;
-        d2 = d2 + dz * dz;
-        score = -d2;
-      }
-      const unsigned key = order_key(score);
-      if (key > bk) {
-        bk = key;
-        bc = c;
-        bid = __float_as_int(o2.w);
+    const unsigned hk = (unsigned)(head >> 32);
+    const unsigned best = __reduce_max_sync(FULL, hk);
+    const unsigned cand = (unsigned)lane + 32u * ~(unsigned)head;
+    const unsigned cmin = __reduce_min_sync(FULL, hk == best ? cand : ~0u);
+    if (lane == (int)(cmin & 31u)) {
+      picks[(size_t)r * K + k] = (PT)((PT)cmin | (key_float(best) > -BIG * 0.5f ? REAL : (PT)0));
+      atomicOr(&sel[cmin >> 5], 1u << lane);
+      if constexpr (NC > 0) {
+#pragma unroll
+        for (int j = 0; j + 1 < NC; ++j) e[j] = e[j + 1];
+        e[NC - 1] = 0ull;
+        head = e[0];
+      } else {
+        ++h;
+        head = h < cnt ? reg[lane + 32 * h] : 0ull;
       }
     }
-    sel[bc >> 5] |= 1u << (bc & 31);
-    const bool real = key_float(bk) > -BIG * 0.5f;
-    pidx[(size_t)o * K + k] = bid;
-    picks[(size_t)r * K + k] = (unsigned)bc | (real ? 0x80000000u : 0u);
   }
+  __syncwarp();
+  const int o = __float_as_int(m2.w);
+  for (int k = lane; k < K; k += 32) {
+    const PT p = picks[(size_t)r * K + k];
+    const int rk = r + delta_of((int)(p & (PT)(REAL - 1)), W);
+    const int rc = min(max(rk, 0), Np - 1);
+    pidx[(size_t)o * K + k] = __float_as_int(table[(size_t)rc * ROW4 + 2].w);
+  }
+  for (int j = lane; j < nw; j += 32) masks[(size_t)r * nw + j] = sel[j];
 }
 
-// PT: the picks' type (16 bits with the warp selection, 32 with the
-// general one), its top bit the real flag.
+// 5. The mutual mask: one thread a (sorted lane, slot).
+// PT: the picks' type (16 bits while 2W <= 32,767, else 32), its top bit
+// the real flag.
 template <typename PT>
 __global__ void __launch_bounds__(256)
 bp_sorted_sweep_mutual_kernel(const float* __restrict__ table, const PT* __restrict__ picks,
@@ -385,32 +455,96 @@ extern "C" int surtr_broadphase_sorted_pack(const float* c, int cs, const float*
   return (int)cudaGetLastError();
 }
 
-// picks: Np * K u16 scratch; masks: Np * ceil(2W / 32) u32 scratch.
-// picks: (Np, K) 16-bit for the warp selection (K <= MAXK, W <= MAXW),
-// 32-bit for the general one; masks (Np, ceil(2W / 32)) words.
-extern "C" int surtr_broadphase_sorted(const float* table, int Np, int K, int W, int* pidx,
-                                       unsigned char* pok, void* picks, unsigned* masks,
-                                       void* stream) {
-  if (K < 1 || K > 2 * W || Np < 1) return (int)cudaErrorInvalidValue;
+namespace {
+
+// 8-byte words of a warp's region in the list selection: with its list in
+// memory (W > MAXW) 32 x min(K, ceil(2W / 32)) entries, then the lane's
+// ceil(2W / 32) selection words (broadphase_cuda.list_bytes mirrors it).
+inline long long list_words(int K, int W, bool listed) {
+  const int nw = (2 * W + 31) >> 5;
+  return (listed ? 32LL * (K < nw ? K : nw) : 0LL) + (nw + 1) / 2;
+}
+
+constexpr int MAX_DEVICES = 64;
+constexpr int MAX_SMEM = 232448;    // opt-in dynamic shared memory a block, H100
+int list_smem_set[2][MAX_DEVICES] = {};   // <0, u16>, <0, u32>
+
+template <int NC, typename PT>
+cudaError_t launch_list(const float4* t4, int Np, int K, int W, int* pidx, void* picks,
+                        unsigned* masks, unsigned long long* gbuf, cudaStream_t st) {
+  const bool listed = NC == 0;
+  const long long wb = list_words(K, W, listed);
+  const int L = listed ? (int)min((long long)K, (long long)((2 * W + 31) >> 5)) : 0;
+  int wpc = WARPS;
+  size_t smem = 0;
+  if (gbuf == nullptr) {
+    const long long fit = MAX_SMEM / (wb * 8);
+    if (fit < 1) return cudaErrorInvalidValue;
+    wpc = (int)(fit < WARPS ? fit : WARPS);
+    smem = (size_t)(wpc * wb * 8);
+  }
+  if (listed && smem > 48 * 1024) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    int& set = list_smem_set[sizeof(PT) == 4][dev];
+    if ((int)smem > set) {
+      const cudaError_t e = cudaFuncSetAttribute(bp_sorted_list_select_kernel<NC, PT>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+      if (e != cudaSuccess) return e;
+      set = (int)smem;
+    }
+  }
+  bp_sorted_list_select_kernel<NC, PT><<<(Np + wpc - 1) / wpc, 32 * wpc, smem, st>>>(
+      t4, Np, K, W, L, (int)wb, pidx, static_cast<PT*>(picks), masks, gbuf);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" long long surtr_broadphase_sorted_list_bytes(int K, int W) {
+  return list_words(K, W, true) * 8;
+}
+
+// variant: 0 the warp selection (K <= MAXK, W <= MAXW), 1 the list
+// selection (registers up to W = MAXW, shared memory past it), 2 the list
+// selection with its lists in `gbuf` (Np * list_bytes(K, W) bytes; W >
+// MAXW). picks: (Np, K), 16-bit while 2W <= 32,767, else 32-bit; masks:
+// (Np, ceil(2W / 32)) words.
+extern "C" int surtr_broadphase_sorted(const float* table, int Np, int K, int W, int variant,
+                                       int* pidx, unsigned char* pok, void* picks,
+                                       unsigned* masks, void* gbuf, void* stream) {
+  if (K < 1 || K > 2 * W || Np < 1 || variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
+  if (variant == 0 && (K > MAXK || W > MAXW)) return (int)cudaErrorInvalidValue;
+  if ((variant == 2) != (gbuf != nullptr) || (variant == 2 && W <= MAXW))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float4* t4 = reinterpret_cast<const float4*>(table);
-  const bool general = K > MAXK || W > MAXW;
-  if (general) {
-    bp_sorted_general_select_kernel<<<(Np + 255) / 256, 256, 0, st>>>(
-        t4, Np, K, W, pidx, static_cast<unsigned*>(picks), masks);
-  } else {
+  const bool wide = 2 * W > 32767;                  // 32-bit picks
+  unsigned long long* g = static_cast<unsigned long long*>(gbuf);
+  cudaError_t e = cudaSuccess;
+  if (variant == 0) {
     const dim3 grid((Np + WARPS - 1) / WARPS), block(WARPS * 32);
     unsigned short* p16 = static_cast<unsigned short*>(picks);
     if (W <= 32)
       bp_sorted_sweep_select_kernel<2><<<grid, block, 0, st>>>(t4, Np, K, W, pidx, p16, masks);
     else
       bp_sorted_sweep_select_kernel<8><<<grid, block, 0, st>>>(t4, Np, K, W, pidx, p16, masks);
+    e = cudaGetLastError();
+  } else if (W <= 32) {
+    e = launch_list<2, unsigned short>(t4, Np, K, W, pidx, picks, masks, nullptr, st);
+  } else if (W <= MAXW) {
+    e = launch_list<8, unsigned short>(t4, Np, K, W, pidx, picks, masks, nullptr, st);
+  } else if (wide) {
+    e = launch_list<0, unsigned>(t4, Np, K, W, pidx, picks, masks, g, st);
+  } else {
+    e = launch_list<0, unsigned short>(t4, Np, K, W, pidx, picks, masks, g, st);
   }
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long n = (long long)Np * K;
   const unsigned blocks = (unsigned)((n + 255) / 256);
-  if (general)
+  if (wide)
     bp_sorted_sweep_mutual_kernel<unsigned><<<blocks, 256, 0, st>>>(
         table, static_cast<const unsigned*>(picks), masks, Np, K, W, pok);
   else

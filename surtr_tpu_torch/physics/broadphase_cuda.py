@@ -45,6 +45,7 @@ MAX_EXACT_NP = 65536
 MAX_K = 16          # the fast variants keep their K best in registers
 LONG_K = 64         # B6: K its long variant keeps in registers (lists of 32 or 64 keys)
 MAX_W = 128         # B12: windows its warp variant holds (8 candidates a lane)
+MAX_SMEM = 232448   # B12: shared memory a block may opt in to (H100)
 CHUNK = 128         # B6: rows per sweep chunk (the JAX kernel's block; CHUNK in the kernel)
 TILE = 32           # B6: pieces per query tile and rows per row tile (a warp)
 ROW = 12            # B6: floats per row of the sorted table
@@ -55,7 +56,7 @@ exact_launches = 0   # kernel launches since the last reset (main-path proof), e
 sorted_launches = 0
 exact_long_launches = 0       # of which B6's long variant's
 exact_general_launches = 0    # of which B6's general variant's
-sorted_general_launches = 0   # of which B12's general variant's
+sorted_list_launches = 0      # of which B12's list variant's, either placement
 
 
 EXACT_VARIANTS = ("tiled", "long", "general")   # the C entry's variant codes 0, 1, 2
@@ -73,13 +74,28 @@ def _exact_variant(K: int) -> str:
     return "tiled" if K <= MAX_K else ("long" if K <= LONG_K else "general")
 
 
+SORTED_VARIANTS = ("warp", "list", "list_scratch")   # the C entry's variant codes 0, 1, 2
+
+
+def list_bytes(K: int, window: int) -> int:
+    """B12's list variant with its lists in memory (W > 128): bytes of a
+    warp's region, its lanes' lists of min(K, ceil(2W / 32)) 8-byte entries
+    and then ceil(2W / 32) 4-byte selection words, rounded up to 8 bytes."""
+    nw = -(-2 * window // 32)
+    return 8 * (32 * min(K, nw) + (nw + 1) // 2)
+
+
 def _sorted_variant(K: int, window: int) -> str:
     """B12: "warp" (a warp a sorted lane, K rounds of warp maxima over its
-    2W candidates in registers: today's sweep) for K <= 16 and W <= 128,
-    else "general" (a thread a lane, each round a walk over the candidates,
-    32-bit picks). K > 2·window stays refused: the JAX dispatch sends it to
-    the XLA route."""
-    return "warp" if K <= MAX_K and window <= MAX_W else "general"
+    2W candidates in registers: today's sweep) for K <= 16 and W <= 128;
+    past either, "list" (a warp a lane too, each lane's candidates scored
+    once and kept in order: in registers up to W = 128, past it a list a
+    lane in shared memory) or, where a warp's lists pass a block's shared
+    memory, "list_scratch" (the lists in a device scratch). K > 2·window
+    stays refused: the JAX dispatch sends it to the XLA route."""
+    if K <= MAX_K and window <= MAX_W:
+        return "warp"
+    return "list" if list_bytes(K, window) <= MAX_SMEM else "list_scratch"
 
 
 def id_bits(Np: int) -> int:
@@ -374,14 +390,14 @@ def _sorted_fns():
     P, I = ctypes.c_void_p, ctypes.c_int
     return (_build.bind("surtr_broadphase_sorted_key", [P, I, P, I, P, P, P]),
             _build.bind("surtr_broadphase_sorted_pack", [P, I, P, I, P, I, P, I, P, P, I, P, P]),
-            _build.bind("surtr_broadphase_sorted", [P, I, I, I, P, P, P, P, P]))
+            _build.bind("surtr_broadphase_sorted", [P, I, I, I, I, P, P, P, P, P, P]))
 
 
 def _sorted_launch(centers, lo, hi, owner, valid, K, window):
     """B12 on the card: (pidx, pok, glue), glue = (codes, order, table) as
     ``sorted_glue`` gives them. Four launches and one ``torch.sort``; no
     other PyTorch op on the device, no host sync."""
-    global sorted_launches, sorted_general_launches
+    global sorted_launches, sorted_list_launches
     Np = centers.shape[0]
     dev = centers.device
     _check_inputs("broadphase_sorted kernel", centers, lo, hi, owner, valid, K)
@@ -401,9 +417,12 @@ def _sorted_launch(centers, lo, hi, owner, valid, K, window):
     own, val = owner.contiguous(), valid.contiguous()
     NW = (2 * window + 31) // 32
     table = torch.empty((Np, SROW), dtype=torch.float32, device=dev)
-    general = _sorted_variant(K, window) == "general"
-    picks = torch.empty((Np * K,), dtype=torch.int32 if general else torch.int16, device=dev)
+    variant = _sorted_variant(K, window)
+    wide = 2 * window > 32767       # 32-bit picks
+    picks = torch.empty((Np * K,), dtype=torch.int32 if wide else torch.int16, device=dev)
     masks = torch.empty((Np * NW,), dtype=torch.int32, device=dev)
+    gbuf = (torch.empty((Np * list_bytes(K, window),), dtype=torch.uint8, device=dev)
+            if variant == "list_scratch" else None)
     parts = torch.empty((6 * KEY_PARTS,), dtype=torch.float32, device=dev)
     stream = _build.stream_ptr(dev)
     key_fn, pack_fn, sweep_fn = _sorted_fns()
@@ -414,10 +433,12 @@ def _sorted_launch(centers, lo, hi, owner, valid, K, window):
                          hi.stride(0), own.data_ptr(), int(own.dtype == torch.int64),
                          val.data_ptr(), order.data_ptr(), Np, table.data_ptr(), stream),
                  "surtr_broadphase_sorted_pack")
-    _build.check(sweep_fn(table.data_ptr(), Np, K, window, pidx.data_ptr(), pok.data_ptr(),
-                          picks.data_ptr(), masks.data_ptr(), stream), "surtr_broadphase_sorted")
+    _build.check(sweep_fn(table.data_ptr(), Np, K, window, SORTED_VARIANTS.index(variant),
+                          pidx.data_ptr(), pok.data_ptr(), picks.data_ptr(), masks.data_ptr(),
+                          None if gbuf is None else gbuf.data_ptr(), stream),
+                 "surtr_broadphase_sorted")
     sorted_launches += 1
-    sorted_general_launches += general
+    sorted_list_launches += variant != "warp"
     return pidx, pok, (codes, order, table)
 
 

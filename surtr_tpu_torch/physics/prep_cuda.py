@@ -41,11 +41,13 @@ import torch
 from surtr_tpu_torch import _build
 from surtr_tpu_torch.physics.slots import expand_slots, slot_rows, slot_sum, tangent_basis
 
-launches = 0          # kernel launches since the last reset (main-path proof), both variants
-general_launches = 0  # of which the global variant's (one a chunk of rows)
+launches = 0          # kernel launches since the last reset (main-path proof), every variant
+general_launches = 0  # of which the wide variant's, either kind (one a call)
 
 STAGE_BYTES = 48 * 1024    # shared memory the shared variant takes a block at most
-SCRATCH_BYTES = 64 << 20   # the global variant's staging at most (one row at least)
+MAX_SMEM = 232448          # shared memory a block may opt in to (H100)
+WIDE_ROOM = MAX_SMEM // 3  # the wide variant's shared memory at most: 3+ CTAs an SM
+VARIANTS = ("shared", "wide", "wide_inplace")   # the C entry's variant codes 0, 1, 2
 
 
 def row_bytes(K: int, M: int, G: int) -> int:
@@ -54,11 +56,32 @@ def row_bytes(K: int, M: int, G: int) -> int:
     return 4 * (K * (5 + 6 * M) + K * 21 + 19 + 5 * G + K * M + G)
 
 
+def wide_partners(K: int, M: int, stage: bool) -> int:
+    """Partners a pass of the wide variant takes: as many as ``WIDE_ROOM``
+    holds at 21 floats each and, with ``stage``, their 5 + 6M record floats
+    (4 floats of room to align the records' copy), at most K; 0 when one
+    does not fit."""
+    per = (5 + 6 * M if stage else 0) + 21
+    return min(K, (WIDE_ROOM // 4 - (4 if stage else 0)) // per)
+
+
+def wide_bytes(K: int, M: int, stage: bool) -> int:
+    """Shared bytes of the wide variant's CTA."""
+    per = (5 + 6 * M if stage else 0) + 21
+    return 4 * (wide_partners(K, M, stage) * per + (4 if stage else 0))
+
+
 def _variant(K: int, M: int, G: int) -> str:
     """"shared" (rows staged in shared memory, ~256 / C rows a block) where
-    one row fits 48 KB, else "global" (a block a row, staged in a device
-    scratch): every shape the plain version takes has a variant."""
-    return "shared" if row_bytes(K, M, G) <= STAGE_BYTES else "global"
+    one row fits 48 KB; past it "wide" (a CTA a row, its partners' fields
+    and records staged a pass of ``wide_partners`` at a time in opt-in
+    shared memory, the ground slots read in place, the hit count a block
+    vote) where one partner's record fits ``WIDE_ROOM``, else
+    "wide_inplace" (the same with the records read in place): every shape
+    the plain version takes has a variant."""
+    if row_bytes(K, M, G) <= STAGE_BYTES:
+        return "shared"
+    return "wide" if wide_partners(K, M, True) >= 1 else "wide_inplace"
 
 
 def prep_contacts_reference(pt3, dh, pn3, btf, own, *, K: int, M: int, G: int, dt: float,
@@ -185,26 +208,18 @@ def _kernel(raw, pidx, g_pts, gd, g_hit, x, v0, w0, inv_m, inv_I, asleep_in, K, 
     outs = [e(3 * C), e(3 * C), e(3 * C), e(2 * C), e(2 * C), e(2), e(9), e(C)]
     if Np == 0:
         return tuple(outs)
-    general = _variant(K, M, G) == "global"
-    scratch, chunk = None, 0
-    if general:   # the staging of `chunk` rows at a time, a block a row
-        per = row_bytes(K, M, G)
-        chunk = max(1, min(Np, SCRATCH_BYTES // per))
-        scratch = torch.empty((chunk * per // 4,), dtype=torch.float32, device=dev)
+    variant = _variant(K, M, G)
     fn = _build.bind("surtr_prep", [ctypes.c_void_p] * 4 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-                     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    n = ctypes.c_int(0)
+                     + [ctypes.c_int, ctypes.c_void_p])
     rc = fn(f[0].data_ptr(), pi.data_ptr(), f[1].data_ptr(), gd.data_ptr(),
             gd.stride(0) if G else 0, flags[0].data_ptr(), *[t.data_ptr() for t in f[2:]],
             flags[1].data_ptr(), *[t.data_ptr() for t in outs], Np, K, M, G, float(slop),
             float(baumgarte / dt), float(-restitution), float(bounce_thr),
-            None if scratch is None else scratch.data_ptr(), chunk, ctypes.byref(n),
-            _build.stream_ptr(dev))
+            VARIANTS.index(variant), _build.stream_ptr(dev))
     _build.check(rc, "surtr_prep")
-    launches += n.value
-    if general:
-        general_launches += n.value
+    launches += 1
+    general_launches += variant != "shared"
     return tuple(outs)
 
 

@@ -2,11 +2,15 @@
 and ``broadphase_sorted`` on CPU tensors, the CPU sides of
 ``csrc/broadphase_exact.cu`` and ``csrc/broadphase_sorted.cu``) against the
 JAX package's ``broadphase_exact_pallas`` and ``broadphase_sorted_pallas``
-in interpret mode (B12 at K, W = 4, 8; 8, 32 and the K = 2W of 16, 8), B6's
+in interpret mode (B12 at K, W = 4, 8; 8, 32 and the K = 2W of 16, 8; on
+the tie-heavy lattice past the warp selection's limits, 32, 32 and 48, 32,
+against the Pallas kernel's XLA original), B6's
 glue (its chunk ranges) against the ranges the JAX wrapper hands its
 kernel, B12's glue mirror (``sorted_glue``: codes, order, sorted table)
 against the JAX wrapper's sorted pack and order, B12's selection and mutual
-mirrors against ``morton_window_sweep`` and the plain version, the Morton
+mirrors against ``morton_window_sweep`` and the plain version, the list
+selection's round order (per-lane sorted lists, head-of-list warp maxima,
+lowest candidate on ties) against the selection mirror, the Morton
 codes, and the broadphase dispatch of ``physics_step``.
 
 Tolerances: none. B6's keys are integers (quantized d² and the piece id)
@@ -20,6 +24,7 @@ there).
 import dataclasses
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +32,7 @@ import torch
 
 from surtr_tpu.physics import broadphase_pallas as jbp
 from surtr_tpu.physics.step import _broadphase as j_block_sweep
+from surtr_tpu.physics.step import _broadphase_sorted as j_window_sweep
 from surtr_tpu.physics.step import _morton as j_morton
 from surtr_tpu_torch import workload
 from surtr_tpu_torch.physics import broadphase_cuda as bp
@@ -290,17 +296,40 @@ def _sorted_case(kind):
 
 SORTED_KINDS = ["random", "lattice_ties", "invalid_shared_owner"]
 # (K, W): the first cases' 4 and 8, the physics configuration's 8 and 32, and
-# K = 2W.
+# K = 2W; on the tie-heavy lattice, shapes of the list selection: K past 16,
+# W past 128, K past one slot a lane. The JAX side runs at the first and
+# last of these only: its XLA original takes 5 s at W = 256, past this
+# file's budget, so there the plain version and its mirrors stand alone.
+LIST_SHAPES = ((32, 32), (48, 32))
 SORTED_PARAMS = ([pytest.param(kind, 4, 8, id=kind) for kind in SORTED_KINDS]
                  + [pytest.param(kind, K, W, id=f"{kind}-K{K}-W{W}")
-                    for K, W in ((8, 32), (16, 8)) for kind in SORTED_KINDS])
+                    for K, W in ((8, 32), (16, 8)) for kind in SORTED_KINDS]
+                 + [pytest.param("lattice_ties", K, W, id=f"lattice_ties-K{K}-W{W}")
+                    for K, W in LIST_SHAPES])
+MIRROR_PARAMS = SORTED_PARAMS + [pytest.param("lattice_ties", 8, 256, id="lattice_ties-K8-W256")]
+
+
+def _jax_sorted(args, K, W):
+    """The JAX package's B12 result: ``broadphase_sorted_pallas`` in
+    interpret mode; at the list selection's shapes its XLA original
+    (``_broadphase_sorted`` and the mutual mask, jitted), which
+    tests/test_broadphase_pallas.py holds the Pallas kernel to: interpret
+    mode takes 9 s at K = 32, W = 32."""
+    a = [jnp.asarray(x) for x in args]
+    if (K, W) not in LIST_SHAPES:
+        return jbp.broadphase_sorted_pallas(*a, K, W, interpret=True)
+
+    def xla(centers, lo, hi, owner, valid):
+        pidx, pok, *_ = j_window_sweep(centers, lo, hi, owner, valid, K, W)
+        me = jnp.arange(centers.shape[0], dtype=jnp.int32)[:, None, None]
+        return pidx, pok & jnp.any(pidx[pidx] == me, axis=-1)
+    return jax.jit(xla)(*a)
 
 
 @pytest.mark.parametrize("kind,K,W", SORTED_PARAMS)
 def test_sorted_matches_pallas_live_slots(kind, K, W):
     args = _sorted_case(kind)
-    jp, jok = jbp.broadphase_sorted_pallas(*(jnp.asarray(a) for a in args), K, W, interpret=True)
-    jp, jok = np.asarray(jp), np.asarray(jok)
+    jp, jok = (np.asarray(x) for x in _jax_sorted(args, K, W))
     before = bp.sorted_launches
     tp, tok = bp.broadphase_sorted(*(torch.as_tensor(a) for a in args), K, W)
     assert bp.sorted_launches == before
@@ -352,14 +381,18 @@ def test_sorted_glue_mirror_matches_the_jax_wrapper(kind):
     np.testing.assert_array_equal(tab[:, 11].view(np.int32), origT[0, :Np])
 
 
-@pytest.mark.parametrize("kind,K,W", SORTED_PARAMS)
+@pytest.mark.parametrize("kind,K,W", MIRROR_PARAMS)
 def test_selection_mirror_reproduces_the_window_sweep(kind, K, W):
     # B12's selection and mutual mirrors on the mirror's table give
     # morton_window_sweep's picks (every slot, filler included) and the
-    # plain version's mutual mask; each lane's mask holds its K picks.
+    # plain version's mutual mask; each lane's mask holds its K picks; the
+    # list selection's rounds give the same picks in the same order.
     t = [torch.as_tensor(a) for a in _sorted_case(kind)]
     _, _, table = bp.sorted_glue(*t)
     picks, real, sel = bp.window_selection(table, K, W)
+    lp, lreal = _list_rounds(table, K, W)
+    np.testing.assert_array_equal(lp, picks.numpy())
+    np.testing.assert_array_equal(lreal, real.numpy())
     assert torch.equal(sel.sum(1), torch.full((table.shape[0],), K))
     assert torch.equal(torch.gather(sel, 1, picks), torch.ones_like(real))
     pidx, pok = bp.window_mutual(table, picks, real, sel, W)
@@ -368,6 +401,45 @@ def test_selection_mirror_reproduces_the_window_sweep(kind, K, W):
     assert torch.equal(pidx, sp) and torch.equal(pidx, rp)
     assert torch.equal(pok, rok) and bool((sok | ~pok).all())
     assert bool(pok.any())
+
+
+def _list_rounds(table, K, W):
+    """The list selection's rounds in numpy: warp lane t of a sorted lane
+    holds the candidates t, t + 32, ... scored as ``window_selection``
+    scores them, ordered by (score descending, candidate ascending) and cut
+    to min(K, ceil(2W / 32)) entries; each round takes the largest head
+    score, the lowest candidate among the lanes holding it, and advances
+    that lane's head. Returns the picks (Np, K) and their real flags."""
+    Np = table.shape[0]
+    per = -(-2 * W // 32)
+    rank = np.arange(Np)[:, None] + np.asarray(bp.window_deltas(W))[None]
+    tab = table.numpy()
+    cand, me = tab[np.clip(rank, 0, Np - 1)], tab[:, None]
+    ok = (np.all((me[..., 4:7] <= cand[..., 8:11]) & (cand[..., 4:7] <= me[..., 8:11]), -1)
+          & (rank >= 0) & (rank < Np) & (cand[..., 7] > 0.5) & (me[..., 7] > 0.5)
+          & (cand[..., 3] != me[..., 3]))
+    d = me[..., 0:3] - cand[..., 0:3]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    score = np.full((Np, 32 * per), -np.inf, np.float32)     # past 2W: no candidate
+    score[:, :2 * W] = np.where(ok, -d2, np.float32(-bp.BIG))
+    lanes = score.reshape(Np, per, 32).transpose(0, 2, 1)     # [lane r, warp lane t, j]
+    order = np.argsort(-lanes, axis=2, kind="stable")[..., :min(K, per)]
+    lists = np.take_along_axis(lanes, order, 2)
+    heads = np.zeros((Np, 32), np.int64)
+    picks = np.empty((Np, K), np.int64)
+    rows = np.arange(Np)
+    for k in range(K):
+        live = heads < lists.shape[2]
+        hs = np.where(live, np.take_along_axis(lists, np.minimum(heads, lists.shape[2] - 1)[..., None],
+                                               2)[..., 0], -np.inf)
+        hc = np.arange(32)[None] + 32 * np.take_along_axis(
+            order, np.minimum(heads, lists.shape[2] - 1)[..., None], 2)[..., 0]
+        best = hs.max(1, keepdims=True)
+        win = np.where(hs == best, hc, np.iinfo(np.int64).max).min(1)
+        picks[:, k] = win
+        heads[rows, win % 32] += 1
+    real = np.take_along_axis(score, picks, 1) > -bp.BIG / 2
+    return picks, real
 
 
 def test_sorted_k_beyond_two_windows_raises():

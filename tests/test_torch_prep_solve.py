@@ -269,11 +269,14 @@ def _bits_equal(a, b):
         ((a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def _record_inputs(seed=47):
-    """Random inputs of ``prep_from_records``: pair records with hit and
-    missed points; a dead partner's slots (NaN depth, zero normal, no hit);
-    pidx = -1 slots; sleeping and static (inv_m = 0) bodies; rows with no
-    hit at all; ground contacts with and without hits."""
+def _record_inputs(seed=47, shape=(NP, K, M)):
+    """Random inputs of ``prep_from_records`` at (Np, K, M): pair records
+    with hit and missed points; a dead partner's slots (NaN depth, zero
+    normal, no hit); pidx = -1 slots; sleeping and static (inv_m = 0)
+    bodies; rows with no hit at all; ground contacts with and without
+    hits."""
+    NP, K, M = shape
+    R = 5 + 6 * M
     rng = np.random.default_rng(seed)
     x = rng.uniform(-2, 2, (NP, 3)).astype(np.float32)
     raw = np.zeros((NP, K, R), np.float32)
@@ -403,6 +406,12 @@ def test_prep_from_records_matches_jax_step_glue_and_prep_pallas(monkeypatch):
     got = prep_cuda.prep_from_records(ins["raw"], ins["pidx"], *ground, ins["x"], v0, w0,
                                       ins["inv_m"], inv_I, asleep_in, **PREP_KW)
     assert bool(asleep_in.any()) and bool(ground[2].any())
+    _assert_tables_close(got, want)
+
+
+def _assert_tables_close(got, want):
+    """hit | static exactly, every other table at this file's tolerance,
+    NaN against NaN."""
     np.testing.assert_array_equal(got[4].numpy(), want[4])            # hit | static
     for i, name in [(0, "rA"), (1, "rB"), (2, "n"), (3, "m_eff|target"), (5, "scale"),
                     (6, "inv_I"), (7, "vn0")]:
@@ -412,3 +421,25 @@ def test_prep_from_records_matches_jax_step_glue_and_prep_pallas(monkeypatch):
         err = np.where(both_nan, 0.0, np.abs(g - w))
         np.testing.assert_array_less(err, 1e-5 * np.maximum(1.0, np.nan_to_num(np.abs(w)))
                                      + 1e-30, err_msg=name)
+
+
+def test_prep_from_records_matches_prep_pallas_past_a_shared_row():
+    """At K = 32, M = 64 on six rows (60,844 B a row: past the 48 KB of the
+    kernel's shared variant, its wide variant on the card): ``prep_from_records``
+    against ``prep_contacts_pallas`` in interpret mode on the slot tables
+    of the same records (``slot_tables``, which the test above holds to the
+    JAX step's glue; that glue at this shape costs 5 s more), at this
+    file's tolerances."""
+    shape = (6, 32, 64)
+    kw = dict(PREP_KW, K=32, M=64)
+    assert prep_cuda._variant(32, 64, G) == "wide"
+    ins = _record_inputs(49, shape)
+    got = prep_cuda.prep_from_records(*ins.values(), **kw)
+    tabs = prep_cuda.slot_tables(*ins.values(), M=64)
+    jout = prep_contacts_pallas(*[jnp.asarray(t.numpy()) for t in tabs], **kw, interpret=True)
+    C = 32 * 64 + G
+    rA, rB, n, mt, hs, scale, iAI, vn0 = (np.asarray(a) for a in jout)
+    _assert_tables_close(got, [rA[:6, : 3 * C], rB[:6, : 3 * C], n[:6, : 3 * C],
+                               mt[:6, : 2 * C], hs[:6, : 2 * C], scale[:6, :2], iAI[:6, :9],
+                               vn0[:6]])
+    assert (got[4][:, C : C + 32 * 64] == 1).any() and torch.isnan(got[3][:, C:]).any()

@@ -119,12 +119,12 @@ OLD_LIMITS = {
            * (4 * Vh + 5 * F + 26 + 4 * Ne + 9) * 4 <= 48 * 1024),
     "B6": ("general", lambda K: K <= 16),
     "B7": ("general", lambda Vh, K, F, Ne, M: Vh in (8, 16, 32, 64)),
-    "B8": ("global", lambda K, M, G: 4 * (K * (5 + 6 * M) + 21 * K + 19 + 5 * G + K * M + G)
+    "B8": ("wide", lambda K, M, G: 4 * (K * (5 + 6 * M) + 21 * K + 19 + 5 * G + K * M + G)
            <= 48 * 1024),
     "B9": ("general", lambda K, C: 1 <= K <= 16 and C <= 128),
     "B10": ("general", lambda S: S == 8),
     "B11": ("global", lambda tiles: (tiles + 1) * 4 <= 40 * 1024),
-    "B12": ("general", lambda K, W: K <= 16 and W <= 128),
+    "B12": ("list", lambda K, W: K <= 16 and W <= 128),
 }
 
 
@@ -275,6 +275,36 @@ def test_b1_and_b3_past_the_old_limits_take_the_redesigned_variants():
     for T in (2455, 4096, 10000):
         assert labels_cuda._variant(T) == "vertex_scratch", T
     assert labels_cuda.vertex_bytes(2454) <= labels_cuda.MAX_SMEM < labels_cuda.vertex_bytes(2455)
+
+
+def test_b8_and_b12_past_the_old_limits_take_the_redesigned_variants():
+    """B12 past K = 16 or W = 128 runs the list selection (a warp a sorted
+    lane, each lane's candidates in order): at phase 30's shapes, K 32 W
+    32, K 8 W 256, K 32 W 1,024 and K 48 W 32; its lists leave shared
+    memory only past 232,448 B a warp. B8 past a 48 KB row runs the wide
+    variant (a CTA a row, a third of the SM's shared memory at most): at
+    phase 30's K 32, M 64 all 32 partners in one pass, 52,496 B; its
+    records are read in place only where one partner's record passes that
+    room (M > 3,223). The main path keeps "warp" and "shared"."""
+    for K, W in ((32, 32), (8, 256), (32, 1024), (48, 32), (17, 8), (2048, 1024)):
+        assert broadphase_cuda._sorted_variant(K, W) == "list", (K, W)
+    for K, W in ((8, 32), (16, 128), (2, 1)):
+        assert broadphase_cuda._sorted_variant(K, W) == "warp", (K, W)
+    assert broadphase_cuda.list_bytes(32, 1024) == 8 * (32 * 32 + 32) == 8448
+    assert broadphase_cuda.list_bytes(8, 256) == 8 * (32 * 8 + 8)
+    assert broadphase_cuda.list_bytes(900, 15000) > broadphase_cuda.MAX_SMEM
+    assert broadphase_cuda._sorted_variant(900, 15000) == "list_scratch"
+    assert prep_cuda._variant(8, 4, 4) == prep_cuda._variant(8, 1, 4) == "shared"
+    assert prep_cuda.row_bytes(32, 64, 4) == 60844 > prep_cuda.STAGE_BYTES
+    assert prep_cuda._variant(32, 64, 4) == prep_cuda._variant(64, 32, 4) == "wide"
+    assert prep_cuda.wide_partners(32, 64, True) == 32
+    assert prep_cuda.wide_bytes(32, 64, True) == 4 * (32 * (389 + 21) + 4) == 52496
+    assert prep_cuda.wide_bytes(32, 64, False) == 4 * 32 * 21
+    assert prep_cuda.wide_partners(4, 3223, True) == 1 and prep_cuda._variant(4, 3223, 4) == "wide"
+    assert prep_cuda.wide_partners(4, 3224, True) == 0
+    assert prep_cuda._variant(4, 3224, 4) == "wide_inplace"
+    assert prep_cuda.wide_partners(5000, 1, False) < 5000          # passes of partners
+    assert prep_cuda.wide_bytes(5000, 1, False) <= prep_cuda.WIDE_ROOM
 
 
 def test_variant_byte_counts_match_the_kernels_layouts():

@@ -3,8 +3,8 @@
 and B10 (pooled soup clip) on the card, held bitwise against their plain
 versions first.
 
-    python3 tools/time_b10_b12.py [--path-only] [--events] [--out FILE.json]
-    PYTHONPATH=<other checkout> python3 tools/time_b10_b12.py [--path-only] [--events] [--out FILE.json]
+    python3 tools/time_b10_b12.py [--path-only] [--events] [--limits] [--out FILE.json]
+    PYTHONPATH=<other checkout> python3 tools/time_b10_b12.py [--path-only] [--events] [--limits] [--out FILE.json]
 
 The second form measures another checkout's ``surtr_tpu_torch`` (and uses
 its ``chip_smoke.py`` helpers), so two trees can be compared in one session
@@ -31,8 +31,15 @@ B10's time (CUDA events, median of 20) on the sphere's call. With
 plain plane step: the cube and sphere 1k decompositions and the cube32
 impact under both routes, each as ms/event (host clock, median of 10),
 device busy ms and device entries an event (torch.profiler, 3 events), and
-for the impacts the ``clip_trisoup`` stage (CUDA events). Needs one NVIDIA
-GPU.
+for the impacts the ``clip_trisoup`` stage (CUDA events). ``--limits``
+times B12 alone past its warp selection's limits instead, under the variant
+each tree takes there: on phase 30's inputs (the 1,000-cube lattice under
+chip_smoke's ``LIMIT_PHYSICS_CFG`` after its 30 steps, the last step's
+broadphase arguments) at K 32, W 32; K 8, W 256; K 32, W 1,024 and K 48, W
+32, each bit for bit first: the wrapper's ms and the device ms of the
+selection launch (``*select_kernel*``) and of the mutual launch, and on a
+tree with the list variant the same under each of its placements forced
+("list", "list_scratch"). Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ def main():
                     help="only the path's calls, not the degenerate cases")
     ap.add_argument("--events", action="store_true",
                     help="also time the decomposition and impact events")
+    ap.add_argument("--limits", action="store_true",
+                    help="time only B12 past the warp selection's limits")
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -74,6 +83,14 @@ def main():
     card = workload.card()
     print(f"package {pkg}; {card}", flush=True)
     out = {"package": pkg, "card": card, "calls": {}}
+    if args.limits:
+        out["b12_limits"] = time_b12_limits(cs, workload, broadphase_cuda, phys_step, same_bits,
+                                            device_split, card)
+        print(json.dumps(out), flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(out, fh, indent=1)
+        return
     # The sweep's device functions: this tree's two sweep launches, or the
     # first design's one kernel; the rest of a call is glue.
     sweep_name = "bp_sorted_sweep" if hasattr(broadphase_cuda, "_sorted_launch") \
@@ -192,6 +209,53 @@ def main():
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
+
+
+LIMIT_SHAPES = ((32, 32), (8, 256), (32, 1024), (48, 32))
+
+
+def time_b12_limits(cs, workload, broadphase_cuda, phys_step, same_bits, device_split, card):
+    """B12 on phase 30's inputs at ``LIMIT_SHAPES``, each tree's own variant
+    (and, where the tree has them, each list placement forced): bit for bit
+    first, then the wrapper's ms and the selection's and mutual launch's
+    device ms."""
+    cfg = cs.LIMIT_PHYSICS_CFG
+    scene = workload.to_device(workload.physics_lattice(cs.LIMIT_LATTICE, "cpu", cfg), "cuda")
+    for _ in range(cs.LIMIT_PHYSICS_STEPS - 1):
+        scene = phys_step.physics_step(scene, cfg)
+    with cs.StepRecorder() as rec:
+        phys_step.physics_step(scene, cfg)
+        torch.cuda.synchronize()
+    bp = tuple(rec.last["broadphase_exact"][0][:5])
+    own = broadphase_cuda._sorted_variant
+    forced = [v for v in getattr(broadphase_cuda, "SORTED_VARIANTS", ()) if v != "warp"]
+    rows = {}
+    for K, W in LIMIT_SHAPES:
+        variant = own(K, W)
+        for v in [variant] + [f for f in forced if f != variant]:
+            if v == "list_scratch" and W <= broadphase_cuda.MAX_W:
+                continue                      # its lists live in registers there
+            broadphase_cuda._sorted_variant = lambda *shape, _v=v: _v
+            try:
+                a = bp + (K, W)
+                got = broadphase_cuda.broadphase_sorted(*a)
+                want = broadphase_cuda.broadphase_sorted_reference(*a)
+                torch.cuda.synchronize()
+                if not same_bits(got, want):
+                    fail(f"B12 at K {K}, W {W} ({v}): differs from the plain version")
+                f = lambda a=a: broadphase_cuda.broadphase_sorted(*a)  # noqa: E731
+                ms = cs.event_ms(f)
+                sel = device_split(f, "select_kernel")[0]
+                mut = device_split(f, "sweep_mutual")[0]
+            finally:
+                broadphase_cuda._sorted_variant = own
+            name = f"K {K}, W {W}, {v}" + ("" if v == variant else " (forced)")
+            rows[name] = {"K": K, "W": W, "variant": v, "own": v == variant, "ms": ms,
+                          "select_device_ms": sel, "mutual_device_ms": mut}
+            print(f"B12 past the limits, Np {bp[0].shape[0]}, {name}: wrapper {ms:.4f} ms; "
+                  f"selection {sel:.4f} ms and mutual {mut:.4f} ms on the device (sum "
+                  f"{sel + mut:.4f}); bitwise ({card})", flush=True)
+    return rows
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 gather) and B8 (contact prep from the pair records) on the card, held
 bitwise against their plain versions first.
 
-    python3 tools/time_b5_b8.py [--out FILE.json]
-    PYTHONPATH=<other checkout> python3 tools/time_b5_b8.py [--out FILE.json]
+    python3 tools/time_b5_b8.py [--limits] [--out FILE.json]
+    PYTHONPATH=<other checkout> python3 tools/time_b5_b8.py [--limits] [--out FILE.json]
 
 The second form measures another checkout's ``surtr_tpu_torch`` (and uses
 its ``chip_smoke.py`` helpers), so two trees can be compared in one session
@@ -23,7 +23,14 @@ of one call. Then the 10k step's pack, glue and prep stages: CUDA-event ms
 the CUDA API (kernel launches, copies, synchronizes). Before timing, each
 call, plus the degenerate inputs ``chip_smoke.py`` builds where the tree
 has them, must equal the plain version bit for bit (NaN against NaN); the
-tool fails otherwise. Needs one NVIDIA GPU.
+tool fails otherwise. ``--limits`` times B8 alone past the 48 KB row
+instead, under the variant each tree takes there: the prep call of one
+step of phase 30's 1,000-cube lattice at ``max_neighbors=32,
+manifold_points=64`` (60,844 B a row), bit for bit first: the wrapper's
+ms, the device ms and launches of ``*prep_*`` kernels, and the device
+memory a call allocates beyond its outputs; on a tree with the wide
+variant the same with its records staged ("wide") and read in place
+("wide_inplace"), each forced. Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -86,6 +93,7 @@ def same_bits(got, want) -> bool:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--limits", action="store_true", help="time only B8 past a 48 KB row")
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -103,6 +111,13 @@ def main():
                else "transform_pack, prep_contacts")
     print(f"package {pkg}; {card}; entries {entries}", flush=True)
     out = {"package": pkg, "card": card, "glue_in_kernels": owned}
+    if args.limits:
+        out["b8_limits"] = time_b8_limits(cs, workload, prep_cuda, card)
+        print(json.dumps(out), flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(out, fh, indent=1)
+        return
     if owned:
         pack = (pack_cuda.transform_pack_owned, pack_cuda.transform_pack_owned_reference)
         prep = (prep_cuda.prep_from_records, prep_cuda.prep_from_records_reference)
@@ -164,6 +179,48 @@ def main():
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
+
+
+def time_b8_limits(cs, workload, prep_cuda, card):
+    """B8 at phase 30's K = 32, M = 64 step: each tree's own variant and,
+    where the tree has them, each wide kind forced; bit for bit first."""
+    import dataclasses
+
+    cfg = dataclasses.replace(workload.PHYSICS_CFG, max_neighbors=32, manifold_points=64)
+    a, kw = cs.one_step(cfg)["prep"][:2]
+    own = prep_cuda._variant
+    variant = own(kw["K"], kw["M"], kw["G"])
+    kinds = [variant] + [v for v in getattr(prep_cuda, "VARIANTS", ())
+                         if v not in ("shared", variant)]
+    rows = {}
+    for v in kinds:
+        prep_cuda._variant = lambda *shape, _v=v: _v
+        try:
+            if not same_bits(prep_cuda.prep_from_records(*a, **kw),
+                             prep_cuda.prep_from_records_reference(*a, **kw)):
+                fail(f"B8 at K 32, M 64 ({v}): differs from the plain version")
+            f = lambda: prep_cuda.prep_from_records(*a, **kw)  # noqa: E731
+            ms = cs.event_ms(f)
+            dev, other, n = device_split(f, "prep_")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outs = f()
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base - sum(
+                t.numel() * t.element_size() for t in outs)
+            del outs
+        finally:
+            prep_cuda._variant = own
+        name = f"Np {a[0].shape[0]}, K 32, M 64, {v}" + ("" if v == variant else " (forced)")
+        rows[name] = {"variant": v, "own": v == variant, "ms": ms, "kernel_device_ms": dev,
+                      "other_device_ms": other, "device_launches": n,
+                      "extra_bytes": int(extra)}
+        print(f"B8 past a 48 KB row, {name}: wrapper {ms:.4f} ms; kernel {dev:.4f} ms and the "
+              f"rest {other:.4f} ms on the device, {n:.0f} device launches a call; "
+              f"{extra / 2 ** 20:.1f} MiB allocated beyond the outputs; bitwise ({card})",
+              flush=True)
+    return rows
 
 
 # Host events of the CUDA API counted per stage, by name fragment.
