@@ -191,9 +191,12 @@ Phases (any failure exits non-zero):
      and B3's variants forced onto the degenerate cases; B5 at Vh = 768; B6, B9 and B12 at K =
      32, B9 also over more rows than its grid, B12 at W = 256 and 1,024
      and at K = 48 too (its list selection); B7 at Vh = 12 and 768 and with
-     M = 64; B8 at K = 32, M = 64 (its wide variant) and at M = 3,300 (the
+     M = 64 (its group variant; at Vh 12 also on narrowphase_edge_cases);
+     B9 by its shared variant in both modes (the accumulated one on seeded
+     totals); B8 at K = 32, M = 64 (its wide variant) and at M = 3,300 (the
      records read in place); B8's and B12's variants forced onto the
-     lattice's calls and the degenerate broadphase pools; B10
+     lattice's calls and the degenerate broadphase pools, B7's and B9's
+     last resorts ("general") onto phase 30's B7 and B9 calls; B10
      at S = 16; B11 at 32,768 tiles; the general B2 also on the sphere's
      hull and on sets of 0-4 live points at F = 132), and, since the
      redesigns of B11 past its resident kernel and of B6 past K = 16, B11
@@ -206,7 +209,8 @@ Phases (any failure exits non-zero):
      counts behind each choice of variant against the kernels' C layouts;
      then three configurations end to end: the 1,000-cube lattice under
      max_neighbors 32 and max_hull_verts 12 against the CPU plain run in
-     lockstep from one CPU-built scene (phase 9's bounds), the cube under
+     lockstep from one CPU-built scene (phase 9's bounds), each step's B7
+     and B9 call bit for bit against its plain version, the cube under
      max_piece_tris 2048 and refitting_point_limit 64 against its CPU plain
      run slot for slot, and render_scene at a shadow map of 8192² (bench_
      render's first 512 triangles, then all 4,096) against the plain
@@ -4065,11 +4069,11 @@ GENERAL = {
                          "surtr_tpu_torch/csrc/broadphase_exact.cu",
                          "surtr_tpu/physics/broadphase_pallas.py:221", "bp_exact_general"),
     "narrowphase": (narrowphase_cuda, "general_launches", "surtr_tpu_torch/csrc/narrowphase.cu",
-                    "surtr_tpu/physics/narrowphase_pallas.py:103", "narrow_general"),
+                    "surtr_tpu/physics/narrowphase_pallas.py:103", "narrow_group"),
     "prep": (prep_cuda, "general_launches", "surtr_tpu_torch/csrc/prep.cu",
              "surtr_tpu/physics/prep_pallas.py:42", "prep_wide"),
     "solver": (solver_cuda, "general_launches", "surtr_tpu_torch/csrc/solver.cu",
-               "surtr_tpu/physics/solver_pallas.py:53", "solver_general"),
+               "surtr_tpu/physics/solver_pallas.py:53", "solver_shared"),
     "soup_clip": (soup_clip_cuda, "general_launches", "surtr_tpu_torch/csrc/soup_clip.cu",
                   "surtr_tpu/ops/soup_clip_pallas.py:43", "soup_fold_general"),
     "raster": (raster_cuda, "general_launches", "surtr_tpu_torch/csrc/raster.cu",
@@ -4111,8 +4115,17 @@ PREP_INPLACE_SHAPE = (64, 2, 3300)
 LIMIT_F_GLOBAL = 2304   # B1 past the CTA variant's per-face state (F > 2,131): the global fold
 
 
+# The last resorts past the redesigned variants' shared memory, beside their
+# ``general_launches``: kernel -> (module, counter).
+FALLBACK = {"narrowphase": (narrowphase_cuda, "fallback_launches"),
+            "solver": (solver_cuda, "fallback_launches")}
+
+
 def general_counts() -> dict:
-    return {f"{name}_general": getattr(mod, attr) for name, (mod, attr, *_) in GENERAL.items()}
+    counts = {f"{name}_general": getattr(mod, attr) for name, (mod, attr, *_) in GENERAL.items()}
+    counts.update({f"{name}_fallback": getattr(mod, attr)
+                   for name, (mod, attr) in FALLBACK.items()})
+    return counts
 
 
 def _past(name: str):
@@ -4138,6 +4151,8 @@ def past_kernel(name: str) -> str:
 
 def reset_general():
     for mod, attr, *_ in GENERAL.values():
+        setattr(mod, attr, 0)
+    for mod, attr in FALLBACK.values():
         setattr(mod, attr, 0)
 
 
@@ -4174,8 +4189,10 @@ def limits_physics(card):
     """30 (e1): the lattice under max_neighbors 32 and max_hull_verts 12 on
     the card and through the plain path on the CPU, in lockstep from one
     CPU-built scene (C7), phase 9's bounds; every step B6, B7 and B9 by
-    their variants past K = 16 (B6's long lists), B5 and B8 by today's.
-    Returns the launches of the card's run and the last step's calls."""
+    their variants past K = 16 (B6's long lists; B7's and B9's group and
+    shared kernels), B5 and B8 by today's. Then every step's B7 and B9 call
+    bit for bit against its plain version on the card. Returns the launches
+    of the card's run and the last step's calls."""
     cfg = LIMIT_PHYSICS_CFG
     sc = workload.physics_lattice(LIMIT_LATTICE, "cpu", cfg)
     sg = workload.to_device(sc, "cuda")
@@ -4183,6 +4200,7 @@ def limits_physics(card):
     want = {"pack": 1, "broadphase_exact": 1, "broadphase_exact_long": 1, "narrowphase": 1,
             "narrowphase_general": 1, "prep": 1, "solver": 1, "solver_general": 1}
     hits = (0, 0)
+    step_calls = []
     with StepRecorder() as rec:
         for i in range(LIMIT_PHYSICS_STEPS):
             before = all_counts()
@@ -4197,6 +4215,7 @@ def limits_physics(card):
             sc = phys_step.physics_step(sc, cfg)
             if last:
                 hits = hit_counts(last["prep"])
+                step_calls.append((last["narrowphase"][:2], last["solver"][:2]))
     counts = all_counts()
     dx = float((sg.bodies.x.cpu() - sc.bodies.x).abs().max())
     dv = float((sg.bodies.v.cpu() - sc.bodies.v).abs().max())
@@ -4208,7 +4227,14 @@ def limits_physics(card):
         fail("phase 30 lattice: cuda and cpu runs differ beyond x 2e-4 or v 2e-3")
     if counts["broadphase_exact_long"] < 1:
         fail("phase 30 lattice: no step ran")
-    return counts, last, {"dx": dx, "dv": dv, "hits": list(hits)}
+    for nar, sol in step_calls:
+        compare_narrowphase(*nar)
+        compare_solver(*sol)
+    torch.cuda.synchronize()
+    print(f"phase 30 lattice: B7's group kernel and B9's shared kernel bit for bit against their "
+          f"plain versions on the card on each of the {len(step_calls)} steps' calls", flush=True)
+    return counts, last, {"dx": dx, "dv": dv, "hits": list(hits),
+                          "bitwise_steps": len(step_calls)}
 
 
 def limits_prepare(card):
@@ -4429,13 +4455,16 @@ def limits_phase(card, state):
         "ich": [((sphere_pts[0], sphere_pts[1]), {"limit": 64})]
         + ich_general_cases("cuda", torch.Generator().manual_seed(30)),
         "labels": [tile_labels(*pcalls["tri_soup_components_batch"][0])],
-        "solver": [step_m64["solver"][:2], tile_solver(*last["solver"][:2])],
-        "narrowphase": [step768["narrowphase"][:2], step_m64["narrowphase"][:2]],
+        "solver": [step_m64["solver"][:2], tile_solver(*last["solver"][:2]),
+                   warm_solver_case(last["solver"][:2]), warm_solver_case(step_m64["solver"][:2])],
+        "narrowphase": [step768["narrowphase"][:2], step_m64["narrowphase"][:2]]
+        + narrowphase_edge_cases(last["narrowphase"]),
         "broadphase_sorted": [(bp + (8, 256), {}), (bp + (32, 1024), {})],
         "broadphase_exact": [(bp + (LIMIT_K_GENERAL,), {}), (bp + (64,), {}),
                              (bp10k + (LIMIT_K_GENERAL,), {})],
     }
     compare_one = {"ich": lambda a, kw: (compare_ich_batch if a[0].dim() == 3 else compare_ich)(
+        a, kw), "solver": lambda a, kw: (compare_solver_warm if len(a) == 4 else compare_solver)(
         a, kw)}
     results, jobs = {}, []
     for name, (shape, (a, kw), cmp, fn, plain, ops) in cases.items():
@@ -4450,7 +4479,13 @@ def limits_phase(card, state):
             fail(f"phase 30 {name} at {shape}: its variant past the old limit did not launch")
         cmp(a, kw)
         for ea, ekw in extra.get(name, []):
+            before = general_counts()
             compare_one.get(name, cmp)(ea, ekw)
+            now = general_counts()
+            if name in FALLBACK and (now[f"{name}_general"] <= before[f"{name}_general"]
+                                     or now[f"{name}_fallback"] != before[f"{name}_fallback"]):
+                fail(f"phase 30 {name}: a further call past the old limit did not take the "
+                     f"{past_kernel(name)} kernel")
         torch.cuda.synchronize()
         if name == "broadphase_exact" and broadphase_cuda.exact_general_launches < 2:
             fail(f"phase 30 broadphase_exact: K = {LIMIT_K_GENERAL} launched the general "
@@ -4486,6 +4521,10 @@ def limits_phase(card, state):
               f"({card})", flush=True)
     forced.update(forced_b8_b12_checks([last["prep"][:2], step_m64["prep"][:2], inplace],
                                        bp, W))
+    forced.update(forced_b7_b9_checks(
+        [last["narrowphase"][:2], step768["narrowphase"][:2], step_m64["narrowphase"][:2]]
+        + narrowphase_edge_cases(last["narrowphase"]),
+        [last["solver"][:2], warm_solver_case(last["solver"][:2]), step_m64["solver"][:2]]))
     layouts = check_layouts()
     return {"kernels": results, "launches": launches, "physics": phys_cmp,
             "prepare": prep_cmp, "clip_f1025": {k: v for k, v in f1025.items() if k != "args"},
@@ -4656,6 +4695,50 @@ def forced_b8_b12_checks(prep_calls, bp, W):
     return {"cases_b8_b12": counts}
 
 
+def forced_b7_b9_checks(nar_calls, sol_calls):
+    """The last resorts of B7 and B9 ("general": one thread a pair, rows
+    read in place; the scratch solver), forced where the shape takes the
+    group or shared kernel (``_variant`` replaced for the call), each call
+    bit for bit against its plain version: B7 on phase 30's lattice call at
+    Vh 12, its Vh 768 and M 64 calls and ``narrowphase_edge_cases``; B9 on
+    the lattice call in both modes and the M 64 call. Each forced run must
+    move the module's ``fallback_launches``. Returns the counts of cases."""
+    runs = [(narrowphase_cuda, nar_calls, compare_narrowphase),
+            (solver_cuda, sol_calls,
+             lambda a, kw: (compare_solver_warm if len(a) == 4 else compare_solver)(a, kw))]
+    counts = {}
+    for mod, cases, cmp in runs:
+        orig = mod._variant
+        mod._variant = lambda *shape: "general"
+        try:
+            for a, kw in cases:
+                before = mod.fallback_launches
+                cmp(a, kw)
+                torch.cuda.synchronize()
+                if mod.fallback_launches <= before:
+                    fail(f"phase 30: {mod.__name__} forced to general did not launch it")
+        finally:
+            mod._variant = orig
+        counts[f"{mod.__name__.rsplit('.', 1)[1]}:general"] = len(cases)
+    print(f"phase 30 forced B7 and B9 last resorts: bit for bit against the plain versions on "
+          f"{json.dumps(counts)} cases", flush=True)
+    return {"cases_b7_b9": counts}
+
+
+def warm_solver_case(call, seed: int = 30):
+    """B9's accumulated mode on a plain-mode call's inputs: seeded totals
+    [λn | λu | λv] (λn >= 0; 0 on the slots without a hit)."""
+    (vw0, pb, tables), kw = call[0][:3], call[1]
+    C = kw["K"] * kw["M"] + kw["G"]
+    Np = vw0.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    hit = tables[4][:, :C].cpu()
+    lam = torch.cat([0.05 * torch.rand((Np, C), generator=g) * hit,
+                     0.02 * torch.randn((Np, C), generator=g) * hit,
+                     0.02 * torch.randn((Np, C), generator=g) * hit], dim=1)
+    return (vw0, lam.to(vw0.device), pb, tables), dict(kw)
+
+
 def tile_labels(a, kw):
     """B3's general call repeated over the soups to 300 or more, more soups
     than the general variant's CTAs (``labels_cuda.GENERAL_BLOCKS``): its
@@ -4666,9 +4749,10 @@ def tile_labels(a, kw):
 
 
 def tile_solver(a, kw, reps: int = 24):
-    """B9's general call on ``reps`` copies of its lattice (24,000 rows):
-    more rows than its cooperative grid (at most ``GENERAL_BLOCKS`` CTAs of
-    8 rows), so the grid walks them."""
+    """B9's call past K = 16 on ``reps`` copies of its lattice (24,000
+    rows): more rows than the shared variant's cooperative grid holds (a
+    warp a row, about 2,000 rows on the card at C 132), so its warps walk
+    them and restage each row's tables every iteration."""
     vw0, pb, tables = a[:3]
     Np = vw0.shape[0]
     pbs = torch.cat([pb + i * Np for i in range(reps)])
@@ -4718,6 +4802,12 @@ def check_layouts():
         ("surtr_narrowphase_staged_bytes", narrowphase_cuda.staged_bytes,
          [(Vh, K, F, Ne, M) for Vh in (8, 12, 16, 32, 64, 128) for K in (1, 8, 32)
           for F in (8, 26, 32) for Ne in (3, 16) for M in (1, 4, 20, 64)]),
+        ("surtr_narrowphase_group_bytes", narrowphase_cuda.group_bytes,
+         [(Vh, K, F, Ne, M) for Vh in (1, 5, 8, 12, 24, 97, 768, 1300) for K in (1, 8, 32)
+          for F in (8, 26) for Ne in (0, 3) for M in (1, 4, 64)]),
+        ("surtr_solver_shared_bytes", lambda K, C, w: solver_cuda.shared_bytes(K, C, bool(w)),
+         [(K, C, w) for K in (1, 17, 32, 33, 64) for C in (17, 129, 132, 136, 2052, 2200)
+          for w in (0, 1)]),
     ]
     n = 0
     for cname, pyfn, shapes in grids:
@@ -4976,7 +5066,8 @@ def main():
               "clip_fold_global": "clip_fold_global", "labels": "labels_vertex",
               "labels_scratch": "labels_vertex_scratch", "prep": "prep_wide",
               "prep_inplace": "prep_wide_inplace", "broadphase_sorted": "broadphase_sorted_list",
-              "broadphase_sorted_k48": "broadphase_sorted_list_k48"}
+              "broadphase_sorted_k48": "broadphase_sorted_list_k48",
+              "narrowphase": "narrowphase_group", "solver": "solver_shared"}
     for name, res in limits["kernels"].items():
         _, _, src, rep, _ = GENERAL[PAST_CASES.get(name, name)]
         kernels.append({"name": labels.get(name, f"{name}_general"), "route": "cuda",

@@ -13,7 +13,10 @@ fj + 1).
 Output (Np, K, 5 + 6M) f32: [nx, ny, nz, depth, hit] then per point m
 [val, hit, px, py, pz, fid] — the JAX kernel's output rows, pair-major.
 ``narrowphase`` runs the plain version for CPU tensors and the kernel, or
-raises, for CUDA tensors. ``narrowphase_reference(..., divide=True)`` is
+raises, for CUDA tensors: the staged kernel at Vh 8, 16, 32 and 64, the
+group kernel (a group of lanes a pair, each manifold candidate scored once)
+at any other shape whose rows fit a block's shared memory, the
+thread-a-pair general kernel only past that (``_variant``). ``narrowphase_reference(..., divide=True)`` is
 also the JAX package's XLA narrowphase (``physics_step`` with
 ``pallas_narrowphase`` off), plain PyTorch on either device: the XLA code
 normalises the edge cross axes by division where the kernel multiplies by a
@@ -33,10 +36,12 @@ from surtr_tpu_torch.physics.pack_cuda import pack_layout
 
 BIG = 3.4e38
 
-launches = 0          # kernel launches since the last reset (main-path proof), both variants
-general_launches = 0  # of which the general variant's
+launches = 0           # kernel launches since the last reset (main-path proof), every variant
+general_launches = 0   # of which past the staged kernel's shapes (the group and general variants)
+fallback_launches = 0  # of which the "general" variant's (rows past a block's shared memory)
 
 MAX_SMEM = 232448  # bytes of shared memory a Hopper block can use
+VARIANTS = ("staged", "group", "general")
 
 
 def staged_bytes(Vh: int, K: int, F: int, Ne: int, M: int) -> int:
@@ -55,13 +60,44 @@ def staged_bytes(Vh: int, K: int, F: int, Ne: int, M: int) -> int:
     return 4 * (own_cap + PB * slot)
 
 
+def group_lanes(Vh: int) -> int:
+    """Lanes of a pair's group in the group variant: the least power of two
+    G with 6·G >= Vh, at most 32 (a lane holds up to six corners of each
+    hull in registers; past 192 it reads them from shared memory)."""
+    g = 1
+    while g < 32 and 6 * g < Vh:
+        g *= 2
+    return g
+
+
+def group_bytes(Vh: int, K: int, F: int, Ne: int, M: int) -> int:
+    """Shared bytes of the group variant at this shape (``group_smem`` in
+    csrc/narrowphase.cu): the own rows' span of a block's 128 / G pairs,
+    each pair's partner row in a slot padded so that a warp's groups start
+    G banks apart, 2Vh candidate scores a pair, and a record a pair where
+    it fits a row slot (wider records go straight to device memory)."""
+    G = group_lanes(Vh)
+    PB = 128 // G
+    D = 4 * Vh + 5 * F + 26 + 4 * Ne
+    own_cap = (((PB - 1) // K + 2) * D + 9) // 4 * 4
+    slot = (D + 9) // 4 * 4
+    if G < 32:
+        slot += (max(G, 4) - slot % 32) % 32
+    R = 5 + 6 * M
+    return 4 * (own_cap + PB * slot + PB * 2 * Vh + (PB * R if R <= slot else 0))
+
+
 def _variant(Vh: int, K: int, F: int, Ne: int, M: int) -> str:
-    """"staged" (a group of Vh / 4 lanes a pair, rows staged in shared
-    memory) where that kernel takes the shape and its rows fit a block's
-    shared memory, else "general" (one thread a pair, rows read in place):
-    every shape the plain version takes has a variant."""
-    smem = staged_bytes(Vh, K, F, Ne, M)
-    return "staged" if 0 < smem <= MAX_SMEM - 39 * 4 else "general"   # beside its DOP table
+    """"staged" (a group of Vh / 4 lanes a pair, four corners of each hull a
+    lane in registers) where that kernel takes the shape and its rows fit a
+    block's shared memory; else "group" (a group of ``group_lanes(Vh)``
+    lanes a pair, corners read from the staged rows, each candidate scored
+    once) where its rows fit; else "general" (one thread a pair, rows read
+    in place): every shape the plain version takes has a variant."""
+    room = MAX_SMEM - 39 * 4   # beside the DOP table
+    if 0 < staged_bytes(Vh, K, F, Ne, M) <= room:
+        return "staged"
+    return "group" if Vh >= 1 and group_bytes(Vh, K, F, Ne, M) <= room else "general"
 
 
 def out_rows(M: int) -> int:
@@ -225,15 +261,15 @@ def narrowphase_reference(packed, pidx, pok, Vh: int, F: int, Ne: int, M: int, s
 
 
 def _kernel(packed, pidx, pok, Vh, F, Ne, M, slop):
-    global launches, general_launches
+    global launches, general_launches, fallback_launches
     Np, K = pidx.shape
     dev = packed.device
     _, D = pack_layout(Vh, F, Ne)
     if packed.dtype != torch.float32 or packed.shape != (Np, D) or pok.shape != (Np, K):
         raise ValueError("narrowphase kernel: packed must be (Np, D) float32, pok (Np, K)")
-    general = _variant(Vh, K, F, Ne, M) == "general"
+    variant = _variant(Vh, K, F, Ne, M)
     pk = packed.contiguous()
-    if pk.data_ptr() % 16 and not general:   # the staged kernel copies rows 16 bytes at a time
+    if pk.data_ptr() % 16 and variant != "general":   # rows are staged 16 bytes at a time
         pk = pk.clone()
     pi = pidx.to(torch.int32).contiguous()
     po = pok.to(torch.uint8).contiguous()
@@ -244,13 +280,21 @@ def _kernel(packed, pidx, pok, Vh, F, Ne, M, slop):
     out = torch.empty((Np, K, out_rows(M)), dtype=torch.float32, device=dev)
     if Np * K == 0:
         return out
-    fn = _build.bind("surtr_narrowphase", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    rc = fn(pk.data_ptr(), pi.data_ptr(), po.data_ptr(), dop.data_ptr(), Np, K, Vh, F, Ne, M,
-            float(slop), int(general), out.data_ptr(), _build.stream_ptr(dev))
-    _build.check(rc, "surtr_narrowphase")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    args = (pk.data_ptr(), pi.data_ptr(), po.data_ptr(), dop.data_ptr(), Np, K, Vh, F, Ne, M,
+            float(slop))
+    if variant == "group":
+        name = "surtr_narrowphase_group"
+        fn = _build.bind(name, [P] * 4 + [I] * 6 + [ctypes.c_float, P, P])
+        rc = fn(*args, out.data_ptr(), _build.stream_ptr(dev))
+    else:
+        name = "surtr_narrowphase"
+        fn = _build.bind(name, [P] * 4 + [I] * 6 + [ctypes.c_float, I, P, P])
+        rc = fn(*args, int(variant == "general"), out.data_ptr(), _build.stream_ptr(dev))
+    _build.check(rc, name)
     launches += 1
-    general_launches += general
+    general_launches += variant != "staged"
+    fallback_launches += variant == "general"
     return out
 
 

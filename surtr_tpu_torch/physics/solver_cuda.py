@@ -18,7 +18,10 @@ writing the other, so no row sees a partner's update of the same
 iteration; the tables and the partner index are checked and converted once
 a solve. ``solve_warm`` is the accumulated-impulse mode of warm start: the
 per-slot totals (Np, 3C) = [λn | λu | λv] ride along, ping-ponged like the
-state.
+state. ``_variant`` picks the kernel from (K, C): the register kernel (16
+lanes a row) up to K = 16 and C = 128, the shared one (a warp a row, its
+tables, partner states and slot sums in shared memory) past it wherever a
+row fits a block, the general one (a device scratch) only past that.
 """
 
 from __future__ import annotations
@@ -31,9 +34,10 @@ from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.linalg import sqrt_rn
 from surtr_tpu_torch.physics.slots import expand_slots, slot_sum, tangent_basis
 
-launches = 0          # kernel launches since the last reset (main-path proof)
-warm_launches = 0     # launches of the accumulated (warm-start) mode
-general_launches = 0  # launches of the general variant, either mode
+launches = 0           # kernel launches since the last reset (main-path proof)
+warm_launches = 0      # launches of the accumulated (warm-start) mode
+general_launches = 0   # launches past the register kernel's shapes (K > 16 or C > 128), either mode
+fallback_launches = 0  # of which the "general" variant's (rows past a block's shared memory)
 
 
 def solver_iteration_reference(vw, pb, rA, rB, nrm, mt, hs, scale, iAI, *, K: int, M: int,
@@ -148,28 +152,55 @@ def solver_iteration_warm_reference(vw, lam, pb, rA, rB, nrm, mt, hs, scale, iAI
 # 16 lanes, and gathers its K <= 16 partner states on lanes 0..K-1.
 MAX_SLOTS = 128
 MAX_K = 16
+MAX_SMEM = 232448       # bytes of shared memory a Hopper block can use
+VARIANTS = ("registers", "shared", "general")
 GENERAL_BLOCKS = 2048   # CTAs of the general variant at most (its scratch: 8 · 9C floats each)
 
 
+def _cover(n: int) -> int:
+    """Floats of the 16-byte aligned cover of n floats starting anywhere."""
+    return (n + 6) // 4 * 4
+
+
+def shared_bytes(K: int, C: int, warm: bool) -> int:
+    """Bytes of one row's shared state in the shared variant (a warp a row,
+    ``shared_row_floats`` in csrc/solver.cu): the five B8 tables' aligned
+    covers (rA, rB, n: 3C; mt, hs: 2C), scale and I⁻¹ (12), vB (3C), the K
+    partner states (7 floats each) and indices, each rounded up to 4, the
+    six staged components at a stride of C rounded up to an odd number of
+    quads, and in warm mode the totals' cover (3C)."""
+    r4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    stride = (((C + 3) // 4) | 1) * 4
+    floats = (3 * _cover(3 * C) + 2 * _cover(2 * C) + 12 + r4(3 * C) + r4(7 * K) + r4(K)
+              + 6 * stride + (_cover(3 * C) if warm else 0))
+    return 4 * floats
+
+
 def _variant(K: int, C: int) -> str:
-    """"registers" (today's kernel) for 1 <= K <= 16 and C = K·M + G <= 128,
-    else "general" (slots re-read from device memory, totals and staged
-    sums in a scratch): every shape the plain version takes has a variant."""
-    return "registers" if 1 <= K <= MAX_K and C <= MAX_SLOTS else "general"
+    """"registers" (today's kernel) for 1 <= K <= 16 and C = K·M + G <= 128;
+    else "shared" (a warp a row, its tables, partner states and sums in
+    shared memory) where a row's warm-mode state fits a block's shared
+    memory; else "general" (slots re-read from device memory, totals and
+    staged sums in a scratch): every shape the plain version takes has a
+    variant."""
+    if 1 <= K <= MAX_K and C <= MAX_SLOTS:
+        return "registers"
+    return "shared" if K >= 1 and shared_bytes(K, C, True) <= MAX_SMEM else "general"
 
 
 def _solve_kernel(vw0, lam0, pb, tables, K, M, G, iters, substeps, mu):
     """All outer iterations in one launch (warm mode when ``lam0`` is
     given): the tables, the state and ``pb`` are checked and converted once
     a solve. Returns the final state (and totals)."""
-    global launches, warm_launches, general_launches
+    global launches, warm_launches, general_launches, fallback_launches
     warm = lam0 is not None
     Np = vw0.shape[0]
     C = K * M + G
     dev = vw0.device
     S = max(1, substeps)
     outer = (iters + S - 1) // S
-    general = _variant(K, C) == "general"
+    variant = _variant(K, C)
+    general = variant == "general"
     widths = (3 * C, 3 * C, 3 * C, 2 * C, 2 * C, 2, 9)
     tabs = [t.contiguous() for t in tables]
     for t, wd in zip(tabs, widths):
@@ -196,13 +227,21 @@ def _solve_kernel(vw0, lam0, pb, tables, K, M, G, iters, substeps, mu):
         blocks = min(-(-Np // 8), GENERAL_BLOCKS)
         scratch = torch.empty((blocks * 8 * 9 * C,), dtype=torch.float32, device=dev)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _build.bind("surtr_solver_solve", [P] * 12 + [I] * 6 + [ctypes.c_float, P, I, P])
-    rc = fn(v_in.data_ptr(), pbi.data_ptr(), *[t.data_ptr() for t in tabs],
+    ptrs = (v_in.data_ptr(), pbi.data_ptr(), *[t.data_ptr() for t in tabs],
             l_in.data_ptr() if warm else None, buf.data_ptr(),
-            lbuf.data_ptr() if warm else None, Np, K, M, G, S, outer, float(mu),
-            None if scratch is None else scratch.data_ptr(), blocks, _build.stream_ptr(dev))
-    _build.check(rc, "surtr_solver_solve")
-    general_launches += general
+            lbuf.data_ptr() if warm else None, Np, K, M, G, S, outer, float(mu))
+    if variant == "shared":
+        name = "surtr_solver_solve_shared"
+        fn = _build.bind(name, [P] * 12 + [I] * 6 + [ctypes.c_float, P])
+        rc = fn(*ptrs, _build.stream_ptr(dev))
+    else:
+        name = "surtr_solver_solve"
+        fn = _build.bind(name, [P] * 12 + [I] * 6 + [ctypes.c_float, P, I, P])
+        rc = fn(*ptrs, None if scratch is None else scratch.data_ptr(), blocks,
+                _build.stream_ptr(dev))
+    _build.check(rc, name)
+    general_launches += variant != "registers"
+    fallback_launches += general
     last = (outer - 1) % 2
     if warm:
         warm_launches += 1

@@ -32,21 +32,11 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 
 from surtr_tpu_torch import convert  # noqa: E402
 from surtr_tpu_torch.config import FractureConfig  # noqa: E402
+from torch_threads import bounded_threads  # noqa: E402, F401 (autouse)
 
 CFG = dict(initial_decompose_cell_cnt=8, max_pieces=16, max_piece_tris=64, voronoi_neighbors=7,
            partial_pattern_cell_cnt=4, general_pattern_cell_cnt=4)   # tests/test_batch.py:13-20
 M = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two torch threads while this file runs: the suite runs in parallel
-    workers, and a torch op spread over every core in each of them spends
-    its time waiting on the others (OpenMP)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_reference(out_path):

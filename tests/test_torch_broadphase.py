@@ -39,6 +39,7 @@ from surtr_tpu_torch.physics import broadphase_cuda as bp
 from surtr_tpu_torch.physics import step as tstep
 from surtr_tpu_torch.physics.broadphase import morton, morton_window_sweep
 from surtr_tpu_torch.physics.scene import build_scene
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 
 def _random_boxes(n=700, seed=5, invalid=0.05, owner=None):

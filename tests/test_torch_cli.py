@@ -16,21 +16,11 @@ import torch
 from surtr_tpu.__main__ import camera_eye as j_camera_eye
 from surtr_tpu.__main__ import parse_impact as j_parse_impact
 from surtr_tpu_torch.__main__ import camera_eye, main, parse_impact
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 IMPACTS = ["0,4.5,-10:0,0,1@60", "1,2,3:4,5,6", "-1.5,0,2:0,-1,0@7"]
 CAMERAS = [("fly:0,1,2:6,1,2", 0, 11), ("fly:0,1,2:6,1,2", 10, 11), ("orbit:10,6,2", 0, 240),
            ("orbit:10,6,2", 60, 240), ("orbit", 33, 240), ("fixed", 5, 10)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two torch threads while this file runs: the suite runs in parallel
-    workers, and a torch op spread over every core in each of them spends
-    its time waiting on the others (OpenMP)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("spec", IMPACTS)

@@ -25,6 +25,7 @@ from surtr_tpu_torch.ops import clip_cuda
 from surtr_tpu_torch.ops.clip import clip_poly_plane, contains_point
 from surtr_tpu_torch.ops.moments import moments
 from surtr_tpu_torch.types import ConvexPoly, unit_cube
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 F, S = 26, 16
 

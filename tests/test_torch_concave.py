@@ -34,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_fracture import _flatten, _unflatten  # noqa: E402
 from test_torch_scene import (COUNTS, FRACTURE, IMG_ATOL, IMG_SHARE, OVERFLOWS,  # noqa: E402
                               PHYSICS, RENDER, V_ATOL, X_ATOL)
+from torch_threads import bounded_threads  # noqa: E402, F401 (autouse)
 
 BASE = dict(max_faces=26, max_face_verts=16, voronoi_prefix=8, max_piece_tris=128,
             voronoi_neighbors=31, partial_pattern_cell_cnt=8, general_pattern_cell_cnt=8)

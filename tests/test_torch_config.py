@@ -17,6 +17,7 @@ from surtr_tpu.types import unit_cube as j_unit_cube
 from surtr_tpu_torch import convert
 from surtr_tpu_torch.fracture.types import empty_piece_set
 from surtr_tpu_torch.types import unit_cube
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize(

@@ -28,6 +28,7 @@ from surtr_tpu.ops.delaunay2d import circumcircle as j_circumcircle
 from surtr_tpu.ops.delaunay2d import delaunay2d as j_delaunay2d
 from surtr_tpu_torch.ops.delaunay import circumcenter, delaunay3d, voronoi_dual_edges
 from surtr_tpu_torch.ops.delaunay2d import circumcircle, delaunay2d
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 
 def _set(simplices, valid):

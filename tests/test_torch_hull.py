@@ -27,6 +27,7 @@ from surtr_tpu.ops.hull import tetra_hull as j_tetra_hull
 from surtr_tpu.ops.hull_pallas import ich_pallas
 from surtr_tpu_torch.ops import hull_cuda
 from surtr_tpu_torch.ops.hull import tetra_hull
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 
 def _clouds():

@@ -11,6 +11,7 @@ import torch
 from surtr_tpu.ops.labels import tri_soup_components as j_labels
 from surtr_tpu.ops.labels_pallas import tri_soup_components_batch_pallas
 from surtr_tpu_torch.ops import labels, labels_cuda
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 
 def _soups(T=16):

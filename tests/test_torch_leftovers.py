@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from surtr_tpu_torch import convert
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIMITS = (4, 8)

@@ -52,6 +52,7 @@ from surtr_tpu_torch.physics import narrowphase_cuda
 from surtr_tpu_torch.physics.broadphase import block_sweep, mutual
 
 from test_torch_pack import j_cube_pieces
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = ("rotated", "lattice", "dead_partner", "frame")
@@ -226,3 +227,162 @@ def test_broadphase_fewer_pieces_than_k():
 if __name__ == "__main__":
     np.savez(sys.argv[1], **{f"{kind}/{k}": v for kind in SCENES
                              for k, v in _jax_side(kind).items()})
+
+
+# ---------------------------------------------------------------------------
+# The group variant's pick rounds (csrc/narrowphase.cu ``narrow_group_kernel``)
+# mirrored in numpy against the plain version's picks.
+# ---------------------------------------------------------------------------
+
+BIG32 = np.float32(narrowphase_cuda.BIG)
+
+
+def _lattice_call(Vh, rotate=True):
+    """The narrowphase arguments of one step of the port's 27-cube lattice
+    at ``max_hull_verts=Vh`` on the CPU (8 live corners a cube, the rest
+    masked); ``rotate`` turns each body a little first (seeded), so corners
+    poke into their neighbours."""
+    from surtr_tpu_torch import workload
+    from surtr_tpu_torch.physics import step as phys_step
+
+    cfg = dataclasses.replace(workload.PHYSICS_CFG, max_hull_verts=Vh)
+    scene = workload.physics_lattice(27, "cpu", cfg)
+    if rotate:
+        q = scene.bodies.q
+        g = torch.Generator().manual_seed(21)
+        q = q + 0.15 * torch.randn(q.shape, generator=g)
+        scene = dataclasses.replace(scene, bodies=dataclasses.replace(
+            scene.bodies, q=q / q.norm(dim=-1, keepdim=True)))
+    calls = []
+    orig = phys_step.narrowphase
+
+    def rec(*a):
+        calls.append(a)
+        return orig(*a)
+
+    phys_step.narrowphase = rec
+    try:
+        phys_step.physics_step(scene, cfg)
+    finally:
+        phys_step.narrowphase = orig
+    return calls[0]
+
+
+def _mirror_scores(packed, pidx, n, Vh, F, Ne, slop):
+    """The 2Vh candidate scores of each pair, each scored once, as the group
+    kernel scores them (float32, the plain version's operation order): i's
+    corners contained in j, then j's contained in i, -BIG elsewhere."""
+    from surtr_tpu_torch.physics.pack_cuda import pack_layout
+
+    offs, _ = pack_layout(Vh, F, Ne)
+    Np = packed.shape[0]
+    take = lambda rows, name: rows[..., offs[name][0]:offs[name][0] + offs[name][1]]  # noqa: E731
+    pi = packed[:, None, :]
+    pj = packed[np.clip(pidx, 0, Np - 1)]
+    f32 = np.float32
+    slop = f32(slop)
+    with np.errstate(invalid="ignore", over="ignore"):
+        def corners(rows):
+            return [take(rows, k)[..., :, None] for k in ("wvx", "wvy", "wvz")], take(rows, "wm") > 0.5
+
+        def inside(cs, rows):      # each corner's max distance over the live planes <= slop
+            pn = [take(rows, k)[..., None, :] for k in ("pnx", "pny", "pnz")]
+            d = ((cs[0] * pn[0] + cs[1] * pn[1]) + cs[2] * pn[2]) + take(rows, "pd")[..., None, :]
+            live = (take(rows, "pm") > 0.5)[..., None, :]
+            return np.max(np.where(live, d, -BIG32), axis=-1) <= slop
+
+        ic, im = corners(pi)
+        jc, jm = corners(pj)
+        nn = [n[..., c, None] for c in range(3)]
+        si = (ic[0][..., 0] * nn[0] + ic[1][..., 0] * nn[1]) + ic[2][..., 0] * nn[2]
+        sj = (jc[0][..., 0] * nn[0] + jc[1][..., 0] * nn[1]) + jc[2][..., 0] * nn[2]
+        si_min = np.min(np.where(im, si, BIG32), axis=-1, keepdims=True)
+        sj_max = np.max(np.where(jm, sj, -BIG32), axis=-1, keepdims=True)
+        sc_i = np.where(inside(ic, pj) & im, sj_max - si, -BIG32)
+        sc_j = np.where(inside(jc, pi) & jm, sj - si_min, -BIG32)
+    return np.concatenate([sc_i, sc_j], axis=-1).astype(f32)
+
+
+def _mirror_picks(sc, M):
+    """The group kernel's M pick rounds on scores ``sc`` (..., 2Vh): a taken
+    mask; each round the arg-max on (score, candidate) as the group
+    reduction takes it (torch.argmax's rule: the first NaN if any, else the
+    first of the maxima; a taken candidate counts -BIG). Returns the picks
+    (..., M) and their values."""
+    taken = np.zeros(sc.shape, bool)
+    picks, vals = [], []
+    idx = np.arange(sc.shape[-1])
+    for _ in range(M):
+        s = np.where(taken, -BIG32, sc)
+        nan = np.isnan(s)
+        first_nan = np.where(nan, idx, sc.shape[-1]).min(-1)
+        mx = np.max(np.where(nan, -np.inf, s), axis=-1, keepdims=True)
+        first_max = np.where(s == mx, idx, sc.shape[-1]).min(-1)
+        b = np.where(nan.any(-1), first_nan, first_max)
+        picks.append(b)
+        vals.append(np.take_along_axis(s, b[..., None], -1)[..., 0])
+        taken |= idx == b[..., None]
+    return np.stack(picks, -1), np.stack(vals, -1)
+
+
+def _check_mirror(packed, pidx, pok, Vh, F, Ne, M, slop):
+    """The mirror's picks and values against ``narrowphase_reference``'s
+    feature ids and values, every round (the first only where it is not the
+    fallback's point); returns the number of pairs whose rounds held a NaN."""
+    out = narrowphase_cuda.narrowphase_reference(packed, pidx, pok, Vh, F, Ne, M, slop).numpy()
+    sc = _mirror_scores(packed.numpy(), pidx.numpy(), out[..., 0:3], Vh, F, Ne, slop)
+    picks, vals = _mirror_picks(sc, M)
+    hit = out[..., 4] > 0.5
+    with np.errstate(invalid="ignore"):
+        h = hit[..., None] & (vals > -np.float32(slop)) & (vals < BIG32 / 2)
+    fallback = hit & ~h.any(-1)
+    for m in range(M):
+        keep = ~fallback if m == 0 else np.ones_like(hit)
+        fid = out[..., 5 + 6 * m + 5]
+        np.testing.assert_array_equal(fid[keep], (picks[..., m] + 1)[keep].astype(np.float32))
+        got, want = vals[..., m][keep], out[..., 5 + 6 * m][keep]
+        same = (got.view(np.int32) == want.view(np.int32)) | (np.isnan(got) & np.isnan(want))
+        assert same.all(), m
+    return int(np.isnan(sc).any(-1).sum())
+
+
+def test_group_pick_rounds_mirror_the_plain_picks():
+    """Vh 12 with M 4, and M 30 > 2Vh (every candidate taken, then the
+    first -BIG again), on the rotated lattice; pieces whose corners are all
+    masked (and, every tenth, their edges too: a NaN axis, normal 0); a NaN
+    candidate 0 and NaN candidates past it (a live NaN corner of the
+    partner makes sj_max NaN for every contained corner of the piece, whose
+    contained corner is moved to slot 0): the plain version takes the first
+    NaN, then the next."""
+    from surtr_tpu_torch.physics.pack_cuda import pack_layout
+
+    packed, pidx, pok, Vh, F, Ne, M, slop = _lattice_call(12)
+    assert (Vh, M) == (12, 4) and narrowphase_cuda._variant(Vh, pidx.shape[1], F, Ne, M) == "group"
+    assert _check_mirror(packed, pidx, pok, Vh, F, Ne, 4, slop) == 0
+    assert _check_mirror(packed, pidx, pok, Vh, F, Ne, 30, slop) == 0
+    offs, _ = pack_layout(Vh, F, Ne)
+    masked = packed.clone()
+    wo, wc = offs["wm"]
+    eo, ec = offs["em"]
+    masked[1::5, wo:wo + wc] = 0.0
+    masked[::10, eo:eo + ec] = 0.0
+    _check_mirror(masked, pidx, pok, Vh, F, Ne, 4, slop)
+    # A pair with a contained corner of i: that corner moved to slot 0, a
+    # live NaN corner put in j's first masked slot.
+    out = narrowphase_cuda.narrowphase_reference(packed, pidx, pok, Vh, F, Ne, M, slop).numpy()
+    sc = _mirror_scores(packed.numpy(), pidx.numpy(), out[..., 0:3], Vh, F, Ne, slop)
+    contained = sc[..., :Vh] > -BIG32
+    i, k = np.argwhere(contained.sum(-1) >= 2)[0]
+    c = int(np.argmax(contained[i, k]))
+    j = int(pidx[i, k])
+    nan = packed.clone()
+    for name in ("wvx", "wvy", "wvz", "wm"):
+        o = offs[name][0]
+        nan[i, o], nan[i, o + c] = packed[i, o + c], packed[i, o]
+    slot = int(np.argmin(packed[j, wo:wo + wc].numpy() > 0.5))
+    nan[j, offs["wvx"][0] + slot] = float("nan")
+    nan[j, wo + slot] = 1.0
+    sc = _mirror_scores(nan.numpy(), pidx.numpy(), narrowphase_cuda.narrowphase_reference(
+        nan, pidx, pok, Vh, F, Ne, M, slop).numpy()[..., 0:3], Vh, F, Ne, slop)
+    assert np.isnan(sc[i, k, 0]) and np.isnan(sc[i, k, 1:Vh]).any()
+    assert _check_mirror(nan, pidx, pok, Vh, F, Ne, 4, slop) > 0

@@ -25,6 +25,7 @@ from surtr_tpu_torch.ops.kdop import kdop_planes
 from surtr_tpu_torch.ops.linalg import compact, pack_rows
 from surtr_tpu_torch.ops.moments import moments
 from surtr_tpu_torch.types import scale_poly, translate_poly, unit_cube
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", ["cube", "box", "sphere", "blob", "torus"])

@@ -28,6 +28,7 @@ from surtr_tpu.types import ConvexPoly as JConvexPoly
 from surtr_tpu_torch import workload
 from surtr_tpu_torch.physics import pack_cuda
 from surtr_tpu_torch.physics.pack_cuda import pack_layout
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 
 def j_cube_pieces(offsets):

@@ -38,6 +38,7 @@ from surtr_tpu.physics.step import physics_step as j_physics_step
 from surtr_tpu.types import ConvexPoly as JConvexPoly
 from surtr_tpu_torch import convert, workload
 from surtr_tpu_torch.physics.step import physics_step
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 FORCED = dict(pallas_narrowphase=True, force_pallas_narrowphase=True, force_pallas_solver=True,
               fused_prep=True)

@@ -45,6 +45,7 @@ from surtr_tpu_torch.physics import prep_cuda, solver_cuda
 from surtr_tpu_torch.physics import step as t_step
 from surtr_tpu_torch.physics.rigid import world_inv_inertia
 from tests.test_torch_pack import j_cube_pieces
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 CFG = JPhysicsConfig()
 K, M, G = CFG.max_neighbors, CFG.manifold_points, CFG.max_ground_contacts

@@ -39,6 +39,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -58,17 +59,6 @@ CHILDREN = {"prepare_a": ("prepare", (1, 2, 3, 4, 44, 5)),
             "physics_kernel": ("physics_kernel", (1, 3, 35))}
 PHYSICS_CFG = dict(broadphase_block=64, max_hull_verts=16)
 KERNEL_CFG = dict(single_piece_bodies=True, max_hull_verts=8, broadphase_block=64)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two torch threads while this file runs: the suite runs in parallel
-    workers, and a torch op spread over every core in each of them spends
-    its time waiting on the others (OpenMP)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_reference(part, out_path):

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from surtr_tpu_torch.render import raster_cuda as rc
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 RW, RH = 256, 64
 # test_torch_render.py's B11 tables: name → (seed, T, with G-buffer).

@@ -11,6 +11,7 @@ import torch
 from surtr_tpu.fracture.pipeline import refit_planes as j_refit_planes
 from surtr_tpu.ops.refit_pallas import refit_planes_batch_pallas
 from surtr_tpu_torch.ops import refit_cuda
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 
 def _pools(Pv):

@@ -18,6 +18,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

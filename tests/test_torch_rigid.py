@@ -33,6 +33,7 @@ from surtr_tpu_torch import convert, workload
 from surtr_tpu_torch.ops import kdop, linalg, moments
 from surtr_tpu_torch.physics import rigid
 from surtr_tpu_torch.physics.scene import _dedup_verts, build_scene, piece_world_verts
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -41,6 +41,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from surtr_tpu_torch import workload  # noqa: E402
+from torch_threads import bounded_threads  # noqa: E402, F401 (autouse)
 
 BASE = dict(single_piece_bodies=True, max_hull_verts=8, broadphase_block=64)
 FORCED = dict(force_pallas_narrowphase=True, force_pallas_solver=True,
@@ -61,17 +62,6 @@ WAKE = [[6.0, -1.49, 0.0], [6.0, 0.6, 0.0]]    # the lower cube sleeps, then is 
 SCENE = STACK + PILE + WAKE
 STEPS = 72
 BOXES = 200
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two torch threads while this file runs: the suite runs in parallel
-    workers, and a torch op spread over every core in each of them spends
-    its time waiting on the others (OpenMP)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _offsets_rotated(n=27):

@@ -34,6 +34,7 @@ from surtr_tpu_torch.ops import clip_cuda, hull_cuda, labels_cuda, soup_clip_cud
 from surtr_tpu_torch.physics import (broadphase_cuda, narrowphase_cuda, pack_cuda, prep_cuda,
                                      solver_cuda)
 from surtr_tpu_torch.render import raster_cuda
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -162,10 +163,18 @@ def test_variant_refuses_no_shape():
         general, held = OLD_LIMITS[kernel]
         for shape in shapes:
             v = fn(shape)
-            if kernel not in ("B1", "B2", "B3", "B6"):
+            if kernel not in ("B1", "B2", "B3", "B6", "B7", "B9"):
                 assert v in (today, general), (kernel, shape, v)
-            if kernel == "B7":
-                assert v == general or held(*shape), (kernel, shape, v)
+            if kernel == "B7":     # past the staged kernel the group one where its rows fit
+                assert v in (today, "group", general), (kernel, shape, v)
+                assert v != today or held(*shape), (kernel, shape, v)
+                fits = narrowphase_cuda.group_bytes(*shape) <= narrowphase_cuda.MAX_SMEM - 156
+                assert v == today or (v == "group") == fits, (kernel, shape, v)
+            elif kernel == "B9":   # past the register kernel the shared one where a row fits
+                assert v in (today, "shared", general), (kernel, shape, v)
+                assert (v == today) == held(*shape), (kernel, shape, v)
+                fits = shape[0] >= 1 and solver_cuda.shared_bytes(*shape, True) <= 232448
+                assert v == today or (v == "shared") == fits, (kernel, shape, v)
             elif kernel == "B11":  # the resident kernel up to the measured crossover
                 assert (v == today) == (shape[0] <= raster_cuda.RESIDENT_TILES), (kernel, shape)
                 assert v != today or held(*shape), (kernel, shape, v)
@@ -305,6 +314,66 @@ def test_b8_and_b12_past_the_old_limits_take_the_redesigned_variants():
     assert prep_cuda._variant(4, 3224, 4) == "wide_inplace"
     assert prep_cuda.wide_partners(5000, 1, False) < 5000          # passes of partners
     assert prep_cuda.wide_bytes(5000, 1, False) <= prep_cuda.WIDE_ROOM
+
+
+def test_b7_and_b9_past_the_old_limits_take_the_redesigned_variants():
+    """B7 past the staged kernel's shapes runs the group variant (a group of
+    G lanes a pair, G from Vh) wherever a block's pair rows fit its shared
+    memory: every shape past the old limits, phase 30's Vh 12 and 768 and
+    M 64 among them; the thread-a-pair "general" variant only past that
+    room. B9 past K = 16 or C = 128 runs the shared variant (a warp a row)
+    wherever a row's warm-mode state fits 232,448 B: phase 30's K 32, C
+    132 and C 2,052; "general" (the scratch) only past it. The main path
+    keeps "staged" and "registers"."""
+    room = narrowphase_cuda.MAX_SMEM - 39 * 4
+    for shape in PAST["B7"] + [(12, 32, 26, 3, 4), (768, 8, 26, 3, 4), (8, 32, 8, 3, 64),
+                               (100, 8, 26, 3, 4), (3, 8, 26, 3, 4)]:
+        assert narrowphase_cuda._variant(*shape) == "group", shape
+    for shape in MAIN_PATH["B7"]:
+        assert narrowphase_cuda._variant(*shape) == "staged", shape
+    assert [narrowphase_cuda.group_lanes(v) for v in (1, 6, 7, 8, 12, 13, 24, 48, 64, 96, 97,
+                                                      768)] == [
+        1, 1, 2, 2, 2, 4, 4, 8, 16, 16, 32, 32]
+    for K in (1, 8, 32):   # the last Vh whose rows fit, and the next
+        last = max(v for v in range(1200, 2000) if narrowphase_cuda.group_bytes(
+            v, K, 26, 3, 4) <= room)
+        assert narrowphase_cuda._variant(last, K, 26, 3, 4) == "group", K
+        assert narrowphase_cuda._variant(last + 1, K, 26, 3, 4) == "general", K
+    for K, C in PAST["B9"] + [(32, 132), (32, 32 * 64 + 4)]:
+        assert solver_cuda._variant(K, C) == "shared", (K, C)
+    for K, C in MAIN_PATH["B9"]:
+        assert solver_cuda._variant(K, C) == "registers", (K, C)
+    assert solver_cuda.shared_bytes(32, 2052, True) == 206368
+    for K in (1, 32, 64):   # the last C whose row fits, and the next
+        last = max(c for c in range(2200, 2400) if solver_cuda.shared_bytes(K, c, True) <= 232448)
+        assert solver_cuda._variant(K, last) == "shared", K
+        assert solver_cuda._variant(K, last + 1) == "general", K
+    assert solver_cuda._variant(0, 5) == "general"
+
+
+def test_b7_and_b9_byte_counts_match_hand_counted_layouts():
+    """The byte counts behind the two new choices, counted by hand.
+
+    B9 at K 32, C 132, a warp's row: the five B8 tables' 16-byte aligned
+    covers (rA, rB, n: 396 floats → 400 each; mt, hs: 264 → 268 each),
+    scale and I⁻¹ (12), vB (396), 32 partner states of 7 and their 32
+    indices, the six staged components at a stride of 132 (33 quads, odd)
+    and in warm mode the totals' cover (400). B7 at Vh 12, K 32, F 26, Ne
+    3, M 4: G = 2 lanes a pair, 64 pairs a block; rows of D = 48 + 130 + 26
+    + 12 = 216 floats; the own span of 3 rows + 9 → 656, 64 partner slots of
+    224 padded to 228 (4 mod 32), 64 x 24 scores and 64 records of 29
+    floats."""
+    plain = 3 * 400 + 2 * 268 + 12 + 396 + 32 * 7 + 32 + 6 * 132
+    assert solver_cuda.shared_bytes(32, 132, False) == 4 * plain == 12768
+    assert solver_cuda.shared_bytes(32, 132, True) == 4 * (plain + 400) == 14368
+    assert solver_cuda.shared_bytes(17, 17, False) == 4 * (
+        3 * 56 + 2 * 40 + 12 + 52 + 120 + 20 + 6 * 20)   # 119 → 120; 5 quads at C 17
+    assert narrowphase_cuda.group_bytes(12, 32, 26, 3, 4) == 4 * (
+        656 + 64 * 228 + 64 * 24 + 64 * 29) == 74560
+    # Records wider than a row slot (M 64 at Vh 8: 389 floats) are not staged.
+    D = 32 + 5 * 8 + 26 + 12
+    assert narrowphase_cuda.group_bytes(8, 32, 8, 3, 64) == 4 * (
+        ((63 // 32 + 2) * D + 9) // 4 * 4 + 64 * 132 + 64 * 16)
 
 
 def test_variant_byte_counts_match_the_kernels_layouts():

@@ -35,6 +35,7 @@ from surtr_tpu.ops.soup_clip_pallas import soup_clip_pooled_pallas
 from surtr_tpu_torch.ops import soup_clip_cuda
 from surtr_tpu_torch.ops.mesh_clip import _clip_polys_plane, clip_polys_by_rows, fan_triangles
 from tests.test_soup_clip_pallas import _random_case
+from torch_threads import bounded_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

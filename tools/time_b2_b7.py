@@ -2,8 +2,8 @@
 """Per-call times of kernels B2 (limited incremental hull) and B7 (pair
 narrowphase) on the card, held bitwise against their plain versions first.
 
-    python3 tools/time_b2_b7.py [--batched] [--out FILE.json]
-    PYTHONPATH=<other checkout> python3 tools/time_b2_b7.py [--batched] [--out FILE.json]
+    python3 tools/time_b2_b7.py [--batched | --limits] [--out FILE.json]
+    PYTHONPATH=<other checkout> python3 tools/time_b2_b7.py [--batched | --limits] [...]
 
 The second form measures another checkout's ``surtr_tpu_torch`` (and uses
 its ``chip_smoke.py`` helpers), so two trees can be compared in one session
@@ -24,7 +24,20 @@ slots, face_valid, normals, inner; B7: every record, NaN against NaN); the
 tool fails otherwise. Per call: the wrapper's time (CUDA events around the
 call, median of 20), the kernel's device time and the device launches of
 one call (torch.profiler), and, as B2's latency floor, the device time of
-an empty kernel launched and measured the same way. Needs one NVIDIA GPU.
+an empty kernel launched and measured the same way.
+
+``--limits`` (these alone): B7 past the staged kernel's shapes at
+chip_smoke phase 30's: the narrowphase of the 30th step of its 1,000-cube
+lattice (max_neighbors 32, max_hull_verts 12: (Np, K) (1,000, 32), Vh 12,
+F 26, M 4) and of one step at max_hull_verts 768 and at max_neighbors 32,
+manifold_points 64 (Vh 8, records of 389 floats). Each under the variant
+the tree takes there and, on a tree that names its variants
+(``narrowphase_cuda.VARIANTS``), under each other variant past the staged
+kernel, forced by replacing ``narrowphase_cuda._variant``: bit for bit
+against the plain version first (NaN against NaN; the lattice's call also
+on ``chip_smoke.narrowphase_edge_cases``), then the wrapper's time, the
+device time of the kernels named *narrow_* and of the rest of the call,
+and the device launches of one call. Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -94,6 +107,8 @@ def main():
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--batched", action="store_true",
                     help="time only the batched B2 calls (the refit pools and F = 132)")
+    ap.add_argument("--limits", action="store_true",
+                    help="time only B7 past the staged kernel's shapes at phase 30's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this tool needs an NVIDIA GPU")
@@ -106,6 +121,13 @@ def main():
     card = workload.card()
     print(f"package {pkg}; {card}", flush=True)
     out = {"package": pkg, "card": card, "calls": {}}
+    if args.limits:
+        out["b7_limits"] = b7_limits(cs, workload, card)
+        print(json.dumps(out), flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(out, fh, indent=1)
+        return
 
     # An empty kernel's device time: the least a launch shows on the device.
     torch.cuda._sleep(0)
@@ -157,6 +179,57 @@ def main():
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
+
+
+def b7_limits(cs, workload, card):
+    """B7 past the staged kernel's shapes (the module docstring): {case:
+    {variant: times}}."""
+    import dataclasses
+
+    from surtr_tpu_torch.physics import narrowphase_cuda
+    from surtr_tpu_torch.physics import step as phys_step
+
+    cfg = cs.LIMIT_PHYSICS_CFG
+    scene = workload.physics_lattice(cs.LIMIT_LATTICE, "cuda", cfg)
+    for _ in range(cs.LIMIT_PHYSICS_STEPS - 1):
+        scene = phys_step.physics_step(scene, cfg)
+    with cs.StepRecorder() as rec:
+        phys_step.physics_step(scene, cfg)
+        torch.cuda.synchronize()
+    lattice = rec.last["narrowphase"][:2]
+    base = workload.PHYSICS_CFG
+    v768 = cs.one_step(dataclasses.replace(base, max_hull_verts=768))["narrowphase"][:2]
+    m64 = cs.one_step(dataclasses.replace(base, max_neighbors=32, manifold_points=64))
+    cases = {"(Np, K) (1000, 32), Vh 12, M 4": (lattice, cs.narrowphase_edge_cases(lattice)),
+             "Np 1000, Vh 768": (v768, []),
+             "(Np, K) (1000, 32), Vh 8, M 64": (m64["narrowphase"][:2], [])}
+    own_fn = narrowphase_cuda._variant
+    past = [v for v in getattr(narrowphase_cuda, "VARIANTS", ()) if v != "staged"]
+    fn, ref = narrowphase_cuda.narrowphase, narrowphase_cuda.narrowphase_reference
+    res = {}
+    try:
+        for name, ((a, kw), edge) in cases.items():
+            own = own_fn(a[3], a[1].shape[1], a[4], a[5], a[6])
+            res[name] = {}
+            for v in [own] + [v for v in past if v != own]:
+                narrowphase_cuda._variant = lambda *shape, _v=v: _v
+                for i, (ca, _) in enumerate([(a, kw)] + edge):
+                    if not same_bits((fn(*ca),), (ref(*ca),)):
+                        fail(f"B7 {name}, variant {v}: case {i} differs from the plain version")
+                call = lambda a=a: fn(*a)  # noqa: E731
+                ms = cs.event_ms(call)
+                dev, other, n = device_split(call, "narrow_")
+                narrowphase_cuda._variant = own_fn
+                res[name][v] = {"own": v == own, "ms": ms, "kernel_device_ms": dev,
+                                "other_device_ms": other, "device_launches": n,
+                                "bitwise_cases": 1 + len(edge)}
+                print(f"B7 {name}, variant {v}{'' if v == own else ' (forced)'}: wrapper "
+                      f"{ms:.4f} ms; kernel {dev:.4f} ms and the rest {other:.4f} ms on the "
+                      f"device, {n:.0f} device launches a call; bitwise on {1 + len(edge)} "
+                      f"cases ({card})", flush=True)
+    finally:
+        narrowphase_cuda._variant = own_fn
+    return res
 
 
 def b2_b7_sets(cs, workload, hull_cuda, ich_fields):

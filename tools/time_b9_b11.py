@@ -3,8 +3,8 @@
 (tiled z-buffer raster, with its glue) on the card, held against their plain
 versions first.
 
-    python3 tools/time_b9_b11.py [--shadow-maps] [--out FILE.json]
-    PYTHONPATH=<other checkout> python3 tools/time_b9_b11.py [--shadow-maps] [--out FILE.json]
+    python3 tools/time_b9_b11.py [--shadow-maps | --limits] [--out FILE.json]
+    PYTHONPATH=<other checkout> python3 tools/time_b9_b11.py [--shadow-maps | --limits] [...]
 
 The second form measures another checkout's ``surtr_tpu_torch`` (and uses
 its ``chip_smoke.py`` helpers), so two trees can be compared in one session
@@ -34,7 +34,24 @@ it at every size), each chosen by replacing ``raster_cuda._variant``: per
 variant bit for bit against the plain version, then the wrapper's time,
 the device time of the raster kernel (*raster_kernel*) and of the rest of
 the call (the key scratch's memsets or the offsets' launches), and its
-device launches. Needs one NVIDIA GPU.
+device launches.
+
+``--limits`` (these alone): B9 past K = 16 at chip_smoke phase 30's shapes:
+the solve of the 30th step of its 1,000-cube lattice (max_neighbors 32,
+max_hull_verts 12: K 32, C 132) in both modes (the accumulated mode on
+seeded totals), the solve of one step at max_neighbors 32,
+manifold_points 64 (C 2,052) and the lattice's solve on 24 copies of it
+(24,000 rows, more than the cooperative grid holds). Each under the
+variant the tree takes there and, on a tree that names its variants
+(``solver_cuda.VARIANTS``), under each other variant past K = 16, forced
+by replacing ``solver_cuda._variant``: bit for bit against the plain
+version first (NaN against NaN), then the wrapper's time, the device time
+of the kernels named *solver_* and of the rest of the call, and the device
+launches of one solve; then, under the tree's own variant, the lattice's
+solve at (iterations, substeps) (1, 1), (2, 2), (8, 8), (4, 1) and (8, 2),
+and from their device times the cost of a substep (8, 8 against 1, 1),
+of an iteration beside its substeps (4, 1 against 1, 1) and of the rest
+(a launch of one substep less that substep). Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -106,6 +123,8 @@ def main():
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--shadow-maps", action="store_true",
                     help="time only B11's variants on render_512's shadow maps, 512² to 8,192²")
+    ap.add_argument("--limits", action="store_true",
+                    help="time only B9 past K = 16 at chip_smoke phase 30's shapes")
     ap.add_argument("--sizes", default=",".join(map(str, SHADOW_SIZES)),
                     help="with --shadow-maps: the shadow map sizes (comma-separated)")
     args = ap.parse_args()
@@ -123,10 +142,13 @@ def main():
     card = workload.card()
     print(f"package {pkg}; {card}", flush=True)
     out = {"package": pkg, "card": card}
-    if args.shadow_maps:
-        sizes = tuple(int(x) for x in args.sizes.split(","))
-        out["b11_shadow_maps"] = shadow_maps(cs, raster_cuda, render_raster, workload, card,
-                                             sizes)
+    if args.shadow_maps or args.limits:
+        if args.limits:
+            out["b9_limits"] = b9_limits(cs, workload, solver_cuda, phys_step, card)
+        else:
+            sizes = tuple(int(x) for x in args.sizes.split(","))
+            out["b11_shadow_maps"] = shadow_maps(cs, raster_cuda, render_raster, workload, card,
+                                                 sizes)
         print(json.dumps(out), flush=True)
         if args.out:
             with open(args.out, "w") as fh:
@@ -207,6 +229,94 @@ def main():
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
+
+
+def warm_case(call, seed: int = 30):
+    """The accumulated mode on a plain-mode solve's inputs: seeded totals
+    [λn | λu | λv] (λn >= 0; 0 on the slots without a hit)."""
+    (vw0, pb, tables), kw = call[0][:3], call[1]
+    C = kw["K"] * kw["M"] + kw["G"]
+    Np = vw0.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    hit = tables[4][:, :C].cpu()
+    lam = torch.cat([0.05 * torch.rand((Np, C), generator=g) * hit,
+                     0.02 * torch.randn((Np, C), generator=g) * hit,
+                     0.02 * torch.randn((Np, C), generator=g) * hit], dim=1)
+    return (vw0, lam.to(vw0.device), pb, tables), dict(kw)
+
+
+def same_bits(got, want) -> bool:
+    """Every output tensor equal bit for bit (NaN against NaN)."""
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            return False
+        diff = (g.view(torch.int32) != w.view(torch.int32)) & ~(torch.isnan(g) & torch.isnan(w))
+        if bool(diff.any()):
+            return False
+    return len(got) == len(want)
+
+
+def b9_limits(cs, workload, solver_cuda, phys_step, card):
+    """B9 past K = 16 (the module docstring): {case: {variant: times}}."""
+    import dataclasses
+
+    cfg = cs.LIMIT_PHYSICS_CFG
+    scene = workload.physics_lattice(cs.LIMIT_LATTICE, "cuda", cfg)
+    for _ in range(cs.LIMIT_PHYSICS_STEPS - 1):
+        scene = phys_step.physics_step(scene, cfg)
+    calls = capture(phys_step, "solve", lambda: phys_step.physics_step(scene, cfg))
+    lattice = calls[-1]
+    m64 = cs.one_step(dataclasses.replace(workload.PHYSICS_CFG, max_neighbors=32,
+                                          manifold_points=64))["solver"][:2]
+    plain = (solver_cuda.solve, solver_cuda.solve_reference)
+    warm = (solver_cuda.solve_warm, solver_cuda.solve_warm_reference)
+    Np = lattice[0][0].shape[0]
+    cases = {f"Np {Np}, K 32, C 132": (lattice, *plain),
+             f"Np {Np}, K 32, C 132, warm": (warm_case(lattice), *warm),
+             f"Np {m64[0][0].shape[0]}, K 32, M 64, C 2052": (m64, *plain),
+             f"{24 * Np} rows, K 32, C 132": (cs.tile_solver(*lattice), *plain)}
+    own_fn = solver_cuda._variant
+    past = [v for v in getattr(solver_cuda, "VARIANTS", ()) if v != "registers"]
+    res = {}
+    try:
+        for name, ((a, kw), fn, ref) in cases.items():
+            own = own_fn(kw["K"], kw["K"] * kw["M"] + kw["G"])
+            want = ref(*a, **kw)
+            res[name] = {}
+            for v in [own] + [v for v in past if v != own]:
+                solver_cuda._variant = lambda *shape, _v=v: _v
+                if not same_bits(fn(*a, **kw), want):
+                    fail(f"B9 {name}, variant {v}: differs from the plain version")
+                call = lambda a=a, kw=kw, fn=fn: fn(*a, **kw)  # noqa: E731
+                ms = cs.event_ms(call)
+                dev, other, n, nk = device_split(call, "solver_")
+                solver_cuda._variant = own_fn
+                res[name][v] = {"own": v == own, "ms": ms, "kernel_device_ms": dev,
+                                "other_device_ms": other, "device_launches": n,
+                                "kernel_launches": nk}
+                print(f"B9 {name}, variant {v}{'' if v == own else ' (forced)'}: wrapper "
+                      f"{ms:.4f} ms; kernel {dev:.4f} ms on the device in {nk:.0f} launches, "
+                      f"{other:.4f} ms beside it; {n:.0f} device launches a solve; bitwise "
+                      f"({card})", flush=True)
+    finally:
+        solver_cuda._variant = own_fn
+    # Where a solve's time goes: substeps, iterations, the rest.
+    (a, kw) = lattice
+    split = {}
+    for iters, sub in ((1, 1), (2, 2), (8, 8), (4, 1), (8, 2)):
+        k = dict(kw, iters=iters, substeps=sub)
+        split[f"{iters},{sub}"] = device_split(lambda k=k: solver_cuda.solve(*a, **k), "solver_")[0]
+    sub_ms = (split["8,8"] - split["1,1"]) / 7
+    it_ms = (split["4,1"] - split["1,1"]) / 3 - sub_ms
+    res["split"] = {"device_ms": split, "substep_ms": sub_ms, "iteration_ms": it_ms,
+                    "rest_ms": split["1,1"] - sub_ms}
+    print(f"B9 Np {Np}, K 32, C 132, {own_fn(32, 132)}: device ms at (iterations, substeps) "
+          f"{json.dumps({k: round(v, 5) for k, v in split.items()})}; a substep {sub_ms:.5f} ms, "
+          f"an iteration beside its substeps {it_ms:.5f} ms, the rest "
+          f"{split['1,1'] - sub_ms:.5f} ms ({card})", flush=True)
+    return res
 
 
 SHADOW_SIZES = (512, 1024, 2048, 4096, 8192)
