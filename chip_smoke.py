@@ -5,7 +5,10 @@
 
 Phases (any failure exits non-zero):
   1. a CUDA device is present; print the card, torch and CUDA versions;
-  2. build the hand-written kernels from ``surtr_tpu_torch/csrc``;
+  2. build the hand-written kernels from ``surtr_tpu_torch/csrc``, then
+     start one background process (``--cpu-runs``, nice 19, no card
+     visible) that computes the CPU plain runs phases 20, 21, 28 and 29
+     compare with, so that they overlap the card's phases;
   3. per decomposition kernel (B1 clip fold, B2 ICH, B3 island labels, B4
      refit planes): the kernel against its plain PyTorch version on the
      card, on the inputs the main path gives it plus degenerate cases, with
@@ -109,8 +112,8 @@ Phases (any failure exits non-zero):
      and on their degenerate cases (B1's at F = 96, S = 32); per kernel
      the wrapper's and the device ms a call, the plain version's ms and
      the bound;
- 20. that event on ``cuda:0`` with launch counts (B1 6, B2 1, B3 1, B4 1,
-     B10 1; one parity grid), compared with the CPU plain run at full
+ 20. that event on ``cuda:0`` with launch counts (B1 6, B2 1, B3 1 by its
+     vertex variant at T = 128, B4 1, B10 1; one parity grid), compared with the CPU plain run at full
      width: piece_cnt, ich_face_cnt and mesh_tris_dropped equal, total
      volume within rtol 1e-5, pieces slot for slot;
  21. ``workload.concave_scene("torus")`` and ``("blob")`` (the default
@@ -188,7 +191,10 @@ Phases (any failure exits non-zero):
      1,025 over more polytopes than its CTAs, the global fold at F = 2,304;
      the batched B2 at limit 64, F = 132; B3's vertex variant at T = 2048,
      also over more soups than its CTAs, and in a scratch at T = 4,096; B1
-     and B3's variants forced onto the degenerate cases; B5 at Vh = 768; B6, B9 and B12 at K =
+     and B3's variants forced onto the degenerate cases; B5 at Vh = 768
+     and 747 (the first Vh past 48 KB at F = 8) and on supports of -0 and
+     +0 tied at an interval's end (its wide variant), and at Vh = 8,100
+     (the wide variant reading its corners in place); B6, B9 and B12 at K =
      32, B9 also over more rows than its grid, B12 at W = 256 and 1,024
      and at K = 48 too (its list selection); B7 at Vh = 12 and 768 and with
      M = 64 (its group variant; at Vh 12 also on narrowphase_edge_cases);
@@ -196,8 +202,11 @@ Phases (any failure exits non-zero):
      totals); B8 at K = 32, M = 64 (its wide variant) and at M = 3,300 (the
      records read in place); B8's and B12's variants forced onto the
      lattice's calls and the degenerate broadphase pools, B7's and B9's
-     last resorts ("general") onto phase 30's B7 and B9 calls; B10
-     at S = 16; B11 at 32,768 tiles; the general B2 also on the sphere's
+     last resorts ("general") onto phase 30's B7 and B9 calls, B5's and
+     B10's ("direct", "general") onto phase 30's B5 and B10 calls, a NaN
+     corner through B5's wide and direct variants (ROADMAP C17); B10 at S
+     = 16, 3, 5 and 32 (its group variant) and S = 40 (the general one);
+     B11 at 32,768 tiles; the general B2 also on the sphere's
      hull and on sets of 0-4 live points at F = 132), and, since the
      redesigns of B11 past its resident kernel and of B6 past K = 16, B11
      on render_512's 4,096 triangles at a shadow map of 8192² and B6 on
@@ -2066,7 +2075,7 @@ def impact_phase():
         counts = all_counts()
         soup_calls += soup
         clip_calls += clips
-        want = {"clip_fold": "> 0", "labels": "> 0", "refit": "> 0",
+        want = {"clip_fold": "> 0", "labels": "> 0", "labels_general": "> 0", "refit": "> 0",
                 "soup_clip": 1 if route == "pooled" else 0}
         check_launches(f"impact ({route})", counts, want)
         splits = 0
@@ -2221,6 +2230,93 @@ def fresh_device_split(jobs):
     print(f"device_split: {len(jobs)} call(s) profiled in a fresh process in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+# The CPU plain runs that need nothing from the card (phases 20, 21, 28 and
+# 29 compare the card's runs with them): one background process computes
+# them while the card's phases run, and each phase waits for its own.
+CPU_DIR = "build/cpu_runs"
+CPU_RUNS = ("torus config 1", "Scene('torus')", "Scene('blob')", "cube 1k, refit limit 20",
+            "torus config 1, refit limit 20", "sphere 1k, mesh_pair_pool=False",
+            "config 1 at model scale (10,000-triangle torus)")
+_cpu_proc = None
+
+
+def cpu_run_fn(name):
+    """The CPU plain run ``name``: a decomposition event's (pieces, ctx,
+    metrics), or a concave Scene built on the CPU."""
+    events = {
+        "torus config 1": (workload.MODEL_1K_CFG, workload.CONCAVE_MODEL),
+        "cube 1k, refit limit 20": (refit_cfg(workload.BENCH_CFG, 20), "cube"),
+        "torus config 1, refit limit 20": (refit_cfg(workload.MODEL_1K_CFG, 20),
+                                           workload.CONCAVE_MODEL),
+        "sphere 1k, mesh_pair_pool=False": (dataclasses.replace(workload.BENCH_CFG,
+                                                                mesh_pair_pool=False), "sphere"),
+        CPU_RUNS[6]: (workload.MODEL_1K_CFG, None),
+    }
+    if name.startswith("Scene("):
+        return lambda: workload.concave_scene(name[7:-2], "cpu")
+    cfg, model = events[name]
+    return lambda: run_prepare("cpu", cfg, workload.model_scale_mesh() if model is None else model)
+
+
+def cpu_runs_main(d):
+    """The background process of ``start_cpu_runs``: each of ``CPU_RUNS``
+    on the CPU, saved as ``d``/<index>.pt (result, seconds) in that order,
+    at the lowest CPU priority, so that the card's host-paced phases keep
+    their pace."""
+    import os
+
+    os.nice(19)
+    for i, name in enumerate(CPU_RUNS):
+        t0 = time.perf_counter()
+        out = cpu_run_fn(name)()
+        tmp = os.path.join(d, f"{i}.pt.tmp")
+        torch.save((out, time.perf_counter() - t0), tmp)
+        os.replace(tmp, os.path.join(d, f"{i}.pt"))
+
+
+def start_cpu_runs():
+    """Starts ``python chip_smoke.py --cpu-runs DIR`` (no card visible to
+    it); ``cpu_run`` waits for each result, and the process is stopped when
+    this one exits."""
+    import atexit
+    import os
+    import shutil
+    import subprocess
+
+    global _cpu_proc
+    shutil.rmtree(CPU_DIR, ignore_errors=True)
+    os.makedirs(CPU_DIR)
+    log = open(os.path.join(CPU_DIR, "log.txt"), "w")
+    _cpu_proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-runs", CPU_DIR], stdout=log,
+        stderr=subprocess.STDOUT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+    def stop():
+        if _cpu_proc.poll() is None:
+            _cpu_proc.kill()
+            _cpu_proc.wait()
+    atexit.register(stop)
+
+
+def cpu_run(name):
+    """(result, seconds) of the CPU plain run ``name``: from the background
+    process when it runs (waiting for it), else computed here."""
+    import os
+
+    if _cpu_proc is None:
+        t0 = time.perf_counter()
+        out = cpu_run_fn(name)()
+        return out, time.perf_counter() - t0
+    path = os.path.join(CPU_DIR, f"{CPU_RUNS.index(name)}.pt")
+    while not os.path.exists(path):
+        if _cpu_proc.poll() is not None and not os.path.exists(path):
+            with open(os.path.join(CPU_DIR, "log.txt")) as fh:
+                fail(f"the CPU plain runs' process exited {_cpu_proc.returncode} before "
+                     f"{name!r}: {fh.read()[-2000:]}")
+        time.sleep(0.2)
+    return torch.load(path, weights_only=False)
 
 
 def device_split_main(d):
@@ -2822,8 +2918,10 @@ def frame_timing(start, card, runs: int = 3) -> dict:
 CONCAVE_CFG = workload.MODEL_1K_CFG
 CONCAVE_MODEL = workload.CONCAVE_MODEL
 # Launches of one torus config-1 decomposition: B1's six folds (ACH, the two
-# pattern cell sets, the two Voronoi passes, the refit), B2, B3, B4, B10.
-CONCAVE_LAUNCHES = {"clip_fold": 6, "ich": 1, "labels": 1, "refit": 1, "soup_clip": 1}
+# pattern cell sets, the two Voronoi passes, the refit), B2, B3 (its vertex
+# variant at T = 128, past labels_cuda.MAX_BLOCK_T), B4, B10.
+CONCAVE_LAUNCHES = {"clip_fold": 6, "ich": 1, "labels": 1, "labels_general": 1, "refit": 1,
+                    "soup_clip": 1}
 # Its stages: (label, pipeline function), spans of outermost calls; the
 # ACH clip and the refit fold are the clip_planes_batch calls outside the
 # cell clip.
@@ -2839,7 +2937,8 @@ CONCAVE_IMPACT_STAGES = [(n, pipeline, n) for n in (
     "split_groups_by_contact")] + [("rebuild", scene_mod, "build_scene")]
 CONCAVE_KERNELS = ("clip_fold", "ich", "labels", "refit", "soup_clip")
 # Kernels a concave Scene's prepare and its fire_impact launch.
-SCENE_PREPARE_LAUNCHES = {"clip_fold": 6, "ich": 1, "labels": 1, "refit": 1}
+SCENE_PREPARE_LAUNCHES = {"clip_fold": 6, "ich": 1, "labels": 1, "labels_general": 1,
+                          "refit": 1}   # B3 by its vertex variant at T = 512
 SCENE_IMPACT_KERNELS = ("clip_fold", "labels", "refit", "soup_clip")
 SCENE_STEPS = 16
 SCENE_MODELS = ("torus", "blob")
@@ -2970,9 +3069,7 @@ def concave_main_path(card, model=CONCAVE_MODEL, what="torus config 1"):
     mesh_vol = _mesh_volume(model)
     if not 0.0 < gpu["total_volume"] <= 1.6 * mesh_vol:
         fail(f"{what}: total_volume {gpu['total_volume']} against the mesh's {mesh_vol}")
-    t0 = time.perf_counter()
-    cpieces, _, cmet = run_prepare("cpu", CONCAVE_CFG, model)
-    cpu_s = time.perf_counter() - t0
+    (cpieces, _, cmet), cpu_s = cpu_run(what)
     g = gpu
     c = {k: float(v) for k, v in cmet.items()}
     print(f"{what} (cpu, plain): {json.dumps(c)} in {cpu_s:.2f} s", flush=True)
@@ -3069,7 +3166,8 @@ def compare_recorded(what, calls, counts) -> dict:
 
 def scene_prepare_on_card(model, start):
     """``concave_scene(model)`` built on the card with recording wrappers:
-    its launches (B1 6, B2 1, B3 1 at the Scene's T = 512, B4 1), each
+    its launches (B1 6, B2 1, B3 1 at the Scene's T = 512, by its vertex
+    variant, B4 1), each
     recorded kernel call bit for bit against its plain version, and its
     prepare metrics and pieces (slot for slot) against the CPU-built
     ``start``'s."""
@@ -3109,9 +3207,7 @@ def concave_scene_phase(card):
     starts, res = {}, {}
     for model in SCENE_MODELS:
         ray = workload.CONCAVE_RAYS[model]
-        t0 = time.perf_counter()
-        start = workload.concave_scene(model, "cpu")
-        build_s = time.perf_counter() - t0
+        start, build_s = cpu_run(f"Scene({model!r})")
         if not start.cfg.fracture.exact_caps:
             fail(f"Scene({model!r}) dropped exact caps")
         starts[model] = start
@@ -3634,9 +3730,9 @@ ICH_BATCH_SRC = "surtr_tpu_torch/csrc/ich.cu"
 ICH_BATCH_REPLACES = "surtr_tpu/ops/hull_pallas.py:51"
 REFIT_LIMITS = (8, 20)
 REFIT_EVENT_LAUNCHES = {"clip_fold": 6, "ich": 2, "ich_batch": 1, "ich_warp_set": 1, "labels": 1}
-REFIT_TORUS_LAUNCHES = {**REFIT_EVENT_LAUNCHES, "soup_clip": 1}
+REFIT_TORUS_LAUNCHES = {**REFIT_EVENT_LAUNCHES, "labels_general": 1, "soup_clip": 1}  # T 128
 REFIT_IMPACT_LAUNCHES = {"clip_fold": "> 0", "ich": 1, "ich_batch": 1, "ich_warp_set": 1,
-                         "labels": "> 0"}
+                         "labels": "> 0", "labels_general": "> 0"}
 NOPOOL_LAUNCHES = {"clip_fold": 6, "ich": 1, "labels": 1, "refit": 1}
 SHARD_MESHES = 4
 SHARD_LATTICES = 2
@@ -3818,9 +3914,7 @@ def refit_event(what, cfg, model, want):
     g = {k: float(v) for k, v in met.items()}
     if not bool(torch.isfinite(pieces.convex.face_verts).all()) or g["piece_cnt"] <= 0:
         fail(f"{what}: pieces are not finite or none")
-    t0 = time.perf_counter()
-    cpieces, _, cmet = run_prepare("cpu", cfg, model)
-    cpu_s = time.perf_counter() - t0
+    (cpieces, _, cmet), cpu_s = cpu_run(what)
     c = {k: float(v) for k, v in cmet.items()}
     for k in ("piece_cnt", "ich_face_cnt", "mesh_tris_dropped"):
         if g[k] != c[k]:
@@ -4064,7 +4158,7 @@ GENERAL = {
     "labels": (labels_cuda, "general_launches", "surtr_tpu_torch/csrc/labels.cu",
                "surtr_tpu/ops/labels_pallas.py:25", "labels_vertex"),
     "pack": (pack_cuda, "general_launches", "surtr_tpu_torch/csrc/pack.cu",
-             "surtr_tpu/physics/pack_pallas.py:31", "pack_kernel"),
+             "surtr_tpu/physics/pack_pallas.py:31", "pack_wide"),
     "broadphase_exact": (broadphase_cuda, "exact_general_launches",
                          "surtr_tpu_torch/csrc/broadphase_exact.cu",
                          "surtr_tpu/physics/broadphase_pallas.py:221", "bp_exact_general"),
@@ -4075,7 +4169,7 @@ GENERAL = {
     "solver": (solver_cuda, "general_launches", "surtr_tpu_torch/csrc/solver.cu",
                "surtr_tpu/physics/solver_pallas.py:53", "solver_shared"),
     "soup_clip": (soup_clip_cuda, "general_launches", "surtr_tpu_torch/csrc/soup_clip.cu",
-                  "surtr_tpu/ops/soup_clip_pallas.py:43", "soup_fold_general"),
+                  "surtr_tpu/ops/soup_clip_pallas.py:43", "soup_fold_group"),
     "raster": (raster_cuda, "general_launches", "surtr_tpu_torch/csrc/raster.cu",
                "surtr_tpu/render/raster_pallas.py:37", "raster_kernel"),
     "broadphase_sorted": (broadphase_cuda, "sorted_list_launches",
@@ -4102,12 +4196,13 @@ LIMIT_K_GENERAL = 80  # B6 past LONG_K: the thread-a-piece general variant
 # fragment of its device function). B6 at K = 32 runs the tiled sweep's
 # long lists; B1 past the CTA variant's per-face state the global fold.
 PAST_VARIANT = {"broadphase_exact": ("broadphase_exact_long", "bp_exact_kernel"),
-                "clip_fold_global": ("clip_fold_global", "clip_fold_kernel")}
+                "clip_fold_global": ("clip_fold_global", "clip_fold_kernel"),
+                "soup_clip_s40": ("soup_clip_fallback", "soup_fold_general")}
 # Phase 30's further cases: name -> the kernel (a GENERAL key) it runs.
 PAST_CASES = {"raster_render_512": "raster", "broadphase_exact_10k": "broadphase_exact",
               "clip_fold_f1025": "clip_fold", "clip_fold_global": "clip_fold",
               "labels_scratch": "labels", "broadphase_sorted_k48": "broadphase_sorted",
-              "prep_inplace": "prep"}
+              "prep_inplace": "prep", "soup_clip_s40": "soup_clip"}
 LIMIT_K_LIST = 48     # B12 past one slot a lane (K > 32)
 # B8 past the wide variant's staged records (one partner's record past a
 # third of the SM's shared memory: M > 3,223): (Np, K, M).
@@ -4118,7 +4213,13 @@ LIMIT_F_GLOBAL = 2304   # B1 past the CTA variant's per-face state (F > 2,131): 
 # The last resorts past the redesigned variants' shared memory, beside their
 # ``general_launches``: kernel -> (module, counter).
 FALLBACK = {"narrowphase": (narrowphase_cuda, "fallback_launches"),
-            "solver": (solver_cuda, "fallback_launches")}
+            "solver": (solver_cuda, "fallback_launches"),
+            "pack": (pack_cuda, "fallback_launches"),
+            "soup_clip": (soup_clip_cuda, "fallback_launches")}
+LIMIT_VH_FIRST = 747       # B5's first Vh past 48 KB of staged rows at the lattice's F 8, Ne 3
+LIMIT_VH_INPLACE = 8100    # B5 past the wide CTA's staged raw corners: read in place
+LIMIT_SLOTS = (3, 5, 32)   # B10's further slot counts on the group variant (phase 30's is 16)
+LIMIT_SLOTS_GENERAL = 40   # B10 past a warp's slots: the general variant
 
 
 def general_counts() -> dict:
@@ -4361,8 +4462,10 @@ def limits_phase(card, state):
              pcalls["tri_soup_components_batch"][0][1])
     reset_general()
     step768 = one_step(dataclasses.replace(workload.PHYSICS_CFG, max_hull_verts=768))
+    step747 = one_step(dataclasses.replace(workload.PHYSICS_CFG, max_hull_verts=LIMIT_VH_FIRST))
     step_m64 = one_step(dataclasses.replace(workload.PHYSICS_CFG, max_neighbors=32,
                                             manifold_points=64))
+    zeros = pack_zero_case(step768["pack"][:2])
     inplace = prep_inplace_case("cuda", step_m64["prep"][1])
     launches["pack"] = general_counts()["pack_general"]
     launches["prep"] = general_counts()["prep_general"]
@@ -4407,6 +4510,12 @@ def limits_phase(card, state):
         "soup_clip": (f"{sa[0].shape[0]} lanes by {tuple(sa[3].shape)}, S 16",
                       (sa, {"poly_slots": 16}), compare_soup, soup_clip_cuda.soup_clip_pooled,
                       soup_clip_cuda.soup_clip_pooled_reference, soup_ops(sa, 16)),
+        "soup_clip_s40": (f"{sa[0].shape[0]} lanes by {tuple(sa[3].shape)}, S "
+                          f"{LIMIT_SLOTS_GENERAL}: {soup_clip_cuda._variant(LIMIT_SLOTS_GENERAL)}",
+                          (sa, {"poly_slots": LIMIT_SLOTS_GENERAL}), compare_soup,
+                          soup_clip_cuda.soup_clip_pooled,
+                          soup_clip_cuda.soup_clip_pooled_reference,
+                          soup_ops(sa, LIMIT_SLOTS_GENERAL)),
         "raster": (f"shadow {LIMIT_SHADOW}²: {shadow[3] * shadow[4]} tiles, T_pad "
                    f"{shadow[0].shape[0]}", (shadow[:8], {}), lambda a, kw: compare_raster(shadow),
                    raster_cuda.tile_raster, raster_cuda.tile_raster_reference,
@@ -4462,6 +4571,8 @@ def limits_phase(card, state):
         "broadphase_sorted": [(bp + (8, 256), {}), (bp + (32, 1024), {})],
         "broadphase_exact": [(bp + (LIMIT_K_GENERAL,), {}), (bp + (64,), {}),
                              (bp10k + (LIMIT_K_GENERAL,), {})],
+        "pack": [step747["pack"][:2], zeros, pack_inplace_case(step768["pack"][:2])],
+        "soup_clip": [(sa, {"poly_slots": S}) for S in LIMIT_SLOTS],
     }
     compare_one = {"ich": lambda a, kw: (compare_ich_batch if a[0].dim() == 3 else compare_ich)(
         a, kw), "solver": lambda a, kw: (compare_solver_warm if len(a) == 4 else compare_solver)(
@@ -4477,6 +4588,8 @@ def limits_phase(card, state):
         n_general = all_counts()[past_key(name)]
         if n_general < 1:
             fail(f"phase 30 {name} at {shape}: its variant past the old limit did not launch")
+        if name in FALLBACK and all_counts()[f"{name}_fallback"]:
+            fail(f"phase 30 {name} at {shape}: its last resort launched")
         cmp(a, kw)
         for ea, ekw in extra.get(name, []):
             before = general_counts()
@@ -4500,6 +4613,17 @@ def limits_phase(card, state):
         launches[name] = launches.get(name) or n_general
         results[name] = {"shape": shape, "general_launches": n_general, "max_abs_err": 0.0,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    # The bounds of the further calls timed by the tools (B3 over 320 soups;
+    # B7 at Vh 768 and M 64; B9 at C 2,052, over 24,000 rows and in warm
+    # mode; B5 at Vh 747, the zero ties and Vh 8,100; B10 at S 3, 5 and 32)
+    # and of the F = 256, S = 32 event's six B1 calls.
+    further = {name: [further_bound(name, ea, ekw) for ea, ekw in extra[name][:n]]
+               for name, n in (("labels", 1), ("narrowphase", 2), ("solver", 4), ("pack", 3),
+                               ("soup_clip", 3))}
+    for name, bounds in further.items():
+        results[name]["further_bounds"] = bounds
+        print(f"phase 30 {name}: bounds of its further calls {json.dumps(bounds)} ms", flush=True)
+    six_bounds = [further_bound("clip_fold", a, kw) for a, kw in faces]
     # The device split of every call in one fresh process: late in this
     # long process the profiler may keep no record of a kernel; with them
     # each of the F = 256, S = 32 event's six B1 calls.
@@ -4507,10 +4631,12 @@ def limits_phase(card, state):
     splits = fresh_device_split(jobs + [(c, past_kernel("clip_fold"), 5, 2) for c in six])
     results["clip_fold"]["calls"] = [
         {"shape": [*a[0].face_verts.shape[:3], a[1].shape[1]], "device_ms": sp[0],
-         "device_launches": sp[2]} for (a, _), sp in zip(faces, splits[len(jobs):])]
+         "device_launches": sp[2], "bound_ms": bd[0], "bound_by": bd[1]}
+        for (a, _), sp, bd in zip(faces, splits[len(jobs):], six_bounds)]
     for c in results["clip_fold"]["calls"]:
         print(f"phase 30 clip_fold (the CTA variant), F = 256, S = 32 call (N, F, S, K) "
-              f"{c['shape']}: kernel {c['device_ms']:.4f} ms on the device ({card})", flush=True)
+              f"{c['shape']}: kernel {c['device_ms']:.4f} ms on the device, bound "
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']}) ({card})", flush=True)
     for (name, res), (dev_ms, other_ms, entries) in zip(results.items(), splits):
         res.update(device_ms=dev_ms, other_device_ms=other_ms, device_launches=entries)
         print(f"phase 30 {name} (variant past the old limit) at {res['shape']}: bit for bit "
@@ -4521,6 +4647,9 @@ def limits_phase(card, state):
               f"({card})", flush=True)
     forced.update(forced_b8_b12_checks([last["prep"][:2], step_m64["prep"][:2], inplace],
                                        bp, W))
+    forced.update(forced_b5_b10_checks(
+        [step768["pack"][:2], step747["pack"][:2], zeros],
+        [(sa, {"poly_slots": S}) for S in (16,) + LIMIT_SLOTS]))
     forced.update(forced_b7_b9_checks(
         [last["narrowphase"][:2], step768["narrowphase"][:2], step_m64["narrowphase"][:2]]
         + narrowphase_edge_cases(last["narrowphase"]),
@@ -4530,6 +4659,26 @@ def limits_phase(card, state):
             "prepare": prep_cmp, "clip_f1025": {k: v for k, v in f1025.items() if k != "args"},
             "forced": {k: v for k, v in forced.items() if k != "global_args"},
             "layouts": layouts}
+
+
+def further_bound(name, a, kw):
+    """[ms, "bytes" or "operations"] of one call of kernel ``name`` (B1, B3,
+    B5, B7, B9 in either mode, or B10) on the card: its inputs read once and
+    its outputs written once, against its float operations."""
+    if name in ("clip_fold", "labels"):
+        out, ops = KERNEL_FN[name](*a, **kw), decomposition_ops(name, a, kw)
+    elif name == "narrowphase":
+        out, ops = narrowphase_cuda.narrowphase(*a), physics_ops(name, a, kw)
+    elif name == "pack":
+        out, ops = pack_cuda.transform_pack_owned(*a, **kw), physics_ops(name, a, kw)
+    elif name == "soup_clip":
+        out = soup_clip_cuda.soup_clip_pooled(*a, **kw)
+        ops = soup_ops(a, kw.get("poly_slots", 8))
+    else:
+        warm = len(a) == 4
+        out = (solver_cuda.solve_warm if warm else solver_cuda.solve)(*a, **kw)
+        ops = physics_ops("solver_warm" if warm else "solver", a, kw)
+    return list(bound(nbytes(a) + nbytes(kw) + nbytes(out), ops))
 
 
 def clip_past_f1024():
@@ -4725,6 +4874,86 @@ def forced_b7_b9_checks(nar_calls, sol_calls):
     return {"cases_b7_b9": counts}
 
 
+def pack_zero_case(call):
+    """B5's inputs of ``call`` with supports tied at zero: body 0 at (-0,
+    -0, -0) with the identity pose owns pieces 0-2; each has a live corner
+    at (-0, -0, -0) (world -0) and one at (+0, +0, +0) (world +0), in
+    either order, and its other corners on one side of the origin, so that
+    +0 and -0 tie at the end of its intervals (the card's fminf / fmaxf and
+    the plain version order them: -0 the minimum, +0 the maximum)."""
+    a, kw = call
+    verts, vmask, owner, q, x = (t.clone() for t in (a[0], a[1], a[6], a[8], a[9]))
+    q[0] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    x[0] = -0.0
+    for i, (lo, hi, side) in enumerate(((0, 1, 1.0), (1, 0, 1.0), (0, 1, -1.0))):
+        owner[i] = 0
+        verts[i] = side * (verts[i].abs() + 0.1)
+        verts[i, lo] = -0.0
+        verts[i, hi] = 0.0
+        vmask[i, lo] = vmask[i, hi] = True
+    return (verts, vmask, *a[2:6], owner, a[7], q, x, *a[10:]), kw
+
+
+def pack_inplace_case(call, Vh: int = LIMIT_VH_INPLACE, n: int = 16):
+    """B5's inputs of ``call``'s first ``n`` pieces at ``Vh`` corners (their
+    corners and corner masks repeated): past 8,001 corners at F = 8 a wide
+    CTA of one piece reads them in place."""
+    a, kw = call
+    reps = -(-Vh // a[0].shape[1])
+    cut = [t[:n] for t in a[:8]]
+    cut[0] = cut[0].repeat(1, reps, 1)[:, :Vh].contiguous()
+    cut[1] = cut[1].repeat(1, reps)[:, :Vh].contiguous()
+    return (*cut, *a[8:]), kw
+
+
+def forced_b5_b10_checks(pack_calls, soup_calls):
+    """The last resorts of B5 and B10 ("direct": rows built in place; the
+    general fold, a thread a lane), forced where the shape takes the wide
+    or group kernel (``_variant`` replaced for the call), each call bit for
+    bit against its plain version: B5 on phase 30's Vh 768 and 747 calls
+    and the zero-tie case, B10 on the sphere's call at S 16, 3, 5 and 32.
+    Each forced run must move the module's ``fallback_launches``. Then a NaN
+    corner in a live piece of the Vh 768 call: the wide variant keeps the
+    plain version's NaN intervals (bit for bit); the direct variant's walk
+    drops it (ROADMAP C17), which is counted, not failed. Returns the
+    counts of cases."""
+    counts = {}
+    for mod, cases, cmp in ((pack_cuda, pack_calls, compare_pack),
+                            (soup_clip_cuda, soup_calls, compare_soup)):
+        last = {pack_cuda: "direct", soup_clip_cuda: "general"}[mod]
+        orig = mod._variant
+        mod._variant = lambda *shape, _v=last: _v
+        try:
+            for a, kw in cases:
+                before = mod.fallback_launches
+                cmp(a, kw)
+                torch.cuda.synchronize()
+                if mod.fallback_launches <= before:
+                    fail(f"phase 30: {mod.__name__} forced to {last} did not launch it")
+        finally:
+            mod._variant = orig
+        counts[f"{mod.__name__.rsplit('.', 1)[1]}:{last}"] = len(cases)
+    a, kw = pack_calls[0]
+    verts, vmask = a[0].clone(), a[1].clone()
+    verts[3, 0, 1] = float("nan")
+    vmask[3, 0] = True
+    nan_call = ((verts, vmask, *a[2:]), kw)
+    compare_pack(*nan_call)
+    orig = pack_cuda._variant
+    pack_cuda._variant = lambda *shape: "direct"
+    try:
+        got = pack_cuda.transform_pack_owned(*nan_call[0], **kw)
+    finally:
+        pack_cuda._variant = orig
+    want = pack_cuda.transform_pack_owned_reference(*nan_call[0], **kw)
+    rows = int((((got[0].view(torch.int32) != want[0].view(torch.int32))
+                 & ~(torch.isnan(got[0]) & torch.isnan(want[0]))).any(1)).sum())
+    print(f"phase 30 forced B5 and B10 last resorts: bit for bit against the plain versions on "
+          f"{json.dumps(counts)} cases; a NaN corner: the wide variant bit for bit, the direct "
+          f"variant differs in {rows} packed row(s) (ROADMAP C17)", flush=True)
+    return {"cases_b5_b10": counts, "nan_corner_direct_rows": rows}
+
+
 def warm_solver_case(call, seed: int = 30):
     """B9's accumulated mode on a plain-mode call's inputs: seeded totals
     [λn | λu | λv] (λn >= 0; 0 on the slots without a hit)."""
@@ -4776,6 +5005,9 @@ def check_layouts():
         ("surtr_pack_stage_bytes", pack_cuda.stage_bytes,
          [(Vh, F, Ne) for Vh in (8, 16, 17, 64, 723, 724, 768) for F in (8, 16, 17, 26, 32)
           for Ne in (0, 3, 16, 17)]),
+        ("surtr_pack_wide_bytes", pack_cuda.wide_bytes,
+         [(Vh, F, Ne) for Vh in (8, 17, 724, 768, 2667, 7989, 7990, 14482, 14483, 20000)
+          for F in (8, 26, 32) for Ne in (0, 3, 17)]),
         ("surtr_prep_row_bytes", prep_cuda.row_bytes,
          [(K, M, G) for K in (1, 8, 16, 32, 64) for M in (1, 4, 25, 26, 64) for G in (0, 4)]),
         ("surtr_prep_wide_bytes", lambda K, M, s: prep_cuda.wide_bytes(K, M, bool(s)),
@@ -4836,6 +5068,7 @@ def main():
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)", flush=True)
+    start_cpu_runs()
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip(), flush=True)
@@ -5067,7 +5300,9 @@ def main():
               "labels_scratch": "labels_vertex_scratch", "prep": "prep_wide",
               "prep_inplace": "prep_wide_inplace", "broadphase_sorted": "broadphase_sorted_list",
               "broadphase_sorted_k48": "broadphase_sorted_list_k48",
-              "narrowphase": "narrowphase_group", "solver": "solver_shared"}
+              "narrowphase": "narrowphase_group", "solver": "solver_shared",
+              "pack": "pack_wide", "soup_clip": "soup_clip_group",
+              "soup_clip_s40": "soup_clip_general_s40"}
     for name, res in limits["kernels"].items():
         _, _, src, rep, _ = GENERAL[PAST_CASES.get(name, name)]
         kernels.append({"name": labels.get(name, f"{name}_general"), "route": "cuda",
@@ -5100,5 +5335,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--device-split"]:
         device_split_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--cpu-runs"]:
+        cpu_runs_main(sys.argv[2])
     else:
         main()

@@ -4,7 +4,8 @@
 // `soup_clip_pooled_pallas`). Semantics of the plain
 // surtr_tpu_torch/ops/soup_clip_cuda.py `soup_clip_pooled_reference`: every
 // pooled lane is one triangle with its cell id, turned into a polygon of
-// S slots (8 here, any S >= 3 in the general variant below) and folded by
+// S slots (8 in the warp fold, 3-32 in the group fold, any S >= 3 in the
+// general one) and folded by
 // each live plane of its cell (Sutherland-Hodgman
 // with cyclic-run emission [rotated kept run, exit, enter]; exit and enter
 // are sums over the slots in slot order from +0; n_out = min(mcnt + ex +
@@ -257,11 +258,200 @@ soup_fold_kernel(const float* __restrict__ tri, const unsigned char* __restrict_
   if (lane == 0 && md) atomicAdd(drops, (unsigned long long)md);
 }
 
-// 2'. The general variant's fold, for a polygon of S != 8 slots: one
+// 2'. The group variant's fold, for a polygon of 3 <= S <= 32 slots (S != 8
+// on the wrapper's choice): soup_fold_kernel's design with a group of G
+// threads a lane, G the least power of two >= S (4, 8, 16 or 32), 32 / G
+// lanes a warp; thread s holds slot s, the threads past S hold none. The
+// masks are ballots masked to the group; the run start is the sum of the
+// start bits' positions by popcounts; the emission one shuffle from slot
+// (a + s) mod nv, by a conditional subtraction (a + s < 2 nv on a single
+// run; a modulo only past it). The exit and enter points are the S-term
+// sums of the plain version in slot order from +0; where every group of
+// the warp has at most one exit and one enter slot and finite cut points
+// in all S slots, each sum is +0 plus its one crossing's cut (every other
+// term is a zero, and a zero never turns a sum from +0 to anything else),
+// one shuffle each, else all S terms are shuffled in. A group stages its
+// cell's planes G at a time, one chunk ahead, and the warp skips a plane
+// that keeps every live corner of its lanes, as soup_fold_kernel does.
+// Measured by tools/time_b10_b12.py --limits on an NVIDIA H100 80GB HBM3 at
+// 700 W, the general fold in the same call: 0.0199 ms on the sphere's call
+// at S = 16 against 0.49-0.51, 0.0297 at S = 32 against 0.99.
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+soup_fold_group_kernel(const float* __restrict__ tri, const unsigned char* __restrict__ valid,
+                       const void* __restrict__ cell, int ids64, const float* __restrict__ planes,
+                       const unsigned char* __restrict__ pmask, const unsigned* __restrict__ ctx,
+                       float* __restrict__ poly_out, int* __restrict__ nv_out,
+                       unsigned long long* __restrict__ drops, int P, int C, int K, int BN, int W,
+                       int S, float tol) {
+  constexpr unsigned GM = G == 32 ? FULL : (1u << G) - 1u;   // a group's bits
+  __shared__ float4 staged[THREADS];                // a group's G planes of the current chunk
+  const int lane = threadIdx.x & 31, gb = lane & (32 - G), s = lane & (G - 1);
+  const int i = (int)(((long long)blockIdx.x * THREADS + threadIdx.x) / G);
+  const bool exists = i < P;
+  int c = 0;
+  const bool inside = exists && lane_cell(cell, ids64, i, C, &c);
+  float px = 0.0f, py = 0.0f, pz = 0.0f;
+  if (exists && s < 3) {
+    px = tri[(size_t)i * 9 + s * 3];
+    py = tri[(size_t)i * 9 + s * 3 + 1];
+    pz = tri[(size_t)i * 9 + s * 3 + 2];
+  }
+  int nv = exists && valid[i] ? 3 : 0;
+  int mrun = 0;
+  bool done = !inside;
+  const unsigned* crow = ctx + ((size_t)(i / BN) * C + c) * W;
+  float4* gpl = staged + (threadIdx.x & ~(G - 1));
+  float4 pv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  bool pv_live = false, pv_rm = false;
+  auto fetch = [&](int k0) {
+    const int k = k0 + s;
+    pv_live = pv_rm = false;
+    if (!done && k < K) {
+      const float* p = planes + ((size_t)c * K + k) * 4;
+      pv = make_float4(p[0], p[1], p[2], p[3]);
+      pv_live = pmask[(size_t)c * K + k] != 0;
+      pv_rm = (crow[k >> 5] >> (k & 31)) & 1u;
+    }
+  };
+  auto grp = [&](unsigned b) { return (b >> gb) & GM; };
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += G) {
+    if (__all_sync(FULL, done)) break;
+    const bool live_k = pv_live && !done, rm_k = pv_rm;
+    __syncwarp();
+    gpl[s] = pv;
+    __syncwarp();
+    fetch(k0 + G);
+    const unsigned lb = __ballot_sync(FULL, live_k), rb = __ballot_sync(FULL, rm_k);
+    const unsigned glive = grp(lb), grm = grp(rb);
+    unsigned wl = lb;
+#pragma unroll
+    for (int sh = 16; sh >= G; sh >>= 1) wl |= wl >> sh;
+    const unsigned wlive = wl & GM;
+#pragma unroll 1
+    for (int j = 0; j < G; ++j) {
+      if (!((wlive >> j) & 1u)) continue;           // no lane of the warp has plane j live
+      bool live = !done && ((glive >> j) & 1u);
+      if (live && nv == 0) {
+        px = py = pz = 0.0f;
+        done = true;
+        live = false;
+      }
+      if (!__any_sync(FULL, live)) continue;
+      const float4 pl = gpl[j];
+      const float ds = ((px * pl.x + py * pl.y) + pz * pl.z) + pl.w;
+      const bool m = s < nv;
+      const bool kept = m && ds <= tol;
+      const bool off = m && !(fabsf(ds) <= tol);
+      const unsigned bk = grp(__ballot_sync(FULL, kept));
+      const unsigned bo = grp(__ballot_sync(FULL, off));
+      const bool rm = (grm >> j) & 1u;
+      const unsigned all = nv >= 32 ? FULL : (1u << nv) - 1u;
+      const bool same = !live || (bk == all && !(bo == 0u && nv > 0 && rm));
+      if (__all_sync(FULL, same)) continue;
+      // Slot s's successor: slot 0 after the last live slot and after slot
+      // S - 1 (the plain version's roll over S slots); slot 0 for the
+      // threads past S.
+      const int src = gb + ((s == nv - 1 || s + 1 >= S) ? 0 : s + 1);
+      const float vx = __shfl_sync(FULL, px, src);
+      const float vy = __shfl_sync(FULL, py, src);
+      const float vz = __shfl_sync(FULL, pz, src);
+      const float dn = ((vx * pl.x + vy * pl.y) + vz * pl.z) + pl.w;
+      const float denom = dn - ds;
+      const float safe = fabsf(denom) > 1e-30f ? denom : 1.0f;
+      const float cx = (px * dn - vx * ds) / safe, cy = (py * dn - vy * ds) / safe,
+                  cz = (pz * dn - vz * ds) / safe;
+      const bool cex = m && ds < -tol && dn > tol;
+      const bool cen = m && ds > tol && dn < -tol;
+      const unsigned bx = grp(__ballot_sync(FULL, cex));
+      const unsigned bn = grp(__ballot_sync(FULL, cen));
+      const int ex = bx != 0u, en = bn != 0u;
+      const int mcnt = __popc(bk);
+      const unsigned klast = nv > 0 ? (bk >> (nv - 1)) & 1u : 0u;
+      const unsigned st = bk & ~(((bk << 1) | klast) & GM);   // run starts
+      const int nstarts = __popc(st);
+      const int a = __popc(st & 0xAAAAAAAAu) + 2 * __popc(st & 0xCCCCCCCCu)
+                  + 4 * __popc(st & 0xF0F0F0F0u) + 8 * __popc(st & 0xFF00FF00u)
+                  + 16 * __popc(st & 0xFFFF0000u);
+
+      // Exit and enter points: sums over the S slots in slot order from +0.
+      const bool fin = s >= S || (isfinite(cx) && isfinite(cy) && isfinite(cz));
+      const unsigned nonfin = grp(__ballot_sync(FULL, !fin));
+      const bool one = nonfin == 0u && __popc(bx) <= 1 && __popc(bn) <= 1;
+      float exx = 0.0f, exy = 0.0f, exz = 0.0f, enx = 0.0f, eny = 0.0f, enz = 0.0f;
+      if (__all_sync(FULL, one)) {
+        const int qx = gb + (bx ? __ffs(bx) - 1 : 0), qn = gb + (bn ? __ffs(bn) - 1 : 0);
+        const float ax = __shfl_sync(FULL, cx, qx), ay = __shfl_sync(FULL, cy, qx),
+                    az = __shfl_sync(FULL, cz, qx);
+        const float nx = __shfl_sync(FULL, cx, qn), ny = __shfl_sync(FULL, cy, qn),
+                    nz = __shfl_sync(FULL, cz, qn);
+        if (ex) {
+          exx = exx + ax; exy = exy + ay; exz = exz + az;
+        }
+        if (en) {
+          enx = enx + nx; eny = eny + ny; enz = enz + nz;
+        }
+      } else {
+        const float fe = cex ? 1.0f : 0.0f, fn = cen ? 1.0f : 0.0f;
+        const float tx = fe * cx, ty = fe * cy, tz = fe * cz;
+        const float ux = fn * cx, uy = fn * cy, uz = fn * cz;
+        for (int q = 0; q < S; ++q) {
+          exx = exx + __shfl_sync(FULL, tx, gb + q);
+          exy = exy + __shfl_sync(FULL, ty, gb + q);
+          exz = exz + __shfl_sync(FULL, tz, gb + q);
+          enx = enx + __shfl_sync(FULL, ux, gb + q);
+          eny = eny + __shfl_sync(FULL, uy, gb + q);
+          enz = enz + __shfl_sync(FULL, uz, gb + q);
+        }
+      }
+
+      // Emit [rotated kept run, exit, enter]: slot s takes poly[(a + s) mod nv].
+      const int nvc = nv > 0 ? nv : 1;
+      int t = a + s;
+      if (t >= nvc) t -= nvc;
+      if (t >= nvc) t %= nvc;                        // several runs: a may pass nv
+      const int rs = gb + t;
+      const float rx = __shfl_sync(FULL, px, rs);
+      const float ry = __shfl_sync(FULL, py, rs);
+      const float rz = __shfl_sync(FULL, pz, rs);
+      if (live) {
+        if (s < mcnt) {
+          px = rx; py = ry; pz = rz;
+        } else if (s == mcnt && ex) {
+          px = exx; py = exy; pz = exz;
+        } else if (s == mcnt + ex && en) {
+          px = enx; py = eny; pz = enz;
+        } else {
+          px = py = pz = 0.0f;
+        }
+        int n_out = min(mcnt + ex + en, S);
+        if (bo == 0u && nv > 0 && rm) n_out = 0;   // in-plane, material removed
+        const bool multirun = nstarts > 1;
+        if (multirun) n_out = 0;
+        if (n_out < 3) n_out = 0;
+        nv = n_out;
+        mrun += multirun;
+      }
+    }
+  }
+  if (exists && s < S) {
+    float* o = poly_out + ((size_t)i * S + s) * 3;
+    o[0] = px;
+    o[1] = py;
+    o[2] = pz;
+    if (s == 0) nv_out[i] = nv;
+  }
+  const unsigned md = __reduce_add_sync(FULL, exists && s == 0 ? (unsigned)mrun : 0u);
+  if (lane == 0 && md) atomicAdd(drops, (unsigned long long)md);
+}
+
+// 2''. The general variant's fold, for a polygon of S > 32 slots: one
 // thread a lane, the plain step written out slot by slot (distances, cut
 // points, the exit and enter sums in slot order from +0, the run count and
 // start, the rotated emission), the polygon ping-ponging between its rows
-// of poly_out and of `tmp` (both (P, S, 3)). Any S >= 3.
+// of poly_out and of `tmp` (both (P, S, 3)). Any S >= 3; the wrapper takes
+// it past S = 32 only, where a lane's slots pass a warp.
 __device__ __forceinline__ float plane_dist(const float* v, float4 pl) {
   return ((v[0] * pl.x + v[1] * pl.y) + v[2] * pl.z) + pl.w;
 }
@@ -354,16 +544,19 @@ soup_fold_general_kernel(const float* __restrict__ tri, const unsigned char* __r
 
 // scratch: 8 bytes of drop counter, then ceil(P / BN) * max(C, 1) * W
 // context words; zeroed here. Launches the context pass then the fold on
-// `stream`; returns the first CUDA error. S = 8 takes the warp fold; any
-// other S the general fold, with `tmp` a (P, S, 3) float scratch.
+// `stream`; returns the first CUDA error. variant: 0 the warp fold (S = 8),
+// 1 the group fold (3 <= S <= 32), 2 the general fold (any S >= 3, with
+// `tmp` a (P, S, 3) float scratch).
 extern "C" int surtr_soup_clip(const float* tri, const unsigned char* valid, const void* cell,
                                int ids64, const float* planes, const unsigned char* pmask,
                                unsigned long long* scratch, float* poly, int* nv, int P, int C,
-                               int K, int BN, int W, float tol, int slots, float* tmp,
-                               void* stream) {
+                               int K, int BN, int W, float tol, int slots, int variant,
+                               float* tmp, void* stream) {
   if (P <= 0) return 0;
   if (BN <= 0 || W < (K + 31) / 32 || W < 1) return (int)cudaErrorInvalidValue;
-  if (slots != S && (slots < 3 || tmp == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((variant == 0 && slots != S) || (variant == 1 && (slots < 3 || slots > 32))
+      || (variant == 2 && (slots < 3 || tmp == nullptr)) || variant < 0 || variant > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t words = (size_t)((P + BN - 1) / BN) * (size_t)(C > 0 ? C : 1) * W;
   cudaError_t e = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) + words * 4, st);
@@ -374,10 +567,22 @@ extern "C" int surtr_soup_clip(const float* tri, const unsigned char* valid, con
                                             K, BN, W, tol);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (slots != S) {
+  if (variant == 2) {
     soup_fold_general_kernel<<<(unsigned)((P + THREADS - 1) / THREADS), THREADS, 0, st>>>(
         tri, valid, cell, ids64, planes, pmask, ctx, poly, nv, scratch, tmp, P, C, K, BN, W,
         slots, tol);
+    return (int)cudaGetLastError();
+  }
+  if (variant == 1) {
+    const int G = slots <= 4 ? 4 : slots <= 8 ? 8 : slots <= 16 ? 16 : 32;
+    const unsigned g = (unsigned)(((long long)P * G + THREADS - 1) / THREADS);
+#define SURTR_GROUP_ARGS tri, valid, cell, ids64, planes, pmask, ctx, poly, nv, scratch, P, C, K, \
+                         BN, W, slots, tol
+    if (G == 4) soup_fold_group_kernel<4><<<g, THREADS, 0, st>>>(SURTR_GROUP_ARGS);
+    else if (G == 8) soup_fold_group_kernel<8><<<g, THREADS, 0, st>>>(SURTR_GROUP_ARGS);
+    else if (G == 16) soup_fold_group_kernel<16><<<g, THREADS, 0, st>>>(SURTR_GROUP_ARGS);
+    else soup_fold_group_kernel<32><<<g, THREADS, 0, st>>>(SURTR_GROUP_ARGS);
+#undef SURTR_GROUP_ARGS
     return (int)cudaGetLastError();
   }
   soup_fold_kernel<<<grid, THREADS, 0, st>>>(tri, valid, cell, ids64, planes, pmask, ctx, poly,

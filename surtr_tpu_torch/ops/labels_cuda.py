@@ -19,7 +19,13 @@ from surtr_tpu_torch.ops.labels import label_rounds, tri_soup_components
 launches = 0          # kernel launches since the last reset (main-path proof), every variant
 general_launches = 0  # of which the vertex variant's (past MAX_BLOCK_T), either placement
 
-MAX_BLOCK_T = 1024          # triangles the block variant takes a soup (a thread each)
+# Triangles the block variant takes a soup (a thread each): the measured
+# crossover (tools/time_b3_b4.py --limits). The block kernel's adjacency
+# rounds grow with a soup's live triangles, the vertex variant's do not: on
+# the calls as made, and their soups padded, "block" is no slower up to T =
+# 96 (the cube event's (1,024, 64) soups), and slower from T = 128 (the
+# torus config-1 event's and the cube32 impact's calls) up.
+MAX_BLOCK_T = 96
 MAX_SMEM = 232448           # bytes of shared memory a Hopper block can use
 SCRATCH_BYTES = 256 << 20   # the scratch placement's soup states at most (one soup at least)
 GENERAL_BLOCKS = 264        # CTAs of the scratch placement at most (two an SM of an H100)
@@ -27,7 +33,7 @@ GENERAL_BLOCKS = 264        # CTAs of the scratch placement at most (two an SM o
 
 def _variant(T: int) -> str:
     """"block" (one CTA a soup, a thread a triangle, the T x T adjacency
-    in shared memory) for 1 <= T <= 1024; past it "vertex" (one CTA a
+    in shared memory) for 1 <= T <= ``MAX_BLOCK_T``; past it "vertex" (one CTA a
     soup, vertex ids by a hash of the quantized corners and a minimum
     label a vertex, the state in shared memory) while ``vertex_bytes(T)``
     fits a CTA, else "vertex_scratch" (the same kernel, its state in a

@@ -27,15 +27,28 @@ from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.linalg import dot3
 from surtr_tpu_torch.ops.mesh_clip import _clip_polys_plane
 
-launches = 0          # kernel launches since the last reset (main-path proof), both variants
-general_launches = 0  # of which the general variant's
+launches = 0           # kernel launches since the last reset (main-path proof), every variant
+general_launches = 0   # of which past S = 8 (the group and general variants)
+fallback_launches = 0  # of which the "general" variant's (S > 32)
+
+VARIANTS = ("warp", "group", "general")   # the C entry's variant codes 0, 1, 2
+MAX_GROUP_S = 32                          # slots the group variant takes at most (a warp)
+
+
+def group_lanes(S: int) -> int:
+    """Threads a lane of the group variant: the least power of two >= S,
+    at least 4."""
+    return max(4, 1 << (S - 1).bit_length())
 
 
 def _variant(S: int) -> str:
     """"warp" (8 threads a lane, a slot each: today's kernel) for S = 8
-    slots, else "general" (a thread a lane, the polygon in device memory):
-    every S the plain version takes (S >= 3) has a variant."""
-    return "warp" if S == 8 else "general"
+    slots; "group" (``group_lanes(S)`` threads a lane, a slot each) for 3 <=
+    S <= 32; else "general" (a thread a lane, the polygon in device
+    memory): every S the plain version takes (S >= 3) has a variant."""
+    if S == 8:
+        return "warp"
+    return "group" if 3 <= S <= MAX_GROUP_S else "general"
 
 
 def block_lanes(P: int) -> int:
@@ -100,7 +113,7 @@ def soup_clip_pooled_reference(tri_corners, valid, cell_id, cell_planes, cell_pm
 def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
     """Three device operations, none a cast: the memset of the scratch
     (drop counter and context table), the context launch, the fold."""
-    global launches, general_launches
+    global launches, general_launches, fallback_launches
     P = tri_corners.shape[0]
     C, K = cell_pmask.shape
     dev = tri_corners.device
@@ -123,7 +136,8 @@ def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
         return poly, nv, torch.zeros((), dtype=torch.int64, device=dev)
     fn = _build.bind("surtr_soup_clip", [ctypes.c_void_p] * 3 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p])
     # Bool tensors are read as bytes in place; contiguous() copies nothing
     # for the pipeline's contiguous inputs.
     tri, v, cid, pl, pm = (t.contiguous() for t in (tri_corners, valid, cell_id, cell_planes,
@@ -133,15 +147,17 @@ def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
     words = (P + BN - 1) // BN * max(C, 1) * W
     # One int64 scratch: the drop counter, then the context table's words.
     scratch = torch.empty((1 + (words + 1) // 2,), dtype=torch.int64, device=dev)
-    general = _variant(S) == "general"
+    variant = _variant(S)
+    general = variant == "general"
     tmp = torch.empty((P, S, 3), dtype=torch.float32, device=dev) if general else None
     rc = fn(tri.data_ptr(), v.data_ptr(), cid.data_ptr(), int(cid.dtype == torch.int64),
             pl.data_ptr(), pm.data_ptr(), scratch.data_ptr(), poly.data_ptr(), nv.data_ptr(),
-            P, C, K, BN, W, float(tol), S, None if tmp is None else tmp.data_ptr(),
-            _build.stream_ptr(dev))
+            P, C, K, BN, W, float(tol), S, VARIANTS.index(variant),
+            None if tmp is None else tmp.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, "surtr_soup_clip")
     launches += 1
-    general_launches += general
+    general_launches += variant != "warp"
+    fallback_launches += general
     return poly, nv, scratch[0]
 
 

@@ -24,10 +24,15 @@ from surtr_tpu_torch.ops.kdop import dop26_directions
 
 BIG = 3.4e38
 
-launches = 0          # kernel launches since the last reset (main-path proof), both variants
-general_launches = 0  # of which the direct variant's
+launches = 0           # kernel launches since the last reset (main-path proof), every variant
+general_launches = 0   # of which past the staged kernel's 48 KB (the wide and direct variants)
+fallback_launches = 0  # of which the direct variant's (rows past a block's opt-in shared memory)
 
-STAGE_BYTES = 48 * 1024  # shared memory the staged variant takes a block at most
+STAGE_BYTES = 48 * 1024    # shared memory the staged variant takes a block at most
+MAX_SMEM = 232448          # shared memory a block may opt in to (H100)
+WIDE_ROOM = MAX_SMEM // 3  # the wide variant's shared memory at most: 3+ CTAs an SM
+WIDE_PIECES = 8            # pieces (warps) a wide CTA at most
+VARIANTS = ("staged", "direct", "wide")   # the C entry's variant codes 0, 1, 2
 
 
 def stage_bytes(Vh: int, F: int, Ne: int) -> int:
@@ -38,11 +43,50 @@ def stage_bytes(Vh: int, F: int, Ne: int) -> int:
     return (128 // L) * (4 * Vh + 5 * F + 26 + 4 * Ne + 9) * 4
 
 
+def _ru4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _wide_floats(Vh: int, F: int, Ne: int, p: int, stage: bool) -> int:
+    D = 4 * Vh + 5 * F + 26 + 4 * Ne
+    raw = _ru4(3 * Vh * p + 3) + _ru4((p * Vh + 3) // 4) if stage else 0
+    return _ru4(p * D + 3) + _ru4(9 * p + 3) + raw
+
+
+def wide_stage(Vh: int, F: int, Ne: int) -> bool:
+    """Whether a wide CTA stages its pieces' raw corners and masks: where
+    one piece's CTA with them fits ``MAX_SMEM``, else they are read in
+    place."""
+    return 4 * _wide_floats(Vh, F, Ne, 1, True) <= MAX_SMEM
+
+
+def wide_pieces(Vh: int, F: int, Ne: int) -> int:
+    """Pieces (a warp each) a CTA of the wide variant takes: the most, up
+    to ``WIDE_PIECES``, whose shared memory fits ``WIDE_ROOM``; 1 when one
+    piece does not."""
+    st, p = wide_stage(Vh, F, Ne), WIDE_PIECES
+    while p > 1 and 4 * _wide_floats(Vh, F, Ne, p, st) > WIDE_ROOM:
+        p -= 1
+    return p
+
+
+def wide_bytes(Vh: int, F: int, Ne: int) -> int:
+    """Shared bytes of a wide CTA (``surtr_pack_wide_bytes``): its pieces'
+    packed rows and AABB rows and, where ``wide_stage``, their raw corners,
+    each span with 3 floats of room to match its global span's alignment,
+    and the corner masks' bytes."""
+    return 4 * _wide_floats(Vh, F, Ne, wide_pieces(Vh, F, Ne), wide_stage(Vh, F, Ne))
+
+
 def _variant(Vh: int, F: int, Ne: int) -> str:
     """"staged" (a block's rows built in shared memory, written as one
-    span) where they fit 48 KB, else "direct" (each row built in place in
-    the output): any hull size has a variant."""
-    return "staged" if stage_bytes(Vh, F, Ne) <= STAGE_BYTES else "direct"
+    span) where they fit 48 KB; past it "wide" (a warp a piece, the CTA's
+    rows staged in opt-in shared memory, each fold over all 32 lanes)
+    while one piece's CTA fits a block's 232,448 B; else "direct" (each row
+    built in place in the output): any hull size has a variant."""
+    if stage_bytes(Vh, F, Ne) <= STAGE_BYTES:
+        return "staged"
+    return "wide" if wide_bytes(Vh, F, Ne) <= MAX_SMEM else "direct"
 
 
 def pack_layout(Vh: int, F: int, Ne: int):
@@ -81,6 +125,22 @@ def _apply(R, a, b, c):
     return tuple((r[0] * a + r[1] * b) + r[2] * c for r in R)
 
 
+def _amin(x, dim):
+    """``torch.amin`` with -0 below +0, as the card's ``fminf`` orders them:
+    PyTorch leaves a tie of the two zeros to its reduction order (the first
+    on the CPU, by position on the card), the kernels' folds do not."""
+    m = torch.amin(x, dim)
+    neg = torch.any((x == 0) & torch.signbit(x), dim)
+    return torch.where((m == 0) & neg, -0.0, m)
+
+
+def _amax(x, dim):
+    """``torch.amax`` with +0 above -0 (``fmaxf``)."""
+    m = torch.amax(x, dim)
+    pos = torch.any((x == 0) & ~torch.signbit(x), dim)
+    return torch.where((m == 0) & pos, 0.0, m)
+
+
 def transform_pack_reference(piece_verts, piece_vmask, piece_planes, piece_pmask,
                              piece_edges, piece_emask, q_own, x_own, pvalid, margin: float):
     """Plain version. Inputs piece-major; ``q_own``/``x_own`` are the owner
@@ -95,15 +155,15 @@ def transform_pack_reference(piece_verts, piece_vmask, piece_planes, piece_pmask
     wd = piece_planes[..., 3] - ((wnx * x0 + wny * y0) + wnz * z0)
     dop = dop26_directions(f32, piece_verts.device)
     t = (wvx[..., None] * dop[:, 0] + wvy[..., None] * dop[:, 1]) + wvz[..., None] * dop[:, 2]
-    lod = torch.amin(torch.where(vm[..., None], t, BIG), dim=1)
-    hid = torch.amax(torch.where(vm[..., None], t, -BIG), dim=1)
+    lod = _amin(torch.where(vm[..., None], t, BIG), 1)
+    hid = _amax(torch.where(vm[..., None], t, -BIG), 1)
     rows = [wvx, wvy, wvz, vm.to(f32), wnx, wny, wnz, wd, piece_pmask.to(f32), lod, hid]
     if piece_edges.shape[1]:
         rows += [*_apply(R, *piece_edges.unbind(-1)), piece_emask.to(f32)]
     packed = torch.cat(rows, dim=1)
 
-    lo = [torch.amin(torch.where(vm, c, BIG), dim=1) - margin for c in (wvx, wvy, wvz)]
-    hi = [torch.amax(torch.where(vm, c, -BIG), dim=1) + margin for c in (wvx, wvy, wvz)]
+    lo = [_amin(torch.where(vm, c, BIG), 1) - margin for c in (wvx, wvy, wvz)]
+    hi = [_amax(torch.where(vm, c, -BIG), 1) + margin for c in (wvx, wvy, wvz)]
     ctr = [torch.where(pvalid, (a + b) * 0.5, BIG) for a, b in zip(lo, hi)]
     return packed, torch.stack(lo + hi + ctr, dim=1)
 
@@ -123,7 +183,7 @@ def transform_pack_owned_reference(piece_verts, piece_vmask, piece_planes, piece
 
 def _kernel(piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges, piece_emask,
             piece_owner, piece_valid, q, x, margin):
-    global launches, general_launches
+    global launches, general_launches, fallback_launches
     Np, Vh = piece_verts.shape[:2]
     F, Ne = piece_planes.shape[1], piece_edges.shape[1]
     B = q.shape[0]
@@ -148,16 +208,17 @@ def _kernel(piece_verts, piece_vmask, piece_planes, piece_pmask, piece_edges, pi
     aabb = torch.empty((Np, 9), dtype=torch.float32, device=dev)
     if Np == 0:
         return packed, aabb
-    direct = _variant(Vh, F, Ne) == "direct"
+    variant = _variant(Vh, F, Ne)
     fn = _build.bind("surtr_pack", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                      + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
     rc = fn(f[0].data_ptr(), masks[0].data_ptr(), f[1].data_ptr(), masks[1].data_ptr(),
             f[2].data_ptr(), masks[2].data_ptr(), own.data_ptr(), masks[3].data_ptr(),
             f[3].data_ptr(), f[4].data_ptr(), dop.data_ptr(), Np, B, Vh, F, Ne, float(margin),
-            packed.data_ptr(), aabb.data_ptr(), int(direct), _build.stream_ptr(dev))
+            packed.data_ptr(), aabb.data_ptr(), VARIANTS.index(variant), _build.stream_ptr(dev))
     _build.check(rc, "surtr_pack")
     launches += 1
-    general_launches += direct
+    general_launches += variant != "staged"
+    fallback_launches += variant == "direct"
     return packed, aabb
 
 

@@ -66,7 +66,7 @@ MAIN_PATH = {
     "B1": [(1024, 26, 16), (1, 26, 16), (512, 32, 16), (1024, 96, 32), (1088, 96, 32),
            (1024, 32, 16)],
     "B2": [(1, 8, 20), (1, 162, 20), (1, 288, 20), (1, 5000, 20), (1, 13000, 2 * 62 + 4)],
-    "B3": [(64,), (128,), (512,), (1,), (1024,)],
+    "B3": [(64,), (1,)],
     "B5": [(8, 26, 3), (8, 8, 3), (64, 32, 3), (64, 26, 3)],
     "B6": [(8,), (1,), (16,)],
     "B7": [(8, 8, 26, 3, 4), (8, 8, 8, 3, 4), (64, 8, 32, 3, 4), (64, 8, 26, 3, 4)],
@@ -115,7 +115,7 @@ def test_variant_takes_shapes_past_the_old_limits(kernel):
 OLD_LIMITS = {
     "B1": ("cta", lambda N, F, S: F <= 1024 and F * (6 * S + 41) * 4 <= 232448),
     "B2": ("general", lambda B, N, F: F <= 128),
-    "B3": ("vertex", lambda T: 1 <= T <= 1024),
+    "B3": ("vertex", lambda T: 1 <= T <= 96),
     "B5": ("direct", lambda Vh, F, Ne: (128 // (16 if max(Vh, F, Ne) <= 16 else 32))
            * (4 * Vh + 5 * F + 26 + 4 * Ne + 9) * 4 <= 48 * 1024),
     "B6": ("general", lambda K: K <= 16),
@@ -143,7 +143,7 @@ def test_variant_refuses_no_shape():
         "B2": [(b, n, f) for b in (1, 2, 1088) for n in (1, 45, 608, 1917, 1918, 2187, 2188,
                                                          13000)
                for f in list(range(4, 1100, 37)) + [44, 128, 129]],
-        "B3": [(t,) for t in range(1, 5000, 97)] + [(1024,), (1025,)],
+        "B3": [(t,) for t in range(1, 5000, 97)] + [(96,), (97,), (1024,), (1025,)],
         "B5": [(v, f, e) for v in (1, 8, 16, 17, 100, 723, 724, 1000, 4000) for f in (1, 16, 26,
                                                                                       2000)
                for e in (0, 3, 16, 40)],
@@ -163,13 +163,22 @@ def test_variant_refuses_no_shape():
         general, held = OLD_LIMITS[kernel]
         for shape in shapes:
             v = fn(shape)
-            if kernel not in ("B1", "B2", "B3", "B6", "B7", "B9"):
+            if kernel not in ("B1", "B2", "B3", "B5", "B6", "B7", "B9", "B10"):
                 assert v in (today, general), (kernel, shape, v)
             if kernel == "B7":     # past the staged kernel the group one where its rows fit
                 assert v in (today, "group", general), (kernel, shape, v)
                 assert v != today or held(*shape), (kernel, shape, v)
                 fits = narrowphase_cuda.group_bytes(*shape) <= narrowphase_cuda.MAX_SMEM - 156
                 assert v == today or (v == "group") == fits, (kernel, shape, v)
+            elif kernel == "B5":   # past 48 KB the wide one where a piece's CTA fits
+                assert v in (today, "wide", general), (kernel, shape, v)
+                assert (v == today) == held(*shape), (kernel, shape, v)
+                fits = pack_cuda.wide_bytes(*shape) <= pack_cuda.MAX_SMEM
+                assert v == today or (v == "wide") == fits, (kernel, shape, v)
+            elif kernel == "B10":  # past S = 8 the group one up to a warp's slots
+                assert v in (today, "group", general), (kernel, shape, v)
+                assert (v == today) == held(*shape), (kernel, shape, v)
+                assert (v == "group") == (not held(*shape) and shape[0] <= 32), (kernel, shape)
             elif kernel == "B9":   # past the register kernel the shared one where a row fits
                 assert v in (today, "shared", general), (kernel, shape, v)
                 assert (v == today) == held(*shape), (kernel, shape, v)
@@ -262,8 +271,11 @@ def test_b1_and_b3_past_the_old_limits_take_the_redesigned_variants():
     8), the global fold only where even the per-face state passes a CTA (F
     > 2,131). The shared fold keeps every shape of two or more polytopes a
     CTA, the main path's among them (the cube's F = 26-32, the torus's F =
-    96 at S = 32). B3 past T = 1,024 runs the vertex variant, on chip up to
-    T = 2,454 (``max_mesh_tris``' 2,048 among them)."""
+    96 at S = 32). B3 past its measured crossover (T > 96: the torus
+    config-1 event's and the cube32 impact's T = 128, the Scenes' 512) runs
+    the vertex variant, on chip up to T = 2,454 (``max_mesh_tris``' 2,048
+    among them); the block kernel keeps T <= 96 (the cube event's and the
+    frame's T = 64)."""
     for N, F, S in ((1024, 26, 16), (1, 88, 16), (1088, 96, 32), (1, 124, 32), (4, 212, 16),
                     (1, 492, 3)):
         assert clip_cuda._variant(N, F, S) == "shared", (N, F, S)
@@ -277,9 +289,9 @@ def test_b1_and_b3_past_the_old_limits_take_the_redesigned_variants():
         assert clip_cuda._variant(N, F, S) == "global", (N, F, S)
     assert clip_cuda.cta_bytes(264, 32) <= clip_cuda.MAX_SMEM < clip_cuda.cta_bytes(265, 32)
     assert clip_cuda.cta_aux_bytes(2131) <= clip_cuda.MAX_SMEM < clip_cuda.cta_aux_bytes(2132)
-    for T in (64, 128, 512, 1024):
+    for T in (1, 64, 96):
         assert labels_cuda._variant(T) == "block", T
-    for T in (1025, 2048, 2049, 2454):
+    for T in (97, 128, 512, 1024, 1025, 2048, 2049, 2454):
         assert labels_cuda._variant(T) == "vertex", T
     for T in (2455, 4096, 10000):
         assert labels_cuda._variant(T) == "vertex_scratch", T
@@ -349,6 +361,48 @@ def test_b7_and_b9_past_the_old_limits_take_the_redesigned_variants():
         assert solver_cuda._variant(K, last) == "shared", K
         assert solver_cuda._variant(K, last + 1) == "general", K
     assert solver_cuda._variant(0, 5) == "general"
+
+
+def test_b5_and_b10_past_the_old_limits_take_the_redesigned_variants():
+    """B5 past the staged kernel's 48 KB runs the wide variant (a warp a
+    piece, the CTA's rows and raw corners in opt-in shared memory): at
+    phase 30's Vh 768 and Vh 724, the first past 48 KB at F = 26, Ne = 3;
+    its raw corners are read in place past Vh 7,989, and "direct" takes
+    only rows past a block's 232,448 B (Vh > 14,482). B10 runs the group
+    variant (G threads a lane, a slot each) at 3 <= S <= 32 but 8, phase
+    30's S = 16 among them, and the general one past a warp's slots. The
+    main path keeps "staged" and "warp"."""
+    for shape in ((724, 26, 3), (768, 26, 3), (768, 32, 3), (7989, 26, 3), (7990, 26, 3),
+                  (14482, 26, 3), (724, 32, 17)):
+        assert pack_cuda._variant(*shape) == "wide", shape
+    for shape in ((723, 26, 3), *MAIN_PATH["B5"]):
+        assert pack_cuda._variant(*shape) == "staged", shape
+    for shape in ((14483, 26, 3), (20000, 8, 0)):
+        assert pack_cuda._variant(*shape) == "direct", shape
+    assert pack_cuda.wide_stage(7989, 26, 3) and not pack_cuda.wide_stage(7990, 26, 3)
+    assert pack_cuda.wide_pieces(768, 26, 3) == pack_cuda.wide_pieces(724, 26, 3) == 3
+    assert pack_cuda.wide_pieces(8, 8, 3) == pack_cuda.WIDE_PIECES
+    assert pack_cuda.wide_pieces(2667, 26, 3) == 1
+    for S in (3, 4, 5, 7, 9, 16, 17, 31, 32):
+        assert soup_clip_cuda._variant(S) == "group", S
+    assert soup_clip_cuda._variant(8) == "warp"
+    for S in (33, 40, 64):
+        assert soup_clip_cuda._variant(S) == "general", S
+    assert [soup_clip_cuda.group_lanes(S) for S in (3, 4, 5, 7, 9, 16, 17, 32)] == [
+        4, 4, 8, 8, 16, 16, 32, 32]
+
+
+def test_b5_wide_bytes_match_a_hand_counted_layout():
+    """The wide CTA at Vh 768, F 26, Ne 3: rows of D = 3,072 + 130 + 26 +
+    12 = 3,240 floats, 3 pieces (the most within a third of 232,448 B):
+    the packed span 9,720 + 3 floats → 9,724, the AABB span 27 + 3 → 32,
+    the raw corners 6,912 + 3 → 6,916, the masks' 2,304 bytes → 576
+    floats; one piece in place at Vh 14,482: 58,096 + 3 → 58,100 and 12,
+    232,448 B, all a block may take."""
+    assert pack_cuda.wide_bytes(768, 26, 3) == 4 * (9724 + 32 + 6916 + 576) == 68992
+    assert 4 * (12964 + 40 + 9220 + 768) > pack_cuda.WIDE_ROOM >= 68992   # a fourth piece
+    assert pack_cuda.wide_bytes(14482, 26, 3) == 4 * (58100 + 12) == pack_cuda.MAX_SMEM
+    assert pack_cuda.wide_bytes(14483, 26, 3) > pack_cuda.MAX_SMEM
 
 
 def test_b7_and_b9_byte_counts_match_hand_counted_layouts():

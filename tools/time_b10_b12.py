@@ -39,7 +39,11 @@ broadphase arguments) at K 32, W 32; K 8, W 256; K 32, W 1,024 and K 48, W
 32, each bit for bit first: the wrapper's ms and the device ms of the
 selection launch (``*select_kernel*``) and of the mutual launch, and on a
 tree with the list variant the same under each of its placements forced
-("list", "list_scratch"). Needs one NVIDIA GPU.
+("list", "list_scratch"); and B10 past S = 8 on the sphere decomposition's
+call at S = 16 (phase 30's), 3, 5, 32 and 40, bit for bit first: the
+wrapper's ms and the fold's device ms (``*soup_fold*``) under each tree's
+own variant and, on a tree with the group variant, under "group" (S <= 32)
+and "general" forced. Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ def main():
     ap.add_argument("--events", action="store_true",
                     help="also time the decomposition and impact events")
     ap.add_argument("--limits", action="store_true",
-                    help="time only B12 past the warp selection's limits")
+                    help="time only B12 past the warp selection's limits and B10 past S = 8")
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -85,6 +89,8 @@ def main():
     out = {"package": pkg, "card": card, "calls": {}}
     if args.limits:
         out["b12_limits"] = time_b12_limits(cs, workload, broadphase_cuda, phys_step, same_bits,
+                                            device_split, card)
+        out["b10_limits"] = time_b10_limits(cs, workload, soup_clip_cuda, same_bits,
                                             device_split, card)
         print(json.dumps(out), flush=True)
         if args.out:
@@ -255,6 +261,46 @@ def time_b12_limits(cs, workload, broadphase_cuda, phys_step, same_bits, device_
             print(f"B12 past the limits, Np {bp[0].shape[0]}, {name}: wrapper {ms:.4f} ms; "
                   f"selection {sel:.4f} ms and mutual {mut:.4f} ms on the device (sum "
                   f"{sel + mut:.4f}); bitwise ({card})", flush=True)
+    return rows
+
+
+LIMIT_SLOTS = (16, 3, 5, 32, 40)   # B10's polygon slots past S = 8: phase 30's first
+
+
+def time_b10_limits(cs, workload, soup_clip_cuda, same_bits, device_split, card):
+    """B10 on the sphere 1k decomposition's call (32,768 lanes) at
+    ``LIMIT_SLOTS`` slots, each tree's own variant (and, where the tree has
+    them, the group and general variants forced where they take S): bit
+    for bit first (every slot, n_vert, the drop count), then the wrapper's
+    ms and the fold's and the rest's device ms."""
+    calls, _ = cs.capture("soup_clip_pooled", lambda: workload.run_prepare("cuda", model="sphere"))
+    a = calls[0][0][:5]
+    own = soup_clip_cuda._variant
+    forced = [v for v in getattr(soup_clip_cuda, "VARIANTS", ()) if v != "warp"]
+    rows = {}
+    for S in LIMIT_SLOTS:
+        variant = own(S)
+        for v in [variant] + [f for f in forced if f != variant]:
+            if v == "group" and S > soup_clip_cuda.MAX_GROUP_S:
+                continue
+            soup_clip_cuda._variant = lambda *shape, _v=v: _v
+            try:
+                got = soup_clip_cuda.soup_clip_pooled(*a, poly_slots=S)
+                want = soup_clip_cuda.soup_clip_pooled_reference(*a, poly_slots=S)
+                torch.cuda.synchronize()
+                if not same_bits(got, want):
+                    fail(f"B10 at S {S} ({v}): differs from the plain version")
+                f = lambda: soup_clip_cuda.soup_clip_pooled(*a, poly_slots=S)  # noqa: E731
+                ms = cs.event_ms(f)
+                dev, other, n = device_split(f, "soup_fold")
+            finally:
+                soup_clip_cuda._variant = own
+            name = f"S {S}, {v}" + ("" if v == variant else " (forced)")
+            rows[name] = {"S": S, "variant": v, "own": v == variant, "ms": ms,
+                          "fold_device_ms": dev, "other_device_ms": other, "device_launches": n}
+            print(f"B10 past S = 8, {a[0].shape[0]} lanes by {tuple(a[3].shape)}, {name}: "
+                  f"wrapper {ms:.4f} ms; fold {dev:.4f} ms and the rest {other:.4f} ms on the "
+                  f"device, {n:.0f} device launches a call; bitwise ({card})", flush=True)
     return rows
 
 

@@ -28,9 +28,15 @@ the built-pool route beside it. ``--limits`` times B3 alone past T = 1,024
 instead, with the variant each tree takes there: phase 30's (64, 2,048)
 call (chip_smoke's ``LIMIT_PREPARE_CFG``) and the same soups repeated to
 320 (more than 264 CTAs), every label bit for bit first; on a tree with
-the vertex variant also the cube event's (1,024, 64) soups as they are and
-padded with invalid triangles to T = 128, 256, 384, 512 and 1,024 under
-the block kernel and under the vertex variant (the crossover). Needs one NVIDIA GPU.
+the vertex variant also the crossover: the block kernel and the vertex
+variant, each forced, in the order block, vertex, vertex, block, at T =
+32, 64, 96, 128, 192, 256, 384, 512, 768 and 1,024 on the cube event's
+(1,024, 64) soups, the torus config-1 event's (1,024, 128), the cube32
+impact's (T = 128), and the T = 512 calls of the Scenes' prepares (the
+cube's, the CLI's full preset; the torus's and the blob's) and of the
+torus Scene's impact: each call's soups padded with invalid triangles
+past its own T, cut to their first T triangles below it (the rows say
+which). Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -253,7 +259,7 @@ def main():
 
 def time_b3_limits(cs, labels_cuda, card):
     """B3 past T = 1,024 under each tree's own variant, and the crossover
-    of the block kernel and the vertex variant at T = 512 and 1,024."""
+    of the block kernel and the vertex variant (``CROSSOVER_T``)."""
     from surtr_tpu_torch import workload
     from surtr_tpu_torch.fracture import pipeline
 
@@ -301,28 +307,66 @@ def time_b3_limits(cs, labels_cuda, card):
 
     rows = [run(name, a, kw) for name, a, kw in cases]
     if hasattr(labels_cuda, "vertex_bytes"):
-        ev = []
-
-        def rec2(*a, **kw):
-            ev.append((a, kw))
-            return fn0(*a, **kw)
-
-        pipeline.tri_soup_components_batch = rec2
-        try:
-            workload.run_prepare("cuda")
-            torch.cuda.synchronize()
-        finally:
-            pipeline.tri_soup_components_batch = fn0
-        (c, v), kw = ev[0]
-        for T in (64, 128, 256, 384, 512, 1024):
-            pad = T - c.shape[1]
-            a = (torch.cat([c, torch.zeros((c.shape[0], pad, 3, 3), device=c.device)], 1),
-                 torch.cat([v, torch.zeros((v.shape[0], pad), dtype=torch.bool,
-                                           device=v.device)], 1))
-            for forced in ("block", "vertex", "vertex", "block"):
-                rows.append(run(f"cube event padded to T = {T}, {forced}", a, kw, forced))
+        for name, (c, v), kw in crossover_calls(pipeline, workload, fn0):
+            for T in CROSSOVER_T:
+                a = fit_soups(c, v, T)
+                how = "cut" if T < c.shape[1] else "padded" if T > c.shape[1] else "as called"
+                for forced in ("block", "vertex", "vertex", "block"):
+                    rows.append(run(f"{name} at T = {T} ({how}), {forced}", a, kw, forced))
+                    rows[-1]["cut"] = how == "cut"
     return rows
 
+
+# The crossover of B3's block kernel and vertex variant: the soup sizes
+# timed under both, on the calls that reach them.
+CROSSOVER_T = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
+
+
+def crossover_calls(pipeline, workload, fn0):
+    """(name, (corners, valid), kwargs) of the labels calls at the soup
+    sizes where the choice falls: the cube 1k event's (1,024, 64), the torus
+    config-1 event's (1,024, 128), the cube32 impact's (T = 128), and the T
+    = 512 calls of the Scenes' prepares (the cube's, as the CLI's full
+    preset builds it, the torus's and the blob's, chip_smoke phases 21 and
+    26) and of the torus Scene's impact."""
+    calls = []
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return fn0(*a, **kw)
+
+    pipeline.tri_soup_components_batch = rec
+    try:
+        out = []
+        workload.run_prepare("cuda")
+        out.append(("cube event", calls[-1]))
+        workload.run_prepare("cuda", workload.MODEL_1K_CFG, workload.CONCAVE_MODEL)
+        out.append(("torus config 1", calls[-1]))
+        n = len(calls)
+        workload.run_impact("cuda")
+        out += [("cube32 impact", c) for c in calls[n + 1:]]   # its prepare's call first
+        for model in ("cube", "torus", "blob"):
+            sc = workload.concave_scene(model, "cuda")
+            out.append((f"Scene({model!r}) prepare", calls[-1]))
+            if model == "torus":
+                n = len(calls)
+                sc.fire_impact(*workload.CONCAVE_RAYS[model])
+                out += [("Scene('torus') impact", c) for c in calls[n:]]
+        torch.cuda.synchronize()
+    finally:
+        pipeline.tri_soup_components_batch = fn0
+    return [(f"{name} (N {a[0].shape[0]}, T {a[0].shape[1]})", a[:2], kw)
+            for name, (a, kw) in out]
+
+
+def fit_soups(c, v, T):
+    """The soups cut to their first ``T`` triangles, or padded to ``T`` with
+    invalid ones."""
+    if T <= c.shape[1]:
+        return c[:, :T].contiguous(), v[:, :T].contiguous()
+    pad = T - c.shape[1]
+    return (torch.cat([c, torch.zeros((c.shape[0], pad, 3, 3), device=c.device)], 1),
+            torch.cat([v, torch.zeros((v.shape[0], pad), dtype=torch.bool, device=v.device)], 1))
 
 if __name__ == "__main__":
     # After PYTHONPATH: a checkout named there is the one measured.

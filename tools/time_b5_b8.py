@@ -30,7 +30,12 @@ manifold_points=64`` (60,844 B a row), bit for bit first: the wrapper's
 ms, the device ms and launches of ``*prep_*`` kernels, and the device
 memory a call allocates beyond its outputs; on a tree with the wide
 variant the same with its records staged ("wide") and read in place
-("wide_inplace"), each forced. Needs one NVIDIA GPU.
+("wide_inplace"), each forced; and B5 past 48 KB of staged rows: the pack
+call of one step of the same lattice at ``max_hull_verts=768`` and at 747,
+the first Vh past it at the lattice's F = 8, bit for bit first: the wrapper's ms, the device ms
+and launches of ``*pack_*`` kernels under each tree's own variant, and on
+a tree with the wide variant its other variants ("direct", "wide")
+forced. Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -93,7 +98,8 @@ def same_bits(got, want) -> bool:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--limits", action="store_true", help="time only B8 past a 48 KB row")
+    ap.add_argument("--limits", action="store_true",
+                    help="time only B8 past a 48 KB row and B5 past 48 KB of staged rows")
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -113,6 +119,8 @@ def main():
     out = {"package": pkg, "card": card, "glue_in_kernels": owned}
     if args.limits:
         out["b8_limits"] = time_b8_limits(cs, workload, prep_cuda, card)
+        out["b5_limits"] = time_b5_limits(cs, workload, pack_cuda, card)
+        out["zero_ties"] = zero_ties(card)
         print(json.dumps(out), flush=True)
         if args.out:
             with open(args.out, "w") as fh:
@@ -221,6 +229,63 @@ def time_b8_limits(cs, workload, prep_cuda, card):
               f"{extra / 2 ** 20:.1f} MiB allocated beyond the outputs; bitwise ({card})",
               flush=True)
     return rows
+
+
+def time_b5_limits(cs, workload, pack_cuda, card):
+    """B5 at phase 30's Vh = 768 step (Np 1,000) and at chip_smoke's
+    ``LIMIT_VH_FIRST`` (747), the first Vh whose staged rows pass 48 KB at
+    the lattice's F = 8, Ne = 3: each tree's own variant and, where the tree
+    has them, its other variants past 48 KB forced; bit for bit first."""
+    import dataclasses
+
+    own = pack_cuda._variant
+    rows = {}
+    for Vh in (768, getattr(cs, "LIMIT_VH_FIRST", 747)):
+        a, kw = cs.one_step(dataclasses.replace(workload.PHYSICS_CFG, max_hull_verts=Vh))["pack"][:2]
+        shape = (a[0].shape[1], a[2].shape[1], a[4].shape[1])
+        variant = own(*shape)
+        kinds = [variant] + [v for v in getattr(pack_cuda, "VARIANTS", ())
+                             if v not in ("staged", variant)]
+        for v in kinds:
+            pack_cuda._variant = lambda *sh, _v=v: _v
+            try:
+                if not same_bits(pack_cuda.transform_pack_owned(*a, **kw),
+                                 pack_cuda.transform_pack_owned_reference(*a, **kw)):
+                    fail(f"B5 at Vh {Vh} ({v}): differs from the plain version")
+                f = lambda: pack_cuda.transform_pack_owned(*a, **kw)  # noqa: E731
+                ms = cs.event_ms(f)
+                dev, other, n = device_split(f, "pack_")
+            finally:
+                pack_cuda._variant = own
+            name = f"Np {a[0].shape[0]}, Vh {Vh}, {v}" + ("" if v == variant else " (forced)")
+            rows[name] = {"variant": v, "own": v == variant, "ms": ms, "kernel_device_ms": dev,
+                          "other_device_ms": other, "device_launches": n}
+            print(f"B5 past 48 KB of staged rows, {name}: wrapper {ms:.4f} ms; kernel {dev:.4f} "
+                  f"ms and the rest {other:.4f} ms on the device, {n:.0f} device launches a "
+                  f"call; bitwise ({card})", flush=True)
+    return rows
+
+
+def zero_ties(card):
+    """The sign ``torch.amin`` and ``torch.amax`` give a tie of +0 and -0 on
+    the card, over dim 1 of a (4, Vh, 13) tensor of ones (minus ones for
+    the maximum) with +0 at corner i and -0 at corner j: {Vh: {"i,j":
+    "amin, amax"}}, "-" or "+" for the sign. The kernels' ``fminf`` /
+    ``fmaxf`` give -0 and +0 in either order."""
+    out = {}
+    for Vh in (40, 130, 724, 768):
+        res = {}
+        for i, j in ((0, 1), (1, 0), (3, Vh - 1), (Vh - 1, 3), (16, 17), (17, 16)):
+            t = torch.ones((4, Vh, 13), device="cuda")
+            u = -t
+            t[:, i], t[:, j] = 0.0, -0.0
+            u[:, i], u[:, j] = 0.0, -0.0
+            sign = lambda r: "-" if bool(torch.signbit(r[0, 0])) else "+"  # noqa: E731
+            res[f"{i},{j}"] = f"{sign(torch.amin(t, 1))}, {sign(torch.amax(u, 1))}"
+        out[Vh] = res
+        print(f"torch.amin / amax of +0 at corner i and -0 at corner j, Vh {Vh}: "
+              f"{json.dumps(res)} ({card})", flush=True)
+    return out
 
 
 # Host events of the CUDA API counted per stage, by name fragment.
