@@ -36,6 +36,12 @@ fold), 5 (+ mesh clip), 6 (+ islands), 45-49 (inside ``_finish_pieces``) or
 (+ mesh clip), 3 (+ islands), 41-49 (inside ``_finish_pieces``), 4 (+
 finish) or 5 (+ merge and pack).
 
+While torch.profiler records, ``prepare_fracture`` is the span
+``prepare`` (``profiling.span``), tiled by six stage spans whose ends are
+the stage fences: ``hull_cells`` (1-3), ``cell_clip`` (4), ``mesh_clip``
+(5, with 42-44), ``islands`` (6), ``finish`` (7, with 45-49) and
+``pack``; ``_finish_pieces`` opens ``caps`` around ``cap_fans_batch``.
+
 The refit takes kernel B4's tetra hull at ``refitting_point_limit`` <= 4
 (the default) and above it the ICH of each candidate's pool, all
 candidates in one batched B2 launch (``refit_planes``), as the JAX package
@@ -67,7 +73,7 @@ from surtr_tpu_torch.ops.moments import moments
 from surtr_tpu_torch.ops.refit_cuda import refit_planes_from_parts
 from surtr_tpu_torch.ops.soup_clip_cuda import soup_clip_pooled
 from surtr_tpu_torch.ops.voronoi import bisector_planes, nearest_first
-from surtr_tpu_torch.profiling import fence_sum
+from surtr_tpu_torch.profiling import fence_sum, span, spanned
 from surtr_tpu_torch.types import ConvexPoly, scale_poly, translate_poly, unit_cube
 
 BIG = 3.4e38
@@ -409,9 +415,10 @@ def _finish_pieces(conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, m
         return fence_sum(conv, mtris, mmask, cand_valid)
 
     if cfg.exact_caps:
-        cap_rows, cap_ok, cap_v, cap_m, cap_dropped = cap_fans_batch(
-            conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, mas, cfg,
-            solid_grid=solid_grid)
+        with span("caps"):
+            cap_rows, cap_ok, cap_v, cap_m, cap_dropped = cap_fans_batch(
+                conv, mtris, mmask, cut_planes, cut_mask, solid_t, solid_m, mas, cfg,
+                solid_grid=solid_grid)
     else:
         cut_sel = match_cut_faces(conv, cut_planes, cut_mask, mas)
         cap_v = conv.face_verts.reshape(N, -1, 3)
@@ -598,6 +605,7 @@ def draw_seeds(cfg: FractureConfig, generator, seeds=None, partial_seeds=None,
 
 
 @torch.no_grad()
+@spanned("prepare")
 def prepare_fracture(
     verts: torch.Tensor,
     vmask: torch.Tensor,
@@ -625,138 +633,143 @@ def prepare_fracture(
     C = cfg.initial_decompose_cell_cnt
     P = cfg.max_pieces
     Tp = cfg.max_piece_tris
-
-    seeds, partial_seeds, general_seeds = draw_seeds(cfg, generator, seeds, partial_seeds,
-                                                     general_seeds)
-    seeds = seeds.to(dev)
-    partial_seeds = partial_seeds.to(dev)
-    general_seeds = general_seeds.to(dev)
-
-    # 1-2. ICH face normals (kernel B2 on the GPU).
-    h = ich(verts, vmask, limit=cfg.ich_include_point_limit)
-
-    # 3. Bounding box.
-    vm = vmask[:, None]
-    bb_min = torch.amin(torch.where(vm, verts, BIG), dim=0)
-    bb_max = torch.amax(torch.where(vm, verts, -BIG), dim=0)
-    bb_center = (bb_min + bb_max) * 0.5
-    extent = bb_max - bb_min
-    mas = torch.amax(extent)
-
-    # 4-6. ACH: 2×BB cube clipped by the ICH-normal k-DOP slabs.
-    planes, pm = kdop_planes(verts, vmask, h["normals"], h["face_valid"],
-                             gap=mas / cfg.ach_plane_gap_inverse)
-    ach = translate_poly(
-        scale_poly(unit_cube(F=F, S=S, dtype=verts.dtype, device=dev), extent * 2.0),
-        bb_center,
-    )
-    ach = clip_planes_batch(ach.map(lambda a: a[None]), planes[None], pm[None])
-    if profile_stage <= 1:
-        return fence_sum(ach), None, None
-
-    # 8. Initial Voronoi decomposition as half-space lists.
-    if C > 128:
-        seeds = density_sort(seeds)
-    kN = min(cfg.voronoi_neighbors, C - 1)
-    cell_planes, cell_pmask = _cell_plane_sets(seeds, kN, extent, bb_center)
-    if profile_stage <= 2:
-        return fence_sum(ach, cell_planes, cell_pmask), None, None
-
-    # 9. Impact patterns in unit space (all-pairs bisectors).
-    pp = pattern_cells(partial_seeds, k=None, F=F, S=S)
-    gp = pattern_cells(general_seeds, k=None, F=F, S=S)
-    if profile_stage <= 3:
-        return fence_sum(ach, cell_planes, pp, gp), None, None
-    ctx = FractureContext(
-        bb_center=bb_center, bb_min=bb_min, bb_max=bb_max, max_axis_scale=mas,
-        partial_pattern=pp, general_pattern=gp, sphere_cloud=sphere_cloud,
-    )
-
-    # 10. Initial pieces: ACH ∩ cell (two-pass fold), mesh ∩ cell.
-    ach_b = ach.map(lambda a: a.expand((C,) + a.shape[1:]).contiguous())
-    conv = _two_pass_cell_clip(ach_b, cell_planes, cell_pmask, cfg.voronoi_prefix)
-    if profile_stage <= 4:
-        return fence_sum(conv, cell_planes, pp, gp), None, None
-
-    Kt_cell = cell_planes.shape[1]
-    KA = min(Kt_cell, 32)
-    act_over = torch.zeros((), dtype=torch.int64, device=dev)
-    if KA < Kt_cell:
-        cell_planes_a, cell_pmask_a, act_over = _active_planes(
-            conv, cell_planes, cell_pmask, KA, mas)
-    else:
-        cell_planes_a, cell_pmask_a = cell_planes, cell_pmask
-
     Tsrc = tri_corners.shape[0]
-    cull_cap = min(Tsrc, max(4 * Tp, -(-6 * Tsrc // max(C, 1))))
-    if cull_cap < Tsrc:
-        out = _culled_pair_pool_clip(tri_corners, tmask, cell_planes_a, cell_pmask_a, cull_cap,
-                                     mas, Tp, cfg, profile_stage, conv)
-        if 42 <= profile_stage <= 44:
-            return out, None, None
-        mtris, mmask, mdrop = out
-        # Per cell on the per-cell fallback: the overflow count is added to
-        # every cell's, as the JAX package does there.
-        mdrop = (mdrop + act_over).sum()
-    else:
-        mtris, mmask, mdrop = clip_trisoup(tri_corners, tmask, cell_planes_a, cell_pmask_a,
-                                           max_out=Tp)
-        # The overflow count is added to every cell's drop count before the
-        # sum, as the JAX package does on this branch.
-        mdrop = (mdrop + act_over).sum()
-    if profile_stage <= 5:
-        return fence_sum(conv, mtris, mmask, mdrop, pp, gp), None, None
-
-    # Every candidate shares the one closed source solid: above this size a
-    # parity grid of it answers the island and cap queries.
-    solid_grid = None
-    if cfg.island_grid_res > 0 and C >= 64 and Tsrc >= 512:
-        solid_grid = build_parity_grid(tri_corners, tmask, res=cfg.island_grid_res)
-
-    cpl, cpm = cell_planes_a, cell_pmask_a
-    cand_ok = torch.ones((C,), dtype=torch.bool, device=dev)
 
     def solid(n):
         """Every candidate's source solid: the one source mesh, broadcast."""
         return tri_corners.expand((n,) + tri_corners.shape), tmask.expand(n, Tsrc)
 
-    if cfg.max_islands > 1 and cfg.island_pool > 0:
-        mmask0, x_cand, x_mmask, x_valid = _split_mesh_islands(
-            conv, mtris, mmask, *solid(C), mas, cfg, solid_grid=solid_grid)
-        conv = conv.map(lambda a: torch.cat([a, a[x_cand]]))
-        mtris = torch.cat([mtris, mtris[x_cand]])
-        mmask = torch.cat([mmask0, x_mmask])
-        cpl = torch.cat([cell_planes, cell_planes[x_cand]])
-        cpm = torch.cat([cell_pmask, cell_pmask[x_cand]])
-        cand_ok = torch.cat([cand_ok, x_valid])
+    with span("hull_cells"):
+        seeds, partial_seeds, general_seeds = draw_seeds(cfg, generator, seeds, partial_seeds,
+                                                         general_seeds)
+        seeds = seeds.to(dev)
+        partial_seeds = partial_seeds.to(dev)
+        general_seeds = general_seeds.to(dev)
+
+        # 1-2. ICH face normals (kernel B2 on the GPU).
+        h = ich(verts, vmask, limit=cfg.ich_include_point_limit)
+
+        # 3. Bounding box.
+        vm = vmask[:, None]
+        bb_min = torch.amin(torch.where(vm, verts, BIG), dim=0)
+        bb_max = torch.amax(torch.where(vm, verts, -BIG), dim=0)
+        bb_center = (bb_min + bb_max) * 0.5
+        extent = bb_max - bb_min
+        mas = torch.amax(extent)
+
+        # 4-6. ACH: 2×BB cube clipped by the ICH-normal k-DOP slabs.
+        planes, pm = kdop_planes(verts, vmask, h["normals"], h["face_valid"],
+                                 gap=mas / cfg.ach_plane_gap_inverse)
+        ach = translate_poly(
+            scale_poly(unit_cube(F=F, S=S, dtype=verts.dtype, device=dev), extent * 2.0),
+            bb_center,
+        )
+        ach = clip_planes_batch(ach.map(lambda a: a[None]), planes[None], pm[None])
+        if profile_stage <= 1:
+            return fence_sum(ach), None, None
+
+        # 8. Initial Voronoi decomposition as half-space lists.
+        if C > 128:
+            seeds = density_sort(seeds)
+        kN = min(cfg.voronoi_neighbors, C - 1)
+        cell_planes, cell_pmask = _cell_plane_sets(seeds, kN, extent, bb_center)
+        if profile_stage <= 2:
+            return fence_sum(ach, cell_planes, cell_pmask), None, None
+
+        # 9. Impact patterns in unit space (all-pairs bisectors).
+        pp = pattern_cells(partial_seeds, k=None, F=F, S=S)
+        gp = pattern_cells(general_seeds, k=None, F=F, S=S)
+    if profile_stage <= 3:
+        return fence_sum(ach, cell_planes, pp, gp), None, None
+
+    # 10. Initial pieces: ACH ∩ cell (two-pass fold), mesh ∩ cell.
+    with span("cell_clip"):
+        ctx = FractureContext(
+            bb_center=bb_center, bb_min=bb_min, bb_max=bb_max, max_axis_scale=mas,
+            partial_pattern=pp, general_pattern=gp, sphere_cloud=sphere_cloud,
+        )
+        ach_b = ach.map(lambda a: a.expand((C,) + a.shape[1:]).contiguous())
+        conv = _two_pass_cell_clip(ach_b, cell_planes, cell_pmask, cfg.voronoi_prefix)
+    if profile_stage <= 4:
+        return fence_sum(conv, cell_planes, pp, gp), None, None
+
+    with span("mesh_clip"):
+        Kt_cell = cell_planes.shape[1]
+        KA = min(Kt_cell, 32)
+        act_over = torch.zeros((), dtype=torch.int64, device=dev)
+        if KA < Kt_cell:
+            cell_planes_a, cell_pmask_a, act_over = _active_planes(
+                conv, cell_planes, cell_pmask, KA, mas)
+        else:
+            cell_planes_a, cell_pmask_a = cell_planes, cell_pmask
+
+        cull_cap = min(Tsrc, max(4 * Tp, -(-6 * Tsrc // max(C, 1))))
+        if cull_cap < Tsrc:
+            out = _culled_pair_pool_clip(tri_corners, tmask, cell_planes_a, cell_pmask_a,
+                                         cull_cap, mas, Tp, cfg, profile_stage, conv)
+            if 42 <= profile_stage <= 44:
+                return out, None, None
+            mtris, mmask, mdrop = out
+            # Per cell on the per-cell fallback: the overflow count is added
+            # to every cell's, as the JAX package does there.
+            mdrop = (mdrop + act_over).sum()
+        else:
+            mtris, mmask, mdrop = clip_trisoup(tri_corners, tmask, cell_planes_a, cell_pmask_a,
+                                               max_out=Tp)
+            # The overflow count is added to every cell's drop count before
+            # the sum, as the JAX package does on this branch.
+            mdrop = (mdrop + act_over).sum()
+    if profile_stage <= 5:
+        return fence_sum(conv, mtris, mmask, mdrop, pp, gp), None, None
+
+    with span("islands"):
+        # Every candidate shares the one closed source solid: above this size
+        # a parity grid of it answers the island and cap queries.
+        solid_grid = None
+        if cfg.island_grid_res > 0 and C >= 64 and Tsrc >= 512:
+            solid_grid = build_parity_grid(tri_corners, tmask, res=cfg.island_grid_res)
+
+        cpl, cpm = cell_planes_a, cell_pmask_a
+        cand_ok = torch.ones((C,), dtype=torch.bool, device=dev)
+        if cfg.max_islands > 1 and cfg.island_pool > 0:
+            mmask0, x_cand, x_mmask, x_valid = _split_mesh_islands(
+                conv, mtris, mmask, *solid(C), mas, cfg, solid_grid=solid_grid)
+            conv = conv.map(lambda a: torch.cat([a, a[x_cand]]))
+            mtris = torch.cat([mtris, mtris[x_cand]])
+            mmask = torch.cat([mmask0, x_mmask])
+            cpl = torch.cat([cell_planes, cell_planes[x_cand]])
+            cpm = torch.cat([cell_pmask, cell_pmask[x_cand]])
+            cand_ok = torch.cat([cand_ok, x_valid])
     if profile_stage <= 6:
         return fence_sum(conv, mtris, mmask, cand_ok, pp, gp), None, None
 
-    out = _finish_pieces(conv, mtris, mmask, cpl, cpm, *solid(cand_ok.shape[0]), mas, cfg,
-                         solid_grid=solid_grid,
-                         profile_stage=profile_stage if 45 <= profile_stage <= 49 else 99)
-    if 45 <= profile_stage <= 49:   # the finish's own sub-stages
-        return out, None, None
-    conv, mtris, mmask, cand_valid, cap_drop = out
-    mdrop = mdrop + cap_drop
-    cand_valid = cand_valid & cand_ok
-    N = cand_valid.shape[0]
+    with span("finish"):
+        out = _finish_pieces(conv, mtris, mmask, cpl, cpm, *solid(cand_ok.shape[0]), mas, cfg,
+                             solid_grid=solid_grid,
+                             profile_stage=profile_stage if 45 <= profile_stage <= 49 else 99)
+        if 45 <= profile_stage <= 49:   # the finish's own sub-stages
+            return out, None, None
+        conv, mtris, mmask, cand_valid, cap_drop = out
+        mdrop = mdrop + cap_drop
+        cand_valid = cand_valid & cand_ok
+        N = cand_valid.shape[0]
     if profile_stage <= 7:
         return fence_sum(conv, mtris, mmask, cand_valid, pp, gp), None, None
 
-    vol, _ = moments(conv)
-    pieces = _pack_candidates(
-        conv, mtris, mmask, cand_valid,
-        torch.zeros((N,), dtype=torch.int32, device=dev),
-        torch.full((N,), -1, dtype=torch.int32, device=dev),
-        vol, P,
-    )
-    metrics = {
-        "ich_face_cnt": h["face_valid"].sum(),
-        "piece_cnt": cand_valid.sum(),
-        "total_volume": torch.sum(torch.where(cand_valid, vol, 0.0)),
-        "mesh_tris_dropped": mdrop,
-    }
+    with span("pack"):
+        vol, _ = moments(conv)
+        pieces = _pack_candidates(
+            conv, mtris, mmask, cand_valid,
+            torch.zeros((N,), dtype=torch.int32, device=dev),
+            torch.full((N,), -1, dtype=torch.int32, device=dev),
+            vol, P,
+        )
+        metrics = {
+            "ich_face_cnt": h["face_valid"].sum(),
+            "piece_cnt": cand_valid.sum(),
+            "total_volume": torch.sum(torch.where(cand_valid, vol, 0.0)),
+            "mesh_tris_dropped": mdrop,
+        }
     return pieces, ctx, metrics
 
 

@@ -15,6 +15,7 @@ import torch
 
 from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.clip import DEFAULT_TOL, clip_poly_planes
+from surtr_tpu_torch.profiling import spanned
 from surtr_tpu_torch.types import ConvexPoly
 
 MAX_SMEM = 232448  # bytes of shared memory a Hopper block can use
@@ -93,6 +94,7 @@ def _global_fn():
                        + [ctypes.c_float, P, I, P, P])
 
 
+@spanned("kernel.clip_fold", inner=True)
 def _kernel(poly, planes, plane_mask, tol):
     global launches, general_launches, global_launches
     N, F, S = poly.face_verts.shape[:3]

@@ -19,6 +19,7 @@ import torch
 from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.hull import ich as ich_reference
 from surtr_tpu_torch.ops.hull import ich_batch as ich_batch_reference
+from surtr_tpu_torch.profiling import spanned
 
 launches = 0           # B2 launches since the last reset, both entries and variants (main-path proof)
 batch_launches = 0     # of which batched (``ich_batch``) launches
@@ -76,6 +77,7 @@ KERNEL_NAME = {"block": "ich_kernel", "warp_set": "ich_warp_set_kernel",
                "general": "ich_general_kernel"}
 
 
+@spanned("kernel.ich", inner=True)
 def _kernel(points, mask, limit, F, batched):
     global launches, batch_launches, general_launches, warp_set_launches
     B, N = points.shape[:2]

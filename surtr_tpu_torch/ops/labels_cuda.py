@@ -15,6 +15,7 @@ import torch
 
 from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.labels import label_rounds, tri_soup_components
+from surtr_tpu_torch.profiling import spanned
 
 launches = 0          # kernel launches since the last reset (main-path proof), every variant
 general_launches = 0  # of which the vertex variant's (past MAX_BLOCK_T), either placement
@@ -61,6 +62,7 @@ def tri_soup_components_batch_reference(corners, tri_valid, tol: float = 1e-5,
     return tri_soup_components(corners, tri_valid, iters=iters, tol=tol)
 
 
+@spanned("kernel.labels", inner=True)
 def _kernel(corners, tri_valid, tol, iters):
     global launches, general_launches
     N, T = corners.shape[0], corners.shape[1]

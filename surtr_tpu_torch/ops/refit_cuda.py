@@ -18,6 +18,7 @@ from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.hull import tetra_hull
 from surtr_tpu_torch.ops.kdop import kdop_planes
 from surtr_tpu_torch.ops.linalg import supports
+from surtr_tpu_torch.profiling import spanned
 
 launches = 0  # kernel launches since the last reset (main-path proof)
 
@@ -63,6 +64,7 @@ def _bytes(mask, shape, what):
     return mask.contiguous().view(torch.uint8)   # the bool bytes, no conversion launch
 
 
+@spanned("kernel.refit", inner=True)
 def _parts_kernel(tris, tri_mask, caps, cap_mask):
     global launches
     N, T, C = tris.shape[0], tris.shape[1], caps.shape[1]

@@ -26,6 +26,7 @@ import torch
 from surtr_tpu_torch import _build
 from surtr_tpu_torch.ops.linalg import dot3
 from surtr_tpu_torch.ops.mesh_clip import _clip_polys_plane
+from surtr_tpu_torch.profiling import spanned
 
 launches = 0           # kernel launches since the last reset (main-path proof), every variant
 general_launches = 0   # of which past S = 8 (the group and general variants)
@@ -110,6 +111,7 @@ def soup_clip_pooled_reference(tri_corners, valid, cell_id, cell_planes, cell_pm
     return poly, n_vert, lane_drops.sum()
 
 
+@spanned("kernel.soup_clip", inner=True)
 def _kernel(tri_corners, valid, cell_id, cell_planes, cell_pmask, S, tol):
     """Three device operations, none a cast: the memset of the scratch
     (drop counter and context table), the context launch, the fold."""
